@@ -1,0 +1,26 @@
+"""Structured default logger (the JAX package's ``common/log.py``)."""
+
+import logging
+import os
+import sys
+
+_FORMAT = (
+    "[%(asctime)s] [%(levelname)s] "
+    "[%(filename)s:%(lineno)d:%(funcName)s] %(message)s"
+)
+
+
+def _build_logger() -> logging.Logger:
+    logger = logging.getLogger("dlrover_tpu_torch")
+    if logger.handlers:
+        return logger
+    level = os.getenv("DLROVER_TPU_LOG_LEVEL", "INFO").upper()
+    logger.setLevel(level)
+    handler = logging.StreamHandler(sys.stderr)
+    handler.setFormatter(logging.Formatter(_FORMAT))
+    logger.addHandler(handler)
+    logger.propagate = False
+    return logger
+
+
+default_logger = _build_logger()
