@@ -8,7 +8,9 @@ f32 softmax statistics and f32 logits. Dense weights keep the JAX
 between the frameworks without a transpose (``dlrover_tpu_torch/
 convert.py``). The large matmuls are plain ``torch.matmul``, as the
 reference leaves them to XLA; attention goes through the port's flash
-kernels (``attn_impl="flash"``) or the plain path (``"reference"``).
+kernels (``attn_impl="flash"``) or the plain path (``"reference"``), and
+each RMSNorm through the port's fused kernels (``norm_impl="fused"``) or
+the plain norm (``"reference"``).
 
 Parameter names follow the flax tree: ``embed``, ``layer_{i}.attn_norm
 .weight``, ``layer_{i}.attn.{q,k,v,o}_proj.kernel``,
@@ -108,7 +110,7 @@ class LlamaConfig:
         return L * per_layer + emb + h
 
 
-def _check_supported(cfg: LlamaConfig, device: torch.device) -> None:
+def _check_supported(cfg: LlamaConfig) -> None:
     """Options this slice does not port raise instead of doing something
     else."""
     if cfg.attn_impl not in ("flash", "reference"):
@@ -123,10 +125,6 @@ def _check_supported(cfg: LlamaConfig, device: torch.device) -> None:
         raise ValueError(f"unknown embed_impl {cfg.embed_impl!r}")
     if cfg.norm_impl not in ("fused", "reference"):
         raise ValueError(f"unknown norm_impl {cfg.norm_impl!r}")
-    if cfg.norm_impl == "fused" and device.type == "cuda":
-        raise NotImplementedError(
-            "norm_impl='fused' has no CUDA kernel yet (ROADMAP Queue B "
-            "items 4-5); use norm_impl='reference' on the card")
 
 
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,
@@ -250,7 +248,7 @@ class Llama(nn.Module):
                  seed: int = 0):
         super().__init__()
         device = resolve_device(device)
-        _check_supported(config, device)
+        _check_supported(config)
         cfg = self.config = config
         generator = torch.Generator(device=device).manual_seed(seed)
         self.embed = _normal((cfg.vocab_size, cfg.hidden_size), 0.02, cfg,

@@ -7,6 +7,9 @@ rebuilt and an unchanged one is loaded as it is. A plain C interface
 keeps the build to seconds (no PyTorch headers). Pointers and streams
 cross the boundary as ``c_void_p``; every entry point returns
 ``cudaGetLastError()`` and :func:`check` raises on a nonzero code.
+:func:`bind` sets the entry points' argument types. Libraries of
+different names may be loaded from several threads at once, each nvcc
+running beside the others.
 """
 
 from __future__ import annotations
@@ -46,7 +49,10 @@ class Library:
 
 
 _LIBS: Dict[str, Library] = {}
-_LOCK = threading.Lock()
+# one lock a library name, so that two names build at once and one name
+# builds once
+_LOCKS: Dict[str, threading.Lock] = {}
+_LOCKS_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -85,7 +91,9 @@ def build(name: str) -> Path:
 
 def load(name: str) -> Library:
     """The library of ``csrc/<name>.cu``, built and loaded on first use."""
-    with _LOCK:
+    with _LOCKS_LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name not in _LIBS:
             t0 = time.monotonic()
             path = build(name)
@@ -94,6 +102,16 @@ def load(name: str) -> Library:
             _LIBS[name] = Library(handle, time.monotonic() - t0,
                                   log.read_text() if log.exists() else "")
         return _LIBS[name]
+
+
+def bind(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu`` with each named entry point's
+    ``argtypes`` set and its result an int (the CUDA error code)."""
+    lib = load(name).handle
+    for fn_name, argtypes in signatures.items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return lib
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -25,7 +25,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from dlrover_tpu_torch.ops import _build
+from dlrover_tpu_torch.ops import _build, _launch
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
@@ -142,24 +142,7 @@ _SIGNATURES = {
 
 
 def _library() -> ctypes.CDLL:
-    lib = _build.load("flash_attention").handle
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    return lib
-
-
-def _device_kind(*tensors: torch.Tensor) -> str:
-    """'cpu' or 'cuda' for the tensors' common device; raises on a mix or
-    on any other device."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"flash attention inputs on several devices: "
-                         f"{sorted(map(str, devices))}")
-    kind = devices.pop().type
-    if kind not in ("cpu", "cuda"):
-        raise ValueError(f"flash attention has no path for device {kind!r}")
-    return kind
+    return _build.bind("flash_attention", _SIGNATURES)
 
 
 def _check_shapes(q, k, v, do=None, lse=None, delta=None) -> Tuple[int, ...]:
@@ -207,17 +190,13 @@ def _check_kernel_inputs(bf16s, f32s, dims) -> None:
                              "aligned tensors")
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def flash_fwd(q, k, v, causal: bool = True,
               sm_scale: Optional[float] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o, lse): the forward kernel for CUDA tensors, the plain version
     for CPU tensors."""
     dims = _check_shapes(q, k, v)
-    if _device_kind(q, k, v) == "cpu":
+    if _launch.device_kind("flash attention", q, k, v) == "cpu":
         return flash_fwd_plain(q, k, v, causal, sm_scale)
     _check_kernel_inputs((q, k, v), (), dims)
     b, h, h_kv, s_q, s_k, d = dims
@@ -228,7 +207,7 @@ def flash_fwd(q, k, v, causal: bool = True,
         code = lib.flash_fwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b, h, h_kv, s_q, s_k, d, _scale(sm_scale, q),
-            int(causal), _stream(q))
+            int(causal), _launch.stream(q))
     _build.check(lib, code, "flash_fwd_bf16")
     launch_counts["flash_fwd"] += 1
     return o, lse
@@ -238,7 +217,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
                  sm_scale: Optional[float] = None) -> torch.Tensor:
     """dQ: the dQ kernel for CUDA tensors, the plain version for CPU."""
     dims = _check_shapes(q, k, v, do, lse, delta)
-    if _device_kind(q, k, v, do, lse, delta) == "cpu":
+    if _launch.device_kind("flash attention", q, k, v, do, lse,
+                           delta) == "cpu":
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, sm_scale)
     _check_kernel_inputs((q, k, v, do), (lse, delta), dims)
     b, h, h_kv, s_q, s_k, d = dims
@@ -248,7 +228,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
         code = lib.flash_bwd_dq_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, h_kv,
-            s_q, s_k, d, _scale(sm_scale, q), int(causal), _stream(q))
+            s_q, s_k, d, _scale(sm_scale, q), int(causal),
+            _launch.stream(q))
     _build.check(lib, code, "flash_bwd_dq_bf16")
     launch_counts["flash_bwd_dq"] += 1
     return dq
@@ -260,7 +241,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
     """(dK, dV), summed over each GQA group: the dK/dV kernel for CUDA
     tensors, the plain version for CPU."""
     dims = _check_shapes(q, k, v, do, lse, delta)
-    if _device_kind(q, k, v, do, lse, delta) == "cpu":
+    if _launch.device_kind("flash attention", q, k, v, do, lse,
+                           delta) == "cpu":
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
                                    sm_scale)
     _check_kernel_inputs((q, k, v, do), (lse, delta), dims)
@@ -273,7 +255,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, h, h_kv, s_q, s_k, d, _scale(sm_scale, q), int(causal),
-            _stream(q))
+            _launch.stream(q))
     _build.check(lib, code, "flash_bwd_dkv_bf16")
     launch_counts["flash_bwd_dkv"] += 1
     return dk, dv
