@@ -8,10 +8,13 @@ Phases (each one's failure ends the run with a nonzero exit):
   build    build the three CUDA libraries of ops/csrc (flash attention,
            norms, quantization), one nvcc each, all started together;
            print each one's seconds and ptxas's register / spill report
+           for every kernel; fail if a wgmma kernel (flash forward,
+           dK/dV) spills
   kernels  each flash-attention and RMSNorm kernel against its plain
            PyTorch version on the card at the Llama-1B slice shape and at
-           edge shapes, with stated tolerances; time kernel, plain
-           version and the library yardstick (SDPA, F.rms_norm)
+           edge shapes, with stated tolerances, and o, dK and dV the same
+           bits in a second call; time kernel, plain version and the
+           library yardstick (SDPA, F.rms_norm)
   quant    the quantization API (quantize, dequantize, swizzled,
            quant_reduce) on a Llama-1B gate_proj gradient, int8 and int4,
            bf16 input, group 8, zero and tie groups: every output equals
@@ -78,7 +81,17 @@ EDGE_SHAPES = [
     dict(b=2, h=4, h_kv=2, s_q=192, s_k=192, d=64, causal=True),
     dict(b=2, h=4, h_kv=4, s_q=100, s_k=100, d=64, causal=True),
     dict(b=1, h=4, h_kv=2, s_q=100, s_k=300, d=64, causal=False),
+    # the wgmma kernels' 128-row tiles: one row past a tile, GQA across
+    # several tiles, ragged s_q < s_k and s_q > s_k, MQA in one tile
+    dict(b=1, h=4, h_kv=4, s_q=129, s_k=129, d=128, causal=True),
+    dict(b=2, h=8, h_kv=2, s_q=320, s_k=320, d=128, causal=True),
+    dict(b=1, h=4, h_kv=4, s_q=200, s_k=456, d=64, causal=True),
+    dict(b=1, h=4, h_kv=4, s_q=456, s_k=200, d=128, causal=True),
+    dict(b=1, h=4, h_kv=1, s_q=64, s_k=64, d=64, causal=False),
 ]
+# kernels that must not spill: the warp-specialised ones, whose consumer
+# warpgroups run at 240 registers under setmaxnreg
+NO_SPILL = ("flash_fwd_kernel", "flash_bwd_dkv_kernel")
 # A small bf16 Llama trained with attn_impl="flash" and "reference"
 # from the same init. The loss barely moves in 3 steps, so the backward
 # kernels are held by the gradients: the grad norm of every step, and
@@ -139,11 +152,41 @@ def phase_build() -> None:
     with ThreadPoolExecutor(max_workers=len(LIBRARIES)) as pool:
         libs = dict(zip(LIBRARIES, pool.map(_build.load, LIBRARIES)))
     log(f"build: {len(libs)} libraries in {time.monotonic() - t0:.1f} s")
+    spills = []
     for name, info in libs.items():
         log(f"build: {name}.cu in {info.build_seconds:.1f} s")
-        for line in info.ptxas_log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                log(f"  ptxas: {line.strip()}")
+        for kernel, regs, spill in ptxas_report(info.ptxas_log):
+            log(f"  ptxas: {kernel}: {regs} registers, {spill} bytes spilled")
+            if spill and kernel.startswith(NO_SPILL):
+                spills.append(kernel)
+    if spills:
+        raise AssertionError(f"kernels spill registers: {spills}")
+
+
+def ptxas_report(ptxas_log: str) -> list:
+    """(kernel, registers, spill bytes stored + loaded) for each entry
+    function of an ``nvcc -Xptxas=-v`` log, the kernel named by its
+    template (``flash_fwd_kernel<128>``)."""
+    import re
+
+    rows, kernel, spill = [], None, 0
+    for line in ptxas_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?", m.group(1))
+            kernel = (f"{k.group(1)}<{k.group(2)}>" if k and k.group(2)
+                      else k.group(1) if k else m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            rows.append((kernel, int(m.group(1)), spill))
+            kernel, spill = None, 0
+    return rows
 
 
 def _counter_modules():
@@ -251,6 +294,7 @@ def check_shape(shape, seed: int) -> tuple:
     causal = shape["causal"]
     q, k, v, do = _inputs(shape, seed)
     o, lse = fa.flash_fwd(q, k, v, causal)
+    o2, _ = fa.flash_fwd(q, k, v, causal)
     torch.cuda.synchronize()
     po, plse = fa.flash_fwd_plain(q, k, v, causal)
     # both backward versions get the same lse and delta
@@ -258,6 +302,7 @@ def check_shape(shape, seed: int) -> tuple:
     dq = fa.flash_bwd_dq(q, k, v, do, plse, delta, causal)
     torch.cuda.synchronize()
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, plse, delta, causal)
+    dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, plse, delta, causal)
     torch.cuda.synchronize()
     pdq = fa.flash_bwd_dq_plain(q, k, v, do, plse, delta, causal)
     pdk, pdv = fa.flash_bwd_dkv_plain(q, k, v, do, plse, delta, causal)
@@ -276,6 +321,11 @@ def check_shape(shape, seed: int) -> tuple:
         bad.append("lse")
     log(f"  lse vs plain {shape}: max abs {errs['lse']:.3g} (limit "
         f"{LSE_TOL})")
+    same = {name: torch.equal(a, b) for name, a, b in (
+        ("o", o, o2), ("dk", dk, dk2), ("dv", dv, dv2))}
+    bad += [f"{name} differs between two calls" for name, eq in same.items()
+            if not eq]
+    log(f"  o, dk, dv bitwise equal in two calls: {same}")
     return errs, [f"{name} at {shape}" for name in bad]
 
 

@@ -2,7 +2,8 @@
 
 Each ``ops/csrc/<name>.cu`` exposes a plain C interface and is compiled
 on first use into ``build/kernels/lib<name>-<hash>.so`` at the root of
-the checkout, the hash being that of the source, so an edited source is
+the checkout, the hash being that of the source, of every header
+``csrc/*.cuh`` and of the flags, so an edited source or header is
 rebuilt and an unchanged one is loaded as it is. A plain C interface
 keeps the build to seconds (no PyTorch headers). Pointers and streams
 cross the boundary as ``c_void_p``; every entry point returns
@@ -68,13 +69,21 @@ def _nvcc() -> str:
         "are built on a machine with the CUDA toolkit")
 
 
+def source_digest(name: str) -> str:
+    """The hash a library's name carries: ``csrc/<name>.cu``, every
+    ``csrc/*.cuh`` it may include (each with its name) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library of the same source hash
-    exists; return the library's path."""
+    """Compile ``csrc/<name>.cu`` unless a library of the same
+    :func:`source_digest` exists; return the library's path."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
+    out = BUILD_DIR / f"lib{name}-{source_digest(name)}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -10,7 +10,7 @@
 // NEG_INF = -1e30 sentinel, top-left causal mask q_idx >= k_idx, GQA kv
 // head h / group, the saved LSE in natural-log units (m + log2 l) * ln2
 // with the l == 0 -> 1 guard, and the same bf16 rounding points: P is
-// rounded to bf16 before P.V, dS before dS.K and dS^T.Q.
+// rounded to bf16 before P.V and P^T.dO, dS before dS.K and dS^T.Q.
 //
 // What bounds them on the H100: at the Llama-1B slice shape (b=4, h=16,
 // s=2048, d=128, causal) the forward does 4*b*h*d*pairs ~ 6.9e10 FLOP
@@ -18,81 +18,527 @@
 // the card's ~295 FLOP/byte ridge; dQ (3 products) and dK/dV (4 products)
 // are further above it. All three are bound by tensor-core operations.
 //
-// What the design does about it (FlashAttention-2 style, on mma.sync):
-// - every product is a tensor-core mma.sync.m16n8k16 (bf16 in, f32
-//   accumulate) whose operands come from shared memory through ldmatrix;
-// - scores, probabilities and output accumulators never leave registers:
-//   the softmax runs on the accumulator fragments (a row's four owners
-//   are one quad of lanes, reduced with two shuffles) and P, rounded to
-//   bf16, is reused in place as the A operand of P.V (dS likewise);
-// - the streamed tiles (K/V, or Q/dO) are double-buffered with cp.async,
-//   so the next tile's load overlaps this tile's products;
-// - causal blocks stop at the diagonal and only tiles that straddle it
-//   or a ragged edge pay for the mask.
-// Not yet used: wgmma, TMA, warp specialisation and larger tiles, which
-// are what reaches most of the 989 TFLOP/s peak.
+// Forward and dK/dV: wgmma, TMA and warp specialisation (sm90.cuh holds
+// the PTX). A block is three warpgroups: warpgroup 0 is the producer, one
+// thread of which issues every TMA load into an mbarrier ring and which
+// then keeps 24 registers (setmaxnreg); warpgroups 1 and 2 are consumers
+// at 240 registers, each owning 64 rows of the block's 128-row tile.
+// - forward: one block per (128-row q tile, head, batch). Q is loaded
+//   once; K and V stream in 128-row tiles through a 2-stage ring with
+//   separate full / empty barriers for K and V, so S = Q.K^T starts as
+//   soon as K lands. S = Q.K^T is wgmma m64n128k16 with both operands
+//   K-major from shared memory; the online softmax runs on the accumulator
+//   fragments (a row's four owners are one quad of lanes); P, rounded to
+//   bf16 in registers, is the A operand of O += P.V (V MN-major). O is
+//   staged as bf16 through its Q rows and written by TMA, which clips
+//   rows past s_q.
+// - dK/dV: one block per (128-row kv tile, kv head, batch), transposed so
+//   that kv rows are the wgmma M dimension. K and V stay resident; 64-row
+//   tiles of Q and dO with their 64 lse and delta values stream through a
+//   2-stage ring, over every query head of the GQA group and every q tile
+//   at or below the diagonal (a producer warp copies lse and delta, whose
+//   rows start at any offset). S^T = K.Q^T and dP^T = V.dO^T (m64n64k16,
+//   K-major), P^T and dS^T on the fragments with lse and delta per column,
+//   then dV += P^T.dO and dK += dS^T.Q with P^T and dS^T as register A
+//   operands and dO, Q MN-major. dK and dV stay in f32 registers for the
+//   whole group: no atomics, no per-query-head partials, the same bits on
+//   every call. Kv tiles past the last query (causal, s_k > s_q) run no q
+//   tile and store zeros.
+// Every tile is 128-byte swizzled by TMA over 3-D tensor maps (d, rows,
+// batch * heads), so a tile never reads into the next head and rows past
+// the sequence read as zero. Masks cost only tiles that straddle the
+// diagonal or a ragged edge; causal q tiles (forward) and kv tiles
+// (dK/dV) are launched heaviest first. Not yet used: persistent blocks,
+// ping-pong between the consumer warpgroups, softmax overlapped with the
+// next product, clusters.
 //
-// Where the TPU kernels carried the kv (or q) grid axis sequentially in
-// VMEM scratch, each CUDA block here loops over that axis itself. Blocks
-// never share state: the dK/dV block of a kv head loops over the `group`
-// query heads that read it and sums their contributions in f32 registers,
-// so no per-query-head partials are written and no atomics are needed.
-// Ragged edges are masked in the kernel (zero-filled loads, NEG_INF scores
-// past s_k, no stores past s_q or s_k) instead of requiring tiles that
-// divide the sequence.
+// dQ: still the FlashAttention-2 design on mma.sync.m16n8k16, to be
+// redesigned like the other two: one block per (64-row q tile, head,
+// batch) of 4 warps, each owning 16 rows; operands through ldmatrix from
+// padded shared tiles; K/V double-buffered with cp.async; dS, rounded to
+// bf16, reused in place as the A operand of dS.K.
 //
 // Layout: q (b, h, s_q, d), k/v (b, h_kv, s_k, d), contiguous bf16;
-// lse and delta (b, h, s_q) f32. d is 64 or 128. Each block has 4 warps;
-// each warp owns 16 rows of the block's 64-row tile.
-// Each entry point launches on the given stream, never synchronises,
-// allocates nothing and returns cudaGetLastError().
+// lse and delta (b, h, s_q) f32. d is 64 or 128. Each entry point
+// launches on the given stream, never synchronises, allocates nothing and
+// returns cudaGetLastError() (or the error of encoding a tensor map).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
+using namespace sm90;
+
+constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// Two f32 values rounded to a bf16 pair; `lo` takes the low half (the
+// lower column of an mma fragment).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// ===========================================================================
+// Forward and dK/dV: warp-specialised wgmma kernels
+// ===========================================================================
+
+constexpr int WS_THREADS = 384;   // producer warpgroup + 2 consumer warpgroups
+constexpr int CONSUMERS = 256;    // threads of the consumer warpgroups
+constexpr int ROW_BYTES = 128;    // a swizzled row: 64 bf16
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// Byte offset of bf16 element (r, c) of a 128B-swizzled tile of 64-column
+// sub-tiles, each `sub` bytes; c is even, and the 4 bytes at the offset
+// hold columns c and c + 1.
+__device__ __forceinline__ int swz(int r, int c, int sub) {
+  return (c / 64) * sub + r * ROW_BYTES + ((((c % 64) / 8) ^ (r & 7)) << 4) + (c % 8) * 2;
+}
+
+// A thread's part of a warpgroup's m64nD f32 accumulator (its rows `row`
+// and row + 8) as bf16 into those rows of a swizzled shared tile.
+template <int N>
+__device__ __forceinline__ void stage_rows(const float (&acc)[N], unsigned char* tile, int sub,
+                                           int row, int t) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      *reinterpret_cast<uint32_t*>(tile + swz(row + 8 * half, 8 * i + 2 * t, sub)) =
+          pack_bf16(acc[4 * i + 2 * half], acc[4 * i + 2 * half + 1]);
+}
+
+// The A fragments of a k-step j (16 columns, chunks 2j and 2j + 1) from
+// an f32 accumulator, rounded to bf16.
+template <int N>
+__device__ __forceinline__ void pack_a(const float (&acc)[N], uint32_t (&a)[N / 2]) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) a[i] = pack_bf16(acc[2 * i], acc[2 * i + 1]);
+}
+
+// ---------------------------------------------------------------------------
+// Forward: one block per (128-row q tile, head, batch)
+// ---------------------------------------------------------------------------
+
+template <int D> struct FwdSmem {
+  static constexpr int SUB = 128 * ROW_BYTES;  // 64 columns of a 128-row tile
+  static constexpr int TILE = D / 64 * SUB;    // a 128 x D tile
+  static constexpr int Q = 0, K = TILE, V = 3 * TILE;  // K, V: 2 stages each
+  static constexpr int BARS = 5 * TILE;
+  static constexpr int BYTES = BARS + 128 + 1024;  // barriers, alignment slack
+};
+
+template <int D>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 const __grid_constant__ CUtensorMap tm_o, float* __restrict__ lse, int h,
+                 int h_kv, int s_q, int s_k, float scale_log2, int causal) {
+  using L = FwdSmem<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* k_full = q_full + 1;   // [2]
+  uint64_t* v_full = q_full + 3;   // [2]
+  uint64_t* k_empty = q_full + 5;  // [2]
+  uint64_t* v_empty = q_full + 7;  // [2]
+
+  const int n_q_tiles = cdiv(s_q, 128);
+  const int q0 = (n_q_tiles - 1 - (int)blockIdx.z) * 128;  // longest causal rows first
+  const int hh = blockIdx.x, bb = blockIdx.y;
+  const int qh = bb * h + hh, kvh = bb * h_kv + hh / (h / h_kv);
+  int n_k_tiles = cdiv(s_k, 128);
+  if (causal) n_k_tiles = min(n_k_tiles, q0 / 128 + 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < 2; ++st) {
+      mbar_init(k_full + st, 1);
+      mbar_init(v_full + st, 1);
+      mbar_init(k_empty + st, CONSUMERS);
+      mbar_init(v_empty + st, CONSUMERS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: one thread issues every load
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_full, L::TILE);
+      for (int sub = 0; sub < D / 64; ++sub)
+        tma_load_3d(smem + L::Q + sub * L::SUB, &tm_q, q_full, 64 * sub, q0, qh);
+      for (int kt = 0; kt < n_k_tiles; ++kt) {
+        const int st = kt & 1;
+        const uint32_t ph = (kt >> 1) & 1;
+        mbar_wait(k_empty + st, ph ^ 1);
+        mbar_arrive_expect_tx(k_full + st, L::TILE);
+        for (int sub = 0; sub < D / 64; ++sub)
+          tma_load_3d(smem + L::K + st * L::TILE + sub * L::SUB, &tm_k, k_full + st, 64 * sub,
+                      kt * 128, kvh);
+        mbar_wait(v_empty + st, ph ^ 1);
+        mbar_arrive_expect_tx(v_full + st, L::TILE);
+        for (int sub = 0; sub < D / 64; ++sub)
+          tma_load_3d(smem + L::V + st * L::TILE + sub * L::SUB, &tm_v, v_full + st, 64 * sub,
+                      kt * 128, kvh);
+      }
+    }
+  } else {
+    // consumers: warpgroup wc owns rows 64 wc .. 64 wc + 63 of the tile
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int wc = wg - 1, t128 = threadIdx.x % 128;
+    const int lane = t128 % 32, g = lane >> 2, t = lane & 3;
+    const int row = 64 * wc + 16 * (t128 / 32) + g;  // this thread's rows: row, row + 8
+    const uint32_t sq = smem_u32(smem + L::Q) + 64 * wc * ROW_BYTES;
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
+    mbar_wait(q_full, 0);
+
+    for (int kt = 0; kt < n_k_tiles; ++kt) {
+      const int st = kt & 1, k0 = kt * 128;
+      const uint32_t ph = (kt >> 1) & 1;
+      const uint32_t sk = smem_u32(smem + L::K + st * L::TILE);
+      const uint32_t sv = smem_u32(smem + L::V + st * L::TILE);
+
+      // S = Q K^T: 64 rows x 128 keys
+      float s[64];
+      mbar_wait(k_full + st, ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * L::SUB + (kk % 4) * 32;
+        wgmma_ss<0, 0>(s, desc_sw128(sq + off, 16, 1024), desc_sw128(sk + off, 16, 1024),
+                       kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      mbar_arrive(k_empty + st);
+
+      // online softmax on the fragments
+      const bool masked = (k0 + 128 > s_k) || (causal && k0 + 127 > q0 + 64 * wc);
+      float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        float x = s[i] * scale_log2;
+        if (masked) {
+          const int key = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+          const int qi = q0 + row + 8 * ((i >> 1) & 1);
+          if (key >= s_k || (causal && key > qi)) x = NEG_INF;
+        }
+        s[i] = x;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+      }
+      float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = quad_max(mx[r]);
+        alpha[r] = exp2f(m_r[r] - mx[r]);
+        m_r[r] = mx[r];
+      }
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const float p = exp2f(s[i] - mx[(i >> 1) & 1]);
+        s[i] = p;
+        rs[(i >> 1) & 1] += p;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + quad_sum(rs[r]);
+      uint32_t pa[32];  // P in bf16: the A operand of 8 k-steps
+      pack_a(s, pa);
+
+      // O = O * alpha + P V
+      mbar_wait(v_full + st, ph);
+      fence_regs(o);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        wgmma_rs<1>(o, pa + 4 * j, desc_sw128(sv + j * 16 * ROW_BYTES, L::SUB, 1024), true);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      mbar_arrive(v_empty + st);
+    }
+
+    // epilogue: O / l as bf16 through this warpgroup's own Q rows (read
+    // by no one else), then one TMA store a 64-column box
+    float l_safe[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_safe[r] = (l_r[r] == 0.f) ? 1.f : l_r[r];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] /= l_safe[(i >> 1) & 1];
+    fence_proxy_async();
+    stage_rows(o, smem + L::Q, L::SUB, row, t);
+    fence_proxy_async();
+    named_barrier(1 + wc, 128);
+    if (t128 == 0 && q0 + 64 * wc < s_q) {
+      for (int sub = 0; sub < D / 64; ++sub)
+        tma_store_3d(&tm_o, smem + L::Q + sub * L::SUB + 64 * wc * ROW_BYTES, 64 * sub,
+                     q0 + 64 * wc, qh);
+      tma_store_commit();
+      tma_store_wait_read();
+    }
+    if (t == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qi = q0 + row + 8 * r;
+        if (qi < s_q) lse[(size_t)qh * s_q + qi] = (m_r[r] + log2f(l_safe[r])) * LN2;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dK/dV: one block per (128-row kv tile, kv head, batch); loops over the
+// `group` query heads of the kv head and, for each, over the 64-row q
+// tiles at or below the diagonal
+// ---------------------------------------------------------------------------
+
+constexpr int DKV_STAGES = 2;
+
+template <int D> struct DkvSmem {
+  static constexpr int KV_SUB = 128 * ROW_BYTES, KV_TILE = D / 64 * KV_SUB;
+  static constexpr int Q_SUB = 64 * ROW_BYTES, Q_TILE = D / 64 * Q_SUB;
+  // a stage: Q, dO, then 64 lse and 64 delta values
+  static constexpr int LSE = 2 * Q_TILE, DELTA = LSE + 256, STAGE = 2 * Q_TILE + 1024;
+  static constexpr int K = 0, V = KV_TILE, RING = 2 * KV_TILE;
+  static constexpr int BARS = RING + DKV_STAGES * STAGE;
+  static constexpr int BYTES = BARS + 128 + 1024;  // barriers, alignment slack
+};
+
+template <int D>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_do,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     const __grid_constant__ CUtensorMap tm_dk,
+                     const __grid_constant__ CUtensorMap tm_dv, int h, int h_kv, int s_q,
+                     int s_k, float scale, int causal) {
+  using L = DkvSmem<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* full = kv_full + 1;              // [DKV_STAGES]
+  uint64_t* empty = full + DKV_STAGES;       // [DKV_STAGES]
+
+  const int k0 = blockIdx.z * 128;  // low kv tiles, the longest under causal, first
+  const int hk = blockIdx.x, bb = blockIdx.y;
+  const int group = h / h_kv, kvh = bb * h_kv + hk;
+  const int n_q_tiles = cdiv(s_q, 64);
+  // q tile i holds a row q >= k0 iff i >= k0 / 64
+  const int first_q_tile = causal ? min(k0 / 64, n_q_tiles) : 0;
+  const int q_tiles = n_q_tiles - first_q_tile;
+  const int n_it = group * q_tiles;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < DKV_STAGES; ++st) {
+      mbar_init(full + st, 1 + 32);  // the TMA thread and warp 1's lanes
+      mbar_init(empty + st, CONSUMERS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: thread 0 issues the TMA loads; warp 1 copies each stage's
+    // lse and delta rows (64 f32 values at any offset, which a TMA box
+    // cannot start at), zero past s_q
+    setmaxnreg_dec<PRODUCER_REGS>();
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * L::KV_TILE);
+      for (int sub = 0; sub < D / 64; ++sub) {
+        tma_load_3d(smem + L::K + sub * L::KV_SUB, &tm_k, kv_full, 64 * sub, k0, kvh);
+        tma_load_3d(smem + L::V + sub * L::KV_SUB, &tm_v, kv_full, 64 * sub, k0, kvh);
+      }
+    }
+    if (warp <= 1) {
+      for (int it = 0; it < n_it; ++it) {
+        const int st = it % DKV_STAGES;
+        const uint32_t ph = (it / DKV_STAGES) & 1;
+        const int qh = bb * h + hk * group + it / q_tiles;
+        const int q0 = (first_q_tile + it % q_tiles) * 64;
+        unsigned char* stage = smem + L::RING + st * L::STAGE;
+        if (threadIdx.x == 0) {
+          mbar_wait(empty + st, ph ^ 1);
+          mbar_arrive_expect_tx(full + st, 2 * L::Q_TILE);
+          for (int sub = 0; sub < D / 64; ++sub) {
+            tma_load_3d(stage + sub * L::Q_SUB, &tm_q, full + st, 64 * sub, q0, qh);
+            tma_load_3d(stage + L::Q_TILE + sub * L::Q_SUB, &tm_do, full + st, 64 * sub, q0,
+                        qh);
+          }
+        } else if (warp == 1) {
+          mbar_wait(empty + st, ph ^ 1);
+          float* rows = reinterpret_cast<float*>(stage + L::LSE);
+          for (int c = lane; c < 64; c += 32) {
+            const bool in = q0 + c < s_q;
+            const size_t i = (size_t)qh * s_q + q0 + c;
+            rows[c] = in ? lse[i] : 0.f;
+            rows[c + 64] = in ? delta[i] : 0.f;
+          }
+          mbar_arrive(full + st);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wc owns kv rows 64 wc .. 64 wc + 63 of the tile
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int wc = wg - 1, t128 = threadIdx.x % 128;
+    const int lane = t128 % 32, g = lane >> 2, t = lane & 3;
+    const int row = 64 * wc + 16 * (t128 / 32) + g;  // this thread's kv rows: row, row + 8
+    const float scale_log2 = scale * LOG2E;
+    const uint32_t sk = smem_u32(smem + L::K) + 64 * wc * ROW_BYTES;
+    const uint32_t sv = smem_u32(smem + L::V) + 64 * wc * ROW_BYTES;
+
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    mbar_wait(kv_full, 0);
+
+    for (int it = 0; it < n_it; ++it) {
+      const int st = it % DKV_STAGES;
+      const uint32_t ph = (it / DKV_STAGES) & 1;
+      const int q0 = (first_q_tile + it % q_tiles) * 64;
+      const unsigned char* stage = smem + L::RING + st * L::STAGE;
+      const uint32_t sq = smem_u32(stage), sdo = sq + L::Q_TILE;
+      const float* s_lse = reinterpret_cast<const float*>(stage + L::LSE);
+      const float* s_delta = reinterpret_cast<const float*>(stage + L::DELTA);
+
+      // S^T = K Q^T and dP^T = V dO^T: 64 kv rows x 64 q columns
+      float s[32], dp[32];
+      mbar_wait(full + st, ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t a_off = (kk / 4) * L::KV_SUB + (kk % 4) * 32;
+        const uint32_t b_off = (kk / 4) * L::Q_SUB + (kk % 4) * 32;
+        wgmma_ss<0, 0>(s, desc_sw128(sk + a_off, 16, 1024), desc_sw128(sq + b_off, 16, 1024),
+                       kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t a_off = (kk / 4) * L::KV_SUB + (kk % 4) * 32;
+        const uint32_t b_off = (kk / 4) * L::Q_SUB + (kk % 4) * 32;
+        wgmma_ss<0, 0>(dp, desc_sw128(sv + a_off, 16, 1024), desc_sw128(sdo + b_off, 16, 1024),
+                       kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // P^T = exp2(s - lse[q]) (kept in s), dS^T = P^T (dP^T - delta[q]) scale
+      const bool masked = (q0 + 64 > s_q) || (causal && k0 + 64 * wc + 63 > q0);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = 8 * (i / 4) + 2 * t + (i & 1);
+        float p = exp2f(s[i] * scale_log2 - s_lse[col] * LOG2E);
+        if (masked) {
+          const int qi = q0 + col, kr = k0 + row + 8 * ((i >> 1) & 1);
+          if (qi >= s_q || (causal && qi < kr)) p = 0.f;
+        }
+        s[i] = p;
+        dp[i] = p * (dp[i] - s_delta[col]) * scale;
+      }
+      uint32_t pa[16], da[16];
+      pack_a(s, pa);
+      pack_a(dp, da);
+
+      // dV += P^T dO and dK += dS^T Q over the tile's 64 q rows
+      fence_regs(dv);
+      fence_regs(dk);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wgmma_rs<1>(dv, pa + 4 * j, desc_sw128(sdo + j * 16 * ROW_BYTES, L::Q_SUB, 1024), true);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wgmma_rs<1>(dk, da + 4 * j, desc_sw128(sq + j * 16 * ROW_BYTES, L::Q_SUB, 1024), true);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      mbar_arrive(empty + st);
+    }
+
+    // epilogue: every load of K and V has landed (kv_full) and every wgmma
+    // of both consumer warpgroups has completed before dK and dV are
+    // staged as bf16 through the K and V rows, then one TMA store a box
+    named_barrier(1, CONSUMERS);
+    fence_proxy_async();
+    stage_rows(dk, smem + L::K, L::KV_SUB, row, t);
+    stage_rows(dv, smem + L::V, L::KV_SUB, row, t);
+    fence_proxy_async();
+    named_barrier(2 + wc, 128);
+    if (t128 == 0 && k0 + 64 * wc < s_k) {
+      for (int sub = 0; sub < D / 64; ++sub) {
+        const int off = sub * L::KV_SUB + 64 * wc * ROW_BYTES;
+        tma_store_3d(&tm_dk, smem + L::K + off, 64 * sub, k0 + 64 * wc, kvh);
+        tma_store_3d(&tm_dv, smem + L::V + off, 64 * sub, k0 + 64 * wc, kvh);
+      }
+      tma_store_commit();
+      tma_store_wait_read();
+    }
+  }
+}
+
+// ===========================================================================
+// dQ: mma.sync kernel
+// ===========================================================================
 
 constexpr int BM = 64;        // rows of the tile a block owns
 constexpr int BN = 64;        // rows of each tile a block streams
 constexpr int NTHREADS = 128; // 4 warps, 16 owned rows each
-constexpr float NEG_INF = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 
 // Shared-memory tiles are 64 rows of D bf16, each row padded by 16 bytes
 // so the eight rows one ldmatrix reads fall in different banks.
 template <int D> struct Tile {
   static constexpr int LD = D + 8;               // row stride, elements
   static constexpr int ELEMS = 64 * LD;          // one tile
-  // forward: Q + 2 stages of (K, V)
-  static constexpr int FWD_SMEM = 5 * ELEMS * 2;
   // dQ: Q, dO + 2 stages of (K, V)
   static constexpr int DQ_SMEM = 6 * ELEMS * 2;
-  // dK/dV: K, V + 2 stages of (Q, dO) + 2 stages of (lse, delta) rows
-  static constexpr int DKV_SMEM = 6 * ELEMS * 2 + 2 * 2 * BM * 4;
 };
-
-// ---------------------------------------------------------------------------
-// PTX wrappers
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // 16-byte async copy; zero-fills the destination when !valid.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(valid ? 16 : 0));
-}
-
-// 4-byte async copy; zero-fills the destination when !valid.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -106,13 +552,13 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+               : "r"(smem_u32(p)));
 }
 
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+               : "r"(smem_u32(p)));
 }
 
 // c += a . b for one 16x8 tile: a is 16x16 bf16 (row major), b 16x8 bf16.
@@ -123,13 +569,6 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint3
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two f32 values rounded to a bf16 pair; `lo` takes the low half (the
-// lower column of an mma fragment).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // ---------------------------------------------------------------------------
@@ -179,15 +618,6 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* __restric
   }
 }
 
-// Async copy of 64 f32 row values (lse or delta); zero past n_rows.
-__device__ __forceinline__ void load_rows_async(float* dst, const float* __restrict__ src,
-                                                int row0, int n_rows) {
-  for (int i = threadIdx.x; i < 64; i += NTHREADS) {
-    const bool valid = row0 + i < n_rows;
-    cp_async4(dst + i, valid ? src + row0 + i : src, valid);
-  }
-}
-
 // Store a warp's 16 x D f32 accumulator rows as bf16: through the warp's
 // own rows of the padded shared tile `stage`, then 16-byte stores of the
 // rows below n_rows.
@@ -211,170 +641,6 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], bf16* s
     if (row0 + wr + r < n_rows)
       *reinterpret_cast<uint4*>(out + (size_t)(row0 + wr + r) * D + c) =
           *reinterpret_cast<const uint4*>(stage + (wr + r) * LD + c);
-  }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// ---------------------------------------------------------------------------
-// Forward: one block per (q tile, head, batch); loops over kv tiles.
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int h, int h_kv, int s_q, int s_k,
-                 float scale_log2, int causal) {
-  using T = Tile<D>;
-  constexpr int LD = T::LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sKV = sQ + T::ELEMS;  // stage s: K at 2s, V at 2s + 1
-
-  const int n_q_tiles = (s_q + BM - 1) / BM;
-  const int q0 = (n_q_tiles - 1 - (int)blockIdx.x) * BM;  // longest causal rows first
-  const int hh = blockIdx.y, bb = blockIdx.z;
-  const int hk = hh / (h / h_kv);
-  const size_t qh = (size_t)bb * h + hh;
-  const bf16* kp = k + ((size_t)bb * h_kv + hk) * s_k * D;
-  const bf16* vp = v + ((size_t)bb * h_kv + hk) * s_k * D;
-  const int lane = threadIdx.x % 32, wr = (threadIdx.x / 32) * 16;
-  const int g = lane >> 2, t = lane & 3;
-
-  int n_k_tiles = (s_k + BN - 1) / BN;
-  if (causal) n_k_tiles = min(n_k_tiles, (q0 + BM - 1) / BN + 1);
-
-  load_tile_async<D>(sQ, q + qh * s_q * D, q0, s_q);
-  load_tile_async<D>(sKV, kp, 0, s_k);
-  load_tile_async<D>(sKV + T::ELEMS, vp, 0, s_k);
-  cp_async_commit();
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
-  uint32_t qf[D / 16][4];
-
-  for (int kt = 0; kt < n_k_tiles; ++kt) {
-    const int k0 = kt * BN;
-    const bf16* sK = sKV + (kt & 1) * 2 * T::ELEMS;
-    const bf16* sV = sK + T::ELEMS;
-    if (kt + 1 < n_k_tiles) {
-      bf16* nK = sKV + ((kt + 1) & 1) * 2 * T::ELEMS;
-      load_tile_async<D>(nK, kp, k0 + BN, s_k);
-      load_tile_async<D>(nK + T::ELEMS, vp, k0 + BN, s_k);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (kt == 0) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) load_a<LD>(qf[kk], sQ, wr, kk * 16, lane);
-    }
-
-    // S = Q K^T: 16 rows x 64 keys per warp, 8 n-tiles
-    float s[BN / 8][4];
-#pragma unroll
-    for (int n = 0; n < BN / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < BN / 16; ++np) {
-        uint32_t b[4];
-        load_b_nk<LD>(b, sK, np * 16, kk * 16, lane);
-        mma(s[2 * np], qf[kk], b[0], b[1]);
-        mma(s[2 * np + 1], qf[kk], b[2], b[3]);
-      }
-    }
-
-    // online softmax on the fragments; this lane's rows are g and g + 8
-    const bool masked = (k0 + BN > s_k) || (causal && k0 + BN - 1 > q0);
-    float mx[2] = {m_r[0], m_r[1]};
-#pragma unroll
-    for (int n = 0; n < BN / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * scale_log2;
-        if (masked) {
-          const int key = k0 + n * 8 + 2 * t + (e & 1);
-          const int qi = q0 + wr + g + (e >> 1) * 8;
-          if (key >= s_k || (causal && key > qi)) x = NEG_INF;
-        }
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = quad_max(mx[r]);
-      alpha[r] = exp2f(m_r[r] - mx[r]);
-      m_r[r] = mx[r];
-    }
-#pragma unroll
-    for (int n = 0; n < BN / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[n][e] - mx[e >> 1]);
-        s[n][e] = p;
-        rs[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + quad_sum(rs[r]);
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-
-    // O += P V, with P (rounded to bf16) as the A operand in place
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                              pack_bf16(s[2 * j][2], s[2 * j][3]),
-                              pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                              pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t b[4];
-        load_b_kn<LD>(b, sV, j * 16, dp * 16, lane);
-        mma(acc[2 * dp], pa, b[0], b[1]);
-        mma(acc[2 * dp + 1], pa, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this stage before its refill
-  }
-
-  float l_safe[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) l_safe[r] = (l_r[r] == 0.f) ? 1.f : l_r[r];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    acc[n][0] /= l_safe[0];
-    acc[n][1] /= l_safe[0];
-    acc[n][2] /= l_safe[1];
-    acc[n][3] /= l_safe[1];
-  }
-  store_rows<D>(acc, sQ, o + qh * s_q * D, q0, wr, s_q, lane);
-  if (t == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int qi = q0 + wr + g + 8 * r;
-      if (qi < s_q) lse[qh * s_q + qi] = (m_r[r] + log2f(l_safe[r])) * LN2;
-    }
   }
 }
 
@@ -506,157 +772,6 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows<D>(acc, sQ, dq + qh * s_q * D, q0, wr, s_q, lane);
 }
 
-// ---------------------------------------------------------------------------
-// dK/dV: one block per (kv tile, kv head, batch); loops over the `group`
-// query heads of the kv head and, for each, over the q tiles at or below
-// the diagonal. Each warp owns 16 kv rows and keeps their dK and dV in f32
-// accumulator fragments for the whole loop; each q tile is taken in two
-// halves of 32 columns to bound the live score registers.
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int h, int h_kv,
-                     int s_q, int s_k, float scale, int causal) {
-  using T = Tile<D>;
-  constexpr int LD = T::LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + T::ELEMS;
-  bf16* sQO = sV + T::ELEMS;  // stage s: Q at 2s, dO at 2s + 1
-  float* sRows = reinterpret_cast<float*>(sQO + 4 * T::ELEMS);  // stage s: lse, delta
-
-  const int k0 = blockIdx.x * BN;
-  const int hk = blockIdx.y, bb = blockIdx.z;
-  const int group = h / h_kv;
-  const size_t kvh = (size_t)bb * h_kv + hk;
-  const int lane = threadIdx.x % 32, wr = (threadIdx.x / 32) * 16;
-  const int g = lane >> 2, t = lane & 3;
-  const float scale_log2 = scale * LOG2E;
-
-  const int n_q_tiles = (s_q + BM - 1) / BM;
-  // q tile i holds a row q >= k0 iff i >= k0 / BM (BM == BN)
-  const int first_q_tile = causal ? min(k0 / BM, n_q_tiles) : 0;
-  const int q_tiles = n_q_tiles - first_q_tile;
-  const int n_it = group * q_tiles;
-
-  auto issue = [&](int it) {
-    const int st = it & 1;
-    const size_t qh = (size_t)bb * h + (size_t)hk * group + it / q_tiles;
-    const int q0 = (first_q_tile + it % q_tiles) * BM;
-    load_tile_async<D>(sQO + 2 * st * T::ELEMS, q + qh * s_q * D, q0, s_q);
-    load_tile_async<D>(sQO + (2 * st + 1) * T::ELEMS, dout + qh * s_q * D, q0, s_q);
-    load_rows_async(sRows + 2 * st * BM, lse + qh * s_q, q0, s_q);
-    load_rows_async(sRows + (2 * st + 1) * BM, delta + qh * s_q, q0, s_q);
-  };
-
-  load_tile_async<D>(sK, k + kvh * s_k * D, k0, s_k);
-  load_tile_async<D>(sV, v + kvh * s_k * D, k0, s_k);
-  if (n_it > 0) issue(0);
-  cp_async_commit();
-
-  float acc_dk[D / 8][4], acc_dv[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_dk[n][e] = acc_dv[n][e] = 0.f;
-
-  for (int it = 0; it < n_it; ++it) {
-    const int st = it & 1;
-    const int q0 = (first_q_tile + it % q_tiles) * BM;
-    const bf16* sQ = sQO + 2 * st * T::ELEMS;
-    const bf16* sdO = sQ + T::ELEMS;
-    const float* sLse = sRows + 2 * st * BM;
-    const float* sDelta = sLse + BM;
-    if (it + 1 < n_it) {
-      issue(it + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    const bool masked = (q0 + BM > s_q) || (causal && k0 + BN - 1 > q0);
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c0 = half * 32;  // first q column of this half
-      // S^T = K_w Q^T and dP^T = V_w dO^T: 16 kv rows x 32 q columns
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ka[4], va[4];
-        load_a<LD>(ka, sK, wr, kk * 16, lane);
-        load_a<LD>(va, sV, wr, kk * 16, lane);
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          uint32_t b[4];
-          load_b_nk<LD>(b, sQ, c0 + np * 16, kk * 16, lane);
-          mma(s[2 * np], ka, b[0], b[1]);
-          mma(s[2 * np + 1], ka, b[2], b[3]);
-          load_b_nk<LD>(b, sdO, c0 + np * 16, kk * 16, lane);
-          mma(dp[2 * np], va, b[0], b[1]);
-          mma(dp[2 * np + 1], va, b[2], b[3]);
-        }
-      }
-      // P^T = exp2(s - lse[q]) (kept in s), dS^T = P^T (dP^T - delta[q]) scale
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = c0 + n * 8 + 2 * t + (e & 1);
-          float p = exp2f(s[n][e] * scale_log2 - sLse[col] * LOG2E);
-          if (masked) {
-            const int qi = q0 + col, kr = k0 + wr + g + (e >> 1) * 8;
-            if (qi >= s_q || (causal && qi < kr)) p = 0.f;
-          }
-          s[n][e] = p;
-          dp[n][e] = p * (dp[n][e] - sDelta[col]) * scale;
-        }
-      }
-      // dV += P^T dO and dK += dS^T Q over this half's 32 q rows
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                                pack_bf16(s[2 * j][2], s[2 * j][3]),
-                                pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                                pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-        const uint32_t da[4] = {pack_bf16(dp[2 * j][0], dp[2 * j][1]),
-                                pack_bf16(dp[2 * j][2], dp[2 * j][3]),
-                                pack_bf16(dp[2 * j + 1][0], dp[2 * j + 1][1]),
-                                pack_bf16(dp[2 * j + 1][2], dp[2 * j + 1][3])};
-#pragma unroll
-        for (int n2 = 0; n2 < D / 16; ++n2) {
-          uint32_t b[4];
-          load_b_kn<LD>(b, sdO, c0 + j * 16, n2 * 16, lane);
-          mma(acc_dv[2 * n2], pa, b[0], b[1]);
-          mma(acc_dv[2 * n2 + 1], pa, b[2], b[3]);
-          load_b_kn<LD>(b, sQ, c0 + j * 16, n2 * 16, lane);
-          mma(acc_dk[2 * n2], da, b[0], b[1]);
-          mma(acc_dk[2 * n2 + 1], da, b[2], b[3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  // When the loop ran no iteration (a causal kv tile past the last query)
-  // the K/V copies are still in flight, and a row of sK/sV may be filled
-  // by another warp's thread: every copy lands before any warp stages its
-  // zero dK/dV through them.
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // sK / sV rows are read only by their own warp: stage through them
-  store_rows<D>(acc_dk, sK, dk + kvh * s_k * D, k0, wr, s_k, lane);
-  store_rows<D>(acc_dv, sV, dv + kvh * s_k * D, k0, wr, s_k, lane);
-}
-
 template <typename Kernel>
 int set_smem(Kernel kernel, int bytes) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -667,12 +782,18 @@ template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int b,
                int h, int h_kv, int s_q, int s_k, float scale, int causal,
                cudaStream_t stream) {
-  constexpr int smem = Tile<D>::FWD_SMEM;
-  if (int err = set_smem(flash_fwd_kernel<D>, smem)) return err;
-  dim3 grid((s_q + BM - 1) / BM, h, b);
-  flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, h, h_kv,
-      s_q, s_k, scale * LOG2E, causal);
+  CUtensorMap tq, tk, tv, to;
+  cudaError_t err;
+  if ((err = map_bf16_3d(&tq, q, D, s_q, b * h, 128)) ||
+      (err = map_bf16_3d(&tk, k, D, s_k, b * h_kv, 128)) ||
+      (err = map_bf16_3d(&tv, v, D, s_k, b * h_kv, 128)) ||
+      (err = map_bf16_3d(&to, o, D, s_q, b * h, 64)))
+    return (int)err;
+  constexpr int smem = FwdSmem<D>::BYTES;
+  if (int e = set_smem(flash_fwd_kernel<D>, smem)) return e;
+  dim3 grid(h, b, cdiv(s_q, 128));
+  flash_fwd_kernel<D><<<grid, WS_THREADS, smem, stream>>>(tq, tk, tv, to, (float*)lse, h, h_kv,
+                                                          s_q, s_k, scale * LOG2E, causal);
   return (int)cudaGetLastError();
 }
 
@@ -695,12 +816,20 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int b, int h,
                int h_kv, int s_q, int s_k, float scale, int causal,
                cudaStream_t stream) {
-  constexpr int smem = Tile<D>::DKV_SMEM;
-  if (int err = set_smem(flash_bwd_dkv_kernel<D>, smem)) return err;
-  dim3 grid((s_k + BN - 1) / BN, h_kv, b);
-  flash_bwd_dkv_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, h, h_kv, s_q, s_k,
+  CUtensorMap tq, tdo, tk, tv, tdk, tdv;
+  cudaError_t err;
+  if ((err = map_bf16_3d(&tq, q, D, s_q, b * h, 64)) ||
+      (err = map_bf16_3d(&tdo, dout, D, s_q, b * h, 64)) ||
+      (err = map_bf16_3d(&tk, k, D, s_k, b * h_kv, 128)) ||
+      (err = map_bf16_3d(&tv, v, D, s_k, b * h_kv, 128)) ||
+      (err = map_bf16_3d(&tdk, dk, D, s_k, b * h_kv, 64)) ||
+      (err = map_bf16_3d(&tdv, dv, D, s_k, b * h_kv, 64)))
+    return (int)err;
+  constexpr int smem = DkvSmem<D>::BYTES;
+  if (int e = set_smem(flash_bwd_dkv_kernel<D>, smem)) return e;
+  dim3 grid(h_kv, b, cdiv(s_k, 128));
+  flash_bwd_dkv_kernel<D><<<grid, WS_THREADS, smem, stream>>>(
+      tq, tdo, tk, tv, (const float*)lse, (const float*)delta, tdk, tdv, h, h_kv, s_q, s_k,
       scale, causal);
   return (int)cudaGetLastError();
 }

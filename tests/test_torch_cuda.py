@@ -34,6 +34,13 @@ SHAPES = [
     (1, 2, 2, 256, 64, 128, True),
     (2, 8, 8, 512, 1024, 128, True),
     (1, 2, 2, 100, 300, 64, False),
+    # the wgmma kernels' 128-row tiles: one row past a tile, GQA across
+    # several tiles, ragged s_q < s_k and s_q > s_k, MQA one tile
+    (1, 4, 4, 129, 129, 128, True),
+    (2, 8, 2, 320, 320, 128, True),
+    (1, 4, 4, 200, 456, 64, True),
+    (1, 4, 4, 456, 200, 128, True),
+    (1, 4, 1, 64, 64, 64, False),
 ]
 
 
@@ -76,6 +83,21 @@ def test_kernels_match_plain(cuda, shape):
         # keys past the last query get no gradient: their blocks run no
         # q tile and must write zeros, not what is left in shared memory
         assert not dk[:, :, s_q:].any() and not dv[:, :, s_q:].any()
+
+
+def test_fwd_and_dkv_are_bitwise_deterministic(cuda):
+    """o, dK and dV are the same bits in two calls: the dK/dV block sums
+    its GQA group in registers, with no atomics (GQA, causal, ragged)."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, do = _rand(2, 8, 320, 128, gen=gen), _rand(2, 8, 320, 128, gen=gen)
+    k, v = _rand(2, 2, 320, 128, gen=gen), _rand(2, 2, 320, 128, gen=gen)
+    (o1, lse1), (o2, lse2) = (fa.flash_fwd(q, k, v) for _ in range(2))
+    delta = (do.float() * o1.float()).sum(-1, keepdim=True)
+    (dk1, dv1), (dk2, dv2) = (fa.flash_bwd_dkv(q, k, v, do, lse1, delta)
+                              for _ in range(2))
+    torch.cuda.synchronize()
+    for a, b in ((o1, o2), (lse1, lse2), (dk1, dk2), (dv1, dv2)):
+        assert torch.equal(a, b)
 
 
 def test_autograd_counts_one_launch_per_kernel(cuda):

@@ -180,15 +180,53 @@ def test_bf16_tolerance_passes_rounding_differences():
         assert tfa.bf16_within_tolerance(err), err
 
 
+def test_bf16_tolerance_passes_128_row_tiles():
+    """The wgmma forward's online softmax steps over 128-row kv tiles:
+    that order of rounding passes too."""
+    q, k, v, _, o, _, _ = _bf16_case()
+    err = tfa.bf16_error(_tiled_fwd(q, k, v, tile=128), o)
+    assert tfa.bf16_within_tolerance(err), err
+
+
+def _swizzle_misread(t):
+    """``t`` as a kernel reads a 128B-swizzled tile without undoing the
+    swizzle: in row r, 8-column chunk c of each 64-column half holds
+    chunk c ^ (r % 8)."""
+    s, d = t.shape[2], t.shape[3]
+    rows = torch.arange(s).view(s, 1, 1)
+    chunk = torch.arange(8).view(1, 1, 8) ^ (rows % 8)
+    cols = (torch.arange(d // 64).view(1, -1, 1) * 64 + chunk * 8)
+    cols = (cols.unsqueeze(-1) + torch.arange(8)).reshape(s, d)
+    return torch.gather(t, 3, cols.expand(t.shape))
+
+
 @pytest.mark.parametrize("fault", ["missed_rescale", "dkv_late_queries",
-                                   "dq_last_kv_tile", "o_ragged_rows"])
+                                   "dq_last_kv_tile", "o_ragged_rows",
+                                   "stale_ring_stage", "swizzle_chunks",
+                                   "second_warpgroup_rows",
+                                   "dkv_wrong_q_tile_stats"])
 def test_bf16_tolerance_rejects_kernel_faults(fault):
     """The limit scales with the reference's RMS, not with its causal
     outliers (row 0 of o, key 0 of dK/dV), so a fault of typical size
     on part of the tensor fails it."""
     q, k, v, do, o, lse, delta = _bf16_case()
     half, s = q.shape[2] // 2, q.shape[2]
-    if fault == "missed_rescale":
+    if fault == "stale_ring_stage":       # kv tile 2 read from tile 0's stage
+        ks, vs = k.clone(), v.clone()
+        ks[:, :, 256:384], vs[:, :, 256:384] = k[:, :, 0:128], v[:, :, 0:128]
+        got, want = tfa.flash_fwd_plain(q, ks, vs)[0], o
+    elif fault == "swizzle_chunks":       # K read without undoing the swizzle
+        got, want = tfa.flash_fwd_plain(q, _swizzle_misread(k), v)[0], o
+    elif fault == "second_warpgroup_rows":  # rows 64-127 of a tile = 0-63
+        got, want = o.clone(), o
+        for t0 in range(0, s, 128):
+            got[:, :, t0 + 64:t0 + 128] = o[:, :, t0:t0 + 64]
+    elif fault == "dkv_wrong_q_tile_stats":  # lse, delta of q tile i - 1
+        lse_w, delta_w = lse.clone(), delta.clone()
+        lse_w[:, :, 64:], delta_w[:, :, 64:] = lse[:, :, :-64], delta[:, :, :-64]
+        got = tfa.flash_bwd_dkv_plain(q, k, v, do, lse_w, delta_w)[0]
+        want = tfa.flash_bwd_dkv_plain(q, k, v, do, lse, delta)[0]
+    elif fault == "missed_rescale":
         got, want = _tiled_fwd(q, k, v, rescale=False), o
     elif fault == "dkv_late_queries":     # q tiles past s/2 never visited
         got = tfa.flash_bwd_dkv_plain(q[:, :, :half], k, v, do[:, :, :half],

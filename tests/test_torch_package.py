@@ -176,6 +176,27 @@ def test_elastic_loop_trains_three_tiny_steps_on_cpu():
     assert abs(hist[0]["loss"] - math.log(cfg.vocab_size)) < 1.0
 
 
+def test_kernel_library_name_follows_its_headers(tmp_path, monkeypatch):
+    """An edited csrc/*.cuh header names a new library, so a stale one is
+    never loaded; the flags and the source count too. No nvcc runs."""
+    from dlrover_tpu_torch.ops import _build
+
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build.source_digest("k")
+    assert _build.source_digest("k") == first
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    second = _build.source_digest("k")
+    (tmp_path / "other.cuh").write_text("// new\n")
+    third = _build.source_digest("k")
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    fourth = _build.source_digest("k")
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ["-G"])
+    assert len({first, second, third, fourth,
+                _build.source_digest("k")}) == 5
+
+
 @pytest.mark.parametrize("option", [
     dict(master_client=object()),
     dict(config=TrainLoopConfig(global_batch=2, seq_len=8,
