@@ -8,12 +8,12 @@ Phases (each one's failure ends the run with a nonzero exit):
   build    build the three CUDA libraries of ops/csrc (flash attention,
            norms, quantization), one nvcc each, all started together;
            print each one's seconds and ptxas's register / spill report
-           for every kernel; fail if a wgmma kernel (flash forward,
-           dK/dV) spills
+           for every kernel; fail if a wgmma kernel (the flash forward,
+           dQ or dK/dV) spills
   kernels  each flash-attention and RMSNorm kernel against its plain
            PyTorch version on the card at the Llama-1B slice shape and at
-           edge shapes, with stated tolerances, and o, dK and dV the same
-           bits in a second call; time kernel, plain version and the
+           edge shapes, with stated tolerances, and o, dQ, dK and dV the
+           same bits in a second call; time kernel, plain version and the
            library yardstick (SDPA, F.rms_norm)
   quant    the quantization API (quantize, dequantize, swizzled,
            quant_reduce) on a Llama-1B gate_proj gradient, int8 and int4,
@@ -82,16 +82,18 @@ EDGE_SHAPES = [
     dict(b=2, h=4, h_kv=4, s_q=100, s_k=100, d=64, causal=True),
     dict(b=1, h=4, h_kv=2, s_q=100, s_k=300, d=64, causal=False),
     # the wgmma kernels' 128-row tiles: one row past a tile, GQA across
-    # several tiles, ragged s_q < s_k and s_q > s_k, MQA in one tile
+    # several tiles, ragged s_q < s_k and s_q > s_k, MQA in one tile; dQ
+    # with s_q not a multiple of 64 and GQA over two kv tiles
     dict(b=1, h=4, h_kv=4, s_q=129, s_k=129, d=128, causal=True),
     dict(b=2, h=8, h_kv=2, s_q=320, s_k=320, d=128, causal=True),
     dict(b=1, h=4, h_kv=4, s_q=200, s_k=456, d=64, causal=True),
     dict(b=1, h=4, h_kv=4, s_q=456, s_k=200, d=128, causal=True),
     dict(b=1, h=4, h_kv=1, s_q=64, s_k=64, d=64, causal=False),
+    dict(b=1, h=8, h_kv=2, s_q=200, s_k=200, d=128, causal=True),
 ]
 # kernels that must not spill: the warp-specialised ones, whose consumer
 # warpgroups run at 240 registers under setmaxnreg
-NO_SPILL = ("flash_fwd_kernel", "flash_bwd_dkv_kernel")
+NO_SPILL = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 # A small bf16 Llama trained with attn_impl="flash" and "reference"
 # from the same init. The loss barely moves in 3 steps, so the backward
 # kernels are held by the gradients: the grad norm of every step, and
@@ -300,6 +302,7 @@ def check_shape(shape, seed: int) -> tuple:
     # both backward versions get the same lse and delta
     delta = (do.float() * po.float()).sum(-1, keepdim=True)
     dq = fa.flash_bwd_dq(q, k, v, do, plse, delta, causal)
+    dq2 = fa.flash_bwd_dq(q, k, v, do, plse, delta, causal)
     torch.cuda.synchronize()
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, plse, delta, causal)
     dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, plse, delta, causal)
@@ -322,10 +325,10 @@ def check_shape(shape, seed: int) -> tuple:
     log(f"  lse vs plain {shape}: max abs {errs['lse']:.3g} (limit "
         f"{LSE_TOL})")
     same = {name: torch.equal(a, b) for name, a, b in (
-        ("o", o, o2), ("dk", dk, dk2), ("dv", dv, dv2))}
+        ("o", o, o2), ("dq", dq, dq2), ("dk", dk, dk2), ("dv", dv, dv2))}
     bad += [f"{name} differs between two calls" for name, eq in same.items()
             if not eq]
-    log(f"  o, dk, dv bitwise equal in two calls: {same}")
+    log(f"  o, dq, dk, dv bitwise equal in two calls: {same}")
     return errs, [f"{name} at {shape}" for name in bad]
 
 

@@ -18,8 +18,8 @@
 // the card's ~295 FLOP/byte ridge; dQ (3 products) and dK/dV (4 products)
 // are further above it. All three are bound by tensor-core operations.
 //
-// Forward and dK/dV: wgmma, TMA and warp specialisation (sm90.cuh holds
-// the PTX). A block is three warpgroups: warpgroup 0 is the producer, one
+// All three: wgmma, TMA and warp specialisation (sm90.cuh holds the
+// PTX). A block is three warpgroups: warpgroup 0 is the producer, one
 // thread of which issues every TMA load into an mbarrier ring and which
 // then keeps 24 registers (setmaxnreg); warpgroups 1 and 2 are consumers
 // at 240 registers, each owning 64 rows of the block's 128-row tile.
@@ -32,6 +32,18 @@
 //   bf16 in registers, is the A operand of O += P.V (V MN-major). O is
 //   staged as bf16 through its Q rows and written by TMA, which clips
 //   rows past s_q.
+// - dQ: one block per (128-row q tile, head, batch). Q and dO are loaded
+//   once; K and V stream in 128-row tiles through a 2-stage ring with
+//   separate full / empty barriers; each thread reads the lse and delta of
+//   its two rows with plain loads. S = Q.K^T and dP = dO.V^T (m64n128k16,
+//   K-major) in one commit group, P and dS on the fragments, then
+//   dQ += dS.K with dS, rounded to bf16, as the register A operand and K
+//   read MN-major from the same stage. S, dP and dQ hold 192 f32
+//   registers at d = 128 and ptxas spills none under 240; 64-row kv tiles
+//   (3 stages) ran 10% slower on an H100, and the ring's depth (2-4
+//   stages) changed nothing. V's stage is released after dP, K's after
+//   dS.K. Rows past s_q read zero Q and dO, so their dS is 0. dQ is
+//   staged as bf16 through its Q rows and written by TMA.
 // - dK/dV: one block per (128-row kv tile, kv head, batch), transposed so
 //   that kv rows are the wgmma M dimension. K and V stay resident; 64-row
 //   tiles of Q and dO with their 64 lse and delta values stream through a
@@ -41,22 +53,17 @@
 //   K-major), P^T and dS^T on the fragments with lse and delta per column,
 //   then dV += P^T.dO and dK += dS^T.Q with P^T and dS^T as register A
 //   operands and dO, Q MN-major. dK and dV stay in f32 registers for the
-//   whole group: no atomics, no per-query-head partials, the same bits on
-//   every call. Kv tiles past the last query (causal, s_k > s_q) run no q
-//   tile and store zeros.
+//   whole group: no atomics, no per-query-head partials. Kv tiles past the
+//   last query (causal, s_k > s_q) run no q tile and store zeros.
+// No kernel uses atomics: each block owns its output rows and sums its
+// tiles in a fixed order, so every output is the same bits on every call.
 // Every tile is 128-byte swizzled by TMA over 3-D tensor maps (d, rows,
 // batch * heads), so a tile never reads into the next head and rows past
 // the sequence read as zero. Masks cost only tiles that straddle the
-// diagonal or a ragged edge; causal q tiles (forward) and kv tiles
+// diagonal or a ragged edge; causal q tiles (forward, dQ) and kv tiles
 // (dK/dV) are launched heaviest first. Not yet used: persistent blocks,
 // ping-pong between the consumer warpgroups, softmax overlapped with the
 // next product, clusters.
-//
-// dQ: still the FlashAttention-2 design on mma.sync.m16n8k16, to be
-// redesigned like the other two: one block per (64-row q tile, head,
-// batch) of 4 warps, each owning 16 rows; operands through ldmatrix from
-// padded shared tiles; K/V double-buffered with cp.async; dS, rounded to
-// bf16, reused in place as the A operand of dS.K.
 //
 // Layout: q (b, h, s_q, d), k/v (b, h_kv, s_k, d), contiguous bf16;
 // lse and delta (b, h, s_q) f32. d is 64 or 128. Each entry point
@@ -71,7 +78,6 @@
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
 using namespace sm90;
 
 constexpr float NEG_INF = -1e30f;
@@ -98,7 +104,7 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // ===========================================================================
-// Forward and dK/dV: warp-specialised wgmma kernels
+// Warp-specialised wgmma kernels
 // ===========================================================================
 
 constexpr int WS_THREADS = 384;   // producer warpgroup + 2 consumer warpgroups
@@ -518,258 +524,184 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// ===========================================================================
-// dQ: mma.sync kernel
-// ===========================================================================
+// ---------------------------------------------------------------------------
+// dQ: one block per (128-row q tile, head, batch); loops over the kv tiles
+// up to the diagonal, keeping dQ in f32 registers
+// ---------------------------------------------------------------------------
 
-constexpr int BM = 64;        // rows of the tile a block owns
-constexpr int BN = 64;        // rows of each tile a block streams
-constexpr int NTHREADS = 128; // 4 warps, 16 owned rows each
+constexpr int DQ_BK = 128;  // rows of a K or V tile
+constexpr int DQ_STAGES = 2;
 
-// Shared-memory tiles are 64 rows of D bf16, each row padded by 16 bytes
-// so the eight rows one ldmatrix reads fall in different banks.
-template <int D> struct Tile {
-  static constexpr int LD = D + 8;               // row stride, elements
-  static constexpr int ELEMS = 64 * LD;          // one tile
-  // dQ: Q, dO + 2 stages of (K, V)
-  static constexpr int DQ_SMEM = 6 * ELEMS * 2;
+template <int D> struct DqSmem {
+  static constexpr int Q_SUB = 128 * ROW_BYTES, Q_TILE = D / 64 * Q_SUB;      // Q, dO
+  static constexpr int KV_SUB = DQ_BK * ROW_BYTES, KV_TILE = D / 64 * KV_SUB;  // a K or V stage
+  static constexpr int Q = 0, DO = Q_TILE, K = 2 * Q_TILE, V = K + DQ_STAGES * KV_TILE;
+  static constexpr int BARS = V + DQ_STAGES * KV_TILE;
+  static constexpr int BYTES = BARS + 128 + 1024;  // barriers, alignment slack
 };
 
-// 16-byte async copy; zero-fills the destination when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// c += a . b for one 16x8 tile: a is 16x16 bf16 (row major), b 16x8 bf16.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// ---------------------------------------------------------------------------
-// Fragment loads. Lane l of a warp: g = l / 4 is its row in an 8-row
-// group, t = l % 4 its column pair. An accumulator fragment c[4] holds
-// (row g, cols 2t, 2t+1) in c[0..1] and (row g + 8, same cols) in c[2..3].
-// ---------------------------------------------------------------------------
-
-// A operand: the 16x16 block at (r0, c0) of a row-major tile.
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* t, int r0, int c0,
-                                       int lane) {
-  ldmatrix_x4(a, t + (r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8);
-}
-
-// B operands of two n-tiles from a row-major [n][k] tile (B = tile^T):
-// rows n0..n0+15, cols c0..c0+15; b[0..1] for n0..n0+7, b[2..3] for the
-// next eight.
-template <int LD>
-__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const bf16* t, int n0, int c0,
-                                          int lane) {
-  const int m = lane >> 3, i = lane & 7;
-  ldmatrix_x4(b, t + (n0 + i + (m >> 1) * 8) * LD + c0 + (m & 1) * 8);
-}
-
-// B operands of two n-tiles from a row-major [k][n] tile (B = tile):
-// rows k0..k0+15, cols n0..n0+15; b[0..1] for n0..n0+7, b[2..3] for the
-// next eight.
-template <int LD>
-__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const bf16* t, int k0, int n0,
-                                          int lane) {
-  const int m = lane >> 3, i = lane & 7;
-  ldmatrix_x4_trans(b, t + (k0 + i + (m & 1) * 8) * LD + n0 + (m >> 1) * 8);
-}
-
-// Async copy of rows [row0, row0 + 64) of a (n_rows, D) bf16 matrix into
-// a padded tile; rows past n_rows are zero-filled.
 template <int D>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* __restrict__ src,
-                                                int row0, int n_rows) {
-  constexpr int VPR = D / 8;  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < 64 * VPR; i += NTHREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    const bool valid = row0 + r < n_rows;
-    cp_async16(dst + r * Tile<D>::LD + c, valid ? src + (size_t)(row0 + r) * D + c : src,
-               valid);
-  }
-}
-
-// Store a warp's 16 x D f32 accumulator rows as bf16: through the warp's
-// own rows of the padded shared tile `stage`, then 16-byte stores of the
-// rows below n_rows.
-template <int D>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], bf16* stage,
-                                           bf16* __restrict__ out, int row0, int wr,
-                                           int n_rows, int lane) {
-  constexpr int LD = Tile<D>::LD;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    *reinterpret_cast<uint32_t*>(stage + (wr + g) * LD + n * 8 + 2 * t) =
-        pack_bf16(acc[n][0], acc[n][1]);
-    *reinterpret_cast<uint32_t*>(stage + (wr + g + 8) * LD + n * 8 + 2 * t) =
-        pack_bf16(acc[n][2], acc[n][3]);
-  }
-  __syncwarp();
-  constexpr int VPR = D / 8;
-  for (int i = lane; i < 16 * VPR; i += 32) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    if (row0 + wr + r < n_rows)
-      *reinterpret_cast<uint4*>(out + (size_t)(row0 + wr + r) * D + c) =
-          *reinterpret_cast<const uint4*>(stage + (wr + r) * LD + c);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// dQ: one block per (q tile, head, batch); loops over kv tiles up to the
-// diagonal, keeping dQ in f32 accumulator fragments.
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+__global__ void __launch_bounds__(WS_THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dq, int h, int h_kv, int s_q, int s_k,
-                    float scale, int causal) {
-  using T = Tile<D>;
-  constexpr int LD = T::LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = sQ + T::ELEMS;
-  bf16* sKV = sdO + T::ELEMS;  // stage s: K at 2s, V at 2s + 1
+                    const __grid_constant__ CUtensorMap tm_dq, int h, int h_kv, int s_q,
+                    int s_k, float scale, int causal) {
+  using L = DqSmem<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BARS);  // Q and dO
+  uint64_t* k_full = q_full + 1;           // [DQ_STAGES]
+  uint64_t* v_full = k_full + DQ_STAGES;   // [DQ_STAGES]
+  uint64_t* k_empty = v_full + DQ_STAGES;  // [DQ_STAGES]
+  uint64_t* v_empty = k_empty + DQ_STAGES; // [DQ_STAGES]
 
-  const int n_q_tiles = (s_q + BM - 1) / BM;
-  const int q0 = (n_q_tiles - 1 - (int)blockIdx.x) * BM;
-  const int hh = blockIdx.y, bb = blockIdx.z;
-  const int hk = hh / (h / h_kv);
-  const size_t qh = (size_t)bb * h + hh;
-  const bf16* kp = k + ((size_t)bb * h_kv + hk) * s_k * D;
-  const bf16* vp = v + ((size_t)bb * h_kv + hk) * s_k * D;
-  const int lane = threadIdx.x % 32, wr = (threadIdx.x / 32) * 16;
-  const int g = lane >> 2, t = lane & 3;
-  const float scale_log2 = scale * LOG2E;
+  const int n_q_tiles = cdiv(s_q, 128);
+  const int q0 = (n_q_tiles - 1 - (int)blockIdx.z) * 128;  // longest causal rows first
+  const int hh = blockIdx.x, bb = blockIdx.y;
+  const int qh = bb * h + hh, kvh = bb * h_kv + hh / (h / h_kv);
+  int n_k_tiles = cdiv(s_k, DQ_BK);
+  if (causal) n_k_tiles = min(n_k_tiles, (q0 + 127) / DQ_BK + 1);
 
-  int n_k_tiles = (s_k + BN - 1) / BN;
-  if (causal) n_k_tiles = min(n_k_tiles, (q0 + BM - 1) / BN + 1);
-
-  load_tile_async<D>(sQ, q + qh * s_q * D, q0, s_q);
-  load_tile_async<D>(sdO, dout + qh * s_q * D, q0, s_q);
-  load_tile_async<D>(sKV, kp, 0, s_k);
-  load_tile_async<D>(sKV + T::ELEMS, vp, 0, s_k);
-  cp_async_commit();
-
-  // this lane's two rows' lse (exp2 domain) and delta; 0 past s_q
-  float lse2[2], dl[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + wr + g + 8 * r;
-    lse2[r] = qi < s_q ? lse[qh * s_q + qi] * LOG2E : 0.f;
-    dl[r] = qi < s_q ? delta[qh * s_q + qi] : 0.f;
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  for (int kt = 0; kt < n_k_tiles; ++kt) {
-    const int k0 = kt * BN;
-    const bf16* sK = sKV + (kt & 1) * 2 * T::ELEMS;
-    const bf16* sV = sK + T::ELEMS;
-    if (kt + 1 < n_k_tiles) {
-      bf16* nK = sKV + ((kt + 1) & 1) * 2 * T::ELEMS;
-      load_tile_async<D>(nK, kp, k0 + BN, s_k);
-      load_tile_async<D>(nK + T::ELEMS, vp, k0 + BN, s_k);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < DQ_STAGES; ++st) {
+      mbar_init(k_full + st, 1);
+      mbar_init(v_full + st, 1);
+      mbar_init(k_empty + st, CONSUMERS);
+      mbar_init(v_empty + st, CONSUMERS);
     }
-    __syncthreads();
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-    // S = Q K^T and dP = dO V^T
-    float s[BN / 8][4], dp[BN / 8][4];
-#pragma unroll
-    for (int n = 0; n < BN / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4], da[4];
-      load_a<LD>(qa, sQ, wr, kk * 16, lane);
-      load_a<LD>(da, sdO, wr, kk * 16, lane);
-#pragma unroll
-      for (int np = 0; np < BN / 16; ++np) {
-        uint32_t b[4];
-        load_b_nk<LD>(b, sK, np * 16, kk * 16, lane);
-        mma(s[2 * np], qa, b[0], b[1]);
-        mma(s[2 * np + 1], qa, b[2], b[3]);
-        load_b_nk<LD>(b, sV, np * 16, kk * 16, lane);
-        mma(dp[2 * np], da, b[0], b[1]);
-        mma(dp[2 * np + 1], da, b[2], b[3]);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: one thread issues every load
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_full, 2 * L::Q_TILE);
+      for (int sub = 0; sub < D / 64; ++sub) {
+        tma_load_3d(smem + L::Q + sub * L::Q_SUB, &tm_q, q_full, 64 * sub, q0, qh);
+        tma_load_3d(smem + L::DO + sub * L::Q_SUB, &tm_do, q_full, 64 * sub, q0, qh);
+      }
+      for (int kt = 0; kt < n_k_tiles; ++kt) {
+        const int st = kt % DQ_STAGES;
+        const uint32_t ph = (kt / DQ_STAGES) & 1;
+        mbar_wait(k_empty + st, ph ^ 1);
+        mbar_arrive_expect_tx(k_full + st, L::KV_TILE);
+        for (int sub = 0; sub < D / 64; ++sub)
+          tma_load_3d(smem + L::K + st * L::KV_TILE + sub * L::KV_SUB, &tm_k, k_full + st,
+                      64 * sub, kt * DQ_BK, kvh);
+        mbar_wait(v_empty + st, ph ^ 1);
+        mbar_arrive_expect_tx(v_full + st, L::KV_TILE);
+        for (int sub = 0; sub < D / 64; ++sub)
+          tma_load_3d(smem + L::V + st * L::KV_TILE + sub * L::KV_SUB, &tm_v, v_full + st,
+                      64 * sub, kt * DQ_BK, kvh);
       }
     }
+  } else {
+    // consumers: warpgroup wc owns q rows 64 wc .. 64 wc + 63 of the tile
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int wc = wg - 1, t128 = threadIdx.x % 128;
+    const int lane = t128 % 32, g = lane >> 2, t = lane & 3;
+    const int row = 64 * wc + 16 * (t128 / 32) + g;  // this thread's rows: row, row + 8
+    const int first_row = q0 + 64 * wc;
+    const float scale_log2 = scale * LOG2E;
+    const uint32_t sq = smem_u32(smem + L::Q) + 64 * wc * ROW_BYTES;
+    const uint32_t sdo = smem_u32(smem + L::DO) + 64 * wc * ROW_BYTES;
 
-    // P = exp2(s - lse), dS = P (dP - delta) scale, kept in s
-    const bool masked = (k0 + BN > s_k) || (causal && k0 + BN - 1 > q0);
+    // this thread's two rows' lse (exp2 domain) and delta, plain loads
+    // (a head's rows start at any offset); 0 past s_q
+    float lse2[2], dl[2];
 #pragma unroll
-    for (int n = 0; n < BN / 8; ++n) {
+    for (int r = 0; r < 2; ++r) {
+      const int qi = q0 + row + 8 * r;
+      const size_t i = (size_t)qh * s_q + qi;
+      lse2[r] = qi < s_q ? lse[i] * LOG2E : 0.f;
+      dl[r] = qi < s_q ? delta[i] : 0.f;
+    }
+    float dq[D / 2];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * scale_log2;
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    mbar_wait(q_full, 0);
+
+    for (int kt = 0; kt < n_k_tiles; ++kt) {
+      const int st = kt % DQ_STAGES, k0 = kt * DQ_BK;
+      const uint32_t ph = (kt / DQ_STAGES) & 1;
+      const uint32_t sk = smem_u32(smem + L::K + st * L::KV_TILE);
+      const uint32_t sv = smem_u32(smem + L::V + st * L::KV_TILE);
+
+      // S = Q K^T and dP = dO V^T: 64 q rows x DQ_BK keys, one commit group
+      float s[DQ_BK / 2], dp[DQ_BK / 2];
+      mbar_wait(k_full + st, ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t a_off = (kk / 4) * L::Q_SUB + (kk % 4) * 32;
+        const uint32_t b_off = (kk / 4) * L::KV_SUB + (kk % 4) * 32;
+        wgmma_ss<0, 0>(s, desc_sw128(sq + a_off, 16, 1024), desc_sw128(sk + b_off, 16, 1024),
+                       kk > 0);
+      }
+      mbar_wait(v_full + st, ph);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t a_off = (kk / 4) * L::Q_SUB + (kk % 4) * 32;
+        const uint32_t b_off = (kk / 4) * L::KV_SUB + (kk % 4) * 32;
+        wgmma_ss<0, 0>(dp, desc_sw128(sdo + a_off, 16, 1024), desc_sw128(sv + b_off, 16, 1024),
+                       kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      mbar_arrive(v_empty + st);  // V is read by nothing else
+
+      // P = exp2(s - lse), dS = P (dP - delta) scale, kept in dp
+      const bool masked = (k0 + DQ_BK > s_k) || (causal && k0 + DQ_BK - 1 > first_row);
+#pragma unroll
+      for (int i = 0; i < DQ_BK / 2; ++i) {
+        float x = s[i] * scale_log2;
         if (masked) {
-          const int key = k0 + n * 8 + 2 * t + (e & 1);
-          const int qi = q0 + wr + g + (e >> 1) * 8;
+          const int key = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+          const int qi = q0 + row + 8 * ((i >> 1) & 1);
           if (key >= s_k || (causal && key > qi)) x = NEG_INF;
         }
-        const float p = exp2f(x - lse2[e >> 1]);
-        s[n][e] = p * (dp[n][e] - dl[e >> 1]) * scale;
+        const float p = exp2f(x - lse2[(i >> 1) & 1]);
+        dp[i] = p * (dp[i] - dl[(i >> 1) & 1]) * scale;
       }
+      uint32_t da[DQ_BK / 4];  // dS in bf16: the A operand of DQ_BK / 16 k-steps
+      pack_a(dp, da);
+
+      // dQ += dS K over the tile's keys, K MN-major from the same stage
+      fence_regs(dq);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < DQ_BK / 16; ++j)
+        wgmma_rs<1>(dq, da + 4 * j, desc_sw128(sk + j * 16 * ROW_BYTES, L::KV_SUB, 1024), true);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      mbar_arrive(k_empty + st);
     }
 
-    // dQ += dS K, with dS (rounded to bf16) as the A operand
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j) {
-      const uint32_t da[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                              pack_bf16(s[2 * j][2], s[2 * j][3]),
-                              pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                              pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-#pragma unroll
-      for (int n2 = 0; n2 < D / 16; ++n2) {
-        uint32_t b[4];
-        load_b_kn<LD>(b, sK, j * 16, n2 * 16, lane);
-        mma(acc[2 * n2], da, b[0], b[1]);
-        mma(acc[2 * n2 + 1], da, b[2], b[3]);
-      }
+    // epilogue: dQ as bf16 through this warpgroup's own Q rows (read by
+    // no one else), then one TMA store a 64-column box; the map clips rows
+    // past s_q
+    fence_proxy_async();
+    stage_rows(dq, smem + L::Q, L::Q_SUB, row, t);
+    fence_proxy_async();
+    named_barrier(1 + wc, 128);
+    if (t128 == 0 && first_row < s_q) {
+      for (int sub = 0; sub < D / 64; ++sub)
+        tma_store_3d(&tm_dq, smem + L::Q + sub * L::Q_SUB + 64 * wc * ROW_BYTES, 64 * sub,
+                     first_row, qh);
+      tma_store_commit();
+      tma_store_wait_read();
     }
-    __syncthreads();
   }
-
-  // sQ rows are read only by their own warp: stage through them
-  store_rows<D>(acc, sQ, dq + qh * s_q * D, q0, wr, s_q, lane);
 }
 
 template <typename Kernel>
@@ -801,12 +733,19 @@ template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int b, int h, int h_kv,
               int s_q, int s_k, float scale, int causal, cudaStream_t stream) {
-  constexpr int smem = Tile<D>::DQ_SMEM;
-  if (int err = set_smem(flash_bwd_dq_kernel<D>, smem)) return err;
-  dim3 grid((s_q + BM - 1) / BM, h, b);
-  flash_bwd_dq_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dq, h, h_kv, s_q, s_k, scale,
+  CUtensorMap tq, tdo, tk, tv, tdq;
+  cudaError_t err;
+  if ((err = map_bf16_3d(&tq, q, D, s_q, b * h, 128)) ||
+      (err = map_bf16_3d(&tdo, dout, D, s_q, b * h, 128)) ||
+      (err = map_bf16_3d(&tk, k, D, s_k, b * h_kv, DQ_BK)) ||
+      (err = map_bf16_3d(&tv, v, D, s_k, b * h_kv, DQ_BK)) ||
+      (err = map_bf16_3d(&tdq, dq, D, s_q, b * h, 64)))
+    return (int)err;
+  constexpr int smem = DqSmem<D>::BYTES;
+  if (int e = set_smem(flash_bwd_dq_kernel<D>, smem)) return e;
+  dim3 grid(h, b, cdiv(s_q, 128));
+  flash_bwd_dq_kernel<D><<<grid, WS_THREADS, smem, stream>>>(
+      tq, tdo, tk, tv, (const float*)lse, (const float*)delta, tdq, h, h_kv, s_q, s_k, scale,
       causal);
   return (int)cudaGetLastError();
 }

@@ -41,6 +41,8 @@ SHAPES = [
     (1, 4, 4, 200, 456, 64, True),
     (1, 4, 4, 456, 200, 128, True),
     (1, 4, 1, 64, 64, 64, False),
+    # dQ with s_q not a multiple of 64 and GQA over two kv tiles
+    (1, 8, 2, 200, 200, 128, True),
 ]
 
 
@@ -85,18 +87,21 @@ def test_kernels_match_plain(cuda, shape):
         assert not dk[:, :, s_q:].any() and not dv[:, :, s_q:].any()
 
 
-def test_fwd_and_dkv_are_bitwise_deterministic(cuda):
-    """o, dK and dV are the same bits in two calls: the dK/dV block sums
-    its GQA group in registers, with no atomics (GQA, causal, ragged)."""
+def test_fwd_dq_and_dkv_are_bitwise_deterministic(cuda):
+    """o, dQ, dK and dV are the same bits in two calls: the dQ block sums
+    its kv tiles and the dK/dV block its GQA group in registers, in a
+    fixed order, with no atomics (GQA, causal, ragged)."""
     gen = torch.Generator(device=cuda).manual_seed(4)
     q, do = _rand(2, 8, 320, 128, gen=gen), _rand(2, 8, 320, 128, gen=gen)
     k, v = _rand(2, 2, 320, 128, gen=gen), _rand(2, 2, 320, 128, gen=gen)
     (o1, lse1), (o2, lse2) = (fa.flash_fwd(q, k, v) for _ in range(2))
     delta = (do.float() * o1.float()).sum(-1, keepdim=True)
+    dq1, dq2 = (fa.flash_bwd_dq(q, k, v, do, lse1, delta) for _ in range(2))
     (dk1, dv1), (dk2, dv2) = (fa.flash_bwd_dkv(q, k, v, do, lse1, delta)
                               for _ in range(2))
     torch.cuda.synchronize()
-    for a, b in ((o1, o2), (lse1, lse2), (dk1, dk2), (dv1, dv2)):
+    for a, b in ((o1, o2), (lse1, lse2), (dq1, dq2), (dk1, dk2),
+                 (dv1, dv2)):
         assert torch.equal(a, b)
 
 

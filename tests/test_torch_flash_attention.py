@@ -188,6 +188,30 @@ def test_bf16_tolerance_passes_128_row_tiles():
     assert tfa.bf16_within_tolerance(err), err
 
 
+def _tiled_dq(q, k, v, do, lse, delta, k_lag=0, tile=128):
+    """dQ summed over kv tiles in order, in f32, dS rounded to bf16 and
+    dQ cast once, as the wgmma dQ kernel does (128-row tiles); ``k_lag=1``
+    takes dS·K with the previous tile's K."""
+    _, ds = tfa._probs_and_ds(q, k, v, do, lse, delta,
+                              1.0 / np.sqrt(q.shape[-1]), True)
+    ds = ds.to(k.dtype).float()
+    dq = torch.zeros(q.shape)
+    for j in range(0, k.shape[2], tile):
+        jk = max(j - k_lag * tile, 0)
+        dq += torch.matmul(ds[..., j:j + tile], k[:, :, jk:jk + tile].float())
+    return dq.to(q.dtype)
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+def test_bf16_tolerance_passes_dq_over_kv_tiles(tile):
+    """The wgmma dQ kernel sums dS·K over kv tiles in order, in f32:
+    that order of summation passes at 64- and 128-row tiles."""
+    q, k, v, do, _, lse, delta = _bf16_case()
+    err = tfa.bf16_error(_tiled_dq(q, k, v, do, lse, delta, tile=tile),
+                         tfa.flash_bwd_dq_plain(q, k, v, do, lse, delta))
+    assert tfa.bf16_within_tolerance(err), err
+
+
 def _swizzle_misread(t):
     """``t`` as a kernel reads a 128B-swizzled tile without undoing the
     swizzle: in row r, 8-column chunk c of each 64-column half holds
@@ -204,7 +228,10 @@ def _swizzle_misread(t):
                                    "dq_last_kv_tile", "o_ragged_rows",
                                    "stale_ring_stage", "swizzle_chunks",
                                    "second_warpgroup_rows",
-                                   "dkv_wrong_q_tile_stats"])
+                                   "dkv_wrong_q_tile_stats",
+                                   "dq_stale_ring_stage",
+                                   "dq_row_stats_swapped",
+                                   "dq_k_tile_repeated"])
 def test_bf16_tolerance_rejects_kernel_faults(fault):
     """The limit scales with the reference's RMS, not with its causal
     outliers (row 0 of o, key 0 of dK/dV), so a fault of typical size
@@ -226,6 +253,19 @@ def test_bf16_tolerance_rejects_kernel_faults(fault):
         lse_w[:, :, 64:], delta_w[:, :, 64:] = lse[:, :, :-64], delta[:, :, :-64]
         got = tfa.flash_bwd_dkv_plain(q, k, v, do, lse_w, delta_w)[0]
         want = tfa.flash_bwd_dkv_plain(q, k, v, do, lse, delta)[0]
+    elif fault == "dq_stale_ring_stage":  # kv tile 2 read from tile 0's stage
+        ks, vs = k.clone(), v.clone()
+        ks[:, :, 256:384], vs[:, :, 256:384] = k[:, :, 0:128], v[:, :, 0:128]
+        got = tfa.flash_bwd_dq_plain(q, ks, vs, do, lse, delta)
+        want = tfa.flash_bwd_dq_plain(q, k, v, do, lse, delta)
+    elif fault == "dq_row_stats_swapped":  # row r given row r ^ 8's stats
+        rows = torch.arange(s) ^ 8
+        got = tfa.flash_bwd_dq_plain(q, k, v, do, lse[:, :, rows],
+                                     delta[:, :, rows])
+        want = tfa.flash_bwd_dq_plain(q, k, v, do, lse, delta)
+    elif fault == "dq_k_tile_repeated":   # dS·K with the previous tile's K
+        got = _tiled_dq(q, k, v, do, lse, delta, k_lag=1)
+        want = tfa.flash_bwd_dq_plain(q, k, v, do, lse, delta)
     elif fault == "missed_rescale":
         got, want = _tiled_fwd(q, k, v, rescale=False), o
     elif fault == "dkv_late_queries":     # q tiles past s/2 never visited
