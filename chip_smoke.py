@@ -28,9 +28,21 @@ Phases (each one's failure ends the run with a nonzero exit):
            trained through ElasticTrainLoop, 2 warm-up + 5 timed steps;
            each flash kernel launches 22 times per step, rms_fwd and
            rms_bwd 45 times
+  resume   the same Llama-1B through ElasticTrainLoop with a flash
+           checkpoint in a temporary directory (deleted at the end; the
+           phase fails if the disk cannot hold one checkpoint): A 6 steps
+           saving at 3; B a fresh loop restores 3 and trains 4-6, the same
+           bits as A, the restore's peak device memory within the state
+           plus its largest leaf; C the same with int8 parameters, losses
+           within 0.1% of A's, 201 quantize and 201 dequantize launches,
+           codes bit for bit with the plain versions; D a worker process
+           at 2 layers gets SIGTERM after its second step, saves where it
+           stops and a second one resumes there; E 3 steps with AdamW's
+           moments in pinned host memory, the same bits as A's first 3
 
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}. Imports nothing of JAX.
+The line before the last is the kernels' JSON record (the quantization
+pair's launches are the resume phase's checkpoint path); the last line
+is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -877,32 +889,438 @@ def phase_llama1b(warmup: int = 2, timed: int = 5,
               "peak_mem_gb": peak_gb, "launches_per_step": {
                   n: c / len(hist) for n, c in launches.items()}}
     log(f"llama1b: {json.dumps(result)}")
-    return launches
+    return launches, result
+
+
+# ---------------------------------------------------------------------------
+# resume: flash checkpoint and restore at Llama-1B
+# ---------------------------------------------------------------------------
+
+# the SIGTERM drill's worker: Llama-1B at 2 layers and full width, run
+# through the port only, with the loop's SIGTERM handler installed. The
+# first run prints "ready" after its second step and pauses there, so the
+# signal lands before its third step; the second run resumes.
+SIGTERM_WORKER = r'''
+import dataclasses, functools, json, sys, time
+import torch
+from dlrover_tpu_torch.models.llama import Llama, LlamaConfig, cross_entropy_loss
+from dlrover_tpu_torch.trainer.elastic_loop import ElasticTrainLoop, TrainLoopConfig
+from dlrover_tpu_torch.trainer.sampler import ElasticDistributedSampler
+from dlrover_tpu_torch.trainer.synthetic import batches, synthetic_corpus
+
+ckpt, first = sys.argv[1], sys.argv[2] == "first"
+cfg = dataclasses.replace(LlamaConfig.llama_1b(
+    max_seq_len=2048, attn_impl="flash", norm_impl="fused",
+    embed_impl="gather"), num_layers=2)
+loop = ElasticTrainLoop(
+    functools.partial(Llama, cfg),
+    lambda p: torch.optim.AdamW(p, lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=0.1),
+    cross_entropy_loss,
+    TrainLoopConfig(global_batch=8, seq_len=2048, max_micro_per_replica=8,
+                    max_steps=8 if first else 2, checkpoint_dir=ckpt,
+                    save_interval_steps=1000, report_interval_steps=0))
+loop.install_signal_handler()
+sampler = ElasticDistributedSampler(dataset_size=10 ** 6, seed=0)
+state, start = loop.restore_or_init(0, sampler)
+position = sampler.completed_num
+
+def data():
+    for i, batch in enumerate(batches(synthetic_corpus(cfg.vocab_size),
+                                      sampler, 8, 2048)):
+        if first and i == 2:
+            print("ready", flush=True)
+            time.sleep(5)
+        yield batch
+
+state, metrics = loop.run(state, data(), start_step=start, sampler=sampler)
+print(json.dumps({"start": start, "position": position,
+                  "step": metrics["step"],
+                  "latest": loop.checkpointer.latest_step(),
+                  "losses": [r["loss"] for r in metrics["history"]]}))
+loop.close()
+'''
+
+
+def _free_memory() -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _dir_bytes(path: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(root, name))
+               for root, _, files in os.walk(path) for name in files)
+
+
+def _resume_loop(cfg, ckpt_dir: str, bits: int, save_interval: int):
+    from dlrover_tpu_torch.models.llama import Llama, cross_entropy_loss
+    from dlrover_tpu_torch.trainer.elastic_loop import (
+        ElasticTrainLoop,
+        TrainLoopConfig,
+    )
+
+    return ElasticTrainLoop(
+        functools.partial(Llama, cfg), _adamw, cross_entropy_loss,
+        TrainLoopConfig(global_batch=8, seq_len=cfg.max_seq_len,
+                        max_micro_per_replica=8, max_steps=3,
+                        checkpoint_dir=ckpt_dir,
+                        save_interval_steps=save_interval,
+                        checkpoint_quantize_bits=bits,
+                        report_interval_steps=0))
+
+
+def _sampler_and_data(cfg):
+    from dlrover_tpu_torch.trainer.sampler import ElasticDistributedSampler
+    from dlrover_tpu_torch.trainer.synthetic import batches, synthetic_corpus
+
+    sampler = ElasticDistributedSampler(dataset_size=10 ** 6, seed=0)
+
+    def data():
+        # created at the first step, so a restored position counts
+        yield from batches(synthetic_corpus(cfg.vocab_size), sampler, 8,
+                           cfg.max_seq_len)
+
+    return sampler, data()
+
+
+def _saved_codes(ckpt_dir: str, step: int, state) -> dict:
+    """The int8 codes and scales of a step on disk, read into host
+    buffers laid out for ``state``'s parameters."""
+    import os
+
+    import torch.distributed.checkpoint as dcp
+
+    from dlrover_tpu_torch.checkpoint import quantized as cq
+
+    params = {n: p.detach() for n, p in state.model.named_parameters()}
+    target = cq.abstract_encoded(params, 8)
+    dcp.load({"model": target}, checkpoint_id=os.path.join(ckpt_dir,
+                                                           str(step)))
+    return target
+
+
+def _check_saved_codes(ckpt_dir: str, step: int, state) -> None:
+    """Before a restore: the codes on disk are the plain quantization of
+    the parameters that were saved (``state`` at the saved step)."""
+    from dlrover_tpu_torch.checkpoint import quantized as cq
+
+    codes = _saved_codes(ckpt_dir, step, state)
+    want = cq.encode_tree({n: p.detach().cpu() for n, p in
+                           state.model.named_parameters()}, 8)
+    bad = [name for name, node in codes.items() if cq._is_encoded(node)
+           and not (torch.equal(node["q"], want[name]["q"])
+                    and torch.equal(node["s"], want[name]["s"]))]
+    if bad:
+        raise AssertionError(f"saved codes differ from the plain "
+                             f"quantization: {bad}")
+
+
+def _check_restored_codes(ckpt_dir: str, step: int, state) -> int:
+    """After a restore: the parameters (dequantized by the kernel) are
+    the plain dequantization of the codes on disk, bit for bit; returns
+    the leaves compared."""
+    from dlrover_tpu_torch.checkpoint import quantized as cq
+    from dlrover_tpu_torch.ops import quantization as qz
+
+    codes = _saved_codes(ckpt_dir, step, state)
+    params = dict(state.model.named_parameters())
+    bad = []
+    for name, node in codes.items():
+        if not cq._is_encoded(node):
+            continue
+        got = params[name].detach().cpu()
+        want = qz.dequantize_plain(node["q"].reshape(-1, 128),
+                                   node["s"].reshape(-1, 1)
+                                   ).reshape(got.shape)
+        if not torch.equal(got, want):
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"restored parameters differ from the plain "
+                             f"dequantization: {bad}")
+    return len(codes)
+
+
+def _quant_kernel_times() -> dict:
+    """quantize_rows / dequantize_rows at the embed table's shape
+    (32000×2048 f32, groups of 128), against their bounds."""
+    from dlrover_tpu_torch.ops import quantization as qz
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x2 = (0.02 * torch.randn(32000, 2048, generator=g, device="cuda")
+          ).reshape(-1, 128)
+    q2, s2 = qz.quantize_rows(x2, 127)
+    n = x2.numel()
+    out = {}
+    for name, fn, bounds in (
+            ("quantize", lambda: qz.quantize_rows(x2, 127),
+             roofline(4 * n, PEAK_F32_FLOPS, 4 * n + n + 4 * len(x2))),
+            ("dequantize", lambda: qz.dequantize_rows(q2, s2),
+             roofline(n, PEAK_F32_FLOPS, n + 4 * len(x2) + 4 * n))):
+        ms = time_ms(fn)
+        out[name] = {"ms": ms, "bound_ms": bounds[0], "bound_by": bounds[1]}
+    del x2, q2, s2
+    return out
+
+
+def _sigterm_drill(tmp: str) -> dict:
+    """D: a worker process gets SIGTERM after its second step, saves the
+    step it stops on and exits 0; a second worker resumes there."""
+    import os
+    import signal
+
+    script = os.path.join(tmp, "sigterm_worker.py")
+    with open(script, "w") as f:
+        f.write(SIGTERM_WORKER)
+    ckpt = os.path.join(tmp, "sigterm")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    outs = []
+    for mode in ("first", "second"):
+        proc = subprocess.Popen([sys.executable, script, ckpt, mode],
+                                stdout=subprocess.PIPE, text=True, env=env)
+        try:
+            lines = []
+            for line in proc.stdout:
+                lines.append(line)
+                if line.strip() == "ready":
+                    proc.send_signal(signal.SIGTERM)
+            code = proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if code != 0:
+            raise AssertionError(f"SIGTERM drill {mode} run exited {code}")
+        outs.append(json.loads(lines[-1]))
+    first, second = outs
+    log(f"resume D (SIGTERM): first run stopped at step {first['step']} "
+        f"(latest saved {first['latest']}), second started at "
+        f"{second['start']} with the sampler at {second['position']}, "
+        f"losses {first['losses']} then {second['losses']}")
+    if not (first["step"] == first["latest"] == second["start"] == 3
+            and second["position"] == 24):
+        raise AssertionError(f"SIGTERM drill did not resume where it "
+                             f"stopped: {first} {second}")
+    return {"stopped_at": first["step"], "resumed_at": second["start"]}
+
+
+def phase_resume(smi: str, llama1b: dict) -> dict:
+    """Llama-1B at full width and depth through ElasticTrainLoop with a
+    flash checkpoint: A 6 steps saving at 3; B a fresh loop restores 3
+    and trains 4-6, the same bits as A; C the same with int8 parameters
+    (losses within 0.1%, 201 quantize and 201 dequantize launches, codes
+    bit for bit with the plain versions); D the SIGTERM drill; E 3 steps
+    with the moments offloaded, the same bits as A's first 3."""
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch.checkpoint import quantized as cq
+    from dlrover_tpu_torch.models.llama import (
+        Llama,
+        LlamaConfig,
+        cross_entropy_loss,
+    )
+    from dlrover_tpu_torch.trainer.train_step import build_trainer
+
+    cfg = LlamaConfig.llama_1b(max_seq_len=2048, attn_impl="flash",
+                               norm_impl="fused", embed_impl="gather")
+    params = cfg.param_count()
+    state_bytes = 3 * 4 * params
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    out = {"card": smi}
+    try:
+        free = shutil.disk_usage(tmp).free
+        log(f"resume: checkpoints in {tmp}, {free / 1e9:.1f} GB free; one "
+            f"exact checkpoint is {state_bytes / 1e9:.2f} GB ({smi})")
+        if free < 1.1 * state_bytes:
+            raise AssertionError(f"{free / 1e9:.1f} GB free in {tmp}: less "
+                                 f"than one checkpoint")
+        dir_a = f"{tmp}/exact"
+
+        # A: 6 steps, the save at step 3
+        loop = _resume_loop(cfg, dir_a, 0, 3)
+        sampler, data = _sampler_and_data(cfg)
+        state, _ = loop.restore_or_init(0, sampler)
+        state, m1 = loop.run(state, data, 0, sampler)
+        save = dict(loop.checkpointer.last_save)
+        loop.checkpointer.save_interval_steps = 0
+        state, m2 = loop.run(state, data, 3, sampler)
+        hist_a = m1["history"] + m2["history"]
+        loop.close()
+        del state, loop
+        _free_memory()
+        step_s = statistics.mean(r["step_time_s"] for r in hist_a)
+        ckpt_bytes = _dir_bytes(f"{dir_a}/3")
+        write_s = save["commit_s"] - save["blocking_s"]
+        out["a"] = {"losses": [r["loss"] for r in hist_a],
+                    "blocking_save_ms": save["blocking_s"] * 1e3,
+                    "blocking_share_of_step": save["blocking_s"] / step_s,
+                    "commit_s": save["commit_s"], "bytes": ckpt_bytes,
+                    "write_gb_s": ckpt_bytes / write_s / 1e9}
+        log(f"resume A: {json.dumps(out['a'])} ({smi})")
+
+        # B: a fresh loop restores step 3 and trains 4-6
+        loop = _resume_loop(cfg, dir_a, 0, 0)
+        sampler, data = _sampler_and_data(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        state, start = loop.restore_or_init(0, sampler)
+        restore_peak = torch.cuda.max_memory_allocated() - before
+        largest = max(p.numel() * 4 for p in state.model.parameters())
+        timings = dict(loop.last_restore_timings)
+        position = sampler.completed_num
+        state, m = loop.run(state, data, start, sampler)
+        loop.close()
+        del state, loop
+        _free_memory()
+        hist_b = m["history"]
+        pairs = [(a[k], b[k]) for a, b in zip(hist_a[3:], hist_b)
+                 for k in ("loss", "grad_norm")]
+        same_bits = all(a == b for a, b in pairs)
+        rel = max(abs(a - b) / abs(a) for a, b in pairs)
+        out["b"] = {"start": start, "sampler": position,
+                    "losses": [r["loss"] for r in hist_b],
+                    "same_bits": same_bits, "max_rel_diff": rel,
+                    "restore_peak_gb": restore_peak / 2 ** 30,
+                    "limit_gb": (state_bytes + largest) / 2 ** 30,
+                    "read_gb_s": timings.get("restore_restored_bytes", 0)
+                    / max(timings.get("restore_tensor_read_s", 0), 1e-9)
+                    / 1e9, "timings": timings}
+        log(f"resume B: {json.dumps(out['b'])} ({smi})")
+        if start != 3 or position != 24 or len(hist_b) != 3:
+            raise AssertionError(f"B resumed at step {start}, sampler "
+                                 f"{position}, ran {len(hist_b)} steps")
+        if not (same_bits or rel < 1e-6):
+            raise AssertionError(f"B's steps 4-6 differ from A's by {rel}")
+        if restore_peak > state_bytes + largest:
+            raise AssertionError(f"restore peaked at {restore_peak} bytes, "
+                                 f"over the state's {state_bytes} + "
+                                 f"{largest}")
+        shutil.rmtree(dir_a)
+
+        # C: int8 parameters
+        dir_c = f"{tmp}/int8"
+        loop = _resume_loop(cfg, dir_c, 8, 3)
+        sampler, data = _sampler_and_data(cfg)
+        state, _ = loop.restore_or_init(0, sampler)
+        reset_counts()
+        state, _ = loop.run(state, data, 0, sampler)
+        save_launches = read_counts()
+        _check_saved_codes(dir_c, 3, state)
+        params_sd = {n: p.detach() for n, p in state.model.named_parameters()}
+        enc = cq.abstract_encoded(params_sd, 8)
+        codes = sum(n["q"].numel() for n in enc.values() if cq._is_encoded(n))
+        scales = sum(n["s"].numel() * 4 for n in enc.values()
+                     if cq._is_encoded(n))
+        loop.close()
+        del state, loop, params_sd, enc
+        _free_memory()
+        loop = _resume_loop(cfg, dir_c, 8, 0)
+        sampler, data = _sampler_and_data(cfg)
+        reset_counts()
+        state, start = loop.restore_or_init(0, sampler)
+        restore_launches = read_counts()
+        leaves = _check_restored_codes(dir_c, start, state)
+        timings_c = dict(loop.last_restore_timings)
+        state, m = loop.run(state, data, start, sampler)
+        loop.close()
+        del state, loop
+        _free_memory()
+        hist_c = m["history"]
+        rel_c = max(abs(a["loss"] - c["loss"]) / a["loss"]
+                    for a, c in zip(hist_a[3:], hist_c))
+        out["c"] = {"start": start, "losses": [r["loss"] for r in hist_c],
+                    "max_rel_loss_diff": rel_c,
+                    "quantize_launches": save_launches["quantize"],
+                    "dequantize_launches": restore_launches["dequantize"],
+                    "leaves": leaves, "bytes": _dir_bytes(f"{dir_c}/3"),
+                    "codes_bytes": codes, "scales_bytes": scales,
+                    "timings": timings_c,
+                    "kernels_at_embed": _quant_kernel_times()}
+        log(f"resume C: {json.dumps(out['c'])} ({smi})")
+        if start != 3 or len(hist_c) != 3 or not rel_c < 1e-3:
+            raise AssertionError(f"C: start {start}, losses off by {rel_c}")
+        if (save_launches["quantize"], restore_launches["dequantize"]) != (
+                201, 201):
+            raise AssertionError(f"C launched {save_launches} saving and "
+                                 f"{restore_launches} restoring")
+        shutil.rmtree(dir_c)
+
+        out["d"] = _sigterm_drill(tmp)
+
+        # E: the first 3 steps again, moments in host memory between steps
+        trainer = build_trainer(functools.partial(Llama, cfg), _adamw, None,
+                                torch.zeros(8, cfg.max_seq_len),
+                                cross_entropy_loss, micro_batch=8,
+                                offload_opt_state=True)
+        sampler, data = _sampler_and_data(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        state = trainer.init(0)
+        hist_e = []
+        for _, (tokens, targets) in zip(range(3), data):
+            t0 = time.monotonic()
+            state, metrics = trainer.step(state, *trainer.shard_batch(
+                tokens, targets))
+            hist_e.append((float(metrics["loss"]), time.monotonic() - t0))
+            sampler.record_batch(8)
+        moments = [v for s in state.optimizer.state.values()
+                   for v in s.values() if v.ndim > 0]
+        pinned = all(v.device.type == "cpu" and v.is_pinned()
+                     for v in moments)
+        peak_e = torch.cuda.max_memory_allocated() / 2 ** 30
+        del state, trainer, moments
+        _free_memory()
+        out["e"] = {"losses": [x for x, _ in hist_e],
+                    "step_ms": [t * 1e3 for _, t in hist_e],
+                    "peak_gb": peak_e, "pinned_between_steps": pinned,
+                    "llama1b_step_ms": llama1b.get("step_ms", "not measured"),
+                    "llama1b_peak_gb": llama1b.get("peak_mem_gb",
+                                                   "not measured")}
+        log(f"resume E (offload): {json.dumps(out['e'])} ({smi})")
+        if out["e"]["losses"] != out["a"]["losses"][:3] or not pinned:
+            raise AssertionError(f"offloaded steps {out['e']['losses']} "
+                                 f"against {out['a']['losses'][:3]}, pinned "
+                                 f"{pinned}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--phases", default="kernels,quant,parity,llama1b",
+    parser.add_argument("--phases",
+                        default="kernels,quant,parity,llama1b,resume",
                         help="comma-separated subset of kernels, quant, "
-                             "parity, llama1b (device and build always "
-                             "run)")
+                             "parity, llama1b, resume (device and build "
+                             "always run)")
     parser.add_argument("--profile", default="",
                         help="after the Llama-1B run, profile one more "
                              "step and write the kernel table here")
     args = parser.parse_args(argv)
     phases = args.phases.split(",")
     t0 = time.monotonic()
-    phase_device()
+    smi = phase_device()
     phase_build()
     train_records = phase_kernels() if "kernels" in phases else []
     quant_records = phase_quant() if "quant" in phases else []
     if "parity" in phases:
         phase_parity()
+    llama1b = {}
     if "llama1b" in phases:
         # the training path's kernels take their launches from its run
-        launches = phase_llama1b(profile_out=args.profile)
+        launches, llama1b = phase_llama1b(profile_out=args.profile)
         for rec in train_records:
             rec["launches"] = launches[rec["name"]]
+    if "resume" in phases:
+        # the quantization pair's path: the int8 checkpoint's save and
+        # restore
+        resume = phase_resume(smi, llama1b)
+        for rec in quant_records:
+            rec["launches"] = resume["c"][f"{rec['name']}_launches"]
     records = train_records + quant_records
     log(f"elapsed {time.monotonic() - t0:.1f} s")
     print(json.dumps({"kernels": records}))

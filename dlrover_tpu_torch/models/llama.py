@@ -15,17 +15,23 @@ the plain norm (``"reference"``).
 Parameter names follow the flax tree: ``embed``, ``layer_{i}.attn_norm
 .weight``, ``layer_{i}.attn.{q,k,v,o}_proj.kernel``,
 ``layer_{i}.mlp.{gate,up,down}_proj.kernel``, ``layer_{i}.mlp_norm
-.weight``, ``final_norm.weight`` and ``lm_head``.
+.weight``, ``final_norm.weight`` and ``lm_head``. Each module's
+``param_axes`` names its parameters' logical axes, the names the flax
+model boxes them with (``parallel/sharding.py`` maps them onto a mesh);
+since the layout is the same, a name labels the same tensor dim in both.
+Built on the ``meta`` device, the model allocates nothing and runs no
+initializer: the trainer's restore target.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 
 from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.ops.flash_attention import (
@@ -132,8 +138,14 @@ def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,
     """Token embedding lookup in ``cfg.dtype``. ``"onehot"`` (a one-hot
     matmul in the reference) gives the same values as ``"gather"``, so
     both gather here; the f32 rows are gathered before the cast, which
-    rounds each value exactly as casting the table first would."""
-    return embed[tokens].to(cfg.dtype)
+    rounds each value exactly as casting the table first would. A table
+    sharded over the vocabulary (tensor parallelism) is looked up
+    locally, as DTensor's embedding rule does, and each row summed in
+    from the one rank that holds it, never by gathering the table."""
+    x = F.embedding(tokens, embed)
+    if isinstance(x, DTensor):
+        x = x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+    return x.to(cfg.dtype)
 
 
 def _normal(shape, std, cfg, device, generator) -> nn.Parameter:
@@ -142,11 +154,13 @@ def _normal(shape, std, cfg, device, generator) -> nn.Parameter:
 
 
 class Dense(nn.Module):
-    """Kernel-only linear, ``(in, out)`` layout, cast to cfg.dtype."""
+    """Kernel-only linear, ``(in, out)`` layout, cast to cfg.dtype;
+    ``axes`` are the kernel's logical axes."""
 
-    def __init__(self, d_in, d_out, cfg, device, generator):
+    def __init__(self, d_in, d_out, axes, cfg, device, generator):
         super().__init__()
         self.dtype = cfg.dtype
+        self.param_axes = {"kernel": axes}
         self.kernel = _normal((d_in, d_out), 0.02, cfg, device, generator)
 
     def forward(self, x):
@@ -154,6 +168,8 @@ class Dense(nn.Module):
 
 
 class RMSNorm(nn.Module):
+    param_axes = {"weight": ("norm",)}
+
     def __init__(self, dim, cfg, device):
         super().__init__()
         self.eps, self.dtype, self.impl = (cfg.rms_norm_eps, cfg.dtype,
@@ -186,10 +202,14 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         h, d = cfg.hidden_size, cfg.head_dim
-        self.q_proj = Dense(h, cfg.num_heads * d, cfg, device, generator)
-        self.k_proj = Dense(h, cfg.num_kv_heads * d, cfg, device, generator)
-        self.v_proj = Dense(h, cfg.num_kv_heads * d, cfg, device, generator)
-        self.o_proj = Dense(cfg.num_heads * d, h, cfg, device, generator)
+        self.q_proj = Dense(h, cfg.num_heads * d, ("embed", "heads"), cfg,
+                            device, generator)
+        self.k_proj = Dense(h, cfg.num_kv_heads * d, ("embed", "kv"), cfg,
+                            device, generator)
+        self.v_proj = Dense(h, cfg.num_kv_heads * d, ("embed", "kv"), cfg,
+                            device, generator)
+        self.o_proj = Dense(cfg.num_heads * d, h, ("heads", "embed"), cfg,
+                            device, generator)
 
     def forward(self, x, positions):
         cfg = self.cfg
@@ -213,9 +233,11 @@ class MLP(nn.Module):
     def __init__(self, cfg, device, generator):
         super().__init__()
         h, i = cfg.hidden_size, cfg.intermediate_size
-        self.gate_proj = Dense(h, i, cfg, device, generator)
-        self.up_proj = Dense(h, i, cfg, device, generator)
-        self.down_proj = Dense(i, h, cfg, device, generator)
+        self.gate_proj = Dense(h, i, ("embed", "mlp"), cfg, device,
+                               generator)
+        self.up_proj = Dense(h, i, ("embed", "mlp"), cfg, device, generator)
+        self.down_proj = Dense(i, h, ("mlp", "embed"), cfg, device,
+                               generator)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -250,7 +272,11 @@ class Llama(nn.Module):
         device = resolve_device(device)
         _check_supported(config)
         cfg = self.config = config
-        generator = torch.Generator(device=device).manual_seed(seed)
+        self.param_axes = {"embed": ("vocab", "embed")}
+        if not cfg.tie_embeddings:
+            self.param_axes["lm_head"] = ("embed", "vocab")
+        generator = (None if device.type == "meta" else
+                     torch.Generator(device=device).manual_seed(seed))
         self.embed = _normal((cfg.vocab_size, cfg.hidden_size), 0.02, cfg,
                              device, generator)
         for layer in range(cfg.num_layers):
@@ -260,6 +286,13 @@ class Llama(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = _normal((cfg.hidden_size, cfg.vocab_size), 0.02,
                                    cfg, device, generator)
+
+    def kernel_libraries(self) -> Tuple[str, ...]:
+        """The CUDA libraries (``ops/csrc/<name>.cu``) a training step of
+        this configuration launches kernels from."""
+        cfg = self.config
+        return (("flash_attention",) if cfg.attn_impl == "flash" else ()) + (
+            ("norms",) if cfg.norm_impl == "fused" else ())
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.config

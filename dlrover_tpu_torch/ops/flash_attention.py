@@ -20,10 +20,13 @@ wrapper call that launched.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from dlrover_tpu_torch.ops import _build, _launch
 
@@ -289,12 +292,38 @@ class FlashAttentionFn(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def _flash_local(q, k, v, causal: bool, sm_scale: Optional[float]):
+    return FlashAttentionFn.apply(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal, sm_scale)
+
+
 def flash_attention(q, k, v, causal: bool = True,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """softmax(q kᵀ · scale) v over (b, h, s, d) tensors, differentiable
-    through the kernels."""
-    return FlashAttentionFn.apply(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), causal, sm_scale)
+    through the kernels.
+
+    DTensors (tensor parallelism shards heads) reach the kernels as their
+    local shards through ``local_map``: q, k and v must share one
+    placement, sharded over batch or heads only, so that each rank's
+    query heads and the kv heads of their GQA groups are local; the
+    output has that placement. Nothing is gathered."""
+    if not any(isinstance(t, DTensor) for t in (q, k, v)):
+        return _flash_local(q, k, v, causal, sm_scale)
+    placements = q.placements if isinstance(q, DTensor) else None
+    for t in (q, k, v):
+        if not isinstance(t, DTensor) or t.placements != placements:
+            raise ValueError("flash attention takes q, k and v as DTensors "
+                             "of one placement")
+    if not all(isinstance(p, Replicate)
+               or (isinstance(p, Shard) and p.dim in (0, 1))
+               for p in placements):
+        raise ValueError(f"flash attention shards over batch or heads "
+                         f"only, got {placements}")
+    return local_map(
+        functools.partial(_flash_local, causal=causal, sm_scale=sm_scale),
+        out_placements=list(placements),
+        in_placements=(list(placements),) * 3,
+        device_mesh=q.device_mesh)(q, k, v)
 
 
 def reference_attention(q, k, v, causal: bool = True,

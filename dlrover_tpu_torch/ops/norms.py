@@ -17,9 +17,12 @@ counts the kernel launches, one per wrapper call that launched.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from dlrover_tpu_torch.ops import _build, _launch
 
@@ -203,15 +206,44 @@ class FusedRMSNormFn(torch.autograd.Function):
         return dx, dw.to(w.dtype), None
 
 
-def fused_rms_norm(x: torch.Tensor, weight: torch.Tensor,
-                   eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm over the last dim, x * rsqrt(mean(x²) + eps) * weight, of
-    any leading shape, differentiable through the kernels; y in x.dtype.
-    The weight is taken in f32, as the reference's kernel does."""
+def _rms_local(x: torch.Tensor, weight: torch.Tensor,
+               eps: float) -> torch.Tensor:
     dim = x.shape[-1]
     y = FusedRMSNormFn.apply(x.reshape(-1, dim).contiguous(), weight.float(),
                              eps)
     return y.reshape(x.shape)
+
+
+def fused_rms_norm(x: torch.Tensor, weight: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last dim, x * rsqrt(mean(x²) + eps) * weight, of
+    any leading shape, differentiable through the kernels; y in x.dtype.
+    The weight is taken in f32, as the reference's kernel does.
+
+    DTensors (tensor parallelism keeps the weight replicated) reach the
+    kernels as their local shards through ``local_map``: x may be
+    sharded over any dim but the normalized one, and a pending sum (the
+    residual stream after a row-parallel product) is reduced first, as
+    a row-parallel layer's output always is; the weight must be
+    replicated; y has x's placement, any pending sum reduced."""
+    if not any(isinstance(t, DTensor) for t in (x, weight)):
+        return _rms_local(x, weight, eps)
+    if not isinstance(x, DTensor) or not isinstance(weight, DTensor):
+        raise ValueError("fused_rms_norm takes x and the weight both as "
+                         "DTensors or both as tensors")
+    x_placements = [Replicate() if p.is_partial() else p
+                    for p in x.placements]
+    if not (all(isinstance(p, Replicate) for p in weight.placements)
+            and all(isinstance(p, Replicate)
+                    or (isinstance(p, Shard) and p.dim != x.ndim - 1)
+                    for p in x_placements)):
+        raise ValueError(f"fused_rms_norm takes a replicated weight and x "
+                         f"unsharded over its last dim, got "
+                         f"{x.placements} and {weight.placements}")
+    return local_map(
+        functools.partial(_rms_local, eps=eps), out_placements=x_placements,
+        in_placements=(x_placements, list(weight.placements)),
+        device_mesh=x.device_mesh, redistribute_inputs=True)(x, weight)
 
 
 # ===========================================================================

@@ -323,3 +323,114 @@ def test_fused_and_reference_norm_models_agree(cuda):
     assert norms.launch_counts == {"rms_fwd": 5, "rms_bwd": 0}
     err = (logits["fused"] - logits["reference"]).abs().max().item()
     assert err <= 3e-2, err
+
+
+# ---------------------------------------------------------------------------
+# the checkpoint path on the card
+# ---------------------------------------------------------------------------
+
+
+def test_checkpoint_codec_on_the_card_matches_its_cpu_path(cuda):
+    """encode_tree / decode_tree launch the kernels for CUDA leaves and
+    give the bits of the same codec on the CPU (the plain versions):
+    rows, a flat leaf, a raw one, int8 and int4."""
+    from dlrover_tpu_torch.checkpoint import quantized as cq
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    leaves = {"row": _quant_input(256, 768, 128, seed=9),
+              "flat": torch.randn(7, 77, generator=gen, device=cuda),
+              "raw": torch.randn(50, generator=gen, device=cuda)}
+    for bits in (8, 4):
+        quant.reset_launch_counts()
+        got = cq.encode_tree(leaves, bits)
+        want = cq.encode_tree({k: v.cpu() for k, v in leaves.items()}, bits)
+        assert quant.launch_counts["quantize"] == 2
+        for name in ("row", "flat"):
+            for key in ("q", "s"):
+                assert torch.equal(got[name][key].cpu(), want[name][key])
+        back = cq.decode_tree(got, leaves, bits)
+        assert quant.launch_counts["dequantize"] == 2
+        cpu_back = cq.decode_tree(want, {k: v.cpu() for k, v in
+                                         leaves.items()}, bits)
+        for name in leaves:
+            assert back[name].device.type == "cuda"
+            assert torch.equal(back[name].cpu(), cpu_back[name])
+
+
+def _two_layer_trainer(cuda, **kw):
+    import dataclasses
+    import functools
+
+    import numpy as np
+
+    from dlrover_tpu_torch.models.llama import cross_entropy_loss
+    from dlrover_tpu_torch.trainer.train_step import build_trainer
+
+    cfg = dataclasses.replace(LlamaConfig.llama_1b(
+        max_seq_len=512, embed_impl="gather"), num_layers=2)
+    return build_trainer(
+        functools.partial(Llama, cfg),
+        lambda p: torch.optim.AdamW(p, lr=3e-4, weight_decay=0.1), None,
+        np.zeros((2, 512)), cross_entropy_loss, micro_batch=2, **kw), cfg
+
+
+def _tokens(cfg, seed):
+    import numpy as np
+
+    t = np.random.default_rng(seed).integers(0, cfg.vocab_size, (2, 512))
+    return t, np.roll(t, -1, axis=1)
+
+
+def test_two_layer_full_width_round_trip_gives_the_same_bits(cuda,
+                                                             tmp_path):
+    """A 2-layer Llama at full width (hidden 2048), saved after a step and
+    restored into the trainer's abstract state on the card: the
+    parameters and moments are the same bits, and the next step's loss
+    and grad norm equal the uninterrupted run's."""
+    from dlrover_tpu_torch.checkpoint.flash_checkpoint import (
+        FlashCheckpointer,
+    )
+
+    trainer, cfg = _two_layer_trainer(cuda)
+    state = trainer.init(0)
+    state, _ = trainer.step(state, *trainer.shard_batch(*_tokens(cfg, 0)))
+    with FlashCheckpointer(str(tmp_path / "c"),
+                           save_interval_steps=1) as ckpt:
+        assert ckpt.maybe_save(1, state, {"pos": 2})
+        ckpt.wait()
+        restored, data, step = ckpt.restore(trainer.abstract_state())
+    assert step == 1 and data == {"pos": 2}
+    for (name, a), b in zip(state.model.named_parameters(),
+                            restored.model.parameters()):
+        assert b.device.type == "cuda" and torch.equal(a, b), name
+        sa, sb = state.optimizer.state[a], restored.optimizer.state[b]
+        assert torch.equal(sa["exp_avg"], sb["exp_avg"])
+        assert torch.equal(sa["exp_avg_sq"], sb["exp_avg_sq"])
+    batch = trainer.shard_batch(*_tokens(cfg, 1))
+    _, want = trainer.step(state, *batch)
+    _, got = trainer.step(restored, *batch)
+    assert got["loss"].item() == want["loss"].item()
+    assert got["grad_norm"].item() == want["grad_norm"].item()
+
+
+def test_offloaded_moments_live_in_pinned_host_memory(cuda):
+    """offload_opt_state keeps AdamW's moments in pinned host memory
+    between steps (one buffer each, reused) and gives the same losses as
+    the moments on the card."""
+    want_trainer, cfg = _two_layer_trainer(cuda)
+    trainer, _ = _two_layer_trainer(cuda, offload_opt_state=True)
+    state, want_state = trainer.init(0), want_trainer.init(0)
+    buffers = None
+    for seed in range(3):
+        batch = _tokens(cfg, seed)
+        state, got = trainer.step(state, *trainer.shard_batch(*batch))
+        want_state, want = want_trainer.step(
+            want_state, *want_trainer.shard_batch(*batch))
+        assert got["loss"].item() == want["loss"].item()
+        moments = [v for s in state.optimizer.state.values()
+                   for v in s.values() if v.ndim > 0]
+        assert all(v.device.type == "cpu" and v.is_pinned()
+                   for v in moments)
+        ptrs = sorted(v.data_ptr() for v in moments)
+        assert buffers is None or ptrs == buffers
+        buffers = ptrs

@@ -100,7 +100,7 @@ def test_entry_points_raise_without_gpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device()
     with pytest.raises(RuntimeError):
-        build_trainer(functools.partial(Llama, cfg), _adamw,
+        build_trainer(functools.partial(Llama, cfg), _adamw, None,
                       np.zeros((1, 8)), cross_entropy_loss)
     with pytest.raises(RuntimeError):
         Llama(cfg)
@@ -199,14 +199,13 @@ def test_kernel_library_name_follows_its_headers(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("option", [
     dict(master_client=object()),
-    dict(config=TrainLoopConfig(global_batch=2, seq_len=8,
-                                checkpoint_dir="/nonexistent")),
-    dict(config=TrainLoopConfig(global_batch=2, seq_len=8,
-                                mesh_spec=object())),
+    dict(model=functools.partial(Llama, LlamaConfig.tiny(attn_impl="ring"))),
+    dict(model=functools.partial(Llama, LlamaConfig.tiny(remat=True))),
 ])
 def test_elastic_loop_unported_options_raise(option):
-    kw = dict(config=TrainLoopConfig(global_batch=2, seq_len=8))
+    kw = dict(model=functools.partial(Llama, LlamaConfig.tiny()),
+              config=TrainLoopConfig(global_batch=2, seq_len=8))
     kw.update(option)
     with pytest.raises(NotImplementedError):
-        ElasticTrainLoop(functools.partial(Llama, LlamaConfig.tiny()),
-                         _adamw, cross_entropy_loss, device="cpu", **kw)
+        ElasticTrainLoop(optimizer_factory=_adamw, loss_fn=cross_entropy_loss,
+                         device="cpu", **kw)
