@@ -39,10 +39,29 @@ Phases (each one's failure ends the run with a nonzero exit):
            at 2 layers gets SIGTERM after its second step, saves where it
            stops and a second one resumes there; E 3 steps with AdamW's
            moments in pinned host memory, the same bits as A's first 3
+  standalone
+           the control plane: the port's JobMaster in this process, and
+           `python -m dlrover_tpu_torch.run --master-addr ...` running
+           the worker script dlrover_tpu_torch/examples/llama_train.py
+           (Llama-1B, 6 steps saving at 3, a step report each step) under
+           the port's agent; once step 3 is committed the worker is
+           SIGKILLed, the agent relaunches it in the next rendezvous
+           round and it resumes at step 3. Steps 1-3 and 4-6 are the
+           same bits as resume's run A (or an uninterrupted in-process
+           run when resume did not run), the agent exits 0, the master's
+           SpeedMonitor holds step 6, its tokens/s read just after the
+           kill (the first incarnation's step reports) is within 5% of
+           the worker's own over the same steps, and the worker launched
+           each flash kernel 22
+           times and each RMSNorm kernel 45 times a step. Prints the
+           recovery time by part and the step under the agent against
+           the llama1b phase's
 
 The line before the last is the kernels' JSON record (the quantization
-pair's launches are the resume phase's checkpoint path); the last line
-is {"ok": true, "device": {...}}. Imports nothing of JAX.
+pair's launches are the resume phase's checkpoint path; each kernel's
+"standalone_launches" are those the worker under the agent printed for
+its resumed incarnation); the last line is {"ok": true, "device":
+{...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -881,10 +900,12 @@ def phase_llama1b(warmup: int = 2, timed: int = 5,
                              f" steps of one micro-batch)")
     timed_hist = hist[warmup:]
     step_s = sum(r["step_time_s"] for r in timed_hist) / timed
+    median_ms = statistics.median(r["step_time_s"] for r in timed_hist) * 1e3
     tokens_per_s = micro * cfg.max_seq_len / step_s
     mfu = statistics.mean(r["mfu"] for r in timed_hist)
     result = {"params_b": cfg.param_count() / 1e9, "micro_batch": micro,
               "seq": cfg.max_seq_len, "step_ms": step_s * 1e3,
+              "step_median_ms": median_ms,
               "tokens_per_s": tokens_per_s, "mfu": mfu,
               "peak_mem_gb": peak_gb, "launches_per_step": {
                   n: c / len(hist) for n, c in launches.items()}}
@@ -1157,6 +1178,7 @@ def phase_resume(smi: str, llama1b: dict) -> dict:
         ckpt_bytes = _dir_bytes(f"{dir_a}/3")
         write_s = save["commit_s"] - save["blocking_s"]
         out["a"] = {"losses": [r["loss"] for r in hist_a],
+                    "grad_norms": [r["grad_norm"] for r in hist_a],
                     "blocking_save_ms": save["blocking_s"] * 1e3,
                     "blocking_share_of_step": save["blocking_s"] / step_s,
                     "commit_s": save["commit_s"], "bytes": ckpt_bytes,
@@ -1290,13 +1312,297 @@ def phase_resume(smi: str, llama1b: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# standalone: the control plane (master, agent, worker) around Llama-1B
+# ---------------------------------------------------------------------------
+
+# the master's tokens/s against the worker's own over the same steps
+SPEED_TOL = 0.05
+
+
+def _reference_run(cfg) -> list:
+    """Resume's run A without its checkpoint: 6 uninterrupted steps from
+    the same seed and data, [(loss, grad_norm)] a step."""
+    from dlrover_tpu_torch.models.llama import Llama, cross_entropy_loss
+    from dlrover_tpu_torch.trainer.elastic_loop import (
+        ElasticTrainLoop,
+        TrainLoopConfig,
+    )
+
+    loop = ElasticTrainLoop(
+        functools.partial(Llama, cfg), _adamw, cross_entropy_loss,
+        TrainLoopConfig(global_batch=8, seq_len=cfg.max_seq_len,
+                        max_micro_per_replica=8, max_steps=6,
+                        report_interval_steps=0))
+    sampler, data = _sampler_and_data(cfg)
+    state, _ = loop.restore_or_init(0, sampler)
+    state, metrics = loop.run(state, data, 0, sampler)
+    loop.close()
+    del state, loop
+    _free_memory()
+    return [(r["loss"], r["grad_norm"]) for r in metrics["history"]]
+
+
+def _children(pid: int) -> list:
+    """The processes whose parent is ``pid``, from /proc."""
+    import os
+
+    kids = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        # the command may hold spaces: the fields after it start past ')'
+        if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+            kids.append(int(name))
+    return kids
+
+
+def _agent_times(path: str) -> dict:
+    """Wall-clock marks of the agent's relaunch, and the rendezvous round
+    of each spawn, from its log lines ("[2026-10-17 00:58:52,261]
+    [WARNING] [...] message")."""
+    import datetime
+    import re
+
+    marks = {"rounds": []}
+    patterns = {"detected": r"worker failed \(exit -9, killed\); backing",
+                "backed_off": r"worker failed \(exit -9, killed\); restart",
+                "spawned": r"spawning worker \(round 1,"}
+    with open(path) as f:
+        for line in f:
+            m = re.match(r"\[(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3})\]", line)
+            if not m:
+                continue
+            ts = datetime.datetime.strptime(
+                m.group(1), "%Y-%m-%d %H:%M:%S,%f").timestamp()
+            for key, pattern in patterns.items():
+                if key not in marks and re.search(pattern, line):
+                    marks[key] = ts
+            spawn = re.search(r"spawning worker \(round (\d+),", line)
+            if spawn:
+                marks["rounds"].append(int(spawn.group(1)))
+    return marks
+
+
+def _worker_log(path: str) -> list:
+    """The worker's incarnations from its log file: for each, its start
+    step, restore timings, steps {step: (time, loss, grad_norm, step_s)},
+    launch counts and wall-clock marks."""
+    import re
+
+    runs = []
+    with open(path) as f:
+        for line in f:
+            ts, _, text = line.rstrip("\n").partition(" ")
+            if text.startswith("llama_train: start_step="):
+                start = int(re.search(r"start_step=(\d+)", text).group(1))
+                restore = json.loads(text.split("restore=", 1)[1])
+                runs.append({"start": start, "restore": restore,
+                             "steps": {}, "started_at": float(ts)})
+                continue
+            m = re.match(r"step (\d+) loss (\S+) grad_norm (\S+) step_s "
+                         r"(\S+)", text)
+            if m and runs:
+                runs[-1]["steps"][int(m.group(1))] = (
+                    float(ts), float(m.group(2)), float(m.group(3)),
+                    float(m.group(4)))
+            elif text.startswith("worker_launch_counts ") and runs:
+                runs[-1]["launches"] = json.loads(text.split(" ", 1)[1])
+            elif text.startswith("worker_times ") and runs:
+                runs[-1]["times"] = json.loads(text.split(" ", 1)[1])
+    return runs
+
+
+def phase_standalone(smi: str, llama1b: dict, resume: dict) -> dict:
+    """Llama-1B under the port's master and agent, with a SIGKILL after
+    the first committed checkpoint (see the module docstring)."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    from dlrover_tpu_torch.common.constants import RendezvousName
+    from dlrover_tpu_torch.master.job_master import JobMaster
+    from dlrover_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig.llama_1b(max_seq_len=2048, attn_impl="flash",
+                               norm_impl="fused", embed_impl="gather")
+    if resume.get("a"):
+        ref = list(zip(resume["a"]["losses"], resume["a"]["grad_norms"]))
+        ref_from = "resume A"
+    else:
+        ref = _reference_run(cfg)
+        ref_from = "an uninterrupted in-process run"
+    state_bytes = 3 * 4 * cfg.param_count()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_standalone_")
+    ckpt, worker_log = f"{tmp}/ckpt", f"{tmp}/worker.log"
+    agent_out, agent_err = f"{tmp}/agent.out", f"{tmp}/agent.err"
+    master = JobMaster(host="127.0.0.1")
+    master.prepare()
+    proc = None
+    out = {"card": smi}
+    _free_memory()
+    log(f"standalone: this process holds "
+        f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB of the card")
+    try:
+        free = shutil.disk_usage(tmp).free
+        log(f"standalone: checkpoints in {tmp}, {free / 1e9:.1f} GB free; "
+            f"the run keeps at most two of {state_bytes / 1e9:.2f} GB")
+        if free < 2.1 * state_bytes:
+            raise AssertionError(f"{free / 1e9:.1f} GB free in {tmp}: less "
+                                 f"than two checkpoints")
+        cmd = [sys.executable, "-m", "dlrover_tpu_torch.run",
+               "--master-addr", master.addr,
+               "dlrover_tpu_torch/examples/llama_train.py",
+               "--config", "llama_1b", "--steps", "6", "--save-interval",
+               "3", "--report-interval", "1", "--ckpt-dir", ckpt,
+               "--log-file", worker_log]
+        env = dict(os.environ, PYTHONPATH=repo)
+        with open(agent_out, "w") as fo, open(agent_err, "w") as fe:
+            proc = subprocess.Popen(cmd, cwd=repo, env=env, stdout=fo,
+                                    stderr=fe)
+        # SIGKILL the worker (the agent's child) once step 3 is committed
+        deadline = time.time() + 400
+        victim = None
+        while time.time() < deadline and proc.poll() is None:
+            if os.path.isdir(f"{ckpt}/3"):
+                kids = _children(proc.pid)
+                if kids:
+                    victim = kids[0]
+                    break
+            time.sleep(0.05)
+        if victim is None:
+            raise AssertionError(f"no committed step 3 or no worker (agent "
+                                 f"exit {proc.poll()})")
+        os.kill(victim, signal.SIGKILL)
+        t_kill = time.time()
+        # the master's speed over the first incarnation's step reports: a
+        # report already on the wire lands within the second, the new
+        # incarnation's first one tens of seconds later. (Its resumed
+        # reports at or below this mark are dropped, as in the JAX
+        # master.)
+        time.sleep(1.0)
+        killed_at = (master.speed_monitor.completed_global_step,
+                     master.speed_monitor.tokens_per_second(),
+                     master.speed_monitor.running_mfu())
+        code = proc.wait(timeout=600)
+        with open(agent_err) as f:
+            agent_tail = f.read()[-3000:]
+        if code != 0:
+            raise AssertionError(f"agent exited {code}: {agent_tail}")
+        runs = _worker_log(worker_log)
+        marks = _agent_times(agent_err)
+        out["worker_pid_killed"] = victim
+        if len(runs) != 2:
+            raise AssertionError(f"{len(runs)} worker incarnations logged")
+        first, second = runs
+        got = {n: (r[1], r[2]) for run in runs
+               for n, r in run["steps"].items()
+               if run is second or n <= 3}
+        same = {n: got.get(n) == ref[n - 1] for n in range(1, 7)}
+        out.update({
+            "reference": ref_from,
+            "first_start": first["start"], "second_start": second["start"],
+            "first_steps": sorted(first["steps"]),
+            "losses": [got.get(n, (None,))[0] for n in range(1, 7)],
+            "same_bits": same, "spawn_rounds": marks["rounds"],
+            "master_rounds_cut": master.rdzv_managers[
+                RendezvousName.TRAINING].rdzv_round})
+        log(f"standalone: {json.dumps(out)} ({smi})")
+        if first["start"] != 0 or second["start"] != 3:
+            raise AssertionError(f"incarnations started at {first['start']}"
+                                 f" and {second['start']}")
+        if sorted(second["steps"]) != [4, 5, 6] or not all(same.values()):
+            raise AssertionError(f"steps against {ref_from}: {same}")
+        if marks["rounds"] != [0, 1] or out["master_rounds_cut"] != 2:
+            raise AssertionError(f"spawned in rounds {marks['rounds']}, "
+                                 f"{out['master_rounds_cut']} rounds cut: "
+                                 f"{agent_tail}")
+
+        # the master's view: step 6 at the end; at the kill, the tokens/s
+        # of the first incarnation's reports (steps 1 to the mark, on the
+        # master's clock) against the worker's own log over the same
+        # steps (the step lines, logged just before each report)
+        tokens = 8 * cfg.max_seq_len
+        steps = second["steps"]
+        mark, master_tps, master_mfu = killed_at
+        logged = first["steps"]
+        if mark < 2 or mark not in logged or 1 not in logged:
+            raise AssertionError(f"master mark {mark} at the kill, first "
+                                 f"incarnation logged {sorted(logged)}")
+        worker_tps = ((mark - 1) * tokens
+                      / (logged[mark][0] - logged[1][0]))
+        master_step = master.speed_monitor.completed_global_step
+        out["master"] = {"global_step": master_step,
+                         "mark_at_kill": mark,
+                         "tokens_per_s_at_kill": master_tps,
+                         "worker_tokens_per_s": worker_tps,
+                         "rel_diff": abs(master_tps - worker_tps)
+                         / worker_tps, "mfu_at_kill": master_mfu,
+                         "tokens_per_s_at_end": master.speed_monitor
+                         .tokens_per_second()}
+        log(f"standalone master: {json.dumps(out['master'])} ({smi})")
+        if master_step != 6 or not out["master"]["rel_diff"] < SPEED_TOL:
+            raise AssertionError(f"master holds {out['master']}")
+
+        want = _expected_launches(cfg, 3)
+        launches = second.get("launches")
+        out["launches"] = launches
+        if launches != want:
+            raise AssertionError(f"worker launches {launches}, want {want}")
+
+        # recovery: SIGKILL → the new incarnation's first finished step
+        times, restore = second["times"], second["restore"]
+        t_step4 = steps[4][0]
+        parts = {
+            "detection_s": marks["detected"] - t_kill,
+            "backoff_s": marks["backed_off"] - marks["detected"],
+            "rendezvous_s": marks["spawned"] - marks["backed_off"],
+            "process_start_and_import_s": times["imported"]
+            - marks["spawned"],
+            "loop_build_s": times["loop_built"] - times["imported"],
+            "restore_s": times["restored"] - times["loop_built"],
+            "of_which_kernel_libraries_load_s": restore.get("build_s"),
+            "of_which_read_s": restore.get("dcp_read_s"),
+            "of_which_abstract_state_s": restore.get("abstract_state_s"),
+            "first_step_s": steps[4][3],
+            "other_s": t_step4 - times["restored"] - steps[4][3],
+            "total_s": t_step4 - t_kill}
+        out["recovery"] = parts
+        log(f"standalone recovery (SIGKILL to step 4 done): "
+            f"{json.dumps(parts)} ({smi})")
+        under_agent = [r[3] for run in runs for n, r in run["steps"].items()
+                       if n != run["start"] + 1]
+        out["step_under_agent"] = {
+            "median_ms": statistics.median(under_agent) * 1e3,
+            "steps_ms": [t * 1e3 for t in under_agent],
+            "llama1b_median_ms": llama1b.get("step_median_ms",
+                                             "not measured")}
+        log(f"standalone step under the agent: "
+            f"{json.dumps(out['step_under_agent'])} ({smi})")
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        master.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases",
-                        default="kernels,quant,parity,llama1b,resume",
+                        default="kernels,quant,parity,llama1b,resume,"
+                                "standalone",
                         help="comma-separated subset of kernels, quant, "
-                             "parity, llama1b, resume (device and build "
-                             "always run)")
+                             "parity, llama1b, resume, standalone (device "
+                             "and build always run)")
     parser.add_argument("--profile", default="",
                         help="after the Llama-1B run, profile one more "
                              "step and write the kernel table here")
@@ -1315,12 +1621,19 @@ def main(argv=None) -> int:
         launches, llama1b = phase_llama1b(profile_out=args.profile)
         for rec in train_records:
             rec["launches"] = launches[rec["name"]]
+    resume = {}
     if "resume" in phases:
         # the quantization pair's path: the int8 checkpoint's save and
         # restore
         resume = phase_resume(smi, llama1b)
         for rec in quant_records:
             rec["launches"] = resume["c"][f"{rec['name']}_launches"]
+    if "standalone" in phases:
+        # the worker under the agent counts its own launches, printed at
+        # its exit: the resumed incarnation's 3 steps
+        standalone = phase_standalone(smi, llama1b, resume)
+        for rec in train_records + quant_records:
+            rec["standalone_launches"] = standalone["launches"][rec["name"]]
     records = train_records + quant_records
     log(f"elapsed {time.monotonic() - t0:.1f} s")
     print(json.dumps({"kernels": records}))

@@ -1,36 +1,401 @@
-"""The training process's side of the agent's contract.
+"""Node-side elastic agent: rendezvous, spawn, monitor, restart; and the
+training process's side of the agent's contract.
 
-Counterpart of ``dlrover_tpu/agent/elastic_agent.py::init_distributed``
-(the rest of the agent is not ported yet): the agent spawns each worker
-with ``DLROVER_TPU_WORLD_SIZE``, ``DLROVER_TPU_PROCESS_ID`` and
-``DLROVER_TPU_COORDINATOR`` (``host:port`` of rank 0) in its
-environment, and the worker joins the process group from them.
+Own copy of the JAX package's ``agent/elastic_agent.py``, after
+dlrover/python/elastic_agent/torch/training.py (rendezvous :315,
+monitor/restart loop :429-521, failure reporting :490):
+
+- One agent per host. The worker it spawns is ONE training process that
+  owns the host's cards (``devices_per_node``).
+- Rendezvous yields {node_rank → local card count}; the agent derives the
+  process group's world size and this process's rank, and the lowest
+  rank publishes the group's rendezvous address through the master KV
+  store.
+- On worker failure: report to the master, back off, re-rendezvous,
+  respawn (restart budget, quarantine). On a membership change
+  (``num_nodes_waiting > 0``): graceful restart so the world re-forms.
+
+Not ported yet: the agent's monitors (``agent/monitor.py``) and
+master-loss reconnect (ROADMAP Queue A item 12), the preemption watcher
+and drain (6.5), the peer donor (6.2b), diagnosis actions (12).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
-from typing import Optional, Union
+import signal
+import subprocess
+import threading
+import time
+from collections import deque
+from typing import Dict, List, Optional, Tuple
 
-import torch
-import torch.distributed as dist
+from dlrover_tpu_torch import obs
+from dlrover_tpu_torch.agent.master_client import MasterClient
+from dlrover_tpu_torch.common.bootstrap import publish_or_wait_coordinator
+from dlrover_tpu_torch.common.config import Context
+from dlrover_tpu_torch.common.constants import (
+    DefaultValues,
+    NodeEnv,
+    NodeExitReason,
+    RendezvousName,
+    TrainingMsgLevel,
+    WorkerExit,
+)
+from dlrover_tpu_torch.common.log import default_logger as logger
 
-from dlrover_tpu_torch.common.constants import NodeEnv
-from dlrover_tpu_torch.common.device import resolve_device
+
+class RelaunchGovernor:
+    """Per-rank relaunch pacing: exponential delay between worker
+    relaunches (base·2^(k−1) for the k-th recent failure, capped; no
+    jitter: one agent, one worker) and quarantine once
+    ``quarantine_failures`` land inside ``quarantine_window_s``. A
+    flapping worker must not hot-loop respawns. Driven only from the
+    agent's main run loop, so no lock.
+
+    The JAX governor also counts the step-hang watchdog's aborts
+    (``record_hang``); the watchdog is not ported yet (ROADMAP Queue A
+    item 6.5), so every failure here is an ordinary one."""
+
+    def __init__(self, clock=time.monotonic):
+        ctx = Context.singleton()
+        self._base_s = ctx.relaunch_backoff_base_s
+        self._max_s = ctx.relaunch_backoff_max_s
+        self._quarantine_failures = ctx.quarantine_failures
+        self._window_s = ctx.quarantine_window_s
+        self._clock = clock
+        self._failures = deque()
+
+    def _trim(self, now: float) -> None:
+        while self._failures and now - self._failures[0] > self._window_s:
+            self._failures.popleft()
+
+    def record_failure(self) -> float:
+        """Register one worker failure; returns the backoff delay to
+        apply before the relaunch."""
+        now = self._clock()
+        self._trim(now)
+        self._failures.append(now)
+        exponent = min(len(self._failures) - 1, 62)
+        return min(self._max_s, self._base_s * (2.0 ** exponent))
+
+    @property
+    def recent_failures(self) -> int:
+        self._trim(self._clock())
+        return len(self._failures)
+
+    @property
+    def quarantined(self) -> bool:
+        if self._quarantine_failures <= 0:
+            return False
+        return self.recent_failures >= self._quarantine_failures
 
 
-def init_distributed(device: Optional[Union[str, torch.device]] = None
-                     ) -> None:
-    """Join the process group from the agent's env contract; a no-op for a
-    single process (standalone runs).
+@dataclasses.dataclass
+class WorkerSpec:
+    """What to run on this node."""
+
+    entrypoint: List[str]                    # argv of the training process
+    devices_per_node: int = 1                # local card count
+    max_restarts: int = DefaultValues.MAX_RELAUNCH
+    monitor_interval_s: float = DefaultValues.MONITOR_INTERVAL_S
+    rdzv_timeout_s: float = DefaultValues.RDZV_TIMEOUT_S
+    # SIGTERM → SIGKILL grace: must cover one train step + a forced
+    # checkpoint commit (the worker saves on SIGTERM)
+    shutdown_grace_s: float = 120.0
+    env: Dict[str, str] = dataclasses.field(default_factory=dict)
+    # side monitors: not ported yet (ROADMAP Queue A item 12)
+    enable_monitors: bool = False
+
+    def __post_init__(self) -> None:
+        if self.enable_monitors:
+            raise NotImplementedError(
+                "the agent's monitors (agent/monitor.py) are not ported "
+                "yet (ROADMAP Queue A item 12)")
+        # THIS interval paces the agent's num_nodes_waiting poll, the
+        # master's main liveness signal
+        timeout = Context.singleton().dead_node_timeout_s
+        if 0 < timeout < 3 * self.monitor_interval_s:
+            logger.warning(
+                "dead_node_timeout_s (%.0fs) < 3x the agent poll "
+                "interval (--monitor-interval %.0fs): healthy agents "
+                "may be declared dead between polls; raise the timeout "
+                "or lower the poll interval",
+                timeout, self.monitor_interval_s)
+
+
+class RendezvousTimeoutError(TimeoutError):
+    pass
+
+
+class ElasticAgent:
+    """Joins the master rendezvous and keeps one training process alive."""
+
+    def __init__(self, client: MasterClient, spec: WorkerSpec,
+                 rdzv_name: str = RendezvousName.TRAINING):
+        self._client = client
+        self._spec = spec
+        self._rdzv_name = rdzv_name
+        self._restart_count = 0
+        # set by shutdown(): the run loop must not resurrect the worker
+        # it just killed
+        self._shutdown = threading.Event()
+        self._proc: Optional[subprocess.Popen] = None
+        self.last_world: Dict[int, int] = {}
+        self.last_round = -1
+        # relaunch pacing: backoff between respawns, quarantine on flap
+        self._governor = RelaunchGovernor()
+
+    @property
+    def worker_pid(self) -> Optional[int]:
+        return self._proc.pid if self._proc is not None else None
+
+    # -- rendezvous --------------------------------------------------------
+    def rendezvous(self) -> Tuple[int, Dict[int, int]]:
+        """Join and poll until this node is in a completed world."""
+        spec = self._spec
+        # the agent-side span is the trace root: the join RPC carries its
+        # context, so the master's rendezvous_join span shares the trace
+        with obs.span("rendezvous",
+                      {"rdzv": self._rdzv_name,
+                       "rank": self._client.node_rank}) as rdzv_span:
+            joined_round = self._client.join_rendezvous(
+                spec.devices_per_node, self._rdzv_name)
+            deadline = time.time() + spec.rdzv_timeout_s
+            while time.time() < deadline:
+                rdzv_round, _, world = self._client.get_comm_world(
+                    self._rdzv_name
+                )
+                if world and self._client.node_rank in world:
+                    self.last_world, self.last_round = world, rdzv_round
+                    rdzv_span.set_attr("round", rdzv_round)
+                    rdzv_span.set_attr("world_size", len(world))
+                    return rdzv_round, world
+                if rdzv_round > joined_round:
+                    # our round was cut without us (world invalidated by
+                    # a member death, or node_unit rounding): re-join
+                    logger.info(
+                        "rendezvous round %d passed without this node; "
+                        "re-joining", joined_round,
+                    )
+                    joined_round = self._client.join_rendezvous(
+                        spec.devices_per_node, self._rdzv_name)
+                time.sleep(0.5)
+            raise RendezvousTimeoutError(
+                f"rendezvous {self._rdzv_name!r} did not complete within "
+                f"{spec.rdzv_timeout_s:.0f}s"
+            )
+
+    def _bootstrap_env(self, rdzv_round: int,
+                       world: Dict[int, int]) -> Dict[str, str]:
+        """Derive this round's process set; the lowest rank publishes the
+        process group's rendezvous address via the master KV store."""
+        ranks = sorted(world)
+        process_id = ranks.index(self._client.node_rank)
+        coord = publish_or_wait_coordinator(
+            self._client, f"coord/{self._rdzv_name}/{rdzv_round}",
+            process_id, self._spec.rdzv_timeout_s,
+        )
+        env = dict(os.environ)
+        env.update(self._spec.env)
+        env.update({
+            NodeEnv.MASTER_ADDR: self._client.master_addr,
+            NodeEnv.NODE_ID: str(self._client.node_id),
+            NodeEnv.NODE_RANK: str(self._client.node_rank),
+            NodeEnv.WORLD_SIZE: str(len(ranks)),
+            NodeEnv.PROCESS_ID: str(process_id),
+            NodeEnv.COORDINATOR_ADDR: coord,
+            NodeEnv.RDZV_ROUND: str(rdzv_round),
+            NodeEnv.DEVICES_PER_NODE: str(self._spec.devices_per_node),
+        })
+        return env
+
+    # -- worker lifecycle --------------------------------------------------
+    def _spawn(self) -> None:
+        rdzv_round, world = self.rendezvous()
+        env = self._bootstrap_env(rdzv_round, world)
+        logger.info(
+            "spawning worker (round %d, world %s, restart %d): %s",
+            rdzv_round, sorted(world), self._restart_count,
+            self._spec.entrypoint,
+        )
+        self._proc = subprocess.Popen(self._spec.entrypoint, env=env)
+        obs.get_flight_recorder().record_event(
+            "worker_spawn", round=rdzv_round, world=sorted(world),
+            restart=self._restart_count, pid=self._proc.pid)
+
+    def _stop_worker(self) -> None:
+        if self._proc is None or self._proc.poll() is not None:
+            return
+        self._proc.send_signal(signal.SIGTERM)
+        try:
+            self._proc.wait(self._spec.shutdown_grace_s)
+        except subprocess.TimeoutExpired:
+            self._proc.kill()
+            self._proc.wait()
+
+    def _restart_worker(self, count_against_budget: bool) -> None:
+        """Membership-change restarts are normal elasticity and do NOT
+        consume the failure budget."""
+        self._stop_worker()
+        if count_against_budget:
+            self._restart_count += 1
+        self._spawn()
+
+    # -- main loop ---------------------------------------------------------
+    def run(self) -> int:
+        """Monitor loop. Returns the worker's final exit code, POSIX-shaped
+        (134, not -6)."""
+        recorder = obs.get_flight_recorder()
+        if threading.current_thread() is threading.main_thread():
+            # postmortem timeline even when the agent itself is SIGTERMed
+            recorder.install_signal_handlers()
+        recorder.install_excepthook()
+        self._spawn()
+        try:
+            return WorkerExit.to_exit_status(self._run_loop())
+        except BaseException:
+            # never orphan the trainer on the way out
+            self._stop_worker()
+            raise
+        finally:
+            recorder.dump(reason="agent-exit")
+
+    def _interruptible_wait(self, delay_s: float) -> None:
+        """Sleep up to ``delay_s``, returning early on shutdown."""
+        end = time.monotonic() + delay_s
+        while time.monotonic() < end and not self._shutdown.is_set():
+            time.sleep(min(0.2, max(0.0, end - time.monotonic())))
+
+    def _run_loop(self) -> int:
+        spec = self._spec
+        while True:
+            self._interruptible_wait(spec.monitor_interval_s)
+            if self._shutdown.is_set():
+                return 0
+            code = self._proc.poll()
+            if code is not None:
+                if self._shutdown.is_set():
+                    return 0
+                if code == 0:
+                    logger.info("worker finished successfully")
+                    return 0
+                # no step-hang watchdog yet (ROADMAP Queue A item 6.5):
+                # a SIGABRT is an ordinary crash
+                kind = WorkerExit.classify(code, hang_enabled=False)
+                if kind == NodeExitReason.DRAINED:
+                    raise NotImplementedError(
+                        "the drain protocol is not ported yet (ROADMAP "
+                        "Queue A item 6.5)")
+                outcome = self._handle_worker_failure(code, kind)
+                if outcome is not None:
+                    return outcome
+                continue
+            # healthy: a membership change re-forms the world
+            waiting = self._client.num_nodes_waiting(self._rdzv_name)
+            if waiting > 0:
+                logger.info(
+                    "%d node(s) waiting: restarting worker to re-form the "
+                    "world", waiting,
+                )
+                obs.get_flight_recorder().record_event(
+                    "membership_restart", waiting=waiting)
+                self._restart_worker(count_against_budget=False)
+
+    # -- failure reporting / relaunch pacing -----------------------------
+    def _handle_worker_failure(self, code: int, kind: str
+                               ) -> Optional[int]:
+        """One classified worker failure: report it, pace the relaunch
+        (backoff + quarantine), restart. Returns a terminal exit code, or
+        None when the worker was restarted and the loop continues."""
+        spec = self._spec
+        recorder = obs.get_flight_recorder()
+        recorder.record_event("worker_failed", exit_code=code, kind=kind,
+                              restart=self._restart_count)
+        try:
+            self._client.report_failure(
+                f"worker exit code {code}",
+                level=TrainingMsgLevel.PROCESS_ERROR,
+                restart_count=self._restart_count,
+                exit_kind=kind,
+            )
+        except Exception:  # master down: the restart's own rendezvous
+            # surfaces a persistent outage
+            logger.warning("could not report worker failure "
+                           "(master unreachable)")
+        if self._restart_count >= spec.max_restarts:
+            logger.error(
+                "worker failed (exit %d, %s) with restart budget "
+                "exhausted (%d)", code, kind, spec.max_restarts,
+            )
+            return code
+        delay = self._governor.record_failure()
+        obs.get_registry().gauge(
+            "dlrover_tpu_agent_relaunch_backoff_seconds",
+            "Backoff applied before the most recent worker relaunch",
+        ).set(delay)
+        if self._governor.quarantined:
+            recorder.record_event(
+                "worker_quarantined", exit_code=code, kind=kind,
+                recent_failures=self._governor.recent_failures)
+            logger.error(
+                "worker QUARANTINED: %d failures inside the window; "
+                "refusing to relaunch (exit %d)",
+                self._governor.recent_failures, code)
+            try:
+                self._client.report_failure(
+                    f"rank quarantined after "
+                    f"{self._governor.recent_failures} failures",
+                    level=TrainingMsgLevel.NODE_ERROR,
+                    restart_count=self._restart_count,
+                    exit_kind=kind,
+                )
+            except Exception:  # noqa: BLE001
+                pass
+            return code
+        if delay > 0:
+            recorder.record_event("relaunch_backoff", delay_s=delay,
+                                  recent_failures=(
+                                      self._governor.recent_failures))
+            logger.warning(
+                "worker failed (exit %d, %s); backing off %.1fs before "
+                "relaunch (%d recent failures)", code, kind, delay,
+                self._governor.recent_failures)
+            self._interruptible_wait(delay)
+            if self._shutdown.is_set():
+                return 0
+        logger.warning(
+            "worker failed (exit %d, %s); restarting (%d/%d)",
+            code, kind, self._restart_count + 1, spec.max_restarts,
+        )
+        self._restart_worker(count_against_budget=True)
+        return None
+
+    def shutdown(self) -> None:
+        self._shutdown.set()
+        self._stop_worker()
+
+
+def init_distributed(device=None) -> None:
+    """Training-process entry: join the process group from the agent's
+    env contract (``DLROVER_TPU_WORLD_SIZE``, ``DLROVER_TPU_PROCESS_ID``,
+    ``DLROVER_TPU_COORDINATOR``, the ``host:port`` of rank 0); a no-op
+    for a single process (standalone runs).
 
     On the card (``device`` None or CUDA) each process first pins its
     card, ``rank % device_count`` unless ``device`` names one, and the
     group runs NCCL for CUDA tensors and gloo for CPU tensors: the
     checkpointer's background saves stage to host memory and need the CPU
-    backend. ``device="cpu"`` runs gloo alone.
+    backend. ``device="cpu"`` runs gloo alone. (torch is imported here:
+    the agent itself never needs it.)
     """
+    import torch
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.common.device import resolve_device
+
     world_size = int(os.getenv(NodeEnv.WORLD_SIZE, "1"))
     if world_size <= 1:
         return

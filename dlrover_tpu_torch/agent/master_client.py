@@ -1,0 +1,376 @@
+"""MasterClient: the sole channel from a node to the master.
+
+Own copy of the JAX package's ``agent/master_client.py``, after
+dlrover/python/elastic_agent/master_client.py:49: typed wrappers over
+the two-RPC service for every protocol interaction this slice ports, a
+retry decorator, and the singleton the worker builds from the agent's
+environment contract.
+
+Not ported yet: the coordination-tier routing, the bootstrap-file
+re-resolution and the reconnect handshake of master-loss handling
+(ROADMAP Queue A item 12), and the wrappers of the peer-restore (6.2b),
+re-planning (6.3), slice (6.4), drain (6.5), diagnosis, telemetry and
+time-series RPCs (12).
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+import random
+import time
+from typing import Dict, Optional, Tuple
+
+from dlrover_tpu_torch.common import messages as msg
+from dlrover_tpu_torch.common.comm import (
+    MasterStub,
+    TransportFaultInjector,
+    build_channel,
+    local_ip,
+)
+from dlrover_tpu_torch.common.config import Context
+from dlrover_tpu_torch.common.constants import NodeEnv, RendezvousName
+from dlrover_tpu_torch.obs import current_context
+
+
+def backoff_delay_s(attempt: int, base_s: float, cap_s: float) -> float:
+    """Jittered exponential backoff: min(cap, base·2^attempt) scaled by a
+    uniform [0.5, 1.0) jitter so a fleet of agents retrying against a
+    restarted master doesn't stampede it in lockstep."""
+    envelope = min(cap_s, base_s * (2.0 ** min(attempt, 62)))
+    return envelope * random.uniform(0.5, 1.0)
+
+
+def retry_rpc(retries: Optional[int] = None,
+              backoff_s: Optional[float] = None,
+              max_backoff_s: Optional[float] = None):
+    """Retry decorator. None parameters resolve from Context at CALL
+    time, so tests can shrink the budget on a live process."""
+
+    def decorator(fn):
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            ctx = Context.singleton()
+            attempts = retries if retries is not None else ctx.rpc_retries
+            base = backoff_s if backoff_s is not None else ctx.rpc_backoff_s
+            cap = (max_backoff_s if max_backoff_s is not None
+                   else ctx.rpc_backoff_max_s)
+            last_exc = None
+            for attempt in range(max(1, attempts)):
+                try:
+                    return fn(*args, **kwargs)
+                except Exception as exc:  # noqa: BLE001 — grpc errors vary
+                    last_exc = exc
+                    if attempt < attempts - 1:
+                        time.sleep(backoff_delay_s(attempt, base, cap))
+            raise last_exc
+
+        return wrapped
+
+    return decorator
+
+
+class MasterClient:
+    _singleton: Optional["MasterClient"] = None
+
+    def __init__(self, master_addr: str, node_id: int = 0,
+                 node_rank: Optional[int] = None,
+                 timeout_s: Optional[float] = None,
+                 node_type: str = ""):
+        self.master_addr = master_addr
+        self.node_id = node_id
+        self.node_type = node_type
+        self.node_rank = node_rank if node_rank is not None else node_id
+        # slice mode is not ported (ROADMAP Queue A item 6.4)
+        self.slice_id = -1
+        # per-call deadline; wait_for_ready means an unreachable master
+        # surfaces as DEADLINE_EXCEEDED after exactly this long
+        self._timeout_s = (timeout_s if timeout_s is not None
+                           else Context.singleton().rpc_timeout_s)
+        # the latest master generation any RPC reported (0 = unknown)
+        self.master_generation = 0
+        self._channel = build_channel(master_addr)
+        self._stub = MasterStub(self._channel,
+                                fault_injector=TransportFaultInjector
+                                .from_env())
+
+    # -- raw --------------------------------------------------------------
+    def _get(self, request: msg.Message) -> msg.Message:
+        data = self._stub.get(msg.serialize_message(request),
+                              timeout=self._timeout_s)
+        return msg.deserialize_message(data)
+
+    def _typed(self, send, request: msg.Message,
+               expected: type) -> msg.Message:
+        """Send via ``send`` and enforce the response type: a generic
+        failure Response becomes a raisable (and retryable) error instead
+        of an AttributeError in the caller."""
+        response = send(request)
+        if not isinstance(response, expected):
+            reason = getattr(response, "reason", repr(response))
+            raise RuntimeError(
+                f"master error for {type(request).__name__}: {reason}"
+            )
+        return response
+
+    def _get_typed(self, request: msg.Message, expected: type) -> msg.Message:
+        return self._typed(self._get, request, expected)
+
+    def _report(self, request: msg.Message) -> msg.Message:
+        data = self._stub.report(msg.serialize_message(request),
+                                 timeout=self._timeout_s)
+        return msg.deserialize_message(data)
+
+    def _report_typed(self, request: msg.Message,
+                      expected: type) -> msg.Message:
+        return self._typed(self._report, request, expected)
+
+    def close(self) -> None:
+        self._channel.close()
+
+    # -- dynamic sharding -------------------------------------------------
+    @retry_rpc()
+    def report_dataset_shard_params(self, params: msg.DatasetShardParams
+                                    ) -> bool:
+        return self._report(params).success
+
+    @retry_rpc(retries=3)
+    def get_task(self, dataset_name: str) -> msg.Task:
+        return self._get_typed(
+            msg.TaskRequest(dataset_name=dataset_name,
+                            worker_id=self.node_id),
+            msg.Task,
+        )
+
+    @retry_rpc(retries=3)
+    def report_task_result(self, dataset_name: str, task_id: int,
+                           success: bool = True, err: str = "") -> bool:
+        return self._report(msg.TaskResult(
+            dataset_name=dataset_name, task_id=task_id,
+            worker_id=self.node_id, success=success, err_message=err,
+        )).success
+
+    def get_shard_checkpoint(self, dataset_name: str) -> str:
+        result = self._get_typed(
+            msg.ShardCheckpointRequest(dataset_name=dataset_name),
+            msg.ShardCheckpoint,
+        )
+        return result.content
+
+    def report_shard_checkpoint(self, content: str) -> bool:
+        return self._report(msg.ShardCheckpoint(content=content)).success
+
+    def get_dataset_epoch(self, dataset_name: str) -> int:
+        return self._get_typed(
+            msg.DatasetEpochInfo(dataset_name=dataset_name),
+            msg.DatasetEpochInfo,
+        ).epoch
+
+    def get_task_counts(self, dataset_name: str) -> Tuple[int, int]:
+        """(todo, doing) task counts of a registered dataset."""
+        result = self._get_typed(
+            msg.TaskCounts(dataset_name=dataset_name), msg.TaskCounts)
+        return result.todo, result.doing
+
+    # -- rendezvous -------------------------------------------------------
+    @retry_rpc()
+    def join_rendezvous(self, local_world_size: int,
+                        rdzv_name: str = RendezvousName.TRAINING) -> int:
+        """Returns the rendezvous round this node was placed in."""
+        result = self._report_typed(msg.JoinRendezvousRequest(
+            node_id=self.node_id,
+            node_rank=self.node_rank,
+            local_world_size=local_world_size,
+            rdzv_name=rdzv_name,
+            node_ip=local_ip(),
+            trace=current_context() or {},
+            slice_id=self.slice_id,
+        ), msg.JoinRendezvousResult)
+        if result.generation:
+            self.master_generation = result.generation
+        return result.round
+
+    @retry_rpc()
+    def leave_rendezvous(self, rdzv_name: str = RendezvousName.TRAINING
+                         ) -> bool:
+        """Withdraw from an uncompleted round (poll deadline gave up)."""
+        return self._report(msg.LeaveRendezvousRequest(
+            node_id=self.node_id,
+            node_rank=self.node_rank,
+            rdzv_name=rdzv_name,
+        )).success
+
+    @retry_rpc(retries=3)
+    def get_comm_world(self, rdzv_name: str = RendezvousName.TRAINING
+                       ) -> Tuple[int, int, Dict[int, int]]:
+        world = self._get_typed(
+            msg.CommWorldRequest(node_id=self.node_rank,
+                                 rdzv_name=rdzv_name),
+            msg.CommWorld,
+        )
+        if world.rdzv_name and world.rdzv_name != rdzv_name:
+            # the echo field guards against a cross-wired dispatch
+            raise RuntimeError(
+                f"comm world for {world.rdzv_name!r}, "
+                f"asked for {rdzv_name!r}")
+        return world.round, world.group, world.world
+
+    @retry_rpc(retries=3)
+    def num_nodes_waiting(self, rdzv_name: str = RendezvousName.TRAINING
+                          ) -> int:
+        result = self._get_typed(
+            msg.WaitingNodeNumRequest(node_id=self.node_rank,
+                                      rdzv_name=rdzv_name),
+            msg.WaitingNodeNum,
+        )
+        return result.waiting_num
+
+    def report_network_status(self, normal: bool, elapsed: float) -> bool:
+        return self._report(msg.NetworkStatusReport(
+            node_id=self.node_rank, normal=normal, elapsed_time=elapsed,
+        )).success
+
+    def get_network_check_verdict(self) -> msg.NetworkCheckVerdict:
+        return self._get_typed(
+            msg.NetworkCheckResultRequest(node_id=self.node_rank),
+            msg.NetworkCheckVerdict,
+        )
+
+    # -- kv store ---------------------------------------------------------
+    def kv_set(self, key: str, value: bytes) -> bool:
+        return self._report(msg.KeyValuePair(key=key, value=value)).success
+
+    def kv_get(self, key: str) -> bytes:
+        return self._get_typed(msg.KVGetRequest(key=key),
+                               msg.KeyValuePair).value
+
+    def kv_add(self, key: str, amount: int) -> int:
+        return self._report_typed(msg.KVAddRequest(key=key, amount=amount),
+                                  msg.KVIntResult).value
+
+    def kv_wait(self, key: str, timeout_s: float = 300.0) -> bytes:
+        """Block until the key appears: the master holds each RPC open on
+        a condition variable for up to ~20 s per window."""
+        deadline = time.time() + timeout_s
+        while True:
+            remaining = deadline - time.time()
+            if remaining <= 0:
+                raise TimeoutError(f"kv_wait timed out on {key!r}")
+            window = min(remaining, 20.0)
+            result = self._get(msg.KVWaitRequest(keys=[key],
+                                                 timeout_s=window))
+            if getattr(result, "success", False):
+                return self.kv_get(key)
+
+    # -- health / status --------------------------------------------------
+    def report_global_step(self, step: int, step_time_s: float = 0.0,
+                           data_wait_fraction: float = -1.0,
+                           mfu: float = -1.0) -> bool:
+        """Step progress with the sender's windowed speed evidence: mean
+        step wall time and data-wait fraction from the worker's phase
+        timeline, achieved MFU from its FLOPs model. ``timestamp`` rides
+        for wire captures only: the master keys speed on its own clock."""
+        return self._report(msg.GlobalStepReport(
+            node_id=self.node_id, step=step, timestamp=time.time(),
+            node_rank=self.node_rank, step_time_s=step_time_s,
+            data_wait_fraction=data_wait_fraction, mfu=mfu,
+        )).success
+
+    def report_heartbeat(self) -> bool:
+        return self._report(msg.NodeHeartbeat(
+            node_id=self.node_id, node_type=self.node_type,
+            timestamp=time.time(), node_rank=self.node_rank)).success
+
+    def report_failure(self, error_data: str, level: str,
+                       restart_count: int = 0,
+                       exit_kind: str = "") -> bool:
+        return self._report(msg.NodeFailureReport(
+            node_id=self.node_id, node_rank=self.node_rank,
+            error_data=error_data, level=level,
+            restart_count=restart_count, exit_kind=exit_kind,
+        )).success
+
+    def report_node_address(self, addr: str) -> bool:
+        return self._report(msg.NodeAddressReport(
+            node_id=self.node_id, node_rank=self.node_rank, addr=addr,
+        )).success
+
+    def report_model_info(self, param_count: int, param_bytes: int,
+                          flops_per_step: float = 0.0,
+                          batch_size: int = 0, seq_len: int = 0,
+                          flops_per_token: float = 0.0,
+                          peak_flops_per_chip: float = 0.0,
+                          chips: int = 0,
+                          flops_source: str = "",
+                          tensor_divisor: int = 0,
+                          fsdp_divisor: int = 0,
+                          effective_global_batch: int = 0) -> bool:
+        """Static model stats plus the FLOPs model that turns the
+        master's tokens/s into MFU."""
+        return self._report(msg.ModelInfo(
+            param_count=param_count, param_bytes=param_bytes,
+            flops_per_step=flops_per_step, batch_size=batch_size,
+            seq_len=seq_len, flops_per_token=flops_per_token,
+            peak_flops_per_chip=peak_flops_per_chip, chips=chips,
+            flops_source=flops_source, tensor_divisor=tensor_divisor,
+            fsdp_divisor=fsdp_divisor,
+            effective_global_batch=effective_global_batch,
+        )).success
+
+    def get_paral_config(self) -> msg.ParallelConfig:
+        return self._get_typed(
+            msg.ParallelConfigRequest(node_id=self.node_id),
+            msg.ParallelConfig,
+        )
+
+    def get_job_status(self) -> msg.JobStatus:
+        return self._get_typed(msg.JobStatusRequest(), msg.JobStatus)
+
+    # -- barriers / PS versions -------------------------------------------
+    def join_sync(self, sync_name: str) -> bool:
+        return self._report(msg.SyncJoinRequest(
+            sync_name=sync_name, node_id=self.node_id)).success
+
+    def sync_finished(self, sync_name: str) -> bool:
+        return self._get(msg.SyncQueryRequest(sync_name=sync_name)).success
+
+    def finish_sync(self, sync_name: str) -> bool:
+        return self._report(
+            msg.SyncFinishRequest(sync_name=sync_name)).success
+
+    def update_cluster_version(self, version_type: str, version: int,
+                               task_type: str = "worker",
+                               task_id: Optional[int] = None) -> bool:
+        return self._report(msg.ClusterVersionRequest(
+            task_type=task_type,
+            task_id=task_id if task_id is not None else self.node_id,
+            version_type=version_type, version=version,
+        )).success
+
+    def get_cluster_version(self, version_type: str,
+                            task_type: str = "worker",
+                            task_id: Optional[int] = None) -> int:
+        return self._get_typed(msg.ClusterVersionRequest(
+            task_type=task_type,
+            task_id=task_id if task_id is not None else self.node_id,
+            version_type=version_type,
+        ), msg.ClusterVersion).version
+
+    # -- singleton --------------------------------------------------------
+    @classmethod
+    def singleton(cls) -> "MasterClient":
+        if cls._singleton is None:
+            addr = os.getenv(NodeEnv.MASTER_ADDR, "")
+            if not addr:
+                raise RuntimeError(
+                    f"{NodeEnv.MASTER_ADDR} is not set; is this process "
+                    "running under dlrover_tpu_torch.run?"
+                )
+            node_id = int(os.getenv(NodeEnv.NODE_ID, "0"))
+            node_rank = int(os.getenv(NodeEnv.NODE_RANK, str(node_id)))
+            cls._singleton = cls(addr, node_id, node_rank)
+        return cls._singleton
+
+    @classmethod
+    def reset_singleton(cls) -> None:
+        cls._singleton = None

@@ -263,6 +263,7 @@ class FlashCheckpointer:
         progress."""
         self.last_restore_phases = {}
         t0 = time.monotonic()
+        self._remove_torn_saves()
         steps = sorted(self.all_steps(), reverse=True)
         discovery_s = time.monotonic() - t0
         if not steps:
@@ -358,6 +359,20 @@ class FlashCheckpointer:
         read_s = phases.get("tensor_read_s", 0.0)
         if read_s > 0 and total:
             phases["read_bandwidth_mbps"] = total / (1 << 20) / read_s
+
+    def _remove_torn_saves(self) -> None:
+        """Drop ``<step>.tmp`` directories: saves a killed process never
+        committed. A restore never reads them; removing them frees their
+        bytes before the resumed run writes those steps again."""
+        torn = [name for name in os.listdir(self.directory)
+                if name.endswith(_TMP_SUFFIX)]
+        if self._rank == 0:
+            for name in torn:
+                shutil.rmtree(os.path.join(self.directory, name),
+                              ignore_errors=True)
+                logger.warning("checkpoint: removed uncommitted save %s",
+                               name)
+        self._barrier()
 
     def _remove_failed_steps(self, steps) -> None:
         """Drop the corrupt newer steps a fallback skipped: the resumed

@@ -1,0 +1,94 @@
+"""Global context singleton of runtime tunables.
+
+Own copy of the JAX package's ``common/config.py``, holding the knobs the
+ported control plane reads. Each is overridable from the environment as
+``DLROVER_TPU_<NAME_UPPER>`` or programmatically (tests).
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+
+from dlrover_tpu_torch.common.constants import DefaultValues
+
+
+class Context:
+    _instance = None
+    _lock = threading.Lock()
+
+    def __init__(self):
+        self.rdzv_timeout_s: float = DefaultValues.RDZV_TIMEOUT_S
+        self.rdzv_wait_new_node_s: float = DefaultValues.RDZV_WAIT_NEW_NODE_S
+        self.task_timeout_s: float = DefaultValues.TASK_TIMEOUT_S
+        self.hang_seconds: float = DefaultValues.HANG_SECONDS
+        self.dead_node_timeout_s: float = DefaultValues.DEAD_NODE_TIMEOUT_S
+        # client RPC budget (agent/master_client.py): per-call deadline,
+        # attempt count and the jittered-exponential-backoff envelope
+        self.rpc_timeout_s: float = DefaultValues.RPC_TIMEOUT_S
+        self.rpc_retries: int = DefaultValues.RPC_RETRIES
+        self.rpc_backoff_s: float = DefaultValues.RPC_BACKOFF_S
+        self.rpc_backoff_max_s: float = DefaultValues.RPC_BACKOFF_MAX_S
+        self.kv_gc_keep_generations: int = (
+            DefaultValues.KV_GC_KEEP_GENERATIONS
+        )
+        self.speed_sample_window: int = DefaultValues.SPEED_SAMPLE_WINDOW
+        self.straggler_median_ratio: float = (
+            DefaultValues.STRAGGLER_MEDIAN_RATIO
+        )
+        self.diagnosis_worker_window: int = (
+            DefaultValues.DIAGNOSIS_WORKER_WINDOW
+        )
+        # flight-recorder rings (obs/flight_recorder.py)
+        self.flight_ring_events: int = DefaultValues.FLIGHT_RING_EVENTS
+        self.flight_ring_spans: int = DefaultValues.FLIGHT_RING_SPANS
+        # per-rank relaunch backoff + quarantine (agent/elastic_agent.py)
+        self.relaunch_backoff_base_s: float = (
+            DefaultValues.RELAUNCH_BACKOFF_BASE_S
+        )
+        self.relaunch_backoff_max_s: float = (
+            DefaultValues.RELAUNCH_BACKOFF_MAX_S
+        )
+        self.quarantine_failures: int = DefaultValues.QUARANTINE_FAILURES
+        self.quarantine_window_s: float = DefaultValues.QUARANTINE_WINDOW_S
+        # speed-aware dynamic sharding (master/shard/task_manager.py)
+        self.dispatch_speed_weighted: bool = (
+            DefaultValues.DISPATCH_SPEED_WEIGHTED
+        )
+        self.dispatch_weight_floor: float = (
+            DefaultValues.DISPATCH_WEIGHT_FLOOR
+        )
+        self._load_env_overrides()
+
+    def _load_env_overrides(self) -> None:
+        for name, value in vars(self).items():
+            if name.startswith("_"):
+                continue
+            env_key = f"DLROVER_TPU_{name.upper()}"
+            raw = os.getenv(env_key)
+            if raw is None:
+                continue
+            kind = type(value)
+            if kind is bool:
+                setattr(self, name, raw.lower() in ("1", "true", "yes"))
+            else:
+                setattr(self, name, kind(raw))
+
+    def update(self, **kwargs) -> None:
+        """Runtime override."""
+        for key, value in kwargs.items():
+            if hasattr(self, key) and not key.startswith("_"):
+                setattr(self, key, value)
+
+    @classmethod
+    def singleton(cls) -> "Context":
+        with cls._lock:
+            if cls._instance is None:
+                cls._instance = cls()
+            return cls._instance
+
+    @classmethod
+    def reset(cls) -> None:
+        """For tests: drop the singleton so env overrides re-apply."""
+        with cls._lock:
+            cls._instance = None

@@ -1,20 +1,151 @@
-"""Constants the worker reads: the mesh's axis names, the agent's
-environment contract, and the emergency-checkpoint window.
+"""Constants of the port: the mesh's axis names, the agent's environment
+contract, node and job vocabularies, and the control plane's defaults.
 
 Own copy of the parts of the JAX package's ``common/constants.py`` that
-the port uses (``MeshAxis``, the per-worker ``NodeEnv`` names) and of
-``DefaultValues.EMERGENCY_CKPT_MIN_WINDOW_S``; a test holds each equal to
-the original.
+the port uses; a test holds each equal to the original.
 """
 
 
-class NodeEnv:
-    """The environment an agent sets for the training process it spawns."""
+class NodeType:
+    MASTER = "master"
+    WORKER = "worker"        # a host running one training process
+    CHIEF = "chief"          # worker rank 0 (checkpoint writes, logging)
+    EVALUATOR = "evaluator"
+    PS = "ps"                # parameter-server-style state holder
 
+
+class NodeStatus:
+    INITIAL = "initial"
+    PENDING = "pending"
+    RUNNING = "running"
+    SUCCEEDED = "succeeded"
+    FAILED = "failed"
+    DELETED = "deleted"
+    UNKNOWN = "unknown"
+    BREAKDOWN = "breakdown"  # machine-level fault (host unreachable)
+
+    @classmethod
+    def terminal(cls):
+        return {cls.SUCCEEDED, cls.FAILED, cls.DELETED}
+
+
+class NodeExitReason:
+    SUCCEEDED = "succeeded"
+    KILLED = "killed"            # deleted/force-killed by the platform
+    # clean graceful drain (emergency checkpoint completed, worker exited
+    # WorkerExit.DRAIN): a planned departure, not a failure
+    DRAINED = "drained"
+    # self-aborted by the step-hang watchdog
+    HANG = "hang"
+    OOM = "oom"
+    FATAL_ERROR = "fatal_error"
+    HARDWARE_ERROR = "hardware_error"
+    UNKNOWN_ERROR = "unknown_error"
+    RELAUNCHED = "relaunched"
+
+
+class WorkerExit:
+    """Worker exit-code vocabulary shared by the trainer (producer) and
+    the agent (classifier)."""
+
+    SUCCESS = 0
+    # graceful drain after a preemption notice; outside the shell
+    # (126/127) and signal (128+n) ranges
+    DRAIN = 76
+    # SIGABRT: the step-hang watchdog self-aborts; Popen reports -6,
+    # a shell 128+6
+    _SIGABRT_POPEN = -6
+    _SIGABRT_SHELL = 134
+    # platform SIGKILL/SIGTERM
+    _KILL_CODES = (-9, -15, 137, 143)
+
+    @classmethod
+    def classify(cls, code: int, hang_enabled: bool = True) -> str:
+        """Exit code → NodeExitReason.*. With the hang watchdog off a
+        SIGABRT is an ordinary crash and charges the relaunch budget."""
+        if code == cls.SUCCESS:
+            return NodeExitReason.SUCCEEDED
+        if code == cls.DRAIN:
+            return NodeExitReason.DRAINED
+        if code in (cls._SIGABRT_POPEN, cls._SIGABRT_SHELL):
+            return (NodeExitReason.HANG if hang_enabled
+                    else NodeExitReason.UNKNOWN_ERROR)
+        if code in cls._KILL_CODES:
+            return NodeExitReason.KILLED
+        return NodeExitReason.UNKNOWN_ERROR
+
+    @classmethod
+    def to_exit_status(cls, code: int) -> int:
+        """Popen's negative signal codes → the POSIX 128+N exit status."""
+        return 128 - code if code < 0 else code
+
+
+class JobStage:
+    CREATED = "created"
+    RUNNING = "running"
+    SUCCEEDED = "succeeded"
+    FAILED = "failed"
+    STOPPING = "stopping"
+
+
+class RendezvousName:
+    TRAINING = "elastic-training"
+    NETWORK_CHECK = "network-check"
+
+
+class NodeEnv:
+    """The environment contract between master, agent and worker."""
+
+    MASTER_ADDR = "DLROVER_TPU_MASTER_ADDR"
+    # file a (re)started master writes its address into
+    MASTER_BOOTSTRAP = "DLROVER_TPU_MASTER_BOOTSTRAP_FILE"
+    # coordination-tier address ("" = single-tier master)
+    COORD_ADDR = "DLROVER_TPU_COORD_ADDR"
+    NODE_ID = "DLROVER_TPU_NODE_ID"
+    NODE_TYPE = "DLROVER_TPU_NODE_TYPE"
     NODE_RANK = "DLROVER_TPU_NODE_RANK"
+    NODE_NUM = "DLROVER_TPU_NODE_NUM"
+    JOB_NAME = "DLROVER_TPU_JOB_NAME"
+    # per worker (set by the agent for the process it spawns)
     WORLD_SIZE = "DLROVER_TPU_WORLD_SIZE"          # number of processes
     PROCESS_ID = "DLROVER_TPU_PROCESS_ID"          # this process's rank
     COORDINATOR_ADDR = "DLROVER_TPU_COORDINATOR"   # host:port of rank 0
+    RDZV_ROUND = "DLROVER_TPU_RDZV_ROUND"
+    PARAL_CONFIG_PATH = "DLROVER_TPU_PARAL_CONFIG"
+    DEVICES_PER_NODE = "DLROVER_TPU_DEVICES_PER_NODE"
+    # worker → agent handoff files
+    METRICS_FILE = "DLROVER_TPU_METRICS_FILE"
+    CHIP_STATS_FILE = "DLROVER_TPU_CHIP_STATS"
+    # per-step phase timeline the worker exports (obs/timeline.py)
+    TIMELINE_FILE = "DLROVER_TPU_TIMELINE_FILE"
+    PROFILE_REQUEST_FILE = "DLROVER_TPU_PROFILE_REQUEST"
+    DRAIN_REQUEST_FILE = "DLROVER_TPU_DRAIN_REQUEST"
+    PEER_CACHE_DIR = "DLROVER_TPU_PEER_CACHE_DIR"
+    RESTORE_PLAN_FILE = "DLROVER_TPU_RESTORE_PLAN"
+    SHARD_PLAN_FILE = "DLROVER_TPU_SHARD_PLAN"
+    RESIZE_REQUEST_FILE = "DLROVER_TPU_RESIZE_REQUEST"
+    NUM_SLICES = "DLROVER_TPU_NUM_SLICES"
+    PREEMPTION_NOTICE_FILE = "DLROVER_TPU_PREEMPTION_NOTICE"
+    PREEMPTION_AT = "DLROVER_TPU_PREEMPTION_AT"
+    SLICE_ID = "DLROVER_TPU_SLICE_ID"
+
+
+class TrainingMsgLevel:
+    PROCESS_ERROR = "process_error"
+    NODE_ERROR = "node_error"
+    RDZV_ERROR = "rdzv_error"
+    WARNING = "warning"
+    INFO = "info"
+
+
+class TaskType:
+    """Dynamic-sharding task types."""
+
+    TRAINING = "training"
+    EVALUATION = "evaluation"
+    PREDICTION = "prediction"
+    WAIT = "wait"
+    NONE = "none"
 
 
 class MeshAxis:
@@ -33,6 +164,49 @@ class MeshAxis:
     ALL = ("dcn", "data", "fsdp", "tensor", "sequence", "expert", "pipe")
 
 
+class DefaultValues:
+    """The defaults of the knobs the ported modules read (``Context``)."""
+
+    RDZV_TIMEOUT_S = 600.0
+    RDZV_WAIT_NEW_NODE_S = 30.0     # grace window for extra nodes past min
+    TASK_TIMEOUT_S = 1800.0
+    HANG_SECONDS = 1800.0
+    # an agent silent this long is declared dead and its world
+    # invalidated
+    DEAD_NODE_TIMEOUT_S = 90.0
+    MAX_RELAUNCH = 3
+    GRPC_MAX_MESSAGE_MB = 64
+    # client-side RPC budget (agent/master_client.py retry_rpc)
+    RPC_TIMEOUT_S = 30.0
+    RPC_RETRIES = 10
+    RPC_BACKOFF_S = 0.5
+    RPC_BACKOFF_MAX_S = 15.0
+    KV_GC_KEEP_GENERATIONS = 2
+    MONITOR_INTERVAL_S = 5.0
+    SPEED_SAMPLE_WINDOW = 20
+    STRAGGLER_MEDIAN_RATIO = 2.0    # t > ratio × median ⇒ straggler
+    # per-worker step-time window (samples) of the speed monitor
+    DIAGNOSIS_WORKER_WINDOW = 20
+    # the least time before a deadline for which an emergency save
+    # starts at all
+    EMERGENCY_CKPT_MIN_WINDOW_S = 2.0
+    # flight recorder rings (obs/flight_recorder.py)
+    FLIGHT_RING_EVENTS = 4096
+    FLIGHT_RING_SPANS = 4096
+    # speed-aware dynamic sharding (master/shard/)
+    DISPATCH_SPEED_WEIGHTED = False
+    DISPATCH_WEIGHT_FLOOR = 0.25
+    # per-rank relaunch backoff + quarantine (agent)
+    RELAUNCH_BACKOFF_BASE_S = 1.0
+    RELAUNCH_BACKOFF_MAX_S = 60.0
+    QUARANTINE_FAILURES = 5
+    QUARANTINE_WINDOW_S = 600.0
+
+
+# keys under these prefixes are on the gradient path (kv store hygiene,
+# client routing)
+HOT_KV_PREFIXES = ("dcn/", "coord/")
+
 # the least time before a deadline for which an emergency save starts at
 # all (seconds)
-EMERGENCY_CKPT_MIN_WINDOW_S = 2.0
+EMERGENCY_CKPT_MIN_WINDOW_S = DefaultValues.EMERGENCY_CKPT_MIN_WINDOW_S

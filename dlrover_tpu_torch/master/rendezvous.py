@@ -1,0 +1,447 @@
+"""Master-side rendezvous managers.
+
+Own copy of the JAX package's ``master/rendezvous.py`` (the single-lock
+manager), after dlrover/python/master/elastic_training/rdzv_manager.py:
+min/max-node rendezvous with a waiting list and ``node_unit`` rounding,
+liveness reaping, and the 2-round network-check rendezvous with pair
+grouping, fault isolation and 2×median straggler verdicts.
+
+A "node" is one host running one training process; ``local_world_size``
+is its card count. A completed round yields the world map {node_rank →
+cards}, from which agents derive the process group's world size, each
+process's rank and the rendezvous address.
+
+Not ported yet: slice-scoped worlds (ROADMAP Queue A item 6.4), drains
+(6.5), peer-restore plans (6.2b), the parallelism planner (6.3), the
+sharded router and the state export of the state backend (12).
+"""
+
+from __future__ import annotations
+
+import statistics
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+from dlrover_tpu_torch import obs
+from dlrover_tpu_torch.common.config import Context
+from dlrover_tpu_torch.common.log import default_logger as logger
+
+
+@dataclass
+class RendezvousParameters:
+    min_nodes: int = 1
+    max_nodes: int = 1
+    # after min_nodes have joined, wait this long for late nodes up to max
+    wait_new_node_s: float = 30.0
+    # the world size is rounded down to a multiple of node_unit
+    node_unit: int = 1
+
+
+@dataclass
+class _WaitingNode:
+    node_rank: int
+    local_world_size: int
+    join_time: float = field(default_factory=time.time)
+
+
+class RendezvousManager:
+    """Base rendezvous: collect joiners, cut a round when complete."""
+
+    name = "base"
+
+    def __init__(self, params: Optional[RendezvousParameters] = None):
+        self._params = params or RendezvousParameters()
+        self._lock = threading.Lock()
+        self._waiting: Dict[int, _WaitingNode] = {}
+        self._alive_nodes: set = set()
+        self._rdzv_round = 0
+        self._latest_world: Dict[int, int] = {}   # node_rank -> local_world
+        self._latest_round_start = 0.0
+        self._node_ips: Dict[int, str] = {}
+        # survivors of an invalidated world that have not re-joined yet:
+        # the membership-change signal stays raised until each of them
+        # re-joins or dies
+        self._pending_rejoin: set = set()
+        # rank -> last RPC touch: the liveness source of reap_dead_nodes
+        self._last_seen: Dict[int, float] = {}
+        # bumped on every mutation of the protocol state (joins, leaves,
+        # round cuts, membership changes; not liveness touches)
+        self._mutations = 0
+
+    # -- membership --------------------------------------------------------
+    def update_rdzv_params(self, min_nodes: int, max_nodes: int,
+                           wait_new_node_s: float = 30.0,
+                           node_unit: int = 1) -> None:
+        with self._lock:
+            self._params = RendezvousParameters(
+                min_nodes, max_nodes, wait_new_node_s, node_unit
+            )
+
+    @property
+    def mutation_count(self) -> int:
+        with self._lock:
+            return self._mutations
+
+    @property
+    def alive_nodes(self) -> set:
+        with self._lock:
+            return set(self._alive_nodes)
+
+    def add_alive_node(self, node_rank: int) -> None:
+        with self._lock:
+            self._alive_nodes.add(node_rank)
+            self._last_seen[node_rank] = time.time()
+            self._mutations += 1
+
+    def touch(self, node_rank: int) -> None:
+        """Record liveness for a rank (any agent RPC qualifies)."""
+        if node_rank < 0:
+            return
+        with self._lock:
+            self._last_seen[node_rank] = time.time()
+
+    def compute_shard_plan(self, node_rank: int):
+        raise NotImplementedError(
+            "the parallelism planner is not ported yet (ROADMAP Queue A "
+            "item 6.3)")
+
+    def reap_dead_nodes(self, timeout_s: float) -> None:
+        """Declare ranks silent for > timeout_s dead (world invalidation
+        via remove_alive_node). 0/negative disables. Runs on live agents'
+        polls: no master thread needed."""
+        if timeout_s <= 0:
+            return
+        now = time.time()
+        with self._lock:
+            dead = [rank for rank in self._alive_nodes
+                    if now - self._last_seen.get(rank, now) > timeout_s]
+        for rank in dead:
+            logger.warning(
+                "%s rendezvous: node %d silent for > %.0fs; declaring it "
+                "dead", self.name, rank, timeout_s)
+            self.remove_alive_node(rank, graceful=False)
+
+    def remove_alive_node(self, node_rank: int,
+                          graceful: bool = False) -> None:
+        """Drop a node from membership. ``graceful`` marks a clean exit:
+        survivors keep running, so the cut world stays valid for them and
+        is NOT invalidated; only a death does that."""
+        invalidated_round = None
+        with self._lock:
+            self._alive_nodes.discard(node_rank)
+            self._waiting.pop(node_rank, None)
+            self._pending_rejoin.discard(node_rank)
+            self._mutations += 1
+            if not graceful and node_rank in self._latest_world:
+                # a member of the cut round died: survivors handed this
+                # world would only find out at the process group's
+                # timeout. Empty it so polls report "still forming" and
+                # survivors re-join for a fresh round.
+                logger.info(
+                    "%s rendezvous: node %d died after round %d was cut; "
+                    "invalidating the world", self.name, node_rank,
+                    self._rdzv_round - 1,
+                )
+                self._pending_rejoin |= (
+                    set(self._latest_world) - {node_rank}
+                )
+                self._latest_world = {}
+                self._on_world_invalidated()
+                invalidated_round = self._rdzv_round - 1
+        # obs sinks run OUTSIDE the manager lock (they take their own)
+        if invalidated_round is not None:
+            obs.get_flight_recorder().record_event(
+                "world_invalidated", rdzv=self.name,
+                dead_rank=node_rank, round=invalidated_round)
+            obs.get_registry().counter(
+                "dlrover_tpu_rendezvous_world_invalidations_total",
+                "Cut worlds invalidated by a member death",
+                labelnames=("rdzv",),
+            ).labels(rdzv=self.name).inc()
+
+    def _on_world_invalidated(self) -> None:
+        """Hook for subclasses holding state keyed on the cut world
+        (lock held)."""
+
+    # -- agent-facing protocol ---------------------------------------------
+    def join_rendezvous(self, node_rank: int, local_world_size: int,
+                        node_ip: str = "", slice_id: int = -1) -> int:
+        """Register a joiner; returns the round it will be placed in."""
+        if slice_id >= 0:
+            raise NotImplementedError(
+                "slice-scoped rendezvous is not ported yet (ROADMAP Queue "
+                "A item 6.4)")
+        with self._lock:
+            self._waiting[node_rank] = _WaitingNode(node_rank,
+                                                    local_world_size)
+            self._alive_nodes.add(node_rank)
+            self._last_seen[node_rank] = time.time()
+            self._pending_rejoin.discard(node_rank)
+            if node_ip:
+                self._node_ips[node_rank] = node_ip
+            if len(self._waiting) == 1:
+                self._latest_round_start = time.time()
+            self._mutations += 1
+            joined_round = self._rdzv_round
+        obs.get_registry().counter(
+            "dlrover_tpu_rendezvous_joins_total",
+            "join_rendezvous RPCs accepted", labelnames=("rdzv",),
+        ).labels(rdzv=self.name).inc()
+        return joined_round
+
+    def leave_waiting(self, node_rank: int) -> None:
+        """A joiner abandoning an UNCOMPLETED round (its poll deadline
+        expired); the node stays alive and may re-join. A no-op after the
+        round cut."""
+        with self._lock:
+            if self._waiting.pop(node_rank, None) is not None:
+                self._mutations += 1
+                logger.info(
+                    "%s rendezvous: node %d left the waiting list "
+                    "(gave up on the forming round)", self.name,
+                    node_rank)
+
+    def get_comm_world(self, node_rank: int
+                       ) -> Tuple[int, int, Dict[int, int]]:
+        """Poll for the completed world. Returns (round, group, world),
+        the world empty while the round is still forming."""
+        cut_info = None
+        with self._lock:
+            self._last_seen[node_rank] = time.time()
+            if self._check_rdzv_completed():
+                cut_info = self._cut_round()
+            # a node still in the waiting list has re-joined for the
+            # NEXT round: the latest world is stale for it
+            if (node_rank in self._latest_world
+                    and node_rank not in self._waiting):
+                result = (self._rdzv_round - 1, 0,
+                          dict(self._latest_world))
+            else:
+                result = self._rdzv_round, 0, {}
+        if cut_info is not None:
+            self._emit_round_obs(cut_info)
+        return result
+
+    def num_nodes_waiting(self, node_rank: int = -1) -> int:
+        """Agents restart workers when >0 while healthy (membership
+        change)."""
+        with self._lock:
+            if self._pending_rejoin:
+                # a world member died: every survivor must restart and
+                # re-join; keep the signal raised until each has
+                return max(1, len(self._waiting))
+            # before the first round there is no world to change
+            if not self._latest_world:
+                return 0
+            return len(self._waiting)
+
+    # -- internals ---------------------------------------------------------
+    def _check_rdzv_completed(self) -> bool:
+        """A round completes when every alive node joined, or max_nodes
+        joined, or min_nodes joined and the late-node grace window
+        expired (lock held)."""
+        if not self._waiting:
+            return False
+        num = min(len(self._waiting), self._params.max_nodes)
+        if num < self._params.min_nodes:
+            return False
+        alive_all_joined = (
+            self._alive_nodes
+            and self._alive_nodes.issubset(set(self._waiting))
+        )
+        if num == self._params.max_nodes or alive_all_joined:
+            return self._rounded_size(num) >= self._params.min_nodes
+        waited = time.time() - self._latest_round_start
+        if waited >= self._params.wait_new_node_s:
+            return self._rounded_size(num) >= self._params.min_nodes
+        return False
+
+    def _rounded_size(self, num: int) -> int:
+        unit = max(1, self._params.node_unit)
+        return (num // unit) * unit
+
+    def _cut_round(self):
+        """Select the world for this round (lock held). Returns
+        (duration_s, round_idx, world_size, world_ranks) for
+        ``_emit_round_obs`` once the lock is released."""
+        size = self._rounded_size(
+            min(len(self._waiting), self._params.max_nodes)
+        )
+        # keep the lowest-ranked `size` nodes; the rest stay waiting for
+        # the next round (node_unit remainder)
+        chosen = sorted(self._waiting)[:size]
+        self._latest_world = {
+            rank: self._waiting[rank].local_world_size for rank in chosen
+        }
+        for rank in chosen:
+            del self._waiting[rank]
+        self._rdzv_round += 1
+        self._mutations += 1
+        logger.info(
+            "%s rendezvous round %d completed: world=%s",
+            self.name, self._rdzv_round - 1, sorted(self._latest_world),
+        )
+        duration = max(0.0, time.time() - self._latest_round_start)
+        if self._waiting:
+            # a node_unit remainder opens the NEXT forming round now
+            self._latest_round_start = time.time()
+        return (duration, self._rdzv_round - 1, len(self._latest_world),
+                sorted(self._latest_world))
+
+    def _emit_round_obs(self, cut_info) -> None:
+        """Round span + counters for a just-cut round, called after the
+        manager lock is released."""
+        duration_s, round_idx, world_size, _ = cut_info
+        obs.record_span(
+            "rendezvous_round", duration_s,
+            attrs={"rdzv": self.name, "round": round_idx,
+                   "world_size": world_size},
+        )
+        registry = obs.get_registry()
+        registry.counter(
+            "dlrover_tpu_rendezvous_rounds_total",
+            "Completed rendezvous rounds", labelnames=("rdzv",),
+        ).labels(rdzv=self.name).inc()
+        registry.gauge(
+            "dlrover_tpu_rendezvous_world_size",
+            "Node count of the latest cut world", labelnames=("rdzv",),
+        ).labels(rdzv=self.name).set(world_size)
+
+    @property
+    def latest_world(self) -> Dict[int, int]:
+        with self._lock:
+            return dict(self._latest_world)
+
+    @property
+    def rdzv_round(self) -> int:
+        with self._lock:
+            return self._rdzv_round
+
+
+class ElasticTrainingRendezvousManager(RendezvousManager):
+    name = "elastic-training"
+
+
+class NetworkCheckRendezvousManager(RendezvousManager):
+    """2-round diagnostic rendezvous (reference: rdzv_manager.py:248-461).
+
+    Round 0 groups adjacent pairs; round 1 re-pairs fastest-with-slowest
+    so a node that failed round 0 is re-tested against a known-good
+    partner."""
+
+    name = "network-check"
+
+    def __init__(self, params: Optional[RendezvousParameters] = None):
+        super().__init__(params)
+        # round -> {node_rank: (normal, elapsed_time)}
+        self._reports: Dict[int, Dict[int, Tuple[bool, float]]] = {}
+        self._check_round = 0
+        self._groups: Dict[int, List[List[int]]] = {}
+
+    def get_comm_world(self, node_rank: int
+                       ) -> Tuple[int, int, Dict[int, int]]:
+        cut_info = None
+        result = None
+        with self._lock:
+            self._last_seen[node_rank] = time.time()
+            if self._check_rdzv_completed():
+                cut_info = self._cut_round()
+                self._groups[self._rdzv_round - 1] = self._group_nodes(
+                    self._check_round
+                )
+                self._check_round += 1
+            round_idx = self._rdzv_round - 1
+            groups = self._groups.get(round_idx, [])
+            for gi, group in enumerate(groups):
+                if (node_rank in group
+                        and all(r in self._latest_world for r in group)):
+                    world = {r: self._latest_world[r] for r in group}
+                    result = round_idx, gi, world
+                    break
+            if result is None:
+                result = self._rdzv_round, 0, {}
+        if cut_info is not None:
+            self._emit_round_obs(cut_info)
+        return result
+
+    def _on_world_invalidated(self) -> None:
+        # groups are keyed on the cut world (lock held)
+        self._groups.pop(self._rdzv_round - 1, None)
+
+    def _group_nodes(self, check_round: int) -> List[List[int]]:
+        """Pair nodes for the probe (lock held). Round 0: adjacent pairs.
+        Round ≥1: sort by last round's elapsed time, pair fastest with
+        slowest."""
+        ranks = sorted(self._latest_world)
+        if check_round == 0 or not self._reports.get(check_round - 1):
+            pairs = [ranks[i:i + 2] for i in range(0, len(ranks), 2)]
+        else:
+            prev = self._reports[check_round - 1]
+            by_time = sorted(
+                ranks, key=lambda r: prev.get(r, (False, float("inf")))[1]
+            )
+            pairs = []
+            lo, hi = 0, len(by_time) - 1
+            while lo < hi:
+                pairs.append([by_time[lo], by_time[hi]])
+                lo += 1
+                hi -= 1
+            if lo == hi:
+                pairs.append([by_time[lo]])
+        # merge a trailing singleton into the previous pair
+        if pairs and len(pairs[-1]) == 1 and len(pairs) > 1:
+            pairs[-2].extend(pairs.pop())
+        return pairs
+
+    def report_network_status(self, node_rank: int, normal: bool,
+                              elapsed_time: float) -> None:
+        with self._lock:
+            round_reports = self._reports.setdefault(
+                self._check_round - 1 if self._check_round else 0, {}
+            )
+            round_reports[node_rank] = (normal, elapsed_time)
+
+    def join_rendezvous(self, node_rank: int, local_world_size: int,
+                        node_ip: str = "", slice_id: int = -1) -> int:
+        with self._lock:
+            if not self._waiting and self._check_round >= 2:
+                # a full 2-round cycle was consumed: a new joiner starts a
+                # fresh cycle with a clean slate of verdicts
+                self._reports.clear()
+                self._groups.clear()
+                self._check_round = 0
+        return super().join_rendezvous(node_rank, local_world_size, node_ip,
+                                       slice_id)
+
+    def check_fault_node(self) -> Tuple[List[int], int]:
+        """Nodes abnormal in ALL reported rounds are faulty. Returns
+        (fault_nodes, rounds_reported)."""
+        with self._lock:
+            if not self._reports:
+                return [], 0
+            fault: Optional[set] = None
+            for round_reports in self._reports.values():
+                bad = {r for r, (ok, _) in round_reports.items() if not ok}
+                fault = bad if fault is None else (fault & bad)
+            return sorted(fault or ()), len(self._reports)
+
+    def detect_stragglers(self) -> List[int]:
+        """elapsed > ratio × median in the latest round."""
+        ratio = Context.singleton().straggler_median_ratio
+        with self._lock:
+            if not self._reports:
+                return []
+            latest = self._reports[max(self._reports)]
+            times = [t for ok, t in latest.values() if t > 0]
+            if len(times) < 2:
+                return []
+            median = statistics.median(times)
+            return sorted(
+                r for r, (ok, t) in latest.items() if t > ratio * median
+            )
+
+    def network_check_success(self) -> bool:
+        fault, rounds = self.check_fault_node()
+        return rounds > 0 and not fault

@@ -1,0 +1,314 @@
+"""MasterServicer: dispatch the two-RPC protocol onto master components.
+
+Own copy of the JAX package's ``master/servicer.py``, after
+dlrover/python/master/servicer.py:62-581: one service with
+``get(Message)`` and ``report(Message)``, dispatched on the payload's
+dataclass type. Every decision lives in a component (rendezvous manager,
+task manager, KV store, speed monitor, sync services); the servicer only
+routes.
+
+A request whose subsystem is not ported yet is answered
+``Response(success=False, reason="not ported: ROADMAP Queue A item …")``
+rather than pretending to handle it (``_NOT_PORTED``).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, Optional
+
+import grpc
+
+from dlrover_tpu_torch.common import messages as msg
+from dlrover_tpu_torch.common.config import Context
+from dlrover_tpu_torch.common.constants import JobStage, RendezvousName
+from dlrover_tpu_torch.common.log import default_logger as logger
+from dlrover_tpu_torch import obs
+from dlrover_tpu_torch.master.kv_store import KVStoreService
+from dlrover_tpu_torch.master.rendezvous import (
+    ElasticTrainingRendezvousManager,
+    NetworkCheckRendezvousManager,
+    RendezvousManager,
+)
+from dlrover_tpu_torch.master.shard.task_manager import TaskManager
+from dlrover_tpu_torch.master.speed_monitor import SpeedMonitor
+from dlrover_tpu_torch.master.sync_service import ElasticPsService, SyncService
+
+# the requests whose subsystem the port lacks, with the ROADMAP Queue A
+# item that ports it
+_NOT_PORTED = {
+    msg.DiagnosisActionRequest: "12 (diagnosis)",
+    msg.DiagnosisReportRequest: "12 (diagnosis)",
+    msg.GoodputRequest: "12 (goodput)",
+    msg.AutoscaleStatusRequest: "12 (brain)",
+    msg.TimeSeriesQuery: "12 (tsdb)",
+    msg.ClockProbe: "12 (steptrace)",
+    msg.StepTraceRequest: "12 (steptrace)",
+    msg.PlanCalibrationRequest: "6.3 (calibration)",
+    msg.SliceStatusRequest: "6.4 (slice mode)",
+    msg.RestorePlanRequest: "6.2b (peer restore)",
+    msg.ShardPlanRequest: "6.3 (re-planning)",
+    msg.PeerStoreReport: "6.2b (peer restore)",
+    msg.DrainReport: "6.5 (drain)",
+    msg.ReconnectRequest: "12 (master-loss reconnect)",
+    msg.NodeResourceStats: "12 (agent monitors)",
+    msg.ScaleRequest: "12 (job manager)",
+    msg.TelemetryReport: "12 (goodput, tsdb and telemetry ingest)",
+}
+
+
+def _not_ported(request: msg.Message) -> msg.Response:
+    return msg.Response(
+        success=False,
+        reason=f"not ported: ROADMAP Queue A item "
+               f"{_NOT_PORTED[type(request)]}")
+
+
+class MasterServicer:
+    def __init__(
+        self,
+        task_manager: Optional[TaskManager] = None,
+        rdzv_managers: Optional[Dict[str, RendezvousManager]] = None,
+        kv_store: Optional[KVStoreService] = None,
+        speed_monitor: Optional[SpeedMonitor] = None,
+        sync_service: Optional[SyncService] = None,
+        elastic_ps_service: Optional[ElasticPsService] = None,
+    ):
+        self.task_manager = task_manager or TaskManager()
+        self.rdzv_managers: Dict[str, RendezvousManager] = rdzv_managers or {
+            RendezvousName.TRAINING: ElasticTrainingRendezvousManager(),
+            RendezvousName.NETWORK_CHECK: NetworkCheckRendezvousManager(),
+        }
+        self.kv_store = kv_store or KVStoreService()
+        self.speed_monitor = speed_monitor or SpeedMonitor()
+        self.sync_service = sync_service or SyncService()
+        self.elastic_ps_service = elastic_ps_service or ElasticPsService()
+        # the tuned config is read on RPC threads and replaced by reports
+        self._paral_lock = threading.Lock()
+        self._paral_config = msg.ParallelConfig()
+        # master generation token; 0 = no state backend (not ported)
+        self.generation = 0
+
+    # ------------------------------------------------------------------
+    # raw byte endpoints (wired into comm.build_server)
+    # ------------------------------------------------------------------
+    def get_bytes(self, payload: bytes,
+                  context: Optional[grpc.ServicerContext] = None) -> bytes:
+        try:
+            request = msg.deserialize_message(payload)
+            response = self.get(request)
+        except Exception:
+            logger.exception("get failed (payload %d bytes)", len(payload))
+            response = msg.Response(success=False, reason="internal error")
+        return msg.serialize_message(response)
+
+    def report_bytes(self, payload: bytes,
+                     context: Optional[grpc.ServicerContext] = None) -> bytes:
+        try:
+            request = msg.deserialize_message(payload)
+            response = self.report(request)
+        except Exception:
+            logger.exception("report failed (payload %d bytes)", len(payload))
+            response = msg.Response(success=False, reason="internal error")
+        return msg.serialize_message(response)
+
+    # ------------------------------------------------------------------
+    # typed dispatch
+    # ------------------------------------------------------------------
+    def get(self, request: msg.Message) -> msg.Message:
+        if type(request) in _NOT_PORTED:
+            return _not_ported(request)
+        if isinstance(request, msg.TaskRequest):
+            return self.task_manager.get_dataset_task(
+                request.worker_id, request.dataset_name)
+        if isinstance(request, msg.CommWorldRequest):
+            mgr = self.rdzv_managers[request.rdzv_name]
+            rdzv_round, group, world = mgr.get_comm_world(request.node_id)
+            return msg.CommWorld(rdzv_name=request.rdzv_name,
+                                 round=rdzv_round, group=group, world=world)
+        if isinstance(request, msg.WaitingNodeNumRequest):
+            mgr = self.rdzv_managers[request.rdzv_name]
+            # the steady-state poll every live agent makes: liveness
+            # touch + dead-member reaping ride on it
+            mgr.touch(request.node_id)
+            before = mgr.mutation_count
+            mgr.reap_dead_nodes(Context.singleton().dead_node_timeout_s)
+            if mgr.mutation_count != before:
+                self.speed_monitor.evict_departed(mgr.alive_nodes)
+            return msg.WaitingNodeNum(
+                waiting_num=mgr.num_nodes_waiting(request.node_id))
+        if isinstance(request, msg.KVGetRequest):
+            return msg.KeyValuePair(key=request.key,
+                                    value=self.kv_store.get(request.key))
+        if isinstance(request, msg.KVWaitRequest):
+            # cap the blocking window well below typical RPC deadlines so
+            # the client always receives a response
+            ok = self.kv_store.wait(request.keys,
+                                    min(request.timeout_s, 20.0))
+            return msg.Response(success=ok)
+        if isinstance(request, msg.NetworkCheckResultRequest):
+            mgr = self.rdzv_managers[RendezvousName.NETWORK_CHECK]
+            fault, _ = mgr.check_fault_node()
+            stragglers = mgr.detect_stragglers()
+            is_fault = request.node_id in fault
+            is_straggler = request.node_id in stragglers
+            return msg.NetworkCheckVerdict(
+                normal=not is_fault,
+                is_straggler=is_straggler,
+                reason="fault" if is_fault else
+                       ("straggler" if is_straggler else ""),
+            )
+        if isinstance(request, msg.ShardCheckpointRequest):
+            ckpt = self.task_manager.checkpoint_dataset(request.dataset_name)
+            return msg.ShardCheckpoint(
+                dataset_name=request.dataset_name,
+                content=ckpt.to_json() if ckpt else "",
+            )
+        if isinstance(request, msg.DatasetEpochInfo):
+            return msg.DatasetEpochInfo(
+                dataset_name=request.dataset_name,
+                epoch=self.task_manager.get_epoch(request.dataset_name),
+            )
+        if isinstance(request, msg.TaskCounts):
+            todo, doing = self.task_manager.counts(request.dataset_name)
+            return msg.TaskCounts(dataset_name=request.dataset_name,
+                                  todo=todo, doing=doing)
+        if isinstance(request, msg.ParallelConfigRequest):
+            with self._paral_lock:
+                return self._paral_config
+        if isinstance(request, msg.SyncQueryRequest):
+            finished = self.sync_service.sync_finished(request.sync_name)
+            return msg.Response(success=finished)
+        if isinstance(request, msg.ClusterVersionRequest):
+            version = self.elastic_ps_service.get_cluster_version(
+                request.version_type, request.task_type, request.task_id
+            )
+            return msg.ClusterVersion(version=version)
+        if isinstance(request, msg.JobStatusRequest):
+            stage = (JobStage.SUCCEEDED if self.task_manager.finished()
+                     else JobStage.RUNNING)
+            return msg.JobStatus(stage=stage)
+        logger.warning("get: unknown request %s", type(request).__name__)
+        return msg.Response(success=False, reason="unknown request")
+
+    def report(self, request: msg.Message) -> msg.Message:
+        if type(request) in _NOT_PORTED:
+            return _not_ported(request)
+        ok = True
+        reason = ""
+        if isinstance(request, msg.DatasetShardParams):
+            self.task_manager.new_dataset(request)
+        elif isinstance(request, msg.TaskResult):
+            if not request.success and request.err_message:
+                logger.warning("task %d of %s failed on worker %d: %s",
+                               request.task_id, request.dataset_name,
+                               request.worker_id,
+                               request.err_message[:256])
+            ok = self.task_manager.report_dataset_task(
+                request.dataset_name, request.task_id, request.success
+            )
+        elif isinstance(request, msg.JoinRendezvousRequest):
+            if request.slice_id >= 0:
+                return msg.Response(
+                    success=False,
+                    reason="not ported: ROADMAP Queue A item 6.4 "
+                           "(slice mode)")
+            mgr = self.rdzv_managers[request.rdzv_name]
+            # parent under the agent's span so agent rendezvous → master
+            # join share a trace
+            with obs.span("rendezvous_join",
+                          {"rank": request.node_rank,
+                           "rdzv": request.rdzv_name},
+                          parent=request.trace or None):
+                rdzv_round = mgr.join_rendezvous(
+                    request.node_rank, request.local_world_size,
+                    request.node_ip)
+            # the restore and shard plans of the JAX master's join result
+            # stay empty: peer restore (6.2b) and re-planning (6.3) are
+            # not ported
+            return msg.JoinRendezvousResult(round=rdzv_round,
+                                            generation=self.generation)
+        elif isinstance(request, msg.LeaveRendezvousRequest):
+            mgr = self.rdzv_managers[request.rdzv_name]
+            mgr.leave_waiting(request.node_rank)
+        elif isinstance(request, msg.NetworkStatusReport):
+            mgr = self.rdzv_managers[RendezvousName.NETWORK_CHECK]
+            mgr.report_network_status(request.node_id, request.normal,
+                                      request.elapsed_time)
+        elif isinstance(request, msg.KeyValuePair):
+            self.kv_store.set(request.key, request.value)
+        elif isinstance(request, msg.KVAddRequest):
+            value = self.kv_store.add(request.key, request.amount)
+            return msg.KVIntResult(value=value)
+        elif isinstance(request, msg.GlobalStepReport):
+            # keyed by RANK when the sender provides one (node_id
+            # diverges from rank after a relaunch)
+            rank = (request.node_rank if request.node_rank >= 0
+                    else request.node_id)
+            self.speed_monitor.collect_worker_step(
+                rank,
+                request.step,
+                step_time_s=request.step_time_s,
+                data_wait_fraction=request.data_wait_fraction,
+                mfu=request.mfu)
+            self._touch_rendezvous(request.node_rank)
+        elif isinstance(request, msg.NodeHeartbeat):
+            self._touch_rendezvous(request.node_rank)
+        elif isinstance(request, msg.NodeFailureReport):
+            logger.warning("node %d failure (level=%s, kind=%s): %s",
+                           request.node_id, request.level,
+                           request.exit_kind or "-",
+                           request.error_data[:512])
+            self.task_manager.recover_tasks(request.node_id)
+        elif isinstance(request, msg.NodeAddressReport):
+            self.kv_store.set(f"node-addr/{request.node_rank}",
+                              request.addr.encode())
+        elif isinstance(request, msg.ShardCheckpoint):
+            ok = self.task_manager.restore_dataset_checkpoint(request.content)
+        elif isinstance(request, msg.SyncJoinRequest):
+            ok = self.sync_service.join_sync(request.sync_name,
+                                             request.node_id)
+        elif isinstance(request, msg.SyncFinishRequest):
+            ok = self.sync_service.finish_sync(request.sync_name)
+        elif isinstance(request, msg.ClusterVersionRequest):
+            self.elastic_ps_service.update_cluster_version(
+                request.version_type, request.version,
+                request.task_type, request.task_id,
+            )
+        elif isinstance(request, msg.ParallelConfig):
+            with self._paral_lock:
+                self._paral_config = request
+        elif isinstance(request, msg.ModelInfo):
+            logger.info(
+                "model info: %.3gB params, flops/token=%.3g (%s), "
+                "batch=%d seq=%d chips=%d",
+                request.param_count / 1e9, request.flops_per_token,
+                request.flops_source or "analytic",
+                request.batch_size, request.seq_len, request.chips)
+            # tokens/s = steps/s × tokens per step (the EFFECTIVE batch)
+            effective = (request.effective_global_batch
+                         or request.batch_size)
+            self.speed_monitor.set_tokens_per_step(
+                effective * request.seq_len,
+                seq_len=request.seq_len)
+            # MFU = tokens/s × FLOPs/token / aggregate peak
+            self.speed_monitor.set_model_flops(
+                request.flops_per_token,
+                request.peak_flops_per_chip * max(1, request.chips),
+                peak_flops_per_chip=request.peak_flops_per_chip)
+        else:
+            logger.warning("report: unknown request %s",
+                           type(request).__name__)
+            ok, reason = False, "unknown request"
+        return msg.Response(success=ok, reason=reason)
+
+    # ------------------------------------------------------------------
+    def _touch_rendezvous(self, node_rank: int) -> None:
+        """Heartbeats and step reports carry the sender's RANK, so they
+        count as liveness too. touch() ignores rank < 0."""
+        for mgr in self.rdzv_managers.values():
+            mgr.touch(node_rank)
+
+    def update_paral_config(self, config: msg.ParallelConfig) -> None:
+        with self._paral_lock:
+            self._paral_config = config

@@ -1,0 +1,84 @@
+"""Telemetry primitives: metrics registry, lifecycle spans, flight
+recorder, per-step timeline, and the MFU formula.
+
+Own copy of the parts of the JAX package's ``obs/`` that the ported
+master, agent and loop call. Importing the package wires the defaults:
+every finished span is recorded into the process flight recorder and
+observed into the ``dlrover_tpu_span_duration_seconds`` histogram.
+
+Not ported yet (ROADMAP Queue A item 12): the span exporter, the
+goodput ledger, the time-series store, steptrace, device telemetry, the
+profiler and the metrics HTTP exporter.
+"""
+
+from __future__ import annotations
+
+import threading
+
+from dlrover_tpu_torch.obs import mfu
+from dlrover_tpu_torch.obs.flight_recorder import (
+    FLIGHT_DIR_ENV,
+    FlightRecorder,
+    get_flight_recorder,
+)
+from dlrover_tpu_torch.obs.metrics import (
+    DEFAULT_BUCKETS,
+    MetricsRegistry,
+    get_registry,
+)
+from dlrover_tpu_torch.obs.spans import (
+    Span,
+    add_span_sink,
+    current_context,
+    current_span,
+    record_span,
+    remove_span_sink,
+    span,
+)
+from dlrover_tpu_torch.obs.timeline import StepTimeline
+
+__all__ = [
+    "DEFAULT_BUCKETS",
+    "FLIGHT_DIR_ENV",
+    "FlightRecorder",
+    "MetricsRegistry",
+    "Span",
+    "StepTimeline",
+    "add_span_sink",
+    "current_context",
+    "current_span",
+    "get_flight_recorder",
+    "get_registry",
+    "mfu",
+    "record_span",
+    "remove_span_sink",
+    "span",
+]
+
+_defaults_lock = threading.Lock()
+_defaults_installed = False
+
+
+def _flight_recorder_sink(finished: Span) -> None:
+    get_flight_recorder().record_span(finished)
+
+
+def _metrics_sink(finished: Span) -> None:
+    get_registry().histogram(
+        "dlrover_tpu_span_duration_seconds",
+        "Duration of lifecycle spans by name",
+        labelnames=("span",),
+    ).labels(span=finished.name).observe(finished.duration_s)
+
+
+def _install_defaults() -> None:
+    global _defaults_installed
+    with _defaults_lock:
+        if _defaults_installed:
+            return
+        add_span_sink(_flight_recorder_sink)
+        add_span_sink(_metrics_sink)
+        _defaults_installed = True
+
+
+_install_defaults()

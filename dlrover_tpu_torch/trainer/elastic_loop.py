@@ -12,14 +12,22 @@ before a membership change), finishes the step, force-saves and stops,
 so a resized world resumes from the last committed step with its data
 position.
 
-Not ported yet: master reporting (``master_client`` raises; ROADMAP
-Queue A item 6.1), peer restore (6.2), the shard plan and re-planning
-(6.3), slice mode (6.4), drain requests, chaos and steptrace (6.5).
+With a ``master_client`` (``agent/master_client.py``) the loop reports
+the model's size and FLOPs model once (``ModelInfo``), a step report
+every ``report_interval_steps`` (``GlobalStepReport``, with the window's
+mean step time and MFU from the per-step timeline, ``obs/timeline.py``),
+and checkpoints the master's data-shard position with its own.
+
+Not ported yet: telemetry span flushes (ROADMAP Queue A item 12), peer
+restore (6.2b), the shard plan and re-planning (6.3), slice mode (6.4),
+drain requests, the step-hang watchdog and its timeline export, chaos
+and steptrace (6.5).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import signal
 import threading
@@ -29,6 +37,7 @@ from typing import Any, Callable, Dict, Iterable, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from dlrover_tpu_torch import obs
 from dlrover_tpu_torch.checkpoint.flash_checkpoint import FlashCheckpointer
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.obs import mfu
@@ -89,11 +98,10 @@ class ElasticTrainLoop:
         factory (see ``build_trainer``). ``device`` defaults to the
         current CUDA device and raises without a GPU unless ``"cpu"``.
         The world is the initialized process group's (``agent/
-        elastic_agent.py::init_distributed``), or this process alone."""
-        if master_client is not None:
-            raise NotImplementedError(
-                "master reporting is not ported yet (ROADMAP Queue A item "
-                "6.1)")
+        elastic_agent.py::init_distributed``), or this process alone.
+        ``master_client``: a ``MasterClient`` to report to (None: no
+        master)."""
+        self.client = master_client
         self.config = config
         self.mesh = create_mesh(config.mesh_spec, device)
         self.device = self.mesh.device
@@ -123,6 +131,69 @@ class ElasticTrainLoop:
         logger.info("elastic loop: device=%s dp=%d accum=%d "
                     "micro(global)=%d mesh=%s", self.device, self.dp,
                     self.accum, self.micro_global, self.mesh.shape)
+        # per-step phase attribution whose windowed means ride on the
+        # step reports (kept only when there is a master to report to)
+        self.timeline = (obs.StepTimeline() if self.client is not None
+                         else None)
+        # FLOPs/token of the model (obs/mfu.py); set by _report_model_info
+        self._flops_per_token = 0.0
+        if self.client is not None:
+            self._report_model_info(model)
+
+    # -- master reporting --------------------------------------------------
+    def _report_model_info(self, model) -> None:
+        """One-shot static stats to the master plus the FLOPs model
+        behind every MFU number (obs/mfu.py): 6·params with the causal
+        attention term, less a gather embedding table with an untied
+        head. The sizes come from the model built on ``meta``."""
+        try:
+            probe = (model if isinstance(model, torch.nn.Module)
+                     else model(device="meta", seed=0))
+            params = list(probe.parameters())
+            param_count = sum(p.numel() for p in params)
+            param_bytes = sum(p.numel() * p.element_size() for p in params)
+            cfg = probe.config
+            self._flops_per_token = model_flops_per_token(
+                cfg, self.config.seq_len)
+            tokens_per_step = self.global_batch * self.config.seq_len
+            # dim-divisibility granules (the JAX planner's filters)
+            tensor_dims = [d for d in (cfg.num_heads, cfg.num_kv_heads,
+                                       cfg.intermediate_size,
+                                       cfg.vocab_size) if d > 0]
+            cards = self.mesh.spec.total
+            self.client.report_model_info(
+                param_count=param_count, param_bytes=param_bytes,
+                flops_per_step=self._flops_per_token * tokens_per_step,
+                batch_size=self.config.global_batch,
+                seq_len=self.config.seq_len,
+                flops_per_token=self._flops_per_token,
+                peak_flops_per_chip=self.peak_flops / cards,
+                chips=cards,
+                flops_source="analytic",
+                tensor_divisor=math.gcd(*tensor_dims),
+                fsdp_divisor=cfg.hidden_size,
+                effective_global_batch=self.global_batch,
+            )
+        except Exception:   # noqa: BLE001 — stats are advisory
+            logger.warning("model-info report failed", exc_info=True)
+
+    def _report_progress(self, step: int) -> None:
+        """Ship the step report with the timeline's windowed speed
+        evidence. Best-effort: the step loop survives a dead master."""
+        stats = self.timeline.window_stats(
+            self.config.report_interval_steps)
+        mean_step = stats.get("mean_step_s", 0.0)
+        tokens_per_step = self.global_batch * self.config.seq_len
+        step_mfu = mfu.achieved_mfu(
+            tokens_per_step / mean_step if mean_step > 0 else -1.0,
+            self._flops_per_token, self.peak_flops)
+        try:
+            self.client.report_global_step(
+                step, step_time_s=mean_step,
+                data_wait_fraction=stats.get("data_wait_fraction", -1.0),
+                mfu=step_mfu)
+        except Exception:  # noqa: BLE001 — droppable by contract
+            logger.warning("step report failed", exc_info=True)
 
     # -- signals -----------------------------------------------------------
     def install_signal_handler(self) -> None:
@@ -175,6 +246,14 @@ class ElasticTrainLoop:
                 t0 = time.monotonic()
                 if sampler is not None and "sampler" in data_state:
                     sampler.load_state_dict(data_state["sampler"])
+                if self.client is not None and data_state.get("shards"):
+                    # the master's data-shard position of that step
+                    try:
+                        self.client.report_shard_checkpoint(
+                            data_state["shards"])
+                    except Exception:  # noqa: BLE001 — advisory
+                        logger.warning("could not restore the master's "
+                                       "shard checkpoint", exc_info=True)
                 timings["post_sync_s"] = time.monotonic() - t0
             del abstract
         self.last_restore_source = "init" if state is None else "checkpoint"
@@ -211,13 +290,24 @@ class ElasticTrainLoop:
         Returns the state and ``{"step", "loss", "history"}``: the step
         reached, and per step ``step, loss, grad_norm, step_time_s,
         tokens_per_s, mfu`` (mfu -1 where the card's peak is unknown) and
-        ``checkpoint_s`` (the save's blocking part, 0 without one)."""
+        ``checkpoint_s`` (the save's blocking part, 0 without one).
+
+        Each step is logged (loss as its ``repr``, the exact float). With
+        a master client, the step report goes out before the step's save,
+        so the master's clock sees the step end, not the save's staging
+        (the save is ``checkpoint_s``)."""
         cfg = state.model.config
         flops = model_flops_per_token(cfg, self.config.seq_len)
         tokens_per_step = self.global_batch * self.config.seq_len
         history = []
         step = start_step
-        for tokens, targets in batches:
+        batch_iter = iter(batches)
+        while True:
+            t_wait = time.monotonic()
+            try:
+                tokens, targets = next(batch_iter)
+            except StopIteration:
+                break
             t0 = time.monotonic()
             tok, tgt = self.trainer.shard_batch(tokens, targets)
             state, metrics = self.trainer.step(state, tok, tgt)
@@ -231,18 +321,23 @@ class ElasticTrainLoop:
                       "mfu": mfu.achieved_mfu(tps, flops, self.peak_flops),
                       "checkpoint_s": 0.0}
             history.append(record)
+            logger.info("step %d loss %r grad_norm %r step_s %.6f "
+                        "tokens/s %.1f mfu %.4f", step, loss,
+                        record["grad_norm"], dt, tps, record["mfu"])
             if sampler is not None:
                 sampler.record_batch(self.global_batch)
+            if self.client is not None:
+                self.timeline.record(step, time.monotonic() - t_wait,
+                                     data_wait=t0 - t_wait, compute=dt)
+                interval = self.config.report_interval_steps
+                if interval and step % interval == 0:
+                    self._report_progress(step)
             if self.checkpointer is not None:
                 t0 = time.monotonic()
                 self.checkpointer.maybe_save(
                     step, state, self._data_state(sampler),
                     force=self._stop_requested.is_set())
                 record["checkpoint_s"] = time.monotonic() - t0
-            interval = self.config.report_interval_steps
-            if interval and step % interval == 0:
-                logger.info("step %d loss %.4f %.1f tokens/s mfu %.4f",
-                            step, loss, tps, record["mfu"])
             if self._stop_requested.is_set():
                 logger.info("stopping at step %d on request", step)
                 break
@@ -255,8 +350,18 @@ class ElasticTrainLoop:
                        "history": history}
 
     def _data_state(self, sampler) -> Dict[str, Any]:
-        return {"sampler": sampler.state_dict()} if sampler is not None \
-            else {}
+        data_state: Dict[str, Any] = {}
+        if sampler is not None:
+            data_state["sampler"] = sampler.state_dict()
+        if self.client is not None:
+            try:
+                shards = self.client.get_shard_checkpoint("")
+                # "" when no dataset is registered (purely local data)
+                if shards:
+                    data_state["shards"] = shards
+            except Exception:  # noqa: BLE001 — the save must not fail
+                pass
+        return data_state
 
     def close(self) -> None:
         """Wait for the last save, restore the SIGTERM handler and drop

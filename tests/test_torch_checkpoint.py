@@ -380,6 +380,24 @@ def test_restore_falls_back_past_corrupt_latest(tmp_path, damage):
         assert ckpt.restore(trainer.abstract_state()) is None
 
 
+def test_restore_skips_and_removes_a_torn_save(tmp_path):
+    """A process killed during an asynchronous save leaves ``<step>.tmp``
+    behind: the restore takes the committed step and removes the torn
+    one."""
+    trainer = _trainer()
+    state = trainer.init(0)
+    with FlashCheckpointer(str(tmp_path / "c"),
+                           save_interval_steps=1) as ckpt:
+        assert ckpt.maybe_save(3, state)
+        ckpt.wait()
+        torn = tmp_path / "c" / "6.tmp"
+        torn.mkdir()
+        (torn / "__0_0.distcp").write_bytes(b"\x00partial")
+        restored, _, step = ckpt.restore(trainer.abstract_state())
+        assert step == 3 and restored.step == 3
+        assert sorted(os.listdir(tmp_path / "c")) == ["3"]
+
+
 def test_emergency_save_outcomes(tmp_path):
     import time
 

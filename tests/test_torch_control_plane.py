@@ -1,0 +1,440 @@
+"""The port's control plane against the JAX package's.
+
+- One scripted request sequence goes through the JAX ``MasterServicer``
+  and the port's, each built by its ``JobMaster`` (the JAX one with the
+  single-lock rendezvous, ``rdzv_sharded=False``), through
+  ``get_bytes``/``report_bytes`` with no server, under one injected
+  clock: the decoded responses are equal, and so are the two speed
+  monitors' step, tokens/s and MFU.
+- ``RelaunchGovernor``'s delays and quarantine decisions equal the JAX
+  one's on the same fake clock.
+- Over the real transport (gRPC on a free localhost port): the port's
+  ``MasterClient`` against the port's master, against the JAX master,
+  and the JAX client against the port's master.
+"""
+
+import dataclasses
+import time
+
+import pytest
+
+from dlrover_tpu.agent.elastic_agent import RelaunchGovernor as JGovernor
+from dlrover_tpu.agent.master_client import MasterClient as JClient
+from dlrover_tpu.common import messages as J
+from dlrover_tpu.common.config import Context as JContext
+from dlrover_tpu.master.job_master import JobMaster as JMaster
+from dlrover_tpu_torch.agent.elastic_agent import RelaunchGovernor
+from dlrover_tpu_torch.agent.master_client import MasterClient
+from dlrover_tpu_torch.common import messages as T
+from dlrover_tpu_torch.common.config import Context
+from dlrover_tpu_torch.common.constants import RendezvousName
+from dlrover_tpu_torch.master.job_master import JobMaster
+
+TRAIN = RendezvousName.TRAINING
+
+
+@pytest.fixture
+def contexts(monkeypatch, tmp_path):
+    """Both packages' Context singletons, fresh, with the JAX master on
+    its single-lock rendezvous and single-tier KV (what the port has)."""
+    for key, value in {"DLROVER_TPU_RDZV_SHARDED": "0",
+                       "DLROVER_TPU_COORD_PORT": "-1",
+                       "DLROVER_TPU_DIAGNOSIS_ENABLED": "0",
+                       "DLROVER_TPU_FLIGHT_DIR": str(tmp_path)}.items():
+        monkeypatch.setenv(key, value)
+    JContext.reset()
+    Context.reset()
+    yield JContext.singleton(), Context.singleton()
+    JContext.reset()
+    Context.reset()
+
+
+# fields the JAX master fills from a subsystem the port leaves out: its
+# re-planner (ROADMAP Queue A item 6.3) stamps a parallelism plan on
+# every join; the port's field stays "" (asserted below)
+UNPORTED_FIELDS = {"JoinRendezvousResult": ("shard_plan_json",)}
+
+
+class FakeClock:
+    def __init__(self, start=1.7e9):
+        self.now = start
+
+    def __call__(self):
+        return self.now
+
+
+# (kind, message name, fields) in order; "tick" advances the clock,
+# "speed" reads the speed monitor
+SEQUENCE = [
+    # the model first: a model profile that changes between two cuts
+    # makes the JAX master's re-planner (not ported, ROADMAP Queue A item
+    # 6.3) stamp a new plan at the second cut and clear its speed samples
+    ("report", "ModelInfo",
+     dict(param_count=1_000_000, param_bytes=4_000_000,
+          flops_per_step=6e6 * 4096, batch_size=8, seq_len=512,
+          flops_per_token=6e6, peak_flops_per_chip=1e12, chips=2,
+          flops_source="analytic", effective_global_batch=8)),
+    ("report", "JoinRendezvousRequest",
+     dict(node_id=0, node_rank=0, local_world_size=1, rdzv_name=TRAIN,
+          node_ip="10.0.0.1")),
+    ("get", "CommWorldRequest", dict(node_id=0, rdzv_name=TRAIN)),
+    ("get", "WaitingNodeNumRequest", dict(node_id=0, rdzv_name=TRAIN)),
+    ("report", "JoinRendezvousRequest",
+     dict(node_id=1, node_rank=1, local_world_size=1, rdzv_name=TRAIN,
+          node_ip="10.0.0.2")),
+    ("get", "CommWorldRequest", dict(node_id=0, rdzv_name=TRAIN)),
+    ("get", "CommWorldRequest", dict(node_id=1, rdzv_name=TRAIN)),
+    ("get", "WaitingNodeNumRequest", dict(node_id=1, rdzv_name=TRAIN)),
+    # the KV store
+    ("report", "KeyValuePair", dict(key="coord/t/0", value=b"10.0.0.1:29")),
+    ("get", "KVGetRequest", dict(key="coord/t/0")),
+    ("get", "KVGetRequest", dict(key="absent")),
+    ("report", "KVAddRequest", dict(key="counter", amount=3)),
+    ("report", "KVAddRequest", dict(key="counter", amount=-1)),
+    ("get", "KVWaitRequest", dict(keys=["coord/t/0", "counter"],
+                                  timeout_s=5.0)),
+    ("get", "KVWaitRequest", dict(keys=["never"], timeout_s=0.0)),
+    # dynamic data sharding
+    ("report", "DatasetShardParams",
+     dict(dataset_name="ds", dataset_size=100, shard_size=16, num_epochs=2,
+          shuffle=False, task_type="training", storage_type="table")),
+    ("get", "TaskRequest", dict(dataset_name="ds", worker_id=0)),
+    ("get", "TaskRequest", dict(dataset_name="ds", worker_id=1)),
+    ("get", "TaskRequest", dict(dataset_name="ds", worker_id=1)),
+    ("report", "TaskResult", dict(dataset_name="ds", task_id=0,
+                                  worker_id=0, success=True)),
+    ("get", "TaskCounts", dict(dataset_name="ds")),
+    ("get", "ShardCheckpointRequest", dict(dataset_name="ds")),
+    ("get", "DatasetEpochInfo", dict(dataset_name="ds")),
+    # the steps
+    ("tick", 1.0),
+    ("report", "GlobalStepReport", dict(node_id=0, node_rank=0, step=1,
+                                        step_time_s=0.5, mfu=0.2)),
+    ("report", "GlobalStepReport", dict(node_id=1, node_rank=1, step=1,
+                                        step_time_s=0.5, mfu=0.2)),
+    ("tick", 0.5),
+    ("report", "GlobalStepReport", dict(node_id=0, node_rank=0, step=2,
+                                        step_time_s=0.5, mfu=0.2)),
+    ("tick", 0.25),
+    ("report", "GlobalStepReport", dict(node_id=1, node_rank=1, step=2,
+                                        step_time_s=0.75, mfu=0.2)),
+    ("tick", 1.5),
+    ("report", "GlobalStepReport", dict(node_id=0, node_rank=0, step=5,
+                                        step_time_s=0.5,
+                                        data_wait_fraction=0.1, mfu=0.2)),
+    ("speed",),
+    ("report", "NodeHeartbeat", dict(node_id=1, node_rank=1,
+                                     node_type="worker")),
+    # a failure gives the dead worker's tasks back
+    ("report", "NodeFailureReport",
+     dict(node_id=1, node_rank=1, error_data="worker exit code -9",
+          level="process_error", restart_count=0, exit_kind="killed")),
+    ("get", "TaskCounts", dict(dataset_name="ds")),
+    ("get", "TaskRequest", dict(dataset_name="ds", worker_id=0)),
+    ("get", "ShardCheckpointRequest", dict(dataset_name="ds")),
+    # barriers and PS versions
+    ("report", "SyncJoinRequest", dict(sync_name="s", node_id=0)),
+    ("get", "SyncQueryRequest", dict(sync_name="s")),
+    ("report", "SyncJoinRequest", dict(sync_name="s", node_id=1)),
+    ("get", "SyncQueryRequest", dict(sync_name="s")),
+    ("report", "SyncFinishRequest", dict(sync_name="s")),
+    ("get", "SyncQueryRequest", dict(sync_name="s")),
+    ("report", "ClusterVersionRequest",
+     dict(task_type="worker", task_id=0, version_type="global",
+          version=7)),
+    ("get", "ClusterVersionRequest",
+     dict(task_type="worker", task_id=0, version_type="global")),
+    ("get", "ClusterVersionRequest",
+     dict(task_type="worker", task_id=1, version_type="local")),
+    ("report", "ParallelConfig", dict()),
+    ("get", "ParallelConfigRequest", dict(node_id=0)),
+    ("get", "JobStatusRequest", dict()),
+    # a leave, a second round and its membership view
+    ("report", "LeaveRendezvousRequest", dict(node_id=1, node_rank=1,
+                                              rdzv_name=TRAIN)),
+    ("report", "JoinRendezvousRequest",
+     dict(node_id=2, node_rank=1, local_world_size=1, rdzv_name=TRAIN,
+          node_ip="10.0.0.3")),
+    ("get", "WaitingNodeNumRequest", dict(node_id=0, rdzv_name=TRAIN)),
+    ("report", "JoinRendezvousRequest",
+     dict(node_id=0, node_rank=0, local_world_size=1, rdzv_name=TRAIN,
+          node_ip="10.0.0.1")),
+    ("get", "CommWorldRequest", dict(node_id=1, rdzv_name=TRAIN)),
+    # the re-formed world resumes from its checkpoint, below the step
+    # mark: those reports are dropped until it passes the mark
+    ("tick", 20.0),
+    ("report", "GlobalStepReport", dict(node_id=0, node_rank=0, step=3,
+                                        step_time_s=0.5, mfu=0.2)),
+    ("tick", 0.5),
+    ("report", "GlobalStepReport", dict(node_id=0, node_rank=0, step=5,
+                                        step_time_s=0.5, mfu=0.2)),
+    ("speed",),
+    ("tick", 0.5),
+    ("report", "GlobalStepReport", dict(node_id=0, node_rank=0, step=6,
+                                        step_time_s=0.5, mfu=0.2)),
+    ("tick", 0.25),
+    ("report", "GlobalStepReport", dict(node_id=2, node_rank=1, step=7,
+                                        step_time_s=0.25, mfu=0.2)),
+    # garbage on the wire is an answer, not a crash
+    ("raw", b"not a pickle"),
+]
+
+
+def _speed(monitor):
+    return (monitor.completed_global_step, monitor.running_speed(),
+            monitor.tokens_per_second(), monitor.running_mfu())
+
+
+def _play(master, messages, clock):
+    servicer = master.servicer
+    answers, speeds = [], []
+    for item in SEQUENCE:
+        if item[0] == "tick":
+            clock.now += item[1]
+            continue
+        if item[0] == "speed":
+            speeds.append(_speed(master.speed_monitor))
+            continue
+        if item[0] == "raw":
+            data = item[1]
+            answers.append(("raw", messages.deserialize_message(
+                servicer.get_bytes(data, None))))
+            continue
+        kind, name, fields = item
+        payload = messages.serialize_message(
+            getattr(messages, name)(**fields))
+        send = servicer.get_bytes if kind == "get" else servicer.report_bytes
+        answers.append((name, messages.deserialize_message(
+            send(payload, None))))
+    speeds.append(_speed(master.speed_monitor))
+    return answers, speeds
+
+
+def test_servicers_answer_a_scripted_sequence_alike(contexts, monkeypatch):
+    clock = FakeClock()
+    monkeypatch.setattr(time, "time", clock)
+    jax_master = JMaster(port=0, min_nodes=2, max_nodes=2,
+                         host="127.0.0.1")
+    port_master = JobMaster(port=0, min_nodes=2, max_nodes=2,
+                            host="127.0.0.1")
+    try:
+        jax_answers, jax_speed = _play(jax_master, J, clock)
+        clock.now = 1.7e9
+        port_answers, port_speed = _play(port_master, T, clock)
+    finally:
+        jax_master.stop()
+        port_master.stop()
+    assert len(port_answers) == len(jax_answers)
+    for (name, want), (_, got) in zip(jax_answers, port_answers):
+        kind = type(want).__name__
+        assert type(got).__name__ == kind, name
+        got, want = dataclasses.asdict(got), dataclasses.asdict(want)
+        for field in UNPORTED_FIELDS.get(kind, ()):
+            assert got.pop(field) == "" and want.pop(field)
+        assert got == want, name
+    # the script reached what it meant to: a world of two, tasks out and
+    # requeued, a speed and an MFU
+    worlds = [a for n, a in port_answers if n == "CommWorldRequest"]
+    assert worlds[1].world == {0: 1, 1: 1}
+    assert port_speed == jax_speed
+    step, _, tokens_per_s, running_mfu = port_speed[0]
+    assert step == 5 and tokens_per_s > 0 and running_mfu > 0
+    # after the second round: held at the mark, then past it
+    assert [s[0] for s in port_speed[1:]] == [5, 7]
+    assert port_speed[1][1] == port_speed[0][1]
+
+
+def test_unported_requests_are_refused_by_name(contexts):
+    master = JobMaster(port=0, host="127.0.0.1")
+    try:
+        for request in (T.TelemetryReport(), T.GoodputRequest(),
+                        T.DrainReport(), T.ShardPlanRequest()):
+            send = (master.servicer.report_bytes
+                    if type(request).__name__.endswith("Report")
+                    else master.servicer.get_bytes)
+            answer = T.deserialize_message(
+                send(T.serialize_message(request), None))
+            assert answer.success is False
+            assert answer.reason.startswith("not ported: ROADMAP Queue A "
+                                            "item ")
+        answer = T.deserialize_message(master.servicer.report_bytes(
+            T.serialize_message(T.JoinRendezvousRequest(slice_id=0)), None))
+        assert not answer.success and "6.4" in answer.reason
+    finally:
+        master.stop()
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(),
+    dict(relaunch_backoff_base_s=0.5, relaunch_backoff_max_s=3.0,
+         quarantine_failures=3, quarantine_window_s=10.0),
+    dict(quarantine_failures=0),
+])
+def test_relaunch_governor_matches_jax(contexts, knobs):
+    jax_ctx, port_ctx = contexts
+    jax_ctx.update(**knobs)
+    port_ctx.update(**knobs)
+    clocks = FakeClock(0.0), FakeClock(0.0)
+    governors = JGovernor(clock=clocks[0]), RelaunchGovernor(clock=clocks[1])
+    # seconds between failures (the port has no hang-aborts: the step-hang
+    # watchdog is not ported, so the JAX governor's hang streak stays 0)
+    gaps = [0, 2, 4, 7, 12, 1, 1, 3, 600, 0.5, 0.5, 9, 9, 9, 9]
+    trace = ([], [])
+    for gap in gaps:
+        for gov, clock, out in zip(governors, clocks, trace):
+            clock.now += gap
+            out.append(gov.record_failure())
+            out.append((gov.recent_failures, gov.quarantined))
+    assert trace[1] == trace[0]
+    # the script reaches quarantine unless it is switched off
+    quarantined = [q for _, q in trace[1][1::2]]
+    assert any(quarantined) == (port_ctx.quarantine_failures > 0)
+
+
+def _client_round_trip(client, master, messages):
+    """The worker's and agent's calls through ``client`` (whose package's
+    ``messages`` module is given) against a live one-node ``master``
+    (either package's)."""
+    assert client.join_rendezvous(1) == 0
+    rdzv_round, _, world = client.get_comm_world()
+    assert (rdzv_round, world) == (0, {0: 1})
+    assert client.num_nodes_waiting() == 0
+    assert client.kv_set("coord/x/0", b"127.0.0.1:1")
+    assert client.kv_wait("coord/x/0", timeout_s=5) == b"127.0.0.1:1"
+    assert client.kv_add("n", 2) == 2 and client.kv_add("n", 3) == 5
+    assert client.report_model_info(
+        param_count=10, param_bytes=40, batch_size=4, seq_len=8,
+        flops_per_token=60.0, peak_flops_per_chip=1e6, chips=1,
+        effective_global_batch=4)
+    for step in (1, 2, 3):
+        assert client.report_global_step(step, step_time_s=0.1, mfu=0.1)
+    assert client.report_heartbeat()
+    assert client.report_failure("exit -9", level="process_error",
+                                 exit_kind="killed")
+    assert client.get_shard_checkpoint("") == ""
+    assert client.report_node_address("127.0.0.1:7")
+    assert client.kv_get("node-addr/0") == b"127.0.0.1:7"
+    assert client.get_paral_config().dataloader_batch_size == 0
+    # dynamic data sharding through the client's typed calls
+    assert client.report_dataset_shard_params(messages.DatasetShardParams(
+        dataset_name="ds", dataset_size=40, shard_size=10, num_epochs=1,
+        storage_type="table"))
+    first = client.get_task("ds")
+    assert (first.shard.start, first.shard.end) == (0, 10)
+    assert client.report_task_result("ds", first.task_id)
+    assert client.get_task_counts("ds") == (3, 0)
+    assert client.get_dataset_epoch("ds") == 1
+    content = client.get_shard_checkpoint("ds")
+    assert client.get_task("ds").shard.start == 10
+    assert client.report_shard_checkpoint(content)
+    assert client.get_task_counts("ds") == (3, 0)
+    assert client.get_job_status().stage == "running"
+    assert client.leave_rendezvous()
+    assert master.speed_monitor.completed_global_step == 3
+
+
+@pytest.mark.parametrize("pair", ["port-port", "port-jax", "jax-port"])
+def test_clients_and_masters_talk_over_grpc(contexts, pair):
+    client_kind, master_kind = pair.split("-")
+    master = (JobMaster if master_kind == "port" else JMaster)(
+        port=0, host="127.0.0.1")
+    master.prepare()
+    client = (MasterClient if client_kind == "port" else JClient)(
+        master.addr, node_id=0, timeout_s=10.0)
+    try:
+        _client_round_trip(client, master, T if client_kind == "port" else J)
+    finally:
+        client.close()
+        master.stop()
+
+
+def test_constants_match_jax():
+    """Every name of the port's copies of the JAX package's constant
+    classes has the JAX value, and the exit-code classifier agrees."""
+    from dlrover_tpu.common import constants as jc
+    from dlrover_tpu_torch.common import constants as tc
+
+    for cls in ("NodeType", "NodeStatus", "NodeExitReason", "WorkerExit",
+                "JobStage", "RendezvousName", "NodeEnv",
+                "TrainingMsgLevel", "TaskType", "DefaultValues",
+                "MeshAxis"):
+        port = {k: v for k, v in vars(getattr(tc, cls)).items()
+                if k.isupper()}
+        assert port, cls
+        jax_cls = getattr(jc, cls)
+        assert port == {k: getattr(jax_cls, k) for k in port}, cls
+    assert tc.NodeStatus.terminal() == jc.NodeStatus.terminal()
+    assert tc.HOT_KV_PREFIXES == jc.HOT_KV_PREFIXES
+    for code in (0, 1, 76, -6, 134, -9, -15, 137, 143, 3, 255):
+        for hang in (True, False):
+            assert (tc.WorkerExit.classify(code, hang)
+                    == jc.WorkerExit.classify(code, hang))
+        assert (tc.WorkerExit.to_exit_status(code)
+                == jc.WorkerExit.to_exit_status(code))
+
+
+@pytest.mark.parametrize("spec", [
+    "drop:0.3", "delay:0:0.5;error:0.2", "drop:0.2; error:0.1",
+    "bogus:1", "drop:2", "delay:-1", "error"])
+def test_net_chaos_matches_jax(spec):
+    """``DLROVER_TPU_CHAOS_NET``: the same grammar and, from one seed,
+    the same faults before each RPC as the JAX package's injector."""
+    import grpc
+
+    from dlrover_tpu.common import comm as jcomm
+    from dlrover_tpu_torch.common import comm as tcomm
+
+    try:
+        want = dataclasses.asdict(jcomm.parse_net_chaos(spec))
+    except ValueError:
+        with pytest.raises(ValueError):
+            tcomm.parse_net_chaos(spec)
+        return
+    assert dataclasses.asdict(tcomm.parse_net_chaos(spec)) == want
+    runs = []
+    for comm in (jcomm, tcomm):
+        injector = comm.TransportFaultInjector(spec, seed=5)
+        outcomes = []
+        for _ in range(50):
+            try:
+                injector.before_rpc("get")
+                outcomes.append("ok")
+            except grpc.RpcError as e:
+                outcomes.append(e.code().name)
+        runs.append((outcomes, injector.injected))
+    assert runs[1] == runs[0]
+    assert set(runs[0][0]) != {"ok"}
+
+
+def test_speed_after_a_relaunch_matches_jax(contexts, monkeypatch):
+    """After a membership change the re-formed world resumes from its
+    checkpoint, below the step high-water mark. Both monitors drop those
+    reports: the speed holds no sample until the job passes the old mark,
+    and then counts from there."""
+    from dlrover_tpu.master.speed_monitor import SpeedMonitor as JMonitor
+    from dlrover_tpu_torch.master.speed_monitor import SpeedMonitor
+
+    clock = FakeClock()
+    monkeypatch.setattr(time, "time", clock)
+    monitors = JMonitor(), SpeedMonitor()
+    for monitor in monitors:
+        monitor.set_tokens_per_step(1000)
+    start = clock.now
+    for step in range(1, 7):           # the first world reaches step 6
+        clock.now = start + step
+        for monitor in monitors:
+            monitor.collect_worker_step(0, step)
+    readings = [[m.tokens_per_second() for m in monitors]]
+    for monitor in monitors:
+        monitor.reset_running_speed()  # killed; resumes from step 3
+    for step in range(4, 10):
+        clock.now = start + 30 + 0.5 * step
+        for monitor in monitors:
+            monitor.collect_worker_step(0, step)
+        readings.append([m.tokens_per_second() for m in monitors])
+    assert all(port == jax for jax, port in readings)
+    # 1000 tokens/s before; nothing until step 7 passes the mark (its
+    # delta spans the gap and is skipped); then 2000 tokens/s
+    assert [port for _, port in readings] == [1000.0, 0.0, 0.0, 0.0, 0.0,
+                                              2000.0, 2000.0]
+    assert [m.completed_global_step for m in monitors] == [9, 9]

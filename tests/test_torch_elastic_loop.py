@@ -247,3 +247,102 @@ def test_sigterm_saves_the_step_and_a_new_worker_resumes(tmp_path):
     assert first["step"] == first["latest"] == 3
     assert second["start"] == 3 and second["position"] == 12
     assert second["step"] == 5
+
+
+def test_loop_reports_model_info_and_steps_to_a_live_master(tmp_path):
+    """With a ``MasterClient`` to the port's master (gRPC on localhost):
+    ``ModelInfo`` once, a ``GlobalStepReport`` every
+    ``report_interval_steps``, and the master's ``SpeedMonitor`` holds
+    the loop's step and a tokens/s within 5% of the loop's own."""
+    from dlrover_tpu_torch.agent.master_client import MasterClient
+    from dlrover_tpu_torch.master.job_master import JobMaster
+
+    master = JobMaster(host="127.0.0.1")
+    master.prepare()
+
+    class CountingClient(MasterClient):
+        calls = {"report_model_info": 0, "report_global_step": []}
+
+        def report_model_info(self, **kw):
+            self.calls["report_model_info"] += 1
+            return super().report_model_info(**kw)
+
+        def report_global_step(self, step, **kw):
+            self.calls["report_global_step"].append(step)
+            return super().report_global_step(step, **kw)
+
+    client = CountingClient(master.addr, node_id=0, timeout_s=10.0)
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    seq, batch = 128, 16
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        loop = ElasticTrainLoop(
+            functools.partial(Llama, cfg), _adamw, cross_entropy_loss,
+            TrainLoopConfig(global_batch=batch, seq_len=seq,
+                            max_micro_per_replica=batch, max_steps=7,
+                            report_interval_steps=2),
+            master_client=client, device="cpu")
+        state, _ = loop.restore_or_init(0)
+        state, metrics = loop.run(
+            state, _batches(cfg.vocab_size, batch, seq, 7))
+        loop.close()
+        monitor = master.speed_monitor
+        assert client.calls == {"report_model_info": 1,
+                                "report_global_step": [2, 4, 6]}
+        assert monitor.completed_global_step == 6 == metrics["step"] - 1
+        # the master's clock spans reports 2 → 6, the loop's steps 3-6
+        hist = {r["step"]: r for r in metrics["history"]}
+        own = 4 * batch * seq / sum(hist[n]["step_time_s"]
+                                    for n in (3, 4, 5, 6))
+        assert abs(monitor.tokens_per_second() - own) / own < 0.05
+        assert monitor.seq_len_hint == seq
+    finally:
+        torch.set_num_threads(threads)
+        client.close()
+        master.stop()
+
+
+def test_loop_checkpoints_and_restores_the_masters_shard_position(
+        tmp_path):
+    """The loop saves the master's data-shard position (the dataset the
+    job registered, under the default name "") with each checkpoint and
+    gives it back to the master on restore, as the JAX loop does."""
+    from dlrover_tpu_torch.agent.master_client import MasterClient
+    from dlrover_tpu_torch.common.messages import DatasetShardParams
+    from dlrover_tpu_torch.master.job_master import JobMaster
+
+    master = JobMaster(host="127.0.0.1")
+    master.prepare()
+    client = MasterClient(master.addr, node_id=0, timeout_s=10.0)
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+
+    def loop():
+        return ElasticTrainLoop(
+            functools.partial(Llama, cfg), _adamw, cross_entropy_loss,
+            TrainLoopConfig(global_batch=4, seq_len=16,
+                            max_micro_per_replica=4, max_steps=2,
+                            checkpoint_dir=str(tmp_path / "c"),
+                            save_interval_steps=2, report_interval_steps=0),
+            master_client=client, device="cpu")
+
+    try:
+        assert client.report_dataset_shard_params(DatasetShardParams(
+            dataset_size=100, shard_size=10, storage_type="table"))
+        taken = [client.get_task("").shard.start for _ in range(3)]
+        client.report_task_result("", 0)
+        saved = client.get_shard_checkpoint("")
+        first = loop()
+        state, _ = first.restore_or_init(0)
+        first.run(state, _batches(cfg.vocab_size, 4, 16, 2))
+        first.close()
+        client.get_task("")
+        assert client.get_shard_checkpoint("") != saved
+        second = loop()
+        _, start = second.restore_or_init(0)
+        second.close()
+        assert taken == [0, 10, 20] and start == 2
+        assert client.get_shard_checkpoint("") == saved
+    finally:
+        client.close()
+        master.stop()

@@ -110,6 +110,32 @@ def test_entry_points_raise_without_gpu():
                          TrainLoopConfig(global_batch=2, seq_len=8))
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
+    # the worker script of `python -m dlrover_tpu_torch.run`
+    sys.path.insert(0, str(PACKAGE / "examples"))
+    try:
+        import llama_train
+    finally:
+        sys.path.pop(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        llama_train.main(["--config", "tiny", "--steps", "1"])
+
+
+def test_standalone_run_refuses_to_run_off_the_card_unless_asked(tmp_path):
+    """`python -m dlrover_tpu_torch.run --standalone` without the worker's
+    `--device cpu`: the worker raises, and with no restarts left the agent
+    exits with its code."""
+    _no_gpu()
+    proc = subprocess.run(
+        [sys.executable, "-m", "dlrover_tpu_torch.run", "--standalone",
+         "--max-restarts", "0", "--monitor-interval", "0.2",
+         "--devices-per-node", "1",
+         str(PACKAGE / "examples" / "llama_train.py"), "--config", "tiny",
+         "--steps", "1", "--ckpt-dir", str(tmp_path / "c")],
+        cwd=REPO, capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 1, proc.stderr[-2000:]
+    assert "device='cpu'" in proc.stderr
+    assert "restart budget exhausted" in proc.stderr
+    assert not (tmp_path / "c").exists()
 
 
 def test_rms_norms_match_jax_on_cpu():
@@ -198,7 +224,8 @@ def test_kernel_library_name_follows_its_headers(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    dict(master_client=object()),
+    dict(model=functools.partial(Llama,
+                                 LlamaConfig.tiny(attn_impl="ulysses"))),
     dict(model=functools.partial(Llama, LlamaConfig.tiny(attn_impl="ring"))),
     dict(model=functools.partial(Llama, LlamaConfig.tiny(remat=True))),
 ])

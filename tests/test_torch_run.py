@@ -1,0 +1,143 @@
+"""``python -m dlrover_tpu_torch.run --standalone`` on the CPU: the port's
+master and agent around the worker script
+``dlrover_tpu_torch/examples/llama_train.py`` at a tiny width (the JAX
+package's kill demo, tests/test_examples.py, run by the port).
+
+(a) 6 steps saving at 3 exit 0, and a second run resumes at step 6;
+(b) the worker (the agent's child) is SIGKILLed once step 3 is committed:
+the agent relaunches it, the new incarnation resumes at step 3, and its
+steps 4-6 are the same bits as an uninterrupted in-process run."""
+
+import functools
+import os
+import signal
+import subprocess
+import sys
+import time
+
+import torch
+
+from dlrover_tpu_torch.models.llama import Llama, cross_entropy_loss
+from dlrover_tpu_torch.trainer.elastic_loop import (
+    ElasticTrainLoop,
+    TrainLoopConfig,
+)
+from dlrover_tpu_torch.trainer.sampler import ElasticDistributedSampler
+from dlrover_tpu_torch.trainer.synthetic import batches, synthetic_corpus
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCRIPT = os.path.join(REPO, "dlrover_tpu_torch", "examples",
+                      "llama_train.py")
+sys.path.insert(0, os.path.dirname(SCRIPT))
+import llama_train  # noqa: E402
+
+
+def _cli(extra, log_file, ckpt):
+    return ([sys.executable, "-m", "dlrover_tpu_torch.run", "--standalone",
+             "--devices-per-node", "1", "--monitor-interval", "0.2",
+             SCRIPT, "--config", "tiny", "--device", "cpu",
+             "--save-interval", "3", "--ckpt-dir", ckpt,
+             "--log-file", log_file] + extra)
+
+
+def _env():
+    return dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+
+
+def _steps(log_file):
+    """{incarnation: {step: (loss, grad_norm)}} and the start steps, from
+    the worker's log file."""
+    runs, starts = [], []
+    with open(log_file) as f:
+        for line in f:
+            words = line.split()
+            if "llama_train: start_step=" in line:
+                starts.append(int(line.split("start_step=")[1].split()[0]))
+                runs.append({})
+            elif len(words) > 6 and words[1] == "step" and words[3] == "loss":
+                runs[-1][int(words[2])] = (float(words[4]), float(words[6]))
+    return starts, runs
+
+
+def test_standalone_trains_and_a_second_run_resumes(tmp_path):
+    ckpt, log_file = str(tmp_path / "ckpt"), str(tmp_path / "run.log")
+    for _ in range(2):
+        proc = subprocess.run(_cli(["--steps", "6"], log_file, ckpt),
+                              env=_env(), cwd=REPO, capture_output=True,
+                              text=True, timeout=180)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+    starts, runs = _steps(log_file)
+    assert starts == [0, 6]
+    assert sorted(runs[0]) == [1, 2, 3, 4, 5, 6] and runs[1] == {}
+    assert sorted(os.listdir(ckpt)) == ["3", "6"]
+    text = open(log_file).read()
+    assert "done step=6" in text and "nothing to do" in text
+
+
+def _uninterrupted(seq, global_batch, steps):
+    """The worker script's run in this process, with no checkpoint."""
+    cfg, seq = llama_train.build_config("tiny", seq)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        loop = ElasticTrainLoop(
+            functools.partial(Llama, cfg),
+            lambda p: torch.optim.AdamW(p, lr=3e-4, betas=(0.9, 0.999),
+                                        eps=1e-8, weight_decay=0.1),
+            cross_entropy_loss,
+            TrainLoopConfig(global_batch=global_batch, seq_len=seq,
+                            max_micro_per_replica=global_batch,
+                            max_steps=steps),
+            device="cpu")
+        sampler = ElasticDistributedSampler(dataset_size=10 ** 6, seed=0)
+        state, _ = loop.restore_or_init(0, sampler)
+        state, metrics = loop.run(
+            state, batches(synthetic_corpus(cfg.vocab_size), sampler,
+                           global_batch, seq), sampler=sampler)
+        loop.close()
+    finally:
+        torch.set_num_threads(threads)
+    return {r["step"]: (r["loss"], r["grad_norm"])
+            for r in metrics["history"]}
+
+
+def _children(pid):
+    out = subprocess.run(["pgrep", "-P", str(pid)], capture_output=True,
+                         text=True)
+    return [int(p) for p in out.stdout.split()]
+
+
+def test_killed_worker_is_relaunched_and_resumes_the_same_bits(tmp_path):
+    ckpt, log_file = str(tmp_path / "ckpt"), str(tmp_path / "run.log")
+    # steps of ≈0.2 s: step 6 commits long after the poll sees step 3
+    size = ["--seq", "128", "--global-batch", "16"]
+    proc = subprocess.Popen(
+        _cli(["--steps", "6", "--report-interval", "1"] + size, log_file,
+             ckpt), env=_env(), cwd=REPO, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.time() + 120
+        victim = None
+        while time.time() < deadline and proc.poll() is None:
+            if os.path.isdir(os.path.join(ckpt, "3")):
+                kids = _children(proc.pid)
+                if kids:
+                    victim = kids[0]
+                    break
+            time.sleep(0.02)
+        assert victim, "no committed step 3 or no worker"
+        os.kill(victim, signal.SIGKILL)
+        _, err = proc.communicate(timeout=180)
+        assert proc.returncode == 0, err[-3000:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert "worker failed (exit -9, killed)" in err
+    assert "spawning worker (round 1," in err
+    starts, runs = _steps(log_file)
+    assert starts == [0, 3]
+    want = _uninterrupted(128, 16, 6)
+    assert {n: runs[0][n] for n in (1, 2, 3)} == {
+        n: want[n] for n in (1, 2, 3)}
+    assert runs[1] == {n: want[n] for n in (4, 5, 6)}
