@@ -30,32 +30,48 @@ Phases (each one's failure ends the run with a nonzero exit):
            rms_bwd 45 times
   resume   the same Llama-1B through ElasticTrainLoop with a flash
            checkpoint in a temporary directory (deleted at the end; the
-           phase fails if the disk cannot hold one checkpoint): A 6 steps
-           saving at 3; B a fresh loop restores 3 and trains 4-6, the same
-           bits as A, the restore's peak device memory within the state
-           plus its largest leaf; C the same with int8 parameters, losses
-           within 0.1% of A's, 201 quantize and 201 dequantize launches,
-           codes bit for bit with the plain versions; D a worker process
-           at 2 layers gets SIGTERM after its second step, saves where it
-           stops and a second one resumes there; E 3 steps with AdamW's
-           moments in pinned host memory, the same bits as A's first 3
+           phase fails if the disk cannot hold one checkpoint, or the
+           host's memory the pinned host copy plus one restore): A 7
+           steps saving at 3, its host copy staged into a peer cache (on
+           /dev/shm when that holds two stages), and a second, steady-state
+           save after step 7 (dropped before B); the blocking part of both
+           saves by piece (the first's page-locking timed apart); B a fresh loop restores 3 from disk and trains
+           4-6, the same bits as A, the restore's peak device memory within
+           the state plus its largest leaf; F a fresh loop with the peer
+           cache and no master restores 3 through the local pseudo-plan:
+           source "peer", the same bits as A, the same peak bound, its
+           restore by part beside B's read; C the same as B with int8
+           parameters, losses within 0.1% of A's, 201 quantize and 201
+           dequantize launches, codes bit for bit with the plain versions;
+           D a worker process at 2 layers gets SIGTERM after its second
+           step, saves where it stops and a second one resumes there; E 3
+           steps with AdamW's moments in pinned host memory, the same bits
+           as A's first 3
   standalone
            the control plane: the port's JobMaster in this process, and
            `python -m dlrover_tpu_torch.run --master-addr ...` running
            the worker script dlrover_tpu_torch/examples/llama_train.py
-           (Llama-1B, 6 steps saving at 3, a step report each step) under
-           the port's agent; once step 3 is committed the worker is
-           SIGKILLed, the agent relaunches it in the next rendezvous
-           round and it resumes at step 3. Steps 1-3 and 4-6 are the
-           same bits as resume's run A (or an uninterrupted in-process
-           run when resume did not run), the agent exits 0, the master's
-           SpeedMonitor holds step 6, its tokens/s read just after the
-           kill (the first incarnation's step reports) is within 5% of
-           the worker's own over the same steps, and the worker launched
-           each flash kernel 22
-           times and each RMSNorm kernel 45 times a step. Prints the
-           recovery time by part and the step under the agent against
-           the llama1b phase's
+           (Llama-1B, 7 steps saving at 3 and 6, a step report each step)
+           under the port's agent, whose work directory (peer cache) is on
+           /dev/shm when that holds two stages; once step 3 is committed
+           and a peer stage at least as new is complete (the commit and
+           the peer write run side by side; the kill waits for both)
+           the worker is SIGKILLed and the agent relaunches it in the next
+           rendezvous round. The relaunched worker restores with source
+           "peer" through the master's plan at the newer of the committed
+           step and the staged one (both read after the kill), and its
+           steps, like the first incarnation's, are the same bits as
+           resume's run A (or an uninterrupted in-process run when resume
+           did not run); the agent exits 0, the master's SpeedMonitor
+           holds step 7, its tokens/s read just after the kill (the first
+           incarnation's step reports) is within 5% of the worker's own
+           over the same steps, and the worker launched each flash kernel
+           22 times and each RMSNorm kernel 45 times a resumed step. Prints
+           host memory, the recovery time by part (the restore split into
+           plan, transfer and assemble) up to the first resumed step and
+           on to the second, the blocking saves by piece (each process's
+           first save page-locks its host buffers, timed apart), and the
+           step times beside the writers that ran under them
 
 The line before the last is the kernels' JSON record (the quantization
 pair's launches are the resume phase's checkpoint path; each kernel's
@@ -70,6 +86,7 @@ import argparse
 import functools
 import json
 import math
+import signal
 import statistics
 import subprocess
 import sys
@@ -964,10 +981,14 @@ loop.close()
 
 
 def _free_memory() -> None:
+    """Collect, and hand the card's and the host's cached blocks back
+    (pinned host blocks too: the next loop pins its buffers anew)."""
     import gc
 
     gc.collect()
     torch.cuda.empty_cache()
+    if hasattr(torch._C, "_host_emptyCache"):
+        torch._C._host_emptyCache()
 
 
 def _dir_bytes(path: str) -> int:
@@ -975,6 +996,51 @@ def _dir_bytes(path: str) -> int:
 
     return sum(os.path.getsize(os.path.join(root, name))
                for root, _, files in os.walk(path) for name in files)
+
+
+def host_memory() -> dict:
+    """This host's MemTotal and MemAvailable and /dev/shm's free bytes."""
+    import shutil
+
+    info = {"shm_free": 0}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            name, value = line.split(":", 1)
+            if name in ("MemTotal", "MemAvailable"):
+                info[name] = int(value.split()[0]) * 1024
+    try:
+        info["shm_free"] = shutil.disk_usage("/dev/shm").free
+    except OSError:
+        pass
+    return info
+
+
+def peer_root(state_bytes: int, tmp: str, smi: str, what: str) -> str:
+    """A new directory for a peer cache (or an agent's work directory):
+    on /dev/shm when it and the host's memory hold two stages beside the
+    pinned host copy and one restore, else under ``tmp`` on disk. Fails,
+    with the numbers, when the host cannot hold the pinned copy plus one
+    restore."""
+    import tempfile
+
+    mem = host_memory()
+    copies = 2 * state_bytes          # the pinned host copy + one restore
+    on_shm = min(mem["shm_free"],
+                 mem["MemAvailable"] - copies) >= 2 * state_bytes
+    where = "/dev/shm" if on_shm else f"{tmp} (disk)"
+    log(f"{what}: host MemTotal {mem['MemTotal'] / 1e9:.2f} GB, "
+        f"MemAvailable {mem['MemAvailable'] / 1e9:.2f} GB, /dev/shm free "
+        f"{mem['shm_free'] / 1e9:.2f} GB; pinned copy + one restore "
+        f"{copies / 1e9:.2f} GB, two staged steps "
+        f"{2 * state_bytes / 1e9:.2f} GB; the peer cache goes to {where} "
+        f"({smi})")
+    if mem["MemAvailable"] < copies:
+        raise AssertionError(
+            f"{mem['MemAvailable'] / 1e9:.2f} GB of host memory available: "
+            f"less than the pinned host copy plus one restore "
+            f"({copies / 1e9:.2f} GB)")
+    return tempfile.mkdtemp(prefix="chip_smoke_peer_",
+                            dir="/dev/shm" if on_shm else tmp)
 
 
 def _resume_loop(cfg, ckpt_dir: str, bits: int, save_interval: int):
@@ -1091,7 +1157,6 @@ def _sigterm_drill(tmp: str) -> dict:
     """D: a worker process gets SIGTERM after its second step, saves the
     step it stops on and exits 0; a second worker resumes there."""
     import os
-    import signal
 
     script = os.path.join(tmp, "sigterm_worker.py")
     with open(script, "w") as f:
@@ -1131,15 +1196,21 @@ def _sigterm_drill(tmp: str) -> dict:
 
 def phase_resume(smi: str, llama1b: dict) -> dict:
     """Llama-1B at full width and depth through ElasticTrainLoop with a
-    flash checkpoint: A 6 steps saving at 3; B a fresh loop restores 3
-    and trains 4-6, the same bits as A; C the same with int8 parameters
-    (losses within 0.1%, 201 quantize and 201 dequantize launches, codes
-    bit for bit with the plain versions); D the SIGTERM drill; E 3 steps
-    with the moments offloaded, the same bits as A's first 3."""
+    flash checkpoint: A 7 steps saving at 3 (staged into a peer cache) and
+    once more after 7; B a fresh loop restores 3 from disk and trains 4-6,
+    the same bits as A; F the same from the peer cache; C the same as B
+    with int8 parameters (losses within 0.1%, 201 quantize and 201
+    dequantize launches, codes bit for bit with the plain versions); D the
+    SIGTERM drill; E 3 steps with the moments offloaded, the same bits as
+    A's first 3."""
     import shutil
     import tempfile
 
+    import os
+
     from dlrover_tpu_torch.checkpoint import quantized as cq
+    from dlrover_tpu_torch.checkpoint.peer_restore import load_manifest
+    from dlrover_tpu_torch.common.constants import NodeEnv
     from dlrover_tpu_torch.models.llama import (
         Llama,
         LlamaConfig,
@@ -1153,6 +1224,7 @@ def phase_resume(smi: str, llama1b: dict) -> dict:
     state_bytes = 3 * 4 * params
     tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
     out = {"card": smi}
+    peer_dir = ""
     try:
         free = shutil.disk_usage(tmp).free
         log(f"resume: checkpoints in {tmp}, {free / 1e9:.1f} GB free; one "
@@ -1161,31 +1233,66 @@ def phase_resume(smi: str, llama1b: dict) -> dict:
             raise AssertionError(f"{free / 1e9:.1f} GB free in {tmp}: less "
                                  f"than one checkpoint")
         dir_a = f"{tmp}/exact"
+        peer_dir = peer_root(state_bytes, tmp, smi, "resume")
+        cache = f"{peer_dir}/cache"
 
-        # A: 6 steps, the save at step 3
+        # A: 7 steps, the save at step 3 staged into the peer cache, then a
+        # steady-state save after step 7 (its buffers already pinned;
+        # straight through the checkpointer, not staged, and dropped
+        # before B reads the newest step)
+        os.environ[NodeEnv.PEER_CACHE_DIR] = cache
         loop = _resume_loop(cfg, dir_a, 0, 3)
         sampler, data = _sampler_and_data(cfg)
         state, _ = loop.restore_or_init(0, sampler)
         state, m1 = loop.run(state, data, 0, sampler)
-        save = dict(loop.checkpointer.last_save)
+        first_save = dict(loop.checkpointer.last_save)
         loop.checkpointer.save_interval_steps = 0
+        loop.config.max_steps = 4
         state, m2 = loop.run(state, data, 3, sampler)
+        loop.checkpointer.maybe_save(7, state, force=True)
+        loop.checkpointer.wait()
+        steady_save = dict(loop.checkpointer.last_save)
         hist_a = m1["history"] + m2["history"]
+        pinned_gb = loop.checkpointer.host.nbytes / 1e9
+        pinning_s = first_save["host_alloc_s"]
         loop.close()
         del state, loop
+        del os.environ[NodeEnv.PEER_CACHE_DIR]
+        shutil.rmtree(f"{dir_a}/7")
         _free_memory()
         step_s = statistics.mean(r["step_time_s"] for r in hist_a)
         ckpt_bytes = _dir_bytes(f"{dir_a}/3")
-        write_s = save["commit_s"] - save["blocking_s"]
+        write_s = first_save["commit_s"] - first_save["blocking_s"]
+        staged = load_manifest(cache)
         out["a"] = {"losses": [r["loss"] for r in hist_a],
                     "grad_norms": [r["grad_norm"] for r in hist_a],
-                    "blocking_save_ms": save["blocking_s"] * 1e3,
-                    "blocking_share_of_step": save["blocking_s"] / step_s,
-                    "commit_s": save["commit_s"], "bytes": ckpt_bytes,
-                    "write_gb_s": ckpt_bytes / write_s / 1e9}
+                    "blocking_save_ms": first_save["blocking_s"] * 1e3,
+                    "steady_blocking_save_ms":
+                        steady_save["blocking_s"] * 1e3,
+                    "blocking_share_of_step":
+                        steady_save["blocking_s"] / step_s,
+                    "first_save": first_save, "steady_save": steady_save,
+                    "pinned_gb": pinned_gb, "pinning_s": pinning_s,
+                    "commit_s": first_save["commit_s"], "bytes": ckpt_bytes,
+                    "write_gb_s": ckpt_bytes / write_s / 1e9,
+                    "staged_step": staged["step"],
+                    "staged_bytes": sum(m["nbytes"] for m in
+                                        staged["shards"].values()),
+                    "steps_ms": [r["step_time_s"] * 1e3 for r in hist_a],
+                    "note": "run() waits for the commit at its end, "
+                            "so steps 4-7 ran under step 3's peer-cache "
+                            "write only"}
         log(f"resume A: {json.dumps(out['a'])} ({smi})")
+        log(f"resume A blocking save by piece, first and steady state, s: "
+            f"{json.dumps(first_save)} | {json.dumps(steady_save)}; the "
+            f"host buffers' page-locking (once, inside the first save): "
+            f"{pinned_gb:.2f} GB in {pinning_s:.3f} s; the first save "
+            f"without it {first_save['blocking_s'] - pinning_s:.3f} s "
+            f"({smi})")
+        if staged["step"] != 3:
+            raise AssertionError(f"A staged step {staged['step']}, not 3")
 
-        # B: a fresh loop restores step 3 and trains 4-6
+        # B: a fresh loop restores step 3 from disk and trains 4-6
         loop = _resume_loop(cfg, dir_a, 0, 0)
         sampler, data = _sampler_and_data(cfg)
         torch.cuda.reset_peak_memory_stats()
@@ -1194,6 +1301,7 @@ def phase_resume(smi: str, llama1b: dict) -> dict:
         restore_peak = torch.cuda.max_memory_allocated() - before
         largest = max(p.numel() * 4 for p in state.model.parameters())
         timings = dict(loop.last_restore_timings)
+        source = loop.last_restore_source
         position = sampler.completed_num
         state, m = loop.run(state, data, start, sampler)
         loop.close()
@@ -1204,7 +1312,7 @@ def phase_resume(smi: str, llama1b: dict) -> dict:
                  for k in ("loss", "grad_norm")]
         same_bits = all(a == b for a, b in pairs)
         rel = max(abs(a - b) / abs(a) for a, b in pairs)
-        out["b"] = {"start": start, "sampler": position,
+        out["b"] = {"start": start, "source": source, "sampler": position,
                     "losses": [r["loss"] for r in hist_b],
                     "same_bits": same_bits, "max_rel_diff": rel,
                     "restore_peak_gb": restore_peak / 2 ** 30,
@@ -1213,15 +1321,65 @@ def phase_resume(smi: str, llama1b: dict) -> dict:
                     / max(timings.get("restore_tensor_read_s", 0), 1e-9)
                     / 1e9, "timings": timings}
         log(f"resume B: {json.dumps(out['b'])} ({smi})")
-        if start != 3 or position != 24 or len(hist_b) != 3:
-            raise AssertionError(f"B resumed at step {start}, sampler "
-                                 f"{position}, ran {len(hist_b)} steps")
+        if (start, source, position, len(hist_b)) != (3, "checkpoint", 24,
+                                                      3):
+            raise AssertionError(f"B resumed at step {start} from {source},"
+                                 f" sampler {position}, ran {len(hist_b)} "
+                                 f"steps")
         if not (same_bits or rel < 1e-6):
             raise AssertionError(f"B's steps 4-6 differ from A's by {rel}")
         if restore_peak > state_bytes + largest:
             raise AssertionError(f"restore peaked at {restore_peak} bytes, "
                                  f"over the state's {state_bytes} + "
                                  f"{largest}")
+
+        # F: a fresh loop with A's peer cache and no master restores step 3
+        # through the local pseudo-plan and trains 4-6
+        os.environ[NodeEnv.PEER_CACHE_DIR] = cache
+        loop = _resume_loop(cfg, dir_a, 0, 0)
+        sampler, data = _sampler_and_data(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        state, start = loop.restore_or_init(0, sampler)
+        peak_f = torch.cuda.max_memory_allocated() - before
+        timings_f = dict(loop.last_restore_timings)
+        source = loop.last_restore_source
+        position = sampler.completed_num
+        state, m = loop.run(state, data, start, sampler)
+        loop.close()
+        del state, loop
+        del os.environ[NodeEnv.PEER_CACHE_DIR]
+        _free_memory()
+        hist_f = m["history"]
+        same_f = [(a["loss"], a["grad_norm"]) == (f["loss"], f["grad_norm"])
+                  for a, f in zip(hist_a[3:], hist_f)]
+        out["f"] = {"start": start, "source": source, "sampler": position,
+                    "losses": [r["loss"] for r in hist_f],
+                    "same_bits": same_f, "restore_peak_gb": peak_f / 2 ** 30,
+                    "limit_gb": (state_bytes + largest) / 2 ** 30,
+                    "timings": timings_f}
+        parts = {
+            "peer": {k: timings_f.get(k) for k in (
+                "peer_plan_s", "peer_transfer_s", "peer_assemble_s",
+                "peer_restore_s", "peer_bytes", "peer_bandwidth_mbps")},
+            "checkpoint (B)": {k: timings.get(k) for k in (
+                "dcp_read_s", "restore_tensor_read_s",
+                "restore_restored_bytes", "restore_read_bandwidth_mbps")}}
+        out["f"]["parts_beside_b"] = parts
+        log(f"resume F: {json.dumps(out['f'])} ({smi})")
+        log(f"resume F restore by part beside B's read: {json.dumps(parts)} "
+            f"({smi})")
+        if (start, source, position, len(hist_f)) != (3, "peer", 24, 3):
+            raise AssertionError(f"F resumed at step {start} from {source}, "
+                                 f"sampler {position}, ran {len(hist_f)} "
+                                 f"steps")
+        if not all(same_f):
+            raise AssertionError(f"F's steps 4-6 differ from A's: {same_f}")
+        if peak_f > state_bytes + largest:
+            raise AssertionError(f"peer restore peaked at {peak_f} bytes, "
+                                 f"over the state's {state_bytes} + "
+                                 f"{largest}")
+        shutil.rmtree(peer_dir)
         shutil.rmtree(dir_a)
 
         # C: int8 parameters
@@ -1232,6 +1390,7 @@ def phase_resume(smi: str, llama1b: dict) -> dict:
         reset_counts()
         state, _ = loop.run(state, data, 0, sampler)
         save_launches = read_counts()
+        save_c = dict(loop.checkpointer.last_save)
         _check_saved_codes(dir_c, 3, state)
         params_sd = {n: p.detach() for n, p in state.model.named_parameters()}
         enc = cq.abstract_encoded(params_sd, 8)
@@ -1261,7 +1420,7 @@ def phase_resume(smi: str, llama1b: dict) -> dict:
                     "dequantize_launches": restore_launches["dequantize"],
                     "leaves": leaves, "bytes": _dir_bytes(f"{dir_c}/3"),
                     "codes_bytes": codes, "scales_bytes": scales,
-                    "timings": timings_c,
+                    "timings": timings_c, "save": save_c,
                     "kernels_at_embed": _quant_kernel_times()}
         log(f"resume C: {json.dumps(out['c'])} ({smi})")
         if start != 3 or len(hist_c) != 3 or not rel_c < 1e-3:
@@ -1308,6 +1467,9 @@ def phase_resume(smi: str, llama1b: dict) -> dict:
                                  f"against {out['a']['losses'][:3]}, pinned "
                                  f"{pinned}")
     finally:
+        # the peer cache may lie on /dev/shm, outside ``tmp``
+        if peer_dir:
+            shutil.rmtree(peer_dir, ignore_errors=True)
         shutil.rmtree(tmp, ignore_errors=True)
     return out
 
@@ -1318,10 +1480,14 @@ def phase_resume(smi: str, llama1b: dict) -> dict:
 
 # the master's tokens/s against the worker's own over the same steps
 SPEED_TOL = 0.05
+# the worker under the agent: steps, saving every SAVE_EVERY (the kill
+# comes once the first save is committed; a relaunch resumes at 3 or 6)
+STANDALONE_STEPS = 7
+SAVE_EVERY = 3
 
 
 def _reference_run(cfg) -> list:
-    """Resume's run A without its checkpoint: 6 uninterrupted steps from
+    """Resume's run A without its checkpoint: 7 uninterrupted steps from
     the same seed and data, [(loss, grad_norm)] a step."""
     from dlrover_tpu_torch.models.llama import Llama, cross_entropy_loss
     from dlrover_tpu_torch.trainer.elastic_loop import (
@@ -1332,7 +1498,7 @@ def _reference_run(cfg) -> list:
     loop = ElasticTrainLoop(
         functools.partial(Llama, cfg), _adamw, cross_entropy_loss,
         TrainLoopConfig(global_batch=8, seq_len=cfg.max_seq_len,
-                        max_micro_per_replica=8, max_steps=6,
+                        max_micro_per_replica=8, max_steps=STANDALONE_STEPS,
                         report_interval_steps=0))
     sampler, data = _sampler_and_data(cfg)
     state, _ = loop.restore_or_init(0, sampler)
@@ -1391,8 +1557,10 @@ def _agent_times(path: str) -> dict:
 
 def _worker_log(path: str) -> list:
     """The worker's incarnations from its log file: for each, its start
-    step, restore timings, steps {step: (time, loss, grad_norm, step_s)},
-    launch counts and wall-clock marks."""
+    step, restore source and timings, steps {step: (time, loss,
+    grad_norm, step_s)}, saves {step: (time, blocking pieces)}, commits
+    and peer-cache writes {step: end time}, launch counts and wall-clock
+    marks."""
     import re
 
     runs = []
@@ -1401,21 +1569,100 @@ def _worker_log(path: str) -> list:
             ts, _, text = line.rstrip("\n").partition(" ")
             if text.startswith("llama_train: start_step="):
                 start = int(re.search(r"start_step=(\d+)", text).group(1))
+                source = re.search(r"source=(\S+)", text).group(1)
                 restore = json.loads(text.split("restore=", 1)[1])
-                runs.append({"start": start, "restore": restore,
-                             "steps": {}, "started_at": float(ts)})
+                runs.append({"start": start, "source": source,
+                             "restore": restore, "steps": {}, "saves": {},
+                             "commits": {}, "peer_writes": {},
+                             "started_at": float(ts)})
                 continue
+            if not runs:
+                continue
+            run = runs[-1]
             m = re.match(r"step (\d+) loss (\S+) grad_norm (\S+) step_s "
                          r"(\S+)", text)
-            if m and runs:
-                runs[-1]["steps"][int(m.group(1))] = (
+            save = re.search(r"async save started at step (\d+), blocking "
+                             r"\S+ s: (\{.*\})$", text)
+            done = (re.search(r"flash checkpoint: step (\d+) committed", text)
+                    or re.search(r"peer cache: step (\d+) staged", text))
+            if m:
+                run["steps"][int(m.group(1))] = (
                     float(ts), float(m.group(2)), float(m.group(3)),
                     float(m.group(4)))
-            elif text.startswith("worker_launch_counts ") and runs:
-                runs[-1]["launches"] = json.loads(text.split(" ", 1)[1])
-            elif text.startswith("worker_times ") and runs:
-                runs[-1]["times"] = json.loads(text.split(" ", 1)[1])
+            elif save:
+                run["saves"][int(save.group(1))] = (float(ts), json.loads(
+                    save.group(2)))
+            elif done:
+                kind = "commits" if "committed" in text else "peer_writes"
+                run[kind][int(done.group(1))] = float(ts)
+            elif text.startswith("worker_launch_counts "):
+                run["launches"] = json.loads(text.split(" ", 1)[1])
+            elif text.startswith("worker_times "):
+                run["times"] = json.loads(text.split(" ", 1)[1])
+    for run in runs:
+        run["runs_under_writers"] = _under_writers(run)
     return runs
+
+
+def _under_writers(run: dict) -> dict:
+    """Each step that ended while a save's commit or peer-cache write
+    (started at an earlier step) was still running: {step: (step_ms,
+    "commit", "peer")} with the writers it overlapped."""
+    out = {}
+    for n, (t, *_, step_s) in sorted(run["steps"].items()):
+        writers = []
+        for saved, (t_save, _) in run["saves"].items():
+            if saved >= n:
+                continue
+            for kind in ("commits", "peer_writes"):
+                end = run[kind].get(saved, float("inf"))
+                if t_save < t <= end:
+                    writers.append(f"{kind[:-1]} of {saved}")
+        if writers:
+            out[n] = (step_s * 1e3, writers)
+    return out
+
+
+def _killed_state(ckpt: str, agent_tmp: str) -> tuple:
+    """The newest committed step under ``ckpt`` and the step of the last
+    complete peer stage in the agent's work directory under
+    ``agent_tmp`` (its manifest is written last), -1 when none."""
+    import glob
+    import os
+
+    from dlrover_tpu_torch.checkpoint.peer_restore import load_manifest
+
+    names = os.listdir(ckpt) if os.path.isdir(ckpt) else []
+    committed = max((int(n) for n in names if n.isdigit()), default=-1)
+    caches = glob.glob(os.path.join(agent_tmp, "dlrover-tpu-agent-*",
+                                    "peer_cache"))
+    manifest = load_manifest(caches[0]) if len(caches) == 1 else None
+    return committed, (manifest or {}).get("step", -1)
+
+
+def _kill_ready(ckpt: str, agent_tmp: str, first_save: int) -> bool:
+    """Whether the worker may be killed: a step at or past ``first_save``
+    is committed and a complete peer stage at least as new is there.
+    DCP's commit and the peer-cache write of one save run side by side,
+    so waiting for both keeps the relaunch's source from hanging on
+    which finished first."""
+    committed, staged = _killed_state(ckpt, agent_tmp)
+    return committed >= first_save and staged >= committed
+
+
+def _wait_dead(pid: int, timeout_s: float = 60.0) -> None:
+    """Until ``pid`` has exited (gone, or a zombie not reaped yet)."""
+    deadline = time.time() + timeout_s
+    while time.time() < deadline:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                if f.read().rsplit(")", 1)[1].split()[0] == "Z":
+                    return
+        except OSError:
+            return
+        time.sleep(0.01)
+    raise AssertionError(f"process {pid} still alive {timeout_s} s after "
+                         f"SIGKILL")
 
 
 def phase_standalone(smi: str, llama1b: dict, resume: dict) -> dict:
@@ -1423,7 +1670,6 @@ def phase_standalone(smi: str, llama1b: dict, resume: dict) -> dict:
     the first committed checkpoint (see the module docstring)."""
     import os
     import shutil
-    import signal
     import tempfile
 
     from dlrover_tpu_torch.common.constants import RendezvousName
@@ -1445,7 +1691,7 @@ def phase_standalone(smi: str, llama1b: dict, resume: dict) -> dict:
     agent_out, agent_err = f"{tmp}/agent.out", f"{tmp}/agent.err"
     master = JobMaster(host="127.0.0.1")
     master.prepare()
-    proc = None
+    proc, agent_tmp = None, ""
     out = {"card": smi}
     _free_memory()
     log(f"standalone: this process holds "
@@ -1457,37 +1703,50 @@ def phase_standalone(smi: str, llama1b: dict, resume: dict) -> dict:
         if free < 2.1 * state_bytes:
             raise AssertionError(f"{free / 1e9:.1f} GB free in {tmp}: less "
                                  f"than two checkpoints")
+        # the agent's work directory (its peer cache) lands in TMPDIR
+        agent_tmp = peer_root(state_bytes, tmp, smi, "standalone")
+        out["host_memory"] = host_memory()
+        out["agent_tmp"] = agent_tmp
         cmd = [sys.executable, "-m", "dlrover_tpu_torch.run",
                "--master-addr", master.addr,
                "dlrover_tpu_torch/examples/llama_train.py",
-               "--config", "llama_1b", "--steps", "6", "--save-interval",
-               "3", "--report-interval", "1", "--ckpt-dir", ckpt,
-               "--log-file", worker_log]
-        env = dict(os.environ, PYTHONPATH=repo)
+               "--config", "llama_1b", "--steps", str(STANDALONE_STEPS),
+               "--save-interval", str(SAVE_EVERY), "--report-interval", "1",
+               "--ckpt-dir", ckpt, "--log-file", worker_log]
+        env = dict(os.environ, PYTHONPATH=repo, TMPDIR=agent_tmp)
         with open(agent_out, "w") as fo, open(agent_err, "w") as fe:
             proc = subprocess.Popen(cmd, cwd=repo, env=env, stdout=fo,
                                     stderr=fe)
         # SIGKILL the worker (the agent's child) once step 3 is committed
+        # and staged
         deadline = time.time() + 400
         victim = None
         while time.time() < deadline and proc.poll() is None:
-            if os.path.isdir(f"{ckpt}/3"):
+            if _kill_ready(ckpt, agent_tmp, SAVE_EVERY):
                 kids = _children(proc.pid)
                 if kids:
                     victim = kids[0]
                     break
             time.sleep(0.05)
         if victim is None:
-            raise AssertionError(f"no committed step 3 or no worker (agent "
-                                 f"exit {proc.poll()})")
+            raise AssertionError(f"no committed and staged step 3 or no "
+                                 f"worker (agent exit {proc.poll()}, "
+                                 f"{_killed_state(ckpt, agent_tmp)})")
         os.kill(victim, signal.SIGKILL)
         t_kill = time.time()
+        _wait_dead(victim)
+        # what the dead worker left, read now that nothing can change it:
+        # the relaunch must resume at the newer of the two
+        committed, staged = _killed_state(ckpt, agent_tmp)
+        resume_at = max(committed, staged)
+        out["at_kill"] = {"committed": committed, "staged": staged,
+                          "resume_at": resume_at}
         # the master's speed over the first incarnation's step reports: a
         # report already on the wire lands within the second, the new
         # incarnation's first one tens of seconds later. (Its resumed
         # reports at or below this mark are dropped, as in the JAX
         # master.)
-        time.sleep(1.0)
+        time.sleep(max(0.0, t_kill + 1.0 - time.time()))
         killed_at = (master.speed_monitor.completed_global_step,
                      master.speed_monitor.tokens_per_second(),
                      master.speed_monitor.running_mfu())
@@ -1504,31 +1763,39 @@ def phase_standalone(smi: str, llama1b: dict, resume: dict) -> dict:
         first, second = runs
         got = {n: (r[1], r[2]) for run in runs
                for n, r in run["steps"].items()
-               if run is second or n <= 3}
-        same = {n: got.get(n) == ref[n - 1] for n in range(1, 7)}
+               if run is second or n <= resume_at}
+        same = {n: got.get(n) == ref[n - 1]
+                for n in range(1, STANDALONE_STEPS + 1)}
         out.update({
             "reference": ref_from,
             "first_start": first["start"], "second_start": second["start"],
+            "second_source": second["source"],
             "first_steps": sorted(first["steps"]),
-            "losses": [got.get(n, (None,))[0] for n in range(1, 7)],
+            "losses": [got.get(n, (None,))[0]
+                       for n in range(1, STANDALONE_STEPS + 1)],
             "same_bits": same, "spawn_rounds": marks["rounds"],
             "master_rounds_cut": master.rdzv_managers[
                 RendezvousName.TRAINING].rdzv_round})
         log(f"standalone: {json.dumps(out)} ({smi})")
-        if first["start"] != 0 or second["start"] != 3:
+        if first["start"] != 0 or second["start"] != resume_at:
             raise AssertionError(f"incarnations started at {first['start']}"
-                                 f" and {second['start']}")
-        if sorted(second["steps"]) != [4, 5, 6] or not all(same.values()):
+                                 f" and {second['start']}, the kill left "
+                                 f"{out['at_kill']}")
+        if second["source"] != "peer":
+            raise AssertionError(f"the relaunched worker restored from "
+                                 f"{second['source']}, not the peer cache")
+        resumed = list(range(resume_at + 1, STANDALONE_STEPS + 1))
+        if sorted(second["steps"]) != resumed or not all(same.values()):
             raise AssertionError(f"steps against {ref_from}: {same}")
         if marks["rounds"] != [0, 1] or out["master_rounds_cut"] != 2:
             raise AssertionError(f"spawned in rounds {marks['rounds']}, "
                                  f"{out['master_rounds_cut']} rounds cut: "
                                  f"{agent_tail}")
 
-        # the master's view: step 6 at the end; at the kill, the tokens/s
-        # of the first incarnation's reports (steps 1 to the mark, on the
-        # master's clock) against the worker's own log over the same
-        # steps (the step lines, logged just before each report)
+        # the master's view: the last step at the end; at the kill, the
+        # tokens/s of the first incarnation's reports (steps 1 to the
+        # mark, on the master's clock) against the worker's own log over
+        # the same steps (the step lines, logged just before each report)
         tokens = 8 * cfg.max_seq_len
         steps = second["steps"]
         mark, master_tps, master_mfu = killed_at
@@ -1548,18 +1815,22 @@ def phase_standalone(smi: str, llama1b: dict, resume: dict) -> dict:
                          "tokens_per_s_at_end": master.speed_monitor
                          .tokens_per_second()}
         log(f"standalone master: {json.dumps(out['master'])} ({smi})")
-        if master_step != 6 or not out["master"]["rel_diff"] < SPEED_TOL:
+        if (master_step != STANDALONE_STEPS
+                or not out["master"]["rel_diff"] < SPEED_TOL):
             raise AssertionError(f"master holds {out['master']}")
 
-        want = _expected_launches(cfg, 3)
+        want = _expected_launches(cfg, len(resumed))
         launches = second.get("launches")
         out["launches"] = launches
         if launches != want:
             raise AssertionError(f"worker launches {launches}, want {want}")
 
-        # recovery: SIGKILL → the new incarnation's first finished step
+        # recovery: SIGKILL → the new incarnation's first finished step,
+        # and on to its second (back at the step's speed)
         times, restore = second["times"], second["restore"]
-        t_step4 = steps[4][0]
+        t_first = steps[resumed[0]][0]
+        if len(resumed) < 2:
+            raise AssertionError(f"resumed steps {resumed}: no second step")
         parts = {
             "detection_s": marks["detected"] - t_kill,
             "backoff_s": marks["backed_off"] - marks["detected"],
@@ -1568,15 +1839,38 @@ def phase_standalone(smi: str, llama1b: dict, resume: dict) -> dict:
             - marks["spawned"],
             "loop_build_s": times["loop_built"] - times["imported"],
             "restore_s": times["restored"] - times["loop_built"],
-            "of_which_kernel_libraries_load_s": restore.get("build_s"),
-            "of_which_read_s": restore.get("dcp_read_s"),
             "of_which_abstract_state_s": restore.get("abstract_state_s"),
-            "first_step_s": steps[4][3],
-            "other_s": t_step4 - times["restored"] - steps[4][3],
-            "total_s": t_step4 - t_kill}
+            "of_which_peer_plan_s": restore.get("peer_plan_s"),
+            "of_which_transfer_s": restore.get("peer_transfer_s"),
+            "of_which_assemble_s": restore.get("peer_assemble_s"),
+            "of_which_kernel_libraries_load_s": restore.get("build_s"),
+            "peer_bytes": restore.get("peer_bytes"),
+            "peer_bandwidth_mbps": restore.get("peer_bandwidth_mbps"),
+            "first_step_s": steps[resumed[0]][3],
+            "other_s": t_first - times["restored"] - steps[resumed[0]][3],
+            "total_s": t_first - t_kill,
+            "second_step_s": steps[resumed[1]][3],
+            "total_to_second_step_s": steps[resumed[1]][0] - t_kill}
         out["recovery"] = parts
-        log(f"standalone recovery (SIGKILL to step 4 done): "
+        log(f"standalone recovery (SIGKILL to step {resumed[0]} done): "
             f"{json.dumps(parts)} ({smi})")
+        out["saves"] = {f"incarnation {i} step {n}": pieces
+                        for i, run in enumerate(runs)
+                        for n, (_, pieces) in run["saves"].items()}
+        # each incarnation's first save page-locks its host buffers
+        out["pinning_s"] = {
+            f"incarnation {i} step {min(run['saves'])}":
+                run["saves"][min(run["saves"])][1].get("host_alloc_s")
+            for i, run in enumerate(runs) if run["saves"]}
+        log(f"standalone blocking saves by piece, s: "
+            f"{json.dumps(out['saves'])}; of which the host buffers' "
+            f"page-locking, once a process inside its first save, s: "
+            f"{json.dumps(out['pinning_s'])} ({smi})")
+        out["under_writers"] = {f"incarnation {i}": run["runs_under_writers"]
+                                for i, run in enumerate(runs)}
+        log(f"standalone steps that ran under a commit or a peer-cache "
+            f"write (ms, writers): {json.dumps(out['under_writers'])} "
+            f"({smi})")
         under_agent = [r[3] for run in runs for n, r in run["steps"].items()
                        if n != run["start"] + 1]
         out["step_under_agent"] = {
@@ -1586,12 +1880,16 @@ def phase_standalone(smi: str, llama1b: dict, resume: dict) -> dict:
                                              "not measured")}
         log(f"standalone step under the agent: "
             f"{json.dumps(out['step_under_agent'])} ({smi})")
+        log(f"standalone host memory after the run: "
+            f"{json.dumps(host_memory())} ({smi})")
     finally:
         if proc is not None and proc.poll() is None:
             proc.kill()
             proc.wait()
         master.stop()
         shutil.rmtree(tmp, ignore_errors=True)
+        if agent_tmp:
+            shutil.rmtree(agent_tmp, ignore_errors=True)
     return out
 
 
@@ -1608,6 +1906,10 @@ def main(argv=None) -> int:
                              "step and write the kernel table here")
     args = parser.parse_args(argv)
     phases = args.phases.split(",")
+    # a SIGTERM (a time limit) unwinds through the phases' ``finally``
+    # blocks, which remove their directories (a peer cache on /dev/shm
+    # among them)
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     t0 = time.monotonic()
     smi = phase_device()
     phase_build()
@@ -1630,7 +1932,7 @@ def main(argv=None) -> int:
             rec["launches"] = resume["c"][f"{rec['name']}_launches"]
     if "standalone" in phases:
         # the worker under the agent counts its own launches, printed at
-        # its exit: the resumed incarnation's 3 steps
+        # its exit: the resumed incarnation's steps
         standalone = phase_standalone(smi, llama1b, resume)
         for rec in train_records + quant_records:
             rec["standalone_launches"] = standalone["launches"][rec["name"]]

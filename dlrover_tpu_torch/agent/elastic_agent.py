@@ -14,10 +14,15 @@ monitor/restart loop :429-521, failure reporting :490):
 - On worker failure: report to the master, back off, re-rendezvous,
   respawn (restart budget, quarantine). On a membership change
   (``num_nodes_waiting > 0``): graceful restart so the world re-forms.
+- Peer restore (``checkpoint/peer_restore.py``): the agent's work
+  directory holds the peer cache the worker stages into and the restore
+  plan file; the agent's donor server serves the cache (it outlives the
+  worker), and the agent advertises the staged step to the master before
+  every join and on every monitor tick.
 
 Not ported yet: the agent's monitors (``agent/monitor.py``) and
 master-loss reconnect (ROADMAP Queue A item 12), the preemption watcher
-and drain (6.5), the peer donor (6.2b), diagnosis actions (12).
+and drain (6.5), diagnosis actions (12).
 """
 
 from __future__ import annotations
@@ -25,8 +30,10 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
+import shutil
 import signal
 import subprocess
+import tempfile
 import threading
 import time
 from collections import deque
@@ -147,6 +154,18 @@ class ElasticAgent:
         self.last_round = -1
         # relaunch pacing: backoff between respawns, quarantine on flap
         self._governor = RelaunchGovernor()
+        # peer-to-peer restore: the worker stages its state into the
+        # cache; the donor server (started in run(), owned by THIS
+        # process so it outlives worker restarts) serves it, and the
+        # join result's restore plan lands in the plan file
+        self._workdir = tempfile.mkdtemp(prefix="dlrover-tpu-agent-")
+        self.peer_cache_dir = os.path.join(self._workdir, "peer_cache")
+        self.restore_plan_file = os.path.join(self._workdir,
+                                              "restore_plan.json")
+        self._peer_donor = None
+        # (ino, mtime_ns, size) of the manifest at the last report: the
+        # monitor tick re-parses and re-reports only a changed manifest
+        self._peer_reported_statkey: Optional[Tuple] = None
 
     @property
     def worker_pid(self) -> Optional[int]:
@@ -161,8 +180,13 @@ class ElasticAgent:
         with obs.span("rendezvous",
                       {"rdzv": self._rdzv_name,
                        "rank": self._client.node_rank}) as rdzv_span:
+            # advertise this host's staged state BEFORE joining: a
+            # relaunched rank's plan (computed at its own join) must be
+            # able to name this host's donor
+            self._report_peer_store(force=True)
             joined_round = self._client.join_rendezvous(
                 spec.devices_per_node, self._rdzv_name)
+            self._publish_restore_plan()
             deadline = time.time() + spec.rdzv_timeout_s
             while time.time() < deadline:
                 rdzv_round, _, world = self._client.get_comm_world(
@@ -209,6 +233,8 @@ class ElasticAgent:
             NodeEnv.COORDINATOR_ADDR: coord,
             NodeEnv.RDZV_ROUND: str(rdzv_round),
             NodeEnv.DEVICES_PER_NODE: str(self._spec.devices_per_node),
+            NodeEnv.PEER_CACHE_DIR: self.peer_cache_dir,
+            NodeEnv.RESTORE_PLAN_FILE: self.restore_plan_file,
         })
         return env
 
@@ -253,14 +279,18 @@ class ElasticAgent:
             # postmortem timeline even when the agent itself is SIGTERMed
             recorder.install_signal_handlers()
         recorder.install_excepthook()
-        self._spawn()
+        self._start_peer_donor()
         try:
+            self._spawn()
             return WorkerExit.to_exit_status(self._run_loop())
         except BaseException:
             # never orphan the trainer on the way out
             self._stop_worker()
             raise
         finally:
+            self._stop_peer_donor()
+            # the staged copies die with the agent that served them
+            shutil.rmtree(self._workdir, ignore_errors=True)
             recorder.dump(reason="agent-exit")
 
     def _interruptible_wait(self, delay_s: float) -> None:
@@ -295,6 +325,9 @@ class ElasticAgent:
                 continue
             # healthy: a membership change re-forms the world
             waiting = self._client.num_nodes_waiting(self._rdzv_name)
+            # keep the master's donor registry fresh: the worker staged
+            # a newer step since the last report (one os.stat)
+            self._report_peer_store()
             if waiting > 0:
                 logger.info(
                     "%d node(s) waiting: restarting worker to re-form the "
@@ -376,6 +409,73 @@ class ElasticAgent:
     def shutdown(self) -> None:
         self._shutdown.set()
         self._stop_worker()
+
+    # -- peer-to-peer restore ----------------------------------------------
+    def _start_peer_donor(self) -> None:
+        """Serve this host's staged state to relaunched ranks. Owned by
+        the agent: it must outlive worker restarts. Best-effort: with no
+        donor, restores read the checkpoint, and the agent runs on."""
+        if not Context.singleton().peer_restore_enabled:
+            return
+        from dlrover_tpu_torch.checkpoint.peer_restore import (
+            PeerDonorServer,
+        )
+
+        try:
+            self._peer_donor = PeerDonorServer(self.peer_cache_dir)
+            self._peer_donor.start()
+        except OSError:   # bind failures
+            logger.warning("peer donor server failed to start; this host "
+                           "will not donate state", exc_info=True)
+            self._peer_donor = None
+
+    def _stop_peer_donor(self) -> None:
+        if self._peer_donor is not None:
+            self._peer_donor.stop()
+            self._peer_donor = None
+
+    def _report_peer_store(self, force: bool = False) -> None:
+        """Advertise the staged manifest (step and shard keys) to the
+        master's donor registry; withdrawn when nothing is staged. Only
+        a CHANGED manifest pays for the parse and the RPC unless forced
+        (the monitor tick's check is one os.stat)."""
+        if self._peer_donor is None:
+            return
+        from dlrover_tpu_torch.checkpoint.peer_restore import (
+            MANIFEST,
+            manifest_summary,
+        )
+
+        try:
+            st = os.stat(os.path.join(self.peer_cache_dir, MANIFEST))
+            statkey: Optional[Tuple] = (st.st_ino, st.st_mtime_ns,
+                                        st.st_size)
+        except OSError:
+            statkey = None
+        if not force and statkey == self._peer_reported_statkey:
+            return
+        step, keys, total_bytes = manifest_summary(self.peer_cache_dir)
+        try:
+            self._client.report_peer_store(
+                self._peer_donor.addr, step, keys,
+                total_bytes=total_bytes, rdzv_name=self._rdzv_name)
+            self._peer_reported_statkey = statkey
+        except Exception:  # noqa: BLE001 — best-effort; the next tick
+            # (or the pre-join force) retries
+            logger.warning("could not report the peer store to the master")
+
+    def _publish_restore_plan(self) -> None:
+        """The restore plan the join result carried → the plan file the
+        spawned worker reads (a worker with a master client re-fetches a
+        fresh plan by RPC; this copy serves the rest)."""
+        payload = self._client.last_restore_plan_json or "{}"
+        tmp = f"{self.restore_plan_file}.tmp"
+        try:
+            with open(tmp, "w") as f:
+                f.write(payload)
+            os.replace(tmp, self.restore_plan_file)
+        except OSError:
+            logger.warning("could not publish the restore plan file")
 
 
 def init_distributed(device=None) -> None:

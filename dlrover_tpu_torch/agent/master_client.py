@@ -8,14 +8,15 @@ environment contract.
 
 Not ported yet: the coordination-tier routing, the bootstrap-file
 re-resolution and the reconnect handshake of master-loss handling
-(ROADMAP Queue A item 12), and the wrappers of the peer-restore (6.2b),
-re-planning (6.3), slice (6.4), drain (6.5), diagnosis, telemetry and
-time-series RPCs (12).
+(ROADMAP Queue A item 12), and the wrappers of the re-planning (6.3),
+slice (6.4), drain (6.5), diagnosis, telemetry and time-series RPCs
+(12).
 """
 
 from __future__ import annotations
 
 import functools
+import json
 import os
 import random
 import time
@@ -89,6 +90,9 @@ class MasterClient:
                            else Context.singleton().rpc_timeout_s)
         # the latest master generation any RPC reported (0 = unknown)
         self.master_generation = 0
+        # the peer-restore plan the last join result carried ("" =
+        # none): the agent publishes it to the worker through a file
+        self.last_restore_plan_json = ""
         self._channel = build_channel(master_addr)
         self._stub = MasterStub(self._channel,
                                 fault_injector=TransportFaultInjector
@@ -188,6 +192,7 @@ class MasterClient:
         ), msg.JoinRendezvousResult)
         if result.generation:
             self.master_generation = result.generation
+        self.last_restore_plan_json = result.restore_plan_json
         return result.round
 
     @retry_rpc()
@@ -235,6 +240,53 @@ class MasterClient:
             msg.NetworkCheckResultRequest(node_id=self.node_rank),
             msg.NetworkCheckVerdict,
         )
+
+    # -- peer-to-peer restore ---------------------------------------------
+    @retry_rpc(retries=3)
+    def report_peer_store(self, addr: str, step: int, keys,
+                          total_bytes: int = 0,
+                          rdzv_name: str = RendezvousName.TRAINING
+                          ) -> bool:
+        """Advertise (step >= 0) or withdraw (step < 0) this host's
+        staged peer-state cache with the master's donor registry."""
+        return self._report(msg.PeerStoreReport(
+            node_id=self.node_id, node_rank=self.node_rank, addr=addr,
+            step=step, rdzv_name=rdzv_name, keys=list(keys),
+            total_bytes=total_bytes, slice_id=self.slice_id,
+        )).success
+
+    @retry_rpc(retries=3)
+    def get_restore_plan(self, rdzv_name: str = RendezvousName.TRAINING,
+                         stripe: bool = False) -> dict:
+        """A fresh peer-restore plan for this rank ({} = no donors).
+        ``stripe``: entries list every same-step holder, and the receiver
+        fetches byte ranges of a shard from all of them."""
+        result = self._get_typed(msg.RestorePlanRequest(
+            node_id=self.node_id, node_rank=self.node_rank,
+            rdzv_name=rdzv_name, stripe=stripe), msg.RestorePlan)
+        if not result.found or not result.plan_json:
+            return {}
+        try:
+            plan = json.loads(result.plan_json)
+        except json.JSONDecodeError:
+            return {}
+        if not isinstance(plan, dict):
+            return {}
+        # the envelope's epoch is authoritative: the commit-time
+        # staleness guard compares against the stamp on the plan, and a
+        # plan without one would always look fresh
+        plan.setdefault("epoch", result.epoch)
+        return plan
+
+    @retry_rpc(retries=3)
+    def get_restore_epoch(self, rdzv_name: str = RendezvousName.TRAINING
+                          ) -> int:
+        """The current world epoch: the staleness guard's commit-time
+        check against the epoch a restore plan was computed at."""
+        return self._get_typed(msg.RestorePlanRequest(
+            node_id=self.node_id, node_rank=self.node_rank,
+            rdzv_name=rdzv_name, epoch_only=True),
+            msg.RestorePlan).epoch
 
     # -- kv store ---------------------------------------------------------
     def kv_set(self, key: str, value: bytes) -> bool:

@@ -3,9 +3,16 @@
 Counterpart of ``dlrover_tpu/checkpoint/flash_checkpoint.py`` over
 ``torch.distributed.checkpoint`` (DCP) instead of Orbax:
 
-- **Async save**: ``dcp.async_save`` stages the state to host memory
-  (the only part the training loop waits for) and writes it from a
-  background thread; each rank writes its own shards.
+- **Async save**: the state is copied into host buffers allocated by
+  the first save and kept across saves (page-locked on the card's host,
+  in 1 GiB arenas; the allocation is timed apart), by ``non_blocking``
+  copies on a side stream and one event; that copy (and the first
+  save's allocation) is the only part the training loop waits for. DCP
+  writes
+  those buffers from a background thread (its stager hands them on
+  untouched); each rank writes its own shards. The peer cache
+  (``checkpoint/peer_restore.py``) stages the same buffers, so the next
+  save waits for both readers before it overwrites them.
 - **Commit marker**: a step is written under ``<step>.tmp`` and renamed
   to ``<step>`` only once every rank's shards, DCP's metadata and the
   data item are on disk, so a directory named by a step number is a
@@ -21,13 +28,15 @@ Counterpart of ``dlrover_tpu/checkpoint/flash_checkpoint.py`` over
   optimizer's moments stay exact (int8 second moments wreck the resumed
   update: sqrt(nu) denominators amplify the groupwise error).
 
-Obs counters and spans (the JAX package's ``obs`` registry) wait for the
-port of ``obs/``; the restore's phases land in ``last_restore_phases``.
+The blocking part of the last save, by piece, lands in ``last_save``;
+the restore's phases in ``last_restore_phases``. The checkpointer's
+counters and spans wait for ROADMAP Queue A item 6.1.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import copy
 import json
 import os
 import shutil
@@ -38,10 +47,14 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 import torch.distributed.checkpoint as dcp
+from torch.distributed.checkpoint.staging import AsyncStager
 from torch.distributed.checkpoint.state_dict import (
     get_state_dict,
     set_optimizer_state_dict,
 )
+from torch.distributed.tensor import DTensor
+
+from dlrover_tpu_torch.checkpoint.peer_restore import shard_items
 from dlrover_tpu_torch.checkpoint.quantized import (
     abstract_encoded,
     decode_tree,
@@ -64,6 +77,137 @@ def _sync(tensor_device: torch.device) -> None:
         torch.cuda.synchronize(tensor_device)
 
 
+def _join(prefix: str, key) -> str:
+    return f"{prefix}.{key}" if prefix else str(key)
+
+
+def _select(tree: Any, keys, prefix: str = "") -> Any:
+    """The part of a nested state dict under the flat ``keys`` (a key
+    naming a subtree keeps all of it); None when nothing is kept."""
+    if prefix in keys:
+        return tree
+    if not isinstance(tree, dict):
+        return None
+    out = {}
+    for key, value in tree.items():
+        kept = _select(value, keys, _join(prefix, key))
+        if kept is not None:
+            out[key] = kept
+    return out or None
+
+
+class _PreStaged(AsyncStager):
+    """DCP's stager for a state dict already in host buffers: handed on
+    as it is (DCP's default stager would copy it again)."""
+
+    _synchronize_after_execute = False
+
+    def stage(self, state_dict):
+        return state_dict
+
+
+class HostStage:
+    """Host buffers for a state dict's tensors, one per flat key, each
+    the shape and dtype of its tensor's local shard. They are allocated
+    once (when a key is new or its shape changed) and reused by every
+    later save: page-locked memory in arenas of 1 GiB (the last one the
+    power of two that holds the rest) when the state is on the card (the
+    host allocator rounds a request up to a power of two, so each arena
+    is exactly one), plain memory for a CPU state. Each
+    buffer owns its storage (a DCP writer copies a tensor that shares a
+    larger one)."""
+
+    ARENA = 1 << 30
+    _ALIGN = 512
+
+    def __init__(self, pin: bool):
+        self.pin = pin
+        self._buffers: Dict[str, torch.Tensor] = {}
+        self._arenas: List[Any] = []
+        # the arena leaves are packed into, its size and its bytes used
+        self._open, self._cap, self._used = -1, 0, 0
+        self._stream = None
+        self.nbytes = 0                  # bytes held by the arenas
+
+    def _arena(self, nbytes: int):
+        return torch.empty(nbytes, dtype=torch.uint8,
+                           pin_memory=self.pin).numpy()
+
+    def buffers(self, items: List[Tuple[str, torch.Tensor]]
+                ) -> Dict[str, torch.Tensor]:
+        """The host buffer of each (key, tensor), allocated if missing
+        (the new leaves packed into new arenas)."""
+        missing = []
+        for key, leaf in items:
+            local = to_local(leaf)
+            buf = self._buffers.get(key)
+            if (buf is None or buf.shape != local.shape
+                    or buf.dtype != local.dtype):
+                missing.append((key, local))
+        if missing:
+            self._place(missing)
+        return {key: self._buffers[key] for key, _ in items}
+
+    def _place(self, missing) -> None:
+        """Buffers for (key, local tensor) pairs."""
+        def aligned(local) -> int:
+            nbytes = local.numel() * local.element_size()
+            return -(-nbytes // self._ALIGN) * self._ALIGN
+
+        # the bytes still to pack: an arena opened for the last of them
+        # is the power of two that holds them, not a whole ARENA
+        remaining = sum(aligned(local) for _, local in missing
+                        if aligned(local) <= self.ARENA)
+        sizes, spots = [], []   # new arenas' sizes; (arena, offset) a leaf
+        for _, local in missing:
+            nbytes, need = local.numel() * local.element_size(), aligned(local)
+            if nbytes == 0:
+                spots.append(None)
+            elif need > self.ARENA:
+                sizes.append(nbytes)
+                spots.append((len(self._arenas) + len(sizes) - 1, 0))
+            else:
+                if self._used + need > self._cap:
+                    self._cap = min(self.ARENA,
+                                    1 << (remaining - 1).bit_length())
+                    sizes.append(self._cap)
+                    self._used = 0
+                    self._open = len(self._arenas) + len(sizes) - 1
+                spots.append((self._open, self._used))
+                self._used += need
+                remaining -= need
+        self._arenas.extend(self._arena(size) for size in sizes)
+        self.nbytes += sum(sizes)
+        for (key, local), spot in zip(missing, spots):
+            if spot is None:
+                buf = torch.empty(local.shape, dtype=local.dtype)
+            else:
+                arena, offset = spot
+                nbytes = local.numel() * local.element_size()
+                buf = torch.frombuffer(
+                    self._arenas[arena][offset:offset + nbytes],
+                    dtype=local.dtype).reshape(local.shape)
+            self._buffers[key] = buf
+
+    def copy(self, pairs: List[Tuple[torch.Tensor, torch.Tensor]],
+             device: torch.device) -> None:
+        """(source, host buffer) pairs: copies issued ``non_blocking`` on
+        a side stream after the work queued so far, then one event
+        waited on."""
+        if device.type != "cuda":
+            for src, dst in pairs:
+                dst.copy_(src)
+            return
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device)
+        self._stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(self._stream):
+            for src, dst in pairs:
+                dst.copy_(src, non_blocking=True)
+            done = self._stream.record_event()
+        done.synchronize()
+
+
 class FlashCheckpointer:
     """Interval + on-demand async checkpointing of (TrainState, data
     state). One instance per training process, created at the same
@@ -76,10 +220,17 @@ class FlashCheckpointer:
         save_interval_steps: int = 100,
         max_to_keep: int = 3,
         quantize_bits: int = 0,
+        peer_store=None,
     ):
         """quantize_bits: 8 or 4 stores the parameters groupwise
         int-quantized (``checkpoint/quantized.py``); 0 stores exact
-        dtypes. Restores detect how a step was written."""
+        dtypes. Restores detect how a step was written.
+
+        ``peer_store``: the ``PeerStateStore`` that stages this
+        checkpointer's host buffers after each save (the loop's
+        ``_stage_peer``). A save waits for its deferred write before it
+        overwrites them, and with ``quantize_bits`` also copies the exact
+        parameters for it (the peer cache holds the live precision)."""
         if quantize_bits not in (0, 4, 8):
             raise ValueError(f"checkpoint quantization bits must be 0, 4 "
                              f"or 8, got {quantize_bits}")
@@ -88,6 +239,7 @@ class FlashCheckpointer:
         self.save_interval_steps = save_interval_steps
         self.max_to_keep = max_to_keep
         self.quantize_bits = quantize_bits
+        self.peer_store = peer_store
         os.makedirs(self.directory, exist_ok=True)
         world = dist.get_world_size() if dist.is_initialized() else 1
         self._rank = dist.get_rank() if world > 1 else 0
@@ -103,8 +255,13 @@ class FlashCheckpointer:
         # emergency path's estimate of whether a deadline is winnable;
         # 0 = no evidence yet (guarded by _lock)
         self._last_full_save_s = 0.0
-        # the last save's blocking (staging) and commit seconds and bytes
+        # the last save's blocking part by piece and its commit seconds
         self.last_save: Dict[str, float] = {}
+        # the saves' host buffers (built by the first save, when the
+        # state's device is known) and the exact state's
+        # host leaves of the last save, (key, leaf) with DTensors kept
+        self.host: Optional[HostStage] = None
+        self._exact_host: List[Tuple[str, torch.Tensor]] = []
         # per-phase breakdown of the last successful restore; written
         # only by the restoring thread, read after restore() returns
         self.last_restore_phases: Dict[str, float] = {}
@@ -137,32 +294,103 @@ class FlashCheckpointer:
                           or step % self.save_interval_steps != 0
                           or step == 0):
             return False
-        # one background save at a time: a second async_save while one
-        # is in flight would interleave their collectives and files
+        # one background save at a time, and the host buffers are not
+        # overwritten while either reader (DCP's write, the peer cache's
+        # deferred write) still uses them
+        t0 = time.monotonic()
         self._wait_pending()
+        if self.peer_store is not None:
+            self.peer_store.flush()
+        wait_s = time.monotonic() - t0
         if step in self.all_steps():
             return False
         data_state = dict(data_state or {})
+        times: Dict[str, float] = {"step": step, "wait_s": wait_s}
         t0 = time.monotonic()
         model_sd, optim_sd = get_state_dict(state.model, state.optimizer)
+        times["get_state_dict_s"] = time.monotonic() - t0
+        exact = {"model": model_sd, "optim": optim_sd}
+        dcp_tree = exact
         if self.quantize_bits:
-            model_sd = encode_tree(model_sd, self.quantize_bits)
+            t1 = time.monotonic()
+            dcp_tree = {"model": encode_tree(model_sd, self.quantize_bits),
+                        "optim": optim_sd}
             data_state[_QUANT_KEY] = self.quantize_bits
             data_state[_QUANT_LAYOUT_KEY] = "params"
+            times["encode_s"] = time.monotonic() - t1
         tmp = self._step_dir(step) + _TMP_SUFFIX
         if self._rank == 0 and os.path.exists(tmp):
             shutil.rmtree(tmp)             # a torn save of an earlier run
+        t1 = time.monotonic()
         self._barrier()
-        future = dcp.async_save({"model": model_sd, "optim": optim_sd},
-                                checkpoint_id=tmp, process_group=self._pg)
+        times["barrier_s"] = time.monotonic() - t1
+        # the host copy: the tree DCP writes, and with codes in it the
+        # exact parameters too when the peer cache stages them
+        trees = [dcp_tree]
+        if self.quantize_bits and self.peer_store is not None:
+            trees.append({"model": model_sd})
+        host_trees, alloc_s, copy_s = self._copy_to_host(trees)
+        times["host_alloc_s"] = alloc_s
+        times["host_copy_s"] = copy_s
+        host_exact = (host_trees[0] if not self.quantize_bits else
+                      {"model": host_trees[1]["model"],
+                       "optim": host_trees[0]["optim"]}
+                      if self.peer_store is not None else {})
+        self._exact_host = shard_items(host_exact)
+        t1 = time.monotonic()
+        future = dcp.async_save(host_trees[0], checkpoint_id=tmp,
+                                process_group=self._pg,
+                                async_stager=_PreStaged())
+        times["dispatch_s"] = time.monotonic() - t1
         blocking_s = time.monotonic() - t0
-        self.last_save = {"step": step, "blocking_s": blocking_s}
+        times["blocking_s"] = blocking_s
+        self.last_save = times
         self._pending_step = step
         self._pending = self._committer.submit(
             self._commit, future, step, tmp, data_state, t0)
-        logger.info("flash checkpoint: async save started at step %d "
-                    "(%.3f s staging)", step, blocking_s)
+        logger.info("flash checkpoint: async save started at step %d, "
+                    "blocking %.3f s: %s", step, blocking_s,
+                    json.dumps({k: v for k, v in times.items()
+                                if k.endswith("_s")}))
         return True
+
+    def exact_host_items(self) -> List[Tuple[str, torch.Tensor]]:
+        """(flat key, host leaf) of the exact state the last save copied
+        (DTensor leaves keep their placements), for the peer cache; valid
+        until the next save starts."""
+        return list(self._exact_host)
+
+    def _copy_to_host(self, trees: List[Dict[str, Any]]):
+        """Each tree with its tensors replaced by their host buffers
+        (DTensors rewrapped around them, other values copied), and the
+        seconds spent allocating and copying."""
+        items = [item for tree in trees for item in shard_items(tree)]
+        device = next((to_local(t).device for _, t in items
+                       if to_local(t).device.type == "cuda"),
+                      torch.device("cpu"))
+        if self.host is None:
+            self.host = HostStage(pin=device.type == "cuda")
+        stage = self.host
+        t0 = time.monotonic()
+        buffers = stage.buffers(items)
+        alloc_s = time.monotonic() - t0
+        pairs = []
+
+        def rebuild(tree, prefix=""):
+            if isinstance(tree, torch.Tensor):
+                host = buffers[prefix]
+                pairs.append((to_local(tree).detach(), host))
+                return (DTensor(host, tree._spec, requires_grad=False)
+                        if isinstance(tree, DTensor) else host)
+            if isinstance(tree, dict):
+                return {key: rebuild(value, _join(prefix, key))
+                        for key, value in tree.items()}
+            return copy.deepcopy(tree)
+
+        host_trees = [rebuild(tree) for tree in trees]
+        t0 = time.monotonic()
+        stage.copy(pairs, device)
+        return host_trees, alloc_s, time.monotonic() - t0
 
     def _commit(self, future, step: int, tmp: str,
                 data_state: Dict[str, Any], t0: float) -> None:
@@ -289,11 +517,14 @@ class FlashCheckpointer:
             return result
         raise first_exc
 
-    def restore_step(self, step: int, target
+    def restore_step(self, step: int, target, keys=None
                      ) -> Tuple[Any, Dict[str, Any], int]:
-        """Restore one committed step, with no fallback."""
+        """Restore one committed step, with no fallback. ``keys``: only
+        these flat state keys (``model.<fqn>``, ``optim.state.<fqn>.<name>``;
+        the peer restore's mixed path), the rest of ``target`` left as it
+        is."""
         self.last_restore_phases = {}
-        return self._restore_at(step, target)
+        return self._restore_at(step, target, keys)
 
     def restore_data_state(self, step: int) -> Optional[Dict[str, Any]]:
         """The JSON data item of one committed step, markers stripped;
@@ -311,7 +542,7 @@ class FlashCheckpointer:
                   encoding="utf-8") as f:
             return dict(json.load(f))
 
-    def _restore_at(self, step: int, target
+    def _restore_at(self, step: int, target, keys=None
                     ) -> Tuple[Any, Dict[str, Any], int]:
         phases = self.last_restore_phases
         device = next(target.model.parameters()).device
@@ -329,15 +560,20 @@ class FlashCheckpointer:
         model_sd, optim_sd = get_state_dict(target.model, target.optimizer)
         load_model = (abstract_encoded(model_sd, bits) if bits
                       else model_sd)
+        load = {"model": load_model, "optim": optim_sd}
+        if keys is not None:
+            load = _select(load, set(keys)) or {}
+            load_model = load.get("model", {})
         t_read = time.monotonic()
-        dcp.load({"model": load_model, "optim": optim_sd},
-                 checkpoint_id=self._step_dir(step), process_group=self._pg)
+        dcp.load(load, checkpoint_id=self._step_dir(step),
+                 process_group=self._pg)
         _sync(device)
         phases["tensor_read_s"] = time.monotonic() - t_read
         if bits:
             t_decode = time.monotonic()
-            for name, value in decode_tree(load_model, model_sd,
-                                           bits).items():
+            for name, value in decode_tree(
+                    load_model, {n: model_sd[n] for n in load_model},
+                    bits).items():
                 if value is not model_sd[name]:
                     to_local(model_sd[name]).copy_(to_local(value))
             _sync(device)

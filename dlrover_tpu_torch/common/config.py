@@ -58,6 +58,14 @@ class Context:
         self.dispatch_weight_floor: float = (
             DefaultValues.DISPATCH_WEIGHT_FLOOR
         )
+        # peer-to-peer restore (checkpoint/peer_restore.py)
+        self.peer_restore_enabled: bool = (
+            DefaultValues.PEER_RESTORE_ENABLED
+        )
+        self.peer_restore_timeout_s: float = (
+            DefaultValues.PEER_RESTORE_TIMEOUT_S
+        )
+        self.peer_donor_port: int = DefaultValues.PEER_DONOR_PORT
         self._load_env_overrides()
 
     def _load_env_overrides(self) -> None:

@@ -190,6 +190,14 @@ class DefaultValues:
     # the least time before a deadline for which an emergency save
     # starts at all
     EMERGENCY_CKPT_MIN_WINDOW_S = 2.0
+    # peer-to-peer restore (checkpoint/peer_restore.py): serve a
+    # relaunched rank's state from the staged host copies of the
+    # survivors (False: every restore reads the flash checkpoint), the
+    # budget of the shard transfer, and the donor server's port (0 =
+    # ephemeral; the address rides the PeerStoreReport)
+    PEER_RESTORE_ENABLED = True
+    PEER_RESTORE_TIMEOUT_S = 120.0
+    PEER_DONOR_PORT = 0
     # flight recorder rings (obs/flight_recorder.py)
     FLIGHT_RING_EVENTS = 4096
     FLIGHT_RING_SPANS = 4096

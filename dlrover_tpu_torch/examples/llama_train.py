@@ -21,7 +21,9 @@ incarnation resumes from the latest committed checkpoint with the data
 position intact. SIGTERM finishes the step, saves it and exits 0.
 
 Besides its step lines (the loop's, each with the loss as its ``repr``)
-the worker prints ``start_step=``, ``done step=`` and, at exit, one
+the worker prints ``start_step=`` (with the restore's source, ``peer``
+from the agent's staged copy, ``checkpoint`` from disk, and its timings
+by part), ``done step=`` and, at exit, one
 ``worker_launch_counts`` JSON line with its kernel launches and one
 ``worker_times`` line with its wall-clock marks.
 """
@@ -146,7 +148,8 @@ def main(argv=None) -> int:
     sampler = ElasticDistributedSampler(dataset_size=10 ** 6, seed=0)
     state, start_step = loop.restore_or_init(args.seed, sampler)
     times["restored"] = time.time()
-    log(f"llama_train: start_step={start_step} dp={loop.dp} "
+    log(f"llama_train: start_step={start_step} "
+        f"source={loop.last_restore_source} dp={loop.dp} "
         f"accum={loop.accum} device={loop.device} "
         f"restore={json.dumps(loop.last_restore_timings)}")
     if args.steps > start_step:

@@ -11,9 +11,16 @@ is its card count. A completed round yields the world map {node_rank →
 cards}, from which agents derive the process group's world size, each
 process's rank and the rendezvous address.
 
+Peer restore: agents register the host copies their donors serve
+(``register_peer_store``), and ``compute_restore_plan`` maps each staged
+shard to a donor, stamped with the world epoch that every real
+membership loss bumps.
+
 Not ported yet: slice-scoped worlds (ROADMAP Queue A item 6.4), drains
-(6.5), peer-restore plans (6.2b), the parallelism planner (6.3), the
-sharded router and the state export of the state backend (12).
+(6.5), the parallelism planner (6.3), the sharded router and the state
+export of the state backend (12). Without slices every remote donor is
+on the "cross-slice" tier; without drains no donor is excluded as
+draining.
 """
 
 from __future__ import annotations
@@ -46,6 +53,64 @@ class _WaitingNode:
     join_time: float = field(default_factory=time.time)
 
 
+def plan_restore_entries(stores: Dict[int, Dict], node_rank: int,
+                         slices: Dict[int, int],
+                         stripe: bool = False) -> Dict:
+    """The donor-selection core of ``compute_restore_plan``: ``stores``
+    already filtered to live donors. Returns {"step", "entries",
+    "donors"} (epoch stamping is the caller's)."""
+    if not stores:
+        return {"step": -1, "entries": {}, "donors": {}}
+    step = max(store["step"] for store in stores.values())
+    at_step = {rank: store for rank, store in stores.items()
+               if store["step"] == step}
+    requester_slice = slices.get(node_rank, -1)
+    holders: Dict[str, List[int]] = {}
+    for rank in sorted(at_step):
+        for key in at_step[rank]["keys"]:
+            holders.setdefault(key, []).append(rank)
+    entries: Dict[str, Dict] = {}
+    # independent round-robin cursors per tier, so each tier spreads
+    # over its own donors
+    spread_same = 0
+    spread_cross = 0
+    for key in sorted(holders):
+        ranks = holders[key]
+        if node_rank in ranks:
+            donor, tier = node_rank, "local"
+        elif stripe and len(ranks) > 1:
+            # stripe mode: every holder, same-slice first; the receiver
+            # fetches the shard's byte ranges from all of them
+            same = [r for r in ranks
+                    if requester_slice >= 0
+                    and slices.get(r, -1) == requester_slice]
+            ordered = same + [r for r in ranks if r not in same]
+            entries[key] = {
+                "ranks": ordered,
+                "addrs": [at_step[r]["addr"] for r in ordered],
+                "tier": "striped"}
+            continue
+        else:
+            same = [r for r in ranks
+                    if requester_slice >= 0
+                    and slices.get(r, -1) == requester_slice]
+            if same:
+                donor = same[spread_same % len(same)]
+                spread_same += 1
+                tier = "same-slice"
+            else:
+                donor = ranks[spread_cross % len(ranks)]
+                spread_cross += 1
+                tier = "cross-slice"
+        entries[key] = {"rank": donor,
+                        "addr": at_step[donor]["addr"],
+                        "tier": tier}
+    return {
+        "step": step, "entries": entries,
+        "donors": {rank: at_step[rank]["addr"] for rank in at_step},
+    }
+
+
 class RendezvousManager:
     """Base rendezvous: collect joiners, cut a round when complete."""
 
@@ -69,6 +134,11 @@ class RendezvousManager:
         # bumped on every mutation of the protocol state (joins, leaves,
         # round cuts, membership changes; not liveness touches)
         self._mutations = 0
+        # peer restore: bumped on every real membership loss (a restore
+        # plan computed before it may name a departed donor), and each
+        # rank's registered donor store {addr, step, keys, bytes, ts}
+        self._world_epoch = 0
+        self._peer_stores: Dict[int, Dict] = {}
 
     # -- membership --------------------------------------------------------
     def update_rdzv_params(self, min_nodes: int, max_nodes: int,
@@ -130,9 +200,17 @@ class RendezvousManager:
         is NOT invalidated; only a death does that."""
         invalidated_round = None
         with self._lock:
+            if (node_rank in self._alive_nodes
+                    or node_rank in self._latest_world):
+                # a real membership loss: a restore plan computed before
+                # this instant may name the departed rank as a donor,
+                # and the epoch bump invalidates it at commit time
+                self._world_epoch += 1
             self._alive_nodes.discard(node_rank)
             self._waiting.pop(node_rank, None)
             self._pending_rejoin.discard(node_rank)
+            # the host's staged state goes with the host
+            self._peer_stores.pop(node_rank, None)
             self._mutations += 1
             if not graceful and node_rank in self._latest_world:
                 # a member of the cut round died: survivors handed this
@@ -308,6 +386,56 @@ class RendezvousManager:
             "dlrover_tpu_rendezvous_world_size",
             "Node count of the latest cut world", labelnames=("rdzv",),
         ).labels(rdzv=self.name).set(world_size)
+
+    # -- peer-to-peer restore (checkpoint/peer_restore.py) -----------------
+    @property
+    def world_epoch(self) -> int:
+        with self._lock:
+            return self._world_epoch
+
+    def register_peer_store(self, node_rank: int, addr: str, step: int,
+                            keys, total_bytes: int = 0,
+                            slice_id: int = -1) -> None:
+        """An agent advertising (or withdrawing: step < 0 or no keys) the
+        staged state its donor server can serve. ``slice_id`` is the JAX
+        master's tiering input; slice mode is not ported (ROADMAP Queue A
+        item 6.4), so it is not recorded."""
+        with self._lock:
+            if step < 0 or not keys:
+                if self._peer_stores.pop(node_rank, None) is not None:
+                    self._mutations += 1
+                return
+            self._peer_stores[node_rank] = {
+                "addr": addr, "step": int(step), "keys": list(keys),
+                "bytes": int(total_bytes), "ts": time.time(),
+            }
+            self._mutations += 1
+
+    @property
+    def peer_stores(self) -> Dict[int, Dict]:
+        with self._lock:
+            return {rank: dict(s) for rank, s in self._peer_stores.items()}
+
+    def compute_restore_plan(self, node_rank: int,
+                             stripe: bool = False) -> Dict:
+        """Which live donor serves each staged shard that ``node_rank``
+        may need, at the NEWEST step any live donor staged (mixing steps
+        would assemble a state that never existed). The requester's own
+        store wins for the shards it holds (a local read beats the
+        network); the rest go round-robin over the donors. Stamped with
+        the world epoch, the staleness guard. ``stripe``: each entry
+        lists every same-step holder, for byte-range fetches from all of
+        them."""
+        with self._lock:
+            stores = {rank: store
+                      for rank, store in self._peer_stores.items()
+                      if rank in self._alive_nodes}
+            plan = plan_restore_entries(stores, node_rank, {},
+                                        stripe=stripe)
+            plan["epoch"] = self._world_epoch
+            if stripe:
+                plan["mode"] = "stripe"
+            return plan
 
     @property
     def latest_world(self) -> Dict[int, int]:

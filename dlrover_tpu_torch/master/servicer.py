@@ -14,6 +14,7 @@ rather than pretending to handle it (``_NOT_PORTED``).
 
 from __future__ import annotations
 
+import json
 import threading
 from typing import Dict, Optional
 
@@ -46,9 +47,7 @@ _NOT_PORTED = {
     msg.StepTraceRequest: "12 (steptrace)",
     msg.PlanCalibrationRequest: "6.3 (calibration)",
     msg.SliceStatusRequest: "6.4 (slice mode)",
-    msg.RestorePlanRequest: "6.2b (peer restore)",
     msg.ShardPlanRequest: "6.3 (re-planning)",
-    msg.PeerStoreReport: "6.2b (peer restore)",
     msg.DrainReport: "6.5 (drain)",
     msg.ReconnectRequest: "12 (master-loss reconnect)",
     msg.NodeResourceStats: "12 (agent monitors)",
@@ -184,6 +183,22 @@ class MasterServicer:
                 request.version_type, request.task_type, request.task_id
             )
             return msg.ClusterVersion(version=version)
+        if isinstance(request, msg.RestorePlanRequest):
+            mgr = self.rdzv_managers.get(
+                request.rdzv_name or RendezvousName.TRAINING)
+            if mgr is None:
+                return msg.RestorePlan()
+            if request.epoch_only:
+                # the staleness guard's commit-time check: the current
+                # world epoch alone, no plan computed
+                return msg.RestorePlan(epoch=mgr.world_epoch)
+            plan = mgr.compute_restore_plan(request.node_rank,
+                                            stripe=bool(request.stripe))
+            return msg.RestorePlan(
+                plan_json=json.dumps(plan),
+                epoch=int(plan.get("epoch", 0)),
+                step=int(plan.get("step", -1)),
+                found=bool(plan.get("entries")))
         if isinstance(request, msg.JobStatusRequest):
             stage = (JobStage.SUCCEEDED if self.task_manager.finished()
                      else JobStage.RUNNING)
@@ -223,11 +238,19 @@ class MasterServicer:
                 rdzv_round = mgr.join_rendezvous(
                     request.node_rank, request.local_world_size,
                     request.node_ip)
-            # the restore and shard plans of the JAX master's join result
-            # stay empty: peer restore (6.2b) and re-planning (6.3) are
-            # not ported
+            plan_json = ""
+            if request.rdzv_name == RendezvousName.TRAINING:
+                # the restore plan rides the join result: which donor
+                # serves each staged shard this rank may need. A donor
+                # registering later is picked up by the worker's own
+                # RestorePlanRequest. (The JAX master's shard plan stays
+                # empty here: re-planning is ROADMAP Queue A item 6.3.)
+                plan = mgr.compute_restore_plan(request.node_rank)
+                if plan.get("entries"):
+                    plan_json = json.dumps(plan)
             return msg.JoinRendezvousResult(round=rdzv_round,
-                                            generation=self.generation)
+                                            generation=self.generation,
+                                            restore_plan_json=plan_json)
         elif isinstance(request, msg.LeaveRendezvousRequest):
             mgr = self.rdzv_managers[request.rdzv_name]
             mgr.leave_waiting(request.node_rank)
@@ -260,6 +283,14 @@ class MasterServicer:
                            request.exit_kind or "-",
                            request.error_data[:512])
             self.task_manager.recover_tasks(request.node_id)
+        elif isinstance(request, msg.PeerStoreReport):
+            mgr = self.rdzv_managers.get(
+                request.rdzv_name or RendezvousName.TRAINING)
+            if mgr is not None:
+                mgr.register_peer_store(
+                    request.node_rank, request.addr, request.step,
+                    request.keys, request.total_bytes,
+                    slice_id=request.slice_id)
         elif isinstance(request, msg.NodeAddressReport):
             self.kv_store.set(f"node-addr/{request.node_rank}",
                               request.addr.encode())

@@ -141,18 +141,30 @@ def local_slice(global_shape, device_mesh, placements
 
 
 def sharded_from_host(host_tree: Mapping[str, Any],
-                      targets: Mapping[str, torch.Tensor]
+                      targets: Mapping[str, torch.Tensor],
+                      in_place: bool = False
                       ) -> Dict[str, torch.Tensor]:
     """Host buffers (numpy arrays or CPU tensors, full values) → tensors
     in the targets' devices, dtypes and placements. A DTensor target
     gets only this rank's shard copied to its device (no second full
     copy on the card, no communication: every rank holds the full host
-    value)."""
+    value). ``in_place``: each value is copied into its target's own
+    storage (its local shard), straight from the host buffer and
+    ``non_blocking`` (the caller keeps the buffers alive and synchronizes
+    before reading), and the targets are returned: nothing is allocated
+    on the card."""
     out = {}
     for name, host in host_tree.items():
         target = targets[name]
         full = torch.as_tensor(np.asarray(host) if not torch.is_tensor(host)
                                else host)
+        if in_place:
+            local = (full[local_slice(full.shape, target.device_mesh,
+                                      target.placements)]
+                     if isinstance(target, DTensor) else full)
+            to_local(target).copy_(local, non_blocking=True)
+            out[name] = target
+            continue
         if isinstance(target, DTensor):
             local = full[local_slice(full.shape, target.device_mesh,
                                       target.placements)]

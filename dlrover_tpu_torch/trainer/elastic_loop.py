@@ -18,10 +18,16 @@ every ``report_interval_steps`` (``GlobalStepReport``, with the window's
 mean step time and MFU from the per-step timeline, ``obs/timeline.py``),
 and checkpoints the master's data-shard position with its own.
 
-Not ported yet: telemetry span flushes (ROADMAP Queue A item 12), peer
-restore (6.2b), the shard plan and re-planning (6.3), slice mode (6.4),
-drain requests, the step-hang watchdog and its timeline export, chaos
-and steptrace (6.5).
+With ``DLROVER_TPU_PEER_CACHE_DIR`` set (the agent sets it), every
+save's host copy is also staged into the peer cache
+(``checkpoint/peer_restore.py``), and a restore first asks for a peer
+plan (the master's, the agent's plan file, or the local cache's) and
+reads the staged state from memory: ``last_restore_source`` is then
+``"peer"`` or ``"mixed"``, else ``"checkpoint"`` or ``"init"``.
+
+Not ported yet: telemetry span flushes (ROADMAP Queue A item 12), the
+shard plan and re-planning (6.3), slice mode (6.4), drain requests, the
+step-hang watchdog and its timeline export, chaos and steptrace (6.5).
 """
 
 from __future__ import annotations
@@ -39,6 +45,10 @@ import torch
 
 from dlrover_tpu_torch import obs
 from dlrover_tpu_torch.checkpoint.flash_checkpoint import FlashCheckpointer
+from dlrover_tpu_torch.checkpoint.peer_restore import (
+    PeerRestorer,
+    PeerStateStore,
+)
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.obs import mfu
 from dlrover_tpu_torch.parallel.mesh import MeshSpec, create_mesh, dp_size
@@ -114,15 +124,25 @@ class ElasticTrainLoop:
             model, optimizer_factory, self.mesh, sample, loss_fn,
             accum_steps=self.accum, micro_batch=self.micro_global,
             rules=config.rules)
+        # peer-to-peer restore (checkpoint/peer_restore.py): the store
+        # stages every save's host copy for the agent's donor; the
+        # restorer turns a restore plan into a shard transfer
+        self._peer_store = (PeerStateStore.from_env()
+                            if config.checkpoint_dir else None)
+        self._peer_restorer = (PeerRestorer.from_env(client=master_client)
+                               if config.checkpoint_dir else None)
         self.checkpointer = (
             FlashCheckpointer(config.checkpoint_dir,
                               config.save_interval_steps,
-                              quantize_bits=config.checkpoint_quantize_bits)
+                              quantize_bits=config.checkpoint_quantize_bits,
+                              peer_store=self._peer_store)
             if config.checkpoint_dir else None)
         self._stop_requested = threading.Event()
         self._prev_sigterm = None
         self.last_restore_timings: Dict[str, float] = {}
-        # where the last restore's state came from: "checkpoint" or "init"
+        # where the last restore's state came from: "peer" (staged host
+        # copies), "mixed" (peer + shard-wise checkpoint read),
+        # "checkpoint" (the flash checkpoint on disk), "init" (fresh)
         self.last_restore_source = ""
         cards = self.mesh.spec.total
         self.peak_flops = (
@@ -215,9 +235,13 @@ class ElasticTrainLoop:
 
         The restore target is the trainer's abstract state (storage
         without initialization), so a resume never holds two copies of
-        the parameters and moments. While the checkpoint is read, the
-        step's kernels are built in a background thread. Per-phase wall
-        times land in ``last_restore_timings``."""
+        the parameters and moments. With a peer restorer the staged host
+        copies come first (peer, then mixed), then the checkpoint on
+        disk, then init. While the state is read, the step's kernels are
+        built in a background thread. Per-phase wall times land in
+        ``last_restore_timings`` (the peer path's as ``peer_plan_s``,
+        ``peer_transfer_s``, ``peer_assemble_s``, ``peer_bytes`` and
+        ``peer_bandwidth_mbps``)."""
         timings: Dict[str, float] = {}
         self.last_restore_timings = timings
         build_thread = None
@@ -227,17 +251,50 @@ class ElasticTrainLoop:
             t_build = time.monotonic()
             build_thread.start()
         state, step = None, 0
-        # no committed step: init at once, without a restore target
-        if self.checkpointer is not None and self.checkpointer.all_steps():
+        source = "init"
+        # no committed step and no peer restorer: init at once, without
+        # a restore target
+        if self.checkpointer is not None and (
+                self._peer_restorer is not None
+                or self.checkpointer.all_steps()):
             t0 = time.monotonic()
             abstract = self.trainer.abstract_state()
             timings["abstract_state_s"] = time.monotonic() - t0
-            t0 = time.monotonic()
-            restored = self.checkpointer.restore(abstract)
-            timings["dcp_read_s"] = time.monotonic() - t0
-            for key, value in self.checkpointer.last_restore_phases.items():
-                timings[f"restore_{key}"] = value
+            restored = None
+            if self._peer_restorer is not None:
+                # the peer branch: the staged host copies instead of the
+                # disk, overlapped with the same kernel build
+                t0 = time.monotonic()
+                try:
+                    peer = self._peer_restorer.restore(
+                        abstract, self.checkpointer, timings)
+                except Exception:  # noqa: BLE001 — peers are an
+                    # optimization; storage is the ground truth
+                    logger.warning("peer restore failed; falling back to "
+                                   "the checkpoint", exc_info=True)
+                    peer = None
+                timings["peer_restore_s"] = time.monotonic() - t0
+                if peer is not None:
+                    state, data_state, step, source = peer
+                    restored = (state, data_state, step)
+            if restored is None and self.checkpointer.all_steps():
+                source = "checkpoint"
+                t0 = time.monotonic()
+                restored = self.checkpointer.restore(abstract)
+                timings["dcp_read_s"] = time.monotonic() - t0
+                for key, value in (self.checkpointer.last_restore_phases
+                                   .items()):
+                    timings[f"restore_{key}"] = value
             if restored is not None:
+                if source == "checkpoint":
+                    # "checkpoint" is the JAX package's "orbax" label of
+                    # this counter (the only place the two names meet);
+                    # peer and mixed count themselves in the restorer
+                    obs.get_registry().counter(
+                        "dlrover_tpu_restore_source_total",
+                        "Elastic restores by state source",
+                        labelnames=("source",),
+                    ).labels(source="orbax").inc()
                 state, data_state, step = restored
                 t0 = time.monotonic()
                 if self.device.type == "cuda":
@@ -255,8 +312,10 @@ class ElasticTrainLoop:
                         logger.warning("could not restore the master's "
                                        "shard checkpoint", exc_info=True)
                 timings["post_sync_s"] = time.monotonic() - t0
+            else:
+                source = "init"
             del abstract
-        self.last_restore_source = "init" if state is None else "checkpoint"
+        self.last_restore_source = source
         if state is None:
             state = self.trainer.init(seed)
         if build_thread is not None:
@@ -295,7 +354,9 @@ class ElasticTrainLoop:
         Each step is logged (loss as its ``repr``, the exact float). With
         a master client, the step report goes out before the step's save,
         so the master's clock sees the step end, not the save's staging
-        (the save is ``checkpoint_s``)."""
+        (the save is ``checkpoint_s``; a step that saved also has
+        ``checkpoint_wait_s``, the part of it spent waiting for the
+        previous save's commit and peer-cache write)."""
         cfg = state.model.config
         flops = model_flops_per_token(cfg, self.config.seq_len)
         tokens_per_step = self.global_batch * self.config.seq_len
@@ -334,9 +395,18 @@ class ElasticTrainLoop:
                     self._report_progress(step)
             if self.checkpointer is not None:
                 t0 = time.monotonic()
-                self.checkpointer.maybe_save(
-                    step, state, self._data_state(sampler),
+                data_state = self._data_state(sampler)
+                saved = self.checkpointer.maybe_save(
+                    step, state, data_state,
                     force=self._stop_requested.is_set())
+                if saved:
+                    # the wait for the previous save's readers, part of
+                    # checkpoint_s
+                    record["checkpoint_wait_s"] = (
+                        self.checkpointer.last_save["wait_s"])
+                    # peer step N and checkpoint step N are one cut, so
+                    # a shard-wise restore across both stays consistent
+                    self._stage_peer(step, data_state)
                 record["checkpoint_s"] = time.monotonic() - t0
             if self._stop_requested.is_set():
                 logger.info("stopping at step %d on request", step)
@@ -348,6 +418,25 @@ class ElasticTrainLoop:
         last = history[-1] if history else {}
         return state, {"step": step, "loss": last.get("loss", float("nan")),
                        "history": history}
+
+    def _stage_peer(self, step: int, data_state) -> None:
+        """Mirror the save's host copy into the peer cache. The loop has
+        paid only the device→host copy (inside the save); the file writes
+        and CRCs run on the store's writer thread. Best-effort: the loop
+        survives a full cache disk."""
+        if self._peer_store is None:
+            return
+        t0 = time.monotonic()
+        with obs.span("peer_stage", {"step": step}) as stage_span:
+            staged = self._peer_store.stage(
+                step, self.checkpointer.exact_host_items(), data_state,
+                defer_write=True)
+            stage_span.set_attr("staged", staged)
+        obs.get_registry().gauge(
+            "dlrover_tpu_peer_stage_seconds",
+            "Step-loop wall-clock of the last peer-state staging "
+            "(host copy only; the write is deferred)").set(
+            time.monotonic() - t0)
 
     def _data_state(self, sampler) -> Dict[str, Any]:
         data_state: Dict[str, Any] = {}
@@ -365,7 +454,11 @@ class ElasticTrainLoop:
 
     def close(self) -> None:
         """Wait for the last save, restore the SIGTERM handler and drop
-        the trainer (and with it the device memory it holds)."""
+        the trainer (and with it the device memory it holds). A deferred
+        peer-cache write still in flight lands first: it is the point of
+        the mirror."""
+        if self._peer_store is not None:
+            self._peer_store.flush()
         if self.checkpointer is not None:
             self.checkpointer.close()
         if self._prev_sigterm is not None:

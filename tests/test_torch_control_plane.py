@@ -14,6 +14,7 @@
 """
 
 import dataclasses
+import json
 import time
 
 import pytest
@@ -123,6 +124,22 @@ SEQUENCE = [
                                         step_time_s=0.5,
                                         data_wait_fraction=0.1, mfu=0.2)),
     ("speed",),
+    # peer restore: both donors register step 3, rank 1 only part of it
+    ("report", "PeerStoreReport",
+     dict(node_id=0, node_rank=0, addr="10.0.0.1:7000", step=3,
+          rdzv_name=TRAIN, keys=["model.w", "optim.state.w.exp_avg"],
+          total_bytes=64)),
+    ("report", "PeerStoreReport",
+     dict(node_id=1, node_rank=1, addr="10.0.0.2:7000", step=3,
+          rdzv_name=TRAIN, keys=["model.w"], total_bytes=32)),
+    ("get", "RestorePlanRequest", dict(node_id=0, node_rank=0,
+                                       rdzv_name=TRAIN)),
+    ("get", "RestorePlanRequest", dict(node_id=1, node_rank=1,
+                                       rdzv_name=TRAIN)),
+    ("get", "RestorePlanRequest", dict(node_id=2, node_rank=2,
+                                       rdzv_name=TRAIN, stripe=True)),
+    ("get", "RestorePlanRequest", dict(node_id=1, node_rank=1,
+                                       rdzv_name=TRAIN, epoch_only=True)),
     ("report", "NodeHeartbeat", dict(node_id=1, node_rank=1,
                                      node_type="worker")),
     # a failure gives the dead worker's tasks back
@@ -160,6 +177,15 @@ SEQUENCE = [
      dict(node_id=0, node_rank=0, local_world_size=1, rdzv_name=TRAIN,
           node_ip="10.0.0.1")),
     ("get", "CommWorldRequest", dict(node_id=1, rdzv_name=TRAIN)),
+    # rank 1 withdraws its store (nothing staged); the epoch after the
+    # membership changes
+    ("report", "PeerStoreReport",
+     dict(node_id=2, node_rank=1, addr="10.0.0.3:7000", step=-1,
+          rdzv_name=TRAIN, keys=[])),
+    ("get", "RestorePlanRequest", dict(node_id=2, node_rank=1,
+                                       rdzv_name=TRAIN)),
+    ("get", "RestorePlanRequest", dict(node_id=0, node_rank=0,
+                                       rdzv_name=TRAIN, epoch_only=True)),
     # the re-formed world resumes from its checkpoint, below the step
     # mark: those reports are dropped until it passes the mark
     ("tick", 20.0),
@@ -236,6 +262,20 @@ def test_servicers_answer_a_scripted_sequence_alike(contexts, monkeypatch):
     # requeued, a speed and an MFU
     worlds = [a for n, a in port_answers if n == "CommWorldRequest"]
     assert worlds[1].world == {0: 1, 1: 1}
+    # the plans: rank 0 reads all it staged locally; rank 1 its own key,
+    # the other from rank 0; the joins of the second round carry a plan
+    plans = [a for n, a in port_answers if n == "RestorePlanRequest"]
+    entries = [json.loads(p.plan_json)["entries"] if p.plan_json else {}
+               for p in plans]
+    assert {e["tier"] for e in entries[0].values()} == {"local"}
+    assert entries[1]["model.w"]["tier"] == "local"
+    assert entries[1]["optim.state.w.exp_avg"]["rank"] == 0
+    assert entries[2]["model.w"]["addrs"] == ["10.0.0.1:7000",
+                                              "10.0.0.2:7000"]
+    assert plans[0].found and plans[3].plan_json == ""
+    joins = [a for n, a in port_answers if n == "JoinRendezvousRequest"]
+    assert joins[0].restore_plan_json == ""
+    assert json.loads(joins[2].restore_plan_json)["step"] == 3
     assert port_speed == jax_speed
     step, _, tokens_per_s, running_mfu = port_speed[0]
     assert step == 5 and tokens_per_s > 0 and running_mfu > 0
@@ -329,6 +369,22 @@ def _client_round_trip(client, master, messages):
     assert client.report_shard_checkpoint(content)
     assert client.get_task_counts("ds") == (3, 0)
     assert client.get_job_status().stage == "running"
+    # peer restore: a store, its plan (plain and striped), the epoch and
+    # the plan in the next join's result
+    assert client.last_restore_plan_json == ""
+    assert client.get_restore_plan() == {}
+    assert client.report_peer_store("127.0.0.1:9", 4, ["model.w"],
+                                    total_bytes=16)
+    plan = client.get_restore_plan()
+    assert plan["step"] == 4 and plan["epoch"] == client.get_restore_epoch()
+    assert plan["entries"]["model.w"] == {"rank": 0, "addr": "127.0.0.1:9",
+                                          "tier": "local"}
+    assert client.get_restore_plan(stripe=True)["mode"] == "stripe"
+    assert client.join_rendezvous(1) == 1
+    assert json.loads(client.last_restore_plan_json)["entries"] == \
+        plan["entries"]
+    assert client.report_peer_store("127.0.0.1:9", -1, [])
+    assert client.get_restore_plan() == {}
     assert client.leave_rendezvous()
     assert master.speed_monitor.completed_global_step == 3
 

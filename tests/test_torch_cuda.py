@@ -434,3 +434,57 @@ def test_offloaded_moments_live_in_pinned_host_memory(cuda):
         ptrs = sorted(v.data_ptr() for v in moments)
         assert buffers is None or ptrs == buffers
         buffers = ptrs
+
+
+def test_pinned_host_copy_is_reused_and_restores_from_the_peer_cache(
+        cuda, tmp_path):
+    """The flash checkpoint's host copy on the card's host: page-locked,
+    the same buffers at every save, the state's bits; the peer cache
+    stages it, and a peer restore into the abstract state on the card
+    gives the same parameters and moments and the same next step."""
+    from dlrover_tpu_torch.checkpoint.flash_checkpoint import (
+        FlashCheckpointer,
+    )
+    from dlrover_tpu_torch.checkpoint.peer_restore import (
+        PeerRestorer,
+        PeerStateStore,
+        shard_items,
+    )
+
+    trainer, cfg = _two_layer_trainer(cuda)
+    state = trainer.init(0)
+    store = PeerStateStore(str(tmp_path / "cache"))
+    pointers = []
+    with FlashCheckpointer(str(tmp_path / "c"), save_interval_steps=1,
+                           peer_store=store) as ckpt:
+        for step in (1, 2):
+            state, _ = trainer.step(
+                state, *trainer.shard_batch(*_tokens(cfg, step)))
+            assert ckpt.maybe_save(step, state, {"pos": step})
+            host = dict(ckpt.exact_host_items())
+            assert all(t.is_pinned() for t in host.values() if t.numel())
+            live = dict(shard_items(state))
+            assert all(torch.equal(host[k].to(cuda), v.to(cuda))
+                       for k, v in live.items())
+            assert store.stage(step, list(host.items()), {"pos": step},
+                               defer_write=True)
+            pointers.append(sorted(t.data_ptr() for t in host.values()))
+        assert pointers[0] == pointers[1]
+        ckpt.wait()
+        store.flush()
+        timings = {}
+        restored, data, step, source = PeerRestorer(cache=store).restore(
+            trainer.abstract_state(), ckpt, timings)
+    assert (step, source, data) == (2, "peer", {"pos": 2})
+    assert timings["peer_bytes"] > 0
+    for (name, a), b in zip(state.model.named_parameters(),
+                            restored.model.parameters()):
+        assert b.device.type == "cuda" and torch.equal(a, b), name
+        sa, sb = state.optimizer.state[a], restored.optimizer.state[b]
+        assert torch.equal(sa["exp_avg"], sb["exp_avg"])
+        assert torch.equal(sa["exp_avg_sq"], sb["exp_avg_sq"])
+    batch = trainer.shard_batch(*_tokens(cfg, 3))
+    _, want = trainer.step(state, *batch)
+    _, got = trainer.step(restored, *batch)
+    assert got["loss"].item() == want["loss"].item()
+    assert got["grad_norm"].item() == want["grad_norm"].item()

@@ -4,11 +4,16 @@ master and agent around the worker script
 package's kill demo, tests/test_examples.py, run by the port).
 
 (a) 6 steps saving at 3 exit 0, and a second run resumes at step 6;
-(b) the worker (the agent's child) is SIGKILLed once step 3 is committed:
-the agent relaunches it, the new incarnation resumes at step 3, and its
-steps 4-6 are the same bits as an uninterrupted in-process run."""
+(b) the worker (the agent's child) is SIGKILLed once step 3 is committed
+and a peer stage at least as new is complete (the gate chip_smoke.py
+keeps on the card): the agent relaunches it, the new incarnation
+restores from the host copy the first one staged in the agent's peer
+cache (source ``peer``) at the newer of the committed and the staged
+step, both read after the kill, and its steps are the same bits as an
+uninterrupted in-process run."""
 
 import functools
+import glob
 import os
 import signal
 import subprocess
@@ -29,6 +34,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = os.path.join(REPO, "dlrover_tpu_torch", "examples",
                       "llama_train.py")
 sys.path.insert(0, os.path.dirname(SCRIPT))
+sys.path.insert(0, REPO)
+import chip_smoke  # noqa: E402
 import llama_train  # noqa: E402
 
 
@@ -40,19 +47,22 @@ def _cli(extra, log_file, ckpt):
              "--log-file", log_file] + extra)
 
 
-def _env():
-    return dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+def _env(**extra):
+    return dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1", **extra)
 
 
-def _steps(log_file):
+def _steps(log_file, sources=None):
     """{incarnation: {step: (loss, grad_norm)}} and the start steps, from
-    the worker's log file."""
+    the worker's log file (and each incarnation's restore source into
+    ``sources``)."""
     runs, starts = [], []
     with open(log_file) as f:
         for line in f:
             words = line.split()
             if "llama_train: start_step=" in line:
                 starts.append(int(line.split("start_step=")[1].split()[0]))
+                if sources is not None:
+                    sources.append(line.split("source=")[1].split()[0])
                 runs.append({})
             elif len(words) > 6 and words[1] == "step" and words[3] == "loss":
                 runs[-1][int(words[2])] = (float(words[4]), float(words[6]))
@@ -107,26 +117,50 @@ def _children(pid):
     return [int(p) for p in out.stdout.split()]
 
 
+def _wait_dead(pid, timeout_s=30.0):
+    """Until ``pid`` has exited (gone, or a zombie its parent has not
+    reaped yet)."""
+    deadline = time.time() + timeout_s
+    while time.time() < deadline:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                if f.read().rsplit(")", 1)[1].split()[0] == "Z":
+                    return
+        except OSError:
+            return
+        time.sleep(0.01)
+    raise AssertionError(f"process {pid} still alive")
+
+
 def test_killed_worker_is_relaunched_and_resumes_the_same_bits(tmp_path):
     ckpt, log_file = str(tmp_path / "ckpt"), str(tmp_path / "run.log")
+    # the agent's work directory (peer cache, plan file) lands here
+    agent_tmp = tmp_path / "agent"
+    agent_tmp.mkdir()
     # steps of ≈0.2 s: step 6 commits long after the poll sees step 3
     size = ["--seq", "128", "--global-batch", "16"]
     proc = subprocess.Popen(
-        _cli(["--steps", "6", "--report-interval", "1"] + size, log_file,
-             ckpt), env=_env(), cwd=REPO, stdout=subprocess.DEVNULL,
-        stderr=subprocess.PIPE, text=True)
+        _cli(["--steps", "7", "--report-interval", "1"] + size, log_file,
+             ckpt), env=_env(TMPDIR=str(agent_tmp)), cwd=REPO,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
     try:
         deadline = time.time() + 120
         victim = None
         while time.time() < deadline and proc.poll() is None:
-            if os.path.isdir(os.path.join(ckpt, "3")):
+            # step 3 committed and a stage at least as new complete, read
+            # as the card's smoke reads them
+            if chip_smoke._kill_ready(ckpt, str(agent_tmp), 3):
                 kids = _children(proc.pid)
                 if kids:
                     victim = kids[0]
                     break
             time.sleep(0.02)
-        assert victim, "no committed step 3 or no worker"
+        assert victim, "no committed and staged step 3, or no worker"
         os.kill(victim, signal.SIGKILL)
+        _wait_dead(victim)
+        # what the dead worker left: its committed steps and the step of
+        # its last complete stage (the manifest is written last)
+        committed, staged = chip_smoke._killed_state(ckpt, str(agent_tmp))
         _, err = proc.communicate(timeout=180)
         assert proc.returncode == 0, err[-3000:]
     finally:
@@ -135,9 +169,14 @@ def test_killed_worker_is_relaunched_and_resumes_the_same_bits(tmp_path):
             proc.wait()
     assert "worker failed (exit -9, killed)" in err
     assert "spawning worker (round 1," in err
-    starts, runs = _steps(log_file)
-    assert starts == [0, 3]
-    want = _uninterrupted(128, 16, 6)
+    sources = []
+    starts, runs = _steps(log_file, sources)
+    resumed = max(committed, staged)
+    assert starts == [0, resumed] and resumed in (3, 6)
+    assert sources == ["init", "peer"]
+    want = _uninterrupted(128, 16, 7)
     assert {n: runs[0][n] for n in (1, 2, 3)} == {
         n: want[n] for n in (1, 2, 3)}
-    assert runs[1] == {n: want[n] for n in (4, 5, 6)}
+    assert runs[1] == {n: want[n] for n in range(resumed + 1, 8)}
+    # the agent removed its work directory at exit
+    assert not glob.glob(str(agent_tmp / "dlrover-tpu-agent-*"))
