@@ -72,12 +72,38 @@ Phases (each one's failure ends the run with a nonzero exit):
            on to the second, the blocking saves by piece (each process's
            first save page-locks its host buffers, timed apart), and the
            step times beside the writers that ran under them
+  faults   planned and silent failures under the port's JobMaster (in
+           this process) and `python -m dlrover_tpu_torch.run`, the same
+           Llama-1B worker (7 steps saving at 3 and 6, a step report
+           each step). Launch 1: a chaos `preempt` notice at step 4 with
+           a 90 s grace (and a `slow` hold of 3 s so the drain request
+           lands at step 4's boundary): the agent exits 0, the worker
+           76 classified drained, no charge, the emergency save
+           `saved` and step 4 committed, notice to exit under the grace;
+           prints notice → drain request → consumed step → exit, the
+           emergency save's blocking part, commit and page-locking, and
+           whether the 30 s default grace would have held. Launch 2,
+           under DLROVER_TPU_HANG_WATCHDOG_S=12 with a chaos `hang` at
+           step 7 (after the step-6 save): it resumes at the drained
+           step, the watchdog aborts it once (its flight dump holds the
+           main thread in the chaos sleep), the agent classifies the
+           abort `hang` and relaunches it uncharged, the relaunch
+           restores step 6 and finishes step 7 (replaying the hang
+           within its first-step budget); every step is the same bits
+           as resume's run A (or an in-process run); prints last step →
+           abort → relaunch → first resumed step. Then the master's
+           goodput ledger through `MasterClient.get_goodput`: its
+           buckets cover the elapsed rank-seconds (within 5%), drain >
+           0, 0 < hang ≤ the watchdog's 12 s. Each of the three worker
+           processes launched every flash kernel 22 times and every
+           RMSNorm kernel 45 times a step it finished
 
 The line before the last is the kernels' JSON record (the quantization
 pair's launches are the resume phase's checkpoint path; each kernel's
 "standalone_launches" are those the worker under the agent printed for
-its resumed incarnation); the last line is {"ok": true, "device":
-{...}}. Imports nothing of JAX.
+its resumed incarnation, and its "faults_launches" the sum over the
+faults phase's three worker processes); the last line is {"ok": true,
+"device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -1555,6 +1581,19 @@ def _agent_times(path: str) -> dict:
     return marks
 
 
+# the worker's log lines that mark a fault's timeline: first line
+# starting with each prefix → its name in a run's "marks"
+_WORKER_MARKS = {
+    "chaos: preemption notice": "notice",
+    "drain request at step": "drain_request_consumed",
+    "emergency checkpoint": "emergency",
+    "drained at step": "drained",
+    "chaos: hanging": "hang_start",
+    "step-hang watchdog": "watchdog_fired",
+    "llama_train: done": "done",
+}
+
+
 def _worker_log(path: str) -> list:
     """The worker's incarnations from its log file: for each, its start
     step, restore source and timings, steps {step: (time, loss,
@@ -1573,7 +1612,7 @@ def _worker_log(path: str) -> list:
                 restore = json.loads(text.split("restore=", 1)[1])
                 runs.append({"start": start, "source": source,
                              "restore": restore, "steps": {}, "saves": {},
-                             "commits": {}, "peer_writes": {},
+                             "commits": {}, "peer_writes": {}, "marks": {},
                              "started_at": float(ts)})
                 continue
             if not runs:
@@ -1596,7 +1635,12 @@ def _worker_log(path: str) -> list:
                 kind = "commits" if "committed" in text else "peer_writes"
                 run[kind][int(done.group(1))] = float(ts)
             elif text.startswith("worker_launch_counts "):
+                # the last line holds the launches so far (one a step)
                 run["launches"] = json.loads(text.split(" ", 1)[1])
+            elif any(text.startswith(mark) for mark in _WORKER_MARKS):
+                mark = next(m for m in _WORKER_MARKS if text.startswith(m))
+                run["marks"].setdefault(_WORKER_MARKS[mark],
+                                        (float(ts), text))
             elif text.startswith("worker_times "):
                 run["times"] = json.loads(text.split(" ", 1)[1])
     for run in runs:
@@ -1678,12 +1722,7 @@ def phase_standalone(smi: str, llama1b: dict, resume: dict) -> dict:
 
     cfg = LlamaConfig.llama_1b(max_seq_len=2048, attn_impl="flash",
                                norm_impl="fused", embed_impl="gather")
-    if resume.get("a"):
-        ref = list(zip(resume["a"]["losses"], resume["a"]["grad_norms"]))
-        ref_from = "resume A"
-    else:
-        ref = _reference_run(cfg)
-        ref_from = "an uninterrupted in-process run"
+    ref, ref_from = _reference_steps(cfg, resume)
     state_bytes = 3 * 4 * cfg.param_count()
     repo = os.path.dirname(os.path.abspath(__file__))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_standalone_")
@@ -1893,14 +1932,369 @@ def phase_standalone(smi: str, llama1b: dict, resume: dict) -> dict:
     return out
 
 
+# the faults phase: launch 1 drains at step DRAIN_AT under a stated grace
+# (the emergency save waits for the step-3 commit and then commits its
+# own: two commits of 16.5-26.1 s, chip runs of the resume phase), with
+# a `slow` fault holding step DRAIN_AT for DRAIN_HOLD_S so the agent's
+# drain request (notice poll 1 s, its loop 0.2 s) lands before the next
+# step boundary; launch 2 hangs at step HANG_AT, after the step-6 save,
+# for HANG_SLEEP_S under a watchdog of HANG_WATCHDOG_S (it fires 12-15 s
+# after step 6: past the peer stage of 6, 4-7.5 s; the sleep outlasts
+# that with 5 s to spare), and its relaunch replays the hang inside the
+# watchdog's first-step budget of 300 s
+FAULT_GRACE_S = 90.0
+DRAIN_AT = 4
+DRAIN_HOLD_S = 3.0
+HANG_AT = 7
+HANG_WATCHDOG_S = 12.0
+HANG_SLEEP_S = 20.0
+DEFAULT_GRACE_S = 30.0     # Context.preempt_default_grace_s
+
+
+def _reference_steps(cfg, resume: dict) -> tuple:
+    """[(loss, grad_norm)] of 7 uninterrupted steps and where they came
+    from: resume's run A when it ran, else an in-process run (kept for a
+    later phase)."""
+    if resume.get("a"):
+        return (list(zip(resume["a"]["losses"], resume["a"]["grad_norms"])),
+                "resume A")
+    if "run" not in _REFERENCE:
+        _REFERENCE["run"] = _reference_run(cfg)
+    return _REFERENCE["run"], "an uninterrupted in-process run"
+
+
+_REFERENCE: dict = {}
+
+
+def _agent_lines(path: str) -> list:
+    """(unix time, message) of each of the agent's log lines
+    ("[2026-10-17 00:58:52,261] [WARNING] [...] message")."""
+    import datetime
+    import re
+
+    lines = []
+    with open(path) as f:
+        for line in f:
+            m = re.match(r"\[(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3})\] "
+                         r"\[\w+\] \[[^\]]*\] (.*)$", line.rstrip("\n"))
+            if m:
+                lines.append((datetime.datetime.strptime(
+                    m.group(1), "%Y-%m-%d %H:%M:%S,%f").timestamp(),
+                    m.group(2)))
+    return lines
+
+
+def _first(lines: list, pattern: str) -> float:
+    import re
+
+    for ts, text in lines:
+        if re.search(pattern, text):
+            return ts
+    raise AssertionError(f"no agent line matches {pattern!r}")
+
+
+def _launch_agent(master, cmd_args: list, env_extra: dict, out: str,
+                  err: str, agent_tmp: str, repo: str) -> int:
+    """Run ``python -m dlrover_tpu_torch.run`` against ``master`` to its
+    end (core dumps off: a SIGABRTed worker holding 15 GB of page-locked
+    memory must not write one); returns its exit code."""
+    import os
+    import resource
+
+    cmd = [sys.executable, "-m", "dlrover_tpu_torch.run",
+           "--master-addr", master.addr,
+           "dlrover_tpu_torch/examples/llama_train.py"] + cmd_args
+    env = dict(os.environ, PYTHONPATH=repo, TMPDIR=agent_tmp, **env_extra)
+    # the agent inherits this process's soft core limit (set here, not
+    # in a preexec_fn: the master's gRPC threads make that unsafe)
+    soft, hard = resource.getrlimit(resource.RLIMIT_CORE)
+    with open(out, "w") as fo, open(err, "w") as fe:
+        resource.setrlimit(resource.RLIMIT_CORE, (0, hard))
+        try:
+            proc = subprocess.Popen(cmd, cwd=repo, env=env, stdout=fo,
+                                    stderr=fe)
+        finally:
+            resource.setrlimit(resource.RLIMIT_CORE, (soft, hard))
+        try:
+            return proc.wait(timeout=900)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def phase_faults(smi: str, llama1b: dict, resume: dict) -> dict:
+    """Planned and silent failures under the port's master and agent:
+    a preemption notice drained through an emergency checkpoint, then a
+    hang the watchdog aborts and the agent relaunches uncharged; the
+    master's goodput ledger accounts both (see the module docstring)."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch.agent.master_client import MasterClient
+    from dlrover_tpu_torch.common.config import Context
+    from dlrover_tpu_torch.master.job_master import JobMaster
+    from dlrover_tpu_torch.models.llama import LlamaConfig
+    from dlrover_tpu_torch.obs import render_snapshot
+
+    cfg = LlamaConfig.llama_1b(max_seq_len=2048, attn_impl="flash",
+                               norm_impl="fused", embed_impl="gather")
+    ref, ref_from = _reference_steps(cfg, resume)
+    state_bytes = 3 * 4 * cfg.param_count()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_faults_")
+    ckpt = f"{tmp}/ckpt"
+    ctx = Context.singleton()
+    # the master's ledger bounds a hang by the watchdog's window
+    saved_hang_s = ctx.hang_watchdog_s
+    ctx.update(hang_watchdog_s=HANG_WATCHDOG_S)
+    master = JobMaster(host="127.0.0.1")
+    master.prepare()
+    client = None
+    agent_tmp = ""
+    out = {"card": smi}
+    _free_memory()
+    try:
+        free = shutil.disk_usage(tmp).free
+        log(f"faults: checkpoints in {tmp}, {free / 1e9:.1f} GB free; the "
+            f"run keeps at most three of {state_bytes / 1e9:.2f} GB")
+        if free < 3.1 * state_bytes:
+            raise AssertionError(f"{free / 1e9:.1f} GB free in {tmp}: less "
+                                 f"than three checkpoints")
+        agent_tmp = peer_root(state_bytes, tmp, smi, "faults")
+        common = ["--config", "llama_1b", "--steps", str(STANDALONE_STEPS),
+                  "--save-interval", str(SAVE_EVERY), "--report-interval",
+                  "1", "--ckpt-dir", ckpt]
+
+        # -- launch 1: a preemption notice at DRAIN_AT -------------------
+        log1, err1 = f"{tmp}/worker1.log", f"{tmp}/agent1.err"
+        code = _launch_agent(master, common + ["--log-file", log1], {
+            "DLROVER_TPU_CHAOS": f"preempt:worker:0@{DRAIN_AT}:"
+                                 f"{FAULT_GRACE_S};slow:worker:0@{DRAIN_AT}:"
+                                 f"{DRAIN_HOLD_S}",
+            "DLROVER_TPU_CHAOS_STATE": f"{tmp}/chaos1",
+            "DLROVER_TPU_FLIGHT_DIR": f"{tmp}/flight1"},
+            f"{tmp}/agent1.out", err1, agent_tmp, repo)
+        lines1 = _agent_lines(err1)
+        tail1 = "\n".join(t for _, t in lines1[-15:])
+        if code != 0:
+            raise AssertionError(f"launch 1: agent exited {code}: {tail1}")
+        runs1 = _worker_log(log1)
+        if len(runs1) != 1:
+            raise AssertionError(f"launch 1: {len(runs1)} incarnations")
+        a = runs1[0]
+        marks = a["marks"]
+        drained = [t for _, t in lines1 if t.startswith("drain complete")]
+        charged = [t for _, t in lines1 if "worker failed" in t
+                   or "restarting (" in t]
+        if (not drained or "worker exit 76, drained" not in drained[0]
+                or charged):
+            raise AssertionError(f"launch 1: the worker did not leave "
+                                 f"with 76 (drained) uncharged: {tail1}")
+        drain_step = int(marks["drained"][1].split()[3])
+        emergency = marks.get("emergency", (0, ""))[1]
+        committed = sorted(int(n) for n in os.listdir(ckpt) if n.isdigit())
+        if (drain_step != DRAIN_AT
+                or "(checkpoint: saved)" not in marks["drained"][1]
+                or not emergency.startswith(
+                    f"emergency checkpoint committed at step {drain_step}")
+                or drain_step not in committed):
+            raise AssertionError(f"launch 1: drained at {drain_step}, "
+                                 f"{emergency!r}, committed {committed}")
+        t_notice = marks["notice"][0]
+        t_request = _first(lines1, r"^drain request \d+ written")
+        t_consumed = marks["drain_request_consumed"][0]
+        t_drained = marks["drained"][0]
+        t_exit = _first(lines1, r"^drain complete")
+        save = a["saves"][drain_step][1]
+        drain = {
+            "drained_step": drain_step, "committed": committed,
+            "notice_to_request_s": t_request - t_notice,
+            "request_to_consumed_s": t_consumed - t_request,
+            "consumed_to_drained_s": t_drained - t_consumed,
+            "drained_to_exit_seen_s": t_exit - t_drained,
+            "notice_to_exit_s": t_exit - t_notice,
+            "of_which_hold_s": DRAIN_HOLD_S,
+            "emergency_blocking_s": save.get("blocking_s"),
+            "emergency_wait_for_previous_commit_s": save.get("wait_s"),
+            "emergency_page_locking_s": save.get("host_alloc_s"),
+            "emergency_commit_s": a["commits"].get(drain_step, 0.0)
+            - a["saves"][drain_step][0],
+            "grace_s": FAULT_GRACE_S,
+            "default_grace_would_hold": t_exit - t_notice < DEFAULT_GRACE_S,
+            "pinning_first_save_s": a["saves"][min(a["saves"])][1].get(
+                "host_alloc_s")}
+        out["drain"] = drain
+        log(f"faults drain (notice at step {DRAIN_AT}, grace "
+            f"{FAULT_GRACE_S:.0f} s): {json.dumps(drain)} ({smi})")
+        if not drain["notice_to_exit_s"] < FAULT_GRACE_S:
+            raise AssertionError(f"notice to exit "
+                                 f"{drain['notice_to_exit_s']:.1f} s, over "
+                                 f"the grace")
+
+        # -- launch 2: a hang at HANG_AT, after the step-6 save ----------
+        log2, err2 = f"{tmp}/worker2.log", f"{tmp}/agent2.err"
+        flight2 = f"{tmp}/flight2"
+        code = _launch_agent(master, common + ["--log-file", log2], {
+            "DLROVER_TPU_CHAOS": f"hang:worker:0@{HANG_AT}:{HANG_SLEEP_S}",
+            "DLROVER_TPU_CHAOS_STATE": f"{tmp}/chaos2",
+            "DLROVER_TPU_HANG_WATCHDOG_S": str(HANG_WATCHDOG_S),
+            "DLROVER_TPU_FLIGHT_DIR": flight2},
+            f"{tmp}/agent2.out", err2, agent_tmp, repo)
+        lines2 = _agent_lines(err2)
+        tail2 = "\n".join(t for _, t in lines2[-15:])
+        if code != 0:
+            raise AssertionError(f"launch 2: agent exited {code}: {tail2}")
+        runs2 = _worker_log(log2)
+        failed = [t for _, t in lines2 if "worker failed" in t]
+        restarts = [t for _, t in lines2 if "restarting (" in t]
+        if (len(runs2) != 2 or len(failed) != 2
+                or not all("(exit -6, hang)" in t for t in failed)
+                or restarts != [restarts[0]]
+                or "restarting (0/" not in restarts[0]):
+            raise AssertionError(f"launch 2: {len(runs2)} incarnations, "
+                                 f"want one uncharged hang abort: {tail2}")
+        b, c = runs2
+        # the watchdog's flight dump of the aborted worker: the main
+        # thread's stack in the chaos sleep
+        stacks = []
+        for path in glob.glob(f"{flight2}/flight-*.json"):
+            with open(path) as f:
+                payload = json.load(f)
+            stacks += [e["attrs"]["stacks"] for e in payload["events"]
+                       if e.get("name") == "step_hang"]
+        in_sleep = [st for st in stacks if any(
+            "maybe_inject" in frame and "time.sleep" in frame
+            for frame in st.get("MainThread", ()))]
+        if len(stacks) != 1 or not in_sleep:
+            raise AssertionError(f"{len(stacks)} step_hang dumps, the main "
+                                 f"thread in the chaos sleep in "
+                                 f"{len(in_sleep)}")
+        if b["start"] != drain_step or c["start"] < SAVE_EVERY * 2:
+            raise AssertionError(f"launch 2 started at {b['start']} (the "
+                                 f"drain left {drain_step}), its relaunch "
+                                 f"at {c['start']}")
+        if (sorted(c["steps"]) != list(range(c["start"] + 1,
+                                             STANDALONE_STEPS + 1))
+                or sorted(b["steps"]) != list(range(drain_step + 1,
+                                                    HANG_AT + 1))):
+            raise AssertionError(f"steps: launch 2 {sorted(b['steps'])}, "
+                                 f"relaunch {sorted(c['steps'])}")
+        got = [(n, r) for run in (a, b, c) for n, r in run["steps"].items()]
+        same = {f"{name} {n}": (r[1], r[2]) == ref[n - 1]
+                for name, run in (("drained", a), ("hung", b),
+                                  ("relaunched", c))
+                for n, r in run["steps"].items()}
+        out["same_bits"] = same
+        out["reference"] = ref_from
+        out["starts"] = [a["start"], b["start"], c["start"]]
+        out["sources"] = [a["source"], b["source"], c["source"]]
+        log(f"faults runs: starts {out['starts']}, sources "
+            f"{out['sources']}, steps against {ref_from}: {json.dumps(same)}")
+        if not all(same.values()) or len(got) != len(same):
+            raise AssertionError(f"steps against {ref_from}: {same}")
+        t_last = b["steps"][HANG_AT][0]
+        t_fired = b["marks"]["watchdog_fired"][0]
+        t_failed = _first(lines2, r"worker failed \(exit -6, hang\); "
+                                  r"backing")
+        spawn_ts = [ts for ts, t in lines2 if t.startswith("spawning")]
+        t_relaunched = spawn_ts[-1]
+        first = min(c["steps"])
+        hang = {
+            "watchdog_s": HANG_WATCHDOG_S, "hang_sleep_s": HANG_SLEEP_S,
+            "last_step_to_abort_s": t_fired - t_last,
+            "since_step_6_to_abort_s": t_fired - b["steps"][HANG_AT - 1][0],
+            "abort_to_agent_s": t_failed - t_fired,
+            "agent_to_relaunch_s": t_relaunched - t_failed,
+            "relaunch_to_restored_s": c["times"]["restored"]
+            - t_relaunched,
+            "of_which_start_and_import_s": c["times"]["imported"]
+            - t_relaunched,
+            "restore_source": c["source"],
+            # the relaunch replays the hang after its first step's line,
+            # inside the watchdog's first-step budget
+            "replayed_hang_to_done_s": c["marks"]["done"][0]
+            - c["marks"]["hang_start"][0],
+            "last_step_to_first_resumed_step_s": c["steps"][first][0]
+            - t_last}
+        out["hang"] = hang
+        log(f"faults hang (watchdog {HANG_WATCHDOG_S:.0f} s): "
+            f"{json.dumps(hang)} ({smi})")
+
+        # launches: each process's own, the steps it finished
+        out["launches"] = {}
+        for name, run, steps in (("drained", a, len(a["steps"])),
+                                 ("hung", b, HANG_AT - 1 - b["start"]),
+                                 ("relaunched", c, len(c["steps"]))):
+            want = _expected_launches(cfg, steps)
+            if run.get("launches") != want:
+                raise AssertionError(f"{name} worker launches "
+                                     f"{run.get('launches')}, want {want}")
+            out["launches"][name] = run["launches"]
+        under_agent = [r[3] for run in (a, b, c)
+                       for n, r in run["steps"].items()
+                       if n != run["start"] + 1 and n != HANG_AT]
+        out["step_under_agent"] = {
+            "median_ms": statistics.median(under_agent) * 1e3,
+            "steps_ms": [t * 1e3 for t in under_agent],
+            "llama1b_median_ms": llama1b.get("step_median_ms",
+                                             "not measured")}
+        log(f"faults step under the agent: "
+            f"{json.dumps(out['step_under_agent'])} ({smi})")
+
+        # -- the master's goodput ledger ---------------------------------
+        client = MasterClient(master.addr, node_id=99, node_rank=-1)
+        snap = client.get_goodput()
+        buckets = snap.get("buckets", {})
+        elapsed = snap.get("elapsed_rank_seconds", 0.0)
+        covered = sum(buckets.values())
+        out["goodput"] = {"buckets": buckets, "elapsed_rank_seconds":
+                          elapsed, "goodput_fraction":
+                          snap.get("goodput_fraction"),
+                          "incarnations": snap.get("incarnations")}
+        log(f"faults goodput: {json.dumps(out['goodput'])} ({smi})")
+        log(render_snapshot(snap))
+        # the ledger books the drain twice (ROADMAP Queue C, both
+        # packages): drain + checkpoint_stall against the window they
+        # share, ready for the fix's check
+        out["drain_accounting"] = {
+            "drain_plus_checkpoint_stall_s": buckets.get("drain", 0.0)
+            + buckets.get("checkpoint_stall", 0.0),
+            "notice_to_exit_s": drain["notice_to_exit_s"]}
+        log(f"faults drain accounting (the ledger's drain + "
+            f"checkpoint_stall against the measured window): "
+            f"{json.dumps(out['drain_accounting'])} ({smi})")
+        if not (elapsed > 0 and abs(covered - elapsed) <= 0.05 * elapsed):
+            raise AssertionError(f"goodput buckets cover {covered:.3f} of "
+                                 f"{elapsed:.3f} rank-seconds")
+        if not (buckets.get("drain", 0) > 0
+                and 0 < buckets.get("hang", 0) <= HANG_WATCHDOG_S + 1e-3):
+            raise AssertionError(f"goodput drain {buckets.get('drain')}, "
+                                 f"hang {buckets.get('hang')} (watchdog "
+                                 f"{HANG_WATCHDOG_S})")
+        log(f"faults host memory after the run: "
+            f"{json.dumps(host_memory())} ({smi})")
+    finally:
+        if client is not None:
+            client.close()
+        master.stop()
+        ctx.update(hang_watchdog_s=saved_hang_s)
+        shutil.rmtree(tmp, ignore_errors=True)
+        if agent_tmp:
+            shutil.rmtree(agent_tmp, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases",
                         default="kernels,quant,parity,llama1b,resume,"
-                                "standalone",
+                                "standalone,faults",
                         help="comma-separated subset of kernels, quant, "
-                             "parity, llama1b, resume, standalone (device "
-                             "and build always run)")
+                             "parity, llama1b, resume, standalone, faults "
+                             "(device and build always run)")
     parser.add_argument("--profile", default="",
                         help="after the Llama-1B run, profile one more "
                              "step and write the kernel table here")
@@ -1936,6 +2330,14 @@ def main(argv=None) -> int:
         standalone = phase_standalone(smi, llama1b, resume)
         for rec in train_records + quant_records:
             rec["standalone_launches"] = standalone["launches"][rec["name"]]
+    if "faults" in phases:
+        # the drained worker's, the hung one's up to its last finished
+        # step, and its relaunch's, summed
+        faults = phase_faults(smi, llama1b, resume)
+        for rec in train_records + quant_records:
+            rec["faults_launches"] = sum(
+                counts[rec["name"]]
+                for counts in faults["launches"].values())
     records = train_records + quant_records
     log(f"elapsed {time.monotonic() - t0:.1f} s")
     print(json.dumps({"kernels": records}))

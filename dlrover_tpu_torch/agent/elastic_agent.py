@@ -14,6 +14,14 @@ monitor/restart loop :429-521, failure reporting :490):
 - On worker failure: report to the master, back off, re-rendezvous,
   respawn (restart budget, quarantine). On a membership change
   (``num_nodes_waiting > 0``): graceful restart so the world re-forms.
+- Planned and silent failures: a preemption notice (``agent/
+  preemption.py``: a notice file, a static env deadline, SIGTERM)
+  drains the worker through a deadline-bounded emergency checkpoint and
+  the clean-drain exit 76, announced to and concluded with the master,
+  never charged; a worker the step-hang watchdog aborted (SIGABRT with
+  ``hang_watchdog_s`` on) is classified ``hang`` and relaunched without
+  charging the restart budget, its no-progress streak counted by the
+  governor (forward progress read from the worker's timeline export).
 - Peer restore (``checkpoint/peer_restore.py``): the agent's work
   directory holds the peer cache the worker stages into and the restore
   plan file; the agent's donor server serves the cache (it outlives the
@@ -21,8 +29,8 @@ monitor/restart loop :429-521, failure reporting :490):
   every join and on every monitor tick.
 
 Not ported yet: the agent's monitors (``agent/monitor.py``) and
-master-loss reconnect (ROADMAP Queue A item 12), the preemption watcher
-and drain (6.5), diagnosis actions (12).
+master-loss reconnect (ROADMAP Queue A item 12), diagnosis actions
+(12.6).
 """
 
 from __future__ import annotations
@@ -41,6 +49,12 @@ from typing import Dict, List, Optional, Tuple
 
 from dlrover_tpu_torch import obs
 from dlrover_tpu_torch.agent.master_client import MasterClient
+from dlrover_tpu_torch.agent.preemption import (
+    PreemptionNotice,
+    PreemptionWatcher,
+    default_sources,
+    write_drain_request,
+)
 from dlrover_tpu_torch.common.bootstrap import publish_or_wait_coordinator
 from dlrover_tpu_torch.common.config import Context
 from dlrover_tpu_torch.common.constants import (
@@ -52,6 +66,8 @@ from dlrover_tpu_torch.common.constants import (
     WorkerExit,
 )
 from dlrover_tpu_torch.common.log import default_logger as logger
+from dlrover_tpu_torch.obs.timeline import load_timeline
+from dlrover_tpu_torch.trainer.watchdog import default_warmup_s
 
 
 class RelaunchGovernor:
@@ -62,9 +78,17 @@ class RelaunchGovernor:
     flapping worker must not hot-loop respawns. Driven only from the
     agent's main run loop, so no lock.
 
-    The JAX governor also counts the step-hang watchdog's aborts
-    (``record_hang``); the watchdog is not ported yet (ROADMAP Queue A
-    item 6.5), so every failure here is an ordinary one."""
+    Hang-aborts do not charge ``max_restarts``, so they need their own
+    loop-breaker the time window cannot provide (a watchdog cycle of a
+    few minutes never fits ``quarantine_failures`` aborts inside the
+    window): ``record_hang`` counts CONSECUTIVE hangs from incarnations
+    that made no forward progress. Progress is judged two ways: the
+    incarnation pushed the job's step high-water mark (the timeline
+    export the agent reads; re-treading checkpointed steps is NOT
+    forward progress), or it outlived the watchdog's warmup-plus-slack
+    horizon. Either one, on ANY death, resets the streak.
+    ``quarantine_failures`` no-progress hangs in a row quarantine the
+    rank however slowly they arrive."""
 
     def __init__(self, clock=time.monotonic):
         ctx = Context.singleton()
@@ -72,6 +96,13 @@ class RelaunchGovernor:
         self._max_s = ctx.relaunch_backoff_max_s
         self._quarantine_failures = ctx.quarantine_failures
         self._window_s = ctx.quarantine_window_s
+        # the watchdog's own first-step budget plus 2·hang of slack: an
+        # incarnation alive past this has stepped even if the timeline
+        # export never landed
+        hang_s = ctx.hang_watchdog_s
+        self._hang_progress_horizon_s = (default_warmup_s(hang_s)
+                                         + 2.0 * hang_s)
+        self._consecutive_early_hangs = 0
         self._clock = clock
         self._failures = deque()
 
@@ -79,14 +110,34 @@ class RelaunchGovernor:
         while self._failures and now - self._failures[0] > self._window_s:
             self._failures.popleft()
 
-    def record_failure(self) -> float:
-        """Register one worker failure; returns the backoff delay to
-        apply before the relaunch."""
+    def _note_progress(self, lifetime_s: float,
+                       made_progress: bool) -> None:
+        if (made_progress
+                or lifetime_s >= self._hang_progress_horizon_s):
+            self._consecutive_early_hangs = 0
+
+    def record_failure(self, lifetime_s: float = 0.0,
+                       made_progress: bool = False) -> float:
+        """Register one worker failure (any kind); returns the backoff
+        delay to apply before the relaunch. A productive incarnation
+        breaks the no-progress hang streak even when it ends in a
+        crash."""
+        self._note_progress(lifetime_s, made_progress)
         now = self._clock()
         self._trim(now)
         self._failures.append(now)
         exponent = min(len(self._failures) - 1, 62)
         return min(self._max_s, self._base_s * (2.0 ** exponent))
+
+    def record_hang(self, lifetime_s: float,
+                    made_progress: bool = False) -> None:
+        """Register a watchdog hang-abort. Counts toward the streak only
+        when the incarnation made NO forward progress."""
+        if (made_progress
+                or lifetime_s >= self._hang_progress_horizon_s):
+            self._consecutive_early_hangs = 0
+        else:
+            self._consecutive_early_hangs += 1
 
     @property
     def recent_failures(self) -> int:
@@ -97,7 +148,9 @@ class RelaunchGovernor:
     def quarantined(self) -> bool:
         if self._quarantine_failures <= 0:
             return False
-        return self.recent_failures >= self._quarantine_failures
+        return (self.recent_failures >= self._quarantine_failures
+                or (self._consecutive_early_hangs
+                    >= self._quarantine_failures))
 
 
 @dataclasses.dataclass
@@ -166,6 +219,33 @@ class ElasticAgent:
         # (ino, mtime_ns, size) of the manifest at the last report: the
         # monitor tick re-parses and re-reports only a changed manifest
         self._peer_reported_statkey: Optional[Tuple] = None
+        # the worker exports its per-step timeline here: the governor's
+        # forward-progress evidence
+        self.timeline_file = os.path.join(self._workdir, "timeline.json")
+        # preemption drain plumbing: the notice file chaos and platform
+        # hooks write (PreemptionWatcher polls it; honoured from the env
+        # so a hook outside this agent can name the path), and the drain
+        # request the worker's step loop consumes
+        self.preempt_notice_file = os.environ.get(
+            NodeEnv.PREEMPTION_NOTICE_FILE,
+            os.path.join(self._workdir, "preempt_notice.json"))
+        self.drain_request_file = os.path.join(
+            self._workdir, "drain_request.json")
+        self._drain_seq = 0
+        # set by the PreemptionWatcher thread; consumed only by the main
+        # run loop, which alone touches the worker process
+        self._preempt_notice: Optional[PreemptionNotice] = None
+        self._preempt_event = threading.Event()
+        self._preempt_watcher: Optional[PreemptionWatcher] = None
+        self._spawn_ts = time.monotonic()
+        # the job's step high-water mark at spawn (from the timeline
+        # export): an incarnation that pushes past it made FORWARD
+        # progress; re-treading checkpointed steps does not count
+        self._spawn_step = -1
+        # batches the agent's finished spans (rendezvous, drain) for the
+        # master's goodput ledger; flushed from the monitor loop
+        self._span_exporter = obs.SpanExporter()
+        obs.add_span_sink(self._span_exporter)
 
     @property
     def worker_pid(self) -> Optional[int]:
@@ -235,6 +315,12 @@ class ElasticAgent:
             NodeEnv.DEVICES_PER_NODE: str(self._spec.devices_per_node),
             NodeEnv.PEER_CACHE_DIR: self.peer_cache_dir,
             NodeEnv.RESTORE_PLAN_FILE: self.restore_plan_file,
+            NodeEnv.TIMELINE_FILE: self.timeline_file,
+            NodeEnv.DRAIN_REQUEST_FILE: self.drain_request_file,
+            # the worker sees the notice path the agent polls, so the
+            # chaos `preempt` fault (run in the worker's step loop)
+            # delivers a notice to THIS agent
+            NodeEnv.PREEMPTION_NOTICE_FILE: self.preempt_notice_file,
         })
         return env
 
@@ -248,6 +334,8 @@ class ElasticAgent:
             self._spec.entrypoint,
         )
         self._proc = subprocess.Popen(self._spec.entrypoint, env=env)
+        self._spawn_ts = time.monotonic()
+        self._spawn_step = self._timeline_step()
         obs.get_flight_recorder().record_event(
             "worker_spawn", round=rdzv_round, world=sorted(world),
             restart=self._restart_count, pid=self._proc.pid)
@@ -275,11 +363,16 @@ class ElasticAgent:
         """Monitor loop. Returns the worker's final exit code, POSIX-shaped
         (134, not -6)."""
         recorder = obs.get_flight_recorder()
+        # ORDER MATTERS: the drain SIGTERM source installs first, the
+        # recorder's dump handler second; the recorder chains to its
+        # predecessor, so one SIGTERM yields both the flight dump and the
+        # drain notice
+        self._start_preemption_watcher()
+        self._start_peer_donor()
         if threading.current_thread() is threading.main_thread():
             # postmortem timeline even when the agent itself is SIGTERMed
             recorder.install_signal_handlers()
         recorder.install_excepthook()
-        self._start_peer_donor()
         try:
             self._spawn()
             return WorkerExit.to_exit_status(self._run_loop())
@@ -288,15 +381,26 @@ class ElasticAgent:
             self._stop_worker()
             raise
         finally:
+            if self._preempt_watcher is not None:
+                self._preempt_watcher.stop()
             self._stop_peer_donor()
             # the staged copies die with the agent that served them
             shutil.rmtree(self._workdir, ignore_errors=True)
+            self._flush_telemetry()
+            obs.remove_span_sink(self._span_exporter)
             recorder.dump(reason="agent-exit")
 
+    def _flush_telemetry(self) -> None:
+        self._span_exporter.flush_to(self._client)
+
     def _interruptible_wait(self, delay_s: float) -> None:
-        """Sleep up to ``delay_s``, returning early on shutdown."""
+        """Sleep up to ``delay_s``, returning early on shutdown or a
+        preemption notice: every sleep of the main loop sits inside the
+        grace window, and the window is short."""
         end = time.monotonic() + delay_s
-        while time.monotonic() < end and not self._shutdown.is_set():
+        while (time.monotonic() < end
+               and not self._shutdown.is_set()
+               and not self._preempt_event.is_set()):
             time.sleep(min(0.2, max(0.0, end - time.monotonic())))
 
     def _run_loop(self) -> int:
@@ -305,6 +409,11 @@ class ElasticAgent:
             self._interruptible_wait(spec.monitor_interval_s)
             if self._shutdown.is_set():
                 return 0
+            # a preemption notice outranks everything: this host is going
+            # away, so drain instead of monitoring
+            if self._preempt_event.is_set():
+                return self._drain(self._preempt_notice)
+            self._flush_telemetry()
             code = self._proc.poll()
             if code is not None:
                 if self._shutdown.is_set():
@@ -312,13 +421,14 @@ class ElasticAgent:
                 if code == 0:
                     logger.info("worker finished successfully")
                     return 0
-                # no step-hang watchdog yet (ROADMAP Queue A item 6.5):
-                # a SIGABRT is an ordinary crash
-                kind = WorkerExit.classify(code, hang_enabled=False)
+                kind = WorkerExit.classify(
+                    code, hang_enabled=self._hang_watchdog_enabled())
                 if kind == NodeExitReason.DRAINED:
-                    raise NotImplementedError(
-                        "the drain protocol is not ported yet (ROADMAP "
-                        "Queue A item 6.5)")
+                    # the worker drained itself (a notice the agent never
+                    # saw): a clean departure, no failure report, no
+                    # relaunch charge
+                    return self._conclude_drain(code, deadline=0.0,
+                                                reason="worker-initiated")
                 outcome = self._handle_worker_failure(code, kind)
                 if outcome is not None:
                     return outcome
@@ -337,7 +447,21 @@ class ElasticAgent:
                     "membership_restart", waiting=waiting)
                 self._restart_worker(count_against_budget=False)
 
-    # -- failure reporting / relaunch pacing -----------------------------
+    # -- failure classification / relaunch pacing --------------------------
+    def _timeline_step(self) -> int:
+        """The job's step high-water mark from the worker's timeline
+        export (-1 when absent or corrupt: readers poll mid-flight)."""
+        payload = load_timeline(self.timeline_file)
+        if payload is None:
+            return -1
+        steps = (int(s.get("step", -1)) for s in payload["steps"]
+                 if isinstance(s, dict))
+        return max(steps, default=-1)
+
+    @staticmethod
+    def _hang_watchdog_enabled() -> bool:
+        return Context.singleton().hang_watchdog_s > 0
+
     def _handle_worker_failure(self, code: int, kind: str
                                ) -> Optional[int]:
         """One classified worker failure: report it, pace the relaunch
@@ -345,8 +469,15 @@ class ElasticAgent:
         None when the worker was restarted and the loop continues."""
         spec = self._spec
         recorder = obs.get_flight_recorder()
+        lifetime_s = time.monotonic() - self._spawn_ts
+        # forward progress = the incarnation pushed the job's step
+        # high-water mark; a respawn hanging before it re-reaches the
+        # previous mark is the no-progress loop quarantine is for
+        made_progress = self._timeline_step() > self._spawn_step
         recorder.record_event("worker_failed", exit_code=code, kind=kind,
                               restart=self._restart_count)
+        if kind == NodeExitReason.HANG:
+            recorder.record_event("worker_hang_abort", exit_code=code)
         try:
             self._client.report_failure(
                 f"worker exit code {code}",
@@ -358,18 +489,32 @@ class ElasticAgent:
             # surfaces a persistent outage
             logger.warning("could not report worker failure "
                            "(master unreachable)")
-        if self._restart_count >= spec.max_restarts:
+        # a watchdog hang-abort is the backstop doing its job, not a
+        # worker defect: restart without charging max_restarts; the
+        # governor's no-progress hang streak quarantines a deterministic
+        # hang loop the time window alone could never catch
+        counts = kind != NodeExitReason.HANG
+        if not counts:
+            self._governor.record_hang(lifetime_s,
+                                       made_progress=made_progress)
+        if counts and self._restart_count >= spec.max_restarts:
             logger.error(
                 "worker failed (exit %d, %s) with restart budget "
                 "exhausted (%d)", code, kind, spec.max_restarts,
             )
             return code
-        delay = self._governor.record_failure()
-        obs.get_registry().gauge(
+        delay = self._governor.record_failure(
+            lifetime_s, made_progress=made_progress)
+        registry = obs.get_registry()
+        registry.gauge(
             "dlrover_tpu_agent_relaunch_backoff_seconds",
             "Backoff applied before the most recent worker relaunch",
         ).set(delay)
         if self._governor.quarantined:
+            registry.gauge(
+                "dlrover_tpu_agent_quarantined",
+                "1 while this agent's rank is quarantined "
+                "(relaunches stopped after repeated failures)").set(1)
             recorder.record_event(
                 "worker_quarantined", exit_code=code, kind=kind,
                 recent_failures=self._governor.recent_failures)
@@ -399,12 +544,109 @@ class ElasticAgent:
             self._interruptible_wait(delay)
             if self._shutdown.is_set():
                 return 0
+            # a preemption notice mid-backoff outranks the relaunch: the
+            # respawn would die with the machine anyway, so drain
+            if self._preempt_event.is_set():
+                logger.warning(
+                    "preemption notice during relaunch backoff; "
+                    "draining instead of respawning")
+                return self._drain(self._preempt_notice)
         logger.warning(
             "worker failed (exit %d, %s); restarting (%d/%d)",
-            code, kind, self._restart_count + 1, spec.max_restarts,
+            code, kind, self._restart_count + (1 if counts else 0),
+            spec.max_restarts,
         )
-        self._restart_worker(count_against_budget=True)
+        self._restart_worker(count_against_budget=counts)
         return None
+
+    # -- preemption drain --------------------------------------------------
+    def _start_preemption_watcher(self) -> None:
+        def _on_notice(notice: PreemptionNotice) -> None:
+            # watcher thread: only flip the event; the main run loop
+            # owns the worker process and every RPC
+            self._preempt_notice = notice
+            self._preempt_event.set()
+
+        self._preempt_watcher = PreemptionWatcher(
+            _on_notice,
+            sources=default_sources(notice_file=self.preempt_notice_file))
+        self._preempt_watcher.start()
+
+    def _drain(self, notice: PreemptionNotice) -> int:
+        """The graceful exit: hand the worker a deadline-bounded
+        save-and-exit request, announce the drain, await the clean-drain
+        exit (force-stopping at the deadline: the machine goes away then
+        anyway), conclude with the master. Never a failure: no relaunch
+        charge, no failure report."""
+        recorder = obs.get_flight_recorder()
+        deadline = notice.deadline
+        recorder.record_event(
+            "preempt_notice", rank=self._client.node_rank,
+            deadline=deadline, grace_s=round(notice.grace_s, 1),
+            source=notice.source, reason=notice.reason[:256])
+        obs.get_registry().counter(
+            "dlrover_tpu_agent_preempt_notices_total",
+            "Preemption notices this agent acted on",
+            labelnames=("source",)).labels(source=notice.source).inc()
+        with obs.span("drain", {"rank": self._client.node_rank,
+                                "source": notice.source}) as drain_span:
+            # the worker's drain request goes out FIRST: against an
+            # unreachable master the announce below burns its whole retry
+            # budget, and the emergency checkpoint must be running by then
+            self._drain_seq += 1
+            write_drain_request(self.drain_request_file, self._drain_seq,
+                                deadline, reason=notice.reason,
+                                exit_worker=True)
+            logger.info("drain request %d written (deadline in %.1fs)",
+                        self._drain_seq, deadline - time.time())
+            try:
+                result = self._client.report_drain(
+                    deadline, reason=notice.reason, phase="notice")
+                logger.info(
+                    "drain announced to the master (urgent checkpoint "
+                    "fanned out to ranks %s)", result.checkpoint_ranks)
+            except Exception:  # noqa: BLE001 — master down: the local
+                # emergency checkpoint matters more than the announce
+                logger.warning("could not announce drain to the master; "
+                               "draining locally anyway")
+            code = self._await_worker_departure(deadline)
+            drain_span.set_attr("exit_code", code)
+        return self._conclude_drain(code, deadline, notice.reason)
+
+    def _await_worker_departure(self, deadline: float) -> int:
+        """Poll the worker until it exits or the deadline lands; a worker
+        that ignored the request (not running the elastic loop, or
+        wedged) is force-stopped: a SIGTERM save beats the platform's
+        SIGKILL a moment later."""
+        while time.time() < deadline:
+            if self._shutdown.is_set():
+                break
+            code = self._proc.poll() if self._proc is not None else 0
+            if code is not None:
+                return code
+            time.sleep(0.2)
+        logger.warning("worker still running at the drain deadline; "
+                       "force-stopping")
+        self._stop_worker()
+        return self._proc.returncode if self._proc is not None else 0
+
+    def _conclude_drain(self, code: int, deadline: float,
+                        reason: str) -> int:
+        kind = WorkerExit.classify(
+            code, hang_enabled=self._hang_watchdog_enabled())
+        clean = kind in (NodeExitReason.DRAINED, NodeExitReason.SUCCEEDED)
+        obs.get_flight_recorder().record_event(
+            "worker_drained", exit_code=code, kind=kind, clean=clean,
+            reason=reason[:256])
+        try:
+            self._client.report_drain(deadline, reason=reason,
+                                      phase="complete")
+        except Exception:  # noqa: BLE001 — the master's blown-deadline
+            # reap is the fallback when this RPC is lost
+            logger.warning("could not report drain completion")
+        logger.info("drain complete (worker exit %d, %s): agent "
+                    "departing", code, kind)
+        return 0 if clean else code
 
     def shutdown(self) -> None:
         self._shutdown.set()

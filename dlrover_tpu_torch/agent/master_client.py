@@ -9,8 +9,7 @@ environment contract.
 Not ported yet: the coordination-tier routing, the bootstrap-file
 re-resolution and the reconnect handshake of master-loss handling
 (ROADMAP Queue A item 12), and the wrappers of the re-planning (6.3),
-slice (6.4), drain (6.5), diagnosis, telemetry and time-series RPCs
-(12).
+slice (6.4), diagnosis, steptrace and time-series RPCs (12).
 """
 
 from __future__ import annotations
@@ -341,6 +340,45 @@ class MasterClient:
             error_data=error_data, level=level,
             restart_count=restart_count, exit_kind=exit_kind,
         )).success
+
+    @retry_rpc(retries=3)
+    def report_drain(self, deadline: float, reason: str = "",
+                     phase: str = "notice") -> msg.DrainResult:
+        """Announce (phase="notice") or conclude (phase="complete") this
+        node's preemption drain. A modest retry budget: the drain window
+        is finite, and the local emergency checkpoint matters more than
+        spending the grace period on retries."""
+        return self._report_typed(msg.DrainReport(
+            node_id=self.node_id, node_rank=self.node_rank,
+            deadline=deadline, reason=reason, phase=phase,
+        ), msg.DrainResult)
+
+    def report_telemetry(self, samples=None, spans=None) -> bool:
+        """Push metric samples and finished span dicts to the master
+        (obs/). Best-effort by contract: callers treat a False or a raise
+        as droppable telemetry."""
+        if not samples and not spans:
+            return True
+        return self._report(msg.TelemetryReport(
+            node_id=self.node_id,
+            node_rank=self.node_rank,
+            node_type=self.node_type,
+            samples=list(samples or ()),
+            spans_json=json.dumps(spans) if spans else "",
+        )).success
+
+    def get_goodput(self, window_s: float = 0.0) -> dict:
+        """The master's goodput-ledger snapshot (``obs/goodput.py``); {}
+        from a master without one."""
+        result = self._get_typed(msg.GoodputRequest(window_s=window_s),
+                                 msg.GoodputReport)
+        if not result.report_json:
+            return {}
+        try:
+            payload = json.loads(result.report_json)
+        except json.JSONDecodeError:
+            return {}
+        return payload if isinstance(payload, dict) else {}
 
     def report_node_address(self, addr: str) -> bool:
         return self._report(msg.NodeAddressReport(

@@ -29,8 +29,12 @@ Counterpart of ``dlrover_tpu/checkpoint/flash_checkpoint.py`` over
   update: sqrt(nu) denominators amplify the groupwise error).
 
 The blocking part of the last save, by piece, lands in ``last_save``;
-the restore's phases in ``last_restore_phases``. The checkpointer's
-counters and spans wait for ROADMAP Queue A item 6.1.
+the restore's phases in ``last_restore_phases``. The spans and counters
+are the JAX checkpointer's, under its names: ``checkpoint_save`` (the
+blocking part), ``emergency_checkpoint`` (a drain's save and its commit
+wait), ``checkpoint_restore`` (one step's read); saves, emergency saves
+by outcome, restores and fallbacks counted, and the restored bytes and
+read rate as gauges.
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ from dlrover_tpu_torch.checkpoint.quantized import (
     decode_tree,
     encode_tree,
 )
+from dlrover_tpu_torch import obs
 from dlrover_tpu_torch.common.constants import EMERGENCY_CKPT_MIN_WINDOW_S
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.parallel.sharding import to_local
@@ -294,6 +299,20 @@ class FlashCheckpointer:
                           or step % self.save_interval_steps != 0
                           or step == 0):
             return False
+        # the span covers the blocking part only; the commit is awaited
+        # in ``wait``
+        with obs.span("checkpoint_save",
+                      {"step": step, "forced": force}) as save_span:
+            saved = self._save(step, state, data_state)
+            save_span.set_attr("saved", saved)
+        if saved:
+            obs.get_registry().counter(
+                "dlrover_tpu_checkpoint_saves_total",
+                "Checkpoint saves dispatched").inc()
+        return saved
+
+    def _save(self, step: int, state,
+              data_state: Optional[Dict[str, Any]]) -> bool:
         # one background save at a time, and the host buffers are not
         # overwritten while either reader (DCP's write, the peer cache's
         # deferred write) still uses them
@@ -452,7 +471,30 @@ class FlashCheckpointer:
                 "the deadline (< floor %.1fs / last full save %.1fs); resume "
                 "will fall back to the last committed step", step,
                 remaining, min_window_s, estimate)
-            return "skipped"
+            outcome = "skipped"
+        else:
+            with obs.span("emergency_checkpoint",
+                          {"step": step,
+                           "window_s": round(min(remaining, 1e9), 1)}
+                          ) as em_span:
+                outcome = self._emergency(step, state, data_state,
+                                          deadline)
+                em_span.set_attr("outcome", outcome)
+        obs.get_registry().counter(
+            "dlrover_tpu_checkpoint_emergency_total",
+            "Deadline-bounded emergency saves by outcome",
+            labelnames=("outcome",)).labels(outcome=outcome).inc()
+        obs.get_flight_recorder().record_event(
+            "emergency_checkpoint", step=step, outcome=outcome,
+            window_s=round(min(remaining, 1e9), 1))
+        if outcome == "saved":
+            logger.info("emergency checkpoint committed at step %d (%.1fs "
+                        "window)", step, remaining)
+        return outcome
+
+    def _emergency(self, step: int, state,
+                   data_state: Optional[Dict[str, Any]],
+                   deadline: float) -> str:
         t0 = time.monotonic()
         # an interval save of this very step may be in flight or done (a
         # drain landing on a boundary): await it instead of saving twice
@@ -470,11 +512,11 @@ class FlashCheckpointer:
                          "running at the deadline; the step may be torn "
                          "(restore falls back past it)", step)
             return "timeout"
+        # only a save THIS call dispatched measures a full save: awaiting
+        # one in flight would record only its tail
         if dispatched:
             with self._lock:
                 self._last_full_save_s = time.monotonic() - t0
-        logger.info("emergency checkpoint committed at step %d (%.1fs "
-                    "window)", step, remaining)
         return "saved"
 
     # -- restore -----------------------------------------------------------
@@ -498,9 +540,11 @@ class FlashCheckpointer:
             return None
         first_exc: Optional[BaseException] = None
         failed = []
-        for step in steps:
+        for nth, step in enumerate(steps):
             try:
-                result = self._restore_at(step, target)
+                with obs.span("checkpoint_restore",
+                              {"step": step, "fallback": nth > 0}):
+                    result = self._restore_at(step, target)
             # DCP's raise varies, and its CheckpointException (a failed
             # read on any rank) derives from BaseException
             except (Exception, dcp.CheckpointException) as e:  # noqa: BLE001
@@ -509,9 +553,16 @@ class FlashCheckpointer:
                 logger.error("checkpoint restore at step %d FAILED (%s: %s);"
                              " falling back to the next-older step", step,
                              type(e).__name__, e)
+                obs.get_registry().counter(
+                    "dlrover_tpu_checkpoint_restore_fallbacks_total",
+                    "Corrupt/partial checkpoints skipped during "
+                    "restore").inc()
                 continue
             if failed:
                 self._remove_failed_steps(failed)
+            obs.get_registry().counter(
+                "dlrover_tpu_checkpoint_restores_total",
+                "Checkpoint restores completed").inc()
             self.last_restore_phases["step_discovery_s"] = discovery_s
             self._restore_stats(step)
             return result
@@ -595,6 +646,22 @@ class FlashCheckpointer:
         read_s = phases.get("tensor_read_s", 0.0)
         if read_s > 0 and total:
             phases["read_bandwidth_mbps"] = total / (1 << 20) / read_s
+        # labelled by source: the peer restore publishes the same gauges
+        # as source="peer" ("orbax" is the JAX package's label of the
+        # checkpoint on disk, kept so the series are one)
+        registry = obs.get_registry()
+        registry.gauge(
+            "dlrover_tpu_checkpoint_restore_bytes",
+            "Bytes read by the last checkpoint restore",
+            labelnames=("source",),
+        ).labels(source="orbax").set(float(total))
+        if phases.get("read_bandwidth_mbps"):
+            registry.gauge(
+                "dlrover_tpu_checkpoint_restore_bandwidth_mbps",
+                "Effective bandwidth of the last restore's "
+                "tensor-read phase",
+                labelnames=("source",),
+            ).labels(source="orbax").set(phases["read_bandwidth_mbps"])
 
     def _remove_torn_saves(self) -> None:
         """Drop ``<step>.tmp`` directories: saves a killed process never

@@ -66,6 +66,19 @@ class Context:
             DefaultValues.PEER_RESTORE_TIMEOUT_S
         )
         self.peer_donor_port: int = DefaultValues.PEER_DONOR_PORT
+        # preemption-aware graceful drain (agent/preemption.py) and the
+        # deadline-bounded emergency checkpoint (checkpoint/, trainer/)
+        self.preempt_default_grace_s: float = (
+            DefaultValues.PREEMPT_DEFAULT_GRACE_S
+        )
+        self.preempt_notice_poll_s: float = (
+            DefaultValues.PREEMPT_NOTICE_POLL_S
+        )
+        self.preempt_env_horizon_s: float = (
+            DefaultValues.PREEMPT_ENV_HORIZON_S
+        )
+        # step-hang watchdog (trainer/watchdog.py); 0 = disabled
+        self.hang_watchdog_s: float = DefaultValues.HANG_WATCHDOG_S
         self._load_env_overrides()
 
     def _load_env_overrides(self) -> None:

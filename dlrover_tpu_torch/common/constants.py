@@ -209,6 +209,18 @@ class DefaultValues:
     RELAUNCH_BACKOFF_MAX_S = 60.0
     QUARANTINE_FAILURES = 5
     QUARANTINE_WINDOW_S = 600.0
+    # preemption-aware graceful drain (agent/preemption.py): the grace
+    # window of a notice with no deadline (a bare SIGTERM; k8s's default
+    # terminationGracePeriodSeconds), the agent's notice-source poll, and
+    # how far ahead of a static env deadline ($DLROVER_TPU_PREEMPTION_AT)
+    # the drain fires (0 = the default grace)
+    PREEMPT_DEFAULT_GRACE_S = 30.0
+    PREEMPT_NOTICE_POLL_S = 1.0
+    PREEMPT_ENV_HORIZON_S = 0.0
+    # step-hang watchdog (trainer/watchdog.py): no step progress for this
+    # long → stack dump + self-abort; 0 = disabled (jobs opt in through
+    # DLROVER_TPU_HANG_WATCHDOG_S)
+    HANG_WATCHDOG_S = 0.0
 
 
 # keys under these prefixes are on the gradient path (kv store hygiene,

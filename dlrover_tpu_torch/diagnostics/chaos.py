@@ -1,0 +1,288 @@
+"""Scriptable fault injection for chaos testing.
+
+Own copy of the JAX package's ``diagnostics/chaos.py``: a worker-side
+hook the training loop polls each step, scripted through one env var,
+so a chaos run is a normal job launch with ``DLROVER_TPU_CHAOS`` set on
+(or forwarded to) the chosen node.
+
+Spec grammar (semicolon-separated faults), the JAX package's whole
+grammar:
+
+    DLROVER_TPU_CHAOS="action:role:rank@step[:duration]"
+
+    kill:worker:0@5        SIGKILL worker rank 0 when it reaches step 5
+    hang:worker:1@3:120    rank 1 blocks 120 s at step 3 (with
+                           DLROVER_TPU_HANG_WATCHDOG_S under the block
+                           length, the step-hang watchdog fires first:
+                           stack dump, self-abort, agent restart)
+    slow:worker:2@4:0.5    rank 2 sleeps 0.5 s EVERY step from step 4 on
+    preempt:worker:1@4:20  rank 1 receives an advance PREEMPTION NOTICE
+                           at step 4 with a 20 s grace window: the fault
+                           atomically writes the notice file the agent's
+                           PreemptionWatcher polls
+                           ($DLROVER_TPU_PREEMPTION_NOTICE), driving the
+                           whole drain chain. Grace defaults to
+                           Context.preempt_default_grace_s.
+
+The grammar also parses the faults whose subsystem the port lacks, and
+the injector refuses them by name (``NotImplementedError`` with their
+ROADMAP Queue A item): the ``master`` and ``shard`` roles (12.1-12.3:
+the state backend and hot standby, the sharded rendezvous, the
+coordination tier), the ``slice`` role (6.4, slice mode), and
+``offer``/``revoke``/``resize`` (12.10, the brain's fleet controller).
+
+Each kill/hang/preempt fault fires at most once per process; slow
+applies from its step onward. The hook is a no-op (one env read at
+construction) when the variable is unset.
+
+One-shot markers (CHAOS_STATE_ENV) are keyed by the fault's INDEX in
+the full spec, so duplicate faults fire independently, and are created
+atomically (O_EXCL) so two racing incarnations cannot both claim an
+unfired fault. A kill or preempt fault records its marker before it
+fires (the respawn must not replay it); a hang records it only after
+the sleep (an incarnation killed mid-hang replays it on respawn).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import signal
+import time
+from typing import List, Optional
+
+from dlrover_tpu_torch.common.config import Context
+from dlrover_tpu_torch.common.constants import NodeEnv
+from dlrover_tpu_torch.common.log import default_logger as logger
+
+CHAOS_ENV = "DLROVER_TPU_CHAOS"
+# directory recording fired one-shot faults: makes kill/hang fire once
+# per JOB rather than once per process (a respawned worker re-parses the
+# same env; without the marker a kill fault would SIGKILL every
+# incarnation and exhaust the restart budget). Unset = per-process only.
+CHAOS_STATE_ENV = "DLROVER_TPU_CHAOS_STATE"
+
+
+@dataclasses.dataclass
+class ChaosFault:
+    action: str            # "kill" | "hang" | "slow" | "preempt" |
+    #                        "resize" | "offer" | "revoke"
+    role: str              # node type the fault targets ("worker",
+    #                        "master", …); the resize UNIT ("worker" |
+    #                        "slice") for resize faults; "slice" for
+    #                        the market faults (offer/revoke)
+    rank: int              # node rank within the role; the SIGNED
+    #                        delta for resize faults; the offered
+    #                        slice COUNT for offer; the revoked slice
+    #                        id for revoke
+    at_step: int           # fire when the target reaches this step
+    # hang: block seconds; slow: sleep/step; preempt/revoke: grace
+    # window (<= 0 → Context.preempt_default_grace_s); offer: expected
+    # lifetime TTL (<= 0 → the provider's default)
+    duration: float = 60.0
+    fired: bool = False
+    # position in the FULL spec (before role/rank filtering): the
+    # one-shot marker key, stable across respawns that re-parse the
+    # same env — and distinct for duplicate faults
+    index: int = 0
+
+
+def parse_chaos(spec: str) -> List[ChaosFault]:
+    """Parse the CHAOS_ENV grammar; raises ValueError on a bad spec (a
+    chaos run with a typo'd fault must fail loudly, not run clean)."""
+    faults = []
+    for index, part in enumerate(
+            filter(None, (p.strip() for p in spec.split(";")))):
+        try:
+            head, at = part.split("@", 1)
+            head_fields = head.split(":")
+            at_fields = at.split(":")
+            if head_fields[0].strip().lower() == "resize":
+                # resize:±k@step (ranks) / resize:slice:±k@step
+                # (slices): the "rank" field carries the SIGNED delta
+                if len(head_fields) == 2:
+                    role, delta = "worker", head_fields[1]
+                else:
+                    role, delta = head_fields[1], head_fields[2]
+                delta_n = int(delta)
+                if delta_n == 0:
+                    raise ValueError("resize delta must be non-zero")
+                fault = ChaosFault(
+                    action="resize", role=role.strip(),
+                    rank=delta_n, at_step=int(at_fields[0]),
+                    index=index)
+                if fault.role not in ("worker", "slice"):
+                    raise ValueError(
+                        f"resize unit must be worker or slice, "
+                        f"got {fault.role!r}")
+                faults.append(fault)
+                continue
+            action, role, rank = head_fields
+            fault = ChaosFault(
+                action=action.strip().lower(), role=role.strip(),
+                rank=int(rank), at_step=int(at_fields[0]),
+                index=index,
+            )
+            if len(at_fields) > 1:
+                fault.duration = float(at_fields[1])
+        except (ValueError, IndexError) as e:
+            raise ValueError(
+                f"bad chaos fault {part!r} (want "
+                f"'action:role:rank@step[:duration]' or "
+                f"'resize:[slice:]±k@step'): {e}") from e
+        if fault.action not in ("kill", "hang", "slow", "preempt",
+                                "offer", "revoke"):
+            raise ValueError(f"unknown chaos action {fault.action!r}")
+        if fault.action in ("preempt", "revoke") and len(at_fields) == 1:
+            fault.duration = 0.0   # grace resolves from Context at fire
+        if fault.action == "offer":
+            # offer:slice:+k@step[:ttl] — the rank field is the offered
+            # slice COUNT (the grammar writes it signed, like resize)
+            if fault.role != "slice":
+                raise ValueError(
+                    f"offer targets slices, got role {fault.role!r}")
+            if fault.rank <= 0:
+                raise ValueError(
+                    f"offer count must be positive, got {fault.rank}")
+            if len(at_fields) == 1:
+                fault.duration = 0.0   # TTL → the provider's default
+        elif fault.action == "revoke" and fault.role != "slice":
+            raise ValueError(
+                f"revoke targets slices, got role {fault.role!r}")
+        elif fault.rank < 0:
+            raise ValueError(
+                f"chaos fault {part!r} has negative rank {fault.rank} "
+                f"(no node can match it)")
+        faults.append(fault)
+    return faults
+
+
+
+def _unported_item(fault: ChaosFault) -> str:
+    """The ROADMAP Queue A item whose subsystem ``fault`` needs and the
+    port lacks, "" when the port can inject it."""
+    if fault.action in ("offer", "revoke", "resize"):
+        return "12.10 (the brain's fleet controller)"
+    if fault.role in ("master", "shard"):
+        return ("12.1-12.3 (the state backend and hot standby, the "
+                "sharded rendezvous, the coordination tier)")
+    if fault.role == "slice":
+        return "6.4 (slice mode)"
+    return ""
+
+
+class ChaosInjector:
+    """Per-process injector for the worker role; construct once, call
+    ``maybe_inject`` per step."""
+
+    def __init__(self, role: str = "worker",
+                 rank: Optional[int] = None,
+                 spec: Optional[str] = None):
+        spec = spec if spec is not None else os.environ.get(CHAOS_ENV, "")
+        if rank is None:
+            rank = int(os.environ.get(NodeEnv.NODE_RANK, "0"))
+        if role != "worker":
+            raise NotImplementedError(
+                f"a chaos injector for the {role!r} role is not ported "
+                f"yet (ROADMAP Queue A item 12.1-12.3)")
+        self._role = role
+        self._rank = rank
+        self._state_dir = os.environ.get(CHAOS_STATE_ENV, "")
+        faults = parse_chaos(spec) if spec else []
+        for fault in faults:
+            item = _unported_item(fault)
+            if item:
+                raise NotImplementedError(
+                    f"chaos fault {fault.action}:{fault.role}:{fault.rank}"
+                    f"@{fault.at_step} is not ported yet (ROADMAP Queue A "
+                    f"item {item})")
+        self.faults = [f for f in faults
+                       if f.role == role and f.rank == rank]
+        for fault in self.faults:
+            if self._already_fired(fault):
+                fault.fired = True
+        if self.faults:
+            logger.warning("chaos injector ARMED for %s-%d: %s",
+                           role, rank, self.faults)
+
+    def _marker(self, fault: ChaosFault) -> str:
+        # keyed by spec index: two faults that agree on
+        # action/role/rank/step still get their own markers
+        return os.path.join(
+            self._state_dir,
+            f"chaos_{fault.index}_{fault.action}_{fault.role}"
+            f"_{fault.rank}_{fault.at_step}")
+
+    def _already_fired(self, fault: ChaosFault) -> bool:
+        return bool(self._state_dir) and os.path.exists(
+            self._marker(fault))
+
+    def _record_fired(self, fault: ChaosFault) -> bool:
+        """Claim the one-shot marker; returns whether THIS process won.
+        O_CREAT|O_EXCL is the atomicity: a racing incarnation loses the
+        create and must not fire the fault a second time."""
+        fault.fired = True
+        if not self._state_dir:
+            return True
+        os.makedirs(self._state_dir, exist_ok=True)
+        try:
+            fd = os.open(self._marker(fault),
+                         os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+        except FileExistsError:
+            return False
+        with os.fdopen(fd, "w") as f:
+            f.write(str(os.getpid()))
+        return True
+
+    def maybe_inject(self, step: int) -> None:
+        for fault in self.faults:
+            if fault.fired or step < fault.at_step:
+                continue
+            if fault.action == "kill":
+                # record BEFORE dying, or the respawned incarnation
+                # replays the fault forever
+                if not self._record_fired(fault):
+                    continue
+                logger.warning("chaos: SIGKILL self (%s-%d) at step %d",
+                               self._role, self._rank, step)
+                os.kill(os.getpid(), signal.SIGKILL)
+            elif fault.action == "hang":
+                logger.warning("chaos: hanging %s-%d for %.1fs at step %d",
+                               self._role, self._rank, fault.duration,
+                               step)
+                time.sleep(fault.duration)
+                # record AFTER the sleep: a process killed and respawned
+                # mid-hang must replay the hang, not skip it
+                self._record_fired(fault)
+            elif fault.action == "preempt":
+                # record BEFORE writing the notice: a later incarnation
+                # (the drain cancelled operator-side) must not re-preempt
+                # itself forever
+                if not self._record_fired(fault):
+                    continue
+                self._write_preemption_notice(fault, step)
+            elif fault.action == "slow":
+                # applies every step from at_step on (a real straggler)
+                time.sleep(fault.duration)
+
+    def _write_preemption_notice(self, fault: ChaosFault,
+                                 step: int) -> None:
+        """Simulate the platform's advance notice: atomically write the
+        JSON notice file the agent's PreemptionWatcher polls."""
+        path = os.environ.get(NodeEnv.PREEMPTION_NOTICE_FILE, "")
+        grace = (fault.duration if fault.duration > 0
+                 else Context.singleton().preempt_default_grace_s)
+        logger.warning(
+            "chaos: preemption notice for %s-%d at step %d "
+            "(grace %.1fs) -> %s", self._role, self._rank, step,
+            grace, path or "<no notice file configured>")
+        if not path:
+            return
+        payload = {"deadline": time.time() + grace,
+                   "grace_s": grace,
+                   "reason": f"chaos {fault.action}@{fault.at_step}"}
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
+            json.dump(payload, f)
+        os.replace(tmp, path)

@@ -18,14 +18,21 @@ and on the CPU at a tiny width:
 
 A SIGKILL mid-run restarts the worker through the agent; the new
 incarnation resumes from the latest committed checkpoint with the data
-position intact. SIGTERM finishes the step, saves it and exits 0.
+position intact. SIGTERM finishes the step, saves it and exits 0. A
+drain request from the agent (a preemption notice) saves the step under
+its deadline and exits 76; with ``DLROVER_TPU_HANG_WATCHDOG_S`` set, a
+worker whose steps stop dumps its stacks and aborts itself (SIGABRT).
+Faults are scripted through ``DLROVER_TPU_CHAOS`` (``diagnostics/
+chaos.py``); every knob rides the environment, as in the JAX package.
 
 Besides its step lines (the loop's, each with the loss as its ``repr``)
 the worker prints ``start_step=`` (with the restore's source, ``peer``
 from the agent's staged copy, ``checkpoint`` from disk, and its timings
-by part), ``done step=`` and, at exit, one
-``worker_launch_counts`` JSON line with its kernel launches and one
-``worker_times`` line with its wall-clock marks.
+by part), ``done step=`` (or ``drained``), a
+``worker_launch_counts`` JSON line with its kernel launches so far at
+the start of every step after the first and at exit (an aborted worker's
+last line holds its launches up to its last finished step), and at exit
+one ``worker_times`` line with its wall-clock marks.
 """
 
 from __future__ import annotations
@@ -106,9 +113,11 @@ def main(argv=None) -> int:
     import torch
 
     from dlrover_tpu_torch.agent.elastic_agent import init_distributed
+    from dlrover_tpu_torch.common.constants import WorkerExit
     from dlrover_tpu_torch.models.llama import Llama, cross_entropy_loss
     from dlrover_tpu_torch.ops import flash_attention, norms, quantization
     from dlrover_tpu_torch.trainer.elastic_loop import (
+        DrainExit,
         ElasticTrainLoop,
         TrainLoopConfig,
     )
@@ -145,6 +154,20 @@ def main(argv=None) -> int:
     loop.install_signal_handler()
     times["loop_built"] = time.time()
 
+    def log_launches() -> None:
+        counts = {}
+        for module in (flash_attention, norms, quantization):
+            counts.update(module.launch_counts)
+        log(f"worker_launch_counts {json.dumps(counts)}")
+
+    def counted(data):
+        """The batches, logging the launches so far before every batch
+        after the first: the previous step is done by then."""
+        for n, batch in enumerate(data):
+            if n:
+                log_launches()
+            yield batch
+
     sampler = ElasticDistributedSampler(dataset_size=10 ** 6, seed=0)
     state, start_step = loop.restore_or_init(args.seed, sampler)
     times["restored"] = time.time()
@@ -152,23 +175,29 @@ def main(argv=None) -> int:
         f"source={loop.last_restore_source} dp={loop.dp} "
         f"accum={loop.accum} device={loop.device} "
         f"restore={json.dumps(loop.last_restore_timings)}")
-    if args.steps > start_step:
-        # created at the first step, so a restored position counts
-        data = batches(synthetic_corpus(cfg.vocab_size), sampler,
-                       args.global_batch, seq)
-        loop.config.max_steps = args.steps - start_step
-        state, metrics = loop.run(state, data, start_step=start_step,
-                                  sampler=sampler)
-        log(f"llama_train: done step={metrics['step']} "
-            f"loss={metrics['loss']!r}")
-    else:
-        log("llama_train: nothing to do")
-    loop.close()
-    counts = {}
-    for module in (flash_attention, norms, quantization):
-        counts.update(module.launch_counts)
-    log(f"worker_launch_counts {json.dumps(counts)}")
-    log(f"worker_times {json.dumps(times)}")
+    try:
+        if args.steps > start_step:
+            # created at the first step, so a restored position counts
+            data = batches(synthetic_corpus(cfg.vocab_size), sampler,
+                           args.global_batch, seq)
+            loop.config.max_steps = args.steps - start_step
+            state, metrics = loop.run(state, counted(data),
+                                      start_step=start_step,
+                                      sampler=sampler)
+            log(f"llama_train: done step={metrics['step']} "
+                f"loss={metrics['loss']!r}")
+        else:
+            log("llama_train: nothing to do")
+        loop.close()
+    except DrainExit:
+        # the emergency checkpoint is committed (or its outcome logged):
+        # leave with the clean-drain code, the step's count and times
+        # first
+        log(f"llama_train: drained (exit {WorkerExit.DRAIN})")
+        raise
+    finally:
+        log_launches()
+        log(f"worker_times {json.dumps(times)}")
     return 0
 
 

@@ -8,17 +8,21 @@ hang. This is the standalone master (``run.py --standalone``), with the
 single-lock rendezvous manager (the JAX package's ``rdzv_sharded=False``
 path).
 
+The master keeps the job's goodput ledger (``obs/goodput.py``), fed
+by the servicer and served over ``GoodputRequest``.
+
 Not ported yet (ROADMAP Queue A item 12): the state backend and hot
-standby, the sharded rendezvous router and the coordination tier,
-goodput, the time-series store, steptrace, diagnosis, the fleet
-controller, chaos, the job manager with its scalers and watchers, the
-brain and the metrics HTTP exporter.
+standby, the sharded rendezvous router and the coordination tier, the
+time-series store, steptrace, diagnosis, the fleet controller, the
+master-side chaos injector, the job manager with its scalers and
+watchers, the brain and the metrics HTTP exporter.
 """
 
 from __future__ import annotations
 
 import threading
 
+from dlrover_tpu_torch import obs
 from dlrover_tpu_torch.common.comm import build_server, local_ip
 from dlrover_tpu_torch.common.config import Context
 from dlrover_tpu_torch.common.constants import RendezvousName
@@ -68,6 +72,9 @@ class JobMaster:
             keep_generations=ctx.kv_gc_keep_generations)
         self.sync_service = SyncService(expected_workers=min_nodes)
         self.elastic_ps_service = ElasticPsService()
+        # the goodput ledger classifies every rank-second of the job
+        # (obs/goodput.py); fed by the servicer, queried over RPC
+        self.goodput_ledger = obs.GoodputLedger()
         self.servicer = MasterServicer(
             task_manager=self.task_manager,
             rdzv_managers=self.rdzv_managers,
@@ -75,6 +82,7 @@ class JobMaster:
             speed_monitor=self.speed_monitor,
             sync_service=self.sync_service,
             elastic_ps_service=self.elastic_ps_service,
+            goodput_ledger=self.goodput_ledger,
         )
         self._host = host
         self._server, self.port = build_server(

@@ -16,11 +16,18 @@ Peer restore: agents register the host copies their donors serve
 shard to a donor, stamped with the world epoch that every real
 membership loss bumps.
 
-Not ported yet: slice-scoped worlds (ROADMAP Queue A item 6.4), drains
-(6.5), the parallelism planner (6.3), the sharded router and the state
-export of the state backend (12). Without slices every remote donor is
-on the "cross-slice" tier; without drains no donor is excluded as
-draining.
+Drains: a preemption notice marks a rank DRAINING (it keeps training,
+is no donor, and the post-departure world is planned at once); its
+completion removes it so survivors re-form in one round; a draining rank
+whose deadline passed is reaped on the next poll, and a re-join cancels
+the drain. ``export_state``/``restore_state`` round-trip the protocol
+state the port holds (membership, worlds, draining set, donors) in the
+JAX manager's format.
+
+Not ported yet: slice-scoped worlds (ROADMAP Queue A item 6.4), the
+parallelism planner (6.3), the sharded router (12.2) and the state
+backend that persists the export (12.1). Without slices every remote
+donor is on the "cross-slice" tier.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from typing import Dict, List, Optional, Tuple
 
 from dlrover_tpu_torch import obs
 from dlrover_tpu_torch.common.config import Context
+from dlrover_tpu_torch.common.constants import RendezvousName
 from dlrover_tpu_torch.common.log import default_logger as logger
 
 
@@ -139,6 +147,11 @@ class RendezvousManager:
         # rank's registered donor store {addr, step, keys, bytes, ts}
         self._world_epoch = 0
         self._peer_stores: Dict[int, Dict] = {}
+        # preemption drain: rank -> departure deadline (unix ts). A
+        # draining rank keeps training until it departs; on
+        # complete_drain (or a blown deadline) the world re-forms in one
+        # round
+        self._draining: Dict[int, float] = {}
 
     # -- membership --------------------------------------------------------
     def update_rdzv_params(self, min_nodes: int, max_nodes: int,
@@ -180,10 +193,25 @@ class RendezvousManager:
     def reap_dead_nodes(self, timeout_s: float) -> None:
         """Declare ranks silent for > timeout_s dead (world invalidation
         via remove_alive_node). 0/negative disables. Runs on live agents'
-        polls: no master thread needed."""
+        polls: no master thread needed.
+
+        Draining ranks whose departure deadline passed are reaped
+        regardless of the liveness timeout: the platform took the machine
+        at the deadline even if the drain-complete RPC was lost."""
+        now = time.time()
+        with self._lock:
+            overdue = [rank for rank, deadline in self._draining.items()
+                       if now > deadline + 5.0]
+            for rank in overdue:
+                del self._draining[rank]
+        for rank in overdue:
+            logger.warning(
+                "%s rendezvous: draining node %d blew its departure "
+                "deadline without reporting completion; removing it",
+                self.name, rank)
+            self.remove_alive_node(rank, graceful=False)
         if timeout_s <= 0:
             return
-        now = time.time()
         with self._lock:
             dead = [rank for rank in self._alive_nodes
                     if now - self._last_seen.get(rank, now) > timeout_s]
@@ -209,6 +237,7 @@ class RendezvousManager:
             self._alive_nodes.discard(node_rank)
             self._waiting.pop(node_rank, None)
             self._pending_rejoin.discard(node_rank)
+            self._draining.pop(node_rank, None)
             # the host's staged state goes with the host
             self._peer_stores.pop(node_rank, None)
             self._mutations += 1
@@ -229,6 +258,7 @@ class RendezvousManager:
                 self._on_world_invalidated()
                 invalidated_round = self._rdzv_round - 1
         # obs sinks run OUTSIDE the manager lock (they take their own)
+        self._publish_draining_gauge()
         if invalidated_round is not None:
             obs.get_flight_recorder().record_event(
                 "world_invalidated", rdzv=self.name,
@@ -257,6 +287,9 @@ class RendezvousManager:
             self._alive_nodes.add(node_rank)
             self._last_seen[node_rank] = time.time()
             self._pending_rejoin.discard(node_rank)
+            # a re-joining rank is no longer departing (the drain was
+            # cancelled operator-side, or the platform gave it back)
+            self._draining.pop(node_rank, None)
             if node_ip:
                 self._node_ips[node_rank] = node_ip
             if len(self._waiting) == 1:
@@ -267,6 +300,7 @@ class RendezvousManager:
             "dlrover_tpu_rendezvous_joins_total",
             "join_rendezvous RPCs accepted", labelnames=("rdzv",),
         ).labels(rdzv=self.name).inc()
+        self._publish_draining_gauge()
         return joined_round
 
     def leave_waiting(self, node_rank: int) -> None:
@@ -387,6 +421,59 @@ class RendezvousManager:
             "Node count of the latest cut world", labelnames=("rdzv",),
         ).labels(rdzv=self.name).set(world_size)
 
+    # -- preemption drain --------------------------------------------------
+    def _publish_draining_gauge(self) -> None:
+        """Republished by every path that mutates the draining set
+        (notice, completion, blown-deadline reap, re-join cancel, death,
+        state restore). Called OUTSIDE the manager lock."""
+        if self.name != RendezvousName.TRAINING:
+            return
+        with self._lock:
+            count = len(self._draining)
+        obs.get_registry().gauge(
+            "dlrover_tpu_draining_nodes",
+            "Ranks currently draining (announced, not yet departed)",
+        ).set(count)
+
+    def mark_draining(self, node_rank: int, deadline: float
+                      ) -> Dict[int, int]:
+        """A preemption notice for ``node_rank``: it keeps training
+        until departure, but the post-departure world is planned NOW.
+        Returns that planned world (the latest world minus every
+        draining rank)."""
+        with self._lock:
+            if node_rank in self._alive_nodes:
+                self._draining[node_rank] = deadline
+                self._mutations += 1
+            planned = {rank: n for rank, n in self._latest_world.items()
+                       if rank not in self._draining}
+        logger.info(
+            "%s rendezvous: node %d DRAINING (deadline %.0fs away); "
+            "planned post-departure world %s", self.name, node_rank,
+            max(0.0, deadline - time.time()), sorted(planned))
+        self._publish_draining_gauge()
+        return planned
+
+    def complete_drain(self, node_rank: int) -> bool:
+        """The drained worker exited clean: remove the rank now (a
+        planned departure, no liveness timeout) so survivors re-form in
+        one round. Returns whether the rank was known draining."""
+        with self._lock:
+            was_draining = self._draining.pop(node_rank, None) is not None
+        # NOT graceful: the cut world held the drained rank, so survivors
+        # re-join for the smaller world, and with the rank out of the
+        # alive set the round cuts as soon as the last survivor joins
+        self.remove_alive_node(node_rank, graceful=False)
+        obs.get_flight_recorder().record_event(
+            "node_drained", rdzv=self.name, rank=node_rank,
+            announced=was_draining)
+        return was_draining
+
+    @property
+    def draining(self) -> Dict[int, float]:
+        with self._lock:
+            return dict(self._draining)
+
     # -- peer-to-peer restore (checkpoint/peer_restore.py) -----------------
     @property
     def world_epoch(self) -> int:
@@ -425,11 +512,12 @@ class RendezvousManager:
         network); the rest go round-robin over the donors. Stamped with
         the world epoch, the staleness guard. ``stripe``: each entry
         lists every same-step holder, for byte-range fetches from all of
-        them."""
+        them. A draining rank is no donor."""
         with self._lock:
             stores = {rank: store
                       for rank, store in self._peer_stores.items()
-                      if rank in self._alive_nodes}
+                      if rank in self._alive_nodes
+                      and rank not in self._draining}
             plan = plan_restore_entries(stores, node_rank, {},
                                         stripe=stripe)
             plan["epoch"] = self._world_epoch
@@ -446,6 +534,70 @@ class RendezvousManager:
     def rdzv_round(self) -> int:
         with self._lock:
             return self._rdzv_round
+
+    # -- state round trip --------------------------------------------------
+    def export_state(self) -> dict:
+        """JSON-safe snapshot of the protocol state, in the JAX manager's
+        format for the fields the port holds. Liveness clocks are not
+        exported: a restored master restarts them (stale clocks would
+        reap every member at its first poll)."""
+        with self._lock:
+            return {
+                "round": self._rdzv_round,
+                "latest_world": {str(r): n
+                                 for r, n in self._latest_world.items()},
+                "waiting": {str(r): w.local_world_size
+                            for r, w in self._waiting.items()},
+                "alive": sorted(self._alive_nodes),
+                "pending_rejoin": sorted(self._pending_rejoin),
+                "node_ips": {str(r): ip
+                             for r, ip in self._node_ips.items()},
+                "draining": {str(r): deadline
+                             for r, deadline in self._draining.items()},
+                "world_epoch": self._world_epoch,
+                "peer_stores": {
+                    str(r): {"addr": s["addr"], "step": s["step"],
+                             "keys": list(s["keys"]),
+                             "bytes": s.get("bytes", 0)}
+                    for r, s in self._peer_stores.items()
+                },
+            }
+
+    def restore_state(self, state: dict) -> None:
+        """Rehydrate from ``export_state`` (this package's or the JAX
+        manager's; the fields the port does not hold are ignored)."""
+        now = time.time()
+        with self._lock:
+            self._rdzv_round = int(state.get("round", 0))
+            self._latest_world = {
+                int(r): int(n)
+                for r, n in state.get("latest_world", {}).items()}
+            self._waiting = {
+                int(r): _WaitingNode(int(r), int(n), join_time=now)
+                for r, n in state.get("waiting", {}).items()}
+            self._alive_nodes = {int(r) for r in state.get("alive", ())}
+            self._pending_rejoin = {
+                int(r) for r in state.get("pending_rejoin", ())}
+            self._node_ips = {int(r): ip for r, ip in
+                              state.get("node_ips", {}).items()}
+            # absolute deadlines survive the restart as they are: a drain
+            # announced before the master died is still a drain, and a
+            # blown deadline is reaped at the first poll
+            self._draining = {int(r): float(d) for r, d in
+                              state.get("draining", {}).items()}
+            self._world_epoch = int(state.get("world_epoch", 0))
+            self._peer_stores = {
+                int(r): {"addr": s.get("addr", ""),
+                         "step": int(s.get("step", -1)),
+                         "keys": list(s.get("keys", ())),
+                         "bytes": int(s.get("bytes", 0)),
+                         "ts": now}
+                for r, s in state.get("peer_stores", {}).items()}
+            # every restored member gets a fresh liveness clock
+            self._last_seen = {rank: now for rank in self._alive_nodes}
+            self._latest_round_start = now
+            self._mutations += 1
+        self._publish_draining_gauge()
 
 
 class ElasticTrainingRendezvousManager(RendezvousManager):

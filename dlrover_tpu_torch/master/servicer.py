@@ -10,6 +10,14 @@ routes.
 A request whose subsystem is not ported yet is answered
 ``Response(success=False, reason="not ported: ROADMAP Queue A item …")``
 rather than pretending to handle it (``_NOT_PORTED``).
+
+The goodput ledger (``obs/goodput.py``, optional) is fed as the JAX
+master feeds it: step reports, the spans of telemetry reports, the
+drain protocol, hang and crash failure reports, and each newly cut
+training world. A ``TelemetryReport`` is processed in the RPC (the JAX
+master's bounded ingest queue is the coordination tier's, ROADMAP Queue
+A item 12.3), and only its spans and samples: the time-series half
+waits for 12.4.
 """
 
 from __future__ import annotations
@@ -22,7 +30,11 @@ import grpc
 
 from dlrover_tpu_torch.common import messages as msg
 from dlrover_tpu_torch.common.config import Context
-from dlrover_tpu_torch.common.constants import JobStage, RendezvousName
+from dlrover_tpu_torch.common.constants import (
+    JobStage,
+    NodeExitReason,
+    RendezvousName,
+)
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch import obs
 from dlrover_tpu_torch.master.kv_store import KVStoreService
@@ -40,7 +52,6 @@ from dlrover_tpu_torch.master.sync_service import ElasticPsService, SyncService
 _NOT_PORTED = {
     msg.DiagnosisActionRequest: "12 (diagnosis)",
     msg.DiagnosisReportRequest: "12 (diagnosis)",
-    msg.GoodputRequest: "12 (goodput)",
     msg.AutoscaleStatusRequest: "12 (brain)",
     msg.TimeSeriesQuery: "12 (tsdb)",
     msg.ClockProbe: "12 (steptrace)",
@@ -48,11 +59,9 @@ _NOT_PORTED = {
     msg.PlanCalibrationRequest: "6.3 (calibration)",
     msg.SliceStatusRequest: "6.4 (slice mode)",
     msg.ShardPlanRequest: "6.3 (re-planning)",
-    msg.DrainReport: "6.5 (drain)",
     msg.ReconnectRequest: "12 (master-loss reconnect)",
     msg.NodeResourceStats: "12 (agent monitors)",
     msg.ScaleRequest: "12 (job manager)",
-    msg.TelemetryReport: "12 (goodput, tsdb and telemetry ingest)",
 }
 
 
@@ -72,6 +81,7 @@ class MasterServicer:
         speed_monitor: Optional[SpeedMonitor] = None,
         sync_service: Optional[SyncService] = None,
         elastic_ps_service: Optional[ElasticPsService] = None,
+        goodput_ledger: Optional[obs.GoodputLedger] = None,
     ):
         self.task_manager = task_manager or TaskManager()
         self.rdzv_managers: Dict[str, RendezvousManager] = rdzv_managers or {
@@ -82,6 +92,9 @@ class MasterServicer:
         self.speed_monitor = speed_monitor or SpeedMonitor()
         self.sync_service = sync_service or SyncService()
         self.elastic_ps_service = elastic_ps_service or ElasticPsService()
+        # the goodput ledger (obs/goodput.py), fed from step reports,
+        # telemetry spans, and the drain and failure handlers
+        self.goodput_ledger = goodput_ledger or obs.GoodputLedger()
         # the tuned config is read on RPC threads and replaced by reports
         self._paral_lock = threading.Lock()
         self._paral_config = msg.ParallelConfig()
@@ -123,6 +136,10 @@ class MasterServicer:
         if isinstance(request, msg.CommWorldRequest):
             mgr = self.rdzv_managers[request.rdzv_name]
             rdzv_round, group, world = mgr.get_comm_world(request.node_id)
+            if world and request.rdzv_name == RendezvousName.TRAINING:
+                # a cut training world: the ledger opens an incarnation
+                # per new round (idempotent for repeat polls)
+                self.goodput_ledger.observe_world(rdzv_round, len(world))
             return msg.CommWorld(rdzv_name=request.rdzv_name,
                                  round=rdzv_round, group=group, world=world)
         if isinstance(request, msg.WaitingNodeNumRequest):
@@ -133,9 +150,12 @@ class MasterServicer:
             before = mgr.mutation_count
             mgr.reap_dead_nodes(Context.singleton().dead_node_timeout_s)
             if mgr.mutation_count != before:
-                self.speed_monitor.evict_departed(mgr.alive_nodes)
+                self._evict_departed(mgr)
             return msg.WaitingNodeNum(
                 waiting_num=mgr.num_nodes_waiting(request.node_id))
+        if isinstance(request, msg.GoodputRequest):
+            return msg.GoodputReport(report_json=json.dumps(
+                self.goodput_ledger.snapshot(window_s=request.window_s)))
         if isinstance(request, msg.KVGetRequest):
             return msg.KeyValuePair(key=request.key,
                                     value=self.kv_store.get(request.key))
@@ -274,6 +294,11 @@ class MasterServicer:
                 step_time_s=request.step_time_s,
                 data_wait_fraction=request.data_wait_fraction,
                 mfu=request.mfu)
+            self.goodput_ledger.observe_step_report(
+                rank, request.step,
+                step_time_s=request.step_time_s,
+                data_wait_fraction=request.data_wait_fraction,
+                mfu=request.mfu)
             self._touch_rendezvous(request.node_rank)
         elif isinstance(request, msg.NodeHeartbeat):
             self._touch_rendezvous(request.node_rank)
@@ -283,6 +308,17 @@ class MasterServicer:
                            request.exit_kind or "-",
                            request.error_data[:512])
             self.task_manager.recover_tasks(request.node_id)
+            failed_rank = (request.node_rank if request.node_rank >= 0
+                           else request.node_id)
+            if request.exit_kind == NodeExitReason.HANG:
+                self.goodput_ledger.observe_hang(
+                    failed_rank, Context.singleton().hang_watchdog_s)
+            elif request.exit_kind != NodeExitReason.DRAINED:
+                self.goodput_ledger.note_elasticity_event("worker_lost")
+        elif isinstance(request, msg.DrainReport):
+            return self._handle_drain(request)
+        elif isinstance(request, msg.TelemetryReport):
+            self._process_telemetry(request)
         elif isinstance(request, msg.PeerStoreReport):
             mgr = self.rdzv_managers.get(
                 request.rdzv_name or RendezvousName.TRAINING)
@@ -334,6 +370,95 @@ class MasterServicer:
         return msg.Response(success=ok, reason=reason)
 
     # ------------------------------------------------------------------
+    def _handle_drain(self, request: msg.DrainReport) -> msg.DrainResult:
+        """The advance-notice drain protocol. phase="notice": mark the
+        rank DRAINING in every rendezvous and plan the post-departure
+        world. phase="complete": remove the rank now, so survivors
+        re-form in one round instead of waiting out the liveness
+        timeout.
+
+        This is the JAX master's handler as it runs with no diagnosis
+        manager: the urgent ``checkpoint`` fan-out to the survivors waits
+        for the diagnosis port (ROADMAP Queue A item 12.6), so
+        ``checkpoint_ranks`` stays empty, and slice-scoped drains wait
+        for slice mode (6.4)."""
+        rank = (request.node_rank if request.node_rank >= 0
+                else request.node_id)
+        if request.phase == "complete":
+            announced = False
+            # notice → departure is drain badput; the rank's lifetime
+            # in the ledger ends here
+            self.goodput_ledger.complete_drain(rank)
+            for mgr in self.rdzv_managers.values():
+                announced = mgr.complete_drain(rank) or announced
+                self._evict_departed(mgr)
+            logger.info("node %d drain COMPLETE (announced=%s): "
+                        "survivors re-form now", rank, announced)
+        else:
+            self.goodput_ledger.mark_draining(rank, request.deadline)
+            planned = {}
+            for name, mgr in self.rdzv_managers.items():
+                world = mgr.mark_draining(rank, request.deadline)
+                if name == RendezvousName.TRAINING:
+                    planned = world
+            obs.get_flight_recorder().record_event(
+                "node_draining", rank=rank, deadline=request.deadline,
+                reason=request.reason[:256], slice=-1,
+                planned_world=sorted(planned), drain_ranks=[],
+                checkpoint_ranks=[])
+        obs.get_registry().counter(
+            "dlrover_tpu_drains_total",
+            "Drain protocol messages by phase",
+            labelnames=("phase",)).labels(phase=request.phase).inc()
+        return msg.DrainResult(success=True, checkpoint_ranks=[])
+
+    def _process_telemetry(self, report: msg.TelemetryReport) -> None:
+        """Replay a node's metric samples on the master's registry, and
+        feed its spans into the master's flight recorder, the span
+        histogram and the goodput ledger."""
+        registry = obs.get_registry()
+        for sample in report.samples:
+            if not sample.name:
+                continue
+            labels = dict(sample.labels)
+            labels.setdefault("node", str(report.node_id))
+            try:
+                names = tuple(sorted(labels))
+                if sample.kind == "counter":
+                    registry.counter(sample.name, labelnames=names).labels(
+                        **labels).inc(sample.value)
+                elif sample.kind == "histogram":
+                    registry.histogram(sample.name,
+                                       labelnames=names).labels(
+                        **labels).observe(sample.value)
+                else:
+                    registry.gauge(sample.name, labelnames=names).labels(
+                        **labels).set(sample.value)
+            except (TypeError, ValueError) as e:
+                logger.warning("telemetry sample %s dropped: %s",
+                               sample.name, e)
+        if not report.spans_json:
+            return
+        try:
+            spans = json.loads(report.spans_json)
+        except json.JSONDecodeError:
+            logger.warning("telemetry spans from node %d undecodable",
+                           report.node_id)
+            return
+        if isinstance(spans, list):
+            obs.record_remote_spans(spans, registry)
+            for record in spans:
+                if isinstance(record, dict):
+                    self.goodput_ledger.observe_span(record,
+                                                     rank=report.node_rank)
+
+    def _evict_departed(self, mgr) -> None:
+        """After a membership mutation: the departed ranks' speed
+        evidence and goodput lifetimes go with them."""
+        live = mgr.alive_nodes
+        self.speed_monitor.evict_departed(live)
+        self.goodput_ledger.evict(live)
+
     def _touch_rendezvous(self, node_rank: int) -> None:
         """Heartbeats and step reports carry the sender's RANK, so they
         count as liveness too. touch() ignores rank < 0."""

@@ -1,14 +1,15 @@
-"""Telemetry primitives: metrics registry, lifecycle spans, flight
-recorder, per-step timeline, and the MFU formula.
+"""Telemetry primitives: metrics registry, lifecycle spans and their
+exporter to the master, flight recorder, per-step timeline, the goodput
+ledger, and the MFU formula.
 
 Own copy of the parts of the JAX package's ``obs/`` that the ported
 master, agent and loop call. Importing the package wires the defaults:
 every finished span is recorded into the process flight recorder and
 observed into the ``dlrover_tpu_span_duration_seconds`` histogram.
 
-Not ported yet (ROADMAP Queue A item 12): the span exporter, the
-goodput ledger, the time-series store, steptrace, device telemetry, the
-profiler and the metrics HTTP exporter.
+Not ported yet (ROADMAP Queue A item 12): the time-series store,
+steptrace, device telemetry, the profiler and the metrics HTTP
+exporter.
 """
 
 from __future__ import annotations
@@ -21,6 +22,13 @@ from dlrover_tpu_torch.obs.flight_recorder import (
     FlightRecorder,
     get_flight_recorder,
 )
+from dlrover_tpu_torch.obs.goodput import (
+    BADPUT_BUCKETS,
+    BUCKETS,
+    GoodputLedger,
+    render_snapshot,
+    snapshot_from_flight,
+)
 from dlrover_tpu_torch.obs.metrics import (
     DEFAULT_BUCKETS,
     MetricsRegistry,
@@ -28,6 +36,7 @@ from dlrover_tpu_torch.obs.metrics import (
 )
 from dlrover_tpu_torch.obs.spans import (
     Span,
+    SpanExporter,
     add_span_sink,
     current_context,
     current_span,
@@ -35,23 +44,31 @@ from dlrover_tpu_torch.obs.spans import (
     remove_span_sink,
     span,
 )
-from dlrover_tpu_torch.obs.timeline import StepTimeline
+from dlrover_tpu_torch.obs.timeline import StepTimeline, load_timeline
 
 __all__ = [
+    "BADPUT_BUCKETS",
+    "BUCKETS",
     "DEFAULT_BUCKETS",
     "FLIGHT_DIR_ENV",
     "FlightRecorder",
+    "GoodputLedger",
     "MetricsRegistry",
     "Span",
+    "SpanExporter",
     "StepTimeline",
     "add_span_sink",
     "current_context",
     "current_span",
     "get_flight_recorder",
     "get_registry",
+    "load_timeline",
     "mfu",
+    "record_remote_spans",
     "record_span",
     "remove_span_sink",
+    "render_snapshot",
+    "snapshot_from_flight",
     "span",
 ]
 
@@ -82,3 +99,29 @@ def _install_defaults() -> None:
 
 
 _install_defaults()
+
+
+def record_remote_spans(spans, registry: MetricsRegistry = None) -> None:
+    """Ingest span dicts that arrived from another process (the
+    telemetry path to the master): append them to the local flight
+    recorder and feed the span-duration histogram, so the master's
+    timeline and exposition cover the whole job. The recorder's span-id
+    dedup gates the histogram too: a span recorded locally and relayed
+    (a standalone run) counts once."""
+    registry = registry or get_registry()
+    recorder = get_flight_recorder()
+    histogram = registry.histogram(
+        "dlrover_tpu_span_duration_seconds",
+        "Duration of lifecycle spans by name",
+        labelnames=("span",),
+    )
+    for record in spans:
+        if not isinstance(record, dict) or "name" not in record:
+            continue
+        if not recorder.record_span(record):
+            continue
+        try:
+            histogram.labels(span=str(record["name"])).observe(
+                float(record.get("duration_s", 0.0)))
+        except (TypeError, ValueError):
+            continue

@@ -5,7 +5,8 @@ checkpoint save/restore) only fire during elasticity — a sampling
 profiler never sees them. Spans make them first-class: a `span(...)`
 context manager times a named region, nests under the thread's current
 span, and on completion fans out to registered sinks (the flight
-recorder, the duration histogram).
+recorder, the duration histogram, a publisher batching spans to the
+master).
 
 Cross-process parenting: `current_context()` serializes the active
 span's identity into a small dict that travels inside a control-plane
@@ -13,9 +14,7 @@ message; the receiving side passes it as ``parent=`` so the master's
 rendezvous span and the agent's join span share one trace.
 
 Own copy of the JAX package's ``obs/spans.py``; stdlib-only (imported
-by agent, worker and master alike). Not ported yet: ``SpanExporter``,
-which batches spans for the master's telemetry ingest (ROADMAP Queue A
-item 12).
+by agent, worker and master alike).
 """
 
 from __future__ import annotations
@@ -181,3 +180,48 @@ def record_span(name: str, duration_s: float,
     finished.status = status
     _dispatch(finished)
     return finished
+
+
+class SpanExporter:
+    """A sink that batches finished spans for shipping to the master.
+
+    Bounded: when more than ``capacity`` spans accumulate between
+    flushes, the oldest are dropped (and counted): a wedged master must
+    not grow worker memory."""
+
+    def __init__(self, capacity: int = 512):
+        self._lock = threading.Lock()
+        self._capacity = capacity
+        self._spans: List[Dict[str, Any]] = []
+        self._dropped = 0
+
+    def __call__(self, finished: Span) -> None:
+        with self._lock:
+            self._spans.append(finished.to_dict())
+            overflow = len(self._spans) - self._capacity
+            if overflow > 0:
+                del self._spans[:overflow]
+                self._dropped += overflow
+
+    def drain(self) -> List[Dict[str, Any]]:
+        with self._lock:
+            batch, self._spans = self._spans, []
+            return batch
+
+    def flush_to(self, client) -> None:
+        """Drain and ship to the master through
+        ``client.report_telemetry(spans=...)``. Telemetry is droppable by
+        contract: every failure is swallowed (the batch is lost, the
+        caller's work must never be)."""
+        spans = self.drain()
+        if not spans:
+            return
+        try:
+            client.report_telemetry(spans=spans)
+        except Exception:  # noqa: BLE001 — droppable by contract
+            pass
+
+    @property
+    def dropped(self) -> int:
+        with self._lock:
+            return self._dropped

@@ -10,31 +10,39 @@ step reports to the master.
 
 Recording is on the hot path: one ``record()`` per step must cost
 microseconds, so a record is a dict append under a plain lock — no I/O,
-no metrics.
+no metrics. The periodic ``export()`` (report-interval cadence) does
+the JSON write, atomically: the agent reads the file (``load_timeline``)
+for its relaunch governor's forward-progress check, and never sees a
+torn one.
 
-Own copy of the JAX package's ``obs/timeline.py``; stdlib-only. Not
-ported yet: ``export``/``load_timeline``, the JSON file the JAX agent
-reads for its step-hang watchdog's forward-progress check (ROADMAP
-Queue A item 6.5).
+Own copy of the JAX package's ``obs/timeline.py``; stdlib-only.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import threading
+import time
 from collections import deque
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 # canonical phase order (rendering + fraction math); "other" is the
 # residual of total_s not covered by an explicit phase
 PHASES = ("data_wait", "h2d", "compute", "host_sync", "checkpoint")
 
+TIMELINE_VERSION = 1
+
 
 class StepTimeline:
     """Bounded ring of per-step phase attributions."""
 
-    def __init__(self, capacity: int = 256):
+    def __init__(self, capacity: int = 256, role: str = "worker",
+                 rank: int = -1):
         self._lock = threading.Lock()
         self._steps: deque = deque(maxlen=capacity)
+        self._role = role
+        self._rank = rank
 
     def record(self, step: int, total_s: float,
                **phases: float) -> None:
@@ -79,3 +87,44 @@ class StepTimeline:
                 stats[f"{name}_fraction"] = value / total
         stats.setdefault("data_wait_fraction", -1.0 if total <= 0 else 0.0)
         return stats
+
+    # -- export / parse ----------------------------------------------------
+    def export(self, path: str, last_n: int = 0) -> bool:
+        """Atomically write the ring as JSON (the agent's reader
+        contract). ``last_n`` > 0 writes only the newest N records (the
+        report-interval exports on the hot path serialize a tail); the
+        end of a run writes the whole ring. Never raises: a full disk
+        must not kill the step loop."""
+        steps = self.snapshot()
+        if last_n > 0:
+            steps = steps[-last_n:]
+        payload = {
+            "version": TIMELINE_VERSION,
+            "role": self._role,
+            "rank": self._rank,
+            "pid": os.getpid(),
+            "exported_at": time.time(),
+            "steps": steps,
+        }
+        try:
+            tmp = path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(payload, f)
+            os.replace(tmp, path)
+            return True
+        except OSError:
+            return False
+
+
+def load_timeline(path: str) -> Optional[Dict[str, Any]]:
+    """Parse an exported timeline file; None when missing or corrupt
+    (readers poll while the worker is mid-flight: absence is normal)."""
+    try:
+        with open(path) as f:
+            payload = json.load(f)
+    except (OSError, json.JSONDecodeError, ValueError):
+        return None
+    if not isinstance(payload, dict) or \
+            not isinstance(payload.get("steps"), list):
+        return None
+    return payload

@@ -25,14 +25,43 @@ plan (the master's, the agent's plan file, or the local cache's) and
 reads the staged state from memory: ``last_restore_source`` is then
 ``"peer"`` or ``"mixed"``, else ``"checkpoint"`` or ``"init"``.
 
-Not ported yet: telemetry span flushes (ROADMAP Queue A item 12), the
-shard plan and re-planning (6.3), slice mode (6.4), drain requests, the
-step-hang watchdog and its timeline export, chaos and steptrace (6.5).
+Planned and silent failures (the JAX loop's, under the agent's env
+contract):
+
+- a drain request from the agent (``agent/preemption.py``, the file
+  ``DLROVER_TPU_DRAIN_REQUEST``) is consumed at the next step boundary:
+  ``exit=True`` (a preemption notice) runs the deadline-bounded
+  emergency checkpoint, exports the timeline, flushes telemetry, dumps
+  the flight record and leaves with the clean-drain exit code 76
+  (:class:`DrainExit`); ``exit=False`` saves and keeps training;
+- the step-hang watchdog (``trainer/watchdog.py``, armed when
+  ``hang_watchdog_s`` > 0) dumps every thread's stack and self-aborts a
+  worker whose steps stopped; it is disarmed around the drain's save
+  and the final commit wait;
+- the per-step timeline is exported to ``DLROVER_TPU_TIMELINE_FILE`` at
+  the report cadence and at the end of a run (the agent's
+  forward-progress evidence);
+- finished spans (``restore_or_init``, the checkpointer's) are batched
+  to the master at the report cadence (``obs.SpanExporter``);
+- ``DLROVER_TPU_CHAOS`` scripts a fault at a step
+  (``diagnostics/chaos.py``).
+
+While a run lasts, CPython's automatic garbage collection is off and
+the loop collects the young generations at step boundaries instead:
+after the run's first step (its lazy imports and first allocations)
+and every ``GC_EVERY_STEPS`` steps. An automatic collection can land
+inside a step's kernel launches and hold the card idle for its
+50-100 ms (Llama-1B on an H100). The oldest generation waits for the
+run's end.
+
+Not ported yet: the shard plan and re-planning (ROADMAP Queue A item
+6.3), slice mode (6.4) and steptrace (12.5).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import math
 import os
 import signal
@@ -44,11 +73,14 @@ import numpy as np
 import torch
 
 from dlrover_tpu_torch import obs
+from dlrover_tpu_torch.agent.preemption import DrainRequestSource
 from dlrover_tpu_torch.checkpoint.flash_checkpoint import FlashCheckpointer
 from dlrover_tpu_torch.checkpoint.peer_restore import (
     PeerRestorer,
     PeerStateStore,
 )
+from dlrover_tpu_torch.common.config import Context
+from dlrover_tpu_torch.common.constants import NodeEnv, WorkerExit
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.obs import mfu
 from dlrover_tpu_torch.parallel.mesh import MeshSpec, create_mesh, dp_size
@@ -58,6 +90,22 @@ from dlrover_tpu_torch.trainer.train_step import (
     build_trainer,
     choose_accumulation,
 )
+from dlrover_tpu_torch.trainer.watchdog import StepHangWatchdog
+
+
+# the young generations' collection cadence while a run lasts (see the
+# module docstring)
+GC_EVERY_STEPS = 50
+
+
+class DrainExit(SystemExit):
+    """Clean graceful drain: the loop consumed a preemption drain
+    request, ran the emergency checkpoint, and the process must exit
+    with the clean-drain code the agent classifies as NON-failure."""
+
+    def __init__(self, reason: str = ""):
+        super().__init__(WorkerExit.DRAIN)
+        self.reason = reason
 
 
 @dataclasses.dataclass
@@ -111,6 +159,21 @@ class ElasticTrainLoop:
         elastic_agent.py::init_distributed``), or this process alone.
         ``master_client``: a ``MasterClient`` to report to (None: no
         master)."""
+        # finished spans batched for the master (flushed at report
+        # intervals); registered before any span below. A failed
+        # construction deregisters it (the sink list outlives this
+        # instance).
+        self._span_exporter = obs.SpanExporter()
+        obs.add_span_sink(self._span_exporter)
+        try:
+            self._init_inner(model, optimizer_factory, loss_fn, config,
+                             master_client, device)
+        except BaseException:
+            obs.remove_span_sink(self._span_exporter)
+            raise
+
+    def _init_inner(self, model, optimizer_factory, loss_fn, config,
+                    master_client, device) -> None:
         self.client = master_client
         self.config = config
         self.mesh = create_mesh(config.mesh_spec, device)
@@ -151,10 +214,24 @@ class ElasticTrainLoop:
         logger.info("elastic loop: device=%s dp=%d accum=%d "
                     "micro(global)=%d mesh=%s", self.device, self.dp,
                     self.accum, self.micro_global, self.mesh.shape)
-        # per-step phase attribution whose windowed means ride on the
-        # step reports (kept only when there is a master to report to)
-        self.timeline = (obs.StepTimeline() if self.client is not None
-                         else None)
+        # per-step phase attribution: its windowed means ride on the
+        # step reports, and its export is the agent's forward-progress
+        # evidence
+        self.timeline = obs.StepTimeline(
+            role="worker",
+            rank=int(os.environ.get(NodeEnv.NODE_RANK, "-1")))
+        self._timeline_path = os.environ.get(NodeEnv.TIMELINE_FILE, "")
+        self._timeline_exported_at = 0.0
+        # drain and urgent-checkpoint requests from the agent, consumed
+        # at step boundaries (one os.stat a step when armed)
+        self._drain_source = DrainRequestSource()
+        # the step-hang backstop: no progress past hang_watchdog_s →
+        # stack dump + self-abort so the agent restarts this worker
+        # (0 = off)
+        watchdog_s = Context.singleton().hang_watchdog_s
+        self._watchdog = (StepHangWatchdog(watchdog_s)
+                          if watchdog_s > 0 else None)
+        self._chaos = None   # built at the first run: env may change
         # FLOPs/token of the model (obs/mfu.py); set by _report_model_info
         self._flops_per_token = 0.0
         if self.client is not None:
@@ -214,6 +291,15 @@ class ElasticTrainLoop:
                 mfu=step_mfu)
         except Exception:  # noqa: BLE001 — droppable by contract
             logger.warning("step report failed", exc_info=True)
+        # the timeline's tail, at most once a second (the write and
+        # rename cost a millisecond on a slow disk); the end of a run
+        # writes the whole ring
+        now = time.monotonic()
+        if self._timeline_path and now - self._timeline_exported_at >= 1.0:
+            self._timeline_exported_at = now
+            self.timeline.export(
+                self._timeline_path,
+                last_n=2 * self.config.report_interval_steps)
 
     # -- signals -----------------------------------------------------------
     def install_signal_handler(self) -> None:
@@ -241,9 +327,23 @@ class ElasticTrainLoop:
         built in a background thread. Per-phase wall times land in
         ``last_restore_timings`` (the peer path's as ``peer_plan_s``,
         ``peer_transfer_s``, ``peer_assemble_s``, ``peer_bytes`` and
-        ``peer_bandwidth_mbps``)."""
+        ``peer_bandwidth_mbps``). The whole of it is the
+        ``restore_or_init`` span, the goodput ledger's restore bucket."""
         timings: Dict[str, float] = {}
         self.last_restore_timings = timings
+        with obs.span("restore_or_init") as restore_span:
+            state, step = self._restore_or_init(seed, sampler, timings)
+            restore_span.set_attr("start_step", step)
+            restore_span.set_attr("source", self.last_restore_source)
+            for key, value in timings.items():
+                restore_span.set_attr(key, value)
+        if timings:
+            logger.info("restore timings: %s", timings)
+        self._flush_telemetry()
+        return state, step
+
+    def _restore_or_init(self, seed, sampler, timings: Dict[str, float]
+                         ) -> Tuple[TrainState, int]:
         build_thread = None
         if self.config.overlap_restore_compile:
             build_thread = threading.Thread(target=self._precompile_quietly,
@@ -324,8 +424,6 @@ class ElasticTrainLoop:
             timings["compile_wait_after_read_s"] = time.monotonic() - t0
             timings["compile_total_s"] = time.monotonic() - t_build
             timings.update(self.trainer.precompile_timings)
-        if timings:
-            logger.info("restore timings: %s", timings)
         return state, step
 
     def _precompile_quietly(self) -> None:
@@ -356,7 +454,28 @@ class ElasticTrainLoop:
         so the master's clock sees the step end, not the save's staging
         (the save is ``checkpoint_s``; a step that saved also has
         ``checkpoint_wait_s``, the part of it spent waiting for the
-        previous save's commit and peer-cache write)."""
+        previous save's commit and peer-cache write).
+
+        A drain request with ``exit`` consumed at a step boundary ends
+        the run with :class:`DrainExit` after its emergency checkpoint;
+        the step-hang watchdog watches the steps while the run lasts."""
+        if self._chaos is None:
+            from dlrover_tpu_torch.diagnostics.chaos import ChaosInjector
+
+            self._chaos = ChaosInjector()
+        if self._watchdog is not None:
+            self._watchdog.start()
+        gc_was_enabled = gc.isenabled()
+        gc.disable()
+        try:
+            return self._run(state, batches, start_step, sampler)
+        finally:
+            if self._watchdog is not None:
+                self._watchdog.stop()
+            if gc_was_enabled:
+                gc.enable()
+
+    def _run(self, state, batches, start_step, sampler):
         cfg = state.model.config
         flops = model_flops_per_token(cfg, self.config.seq_len)
         tokens_per_step = self.global_batch * self.config.seq_len
@@ -364,6 +483,18 @@ class ElasticTrainLoop:
         step = start_step
         batch_iter = iter(batches)
         while True:
+            # the step BOUNDARY is where a drain request is consumed: the
+            # state is a whole post-step state here. The save may block
+            # for a commit's tens of seconds, which is not a stall: the
+            # watchdog is disarmed around it (re-armed, with its
+            # first-step budget, for a save-and-continue)
+            drain = self._drain_source.poll()
+            if drain is not None:
+                if self._watchdog is not None:
+                    self._watchdog.stop()
+                self._consume_drain(drain, step, state, sampler)
+                if self._watchdog is not None:
+                    self._watchdog.start()
             t_wait = time.monotonic()
             try:
                 tokens, targets = next(batch_iter)
@@ -385,14 +516,17 @@ class ElasticTrainLoop:
             logger.info("step %d loss %r grad_norm %r step_s %.6f "
                         "tokens/s %.1f mfu %.4f", step, loss,
                         record["grad_norm"], dt, tps, record["mfu"])
+            # scripted fault injection (a no-op unless DLROVER_TPU_CHAOS)
+            self._chaos.maybe_inject(step)
             if sampler is not None:
                 sampler.record_batch(self.global_batch)
+            self.timeline.record(step, time.monotonic() - t_wait,
+                                 data_wait=t0 - t_wait, compute=dt)
             if self.client is not None:
-                self.timeline.record(step, time.monotonic() - t_wait,
-                                     data_wait=t0 - t_wait, compute=dt)
                 interval = self.config.report_interval_steps
                 if interval and step % interval == 0:
                     self._report_progress(step)
+                    self._flush_telemetry()
             if self.checkpointer is not None:
                 t0 = time.monotonic()
                 data_state = self._data_state(sampler)
@@ -408,16 +542,85 @@ class ElasticTrainLoop:
                     # a shard-wise restore across both stays consistent
                     self._stage_peer(step, data_state)
                 record["checkpoint_s"] = time.monotonic() - t0
+            # the collections, at the boundary, outside the timed step
+            if len(history) == 1 or step % GC_EVERY_STEPS == 0:
+                gc.collect(1)
+            if self._watchdog is not None:
+                self._watchdog.notify_step(step)
             if self._stop_requested.is_set():
                 logger.info("stopping at step %d on request", step)
+                obs.get_flight_recorder().record_event(
+                    "train_stop_requested", step=step)
                 break
             if self.config.max_steps and len(history) >= self.config.max_steps:
                 break
+        # out of the step loop: a long but legitimate final commit is not
+        # a step hang
+        if self._watchdog is not None:
+            self._watchdog.stop()
         if self.checkpointer is not None:
-            self.checkpointer.wait()
+            with obs.span("checkpoint_wait"):
+                self.checkpointer.wait()
+        if self._timeline_path:
+            # runs shorter than a report interval still leave a timeline
+            self.timeline.export(self._timeline_path)
+        self._flush_telemetry()
         last = history[-1] if history else {}
         return state, {"step": step, "loss": last.get("loss", float("nan")),
                        "history": history}
+
+    # -- preemption drain --------------------------------------------------
+    def _consume_drain(self, drain: Dict[str, Any], step: int, state,
+                       sampler) -> None:
+        """Act on a drain or checkpoint request from the agent at a step
+        boundary. ``exit=True`` (preemption): deadline-bounded emergency
+        save, the timeline, telemetry and the flight record flushed, then
+        the clean-drain exit (raises :class:`DrainExit`). ``exit=False``
+        (the master's urgent checkpoint fan-out to survivors): save now,
+        stage the cut into the peer cache, keep training."""
+        deadline = float(drain.get("deadline", 0.0) or 0.0)
+        reason = str(drain.get("reason", ""))
+        exit_worker = bool(drain.get("exit", True))
+        recorder = obs.get_flight_recorder()
+        recorder.record_event(
+            "train_drain", step=step, deadline=deadline,
+            exit=exit_worker, reason=reason[:256])
+        logger.warning(
+            "drain request at step %d (deadline in %.0fs, exit=%s): %s",
+            step, max(0.0, deadline - time.time()) if deadline else -1.0,
+            exit_worker, reason or "-")
+        outcome = "no-checkpointer"
+        data_state = self._data_state(sampler)
+        if self.checkpointer is not None:
+            # the deadline bounds the save only on the way OUT (this
+            # machine goes away then); a survivor's save-and-continue
+            # inherits the draining peer's deadline, which is advisory
+            outcome = self.checkpointer.save_emergency(
+                step, state, data_state,
+                deadline=deadline if exit_worker else 0.0)
+            if outcome == "saved" and not exit_worker:
+                # a survivor's cut is what the departing rank's
+                # replacement restores from; the exiting path skips it:
+                # this host's memory goes with it
+                self._stage_peer(step, data_state)
+        elif exit_worker:
+            logger.error("drain with no checkpointer configured: exiting "
+                         "WITHOUT saving (progress since the last external "
+                         "save is lost)")
+        if not exit_worker:
+            self._drain_source.acknowledge(int(drain.get("seq", 0) or 0))
+            return
+        # the way out: postmortem and telemetry first, then the distinct
+        # clean-drain exit the agent classifies as non-failure
+        if self._timeline_path:
+            self.timeline.export(self._timeline_path)
+        recorder.record_event("train_drained", step=step,
+                              checkpoint=outcome)
+        self._flush_telemetry()
+        recorder.dump(reason="drain")
+        logger.info("drained at step %d (checkpoint: %s); exiting %d",
+                    step, outcome, WorkerExit.DRAIN)
+        raise DrainExit(reason)
 
     def _stage_peer(self, step: int, data_state) -> None:
         """Mirror the save's host copy into the peer cache. The loop has
@@ -452,11 +655,17 @@ class ElasticTrainLoop:
                 pass
         return data_state
 
+    def _flush_telemetry(self) -> None:
+        if self.client is not None:
+            self._span_exporter.flush_to(self.client)
+
     def close(self) -> None:
-        """Wait for the last save, restore the SIGTERM handler and drop
-        the trainer (and with it the device memory it holds). A deferred
-        peer-cache write still in flight lands first: it is the point of
-        the mirror."""
+        """Flush the last spans, wait for the last save, restore the
+        SIGTERM handler and drop the trainer (and with it the device
+        memory it holds). A deferred peer-cache write still in flight
+        lands first: it is the point of the mirror."""
+        self._flush_telemetry()
+        obs.remove_span_sink(self._span_exporter)
         if self._peer_store is not None:
             self._peer_store.flush()
         if self.checkpointer is not None:

@@ -287,8 +287,9 @@ def test_servicers_answer_a_scripted_sequence_alike(contexts, monkeypatch):
 def test_unported_requests_are_refused_by_name(contexts):
     master = JobMaster(port=0, host="127.0.0.1")
     try:
-        for request in (T.TelemetryReport(), T.GoodputRequest(),
-                        T.DrainReport(), T.ShardPlanRequest()):
+        for request in (T.TimeSeriesQuery(), T.ClockProbe(),
+                        T.DiagnosisActionRequest(), T.ShardPlanRequest(),
+                        T.ReconnectRequest()):
             send = (master.servicer.report_bytes
                     if type(request).__name__.endswith("Report")
                     else master.servicer.get_bytes)
@@ -304,6 +305,180 @@ def test_unported_requests_are_refused_by_name(contexts):
         master.stop()
 
 
+def _span(name, duration, span_id, ts, **attrs):
+    return {"kind": "span", "name": name, "span_id": span_id,
+            "duration_s": duration, "ts": ts, "attrs": attrs,
+            "trace_id": "t", "parent_id": "", "status": "ok", "pid": 1}
+
+
+def _telemetry(rank, *spans):
+    return ("report", "TelemetryReport", dict(
+        node_id=rank, node_rank=rank, node_type="worker",
+        samples=[("counter", "dlrover_tpu_test_total", 2.0,
+                  {"kind": "a"}),
+                 ("gauge", "dlrover_tpu_test_gauge", 3.5, {})],
+        spans_json=json.dumps(list(spans))))
+
+
+T0 = 1.7e9
+# the drain protocol, telemetry spans and the goodput ledger: a world of
+# two, steps, a drain of rank 1 with its emergency checkpoint, a hang and
+# a crash of rank 0, each answer and snapshot compared
+DRAIN_SEQUENCE = [
+    ("report", "JoinRendezvousRequest",
+     dict(node_id=0, node_rank=0, local_world_size=1, rdzv_name=TRAIN)),
+    ("report", "JoinRendezvousRequest",
+     dict(node_id=1, node_rank=1, local_world_size=1, rdzv_name=TRAIN)),
+    ("get", "CommWorldRequest", dict(node_id=0, rdzv_name=TRAIN)),
+    ("get", "CommWorldRequest", dict(node_id=1, rdzv_name=TRAIN)),
+    _telemetry(0, _span("rendezvous", 0.5, "r0", T0 - 1.0),
+               _span("restore_or_init", 4.0, "s0", T0),
+               _span("checkpoint_save", 0.3, "c0", T0 + 0.5)),
+    _telemetry(1, _span("restore_or_init", 4.5, "s1", T0)),
+    ("report", "GlobalStepReport", dict(node_id=0, node_rank=0, step=0,
+                                        step_time_s=0.0)),
+    ("report", "GlobalStepReport", dict(node_id=1, node_rank=1, step=0,
+                                        step_time_s=0.0)),
+    ("tick", 10.0),
+    ("report", "GlobalStepReport", dict(node_id=0, node_rank=0, step=20,
+                                        step_time_s=0.4,
+                                        data_wait_fraction=0.1, mfu=0.3)),
+    ("report", "GlobalStepReport", dict(node_id=1, node_rank=1, step=20,
+                                        step_time_s=0.45, mfu=0.3)),
+    ("get", "GoodputRequest", dict()),
+    ("report", "DrainReport", dict(node_id=1, node_rank=1,
+                                   deadline=T0 + 60.0, reason="spot",
+                                   phase="notice")),
+    ("get", "WaitingNodeNumRequest", dict(node_id=0, rdzv_name=TRAIN)),
+    ("tick", 2.0),
+    _telemetry(1, _span("emergency_checkpoint", 5.0, "e1", T0 + 12.0,
+                        outcome="saved"),
+               _span("emergency_checkpoint", 5.0, "e1", T0 + 12.0)),
+    ("tick", 6.0),
+    ("report", "DrainReport", dict(node_id=1, node_rank=1,
+                                   deadline=T0 + 60.0, reason="spot",
+                                   phase="complete")),
+    ("get", "WaitingNodeNumRequest", dict(node_id=0, rdzv_name=TRAIN)),
+    ("report", "JoinRendezvousRequest",
+     dict(node_id=0, node_rank=0, local_world_size=1, rdzv_name=TRAIN)),
+    ("get", "CommWorldRequest", dict(node_id=0, rdzv_name=TRAIN)),
+    ("tick", 30.0),
+    ("report", "NodeFailureReport",
+     dict(node_id=0, node_rank=0, error_data="worker exit code -6",
+          level="process_error", exit_kind="hang")),
+    ("report", "JoinRendezvousRequest",
+     dict(node_id=0, node_rank=0, local_world_size=1, rdzv_name=TRAIN)),
+    ("get", "CommWorldRequest", dict(node_id=0, rdzv_name=TRAIN)),
+    ("tick", 3.0),
+    ("report", "NodeFailureReport",
+     dict(node_id=0, node_rank=0, error_data="worker exit code -9",
+          level="process_error", exit_kind="killed")),
+    ("report", "DrainReport", dict(node_id=0, node_rank=0,
+                                   deadline=T0 + 99.0, phase="notice")),
+    ("get", "GoodputRequest", dict(window_s=30.0)),
+    ("get", "GoodputRequest", dict()),
+]
+
+
+def _play_drain(servicer, messages, clock):
+    answers = []
+    for kind, name, *rest in DRAIN_SEQUENCE:
+        if kind == "tick":
+            clock.now += name
+            continue
+        fields = dict(rest[0])
+        if name == "TelemetryReport":
+            fields["samples"] = [messages.MetricSample(
+                kind=k, name=n, value=v, labels=lab)
+                for k, n, v, lab in fields["samples"]]
+        payload = messages.serialize_message(
+            getattr(messages, name)(**fields))
+        send = servicer.get_bytes if kind == "get" else servicer.report_bytes
+        answers.append((name, messages.deserialize_message(
+            send(payload, None))))
+        queue = getattr(servicer, "telemetry_queue", None)
+        if queue is not None:
+            queue.flush()
+    return answers
+
+
+def test_drain_telemetry_and_goodput_answers_match_jax(contexts,
+                                                       monkeypatch):
+    """DrainReport, TelemetryReport and GoodputRequest through the JAX
+    servicer (no diagnosis manager: the survivors' checkpoint fan-out is
+    ROADMAP Queue A item 12.6) and the port's, each over a goodput ledger
+    on one fake clock: equal answers, equal ledger snapshots, and the
+    same rendezvous membership and draining set."""
+    from dlrover_tpu.master import rendezvous as jrdzv
+    from dlrover_tpu.master.servicer import MasterServicer as JServicer
+    from dlrover_tpu.obs.goodput import GoodputLedger as JLedger
+    from dlrover_tpu.obs.metrics import MetricsRegistry as JRegistry
+    from dlrover_tpu_torch.master import rendezvous as trdzv
+    from dlrover_tpu_torch.master.servicer import MasterServicer
+    from dlrover_tpu_torch.obs.goodput import GoodputLedger
+    from dlrover_tpu_torch.obs.metrics import MetricsRegistry
+
+    jax_ctx, port_ctx = contexts
+    for ctx in contexts:
+        ctx.update(hang_watchdog_s=25.0)
+    clock = FakeClock(T0)
+    monkeypatch.setattr(time, "time", clock)
+    runs = []
+    for servicer_cls, ledger_cls, registry_cls, rdzv, messages in (
+            (JServicer, JLedger, JRegistry, jrdzv, J),
+            (MasterServicer, GoodputLedger, MetricsRegistry, trdzv, T)):
+        clock.now = T0
+        ledger = ledger_cls(registry=registry_cls(), now_fn=clock)
+        params = rdzv.RendezvousParameters(1, 2, wait_new_node_s=3600.0)
+        servicer = servicer_cls(goodput_ledger=ledger, rdzv_managers={
+            TRAIN: rdzv.ElasticTrainingRendezvousManager(params),
+            RendezvousName.NETWORK_CHECK:
+                rdzv.NetworkCheckRendezvousManager(params)})
+        try:
+            answers = _play_drain(servicer, messages, clock)
+        finally:
+            queue = getattr(servicer, "telemetry_queue", None)
+            if queue is not None:
+                queue.stop()
+        runs.append((answers, ledger, servicer))
+    (jax_answers, jax_ledger, jax_srv), (answers, ledger, srv) = runs
+    assert len(answers) == len(jax_answers)
+    for (name, want), (_, got) in zip(jax_answers, answers):
+        kind = type(want).__name__
+        assert type(got).__name__ == kind, name
+        got, want = dataclasses.asdict(got), dataclasses.asdict(want)
+        for field in UNPORTED_FIELDS.get(kind, ()):
+            assert got.pop(field) == "" and want.pop(field)
+        if name == "GoodputRequest":
+            got = json.loads(got.pop("report_json"))
+            want = json.loads(want.pop("report_json"))
+        assert got == want, name
+    assert ledger.snapshot() == jax_ledger.snapshot()
+    snap = json.loads([a for n, a in answers
+                       if n == "GoodputRequest"][-1].report_json)
+    buckets = snap["buckets"]
+    assert buckets["hang"] == pytest.approx(25.0)
+    assert buckets["drain"] > 0 and buckets["checkpoint_stall"] == 5.0
+    assert buckets["restore"] == 8.5 and buckets["productive"] > 0
+    assert [i["reason"] for i in snap["incarnations"]] == [
+        "job_start", "drain", "hang_restart"]
+    drains = [a for n, a in answers if n == "DrainReport"]
+    assert all(d.success and d.checkpoint_ranks == [] for d in drains)
+    for mgr_name in (TRAIN, RendezvousName.NETWORK_CHECK):
+        jm, tm = jax_srv.rdzv_managers[mgr_name], srv.rdzv_managers[mgr_name]
+        assert tm.alive_nodes == jm.alive_nodes
+        assert tm.draining == jm.draining
+        # the JAX export's fields the port holds
+        got, want = tm.export_state(), jm.export_state()
+        assert got == {key: want[key] for key in got}
+    assert srv.rdzv_managers[TRAIN].draining == {0: T0 + 99.0}
+    # the port's master replayed the telemetry samples on its registry
+    from dlrover_tpu_torch import obs
+
+    text = obs.get_registry().render()
+    assert 'dlrover_tpu_test_total{kind="a",node="0"}' in text
+
+
 @pytest.mark.parametrize("knobs", [
     dict(),
     dict(relaunch_backoff_base_s=0.5, relaunch_backoff_max_s=3.0,
@@ -316,8 +491,8 @@ def test_relaunch_governor_matches_jax(contexts, knobs):
     port_ctx.update(**knobs)
     clocks = FakeClock(0.0), FakeClock(0.0)
     governors = JGovernor(clock=clocks[0]), RelaunchGovernor(clock=clocks[1])
-    # seconds between failures (the port has no hang-aborts: the step-hang
-    # watchdog is not ported, so the JAX governor's hang streak stays 0)
+    # seconds between failures, none a hang-abort (the hang streak is
+    # tests/test_torch_preemption.py's)
     gaps = [0, 2, 4, 7, 12, 1, 1, 3, 600, 0.5, 0.5, 9, 9, 9, 9]
     trace = ([], [])
     for gap in gaps:
@@ -387,6 +562,20 @@ def _client_round_trip(client, master, messages):
     assert client.get_restore_plan() == {}
     assert client.leave_rendezvous()
     assert master.speed_monitor.completed_global_step == 3
+    # telemetry, the goodput ledger and the drain protocol
+    assert client.report_telemetry(spans=[{
+        "kind": "span", "name": "restore_or_init", "span_id": "rt",
+        "duration_s": 1.5, "ts": time.time() - 2.0, "attrs": {}}])
+    assert client.report_telemetry() is True      # nothing to send
+    deadline = time.time() + 60.0
+    notice = client.report_drain(deadline, reason="r", phase="notice")
+    assert notice.success and notice.checkpoint_ranks == []
+    assert master.rdzv_managers[TRAIN].draining == {0: deadline}
+    assert client.report_drain(deadline, phase="complete").success
+    assert 0 not in master.rdzv_managers[TRAIN].alive_nodes
+    snap = client.get_goodput(window_s=60.0)
+    assert set(snap["buckets"]) >= {"productive", "restore", "drain"}
+    assert snap["window"]["window_s"] == 60.0
 
 
 @pytest.mark.parametrize("pair", ["port-port", "port-jax", "jax-port"])

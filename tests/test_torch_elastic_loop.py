@@ -7,7 +7,9 @@ the port's gloo ranks start from the JAX loop's own init (carried
 across) and see the JAX test's batches, and each phase's last loss must
 be within 1e-4 of the JAX run's. A stop request forces a save, and a
 worker process that receives SIGTERM saves the step it stopped on and a
-second one resumes there.
+second one resumes there. A drain request during step 3 drains both
+packages' loops through an emergency checkpoint at step 3, and their
+resumed losses agree within 1e-4.
 """
 
 import functools
@@ -17,11 +19,13 @@ import signal
 import subprocess
 import sys
 import textwrap
+import time
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
+import pytest
 import torch
 
 from dlrover_tpu.models import llama as jllama
@@ -175,6 +179,75 @@ def test_stop_request_forces_save(tmp_path):
     assert metrics["step"] == 3
     assert loop.checkpointer.latest_step() == 3  # forced save on stop
     loop.close()
+
+
+def test_run_collects_garbage_at_step_boundaries_only():
+    """While a run lasts the automatic collection is off; the loop
+    collects the young generations after the first step, and the
+    caller's setting comes back when the run returns."""
+    import gc
+
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    loop = ElasticTrainLoop(
+        functools.partial(Llama, cfg), _adamw, cross_entropy_loss,
+        TrainLoopConfig(global_batch=8, seq_len=16, max_micro_per_replica=4,
+                        max_steps=3), device="cpu")
+    state, _ = loop.restore_or_init(0)
+    seen, young = [], []
+
+    def on_gc(phase, info):
+        if phase == "stop" and info["generation"] > 0:
+            young.append((len(seen), info["generation"]))
+
+    def gen():
+        for batch in _batches(cfg.vocab_size, 8, 16, 3):
+            seen.append(gc.isenabled())
+            yield batch
+
+    assert gc.isenabled()
+    gc.callbacks.append(on_gc)
+    try:
+        state, metrics = loop.run(state, gen())
+    finally:
+        gc.callbacks.remove(on_gc)
+    assert metrics["step"] == 3
+    assert seen == [False] * 3 and young == [(1, 1)]
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        loop.config.max_steps = 2
+        loop.run(state, _batches(cfg.vocab_size, 8, 16, 2))
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
+    loop.close()
+
+
+def test_gc_probe_sees_only_the_loops_collection_during_a_run(tmp_path):
+    """``examples/gc_probe.py`` logs the worker's collections beside its
+    step lines: between the first and the last step there is exactly
+    one, the loop's collection of the young generations before step
+    2."""
+    gc_log, log = tmp_path / "gc.log", tmp_path / "w.log"
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "dlrover_tpu_torch", "examples",
+                                      "gc_probe.py"), "--gc-log", str(gc_log),
+         "--config", "tiny", "--device", "cpu", "--steps", "3",
+         "--log-file", str(log)],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO,
+                           OMP_NUM_THREADS="1"),
+        capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    steps = {int(line.split()[2]): float(line.split()[0])
+             for line in log.read_text().splitlines()
+             if line.split()[1:2] == ["step"]}
+    assert sorted(steps) == [1, 2, 3]
+    during = [line.split()[1] for line in gc_log.read_text().splitlines()
+              if steps[1] < float(line.split()[0]) < steps[3]]
+    assert during == ["gen=1"]
+    assert all(float(line.split()[0]) < steps[2]
+               for line in gc_log.read_text().splitlines()
+               if steps[1] < float(line.split()[0]) < steps[3])
 
 
 SIGTERM_WORKER = """
@@ -346,3 +419,97 @@ def test_loop_checkpoints_and_restores_the_masters_shard_position(
     finally:
         client.close()
         master.stop()
+
+
+def _drain_batches(vocab, drain_file, deadline, count=20, seed=0):
+    """Seeded batches; the drain request lands while step 3 runs, so the
+    boundary after step 3 consumes it."""
+    from dlrover_tpu.agent.preemption import write_drain_request
+
+    for i, batch in enumerate(_batches(vocab, 8, 16, count, seed)):
+        if i == 2:
+            write_drain_request(drain_file, 1, deadline,
+                                reason="test preemption")
+        yield batch
+
+
+def test_drain_at_step_3_and_resume_match_jax(cpu_devices, tmp_path,
+                                              monkeypatch):
+    """The slice in small: a tiny Llama in both packages, from the JAX
+    loop's init, gets a drain request during step 3. Each loop runs its
+    emergency checkpoint at that boundary and leaves with DrainExit (code
+    76); a new loop restores the drained step and trains 2 more. Both
+    land on step 3, and the resumed losses agree within 1e-4."""
+    from dlrover_tpu.trainer.elastic_loop import DrainExit as JDrainExit
+    from dlrover_tpu_torch import obs
+    from dlrover_tpu_torch.trainer.elastic_loop import DrainExit
+
+    monkeypatch.setenv("DLROVER_TPU_FLIGHT_DIR", str(tmp_path / "flight"))
+    jcfg = jllama.LlamaConfig.tiny(attn_impl="reference", dtype=jnp.float32)
+    deadline = time.time() + 120.0
+
+    def jax_loop(max_steps):
+        return jloop.ElasticTrainLoop(
+            jllama.Llama(jcfg), optax.adamw(1e-3), jllama.cross_entropy_loss,
+            jloop.TrainLoopConfig(
+                global_batch=8, seq_len=16, max_micro_per_replica=4,
+                max_steps=max_steps, checkpoint_dir=str(tmp_path / "jax"),
+                save_interval_steps=1000, mesh_spec=JMeshSpec()),
+            devices=cpu_devices[:1])
+
+    monkeypatch.setenv("DLROVER_TPU_DRAIN_REQUEST", str(tmp_path / "jd"))
+    loop = jax_loop(100)
+    state, _ = loop.restore_or_init(jax.random.PRNGKey(0))
+    init = convert.params_from_jax(jax.tree.map(np.asarray, state.params))
+    with pytest.raises(JDrainExit) as jexit:
+        loop.run(state, _drain_batches(jcfg.vocab_size,
+                                       str(tmp_path / "jd"), deadline))
+    loop.close()
+    # the resumed worker runs under a new agent, with no request pending
+    monkeypatch.delenv("DLROVER_TPU_DRAIN_REQUEST")
+    loop = jax_loop(2)
+    state, jstart = loop.restore_or_init(jax.random.PRNGKey(1))
+    state, jmetrics = loop.run(state, _batches(jcfg.vocab_size, 8, 16, 5,
+                                               seed=1), start_step=jstart)
+    loop.close()
+
+    cfg = LlamaConfig.tiny(attn_impl="flash", dtype=torch.float32)
+
+    def model(device, seed):
+        m = Llama(cfg, device=device, seed=seed)
+        if torch.device(device).type != "meta":
+            m.load_state_dict(init)
+        return m
+
+    def port_loop(max_steps):
+        return ElasticTrainLoop(
+            model, lambda p: torch.optim.AdamW(p, lr=1e-3,
+                                               weight_decay=1e-4),
+            cross_entropy_loss,
+            TrainLoopConfig(global_batch=8, seq_len=16,
+                            max_micro_per_replica=4, max_steps=max_steps,
+                            checkpoint_dir=str(tmp_path / "port"),
+                            save_interval_steps=1000), device="cpu")
+
+    monkeypatch.setenv("DLROVER_TPU_DRAIN_REQUEST", str(tmp_path / "td"))
+    loop = port_loop(100)
+    state, _ = loop.restore_or_init(0)
+    with pytest.raises(DrainExit) as texit:
+        loop.run(state, _drain_batches(cfg.vocab_size, str(tmp_path / "td"),
+                                       deadline))
+    assert texit.value.code == jexit.value.code == 76
+    assert texit.value.reason == "test preemption"
+    events = [e.get("name") for e in obs.get_flight_recorder().snapshot()]
+    assert {"train_drain", "emergency_checkpoint",
+            "train_drained"} <= set(events)
+    assert sorted(os.listdir(tmp_path / "port")) == ["3"]
+    loop.close()
+    monkeypatch.delenv("DLROVER_TPU_DRAIN_REQUEST")
+    loop = port_loop(2)
+    state, start = loop.restore_or_init(0)
+    state, metrics = loop.run(state, _batches(cfg.vocab_size, 8, 16, 5,
+                                              seed=1), start_step=start)
+    loop.close()
+    assert start == jstart == 3
+    assert metrics["step"] == 5
+    np.testing.assert_allclose(metrics["loss"], jmetrics["loss"], rtol=1e-4)

@@ -126,3 +126,67 @@ def test_step_timeline_stats_match():
     assert len(timelines[1].snapshot()) == 8
     empty = ttimeline.StepTimeline().window_stats()
     assert empty == jtimeline.StepTimeline().window_stats()
+
+
+def test_timeline_export_and_load_match(tmp_path):
+    """The export the agent reads for forward progress: each package's
+    file loads in the other's reader with the same payload."""
+    timelines = (jtimeline.StepTimeline(capacity=8, rank=2),
+                 ttimeline.StepTimeline(capacity=8, rank=2))
+    for step in range(1, 6):
+        for timeline in timelines:
+            timeline.record(step, 0.5 + step, data_wait=0.25, compute=0.5)
+    payloads = []
+    for name, timeline in zip(("jax", "port"), timelines):
+        path = str(tmp_path / f"{name}.json")
+        assert timeline.export(path, last_n=3)
+        loaded = (jtimeline.load_timeline(path),
+                  ttimeline.load_timeline(path))
+        assert loaded[1] == loaded[0]
+        payload = dict(loaded[1])
+        assert payload.pop("exported_at") > 0
+        payloads.append(payload)
+    assert payloads[1] == payloads[0]
+    assert [s["step"] for s in payloads[1]["steps"]] == [3, 4, 5]
+    assert payloads[1]["role"] == "worker" and payloads[1]["rank"] == 2
+    (tmp_path / "torn.json").write_text('{"steps": [')
+    for module in (jtimeline, ttimeline):
+        assert module.load_timeline(str(tmp_path / "torn.json")) is None
+        assert module.load_timeline(str(tmp_path / "absent.json")) is None
+    assert not timelines[1].export(str(tmp_path / "no" / "dir.json"))
+
+
+class _Client:
+    def __init__(self, fail=False):
+        self.batches, self.fail = [], fail
+
+    def report_telemetry(self, spans=None):
+        if self.fail:
+            raise RuntimeError("master down")
+        self.batches.append(spans)
+
+
+def test_span_exporter_matches():
+    """Bounded batches of finished spans for the master: the same
+    drops, drains and flushes as the JAX exporter; a dead master loses
+    the batch, never the caller."""
+    results = []
+    for spans in (jspans, tspans):
+        exporter = spans.SpanExporter(capacity=3)
+        spans.add_span_sink(exporter)
+        try:
+            for i in range(5):
+                with spans.span(f"s{i}", {"i": i}):
+                    pass
+        finally:
+            spans.remove_span_sink(exporter)
+        client, dead = _Client(), _Client(fail=True)
+        names = [r["name"] for r in exporter.drain()]
+        exporter(spans.record_span("late", 0.5))
+        exporter.flush_to(dead)
+        exporter(spans.record_span("later", 0.25))
+        exporter.flush_to(client)
+        exporter.flush_to(client)          # nothing left: no RPC
+        results.append((names, exporter.dropped,
+                        [[r["name"] for r in b] for b in client.batches]))
+    assert results[1] == results[0] == (["s2", "s3", "s4"], 2, [["later"]])

@@ -70,9 +70,17 @@ def _adamw(params):
                              weight_decay=0.1)
 
 
+# the modules of the drain, hang and goodput slice, which the scans below
+# must reach
+FAULT_MODULES = ("agent/preemption.py", "trainer/watchdog.py",
+                 "diagnostics/chaos.py", "obs/goodput.py")
+
+
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     sources = _port_sources()
     assert len(sources) > 10
+    for name in FAULT_MODULES:
+        assert PACKAGE / name in sources, name
     for path in sources:
         bad = _imported_roots(path) & FORBIDDEN
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
@@ -92,6 +100,9 @@ def test_importing_the_port_loads_no_jax():
                          check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
     assert "dlrover_tpu_torch.trainer.elastic_loop" in modules
+    for name in FAULT_MODULES:
+        module = "dlrover_tpu_torch." + name[:-3].replace("/", ".")
+        assert module in modules, module
 
 
 def test_entry_points_raise_without_gpu():

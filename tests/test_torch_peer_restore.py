@@ -305,9 +305,8 @@ def test_plan_restore_entries_matches_jax(requester, stripe, slices):
 
 
 def test_compute_restore_plan_matches_jax_over_a_script():
-    """Register, die, withdraw and re-register: the same plans and the
-    same epochs. (Drains, which exclude a donor in the JAX manager, are
-    not ported: ROADMAP Queue A item 6.5.)"""
+    """Register, drain, die, withdraw and re-register: the same plans and
+    the same epochs (a draining donor is no donor in either manager)."""
     managers = JRendezvous(), ElasticTrainingRendezvousManager()
     script = [
         ("alive", 0), ("alive", 1), ("alive", 2),
@@ -315,6 +314,7 @@ def test_compute_restore_plan_matches_jax_over_a_script():
         ("register", 1, "h1:1", 6, ["a", "b"]),
         ("register", 2, "h2:1", 6, ["a", "b"]),
         ("plan", 2), ("plan", 0), ("stripe", 0),
+        ("drain", 1), ("plan", 0), ("stripe", 0),
         ("die", 1), ("plan", 0), ("stripe", 0),
         ("register", 1, "h1:1", 6, ["a", "b"]),   # dead: not planned
         ("withdraw", 2), ("plan", 0),
@@ -334,6 +334,8 @@ def test_compute_restore_plan_matches_jax_over_a_script():
                 manager.remove_alive_node(args[0])
             elif op == "join":
                 manager.join_rendezvous(args[0], 1)
+            elif op == "drain":
+                manager.mark_draining(args[0], 4e9)
             else:
                 plan = manager.compute_restore_plan(
                     args[0], stripe=op == "stripe")
