@@ -98,12 +98,40 @@ Phases (each one's failure ends the run with a nonzero exit):
            processes launched every flash kernel 22 times and every
            RMSNorm kernel 45 times a step it finished
 
+  observe  the master observes the card: the port's JobMaster in this
+           process (diagnosis rounds and tsdb samples every 2 s, every
+           other knob at its default) and `python -m dlrover_tpu_torch.run
+           --monitor-interval 1` around the same Llama-1B worker (46
+           steps, no checkpoint, a step report each step) under the
+           agent with its monitors, and a chaos `slow` fault of 1.5 s a
+           step from step 37 on. Gates: every step report's
+           hbm_peak_bytes equals the worker's own allocator peak
+           (`allocated_bytes.all.peak`) at that step; a relayed
+           NodeResourceStats carries the card's use and total; the
+           step-time, tokens/s, MFU and HBM-peak series hold a point per
+           sample interval of training; StepTraceRequest answers one
+           group a step, gated by rank 0, its phases (data wait
+           included) within 5% of the period to the next step's start,
+           the capture's two boundaries reported apart and the loop's
+           young-generation collection at a boundary (logged by the
+           worker) taken out of its period; the solo rank's
+           CriticalPathRule issues profile:0, the agent requests it and
+           the worker captures 5 steps with torch.profiler (manifest
+           ok, the trace names the five training kernels; its size and
+           export time printed); no hbm_pressure report; a critical
+           throughput_collapse under the fault; the clean steps' median
+           within 1% of the llama1b phase's and the first step after
+           the capture inside their spread (the captured steps'
+           slowdown printed); every loss and grad norm the bits of an
+           uninterrupted in-process run
+
 The line before the last is the kernels' JSON record (the quantization
 pair's launches are the resume phase's checkpoint path; each kernel's
 "standalone_launches" are those the worker under the agent printed for
-its resumed incarnation, and its "faults_launches" the sum over the
-faults phase's three worker processes); the last line is {"ok": true,
-"device": {...}}. Imports nothing of JAX.
+its resumed incarnation, its "faults_launches" the sum over the faults
+phase's three worker processes, and its "observe_launches" the observe
+phase worker's); the last line is {"ok": true, "device": {...}}. Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -1512,9 +1540,9 @@ STANDALONE_STEPS = 7
 SAVE_EVERY = 3
 
 
-def _reference_run(cfg) -> list:
-    """Resume's run A without its checkpoint: 7 uninterrupted steps from
-    the same seed and data, [(loss, grad_norm)] a step."""
+def _reference_run(cfg, steps: int = STANDALONE_STEPS) -> list:
+    """Resume's run A without its checkpoint: ``steps`` uninterrupted
+    steps from the same seed and data, [(loss, grad_norm)] a step."""
     from dlrover_tpu_torch.models.llama import Llama, cross_entropy_loss
     from dlrover_tpu_torch.trainer.elastic_loop import (
         ElasticTrainLoop,
@@ -1524,7 +1552,7 @@ def _reference_run(cfg) -> list:
     loop = ElasticTrainLoop(
         functools.partial(Llama, cfg), _adamw, cross_entropy_loss,
         TrainLoopConfig(global_batch=8, seq_len=cfg.max_seq_len,
-                        max_micro_per_replica=8, max_steps=STANDALONE_STEPS,
+                        max_micro_per_replica=8, max_steps=steps,
                         report_interval_steps=0))
     sampler, data = _sampler_and_data(cfg)
     state, _ = loop.restore_or_init(0, sampler)
@@ -1598,8 +1626,8 @@ def _worker_log(path: str) -> list:
     """The worker's incarnations from its log file: for each, its start
     step, restore source and timings, steps {step: (time, loss,
     grad_norm, step_s)}, saves {step: (time, blocking pieces)}, commits
-    and peer-cache writes {step: end time}, launch counts and wall-clock
-    marks."""
+    and peer-cache writes {step: end time}, the boundary collections
+    {step: seconds}, launch counts and wall-clock marks."""
     import re
 
     runs = []
@@ -1613,7 +1641,7 @@ def _worker_log(path: str) -> list:
                 runs.append({"start": start, "source": source,
                              "restore": restore, "steps": {}, "saves": {},
                              "commits": {}, "peer_writes": {}, "marks": {},
-                             "started_at": float(ts)})
+                             "collections": {}, "started_at": float(ts)})
                 continue
             if not runs:
                 continue
@@ -1624,6 +1652,8 @@ def _worker_log(path: str) -> list:
                              r"\S+ s: (\{.*\})$", text)
             done = (re.search(r"flash checkpoint: step (\d+) committed", text)
                     or re.search(r"peer cache: step (\d+) staged", text))
+            collected = re.match(r"collection after step (\d+): (\S+) s",
+                                 text)
             if m:
                 run["steps"][int(m.group(1))] = (
                     float(ts), float(m.group(2)), float(m.group(3)),
@@ -1634,6 +1664,9 @@ def _worker_log(path: str) -> list:
             elif done:
                 kind = "commits" if "committed" in text else "peer_writes"
                 run[kind][int(done.group(1))] = float(ts)
+            elif collected:
+                run["collections"][int(collected.group(1))] = float(
+                    collected.group(2))
             elif text.startswith("worker_launch_counts "):
                 # the last line holds the launches so far (one a step)
                 run["launches"] = json.loads(text.split(" ", 1)[1])
@@ -1994,16 +2027,18 @@ def _first(lines: list, pattern: str) -> float:
 
 
 def _launch_agent(master, cmd_args: list, env_extra: dict, out: str,
-                  err: str, agent_tmp: str, repo: str) -> int:
-    """Run ``python -m dlrover_tpu_torch.run`` against ``master`` to its
-    end (core dumps off: a SIGABRTed worker holding 15 GB of page-locked
-    memory must not write one); returns its exit code."""
+                  err: str, agent_tmp: str, repo: str,
+                  run_args: tuple = ()) -> int:
+    """Run ``python -m dlrover_tpu_torch.run`` (with ``run_args``) against
+    ``master`` to its end (core dumps off: a SIGABRTed worker holding
+    15 GB of page-locked memory must not write one); returns its exit
+    code."""
     import os
     import resource
 
-    cmd = [sys.executable, "-m", "dlrover_tpu_torch.run",
-           "--master-addr", master.addr,
-           "dlrover_tpu_torch/examples/llama_train.py"] + cmd_args
+    cmd = ([sys.executable, "-m", "dlrover_tpu_torch.run",
+            "--master-addr", master.addr] + list(run_args)
+           + ["dlrover_tpu_torch/examples/llama_train.py"] + cmd_args)
     env = dict(os.environ, PYTHONPATH=repo, TMPDIR=agent_tmp, **env_extra)
     # the agent inherits this process's soft core limit (set here, not
     # in a preexec_fn: the master's gRPC threads make that unsafe)
@@ -2287,14 +2322,371 @@ def phase_faults(smi: str, llama1b: dict, resume: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# observe: what the master sees of the card
+# ---------------------------------------------------------------------------
+
+# the master's diagnosis rounds and tsdb samples, seconds (the JAX
+# defaults are 30 and 5); every other knob keeps its default
+OBSERVE_INTERVAL_S = 2.0
+# steps of the worker, and the chaos `slow` fault: from step
+# OBSERVE_SLOW_AT on, each step sleeps OBSERVE_SLOW_S after its loss
+OBSERVE_STEPS = 46
+OBSERVE_SLOW_AT = 37
+OBSERVE_SLOW_S = 1.5
+# the clean steps' median against the llama1b phase's, and a trace
+# group's phases against the period to the next step's start
+OBSERVE_STEP_TOL = 0.01
+OBSERVE_PHASE_TOL = 0.05
+# the kernels the Llama-1B step launches, by their CUDA names
+TRAINING_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                    "flash_bwd_dkv_kernel", "rms_fwd_kernel",
+                    "rms_bwd_kernel")
+
+
+def _trace_kernels(path: str) -> dict:
+    """{name: count} of the kernel events in a torch.profiler Chrome
+    trace."""
+    with open(path) as f:
+        trace = json.load(f)
+    counts: dict = {}
+    for event in trace.get("traceEvents", []):
+        if event.get("cat") == "kernel":
+            name = event.get("name", "")
+            counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def _series_coverage(client, name: str, t0: float, t1: float,
+                     pause: tuple) -> dict:
+    """A series' raw points (every label set) over training [t0, t1]:
+    their count, and the largest gap between neighbours (the ends of the
+    span included) outside ``pause``, the capture's stop and export,
+    when the worker trains and reports nothing."""
+    payload = client.query_timeseries(name=name)
+    stamps = sorted(p[0] for series in payload.get("series", ())
+                    for p in series["points"] if t0 <= p[0] <= t1)
+    edges = [t0] + stamps + [t1]
+    gaps = [b - a for a, b in zip(edges, edges[1:])
+            if not (a < pause[1] and b > pause[0])]
+    return {"points": len(stamps), "max_gap_s": max(gaps, default=0.0)}
+
+
+def phase_observe(smi: str, llama1b: dict) -> dict:
+    """The master observes the card: Llama-1B under the port's master and
+    agent with its monitors; the step reports' HBM watermark, the
+    relayed card stats, the time series, the step traces, the diagnosis
+    engine's profile:0 capture and its throughput_collapse under a slow
+    fault (see the module docstring)."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch.agent.master_client import MasterClient
+    from dlrover_tpu_torch.common import messages as msg
+    from dlrover_tpu_torch.common.config import Context
+    from dlrover_tpu_torch.master.job_master import JobMaster
+    from dlrover_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig.llama_1b(max_seq_len=2048, attn_impl="flash",
+                               norm_impl="fused", embed_impl="gather")
+    t_phase = t_ref = time.monotonic()
+    ref = _reference_run(cfg, OBSERVE_STEPS)
+    log(f"observe: the reference run of {OBSERVE_STEPS} steps took "
+        f"{time.monotonic() - t_ref:.1f} s")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_observe_")
+    ctx = Context.singleton()
+    saved = {k: getattr(ctx, k) for k in ("diagnosis_interval_s",
+                                          "tsdb_sample_interval_s")}
+    ctx.update(diagnosis_interval_s=OBSERVE_INTERVAL_S,
+               tsdb_sample_interval_s=OBSERVE_INTERVAL_S)
+    master = JobMaster(host="127.0.0.1")
+    # what reaches the master: every step report and resource report,
+    # with the master's receive time
+    seen = {"steps": [], "resources": []}
+    report = master.servicer.report
+
+    def recording_report(request):
+        if isinstance(request, msg.GlobalStepReport):
+            seen["steps"].append((time.time(), request))
+        elif isinstance(request, msg.NodeResourceStats):
+            seen["resources"].append((time.time(), request))
+        return report(request)
+
+    master.servicer.report = recording_report
+    master.prepare()
+    client = None
+    out = {"card": smi}
+    _free_memory()
+    try:
+        log_path, err = f"{tmp}/worker.log", f"{tmp}/agent.err"
+        t_launch = time.time()
+        code = _launch_agent(
+            master, ["--config", "llama_1b", "--steps", str(OBSERVE_STEPS),
+                     "--report-interval", "1", "--log-file", log_path],
+            {"DLROVER_TPU_CHAOS": f"slow:worker:0@{OBSERVE_SLOW_AT}:"
+                                  f"{OBSERVE_SLOW_S}",
+             "DLROVER_TPU_CHAOS_STATE": f"{tmp}/chaos",
+             "DLROVER_TPU_FLIGHT_DIR": f"{tmp}/flight"},
+            f"{tmp}/agent.out", err, tmp, repo,
+            run_args=("--monitor-interval", "1"))
+        lines = _agent_lines(err)
+        tail = "\n".join(t for _, t in lines[-15:])
+        out["agent_run_s"] = time.time() - t_launch
+        if code != 0:
+            raise AssertionError(f"observe: agent exited {code}: {tail}")
+        runs = _worker_log(log_path)
+        if len(runs) != 1 or sorted(runs[0]["steps"]) != list(
+                range(1, OBSERVE_STEPS + 1)):
+            raise AssertionError(f"observe: {len(runs)} incarnations, "
+                                 f"steps {[sorted(r['steps']) for r in runs]}")
+        run = runs[0]
+        steps = run["steps"]
+        same = {n: (r[1], r[2]) == ref[n - 1] for n, r in steps.items()}
+        out["same_bits"] = all(same.values())
+        log(f"observe losses against an uninterrupted in-process run: "
+            f"{json.dumps(same)}")
+        if not all(same.values()):
+            raise AssertionError(f"observe: steps against the reference "
+                                 f"run: {same}")
+        want = _expected_launches(cfg, OBSERVE_STEPS)
+        if run.get("launches") != want:
+            raise AssertionError(f"observe: launches {run.get('launches')},"
+                                 f" want {want}")
+        out["launches"] = run["launches"]
+        client = MasterClient(master.addr, node_id=99, node_rank=-1)
+
+        # -- the HBM watermark: the master's step reports against the
+        #    worker's own allocator peak at the same step ------------------
+        peaks, reserved = {}, {}
+        with open(log_path) as f:
+            for line in f:
+                _, _, text = line.rstrip("\n").partition(" ")
+                if text.startswith("worker_allocator_peak "):
+                    rec = json.loads(text.split(" ", 1)[1])
+                    peaks[rec["steps"]] = rec["bytes"]
+                    reserved[rec["steps"]] = rec["reserved_bytes"]
+        reported = {r.step: r.hbm_peak_bytes for _, r in seen["steps"]}
+        pairs = {n: (reported[n], peaks[n]) for n in peaks if n in reported}
+        hbm = {"steps_compared": len(pairs),
+               "equal": all(a == b for a, b in pairs.values()),
+               "allocated_peak_bytes": max(peaks.values(), default=0),
+               "reserved_peak_bytes": max(reserved.values(), default=0),
+               "card_total_bytes": torch.cuda.mem_get_info()[1]}
+        out["hbm"] = hbm
+        log(f"observe hbm: {json.dumps(hbm)} ({smi})")
+        if len(pairs) < OBSERVE_STEPS - 1 or not hbm["equal"]:
+            raise AssertionError(f"observe: the step reports' hbm_peak_bytes"
+                                 f" against the worker's allocator peak: "
+                                 f"{pairs}")
+        total_mb = hbm["card_total_bytes"] / 2 ** 20
+        relayed = [c for _, r in seen["resources"] for c in r.chip_stats]
+        with_card = [c for c in relayed if c.hbm_used_mb > 0
+                     and abs(c.hbm_total_mb - total_mb) < 1.0]
+        out["resource_reports"] = {
+            "reports": len(seen["resources"]),
+            "with_card_stats": len(with_card),
+            "hbm_used_mb": [c.hbm_used_mb for c in with_card],
+            "hbm_total_mb": total_mb,
+            "duty_cycle_pct": [c.duty_cycle_pct for c in with_card]}
+        log(f"observe relayed card stats: "
+            f"{json.dumps(out['resource_reports'])} ({smi})")
+        if not with_card:
+            raise AssertionError(f"observe: no NodeResourceStats carried the"
+                                 f" card's use and total: {relayed}")
+
+        # -- diagnosis: the profile:0 capture and the collapse ------------
+        reports = client.get_diagnosis_reports()
+        out["diagnosis"] = [{k: r[k] for k in ("rule", "severity", "ts",
+                                               "summary", "actions")}
+                            for r in reports]
+        log(f"observe diagnosis reports: {json.dumps(out['diagnosis'])}")
+        profile = [r for r in reports if r["rule"] == "critical_path"
+                   and "profile:0" in r["actions"]]
+        pressure = [r for r in reports if r["rule"] == "hbm_pressure"]
+        t_slow = steps[OBSERVE_SLOW_AT - 1][0]
+        collapse = [r for r in reports if r["rule"] == "throughput_collapse"
+                    and r["severity"] == "critical" and r["ts"] >= t_slow]
+        if not profile or pressure or not collapse:
+            raise AssertionError(f"observe: critical_path profile:0 "
+                                 f"{len(profile)}, hbm_pressure "
+                                 f"{len(pressure)}, throughput_collapse "
+                                 f"under the slow fault {len(collapse)}")
+        captures = glob.glob(f"{tmp}/dlrover-tpu-profiles-*/"
+                             f"capture-*/manifest.json")
+        if len(captures) != 1:
+            raise AssertionError(f"observe: {len(captures)} captures")
+        with open(captures[0]) as f:
+            manifest = json.load(f)
+        trace_path = os.path.join(os.path.dirname(captures[0]),
+                                  "trace.json")
+        kernels = (_trace_kernels(trace_path)
+                   if os.path.exists(trace_path) else {})
+        named = {k: sum(c for n, c in kernels.items() if k in n)
+                 for k in TRAINING_KERNELS}
+        first = manifest["start_step"] + 1
+        captured = list(range(first, first + manifest["num_steps"]))
+        # evidence to action: the start of the fault's first step to the
+        # collapse report, and the profile:0 report to the written trace
+        out["collapse_after_fault_s"] = collapse[0]["ts"] - t_slow
+        out["profile"] = {
+            "status": manifest["status"], "steps": captured,
+            "num_steps": manifest["num_steps"],
+            "trace_bytes": manifest.get("trace_bytes"),
+            "start_s": manifest.get("start_s"),
+            "stop_and_export_s": manifest.get("stop_s"),
+            "kernel_events": named,
+            "reported_after_launch_s": profile[0]["ts"] - t_launch,
+            "report_to_written_trace_s": manifest["finished_at"]
+            - profile[0]["ts"],
+            "collapse_after_fault_s": out["collapse_after_fault_s"]}
+        log(f"observe profile capture: {json.dumps(out['profile'])} "
+            f"({smi})")
+        if (manifest["status"] != "ok"
+                or manifest["num_steps"] != ctx.diagnosis_profile_steps
+                or not all(named.values())):
+            raise AssertionError(f"observe: capture {manifest}, kernels "
+                                 f"{named}")
+        if captured[-1] >= OBSERVE_SLOW_AT - 1:
+            raise AssertionError(f"observe: the capture ({captured}) ran "
+                                 f"into the slow fault at "
+                                 f"{OBSERVE_SLOW_AT}")
+
+        # -- step traces --------------------------------------------------
+        traces = client.query_steptrace()
+        groups = {g["step"]: g for g in traces.get("steps", ())}
+        counted = [g["step"] for g in traces.get("steps", ())]
+        # a step's wall time is the period from its start to the next
+        # step's start on the trace's own clock, and all its phases,
+        # data_wait included, must account for it. The capture's start
+        # and its trace's export run at two step boundaries outside any
+        # phase: those two periods are reported apart. The loop's
+        # young-generation collection (after the first step and every
+        # GC_EVERY_STEPS) is another such piece of a boundary: the time
+        # the worker logs for it leaves the period. The last step has no
+        # next start.
+        boundaries = {"capture_start": captured[0] - 1,
+                      "capture_stop": captured[-1]}
+        collections = run["collections"]
+        misses, waits, gaps = {}, {}, {}
+        for n in steps:
+            group = groups.get(n)
+            if group is None:
+                misses[n] = "missing"
+                continue
+            phases = [seg for lane in group["lanes"]
+                      for seg in lane["phases"]]
+            waits[n] = sum(d for name, _, d in phases
+                           if name == "data_wait")
+            if group["gating_rank"] != 0:
+                misses[n] = ("gating rank", group["gating_rank"])
+            if n + 1 not in groups:
+                continue
+            total = sum(d for _, _, d in phases)
+            wall = (groups[n + 1]["t0"] - group["t0"]
+                    - collections.get(n, 0.0))
+            gaps[n] = wall - total
+            if (n not in boundaries.values()
+                    and abs(total - wall) > OBSERVE_PHASE_TOL * wall):
+                misses[n] = (total, wall)
+        outside = [g for n, g in gaps.items()
+                   if n not in boundaries.values()]
+        out["steptrace"] = {
+            "groups": len(counted),
+            "summary": traces.get("summary"),
+            "data_wait_s": {"first": waits.get(1),
+                            "max_after_first": max(
+                                (w for n, w in waits.items() if n > 1),
+                                default=0.0)},
+            "collections_ms": {n: c * 1e3 for n, c in collections.items()},
+            "untraced_between_steps_ms": {
+                "median": statistics.median(outside) * 1e3,
+                "max": max(outside) * 1e3,
+                **{k: gaps[n] * 1e3 for k, n in boundaries.items()
+                   if n in gaps}},
+            "mismatches": misses}
+        log(f"observe step traces: {json.dumps(out['steptrace'])}")
+        if misses or sorted(counted) != sorted(steps):
+            raise AssertionError(f"observe: step traces {sorted(counted)}: "
+                                 f"{misses}")
+
+        # -- time series: a point per sample interval while training ------
+        t_first = min(t for t, _ in seen["steps"])
+        t_last = max(t for t, _ in seen["steps"])
+        pause = (steps[captured[-1]][0], steps[captured[-1] + 1][0])
+        series = {name: _series_coverage(client, name, t_first, t_last,
+                                         pause)
+                  for name in ("dlrover_tpu_worker_step_time_seconds",
+                               "dlrover_tpu_training_tokens_per_second",
+                               "dlrover_tpu_training_mfu",
+                               "dlrover_tpu_worker_mfu",
+                               "dlrover_tpu_worker_hbm_peak_mb")}
+        out["timeseries"] = {"training_span_s": t_last - t_first,
+                             "export_pause_s": pause[1] - pause[0],
+                             "series": series}
+        log(f"observe time series: {json.dumps(out['timeseries'])}")
+        sparse = {n: c for n, c in series.items()
+                  if c["max_gap_s"] > 1.5 * OBSERVE_INTERVAL_S}
+        if sparse:
+            raise AssertionError(f"observe: series without a point every "
+                                 f"{OBSERVE_INTERVAL_S} s of training: "
+                                 f"{sparse}")
+
+        # -- step time outside the capture and the fault -----------------
+        after = captured[-1] + 1
+        clean = {n: r[3] * 1e3 for n, r in steps.items()
+                 if 2 < n < OBSERVE_SLOW_AT and n not in captured
+                 and n != after}
+        median = statistics.median(clean.values())
+        base = llama1b.get("step_median_ms")
+        times = {
+            "clean_median_ms": median, "clean_steps_ms": clean,
+            "captured_steps_ms": [steps[n][3] * 1e3 for n in captured],
+            "captured_over_clean": statistics.median(
+                steps[n][3] for n in captured) * 1e3 / median,
+            "first_after_capture_ms": steps[after][3] * 1e3,
+            "slow_steps_ms": [steps[n][3] * 1e3
+                              for n in range(OBSERVE_SLOW_AT,
+                                             OBSERVE_STEPS + 1)],
+            "llama1b_median_ms": base if base else "not measured"}
+        out["step_time"] = times
+        log(f"observe step time: {json.dumps(times)} ({smi})")
+        if base:
+            band = (base * (1 - OBSERVE_STEP_TOL),
+                    base * (1 + OBSERVE_STEP_TOL))
+            spread = max(band[1], max(clean.values()))
+            # the first step after the capture must not be slower than
+            # the clean steps and the band (CUPTI released); faster is
+            # no fault
+            if not (band[0] <= median <= band[1]
+                    and times["first_after_capture_ms"] <= spread):
+                raise AssertionError(
+                    f"observe: clean median {median:.2f} ms against the "
+                    f"llama1b median {base:.2f} ms, the first step after "
+                    f"the capture {times['first_after_capture_ms']:.2f} ms "
+                    f"(the clean steps' and the band's top {spread:.2f})")
+        log(f"observe: the phase took {time.monotonic() - t_phase:.1f} s "
+            f"(the reference run, the worker under the agent "
+            f"{out['agent_run_s']:.1f} s, the checks)")
+    finally:
+        if client is not None:
+            client.close()
+        master.stop()
+        ctx.update(**saved)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases",
                         default="kernels,quant,parity,llama1b,resume,"
-                                "standalone,faults",
+                                "standalone,faults,observe",
                         help="comma-separated subset of kernels, quant, "
-                             "parity, llama1b, resume, standalone, faults "
-                             "(device and build always run)")
+                             "parity, llama1b, resume, standalone, faults, "
+                             "observe (device and build always run)")
     parser.add_argument("--profile", default="",
                         help="after the Llama-1B run, profile one more "
                              "step and write the kernel table here")
@@ -2338,6 +2730,12 @@ def main(argv=None) -> int:
             rec["faults_launches"] = sum(
                 counts[rec["name"]]
                 for counts in faults["launches"].values())
+    if "observe" in phases:
+        # the worker under the master that diagnoses it: its launches
+        # over every step, the profiled ones among them
+        observe = phase_observe(smi, llama1b)
+        for rec in train_records + quant_records:
+            rec["observe_launches"] = observe["launches"][rec["name"]]
     records = train_records + quant_records
     log(f"elapsed {time.monotonic() - t0:.1f} s")
     print(json.dumps({"kernels": records}))

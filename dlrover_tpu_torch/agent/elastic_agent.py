@@ -27,16 +27,30 @@ monitor/restart loop :429-521, failure reporting :490):
   plan file; the agent's donor server serves the cache (it outlives the
   worker), and the agent advertises the staged step to the master before
   every join and on every monitor tick.
+- Monitors (``agent/monitor.py``, ``WorkerSpec.enable_monitors``): the
+  ``ResourceMonitor`` relays the host's CPU and memory and the card stats
+  the worker exports (the agent never touches the card). The JAX agent's
+  ``TrainingMonitor`` and ``ParalConfigTuner`` threads are not started:
+  no worker of either package writes the step-progress file or reads the
+  tuned config. Nor is its ``relaunch_on_hanging`` restart by
+  ``HangingDetector``: the step-hang watchdog covers a stalled worker.
+- Diagnosis actions: after each successful liveness poll the agent
+  drains the master's actions for its rank and executes them:
+  ``profile`` writes the request the worker's profiler polls (captures
+  land in ``$TMPDIR/dlrover-tpu-profiles-*/capture-<id>-<ts>/``, which
+  outlives the agent and keeps the newest ``PROFILE_CAPTURES_KEPT``),
+  ``checkpoint`` a save-and-continue drain request, ``drain`` a
+  save-and-exit one, ``restart`` restarts the worker uncharged, and
+  ``alert`` and ``observe`` are logged.
 
-Not ported yet: the agent's monitors (``agent/monitor.py``) and
-master-loss reconnect (ROADMAP Queue A item 12), diagnosis actions
-(12.6).
+Not ported yet: master-loss reconnect (ROADMAP Queue A item 12.9).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import glob
 import os
 import shutil
 import signal
@@ -66,8 +80,13 @@ from dlrover_tpu_torch.common.constants import (
     WorkerExit,
 )
 from dlrover_tpu_torch.common.log import default_logger as logger
+from dlrover_tpu_torch.obs.profiler import write_profile_request
 from dlrover_tpu_torch.obs.timeline import load_timeline
 from dlrover_tpu_torch.trainer.watchdog import default_warmup_s
+
+# profiler captures (~45 MB each for Llama-1B) an agent keeps on disk: a
+# new request removes the oldest beyond this
+PROFILE_CAPTURES_KEPT = 4
 
 
 class RelaunchGovernor:
@@ -166,14 +185,10 @@ class WorkerSpec:
     # checkpoint commit (the worker saves on SIGTERM)
     shutdown_grace_s: float = 120.0
     env: Dict[str, str] = dataclasses.field(default_factory=dict)
-    # side monitors: not ported yet (ROADMAP Queue A item 12)
-    enable_monitors: bool = False
+    # side monitors (resource and step reporting, tuned-config polling)
+    enable_monitors: bool = True
 
     def __post_init__(self) -> None:
-        if self.enable_monitors:
-            raise NotImplementedError(
-                "the agent's monitors (agent/monitor.py) are not ported "
-                "yet (ROADMAP Queue A item 12)")
         # THIS interval paces the agent's num_nodes_waiting poll, the
         # master's main liveness signal
         timeout = Context.singleton().dead_node_timeout_s
@@ -207,11 +222,23 @@ class ElasticAgent:
         self.last_round = -1
         # relaunch pacing: backoff between respawns, quarantine on flap
         self._governor = RelaunchGovernor()
+        self._monitors: List = []
         # peer-to-peer restore: the worker stages its state into the
         # cache; the donor server (started in run(), owned by THIS
         # process so it outlives worker restarts) serves it, and the
         # join result's restore plan lands in the plan file
         self._workdir = tempfile.mkdtemp(prefix="dlrover-tpu-agent-")
+        # the card stats the worker exports for the ResourceMonitor
+        self.chip_stats_file = os.path.join(self._workdir, "chips.json")
+        # on-demand profiler captures the agent requests for a master
+        # `profile:{rank}` action; the worker's ProfilerSession polls the
+        # request file and writes its captures under the dump dir, which
+        # outlives the work dir (removed at exit when it holds none)
+        self.profile_request_file = os.path.join(
+            self._workdir, "profile_request.json")
+        self.profile_dump_dir = tempfile.mkdtemp(
+            prefix="dlrover-tpu-profiles-")
+        self._profile_request_seq = 0
         self.peer_cache_dir = os.path.join(self._workdir, "peer_cache")
         self.restore_plan_file = os.path.join(self._workdir,
                                               "restore_plan.json")
@@ -313,6 +340,8 @@ class ElasticAgent:
             NodeEnv.COORDINATOR_ADDR: coord,
             NodeEnv.RDZV_ROUND: str(rdzv_round),
             NodeEnv.DEVICES_PER_NODE: str(self._spec.devices_per_node),
+            NodeEnv.CHIP_STATS_FILE: self.chip_stats_file,
+            NodeEnv.PROFILE_REQUEST_FILE: self.profile_request_file,
             NodeEnv.PEER_CACHE_DIR: self.peer_cache_dir,
             NodeEnv.RESTORE_PLAN_FILE: self.restore_plan_file,
             NodeEnv.TIMELINE_FILE: self.timeline_file,
@@ -358,6 +387,23 @@ class ElasticAgent:
             self._restart_count += 1
         self._spawn()
 
+    def _start_monitors(self) -> None:
+        if not self._spec.enable_monitors:
+            return
+        from dlrover_tpu_torch.agent.monitor import ResourceMonitor
+
+        self._monitors = [
+            ResourceMonitor(self._client,
+                            chip_stats_file=self.chip_stats_file),
+        ]
+        for monitor in self._monitors:
+            monitor.start()
+
+    def _stop_monitors(self) -> None:
+        for monitor in self._monitors:
+            monitor.stop()
+        self._monitors = []
+
     # -- main loop ---------------------------------------------------------
     def run(self) -> int:
         """Monitor loop. Returns the worker's final exit code, POSIX-shaped
@@ -375,20 +421,31 @@ class ElasticAgent:
         recorder.install_excepthook()
         try:
             self._spawn()
+            self._start_monitors()
             return WorkerExit.to_exit_status(self._run_loop())
         except BaseException:
             # never orphan the trainer on the way out
             self._stop_worker()
             raise
         finally:
+            self._stop_monitors()
             if self._preempt_watcher is not None:
                 self._preempt_watcher.stop()
             self._stop_peer_donor()
-            # the staged copies die with the agent that served them
-            shutil.rmtree(self._workdir, ignore_errors=True)
+            self._remove_workdir()
             self._flush_telemetry()
             obs.remove_span_sink(self._span_exporter)
             recorder.dump(reason="agent-exit")
+
+    def _remove_workdir(self) -> None:
+        """The staged copies and handoff files die with the agent that
+        served them; profiler captures outlive it."""
+        shutil.rmtree(self._workdir, ignore_errors=True)
+        try:
+            os.rmdir(self.profile_dump_dir)
+        except OSError:
+            logger.info("profiler captures kept in %s",
+                        self.profile_dump_dir)
 
     def _flush_telemetry(self) -> None:
         self._span_exporter.flush_to(self._client)
@@ -435,6 +492,9 @@ class ElasticAgent:
                 continue
             # healthy: a membership change re-forms the world
             waiting = self._client.num_nodes_waiting(self._rdzv_name)
+            # then the diagnosis actions the master queued for this rank,
+            # polled only after a successful liveness probe
+            self._poll_diagnosis_actions()
             # keep the master's donor registry fresh: the worker staged
             # a newer step since the last report (one os.stat)
             self._report_peer_store()
@@ -651,6 +711,85 @@ class ElasticAgent:
     def shutdown(self) -> None:
         self._shutdown.set()
         self._stop_worker()
+
+    # -- diagnosis actions -------------------------------------------------
+    def _poll_diagnosis_actions(self) -> None:
+        """Drain and execute the master's diagnosis actions for this
+        rank. Best-effort: a failed poll is skipped (the next tick
+        retries), and an action that cannot execute does not kill the
+        agent."""
+        try:
+            actions = self._client.poll_diagnosis_actions()
+        except Exception:  # noqa: BLE001 — droppable, next tick retries
+            return
+        for action in actions:
+            try:
+                self._execute_diagnosis_action(action)
+            except Exception:  # noqa: BLE001
+                logger.exception("diagnosis action failed: %s", action)
+
+    def _execute_diagnosis_action(self, action: dict) -> None:
+        kind = str(action.get("kind", "observe"))
+        reason = str(action.get("reason", ""))
+        obs.get_flight_recorder().record_event(
+            "diagnosis_action_executed", kind=kind,
+            id=action.get("id", 0), reason=reason[:256])
+        obs.get_registry().counter(
+            "dlrover_tpu_agent_diagnosis_actions_total",
+            "Diagnosis actions this agent executed",
+            labelnames=("kind",)).labels(kind=kind).inc()
+        if kind == "profile":
+            self._request_profile(action)
+        elif kind in ("checkpoint", "drain"):
+            self._request_save(action, exit_worker=kind == "drain")
+        elif kind == "restart":
+            logger.warning("diagnosis: restarting worker (%s)", reason)
+            self._restart_worker(count_against_budget=False)
+        elif kind == "alert":
+            logger.warning("diagnosis alert: %s", reason)
+        else:
+            logger.info("diagnosis observe: %s", reason)
+
+    def _request_profile(self, action: dict) -> None:
+        """A master ``profile:{rank}`` action becomes a capture request
+        the worker's ProfilerSession polls each step
+        (``obs/profiler.py``); the capture lands under the dump dir,
+        which keeps the newest ``PROFILE_CAPTURES_KEPT`` captures."""
+        captures = sorted(
+            glob.glob(os.path.join(self.profile_dump_dir, "capture-*")),
+            key=os.path.getmtime)
+        for old in captures[:max(0, len(captures)
+                                 - PROFILE_CAPTURES_KEPT + 1)]:
+            shutil.rmtree(old, ignore_errors=True)
+        self._profile_request_seq += 1
+        num_steps = int(action.get("num_steps", 5) or 5)
+        write_profile_request(
+            self.profile_request_file, self._profile_request_seq,
+            num_steps, self.profile_dump_dir)
+        logger.info(
+            "diagnosis: requested a %d-step profiler capture (#%d) -> %s",
+            num_steps, self._profile_request_seq, self.profile_dump_dir)
+
+    def _request_save(self, action: dict, exit_worker: bool) -> None:
+        """A master ``checkpoint:{rank}`` action (a peer is draining)
+        hands the worker a save-now-KEEP-RUNNING request through the
+        drain file, consumed at its next step boundary; a
+        ``drain:{rank}`` one (this rank's slice is draining) a
+        save-and-EXIT request, after which the run loop sees the clean
+        drain exit and concludes the drain with the master."""
+        self._drain_seq += 1
+        deadline = float(action.get("deadline", 0.0) or 0.0)
+        if deadline <= 0.0:
+            deadline = (time.time()
+                        + Context.singleton().preempt_default_grace_s)
+        write_drain_request(
+            self.drain_request_file, self._drain_seq, deadline,
+            reason=str(action.get("reason", "")), exit_worker=exit_worker)
+        logger.info(
+            "diagnosis: %s requested of the worker (#%d, deadline in "
+            "%.0fs)", "save-and-exit drain" if exit_worker
+            else "urgent checkpoint", self._drain_seq,
+            max(0.0, deadline - time.time()))
 
     # -- peer-to-peer restore ----------------------------------------------
     def _start_peer_donor(self) -> None:

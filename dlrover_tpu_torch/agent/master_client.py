@@ -8,8 +8,8 @@ environment contract.
 
 Not ported yet: the coordination-tier routing, the bootstrap-file
 re-resolution and the reconnect handshake of master-loss handling
-(ROADMAP Queue A item 12), and the wrappers of the re-planning (6.3),
-slice (6.4), diagnosis, steptrace and time-series RPCs (12).
+(ROADMAP Queue A item 12.9), and the wrappers of the re-planning (6.3),
+slice (6.4) and autoscale (12.10) RPCs.
 """
 
 from __future__ import annotations
@@ -316,16 +316,98 @@ class MasterClient:
     # -- health / status --------------------------------------------------
     def report_global_step(self, step: int, step_time_s: float = 0.0,
                            data_wait_fraction: float = -1.0,
-                           mfu: float = -1.0) -> bool:
+                           mfu: float = -1.0,
+                           hbm_peak_bytes: float = 0.0,
+                           plan_generation: int = -1) -> bool:
         """Step progress with the sender's windowed speed evidence: mean
         step wall time and data-wait fraction from the worker's phase
-        timeline, achieved MFU from its FLOPs model. ``timestamp`` rides
-        for wire captures only: the master keys speed on its own clock."""
+        timeline, achieved MFU from its FLOPs model, and the report
+        window's device-truth memory peak (``obs/device.py``; 0 = none).
+        ``timestamp`` rides for wire captures only: the master keys
+        speed on its own clock."""
         return self._report(msg.GlobalStepReport(
             node_id=self.node_id, step=step, timestamp=time.time(),
             node_rank=self.node_rank, step_time_s=step_time_s,
             data_wait_fraction=data_wait_fraction, mfu=mfu,
+            hbm_peak_bytes=hbm_peak_bytes,
+            plan_generation=plan_generation,
         )).success
+
+    # -- diagnosis --------------------------------------------------------
+    def poll_diagnosis_actions(self) -> list:
+        """Actions the master's diagnosis engine addressed to this rank
+        (single delivery: the caller executes or drops them)."""
+        result = self._get_typed(
+            msg.DiagnosisActionRequest(node_id=self.node_id,
+                                       node_rank=self.node_rank),
+            msg.DiagnosisActions,
+        )
+        return self._json_list(result.actions_json)
+
+    def get_diagnosis_reports(self, limit: int = 0) -> list:
+        """The master's recent DiagnosisReport dicts, oldest first."""
+        result = self._get_typed(
+            msg.DiagnosisReportRequest(limit=limit),
+            msg.DiagnosisReports,
+        )
+        return self._json_list(result.reports_json)
+
+    def report_resource_stats(self, stats: msg.NodeResourceStats) -> bool:
+        return self._report(stats).success
+
+    def query_timeseries(self, name: str = "", labels=None,
+                         window_s: float = 0.0,
+                         resolution_s: float = 0.0) -> dict:
+        """Windowed, aligned history from the master's time-series store
+        (``obs/tsdb.py``): {"series": [...], "tiers": [...], "stats":
+        {...}}, or {"names": [...]} with an empty name; {} from a master
+        without a store."""
+        result = self._get_typed(msg.TimeSeriesQuery(
+            name=name, labels=dict(labels or {}),
+            window_s=window_s, resolution_s=resolution_s),
+            msg.TimeSeriesResult)
+        return self._json_dict(result.result_json)
+
+    def query_steptrace(self, start_step: int = -1, end_step: int = -1,
+                        last_n: int = 0) -> dict:
+        """Assembled per-step critical paths from the master's
+        StepTraceAssembler (``master/steptrace.py``): {"version",
+        "steps", "summary"}; {} from a master without one."""
+        result = self._get_typed(msg.StepTraceRequest(
+            start_step=start_step, end_step=end_step, last_n=last_n),
+            msg.StepTraceResult)
+        return self._json_dict(result.result_json)
+
+    def probe_clock(self) -> float:
+        """One NTP-style clock probe: the master's wall clock, or -1.0 on
+        failure. A single attempt on the raw path: retries would inflate
+        the measured round trip, which is the uncertainty bound
+        ClockSync stamps into records."""
+        try:
+            result = self._get(msg.ClockProbe(node_id=self.node_id))
+        except Exception:  # noqa: BLE001 — droppable by contract
+            return -1.0
+        return float(getattr(result, "server_ts", -1.0) or -1.0)
+
+    @staticmethod
+    def _json_dict(text: str) -> dict:
+        if not text:
+            return {}
+        try:
+            payload = json.loads(text)
+        except json.JSONDecodeError:
+            return {}
+        return payload if isinstance(payload, dict) else {}
+
+    @staticmethod
+    def _json_list(text: str) -> list:
+        if not text:
+            return []
+        try:
+            payload = json.loads(text)
+        except json.JSONDecodeError:
+            return []
+        return payload if isinstance(payload, list) else []
 
     def report_heartbeat(self) -> bool:
         return self._report(msg.NodeHeartbeat(
@@ -353,11 +435,12 @@ class MasterClient:
             deadline=deadline, reason=reason, phase=phase,
         ), msg.DrainResult)
 
-    def report_telemetry(self, samples=None, spans=None) -> bool:
-        """Push metric samples and finished span dicts to the master
-        (obs/). Best-effort by contract: callers treat a False or a raise
-        as droppable telemetry."""
-        if not samples and not spans:
+    def report_telemetry(self, samples=None, spans=None,
+                         steptrace=None) -> bool:
+        """Push metric samples, finished span dicts and per-step trace
+        records to the master (obs/). Best-effort by contract: callers
+        treat a False or a raise as droppable telemetry."""
+        if not samples and not spans and not steptrace:
             return True
         return self._report(msg.TelemetryReport(
             node_id=self.node_id,
@@ -365,6 +448,7 @@ class MasterClient:
             node_type=self.node_type,
             samples=list(samples or ()),
             spans_json=json.dumps(spans) if spans else "",
+            steptrace_json=json.dumps(steptrace) if steptrace else "",
         )).success
 
     def get_goodput(self, window_s: float = 0.0) -> dict:
@@ -372,13 +456,7 @@ class MasterClient:
         from a master without one."""
         result = self._get_typed(msg.GoodputRequest(window_s=window_s),
                                  msg.GoodputReport)
-        if not result.report_json:
-            return {}
-        try:
-            payload = json.loads(result.report_json)
-        except json.JSONDecodeError:
-            return {}
-        return payload if isinstance(payload, dict) else {}
+        return self._json_dict(result.report_json)
 
     def report_node_address(self, addr: str) -> bool:
         return self._report(msg.NodeAddressReport(

@@ -32,12 +32,77 @@ class Context:
         self.kv_gc_keep_generations: int = (
             DefaultValues.KV_GC_KEEP_GENERATIONS
         )
+        self.report_resource_interval_s: float = (
+            DefaultValues.REPORT_RESOURCE_INTERVAL_S
+        )
         self.speed_sample_window: int = DefaultValues.SPEED_SAMPLE_WINDOW
         self.straggler_median_ratio: float = (
             DefaultValues.STRAGGLER_MEDIAN_RATIO
         )
+        # the diagnosis engine (master/diagnosis/): rule thresholds,
+        # cadence and the action kill-switch
+        self.diagnosis_enabled: bool = DefaultValues.DIAGNOSIS_ENABLED
+        self.diagnosis_interval_s: float = (
+            DefaultValues.DIAGNOSIS_INTERVAL_S
+        )
         self.diagnosis_worker_window: int = (
             DefaultValues.DIAGNOSIS_WORKER_WINDOW
+        )
+        self.diagnosis_min_worker_samples: int = (
+            DefaultValues.DIAGNOSIS_MIN_WORKER_SAMPLES
+        )
+        self.straggler_trigger_windows: int = (
+            DefaultValues.STRAGGLER_TRIGGER_WINDOWS
+        )
+        self.straggler_clear_windows: int = (
+            DefaultValues.STRAGGLER_CLEAR_WINDOWS
+        )
+        self.diagnosis_data_wait_fraction: float = (
+            DefaultValues.DIAGNOSIS_DATA_WAIT_FRACTION
+        )
+        self.diagnosis_hbm_pressure_pct: float = (
+            DefaultValues.DIAGNOSIS_HBM_PRESSURE_PCT
+        )
+        self.diagnosis_collapse_ratio: float = (
+            DefaultValues.DIAGNOSIS_COLLAPSE_RATIO
+        )
+        self.diagnosis_actions_enabled: bool = (
+            DefaultValues.DIAGNOSIS_ACTIONS_ENABLED
+        )
+        self.diagnosis_profile_steps: int = (
+            DefaultValues.DIAGNOSIS_PROFILE_STEPS
+        )
+        self.diagnosis_action_cooldown_s: float = (
+            DefaultValues.DIAGNOSIS_ACTION_COOLDOWN_S
+        )
+        # GoodputRule (threshold 0 = off)
+        self.goodput_alert_threshold: float = (
+            DefaultValues.GOODPUT_ALERT_THRESHOLD
+        )
+        self.goodput_window_s: float = DefaultValues.GOODPUT_WINDOW_S
+        self.goodput_min_coverage: float = (
+            DefaultValues.GOODPUT_MIN_COVERAGE
+        )
+        # the time-series store (obs/tsdb.py): sampling and sidecar
+        # flush cadences of the master's collector
+        self.tsdb_sample_interval_s: float = (
+            DefaultValues.TSDB_SAMPLE_INTERVAL_S
+        )
+        self.tsdb_flush_interval_s: float = (
+            DefaultValues.TSDB_FLUSH_INTERVAL_S
+        )
+        # per-step critical-path tracing (obs/steptrace.py,
+        # master/steptrace.py) and the CriticalPathRule's threshold
+        self.steptrace_enabled: bool = DefaultValues.STEPTRACE_ENABLED
+        self.steptrace_ring: int = DefaultValues.STEPTRACE_RING
+        self.steptrace_probe_interval_s: float = (
+            DefaultValues.STEPTRACE_PROBE_INTERVAL_S
+        )
+        self.steptrace_ring_steps: int = (
+            DefaultValues.STEPTRACE_RING_STEPS
+        )
+        self.critical_path_gating_fraction: float = (
+            DefaultValues.CRITICAL_PATH_GATING_FRACTION
         )
         # flight-recorder rings (obs/flight_recorder.py)
         self.flight_ring_events: int = DefaultValues.FLIGHT_RING_EVENTS

@@ -183,10 +183,61 @@ class DefaultValues:
     RPC_BACKOFF_MAX_S = 15.0
     KV_GC_KEEP_GENERATIONS = 2
     MONITOR_INTERVAL_S = 5.0
+    # the agent's ResourceMonitor cadence (agent/monitor.py)
+    REPORT_RESOURCE_INTERVAL_S = 15.0
     SPEED_SAMPLE_WINDOW = 20
     STRAGGLER_MEDIAN_RATIO = 2.0    # t > ratio × median ⇒ straggler
+    # the diagnosis engine (master/diagnosis/): the rule chain over the
+    # step reports, resource stats and step traces, run every interval
+    DIAGNOSIS_ENABLED = True
+    DIAGNOSIS_INTERVAL_S = 30.0
     # per-worker step-time window (samples) of the speed monitor
     DIAGNOSIS_WORKER_WINDOW = 20
+    # samples a worker needs before a rule judges it
+    DIAGNOSIS_MIN_WORKER_SAMPLES = 3
+    # hysteresis: consecutive rounds over the threshold to flag, under it
+    # to clear
+    STRAGGLER_TRIGGER_WINDOWS = 2
+    STRAGGLER_CLEAR_WINDOWS = 2
+    # data-wait fraction above which a worker is input-bound
+    DIAGNOSIS_DATA_WAIT_FRACTION = 0.5
+    # per-card HBM used/total % that raises an hbm_pressure report
+    DIAGNOSIS_HBM_PRESSURE_PCT = 92.0
+    # throughput collapse: windowed MFU (or steps/s) under ratio × the
+    # world's high-water mark
+    DIAGNOSIS_COLLAPSE_RATIO = 0.5
+    # False = diagnose only (reports and metrics, no actions dispatched)
+    DIAGNOSIS_ACTIONS_ENABLED = True
+    # steps an on-demand profiler capture traces
+    DIAGNOSIS_PROFILE_STEPS = 5
+    # per-rank cooldown between dispatched actions
+    DIAGNOSIS_ACTION_COOLDOWN_S = 300.0
+    # GoodputRule: alert below this trailing-window goodput (0 = off),
+    # over this window, once it is this covered
+    GOODPUT_ALERT_THRESHOLD = 0.0
+    GOODPUT_WINDOW_S = 600.0
+    GOODPUT_MIN_COVERAGE = 0.5
+    # the time-series store (obs/tsdb.py): the collector's sampling and
+    # sidecar-flush cadences (0 = no sampler thread; flush only at stop)
+    TSDB_SAMPLE_INTERVAL_S = 5.0
+    TSDB_FLUSH_INTERVAL_S = 30.0
+    # PlanRegressionRule (master/diagnosis/rules.py): a plan's samples
+    # before it is evidence, the measured/predicted ratio, and the
+    # rounds over it to alert and under it to clear; constants until
+    # the planner's calibration (ROADMAP Queue A item 6.3) feeds the rule
+    CALIBRATION_MIN_SAMPLES = 3
+    PLAN_REGRESSION_RATIO = 1.5
+    PLAN_REGRESSION_WINDOWS = 3
+    PLAN_REGRESSION_CLEAR_WINDOWS = 2
+    # per-step critical-path tracing (obs/steptrace.py,
+    # master/steptrace.py): the worker's record ring and clock-probe
+    # refresh cadence, the master's assembled-step ring, and the
+    # CriticalPathRule's gating fraction (0 = rule off)
+    STEPTRACE_ENABLED = True
+    STEPTRACE_RING = 512
+    STEPTRACE_PROBE_INTERVAL_S = 30.0
+    STEPTRACE_RING_STEPS = 512
+    CRITICAL_PATH_GATING_FRACTION = 0.5
     # the least time before a deadline for which an emergency save
     # starts at all
     EMERGENCY_CKPT_MIN_WINDOW_S = 2.0

@@ -31,8 +31,19 @@ from the agent's staged copy, ``checkpoint`` from disk, and its timings
 by part), ``done step=`` (or ``drained``), a
 ``worker_launch_counts`` JSON line with its kernel launches so far at
 the start of every step after the first and at exit (an aborted worker's
-last line holds its launches up to its last finished step), and at exit
-one ``worker_times`` line with its wall-clock marks.
+last line holds its launches up to its last finished step), on the card
+a ``worker_allocator_peak`` JSON line beside it (the caching allocator's
+``allocated_bytes.all.peak`` after that many steps of this run, what the
+step reports carry to the master as ``hbm_peak_bytes``, and
+``reserved_bytes.all.peak``), and at exit one
+``worker_times`` line with its wall-clock marks.
+
+The agent hands the worker the files of its monitors and diagnosis
+actions through the environment (``DLROVER_TPU_CHIP_STATS``, the card
+stats it relays; ``DLROVER_TPU_PROFILE_REQUEST``, the on-demand
+profiler captures); every telemetry knob is a ``DLROVER_TPU_<NAME>``
+variable read by ``Context`` (``DLROVER_TPU_STEPTRACE_ENABLED``,
+``DLROVER_TPU_PROFILE_DIR`` for a static capture window, ...).
 """
 
 from __future__ import annotations
@@ -160,12 +171,21 @@ def main(argv=None) -> int:
             counts.update(module.launch_counts)
         log(f"worker_launch_counts {json.dumps(counts)}")
 
+    def log_allocator_peak(steps: int) -> None:
+        stats = torch.cuda.memory_stats()
+        log("worker_allocator_peak " + json.dumps({
+            "steps": steps, "bytes": stats["allocated_bytes.all.peak"],
+            "reserved_bytes": stats["reserved_bytes.all.peak"]}))
+
     def counted(data):
-        """The batches, logging the launches so far before every batch
-        after the first: the previous step is done by then."""
+        """The batches, logging the launches so far (and on the card the
+        allocator's peak) before every batch after the first: the
+        previous step is done by then."""
         for n, batch in enumerate(data):
             if n:
                 log_launches()
+                if loop.device.type == "cuda":
+                    log_allocator_peak(n)
             yield batch
 
     sampler = ElasticDistributedSampler(dataset_size=10 ** 6, seed=0)

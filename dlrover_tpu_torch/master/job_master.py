@@ -8,14 +8,20 @@ hang. This is the standalone master (``run.py --standalone``), with the
 single-lock rendezvous manager (the JAX package's ``rdzv_sharded=False``
 path).
 
-The master keeps the job's goodput ledger (``obs/goodput.py``), fed
-by the servicer and served over ``GoodputRequest``.
+The master keeps the job's goodput ledger (``obs/goodput.py``), the
+time-series store (``obs/tsdb.py``) with its collector sampling the
+fleet gauges and the ledger every ``tsdb_sample_interval_s``, the
+step-trace assembler (``master/steptrace.py``) and, unless
+``diagnosis_enabled`` is off, the diagnosis engine
+(``master/diagnosis/``), run every ``diagnosis_interval_s``. The
+servicer feeds and serves them; a graceful ``stop()`` dumps the flight
+record with the ledger, a tsdb snapshot and the assembled steps in it.
 
 Not ported yet (ROADMAP Queue A item 12): the state backend and hot
-standby, the sharded rendezvous router and the coordination tier, the
-time-series store, steptrace, diagnosis, the fleet controller, the
-master-side chaos injector, the job manager with its scalers and
-watchers, the brain and the metrics HTTP exporter.
+standby (with them the tsdb's sidecar file), the sharded rendezvous
+router and the coordination tier, the fleet controller, the planner's
+calibration, the master-side chaos injector, the job manager with its
+scalers and watchers, the brain and the metrics HTTP exporter.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from dlrover_tpu_torch.common.comm import build_server, local_ip
 from dlrover_tpu_torch.common.config import Context
 from dlrover_tpu_torch.common.constants import RendezvousName
 from dlrover_tpu_torch.common.log import default_logger as logger
+from dlrover_tpu_torch.master.diagnosis import DiagnosisManager
 from dlrover_tpu_torch.master.kv_store import KVStoreService
 from dlrover_tpu_torch.master.rendezvous import (
     ElasticTrainingRendezvousManager,
@@ -36,6 +43,7 @@ from dlrover_tpu_torch.master.rendezvous import (
 from dlrover_tpu_torch.master.servicer import MasterServicer
 from dlrover_tpu_torch.master.shard.task_manager import TaskManager
 from dlrover_tpu_torch.master.speed_monitor import SpeedMonitor
+from dlrover_tpu_torch.master.steptrace import StepTraceAssembler
 from dlrover_tpu_torch.master.sync_service import ElasticPsService, SyncService
 
 
@@ -75,6 +83,19 @@ class JobMaster:
         # the goodput ledger classifies every rank-second of the job
         # (obs/goodput.py); fed by the servicer, queried over RPC
         self.goodput_ledger = obs.GoodputLedger()
+        # the fleet's bounded history, sampled by the collector and fed
+        # per rank by the servicer; no state dir, so no sidecar file
+        self.tsdb = obs.TimeSeriesStore()
+        self.tsdb_collector = obs.TsdbCollector(
+            self.tsdb, goodput_ledger=self.goodput_ledger)
+        # per-step critical paths: feeds the tsdb gating series and the
+        # CriticalPathRule
+        self.steptrace = StepTraceAssembler(tsdb=self.tsdb)
+        self.diagnosis_manager = None
+        if ctx.diagnosis_enabled:
+            self.diagnosis_manager = DiagnosisManager(
+                self.speed_monitor, goodput_ledger=self.goodput_ledger,
+                steptrace=self.steptrace)
         self.servicer = MasterServicer(
             task_manager=self.task_manager,
             rdzv_managers=self.rdzv_managers,
@@ -83,6 +104,9 @@ class JobMaster:
             sync_service=self.sync_service,
             elastic_ps_service=self.elastic_ps_service,
             goodput_ledger=self.goodput_ledger,
+            diagnosis_manager=self.diagnosis_manager,
+            tsdb=self.tsdb,
+            steptrace=self.steptrace,
         )
         self._host = host
         self._server, self.port = build_server(
@@ -96,6 +120,9 @@ class JobMaster:
     def prepare(self) -> None:
         self._server.start()
         self.task_manager.start_timeout_recovery()
+        if self.diagnosis_manager is not None:
+            self.diagnosis_manager.start()
+        self.tsdb_collector.start()
         logger.info("job master serving on port %d", self.port)
 
     def run(self, poll_interval_s: float = 30.0) -> int:
@@ -127,6 +154,26 @@ class JobMaster:
     def stop(self, grace_s: float = 1.0) -> None:
         if not self._stopped.is_set():
             self._stopped.set()
+            if self.diagnosis_manager is not None:
+                self.diagnosis_manager.stop()
+            self.tsdb_collector.stop()
+            # the master's half of the postmortem: the goodput ledger, a
+            # compact tsdb snapshot and the assembled step traces ride in
+            # the dump, the same payloads the live RPCs serve
+            recorder = obs.get_flight_recorder()
+            self.goodput_ledger.record_flight_snapshot(
+                reason="master-stop")
+            try:
+                recorder.record_event(
+                    "tsdb", snapshot=self.tsdb_collector.flight_snapshot())
+                recorder.record_event(
+                    "steptrace", snapshot=self.steptrace.flight_snapshot())
+            except Exception:  # noqa: BLE001 — the dump must land
+                logger.exception("flight snapshot of the tsdb or "
+                                 "steptrace failed")
+            recorder.record_event("master_stop",
+                                  exit_reason=self._exit_reason)
+            recorder.dump(reason="master-stop")
             self._server.stop(grace_s)
 
     @property

@@ -11,19 +11,32 @@ A request whose subsystem is not ported yet is answered
 ``Response(success=False, reason="not ported: ROADMAP Queue A item …")``
 rather than pretending to handle it (``_NOT_PORTED``).
 
-The goodput ledger (``obs/goodput.py``, optional) is fed as the JAX
-master feeds it: step reports, the spans of telemetry reports, the
-drain protocol, hang and crash failure reports, and each newly cut
-training world. A ``TelemetryReport`` is processed in the RPC (the JAX
-master's bounded ingest queue is the coordination tier's, ROADMAP Queue
-A item 12.3), and only its spans and samples: the time-series half
-waits for 12.4.
+The optional components are fed as the JAX master feeds them:
+
+- the goodput ledger (``obs/goodput.py``): step reports, the spans of
+  telemetry reports, the drain protocol, hang and crash failure reports,
+  and each newly cut training world;
+- the diagnosis engine (``master/diagnosis/``): step-report HBM
+  watermarks, ``NodeResourceStats``, worker exits and drain notices; its
+  reports and per-rank actions are served over
+  ``DiagnosisReportRequest`` and ``DiagnosisActionRequest``, and a drain
+  notice fans an urgent ``checkpoint`` out to the survivors;
+- the time-series store (``obs/tsdb.py``, built here when none is
+  given): each step report's step time, MFU and HBM watermark per rank,
+  served over ``TimeSeriesQuery``;
+- the step-trace assembler (``master/steptrace.py``): the records of
+  telemetry reports, served over ``StepTraceRequest``; ``ClockProbe``
+  answers the master's wall clock for the workers' clock alignment.
+
+A ``TelemetryReport`` is processed in the RPC (the JAX master's bounded
+ingest queue is the coordination tier's, ROADMAP Queue A item 12.3).
 """
 
 from __future__ import annotations
 
 import json
 import threading
+import time
 from typing import Dict, Optional
 
 import grpc
@@ -37,6 +50,7 @@ from dlrover_tpu_torch.common.constants import (
 )
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch import obs
+from dlrover_tpu_torch.master.diagnosis.manager import DiagnosisManager
 from dlrover_tpu_torch.master.kv_store import KVStoreService
 from dlrover_tpu_torch.master.rendezvous import (
     ElasticTrainingRendezvousManager,
@@ -45,22 +59,17 @@ from dlrover_tpu_torch.master.rendezvous import (
 )
 from dlrover_tpu_torch.master.shard.task_manager import TaskManager
 from dlrover_tpu_torch.master.speed_monitor import SpeedMonitor
+from dlrover_tpu_torch.master.steptrace import StepTraceAssembler
 from dlrover_tpu_torch.master.sync_service import ElasticPsService, SyncService
 
 # the requests whose subsystem the port lacks, with the ROADMAP Queue A
 # item that ports it
 _NOT_PORTED = {
-    msg.DiagnosisActionRequest: "12 (diagnosis)",
-    msg.DiagnosisReportRequest: "12 (diagnosis)",
     msg.AutoscaleStatusRequest: "12 (brain)",
-    msg.TimeSeriesQuery: "12 (tsdb)",
-    msg.ClockProbe: "12 (steptrace)",
-    msg.StepTraceRequest: "12 (steptrace)",
     msg.PlanCalibrationRequest: "6.3 (calibration)",
     msg.SliceStatusRequest: "6.4 (slice mode)",
     msg.ShardPlanRequest: "6.3 (re-planning)",
     msg.ReconnectRequest: "12 (master-loss reconnect)",
-    msg.NodeResourceStats: "12 (agent monitors)",
     msg.ScaleRequest: "12 (job manager)",
 }
 
@@ -82,6 +91,9 @@ class MasterServicer:
         sync_service: Optional[SyncService] = None,
         elastic_ps_service: Optional[ElasticPsService] = None,
         goodput_ledger: Optional[obs.GoodputLedger] = None,
+        diagnosis_manager: Optional[DiagnosisManager] = None,
+        tsdb: Optional[obs.TimeSeriesStore] = None,
+        steptrace: Optional[StepTraceAssembler] = None,
     ):
         self.task_manager = task_manager or TaskManager()
         self.rdzv_managers: Dict[str, RendezvousManager] = rdzv_managers or {
@@ -95,6 +107,12 @@ class MasterServicer:
         # the goodput ledger (obs/goodput.py), fed from step reports,
         # telemetry spans, and the drain and failure handlers
         self.goodput_ledger = goodput_ledger or obs.GoodputLedger()
+        # the time-series store and the step-trace assembler, fed from
+        # step and telemetry reports; the diagnosis engine is optional
+        # (Context.diagnosis_enabled)
+        self.tsdb = tsdb or obs.TimeSeriesStore()
+        self.steptrace = steptrace or StepTraceAssembler(tsdb=self.tsdb)
+        self.diagnosis_manager = diagnosis_manager
         # the tuned config is read on RPC threads and replaced by reports
         self._paral_lock = threading.Lock()
         self._paral_config = msg.ParallelConfig()
@@ -153,9 +171,40 @@ class MasterServicer:
                 self._evict_departed(mgr)
             return msg.WaitingNodeNum(
                 waiting_num=mgr.num_nodes_waiting(request.node_id))
+        if isinstance(request, msg.DiagnosisActionRequest):
+            actions = []
+            if self.diagnosis_manager is not None:
+                actions = self.diagnosis_manager.poll_actions(
+                    request.node_rank if request.node_rank >= 0
+                    else request.node_id)
+            return msg.DiagnosisActions(
+                actions_json=DiagnosisManager.actions_to_json(actions))
+        if isinstance(request, msg.DiagnosisReportRequest):
+            reports = []
+            if self.diagnosis_manager is not None:
+                reports = self.diagnosis_manager.reports(request.limit)
+            return msg.DiagnosisReports(
+                reports_json=DiagnosisManager.reports_to_json(reports))
         if isinstance(request, msg.GoodputRequest):
             return msg.GoodputReport(report_json=json.dumps(
                 self.goodput_ledger.snapshot(window_s=request.window_s)))
+        if isinstance(request, msg.TimeSeriesQuery):
+            return msg.TimeSeriesResult(result_json=json.dumps(
+                self.tsdb.query_payload(
+                    name=request.name,
+                    labels=dict(request.labels) or None,
+                    window_s=request.window_s,
+                    resolution_s=request.resolution_s)))
+        if isinstance(request, msg.ClockProbe):
+            # answered inline, no locks, no state: the round trip the
+            # client measures around this is its uncertainty bound
+            return msg.ClockProbeResult(server_ts=time.time())
+        if isinstance(request, msg.StepTraceRequest):
+            return msg.StepTraceResult(result_json=json.dumps(
+                self.steptrace.query_payload(
+                    start_step=request.start_step,
+                    end_step=request.end_step,
+                    last_n=request.last_n)))
         if isinstance(request, msg.KVGetRequest):
             return msg.KeyValuePair(key=request.key,
                                     value=self.kv_store.get(request.key))
@@ -299,7 +348,15 @@ class MasterServicer:
                 step_time_s=request.step_time_s,
                 data_wait_fraction=request.data_wait_fraction,
                 mfu=request.mfu)
+            self._observe_step_evidence(rank, request)
             self._touch_rendezvous(request.node_rank)
+        elif isinstance(request, msg.NodeResourceStats):
+            if self.diagnosis_manager is not None:
+                self.diagnosis_manager.observe_resource_stats(request)
+            # the agent's payload made scrapeable on the master (the JAX
+            # master also hands the cards' HBM total to its re-planner,
+            # ROADMAP Queue A item 6.3)
+            obs.publish_node_stats(request)
         elif isinstance(request, msg.NodeHeartbeat):
             self._touch_rendezvous(request.node_rank)
         elif isinstance(request, msg.NodeFailureReport):
@@ -310,6 +367,11 @@ class MasterServicer:
             self.task_manager.recover_tasks(request.node_id)
             failed_rank = (request.node_rank if request.node_rank >= 0
                            else request.node_id)
+            if self.diagnosis_manager is not None and request.exit_kind:
+                # hang vs crash vs drain lands in the report history
+                self.diagnosis_manager.observe_worker_exit(
+                    failed_rank, request.exit_kind,
+                    detail=request.error_data[:128])
             if request.exit_kind == NodeExitReason.HANG:
                 self.goodput_ledger.observe_hang(
                     failed_rank, Context.singleton().hang_watchdog_s)
@@ -375,15 +437,14 @@ class MasterServicer:
         rank DRAINING in every rendezvous and plan the post-departure
         world. phase="complete": remove the rank now, so survivors
         re-form in one round instead of waiting out the liveness
-        timeout.
-
-        This is the JAX master's handler as it runs with no diagnosis
-        manager: the urgent ``checkpoint`` fan-out to the survivors waits
-        for the diagnosis port (ROADMAP Queue A item 12.6), so
-        ``checkpoint_ranks`` stays empty, and slice-scoped drains wait
-        for slice mode (6.4)."""
+        timeout. With a diagnosis manager, the notice fans an urgent
+        ``checkpoint`` action out to the SURVIVORS (the draining agent
+        checkpoints its own worker locally), returned as
+        ``checkpoint_ranks``. Slice-scoped drains wait for slice mode
+        (ROADMAP Queue A item 6.4)."""
         rank = (request.node_rank if request.node_rank >= 0
                 else request.node_id)
+        checkpoint_ranks = []
         if request.phase == "complete":
             announced = False
             # notice → departure is drain badput; the rank's lifetime
@@ -401,21 +462,54 @@ class MasterServicer:
                 world = mgr.mark_draining(rank, request.deadline)
                 if name == RendezvousName.TRAINING:
                     planned = world
+            survivors = sorted(r for r in planned if r != rank)
+            if self.diagnosis_manager is not None:
+                self.diagnosis_manager.observe_drain_notice(
+                    rank, request.deadline, request.reason, slice_id=-1)
+                checkpoint_ranks = (
+                    self.diagnosis_manager.request_checkpoint(
+                        survivors, request.deadline,
+                        reason=f"peer rank {rank} draining: "
+                               f"{request.reason}"))
             obs.get_flight_recorder().record_event(
                 "node_draining", rank=rank, deadline=request.deadline,
                 reason=request.reason[:256], slice=-1,
                 planned_world=sorted(planned), drain_ranks=[],
-                checkpoint_ranks=[])
+                checkpoint_ranks=checkpoint_ranks)
         obs.get_registry().counter(
             "dlrover_tpu_drains_total",
             "Drain protocol messages by phase",
             labelnames=("phase",)).labels(phase=request.phase).inc()
-        return msg.DrainResult(success=True, checkpoint_ranks=[])
+        return msg.DrainResult(success=True,
+                               checkpoint_ranks=checkpoint_ranks)
+
+    def _observe_step_evidence(self, rank: int,
+                               request: msg.GlobalStepReport) -> None:
+        """The per-rank evidence of one step report (the hot path:
+        appends only). The device-truth HBM watermark lands in the
+        diagnosis node stats (HbmPressureRule's preferred signal) and
+        the time-series store, beside the step time and MFU. The fleet
+        step is not ingested per rank: the collector samples the
+        SpeedMonitor's gauge into that series."""
+        hbm_peak = float(request.hbm_peak_bytes or 0.0)
+        peak_mb = hbm_peak / (1 << 20) if hbm_peak > 0 else -1.0
+        if peak_mb >= 0.0 and self.diagnosis_manager is not None:
+            self.diagnosis_manager.observe_step_watermark(rank, peak_mb)
+        node = {"node": str(rank)}
+        if request.step_time_s > 0:
+            self.tsdb.ingest("dlrover_tpu_worker_step_time_seconds",
+                             request.step_time_s, node)
+        if request.mfu >= 0:
+            self.tsdb.ingest("dlrover_tpu_worker_mfu", request.mfu, node)
+        if peak_mb >= 0.0:
+            self.tsdb.ingest("dlrover_tpu_worker_hbm_peak_mb", peak_mb,
+                             node)
 
     def _process_telemetry(self, report: msg.TelemetryReport) -> None:
-        """Replay a node's metric samples on the master's registry, and
-        feed its spans into the master's flight recorder, the span
-        histogram and the goodput ledger."""
+        """Replay a node's metric samples on the master's registry, feed
+        its spans into the master's flight recorder, the span histogram
+        and the goodput ledger, and its step-trace records into the
+        assembler."""
         registry = obs.get_registry()
         for sample in report.samples:
             if not sample.name:
@@ -437,27 +531,39 @@ class MasterServicer:
             except (TypeError, ValueError) as e:
                 logger.warning("telemetry sample %s dropped: %s",
                                sample.name, e)
-        if not report.spans_json:
-            return
-        try:
-            spans = json.loads(report.spans_json)
-        except json.JSONDecodeError:
-            logger.warning("telemetry spans from node %d undecodable",
-                           report.node_id)
-            return
-        if isinstance(spans, list):
-            obs.record_remote_spans(spans, registry)
-            for record in spans:
-                if isinstance(record, dict):
-                    self.goodput_ledger.observe_span(record,
-                                                     rank=report.node_rank)
+        if report.spans_json:
+            try:
+                spans = json.loads(report.spans_json)
+            except json.JSONDecodeError:
+                logger.warning("telemetry spans from node %d undecodable",
+                               report.node_id)
+                spans = None
+            if isinstance(spans, list):
+                obs.record_remote_spans(spans, registry)
+                for record in spans:
+                    if isinstance(record, dict):
+                        self.goodput_ledger.observe_span(
+                            record, rank=report.node_rank)
+        if report.steptrace_json:
+            try:
+                records = json.loads(report.steptrace_json)
+            except json.JSONDecodeError:
+                logger.warning("steptrace batch from node %d undecodable",
+                               report.node_id)
+                return
+            if isinstance(records, list):
+                self.steptrace.ingest(records, node_rank=report.node_rank)
 
     def _evict_departed(self, mgr) -> None:
         """After a membership mutation: the departed ranks' speed
-        evidence and goodput lifetimes go with them."""
+        evidence, queued actions, goodput lifetimes and step traces go
+        with them."""
         live = mgr.alive_nodes
         self.speed_monitor.evict_departed(live)
+        if self.diagnosis_manager is not None:
+            self.diagnosis_manager.evict_workers(live)
         self.goodput_ledger.evict(live)
+        self.steptrace.evict_departed(live)
 
     def _touch_rendezvous(self, node_rank: int) -> None:
         """Heartbeats and step reports carry the sender's RANK, so they

@@ -46,6 +46,26 @@ contract):
 - ``DLROVER_TPU_CHAOS`` scripts a fault at a step
   (``diagnostics/chaos.py``).
 
+What the master observes of the card (the JAX loop's telemetry):
+
+- the allocator's peak after every step (``obs/device.py``, a host-side
+  read), drained into each step report's ``hbm_peak_bytes``; the card
+  stats file the agent relays (``agent/monitor.py::export_chip_stats``,
+  ``DLROVER_TPU_CHIP_STATS``) at the report cadence;
+- one step-trace record a step (``obs/steptrace.py``: data_wait, h2d,
+  compute, checkpoint), stamped with the clock offset against the master
+  (probed once at construction, refreshed at the report cadence) and
+  flushed with the spans; the compute phase runs to the end of the
+  step's host work (the chaos hook included), and the checkpoint phase
+  is the save's own blocking time, since the port records its timeline
+  before the save;
+- ``torch.profiler`` captures (``obs/profiler.py``): the static window of
+  ``profile_dir`` and the agent's on-demand requests
+  (``DLROVER_TPU_PROFILE_REQUEST``), polled at the step boundary before
+  the next step's clock starts (the JAX loop polls inside its step), so
+  neither the profiler's start nor the trace's write lands in a timed
+  step or trips the watchdog.
+
 While a run lasts, CPython's automatic garbage collection is off and
 the loop collects the young generations at step boundaries instead:
 after the run's first step (its lazy imports and first allocations)
@@ -55,7 +75,7 @@ inside a step's kernel launches and hold the card idle for its
 run's end.
 
 Not ported yet: the shard plan and re-planning (ROADMAP Queue A item
-6.3), slice mode (6.4) and steptrace (12.5).
+6.3) and slice mode (6.4).
 """
 
 from __future__ import annotations
@@ -127,6 +147,14 @@ class TrainLoopConfig:
     # build the step's CUDA kernels concurrently with the checkpoint read
     # (restore pays max(read, build) instead of their sum)
     overlap_restore_compile: bool = True
+    # torch.profiler window: a trace of steps [start, start+num) of every
+    # (re)spawn is written under profile_dir (default
+    # $DLROVER_TPU_PROFILE_DIR; "" = off)
+    profile_dir: str = dataclasses.field(
+        default_factory=lambda: os.environ.get(
+            "DLROVER_TPU_PROFILE_DIR", ""))
+    profile_start_step: int = 3           # skip the first-build steps
+    profile_num_steps: int = 3
 
 
 def model_flops_per_token(cfg, seq_len: int) -> float:
@@ -232,6 +260,31 @@ class ElasticTrainLoop:
         self._watchdog = (StepHangWatchdog(watchdog_s)
                           if watchdog_s > 0 else None)
         self._chaos = None   # built at the first run: env may change
+        # the allocator's peak after every step, drained into the step
+        # reports (a no-op off the card)
+        self.device_telemetry = obs.DeviceTelemetry(
+            obs.device.allocator_sampler(self.device))
+        # one trace record a step, clock-aligned against the master and
+        # batched over the telemetry channel; the construction-time probe
+        # anchors the offset before the first step
+        ctx = Context.singleton()
+        self._clock_sync = obs.ClockSync(
+            probe_fn=(master_client.probe_clock
+                      if master_client is not None else None))
+        self._steptrace = (
+            obs.StepTraceRecorder(
+                capacity=ctx.steptrace_ring,
+                rank=int(os.environ.get(NodeEnv.NODE_RANK, "-1")),
+                clock_sync=self._clock_sync)
+            if ctx.steptrace_enabled else None)
+        if self._steptrace is not None and master_client is not None:
+            self._clock_sync.probe()
+        # the static window and the agent's on-demand captures
+        self.profiler = obs.ProfilerSession(
+            request_path=os.environ.get(NodeEnv.PROFILE_REQUEST_FILE, ""),
+            static_dir=config.profile_dir,
+            static_start=config.profile_start_step,
+            static_num=config.profile_num_steps)
         # FLOPs/token of the model (obs/mfu.py); set by _report_model_info
         self._flops_per_token = 0.0
         if self.client is not None:
@@ -276,7 +329,9 @@ class ElasticTrainLoop:
 
     def _report_progress(self, step: int) -> None:
         """Ship the step report with the timeline's windowed speed
-        evidence. Best-effort: the step loop survives a dead master."""
+        evidence and the window's memory peak; refresh the clock offset
+        and the card stats file. Best-effort: the step loop survives a
+        dead master and a full disk."""
         stats = self.timeline.window_stats(
             self.config.report_interval_steps)
         mean_step = stats.get("mean_step_s", 0.0)
@@ -284,13 +339,29 @@ class ElasticTrainLoop:
         step_mfu = mfu.achieved_mfu(
             tokens_per_step / mean_step if mean_step > 0 else -1.0,
             self._flops_per_token, self.peak_flops)
+        # the window's device-truth peak (0 off the card)
+        hbm = self.device_telemetry.drain()
         try:
             self.client.report_global_step(
                 step, step_time_s=mean_step,
                 data_wait_fraction=stats.get("data_wait_fraction", -1.0),
-                mfu=step_mfu)
+                mfu=step_mfu, hbm_peak_bytes=hbm["hbm_peak_bytes"])
         except Exception:  # noqa: BLE001 — droppable by contract
             logger.warning("step report failed", exc_info=True)
+        if self._steptrace is not None:
+            # one RPC, rate-limited by the probe interval
+            self._clock_sync.maybe_probe(
+                Context.singleton().steptrace_probe_interval_s)
+        try:
+            from dlrover_tpu_torch.agent.monitor import export_chip_stats
+
+            # the duty-cycle proxy wants the seconds the card is busy a
+            # step: the step less its input wait
+            busy = max(0.0, 1.0 - max(
+                0.0, stats.get("data_wait_fraction", 0.0)))
+            export_chip_stats(step=step, step_time_s=mean_step * busy)
+        except Exception:  # noqa: BLE001 — stats are advisory
+            pass
         # the timeline's tail, at most once a second (the write and
         # rename cost a millisecond on a slow disk); the end of a run
         # writes the whole ring
@@ -432,6 +503,11 @@ class ElasticTrainLoop:
         except Exception:  # noqa: BLE001 — the first step builds anyway
             logger.warning("kernel precompile failed; the first step will "
                            "build inline", exc_info=True)
+            return
+        # the build's wall time into the flight record and its gauge
+        obs.device.record_compile_event(
+            self.trainer.precompile_timings.get("build_s", 0.0),
+            mesh=self.mesh.shape)
 
     # -- main loop ---------------------------------------------------------
     def run(self, state: TrainState,
@@ -472,6 +548,8 @@ class ElasticTrainLoop:
         finally:
             if self._watchdog is not None:
                 self._watchdog.stop()
+            # an active capture is written out, whatever ended the run
+            self.profiler.stop()
             if gc_was_enabled:
                 gc.enable()
 
@@ -495,6 +573,13 @@ class ElasticTrainLoop:
                 self._consume_drain(drain, step, state, sampler)
                 if self._watchdog is not None:
                     self._watchdog.start()
+            # a capture starts or ends here, outside the step's clock;
+            # the trace's write counts as progress to the watchdog
+            capturing = self.profiler.active
+            self.profiler.poll(step - start_step)
+            if (self._watchdog is not None and step > start_step
+                    and capturing != self.profiler.active):
+                self._watchdog.notify_step(step)
             t_wait = time.monotonic()
             try:
                 tokens, targets = next(batch_iter)
@@ -520,6 +605,8 @@ class ElasticTrainLoop:
             self._chaos.maybe_inject(step)
             if sampler is not None:
                 sampler.record_batch(self.global_batch)
+            t_compute_end = time.monotonic()
+            self.device_telemetry.on_step(step)
             self.timeline.record(step, time.monotonic() - t_wait,
                                  data_wait=t0 - t_wait, compute=dt)
             if self.client is not None:
@@ -528,7 +615,7 @@ class ElasticTrainLoop:
                     self._report_progress(step)
                     self._flush_telemetry()
             if self.checkpointer is not None:
-                t0 = time.monotonic()
+                t_save = time.monotonic()
                 data_state = self._data_state(sampler)
                 saved = self.checkpointer.maybe_save(
                     step, state, data_state,
@@ -541,10 +628,16 @@ class ElasticTrainLoop:
                     # peer step N and checkpoint step N are one cut, so
                     # a shard-wise restore across both stays consistent
                     self._stage_peer(step, data_state)
-                record["checkpoint_s"] = time.monotonic() - t0
+                record["checkpoint_s"] = time.monotonic() - t_save
+            if self._steptrace is not None:
+                self._record_steptrace(step, t_wait, t0, t_compute_end,
+                                       record["checkpoint_s"])
             # the collections, at the boundary, outside the timed step
             if len(history) == 1 or step % GC_EVERY_STEPS == 0:
+                t_gc = time.monotonic()
                 gc.collect(1)
+                logger.info("collection after step %d: %.6f s", step,
+                            time.monotonic() - t_gc)
             if self._watchdog is not None:
                 self._watchdog.notify_step(step)
             if self._stop_requested.is_set():
@@ -568,6 +661,26 @@ class ElasticTrainLoop:
         last = history[-1] if history else {}
         return state, {"step": step, "loss": last.get("loss", float("nan")),
                        "history": history}
+
+    def _record_steptrace(self, step: int, t_step: float, t_data: float,
+                          t_compute_end: float, ckpt_s: float) -> None:
+        """One step's trace record from the loop's monotonic marks: a
+        handful of float ops and one bounded-ring append."""
+        now_mono = time.monotonic()
+        # the step start on the local wall clock, derived from the same
+        # monotonic domain as every mark
+        t0_wall = time.time() - (now_mono - t_step)
+        data_d = max(0.0, t_data - t_step)
+        h2d_d = max(0.0, float(self.trainer.last_shard_batch_s))
+        cursor = data_d + h2d_d
+        compute_end = max(cursor, t_compute_end - t_step)
+        phases = [("data_wait", 0.0, data_d), ("h2d", data_d, h2d_d),
+                  ("compute", cursor, compute_end - cursor)]
+        if ckpt_s > 0:
+            phases.append(("checkpoint", compute_end, ckpt_s))
+        # one static world: the generation is 0 until the shard plan's
+        # epochs land (ROADMAP Queue A item 6.3)
+        self._steptrace.record(step, 0, t0_wall, phases)
 
     # -- preemption drain --------------------------------------------------
     def _consume_drain(self, drain: Dict[str, Any], step: int, state,
@@ -658,6 +771,8 @@ class ElasticTrainLoop:
     def _flush_telemetry(self) -> None:
         if self.client is not None:
             self._span_exporter.flush_to(self.client)
+            if self._steptrace is not None:
+                self._steptrace.flush_to(self.client)
 
     def close(self) -> None:
         """Flush the last spans, wait for the last save, restore the

@@ -10,7 +10,13 @@
   one's on the same fake clock.
 - Over the real transport (gRPC on a free localhost port): the port's
   ``MasterClient`` against the port's master, against the JAX master,
-  and the JAX client against the port's master.
+  and the JAX client against the port's master, the observation calls
+  (diagnosis, time series, step traces, clock probe) among them.
+- The observation plane: the six requests the port once refused answer
+  the JAX servicer's bytes over a diagnosis manager, a tsdb and a
+  step-trace assembler on one fake clock, a drain notice at world 2
+  fans a checkpoint out to the survivor, and a survivor's agent (the
+  CLI on the CPU) turns that checkpoint into a save-and-continue.
 """
 
 import dataclasses
@@ -287,8 +293,8 @@ def test_servicers_answer_a_scripted_sequence_alike(contexts, monkeypatch):
 def test_unported_requests_are_refused_by_name(contexts):
     master = JobMaster(port=0, host="127.0.0.1")
     try:
-        for request in (T.TimeSeriesQuery(), T.ClockProbe(),
-                        T.DiagnosisActionRequest(), T.ShardPlanRequest(),
+        for request in (T.PlanCalibrationRequest(), T.SliceStatusRequest(),
+                        T.AutoscaleStatusRequest(), T.ShardPlanRequest(),
                         T.ReconnectRequest()):
             send = (master.servicer.report_bytes
                     if type(request).__name__.endswith("Report")
@@ -405,8 +411,8 @@ def _play_drain(servicer, messages, clock):
 def test_drain_telemetry_and_goodput_answers_match_jax(contexts,
                                                        monkeypatch):
     """DrainReport, TelemetryReport and GoodputRequest through the JAX
-    servicer (no diagnosis manager: the survivors' checkpoint fan-out is
-    ROADMAP Queue A item 12.6) and the port's, each over a goodput ledger
+    servicer (no diagnosis manager, so no checkpoint fan-out: that is
+    the observation test's) and the port's, each over a goodput ledger
     on one fake clock: equal answers, equal ledger snapshots, and the
     same rendezvous membership and draining set."""
     from dlrover_tpu.master import rendezvous as jrdzv
@@ -576,6 +582,32 @@ def _client_round_trip(client, master, messages):
     snap = client.get_goodput(window_s=60.0)
     assert set(snap["buckets"]) >= {"productive", "restore", "drain"}
     assert snap["window"]["window_s"] == 60.0
+    # the observation plane (no diagnosis manager: the fixture turns it
+    # off): relayed card stats, the HBM watermark's series, a step trace,
+    # a clock probe
+    assert client.poll_diagnosis_actions() == []
+    assert client.get_diagnosis_reports() == []
+    assert client.report_resource_stats(messages.NodeResourceStats(
+        node_id=0, node_rank=0, node_type="worker", cpu_percent=1.0,
+        chip_stats=[messages.ChipStats(index=0, hbm_used_mb=10.0,
+                                       hbm_total_mb=80.0)]))
+    assert client.report_global_step(9, step_time_s=0.1,
+                                     hbm_peak_bytes=float(3 << 20))
+    series = client.query_timeseries(
+        name="dlrover_tpu_worker_hbm_peak_mb")["series"]
+    assert series[0]["labels"] == {"node": "0"}
+    assert series[0]["points"][-1][1] == 3.0
+    assert "dlrover_tpu_worker_step_time_seconds" in \
+        client.query_timeseries()["names"]
+    assert client.report_telemetry(steptrace=[{
+        "v": 1, "step": 1, "gen": 0, "rank": 0, "t0": time.time(),
+        "phases": [["compute", 0.0, 0.1]]}])
+    queue = getattr(master.servicer, "telemetry_queue", None)
+    if queue is not None:
+        queue.flush()
+    traces = client.query_steptrace(last_n=1)
+    assert [g["gating_rank"] for g in traces["steps"]] == [0]
+    assert abs(client.probe_clock() - time.time()) < 60.0
 
 
 @pytest.mark.parametrize("pair", ["port-port", "port-jax", "jax-port"])
@@ -683,3 +715,257 @@ def test_speed_after_a_relaunch_matches_jax(contexts, monkeypatch):
     assert [port for _, port in readings] == [1000.0, 0.0, 0.0, 0.0, 0.0,
                                               2000.0, 2000.0]
     assert [m.completed_global_step for m in monitors] == [9, 9]
+
+
+def _steptrace_json(rank, steps, compute):
+    return json.dumps([{"v": 1, "step": n, "gen": 0, "slice": -1,
+                        "rank": rank, "t0": T0 + n, "off": 0.0,
+                        "err": 0.001,
+                        "phases": [["data_wait", 0.0, 0.001],
+                                   ["compute", 0.001, compute]]}
+                       for n in steps])
+
+
+def _chip_stats(rank, used, peak):
+    return ("report", "NodeResourceStats", dict(
+        node_id=rank, node_rank=rank, node_type="worker", cpu_percent=3.0,
+        memory_mb=1000.0, chip_stats=[dict(
+            index=0, hbm_used_mb=used, hbm_total_mb=81079.0,
+            hbm_peak_mb=peak, duty_cycle_pct=97.5)]))
+
+
+# the observation plane: a world of two whose rank 1 is slow (it gates
+# every traced step and straggles), step reports with device-truth HBM
+# peaks, relayed card stats, step traces, diagnosis rounds, then the six
+# requests, a hang exit and a drain notice whose checkpoint fan-out
+# reaches the survivor
+OBSERVE_SEQUENCE = [
+    ("report", "JoinRendezvousRequest",
+     dict(node_id=0, node_rank=0, local_world_size=1, rdzv_name=TRAIN)),
+    ("report", "JoinRendezvousRequest",
+     dict(node_id=1, node_rank=1, local_world_size=1, rdzv_name=TRAIN)),
+    ("get", "CommWorldRequest", dict(node_id=0, rdzv_name=TRAIN)),
+    ("get", "CommWorldRequest", dict(node_id=1, rdzv_name=TRAIN)),
+    ("report", "ModelInfo",
+     dict(param_count=1_000_000, param_bytes=4_000_000, batch_size=8,
+          seq_len=512, flops_per_token=6e6, peak_flops_per_chip=1e12,
+          chips=2, flops_source="analytic", effective_global_batch=8)),
+] + [item for n in range(1, 7) for item in (
+    ("tick", 1.0),
+    ("report", "GlobalStepReport",
+     dict(node_id=0, node_rank=0, step=n, step_time_s=0.4, mfu=0.3,
+          hbm_peak_bytes=float((50_000 + n) << 20))),
+    ("report", "GlobalStepReport",
+     dict(node_id=1, node_rank=1, step=n, step_time_s=1.0, mfu=0.12,
+          hbm_peak_bytes=float(51_000 << 20))),
+)] + [
+    ("report", "TelemetryReport",
+     dict(node_id=0, node_rank=0, node_type="worker",
+          steptrace_json=_steptrace_json(0, range(1, 7), 0.4))),
+    ("report", "TelemetryReport",
+     dict(node_id=1, node_rank=1, node_type="worker",
+          steptrace_json=_steptrace_json(1, range(1, 7), 1.0))),
+    _chip_stats(0, 19000.0, 52000.0),
+    _chip_stats(1, 19500.0, -1.0),
+    ("diagnose",), ("tick", 2.0), ("diagnose",), ("tick", 2.0),
+    ("diagnose",),
+    ("get", "DiagnosisReportRequest", dict()),
+    ("get", "DiagnosisReportRequest", dict(limit=1)),
+    ("get", "DiagnosisActionRequest", dict(node_id=0, node_rank=0)),
+    ("get", "DiagnosisActionRequest", dict(node_id=1, node_rank=1)),
+    ("get", "DiagnosisActionRequest", dict(node_id=1, node_rank=1)),
+    ("get", "TimeSeriesQuery", dict()),
+    ("get", "TimeSeriesQuery",
+     dict(name="dlrover_tpu_worker_hbm_peak_mb")),
+    ("get", "TimeSeriesQuery",
+     dict(name="dlrover_tpu_worker_*", labels={"node": "1"},
+          window_s=60.0)),
+    ("get", "TimeSeriesQuery",
+     dict(name="dlrover_tpu_steptrace_gating_rank", resolution_s=10.0)),
+    ("get", "StepTraceRequest", dict()),
+    ("get", "StepTraceRequest", dict(start_step=2, end_step=4)),
+    ("get", "StepTraceRequest", dict(last_n=2)),
+    ("get", "ClockProbe", dict(node_id=0)),
+    ("tick", 1.0),
+    ("report", "NodeFailureReport",
+     dict(node_id=1, node_rank=1, error_data="worker exit code -6",
+          level="process_error", exit_kind="hang")),
+    ("report", "DrainReport", dict(node_id=1, node_rank=1,
+                                   deadline=T0 + 90.0, reason="spot",
+                                   phase="notice")),
+    ("get", "DiagnosisActionRequest", dict(node_id=0, node_rank=0)),
+    ("get", "DiagnosisReportRequest", dict()),
+]
+
+
+def _observation_servicer(packages, clock):
+    """Both packages' servicers over the same components, each on the
+    injected clock (the JAX diagnosis manager reads the patched
+    ``time.time``; the port's is handed the clock)."""
+    (servicer_cls, manager_cls, asm_cls, store_cls, ledger_cls,
+     monitor_cls, registry_cls, rdzv, is_port) = packages
+    store = store_cls(clock=clock)
+    ledger = ledger_cls(registry=registry_cls(), now_fn=clock)
+    monitor = monitor_cls()
+    asm = asm_cls(tsdb=store, registry=registry_cls())
+    manager = manager_cls(monitor, goodput_ledger=ledger, steptrace=asm,
+                          **({"clock": clock} if is_port else {}))
+    params = rdzv.RendezvousParameters(1, 2, wait_new_node_s=3600.0)
+    return servicer_cls(
+        speed_monitor=monitor, goodput_ledger=ledger,
+        diagnosis_manager=manager, tsdb=store, steptrace=asm,
+        rdzv_managers={
+            TRAIN: rdzv.ElasticTrainingRendezvousManager(params),
+            RendezvousName.NETWORK_CHECK:
+                rdzv.NetworkCheckRendezvousManager(params)})
+
+
+def test_observation_requests_answer_the_jax_bytes(contexts, monkeypatch):
+    """The six requests the port's servicer used to refuse —
+    DiagnosisActionRequest, DiagnosisReportRequest, TimeSeriesQuery,
+    ClockProbe, StepTraceRequest and NodeResourceStats — through the JAX
+    servicer and the port's, each with a diagnosis manager, a tsdb and a
+    step-trace assembler on one fake clock: every answer's bytes are
+    equal (ClockProbe's server time aside, wall-clock by design), and a
+    drain notice at world 2 returns the survivor in
+    ``checkpoint_ranks``."""
+    from dlrover_tpu.master import rendezvous as jrdzv
+    from dlrover_tpu.master.diagnosis.manager import DiagnosisManager as JDM
+    from dlrover_tpu.master.servicer import MasterServicer as JServicer
+    from dlrover_tpu.master.speed_monitor import SpeedMonitor as JMonitor
+    from dlrover_tpu.master.steptrace import StepTraceAssembler as JAsm
+    from dlrover_tpu.obs.goodput import GoodputLedger as JLedger
+    from dlrover_tpu.obs.metrics import MetricsRegistry as JRegistry
+    from dlrover_tpu.obs.tsdb import TimeSeriesStore as JStore
+    from dlrover_tpu_torch.master import rendezvous as trdzv
+    from dlrover_tpu_torch.master.diagnosis import DiagnosisManager
+    from dlrover_tpu_torch.master.servicer import MasterServicer
+    from dlrover_tpu_torch.master.speed_monitor import SpeedMonitor
+    from dlrover_tpu_torch.master.steptrace import StepTraceAssembler
+    from dlrover_tpu_torch.obs.goodput import GoodputLedger
+    from dlrover_tpu_torch.obs.metrics import MetricsRegistry
+    from dlrover_tpu_torch.obs.tsdb import TimeSeriesStore
+
+    for ctx in contexts:
+        ctx.update(diagnosis_action_cooldown_s=60.0)
+    clock = FakeClock(T0)
+    monkeypatch.setattr(time, "time", clock)
+    runs = []
+    for packages, messages in (
+            ((JServicer, JDM, JAsm, JStore, JLedger, JMonitor, JRegistry,
+              jrdzv, False), J),
+            ((MasterServicer, DiagnosisManager, StepTraceAssembler,
+              TimeSeriesStore, GoodputLedger, SpeedMonitor,
+              MetricsRegistry, trdzv, True), T)):
+        clock.now = T0
+        servicer = _observation_servicer(packages, clock)
+        answers = []
+        try:
+            for kind, *rest in OBSERVE_SEQUENCE:
+                if kind == "tick":
+                    clock.now += rest[0]
+                    continue
+                if kind == "diagnose":
+                    servicer.diagnosis_manager.diagnose_once()
+                    continue
+                name, fields = rest
+                fields = dict(fields)
+                if name == "NodeResourceStats":
+                    fields["chip_stats"] = [messages.ChipStats(**c)
+                                            for c in fields["chip_stats"]]
+                payload = messages.serialize_message(
+                    getattr(messages, name)(**fields))
+                send = (servicer.get_bytes if kind == "get"
+                        else servicer.report_bytes)
+                answer = send(payload, None)
+                if name == "ClockProbe":
+                    probe = messages.deserialize_message(answer)
+                    assert probe.server_ts == clock.now
+                    answer = b"ClockProbeResult"
+                answers.append((name, answer))
+                queue = getattr(servicer, "telemetry_queue", None)
+                if queue is not None:
+                    queue.flush()
+        finally:
+            queue = getattr(servicer, "telemetry_queue", None)
+            if queue is not None:
+                queue.stop()
+        runs.append(answers)
+    jax_answers, answers = runs
+    assert [n for n, _ in answers] == [n for n, _ in jax_answers]
+    for (name, want), (_, got) in zip(jax_answers, answers):
+        if name == "JoinRendezvousRequest":
+            # the JAX re-planner's field (UNPORTED_FIELDS)
+            got = dataclasses.asdict(T.deserialize_message(got))
+            want = dataclasses.asdict(J.deserialize_message(want))
+            assert got.pop("shard_plan_json") == ""
+            want.pop("shard_plan_json")
+        assert got == want, name
+    decoded = [(n, T.deserialize_message(a)) for n, a in answers
+               if n != "ClockProbe"]
+    reports = json.loads(next(a for n, a in decoded
+                              if n == "DiagnosisReportRequest").reports_json)
+    assert {(r["rule"], r["worker_id"]) for r in reports} >= {
+        ("critical_path", 1), ("straggler", 1)}
+    polls = [json.loads(a.actions_json or "[]") for n, a in decoded
+             if n == "DiagnosisActionRequest"]
+    # one profile of rank 1 (the straggler's falls in the cooldown), the
+    # survivor's urgent checkpoint after the drain notice
+    assert [[x["kind"] for x in p] for p in polls] == [
+        [], ["profile"], [], ["checkpoint"]]
+    drain = next(a for n, a in decoded if n == "DrainReport")
+    assert drain.success and drain.checkpoint_ranks == [0]
+    traces = json.loads(next(a for n, a in decoded
+                             if n == "StepTraceRequest").result_json)
+    assert [g["gating_rank"] for g in traces["steps"]] == [1] * 6
+
+
+def test_survivor_agent_saves_and_continues_on_checkpoint(tmp_path):
+    """The port's master (in this process) fans an urgent ``checkpoint``
+    out to rank 0, as it does to a drain's survivors; the rank's agent
+    (the CLI, on the CPU) hands its worker a save-and-continue request,
+    which saves at the next step boundary and trains on to the end."""
+    import os
+    import subprocess
+    import sys
+
+    from dlrover_tpu_torch.master.job_master import JobMaster
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    log_file = tmp_path / "worker.log"
+    master = JobMaster(host="127.0.0.1")
+    master.prepare()
+    try:
+        env = dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS="1",
+                   TMPDIR=str(tmp_path),
+                   DLROVER_TPU_FLIGHT_DIR=str(tmp_path / "flight"),
+                   DLROVER_TPU_CHAOS="slow:worker:0@1:0.2",
+                   DLROVER_TPU_CHAOS_STATE=str(tmp_path / "chaos"))
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "dlrover_tpu_torch.run", "--master-addr",
+             master.addr, "--monitor-interval", "0.2",
+             os.path.join(repo, "dlrover_tpu_torch/examples/llama_train.py"),
+             "--config", "tiny", "--device", "cpu", "--steps", "30",
+             "--save-interval", "100", "--ckpt-dir", str(tmp_path / "c"),
+             "--log-file", str(log_file)],
+            cwd=repo, env=env, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True)
+        deadline = time.time() + 120
+        while time.time() < deadline and "step 3 loss" not in (
+                log_file.read_text() if log_file.exists() else ""):
+            time.sleep(0.1)
+        queued = master.diagnosis_manager.request_checkpoint(
+            [0], time.time() + 60.0, reason="peer rank 1 draining")
+        assert queued == [0]
+        _, err = proc.communicate(timeout=180)
+        assert proc.returncode == 0, err[-3000:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        master.stop(grace_s=0.1)
+    assert "urgent checkpoint requested of the worker" in err
+    text = log_file.read_text()
+    step = int(text.split("drain request at step ")[1].split()[0])
+    assert 3 <= step < 30 and "exit=False" in text
+    assert sorted(os.listdir(tmp_path / "c")) == [str(step)]
+    assert "llama_train: done step=30" in text

@@ -1,6 +1,8 @@
 """The port on an NVIDIA card: the CUDA kernels against their plain
-versions, the wrappers' refusals, the launch counters and the model's
-attention and norm paths. Every test is marked ``cuda`` and skips where
+versions, the wrappers' refusals, the launch counters, the model's
+attention and norm paths, the checkpoint on the card, and what the
+master observes of it (the allocator telemetry, a profiler capture
+naming the kernels, an agent that never opens the card). Every test is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false. This file imports no JAX, so it
 also runs on a machine without it:
 
@@ -488,3 +490,153 @@ def test_pinned_host_copy_is_reused_and_restores_from_the_peer_cache(
     _, got = trainer.step(restored, *batch)
     assert got["loss"].item() == want["loss"].item()
     assert got["grad_norm"].item() == want["grad_norm"].item()
+
+
+def _flash_trainer(cuda, layers=2):
+    import dataclasses
+    import functools
+
+    import numpy as np
+
+    from dlrover_tpu_torch.models.llama import cross_entropy_loss
+    from dlrover_tpu_torch.trainer.train_step import build_trainer
+
+    cfg = dataclasses.replace(LlamaConfig.llama_1b(
+        max_seq_len=512, attn_impl="flash", norm_impl="fused",
+        embed_impl="gather"), num_layers=layers)
+    return build_trainer(
+        functools.partial(Llama, cfg),
+        lambda p: torch.optim.AdamW(p, lr=3e-4, weight_decay=0.1), None,
+        np.zeros((2, 512)), cross_entropy_loss, micro_batch=2), cfg
+
+
+def test_device_telemetry_reads_the_allocator_peak_of_a_step(cuda):
+    """DeviceTelemetry around one step of a 2-layer full-width Llama:
+    the drained window peak is ``torch.cuda.max_memory_allocated()``, the
+    limit the card's total, the rise at that step."""
+    from dlrover_tpu_torch.obs.device import (
+        DeviceTelemetry,
+        allocator_sampler,
+    )
+
+    trainer, cfg = _flash_trainer(cuda)
+    state = trainer.init(0)
+    telemetry = DeviceTelemetry(allocator_sampler(cuda))
+    state, metrics = trainer.step(state,
+                                  *trainer.shard_batch(*_tokens(cfg, 0)))
+    metrics["loss"].item()
+    telemetry.on_step(1)
+    drained = telemetry.drain()
+    assert drained["hbm_peak_bytes"] == torch.cuda.max_memory_allocated()
+    assert drained["hbm_limit_bytes"] == torch.cuda.mem_get_info()[1]
+    assert drained["hbm_rise_step"] == 1.0
+    assert 0 < drained["hbm_trough_bytes"] < drained["hbm_peak_bytes"]
+    assert telemetry.available is True
+
+
+def test_profiler_capture_names_the_training_kernels(cuda, tmp_path):
+    """An on-demand capture of two steps of a 2-layer Llama (flash
+    attention, fused norm): status ok, and the Chrome trace's kernel
+    events name the forward flash and RMSNorm kernels and their
+    backwards."""
+    import json
+    import os
+
+    from dlrover_tpu_torch.obs import profiler
+
+    trainer, cfg = _flash_trainer(cuda)
+    state = trainer.init(0)
+    request = str(tmp_path / "request.json")
+    session = profiler.ProfilerSession(request_path=request)
+    profiler.write_profile_request(request, 1, 2, str(tmp_path / "dump"))
+    for step in range(4):
+        session.poll(step)
+        state, metrics = trainer.step(
+            state, *trainer.shard_batch(*_tokens(cfg, step)))
+        metrics["loss"].item()
+    session.stop()
+    done = profiler.read_profile_result(request)
+    assert done["status"] == "ok" and done["num_steps"] == 2
+    with open(os.path.join(done["trace_dir"], profiler.TRACE_NAME)) as f:
+        kernels = {e["name"] for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"}
+    for name in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                 "flash_bwd_dkv_kernel", "rms_fwd_kernel",
+                 "rms_bwd_kernel"):
+        assert any(name in k for k in kernels), name
+
+
+_CARD_WORKER = r'''
+import time
+
+import torch
+
+from dlrover_tpu_torch.agent.monitor import export_chip_stats
+
+torch.zeros(1, device="cuda")
+for step in range(8):
+    export_chip_stats(step=step, step_time_s=0.1)
+    time.sleep(0.5)
+'''
+
+
+def _holds_the_card(pid: int) -> bool:
+    """Whether process ``pid`` has the NVIDIA device files open (a CUDA
+    context holds /dev/nvidia*)."""
+    import os
+
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return False
+    for fd in fds:
+        try:
+            if os.readlink(f"/proc/{pid}/fd/{fd}").startswith("/dev/nvidia"):
+                return True
+        except OSError:
+            continue
+    return False
+
+
+def test_agent_monitors_never_touch_the_card(cuda, tmp_path):
+    """`run --standalone` (master and agent in one process, monitors on,
+    a resource report every 0.5 s) around a worker that opens the card
+    and exports its stats: the worker holds the card, the agent's
+    process never does."""
+    import os
+    import subprocess
+    import sys
+    import time
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "worker.py"
+    script.write_text(_CARD_WORKER)
+    env = dict(os.environ, PYTHONPATH=repo, TMPDIR=str(tmp_path),
+               DLROVER_TPU_REPORT_RESOURCE_INTERVAL_S="0.5",
+               DLROVER_TPU_FLIGHT_DIR=str(tmp_path / "flight"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dlrover_tpu_torch.run", "--standalone",
+         "--devices-per-node", "1", "--monitor-interval", "0.2",
+         str(script)], cwd=repo, env=env, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True)
+    agent_held, worker_held = False, False
+    try:
+        while proc.poll() is None:
+            agent_held = agent_held or _holds_the_card(proc.pid)
+            for name in os.listdir("/proc"):
+                if not name.isdigit():
+                    continue
+                try:
+                    with open(f"/proc/{name}/stat") as f:
+                        ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+                except OSError:
+                    continue
+                if ppid == proc.pid:
+                    worker_held = worker_held or _holds_the_card(int(name))
+            time.sleep(0.1)
+        _, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    assert proc.returncode == 0, err[-3000:]
+    assert worker_held and not agent_held
