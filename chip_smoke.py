@@ -124,13 +124,39 @@ Phases (each one's failure ends the run with a nonzero exit):
            the capture inside their spread (the captured steps'
            slowdown printed); every loss and grad norm the bits of an
            uninterrupted in-process run
+  failover the master survives its own death: a primary `python -m
+           dlrover_tpu_torch.master.job_master --state-dir S
+           --bootstrap-file B` with `kill:master:0@10`, a hot standby
+           (the same with `--standby`, at its defaults: a probe every
+           2 s, promotion after 3 failures) and `python -m
+           dlrover_tpu_torch.run --monitor-interval 1` finding the
+           master through B, around the same Llama-1B worker (a report
+           a step, saves every 8; the steps derived from the code's
+           detection, promotion and reconnect bounds so that 10 follow
+           the reconnect, printed); every master RPC of the agent and
+           the worker has a 0.5 s deadline, cut from 30 s (a call to a
+           dead master waits out its whole deadline). Gates: the primary
+           dies by SIGKILL at step 10's report; one promotion, at the
+           loaded snapshot's generation + 1, named by B; the agent's
+           master-lost mode, one reconnect with world_intact=True, no
+           new round, one worker pid from start to exit, its steps in
+           order, exit 0; every step the bits of an uninterrupted run;
+           the promoted master's first snapshot equal to the loaded one
+           component by component (rendezvous, task manager, kv store,
+           speed monitor, goodput ledger, diagnosis), and its tsdb
+           holding the sidecar's points from before the kill. Prints
+           kill → promotion (and the promotion) → master-lost mode →
+           reconnect, the step period before the kill, in the outage and
+           after the reconnect, the step reports that reached the
+           promoted master, its goodput buckets and the phase's time
 
 The line before the last is the kernels' JSON record (the quantization
 pair's launches are the resume phase's checkpoint path; each kernel's
 "standalone_launches" are those the worker under the agent printed for
 its resumed incarnation, its "faults_launches" the sum over the faults
-phase's three worker processes, and its "observe_launches" the observe
-phase worker's); the last line is {"ok": true, "device": {...}}. Imports
+phase's three worker processes, its "observe_launches" the observe
+phase worker's and its "failover_launches" the failover phase
+worker's); the last line is {"ok": true, "device": {...}}. Imports
 nothing of JAX.
 """
 
@@ -1638,7 +1664,9 @@ def _worker_log(path: str) -> list:
                 start = int(re.search(r"start_step=(\d+)", text).group(1))
                 source = re.search(r"source=(\S+)", text).group(1)
                 restore = json.loads(text.split("restore=", 1)[1])
+                pid = re.search(r" pid=(\d+)", text)
                 runs.append({"start": start, "source": source,
+                             "pid": int(pid.group(1)) if pid else None,
                              "restore": restore, "steps": {}, "saves": {},
                              "commits": {}, "peer_writes": {}, "marks": {},
                              "collections": {}, "started_at": float(ts)})
@@ -1997,6 +2025,15 @@ def _reference_steps(cfg, resume: dict) -> tuple:
 
 
 _REFERENCE: dict = {}
+
+
+def _reference_prefix(cfg, steps: int) -> list:
+    """The first ``steps`` of the longest uninterrupted in-process run so
+    far (its steps do not depend on the run's length), running a longer
+    one when none reaches ``steps``."""
+    if len(_REFERENCE.get("long", ())) < steps:
+        _REFERENCE["long"] = _reference_run(cfg, steps)
+    return _REFERENCE["long"][:steps]
 
 
 def _agent_lines(path: str) -> list:
@@ -2392,7 +2429,7 @@ def phase_observe(smi: str, llama1b: dict) -> dict:
     cfg = LlamaConfig.llama_1b(max_seq_len=2048, attn_impl="flash",
                                norm_impl="fused", embed_impl="gather")
     t_phase = t_ref = time.monotonic()
-    ref = _reference_run(cfg, OBSERVE_STEPS)
+    ref = _reference_prefix(cfg, OBSERVE_STEPS)
     log(f"observe: the reference run of {OBSERVE_STEPS} steps took "
         f"{time.monotonic() - t_ref:.1f} s")
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -2678,15 +2715,436 @@ def phase_observe(smi: str, llama1b: dict) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
 
+# -- failover: the master survives its own death ----------------------------
+FAILOVER_KILL_AT = 10
+FAILOVER_SAVE_EVERY = 8
+# steps that must follow the agent's reconnect
+FAILOVER_AFTER_RECONNECT = 10
+# the agent's poll cadence, cut from its 5 s default, and the deadline of
+# every master RPC of the agent and the worker, cut from 30 s: an RPC to
+# a dead master waits out its whole deadline (the channel waits for a
+# connection), so at the defaults the agent needs 2 polls x 3 attempts x
+# 30 s to declare the master lost, and every step report of the worker
+# blocks 30 s
+FAILOVER_MONITOR_S = 1.0
+FAILOVER_RPC_TIMEOUT_S = 0.5
+# the components a snapshot holds that the promoted master must restore
+# exactly
+FAILOVER_COMPONENTS = ("rendezvous", "task_manager", "kv_store",
+                       "speed_monitor", "goodput", "diagnosis")
+
+
+def failover_budget(monitor_s: float, rpc_timeout_s: float,
+                    kill_at: int = FAILOVER_KILL_AT,
+                    checkpoint: bool = True) -> dict:
+    """Upper bounds, from the code, on the seconds from the primary's
+    death to the agent's master-lost mode (``detect_s``: two failed
+    ``num_nodes_waiting`` polls, each 3 attempts of a whole RPC deadline
+    and the retry backoff, after a monitor wait), to the standby's
+    promotion (``promote_s``: ``standby_promote_failures`` probes of
+    ``max(1, interval)`` s, an interval apart) and to the reconnect
+    (``reconnect_s``: the later of the two, one failed dial of the old
+    address and its backoff, one good dial); the least period of a
+    worker step while its master is dead (``degraded_step_s``: its step
+    report, its step-trace flush and, with a ``checkpoint``, its query of
+    the master's data-shard position each wait out the deadline), and
+    the worker's steps: the kill's step, the outage's steps at that
+    period, and FAILOVER_AFTER_RECONNECT more."""
+    from dlrover_tpu_torch.common.config import Context
+
+    ctx = Context.singleton()
+    backoff = ctx.rpc_backoff_s
+    poll = 3 * rpc_timeout_s + backoff * (1 + 2)
+    detect = 2 * (monitor_s + poll)
+    probe = max(1.0, ctx.standby_health_interval_s)
+    promote = ctx.standby_promote_failures * (
+        probe + ctx.standby_health_interval_s)
+    reconnect = max(detect, promote) + 2 * rpc_timeout_s + 2 * backoff
+    degraded = (3 if checkpoint else 2) * rpc_timeout_s
+    outage_steps = math.ceil(reconnect / degraded)
+    return {"detect_s": detect, "promote_s": promote,
+            "reconnect_s": reconnect, "degraded_step_s": degraded,
+            "outage_steps": outage_steps,
+            "steps": kill_at + outage_steps + FAILOVER_AFTER_RECONNECT}
+
+
+def _matches(lines: list, pattern: str) -> list:
+    import re
+
+    return [(ts, m) for ts, text in lines
+            for m in [re.search(pattern, text)] if m]
+
+
+def _worker_children(pid: int) -> set:
+    """The worker processes (llama_train.py) among ``pid``'s children."""
+    found = set()
+    for kid in _children(pid):
+        try:
+            with open(f"/proc/{kid}/cmdline", "rb") as f:
+                if b"llama_train.py" in f.read():
+                    found.add(kid)
+        except OSError:
+            continue
+    return found
+
+
+def _wait_for_file(path: str, proc, timeout_s: float, what: str) -> None:
+    import os
+
+    deadline = time.time() + timeout_s
+    while time.time() < deadline:
+        if os.path.exists(path):
+            return
+        if proc.poll() is not None:
+            raise AssertionError(f"{what} exited {proc.returncode}")
+        time.sleep(0.05)
+    raise AssertionError(f"{what}: no {path} after {timeout_s} s")
+
+
+def failover_drill(tmp: str, repo: str, worker_args: list, steps: int,
+                   kill_at: int, monitor_s: float, env_extra: dict,
+                   timeout_s: float = 600.0, worker_chaos: str = "") -> dict:
+    """A primary master (``python -m dlrover_tpu_torch.master.job_master
+    --state-dir S --bootstrap-file B`` with ``kill:master:0@kill_at``),
+    a hot standby (the same with ``--standby``) and ``python -m
+    dlrover_tpu_torch.run`` finding the master through B, around
+    ``llama_train.py`` with ``worker_args``: the primary SIGKILLs itself
+    at the worker's step-``kill_at`` report, the standby promotes, the
+    agent reconnects and the worker trains on (``worker_chaos``, a chaos
+    spec for the worker alone). Gates 1-3 and 5 of the
+    failover phase (see the module docstring) raise here; returns the
+    worker's run, the marks and the promoted master's answers."""
+    import os
+
+    from dlrover_tpu_torch.agent.master_client import MasterClient
+    from dlrover_tpu_torch.master.state_backend import MasterStateBackend
+
+    state, boot = f"{tmp}/state", f"{tmp}/master.addr"
+    paths = {n: f"{tmp}/{n}" for n in (
+        "primary.out", "primary.err", "standby.out", "standby.err",
+        "agent.out", "agent.err", "worker.log")}
+    base = dict(os.environ, PYTHONPATH=repo, **env_extra)
+    base.pop("DLROVER_TPU_CHAOS", None)
+    master_cmd = [sys.executable, "-m", "dlrover_tpu_torch.master.job_master",
+                  "--state-dir", state, "--bootstrap-file", boot]
+    procs = {}
+
+    def start(name, cmd, env):
+        with open(paths[f"{name}.out"], "w") as fo, \
+                open(paths[f"{name}.err"], "w") as fe:
+            procs[name] = subprocess.Popen(cmd, cwd=repo, env=env,
+                                           stdout=fo, stderr=fe)
+
+    out = {"steps": steps, "kill_at": kill_at}
+    try:
+        start("primary", master_cmd,
+              dict(base, DLROVER_TPU_CHAOS=f"kill:master:0@{kill_at}",
+                   DLROVER_TPU_CHAOS_STATE=f"{tmp}/chaos"))
+        _wait_for_file(boot, procs["primary"], 60, "the primary")
+        start("standby", master_cmd + ["--standby"], base)
+        deadline = time.time() + 60
+        while not _matches(_agent_lines(paths["standby.err"]),
+                           r"hot standby watching"):
+            if time.time() > deadline or procs["standby"].poll() is not None:
+                raise AssertionError("the standby did not start watching")
+            time.sleep(0.05)
+        t_launch = time.time()
+        start("agent", [sys.executable, "-m", "dlrover_tpu_torch.run",
+                        "--devices-per-node", "1",
+                        "--monitor-interval", str(monitor_s),
+                        "dlrover_tpu_torch/examples/llama_train.py"]
+              + list(worker_args)
+              + ["--steps", str(steps), "--report-interval", "1",
+                 "--log-file", paths["worker.log"]],
+              dict(base, DLROVER_TPU_MASTER_BOOTSTRAP_FILE=boot,
+                   **({"DLROVER_TPU_CHAOS": worker_chaos,
+                       "DLROVER_TPU_CHAOS_STATE": f"{tmp}/chaos"}
+                      if worker_chaos else {})))
+        workers = set()
+        deadline = time.time() + timeout_s
+        while procs["agent"].poll() is None and time.time() < deadline:
+            workers |= _worker_children(procs["agent"].pid)
+            time.sleep(0.05)
+        if procs["agent"].poll() is None:
+            raise AssertionError(f"failover: the agent ran past "
+                                 f"{timeout_s} s")
+        out["agent_run_s"] = time.time() - t_launch
+        out["agent_exit"] = procs["agent"].returncode
+        out["primary_exit"] = procs["primary"].poll()
+        out["worker_pids_seen"] = sorted(workers)
+        with open(boot) as f:
+            out["bootstrap"] = json.load(f)
+        # the promoted master, asked before it is stopped
+        client = MasterClient(out["bootstrap"]["addr"], node_id=99,
+                              node_rank=-1)
+        try:
+            out["goodput"] = client.get_goodput()
+            out["history"] = client.query_timeseries(
+                name="dlrover_tpu_worker_step_time_seconds",
+                labels={"node": "0"}, resolution_s=10.0)
+        finally:
+            client.close()
+    finally:
+        for name in ("agent", "standby", "primary"):
+            proc = procs.get(name)
+            if proc is not None and proc.poll() is None:
+                proc.terminate()
+                try:
+                    proc.wait(30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+    lines = {n: _agent_lines(paths[f"{n}.err"])
+             for n in ("primary", "standby", "agent")}
+    tail = {n: "\n".join(t for _, t in lines[n][-12:]) for n in lines}
+
+    # gate 1: the primary died by its own SIGKILL at the kill step's
+    # report
+    fired = _matches(lines["primary"],
+                     r"chaos: SIGKILL self \(master-0\) at step (\d+)")
+    if (out["primary_exit"] != -signal.SIGKILL or len(fired) != 1
+            or int(fired[0][1].group(1)) != kill_at):
+        raise AssertionError(f"failover: primary exit {out['primary_exit']}"
+                             f", chaos {[m.group(0) for _, m in fired]}: "
+                             f"{tail['primary']}")
+    t_kill = fired[0][0]
+    out["kill_ts"] = t_kill
+
+    # gate 2: one promotion, at the loaded snapshot's generation + 1,
+    # and the bootstrap file names it
+    restored = _matches(lines["standby"],
+                        r"restored from snapshot v(\d+) \(generation (\d+),"
+                        r" (\d+) hot mutations replayed\)")
+    promoted = _matches(lines["standby"],
+                        r"PROMOTED in ([\d.]+)s: serving at (\S+) \(coord "
+                        r"(\S+)\) as generation (\d+)")
+    failed_probes = _matches(lines["standby"],
+                             r"primary health probe failed \((\d+)/(\d+)")
+    if len(promoted) != 1 or len(restored) != 1:
+        raise AssertionError(f"failover: {len(promoted)} promotions, "
+                             f"{len(restored)} restores: {tail['standby']}")
+    version = int(restored[0][1].group(1))
+    replayed = int(restored[0][1].group(3))
+    generation = int(promoted[0][1].group(4))
+    backend = MasterStateBackend(state)
+    loaded = backend.load_version(version)
+    written = backend.load_version(version + 1)
+    boot_want = {"addr": promoted[0][1].group(2),
+                 "coord_addr": promoted[0][1].group(3),
+                 "generation": generation}
+    if (generation != loaded["generation"] + 1
+            or written["generation"] != generation
+            or out["bootstrap"] != boot_want):
+        raise AssertionError(f"failover: promoted generation {generation} "
+                             f"from snapshot v{version} at generation "
+                             f"{loaded['generation']}, its first snapshot "
+                             f"{written['generation']}, bootstrap "
+                             f"{out['bootstrap']} against {boot_want}")
+    out["snapshot"] = {"loaded_version": version,
+                       "loaded_generation": loaded["generation"],
+                       "promoted_generation": generation,
+                       "hot_mutations_replayed": replayed,
+                       "versions_on_disk": len(backend.versions())}
+
+    # gate 3: master-lost mode, one reconnect with the world intact, no
+    # new round, no restart
+    lost = _matches(lines["agent"], r"entering master-lost mode")
+    reconnected = _matches(lines["agent"],
+                           r"reconnected to master (\S+) \(generation "
+                           r"(\d+), world intact=(\w+)\)")
+    spawns = _matches(lines["agent"], r"spawning worker \(round (\d+),")
+    if (len(lost) != 1 or len(reconnected) != 1
+            or reconnected[0][1].group(3) != "True"
+            or reconnected[0][1].group(1) != boot_want["addr"]
+            or int(reconnected[0][1].group(2)) != generation
+            or [m.group(1) for _, m in spawns] != ["0"]
+            or out["agent_exit"] != 0):
+        raise AssertionError(
+            f"failover: agent exit {out['agent_exit']}, master-lost "
+            f"{len(lost)}, reconnects "
+            f"{[m.group(0) for _, m in reconnected]}, spawns "
+            f"{[m.group(0) for _, m in spawns]}: {tail['agent']}")
+    runs = _worker_log(paths["worker.log"])
+    run = runs[0] if len(runs) == 1 else {}
+    order = list(run.get("steps", {}))
+    pid_at_exit = run.get("times", {}).get("pid")
+    if (len(runs) != 1 or run["start"] != 0
+            or order != list(range(1, steps + 1))
+            or run["pid"] is None or pid_at_exit != run["pid"]
+            or out["worker_pids_seen"] != [run["pid"]]):
+        raise AssertionError(
+            f"failover: {len(runs)} incarnations, starts "
+            f"{[r['start'] for r in runs]}, steps {order}, pids "
+            f"{run.get('pid')} / {pid_at_exit} / {out['worker_pids_seen']}")
+    t_lost, t_reconnect = lost[0][0], reconnected[0][0]
+    after = [n for n in order if run["steps"][n][0] > t_reconnect]
+    out["run"] = run
+    out["steps_after_reconnect"] = len(after)
+    if len(after) < FAILOVER_AFTER_RECONNECT:
+        raise AssertionError(f"failover: {len(after)} steps after the "
+                             f"reconnect, want {FAILOVER_AFTER_RECONNECT}")
+
+    # gate 5: the promoted master's state is the snapshot it loaded,
+    # component by component (a hot key the mutation log replayed over
+    # the snapshot aside), and its tsdb holds the sidecar's points from
+    # before the kill
+    differ = [k for k in FAILOVER_COMPONENTS
+              if k != "kv_store" and loaded.get(k) != written.get(k)]
+    kv_loaded, kv_written = loaded["kv_store"], written["kv_store"]
+    if replayed == 0:
+        kv_same = kv_loaded == kv_written
+    else:
+        cold = [k for k in set(kv_loaded) | set(kv_written)
+                if not k.startswith("coord/")]
+        kv_same = all(kv_loaded.get(k) == kv_written.get(k) for k in cold)
+    if differ or not kv_same:
+        raise AssertionError(f"failover: the promoted master's first "
+                             f"snapshot v{version + 1} differs from the "
+                             f"loaded v{version} in {differ} (kv store "
+                             f"same: {kv_same})")
+    before = [p for series in out["history"].get("series", ())
+              for p in series["points"] if p[0] < t_kill and p[4] > 0]
+    out["tsdb_points_before_kill"] = len(before)
+    if not before:
+        raise AssertionError(f"failover: the promoted master's tsdb holds "
+                             f"no step-time point from before the kill: "
+                             f"{out['history']}")
+
+    # marks, measured and printed, not gated
+    t_promoted = promoted[0][0]
+    # the kill step's report is the one the primary died serving
+    reports_after_kill = [n for n in order if n >= kill_at]
+    with open(paths["worker.log"]) as f:
+        failed_reports = sum(1 for line in f
+                             if line.split(" ", 1)[-1].startswith(
+                                 "step report failed"))
+    out["marks"] = {
+        "kill_to_first_failed_probe_s": (failed_probes[0][0] - t_kill
+                                         if failed_probes else None),
+        "kill_to_promoted_s": t_promoted - t_kill,
+        "promotion_s": float(promoted[0][1].group(1)),
+        "kill_to_master_lost_s": t_lost - t_kill,
+        "kill_to_reconnect_s": t_reconnect - t_kill,
+        "master_lost_to_reconnect_s": t_reconnect - t_lost}
+    periods = {n: run["steps"][n][0] - run["steps"][n - 1][0]
+               for n in order[1:]}
+
+    def median_ms(ns):
+        vals = [periods[n] for n in ns if n in periods]
+        return statistics.median(vals) * 1e3 if vals else None
+
+    out["step_period_ms"] = {
+        "before_kill": median_ms([n for n in order
+                                  if run["steps"][n][0] <= t_kill]),
+        "outage": median_ms([n for n in order
+                             if t_kill < run["steps"][n][0]
+                             <= t_reconnect]),
+        "after_reconnect": median_ms(after),
+        "after_reconnect_max": max((periods[n] for n in after), default=0)
+        * 1e3}
+    out["step_reports"] = {
+        "sent_from_the_kill_step": len(reports_after_kill),
+        "failed": failed_reports,
+        "reached_promoted_master": len(reports_after_kill)
+        - failed_reports}
+    out["goodput_buckets"] = out["goodput"].get("buckets")
+    return out
+
+
+def phase_failover(smi: str) -> dict:
+    """Llama-1B trains through a SIGKILLed master (see the module
+    docstring)."""
+    import os
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch.models.llama import LlamaConfig
+
+    t_phase = time.monotonic()
+    cfg = LlamaConfig.llama_1b(max_seq_len=2048, attn_impl="flash",
+                               norm_impl="fused", embed_impl="gather")
+    budget = failover_budget(FAILOVER_MONITOR_S, FAILOVER_RPC_TIMEOUT_S)
+    steps = budget["steps"]
+    log(f"failover: the agent polls every {FAILOVER_MONITOR_S} s (cut from "
+        f"5 s) and every master RPC of the agent and the worker has a "
+        f"{FAILOVER_RPC_TIMEOUT_S} s deadline (cut from 30 s); the standby "
+        f"runs at its defaults; bounds from the code: "
+        f"{json.dumps(budget)}: {steps} steps, the kill at step "
+        f"{FAILOVER_KILL_AT}, saves every {FAILOVER_SAVE_EVERY}")
+    t_ref = time.monotonic()
+    ref = _reference_prefix(cfg, steps)
+    log(f"failover: the reference run took {time.monotonic() - t_ref:.1f} "
+        f"s (0 when an earlier phase ran it)")
+    state_bytes = 3 * 4 * cfg.param_count()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_failover_")
+    agent_tmp = ""
+    _free_memory()
+    try:
+        saves = steps // FAILOVER_SAVE_EVERY
+        free = shutil.disk_usage(tmp).free
+        log(f"failover: checkpoints in {tmp}, {free / 1e9:.1f} GB free; "
+            f"the run keeps its {saves} saves of {state_bytes / 1e9:.2f} "
+            f"GB")
+        if free < (saves + 0.1) * state_bytes:
+            raise AssertionError(f"{free / 1e9:.1f} GB free in {tmp}: less "
+                                 f"than {saves} checkpoints")
+        agent_tmp = peer_root(state_bytes, tmp, smi, "failover")
+        out = failover_drill(
+            tmp, repo,
+            ["--config", "llama_1b", "--save-interval",
+             str(FAILOVER_SAVE_EVERY), "--ckpt-dir", f"{tmp}/ckpt"],
+            steps, FAILOVER_KILL_AT, FAILOVER_MONITOR_S,
+            {"TMPDIR": agent_tmp,
+             "DLROVER_TPU_RPC_TIMEOUT_S": str(FAILOVER_RPC_TIMEOUT_S),
+             # every snapshot stays, so the loaded one can be read back
+             "DLROVER_TPU_MASTER_SNAPSHOT_RETAIN": "1000",
+             # the sidecar holds the history before the kill
+             "DLROVER_TPU_TSDB_SAMPLE_INTERVAL_S": "1",
+             "DLROVER_TPU_TSDB_FLUSH_INTERVAL_S": "2",
+             "DLROVER_TPU_FLIGHT_DIR": f"{tmp}/flight"})
+        run = out.pop("run")
+        # gate 4: every step the bits of an uninterrupted run
+        same = {n: (r[1], r[2]) == ref[n - 1]
+                for n, r in run["steps"].items()}
+        log(f"failover losses against an uninterrupted in-process run: "
+            f"{json.dumps(same)}")
+        if not all(same.values()):
+            raise AssertionError(f"failover: steps against the reference "
+                                 f"run: {same}")
+        want = _expected_launches(cfg, steps)
+        if run.get("launches") != want:
+            raise AssertionError(f"failover: launches {run.get('launches')},"
+                                 f" want {want}")
+        out["launches"] = run["launches"]
+        out["budget"] = budget
+        out.pop("history")
+        out.pop("goodput")
+        for key in ("marks", "step_period_ms", "step_reports",
+                    "goodput_buckets", "snapshot"):
+            log(f"failover {key}: {json.dumps(out[key])} ({smi})")
+        out["phase_s"] = time.monotonic() - t_phase
+        log(f"failover: {out['steps_after_reconnect']} steps after the "
+            f"reconnect, {out['tsdb_points_before_kill']} tsdb buckets "
+            f"from before the kill; the phase took {out['phase_s']:.1f} s "
+            f"(the worker under the agent {out['agent_run_s']:.1f} s) "
+            f"({smi})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if agent_tmp:
+            shutil.rmtree(agent_tmp, ignore_errors=True)
+    return out
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases",
                         default="kernels,quant,parity,llama1b,resume,"
-                                "standalone,faults,observe",
+                                "standalone,faults,observe,failover",
                         help="comma-separated subset of kernels, quant, "
                              "parity, llama1b, resume, standalone, faults, "
-                             "observe (device and build always run)")
+                             "observe, failover (device and build always "
+                             "run)")
     parser.add_argument("--profile", default="",
                         help="after the Llama-1B run, profile one more "
                              "step and write the kernel table here")
@@ -2736,6 +3194,11 @@ def main(argv=None) -> int:
         observe = phase_observe(smi, llama1b)
         for rec in train_records + quant_records:
             rec["observe_launches"] = observe["launches"][rec["name"]]
+    if "failover" in phases:
+        # the worker that trained through its master's death
+        failover = phase_failover(smi)
+        for rec in train_records + quant_records:
+            rec["failover_launches"] = failover["launches"][rec["name"]]
     records = train_records + quant_records
     log(f"elapsed {time.monotonic() - t0:.1f} s")
     print(json.dumps({"kernels": records}))

@@ -42,8 +42,15 @@ monitor/restart loop :429-521, failure reporting :490):
   ``checkpoint`` a save-and-continue drain request, ``drain`` a
   save-and-exit one, ``restart`` restarts the worker uncharged, and
   ``alert`` and ``observe`` are logged.
-
-Not ported yet: master-loss reconnect (ROADMAP Queue A item 12.9).
+- Master loss: ``master_lost_after_polls`` consecutive failed liveness
+  polls (each a full retry budget) put the agent in master-lost mode.
+  The worker keeps training while the agent re-resolves the master (the
+  bootstrap file a restarted or promoted master rewrites, then the env),
+  reconnects with jittered backoff, re-registers through the generation
+  handshake and restarts the worker only when the world moved on. A
+  worker restart that cannot reach the master falls into the same mode
+  (the full ``master_reconnect_timeout_s``), and a preemption notice
+  abandons the reconnect to drain locally.
 """
 
 from __future__ import annotations
@@ -61,8 +68,10 @@ import time
 from collections import deque
 from typing import Dict, List, Optional, Tuple
 
+import grpc
+
 from dlrover_tpu_torch import obs
-from dlrover_tpu_torch.agent.master_client import MasterClient
+from dlrover_tpu_torch.agent.master_client import MasterClient, backoff_delay_s
 from dlrover_tpu_torch.agent.preemption import (
     PreemptionNotice,
     PreemptionWatcher,
@@ -187,6 +196,10 @@ class WorkerSpec:
     env: Dict[str, str] = dataclasses.field(default_factory=dict)
     # side monitors (resource and step reporting, tuned-config polling)
     enable_monitors: bool = True
+    # consecutive failed num_nodes_waiting polls (each already a full
+    # retry_rpc budget) before the master is declared lost and the
+    # agent enters the reconnect loop
+    master_lost_after_polls: int = 2
 
     def __post_init__(self) -> None:
         # THIS interval paces the agent's num_nodes_waiting poll, the
@@ -205,6 +218,16 @@ class RendezvousTimeoutError(TimeoutError):
     pass
 
 
+class MasterLostError(RuntimeError):
+    """The master stayed unreachable past the reconnect budget."""
+
+
+class PreemptedDuringOutage(Exception):
+    """A preemption notice arrived while the agent was in master-lost
+    reconnect: the reconnect is abandoned so the grace window goes to
+    the local emergency checkpoint, not to dialing a dead master."""
+
+
 class ElasticAgent:
     """Joins the master rendezvous and keeps one training process alive."""
 
@@ -220,6 +243,8 @@ class ElasticAgent:
         self._proc: Optional[subprocess.Popen] = None
         self.last_world: Dict[int, int] = {}
         self.last_round = -1
+        # consecutive failed liveness polls (master-lost detection)
+        self._master_fail_streak = 0
         # relaunch pacing: backoff between respawns, quarantine on flap
         self._governor = RelaunchGovernor()
         self._monitors: List = []
@@ -333,6 +358,9 @@ class ElasticAgent:
         env.update(self._spec.env)
         env.update({
             NodeEnv.MASTER_ADDR: self._client.master_addr,
+            # the coordination tier the join result advertised ("" =
+            # single-tier): the worker's hot kv traffic dials it
+            NodeEnv.COORD_ADDR: self._client.coord_addr,
             NodeEnv.NODE_ID: str(self._client.node_id),
             NodeEnv.NODE_RANK: str(self._client.node_rank),
             NodeEnv.WORLD_SIZE: str(len(ranks)),
@@ -378,6 +406,23 @@ class ElasticAgent:
         except subprocess.TimeoutExpired:
             self._proc.kill()
             self._proc.wait()
+
+    def _restart_worker_resilient(self, count_against_budget: bool
+                                  ) -> None:
+        """_restart_worker, but a restart whose own rendezvous cannot
+        reach the master falls into master-lost handling: a worker crash
+        DURING a master outage gets the full reconnect budget, not one
+        RPC retry budget. After reconnection the resync sees the dead
+        worker and respawns it. Only transport errors divert: a
+        RendezvousTimeoutError (the master answered, the world never
+        formed) or a spawn failure propagates."""
+        try:
+            self._restart_worker(count_against_budget)
+        except grpc.RpcError as exc:
+            logger.warning(
+                "worker restart could not reach the master (%s); "
+                "entering master-lost mode", exc)
+            self._handle_master_loss()
 
     def _restart_worker(self, count_against_budget: bool) -> None:
         """Membership-change restarts are normal elasticity and do NOT
@@ -490,10 +535,21 @@ class ElasticAgent:
                 if outcome is not None:
                     return outcome
                 continue
-            # healthy: a membership change re-forms the world
-            waiting = self._client.num_nodes_waiting(self._rdzv_name)
-            # then the diagnosis actions the master queued for this rank,
-            # polled only after a successful liveness probe
+            # healthy: a membership change re-forms the world. Diagnosis
+            # actions are polled only after a SUCCESSFUL liveness probe:
+            # during a master outage an extra RPC here would block a full
+            # timeout per tick before the probe that advances the
+            # master-lost streak
+            try:
+                waiting = self._client.num_nodes_waiting(self._rdzv_name)
+                self._master_fail_streak = 0
+            except Exception:  # retry budget exhausted this poll
+                self._master_fail_streak += 1
+                if (self._master_fail_streak
+                        >= spec.master_lost_after_polls):
+                    self._master_fail_streak = 0
+                    self._handle_master_loss()
+                continue
             self._poll_diagnosis_actions()
             # keep the master's donor registry fresh: the worker staged
             # a newer step since the last report (one os.stat)
@@ -505,7 +561,7 @@ class ElasticAgent:
                 )
                 obs.get_flight_recorder().record_event(
                     "membership_restart", waiting=waiting)
-                self._restart_worker(count_against_budget=False)
+                self._restart_worker_resilient(count_against_budget=False)
 
     # -- failure classification / relaunch pacing --------------------------
     def _timeline_step(self) -> int:
@@ -616,7 +672,7 @@ class ElasticAgent:
             code, kind, self._restart_count + (1 if counts else 0),
             spec.max_restarts,
         )
-        self._restart_worker(count_against_budget=counts)
+        self._restart_worker_resilient(count_against_budget=counts)
         return None
 
     # -- preemption drain --------------------------------------------------
@@ -712,6 +768,128 @@ class ElasticAgent:
         self._shutdown.set()
         self._stop_worker()
 
+    # -- master failover ---------------------------------------------------
+    def _handle_master_loss(self) -> None:
+        """Degraded "master lost" mode. The worker keeps training (it
+        needs the master only for shards and elasticity) while this loop
+        (1) re-resolves the master address (bootstrap file, env), (2)
+        reconnects with jittered exponential backoff, (3) re-registers
+        through the generation handshake, and (4) re-syncs the
+        rendezvous, restarting the worker only when the world moved on.
+        Raises MasterLostError once master_reconnect_timeout_s is
+        exhausted."""
+        ctx = Context.singleton()
+        recorder = obs.get_flight_recorder()
+        logger.error(
+            "master at %s unreachable: entering master-lost mode "
+            "(worker keeps running; reconnect budget %.0fs)",
+            self._client.master_addr, ctx.master_reconnect_timeout_s)
+        recorder.record_event("master_lost",
+                              addr=self._client.master_addr,
+                              rank=self._client.node_rank)
+        obs.get_registry().counter(
+            "dlrover_tpu_master_lost_total",
+            "Master-lost episodes entered by this agent").inc()
+        while True:
+            try:
+                result = self._reconnect_master(ctx, recorder)
+            except PreemptedDuringOutage:
+                # this host is going away: the run loop's next tick
+                # consumes the preempt event and drains locally
+                logger.warning(
+                    "preemption notice during master-lost reconnect; "
+                    "abandoning the reconnect to drain locally")
+                return
+            try:
+                self._resync_rendezvous(result)
+                return
+            except grpc.RpcError as exc:
+                # the master flapped again mid-resync: back to the
+                # reconnect loop; anything non-transport propagates
+                logger.warning(
+                    "master flapped during rendezvous re-sync (%s); "
+                    "re-entering the reconnect loop", exc)
+
+    def _reconnect_master(self, ctx, recorder):
+        """Dial until one reconnect_report round-trips (or the budget
+        runs out); returns the master's ReconnectResult."""
+        deadline = time.time() + ctx.master_reconnect_timeout_s
+        attempt = 0
+        while True:
+            if self._shutdown.is_set():
+                raise MasterLostError("agent shut down mid-reconnect")
+            if self._preempt_event.is_set():
+                raise PreemptedDuringOutage()
+            addr = self._client.resolve_master_addr(
+                self._client.master_addr)
+            try:
+                with obs.span("reconnect",
+                              {"addr": addr,
+                               "rank": self._client.node_rank,
+                               "attempt": attempt}) as reconnect_span:
+                    self._client.reconnect(addr)
+                    result = self._client.reconnect_report(
+                        local_world_size=self._spec.devices_per_node,
+                        rdzv_name=self._rdzv_name,
+                        rdzv_round=self.last_round,
+                    )
+                    reconnect_span.set_attr("generation",
+                                            result.generation)
+                    reconnect_span.set_attr("world_intact",
+                                            result.world_intact)
+            except Exception as exc:  # noqa: BLE001 — grpc errors vary
+                attempt += 1
+                if time.time() >= deadline:
+                    raise MasterLostError(
+                        f"master unreachable for "
+                        f"{ctx.master_reconnect_timeout_s:.0f}s "
+                        f"(last tried {addr})") from exc
+                delay = backoff_delay_s(attempt, ctx.rpc_backoff_s,
+                                        ctx.rpc_backoff_max_s)
+                logger.warning(
+                    "master still unreachable at %s (attempt %d): %s; "
+                    "next dial in %.1fs", addr, attempt, exc, delay)
+                # a preemption notice or a shutdown mid-sleep must not
+                # wait out the full delay
+                self._interruptible_wait(delay)
+                continue
+            logger.info(
+                "reconnected to master %s (generation %d, world "
+                "intact=%s)", addr, result.generation,
+                result.world_intact)
+            recorder.record_event(
+                "master_reconnected", addr=addr,
+                generation=result.generation,
+                world_intact=result.world_intact)
+            return result
+
+    def _resync_rendezvous(self, result) -> None:
+        """After re-registration: keep the running worker only when the
+        restored master still holds OUR world as its latest; otherwise
+        restart so the world re-forms through a fresh rendezvous."""
+        with obs.span("rendezvous",
+                      {"rdzv": self._rdzv_name,
+                       "rank": self._client.node_rank,
+                       "resync": True}) as resync_span:
+            worker_alive = (self._proc is not None
+                            and self._proc.poll() is None)
+            intact = result.world_intact and worker_alive
+            if intact:
+                try:
+                    _, _, world = self._client.get_comm_world(
+                        self._rdzv_name)
+                    intact = bool(world) and world == self.last_world
+                except Exception:  # noqa: BLE001 — master flapped again
+                    intact = False
+            resync_span.set_attr("world_intact", intact)
+            if intact:
+                logger.info("world %s survived the master outage; "
+                            "worker keeps running", sorted(self.last_world))
+                return
+            logger.info("world changed across the master outage; "
+                        "restarting worker to re-form")
+            self._restart_worker(count_against_budget=False)
+
     # -- diagnosis actions -------------------------------------------------
     def _poll_diagnosis_actions(self) -> None:
         """Drain and execute the master's diagnosis actions for this
@@ -744,7 +922,7 @@ class ElasticAgent:
             self._request_save(action, exit_worker=kind == "drain")
         elif kind == "restart":
             logger.warning("diagnosis: restarting worker (%s)", reason)
-            self._restart_worker(count_against_budget=False)
+            self._restart_worker_resilient(count_against_budget=False)
         elif kind == "alert":
             logger.warning("diagnosis alert: %s", reason)
         else:

@@ -6,10 +6,18 @@ the two-RPC service for every protocol interaction this slice ports, a
 retry decorator, and the singleton the worker builds from the agent's
 environment contract.
 
-Not ported yet: the coordination-tier routing, the bootstrap-file
-re-resolution and the reconnect handshake of master-loss handling
-(ROADMAP Queue A item 12.9), and the wrappers of the re-planning (6.3),
-slice (6.4) and autoscale (12.10) RPCs.
+Master-loss handling, as in the JAX client: hot-prefix kv traffic
+(``coord/``, ``dcn/``) dials the master's coordination tier when one is
+advertised (the env, a join or reconnect result), with a breaker that
+falls back to the main tier for 5 s after a transport failure;
+``resolve_bootstrap``/``resolve_master_addr`` read the bootstrap file a
+restarted or promoted master rewrites, ``reconnect`` re-dials, and
+``reconnect_report`` re-registers through the generation handshake.
+``reresolve_if_moved`` is there for a worker's failure paths; like the
+JAX package, only slice mode calls it.
+
+Not ported yet: the wrappers of the re-planning (ROADMAP Queue A item
+6.3), slice (6.4) and autoscale (12.10) RPCs.
 """
 
 from __future__ import annotations
@@ -29,7 +37,12 @@ from dlrover_tpu_torch.common.comm import (
     local_ip,
 )
 from dlrover_tpu_torch.common.config import Context
-from dlrover_tpu_torch.common.constants import NodeEnv, RendezvousName
+from dlrover_tpu_torch.common.constants import (
+    HOT_KV_PREFIXES,
+    NodeEnv,
+    RendezvousName,
+)
+from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.obs import current_context
 
 
@@ -76,7 +89,8 @@ class MasterClient:
     def __init__(self, master_addr: str, node_id: int = 0,
                  node_rank: Optional[int] = None,
                  timeout_s: Optional[float] = None,
-                 node_type: str = ""):
+                 node_type: str = "",
+                 coord_addr: Optional[str] = None):
         self.master_addr = master_addr
         self.node_id = node_id
         self.node_type = node_type
@@ -92,10 +106,118 @@ class MasterClient:
         # the peer-restore plan the last join result carried ("" =
         # none): the agent publishes it to the worker through a file
         self.last_restore_plan_json = ""
+        # owned by the CLIENT, not the stub: a seeded chaos injector
+        # keeps its sequence across reconnect()s
+        self._fault_injector = TransportFaultInjector.from_env()
         self._channel = build_channel(master_addr)
         self._stub = MasterStub(self._channel,
-                                fault_injector=TransportFaultInjector
-                                .from_env())
+                                fault_injector=self._fault_injector)
+        # the coordination tier (master/coord_service.py): hot-prefix kv
+        # traffic dials this address ("" = single-tier master)
+        self.coord_addr = ""
+        self._coord_channel = None
+        self._coord_stub = None
+        # breaker: after a coordination-tier transport failure, hot
+        # traffic goes straight to the main tier until this deadline
+        self._coord_down_until = 0.0
+        self.set_coord_addr(
+            coord_addr if coord_addr is not None
+            else os.getenv(NodeEnv.COORD_ADDR, ""))
+
+    def set_coord_addr(self, coord_addr: str) -> None:
+        """(Re)dial the coordination tier; "" tears it down (hot traffic
+        falls back to the main channel)."""
+        if coord_addr == self.coord_addr and (
+                bool(coord_addr) == (self._coord_stub is not None)):
+            return
+        old = self._coord_channel
+        self.coord_addr = coord_addr or ""
+        self._coord_down_until = 0.0   # a fresh dial resets the breaker
+        if coord_addr:
+            self._coord_channel = build_channel(coord_addr)
+            self._coord_stub = MasterStub(
+                self._coord_channel,
+                fault_injector=self._fault_injector)
+        else:
+            self._coord_channel = None
+            self._coord_stub = None
+        if old is not None:
+            try:
+                old.close()
+            except Exception:  # noqa: BLE001 — a dead channel may refuse
+                pass
+
+    def reconnect(self, master_addr: Optional[str] = None,
+                  coord_addr: Optional[str] = None) -> None:
+        """Tear down the channel and dial (a possibly different) master;
+        the typed wrappers go through the new stub on their next call.
+        A given ``coord_addr`` re-dials the coordination tier too (a
+        promoted standby binds a fresh one)."""
+        addr = master_addr or self.master_addr
+        try:
+            self._channel.close()
+        except Exception:  # noqa: BLE001 — a dead channel may refuse
+            pass
+        self.master_addr = addr
+        self._channel = build_channel(addr)
+        self._stub = MasterStub(self._channel,
+                                fault_injector=self._fault_injector)
+        if coord_addr is not None:
+            self.set_coord_addr(coord_addr)
+
+    @staticmethod
+    def resolve_bootstrap() -> dict:
+        """The bootstrap file's parsed contents: {"addr", "coord_addr",
+        "generation"}; a plain (pre-JSON) file reads as {"addr":
+        <contents>}. {} = no file."""
+        path = os.getenv(NodeEnv.MASTER_BOOTSTRAP, "") or (
+            Context.singleton().master_bootstrap_file)
+        if not path:
+            return {}
+        try:
+            with open(path) as f:
+                raw = f.read().strip()
+        except OSError:
+            return {}
+        if not raw:
+            return {}
+        if raw.startswith("{"):
+            try:
+                parsed = json.loads(raw)
+                if isinstance(parsed, dict) and parsed.get("addr"):
+                    return parsed
+            except ValueError:
+                return {}
+            return {}
+        return {"addr": raw}
+
+    @classmethod
+    def resolve_master_addr(cls, default: str = "") -> str:
+        """Where is the master NOW? The bootstrap file wins (a restarted
+        or promoted master rewrites it with its new address and a bumped
+        generation), then the env contract, then ``default``."""
+        bootstrap = cls.resolve_bootstrap()
+        if bootstrap.get("addr"):
+            return str(bootstrap["addr"])
+        return os.getenv(NodeEnv.MASTER_ADDR, "") or default
+
+    def reresolve_if_moved(self) -> bool:
+        """Re-read the bootstrap file and re-dial when the master moved
+        while this process ran. The agent's master-lost loop does this
+        itself; a worker, which learns the address from its env at spawn
+        and is not respawned on a promotion, may call it from an RPC
+        failure path. No-op without a bootstrap file."""
+        bootstrap = self.resolve_bootstrap()
+        addr = str(bootstrap.get("addr") or "")
+        if not addr or addr == self.master_addr:
+            return False
+        coord = str(bootstrap.get("coord_addr") or "")
+        logger.warning(
+            "master moved %s -> %s (bootstrap generation %s); "
+            "re-dialing", self.master_addr, addr,
+            bootstrap.get("generation", "?"))
+        self.reconnect(addr, coord_addr=coord)
+        return True
 
     # -- raw --------------------------------------------------------------
     def _get(self, request: msg.Message) -> msg.Message:
@@ -128,8 +250,34 @@ class MasterClient:
                       expected: type) -> msg.Message:
         return self._typed(self._report, request, expected)
 
+    # -- coordination-tier routing ----------------------------------------
+    @staticmethod
+    def _is_hot_key(key: str) -> bool:
+        return key.startswith(HOT_KV_PREFIXES)
+
+    def _coord_send(self, kind: str, request: msg.Message,
+                    timeout_s: Optional[float] = None) -> msg.Message:
+        """Send a coordination RPC through the coordination tier when one
+        is dialed, falling back to the main tier (which answers every
+        coordination RPC too) on any transport failure."""
+        payload = msg.serialize_message(request)
+        timeout = timeout_s if timeout_s is not None else self._timeout_s
+        stub = self._coord_stub
+        if stub is not None and time.monotonic() >= \
+                self._coord_down_until:
+            try:
+                send = stub.get if kind == "get" else stub.report
+                return msg.deserialize_message(
+                    send(payload, timeout=timeout))
+            except Exception:  # noqa: BLE001 — grpc errors vary
+                self._coord_down_until = time.monotonic() + 5.0
+        send = self._stub.get if kind == "get" else self._stub.report
+        return msg.deserialize_message(send(payload, timeout=timeout))
+
     def close(self) -> None:
         self._channel.close()
+        if self._coord_channel is not None:
+            self._coord_channel.close()
 
     # -- dynamic sharding -------------------------------------------------
     @retry_rpc()
@@ -192,7 +340,32 @@ class MasterClient:
         if result.generation:
             self.master_generation = result.generation
         self.last_restore_plan_json = result.restore_plan_json
+        self.set_coord_addr(result.coord_addr)
         return result.round
+
+    def reconnect_report(self, local_world_size: int = 1,
+                         rdzv_name: str = RendezvousName.TRAINING,
+                         rdzv_round: int = -1) -> msg.ReconnectResult:
+        """Re-register with a (possibly restarted) master after a
+        master-lost episode. Undecorated: the caller's reconnect loop
+        owns the pacing, and one clean failure per dial keeps its
+        backoff honest."""
+        result = self._report_typed(msg.ReconnectRequest(
+            node_id=self.node_id,
+            node_rank=self.node_rank,
+            node_type=self.node_type,
+            local_world_size=local_world_size,
+            rdzv_name=rdzv_name,
+            generation=self.master_generation,
+            rdzv_round=rdzv_round,
+            slice_id=self.slice_id,
+        ), msg.ReconnectResult)
+        if result.generation:
+            self.master_generation = result.generation
+        # a restarted or promoted master's coordination tier is a fresh
+        # bind; adopt whatever it advertises (possibly "")
+        self.set_coord_addr(result.coord_addr)
+        return result
 
     @retry_rpc()
     def leave_rendezvous(self, rdzv_name: str = RendezvousName.TRAINING
@@ -288,28 +461,45 @@ class MasterClient:
             msg.RestorePlan).epoch
 
     # -- kv store ---------------------------------------------------------
+    # hot-prefix keys route to the coordination tier when the master
+    # split one out; cold keys stay on the main tier for its
+    # write-through snapshot durability
     def kv_set(self, key: str, value: bytes) -> bool:
-        return self._report(msg.KeyValuePair(key=key, value=value)).success
+        request = msg.KeyValuePair(key=key, value=value)
+        if self._is_hot_key(key):
+            return self._coord_send("report", request).success
+        return self._report(request).success
 
     def kv_get(self, key: str) -> bytes:
-        return self._get_typed(msg.KVGetRequest(key=key),
-                               msg.KeyValuePair).value
+        send = ((lambda request: self._coord_send("get", request))
+                if self._is_hot_key(key) else self._get)
+        return self._typed(send, msg.KVGetRequest(key=key),
+                           msg.KeyValuePair).value
 
     def kv_add(self, key: str, amount: int) -> int:
-        return self._report_typed(msg.KVAddRequest(key=key, amount=amount),
-                                  msg.KVIntResult).value
+        send = ((lambda request: self._coord_send("report", request))
+                if self._is_hot_key(key) else self._report)
+        return self._typed(send,
+                           msg.KVAddRequest(key=key, amount=amount),
+                           msg.KVIntResult).value
 
     def kv_wait(self, key: str, timeout_s: float = 300.0) -> bytes:
         """Block until the key appears: the master holds each RPC open on
-        a condition variable for up to ~20 s per window."""
+        a condition variable for up to ~20 s per window (5 s on the
+        coordination tier)."""
         deadline = time.time() + timeout_s
+        hot = self._is_hot_key(key)
         while True:
             remaining = deadline - time.time()
             if remaining <= 0:
                 raise TimeoutError(f"kv_wait timed out on {key!r}")
             window = min(remaining, 20.0)
-            result = self._get(msg.KVWaitRequest(keys=[key],
-                                                 timeout_s=window))
+            request = msg.KVWaitRequest(keys=[key], timeout_s=window)
+            if hot:
+                result = self._coord_send(
+                    "get", request, timeout_s=window + self._timeout_s)
+            else:
+                result = self._get(request)
             if getattr(result, "success", False):
                 return self.kv_get(key)
 

@@ -29,8 +29,35 @@ class Context:
         self.rpc_retries: int = DefaultValues.RPC_RETRIES
         self.rpc_backoff_s: float = DefaultValues.RPC_BACKOFF_S
         self.rpc_backoff_max_s: float = DefaultValues.RPC_BACKOFF_MAX_S
+        self.master_reconnect_timeout_s: float = (
+            DefaultValues.MASTER_RECONNECT_TIMEOUT_S
+        )
+        # crash-consistent master state: snapshots land here ("" = state
+        # persistence disabled); the bootstrap file carries the master's
+        # advertised address across restarts ("" = env-only resolution)
+        self.master_state_dir: str = ""
+        self.master_bootstrap_file: str = ""
+        self.master_snapshot_retain: int = (
+            DefaultValues.MASTER_SNAPSHOT_RETAIN
+        )
+        self.master_snapshot_min_interval_s: float = (
+            DefaultValues.MASTER_SNAPSHOT_MIN_INTERVAL_S
+        )
+        # the coordination tier's own port, the bounded telemetry ingest
+        # and the hot-standby promoter (master/coord_service.py,
+        # master/standby.py)
+        self.coord_port: int = DefaultValues.COORD_PORT
+        self.telemetry_queue_size: int = (
+            DefaultValues.TELEMETRY_QUEUE_SIZE
+        )
         self.kv_gc_keep_generations: int = (
             DefaultValues.KV_GC_KEEP_GENERATIONS
+        )
+        self.standby_health_interval_s: float = (
+            DefaultValues.STANDBY_HEALTH_INTERVAL_S
+        )
+        self.standby_promote_failures: int = (
+            DefaultValues.STANDBY_PROMOTE_FAILURES
         )
         self.report_resource_interval_s: float = (
             DefaultValues.REPORT_RESOURCE_INTERVAL_S

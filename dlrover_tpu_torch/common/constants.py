@@ -181,7 +181,26 @@ class DefaultValues:
     RPC_RETRIES = 10
     RPC_BACKOFF_S = 0.5
     RPC_BACKOFF_MAX_S = 15.0
+    # master-loss handling (agent/elastic_agent.py): how long an agent
+    # keeps its worker alive while reconnecting to a restarted master
+    MASTER_RECONNECT_TIMEOUT_S = 1800.0
+    # crash-consistent master state (master/state_backend.py)
+    MASTER_SNAPSHOT_RETAIN = 5
+    # 0 = write-through (a snapshot per control-plane mutation); > 0
+    # coalesces snapshots to at most one per interval, at the cost of up
+    # to that much durability lag on a crash
+    MASTER_SNAPSHOT_MIN_INTERVAL_S = 0.0
+    # the KV/coordination tier's own port (master/coord_service.py):
+    # 0 = any free port, -1 = serve coordination on the main port only
+    COORD_PORT = 0
+    # bounded telemetry ingest: reports queued past this are dropped
+    # oldest-first (dlrover_tpu_telemetry_dropped_total)
+    TELEMETRY_QUEUE_SIZE = 256
     KV_GC_KEEP_GENERATIONS = 2
+    # the hot-standby master (master/standby.py): cadence of its primary
+    # health probe, and how many consecutive failed probes promote it
+    STANDBY_HEALTH_INTERVAL_S = 2.0
+    STANDBY_PROMOTE_FAILURES = 3
     MONITOR_INTERVAL_S = 5.0
     # the agent's ResourceMonitor cadence (agent/monitor.py)
     REPORT_RESOURCE_INTERVAL_S = 15.0
@@ -275,8 +294,14 @@ class DefaultValues:
 
 
 # keys under these prefixes are on the gradient path (kv store hygiene,
-# client routing)
+# the snapshot exemption, coordination-tier routing)
 HOT_KV_PREFIXES = ("dcn/", "coord/")
+
+# the durable subset of the hot prefixes: coord/ barrier mutations ride
+# the mutation log (a promoted master must answer the rendezvous
+# addresses agents kv_wait on); dcn/ payloads are per-step ephemeral and
+# never logged
+LOGGED_KV_PREFIXES = ("coord/",)
 
 # the least time before a deadline for which an emergency save starts at
 # all (seconds)

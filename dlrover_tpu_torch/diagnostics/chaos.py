@@ -1,9 +1,10 @@
 """Scriptable fault injection for chaos testing.
 
-Own copy of the JAX package's ``diagnostics/chaos.py``: a worker-side
-hook the training loop polls each step, scripted through one env var,
-so a chaos run is a normal job launch with ``DLROVER_TPU_CHAOS`` set on
-(or forwarded to) the chosen node.
+Own copy of the JAX package's ``diagnostics/chaos.py``: a hook the
+training loop polls each step (the worker role) and the master's
+servicer feeds each step report (the master role), scripted through one
+env var, so a chaos run is a normal job launch with
+``DLROVER_TPU_CHAOS`` set on (or forwarded to) the chosen process.
 
 Spec grammar (semicolon-separated faults), the JAX package's whole
 grammar:
@@ -23,12 +24,16 @@ grammar:
                            ($DLROVER_TPU_PREEMPTION_NOTICE), driving the
                            whole drain chain. Grace defaults to
                            Context.preempt_default_grace_s.
+    kill:master:0@10       the master SIGKILLs itself when a worker
+                           reports step 10 (armed on the master; a hot
+                           standby promotes, the agents reconnect)
 
-The grammar also parses the faults whose subsystem the port lacks, and
-the injector refuses them by name (``NotImplementedError`` with their
-ROADMAP Queue A item): the ``master`` and ``shard`` roles (12.1-12.3:
-the state backend and hot standby, the sharded rendezvous, the
-coordination tier), the ``slice`` role (6.4, slice mode), and
+Each injector arms the faults of its own role and rank and skips the
+rest, as the JAX injector does: a worker skips a ``master`` fault. The
+grammar also parses the faults whose subsystem the port lacks, and the
+injector refuses them by name (``NotImplementedError`` with their
+ROADMAP Queue A item): the ``shard`` role (12.2, the sharded
+rendezvous), the ``slice`` role (6.4, slice mode), and
 ``offer``/``revoke``/``resize`` (12.10, the brain's fleet controller).
 
 Each kill/hang/preempt fault fires at most once per process; slow
@@ -164,17 +169,16 @@ def _unported_item(fault: ChaosFault) -> str:
     port lacks, "" when the port can inject it."""
     if fault.action in ("offer", "revoke", "resize"):
         return "12.10 (the brain's fleet controller)"
-    if fault.role in ("master", "shard"):
-        return ("12.1-12.3 (the state backend and hot standby, the "
-                "sharded rendezvous, the coordination tier)")
+    if fault.role == "shard":
+        return "12.2 (the sharded rendezvous)"
     if fault.role == "slice":
         return "6.4 (slice mode)"
     return ""
 
 
 class ChaosInjector:
-    """Per-process injector for the worker role; construct once, call
-    ``maybe_inject`` per step."""
+    """Per-process injector for the worker or the master role; construct
+    once, call ``maybe_inject`` per step."""
 
     def __init__(self, role: str = "worker",
                  rank: Optional[int] = None,
@@ -182,10 +186,6 @@ class ChaosInjector:
         spec = spec if spec is not None else os.environ.get(CHAOS_ENV, "")
         if rank is None:
             rank = int(os.environ.get(NodeEnv.NODE_RANK, "0"))
-        if role != "worker":
-            raise NotImplementedError(
-                f"a chaos injector for the {role!r} role is not ported "
-                f"yet (ROADMAP Queue A item 12.1-12.3)")
         self._role = role
         self._rank = rank
         self._state_dir = os.environ.get(CHAOS_STATE_ENV, "")

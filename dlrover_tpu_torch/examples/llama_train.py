@@ -27,8 +27,8 @@ chaos.py``); every knob rides the environment, as in the JAX package.
 
 Besides its step lines (the loop's, each with the loss as its ``repr``)
 the worker prints ``start_step=`` (with the restore's source, ``peer``
-from the agent's staged copy, ``checkpoint`` from disk, and its timings
-by part), ``done step=`` (or ``drained``), a
+from the agent's staged copy, ``checkpoint`` from disk, its pid and its
+restore's timings by part), ``done step=`` (or ``drained``), a
 ``worker_launch_counts`` JSON line with its kernel launches so far at
 the start of every step after the first and at exit (an aborted worker's
 last line holds its launches up to its last finished step), on the card
@@ -36,7 +36,7 @@ a ``worker_allocator_peak`` JSON line beside it (the caching allocator's
 ``allocated_bytes.all.peak`` after that many steps of this run, what the
 step reports carry to the master as ``hbm_peak_bytes``, and
 ``reserved_bytes.all.peak``), and at exit one
-``worker_times`` line with its wall-clock marks.
+``worker_times`` line with its wall-clock marks and its pid.
 
 The agent hands the worker the files of its monitors and diagnosis
 actions through the environment (``DLROVER_TPU_CHIP_STATS``, the card
@@ -135,7 +135,7 @@ def main(argv=None) -> int:
     from dlrover_tpu_torch.trainer.sampler import ElasticDistributedSampler
     from dlrover_tpu_torch.trainer.synthetic import batches, synthetic_corpus
 
-    times = {"start": T_START, "imported": time.time()}
+    times = {"start": T_START, "imported": time.time(), "pid": os.getpid()}
     init_distributed(device)   # joins the round's process group
     cfg, seq = build_config(args.config, args.seq)
 
@@ -192,7 +192,7 @@ def main(argv=None) -> int:
     state, start_step = loop.restore_or_init(args.seed, sampler)
     times["restored"] = time.time()
     log(f"llama_train: start_step={start_step} "
-        f"source={loop.last_restore_source} dp={loop.dp} "
+        f"source={loop.last_restore_source} pid={os.getpid()} dp={loop.dp} "
         f"accum={loop.accum} device={loop.device} "
         f"restore={json.dumps(loop.last_restore_timings)}")
     try:

@@ -11,7 +11,8 @@ every conclusion
 
 - appends a :class:`DiagnosisReport` to a bounded ring
   (``export_state``/``restore_state`` carry the newest across a master
-  restart once the port has a state backend, ROADMAP Queue A item 12.1),
+  restart: the master's snapshot holds them, and ``state_sink`` writes
+  one after every round that concluded something),
 - records a ``diagnosis`` flight event and bumps
   ``dlrover_tpu_diagnosis_reports_total{rule,severity}``,
 - enqueues the report's actions on per-rank queues that agents drain
@@ -20,8 +21,7 @@ every conclusion
   persistently slow rank is profiled once, not every interval).
 
 The snapshot carries no plan calibration (the planner's, ROADMAP Queue
-A item 6.3), so ``PlanRegressionRule`` has no evidence yet, and a
-master restart does not snapshot the reports yet (12.1).
+A item 6.3), so ``PlanRegressionRule`` has no evidence yet.
 ``request_checkpoint`` fans an urgent save-and-continue out to the
 survivors of a drain, bypassing the cooldown; ``request_drain`` serves
 slice mode (ROADMAP Queue A item 6.4), whose master side the port does
@@ -87,6 +87,9 @@ class DiagnosisManager:
         self._published_scores: set = set()
         self._stopped = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        # crash-consistency hook (wired by JobMaster): called after a
+        # round that appended reports
+        self.state_sink: Optional[Callable[[], None]] = None
         registry = obs.get_registry()
         self._reports_total = registry.counter(
             "dlrover_tpu_diagnosis_reports_total",
@@ -344,6 +347,11 @@ class DiagnosisManager:
             for report in reports:
                 report.ts = report.ts or snap.ts
                 self._emit(report, ctx)
+        if reports and self.state_sink is not None:
+            try:
+                self.state_sink()
+            except Exception:  # noqa: BLE001 — durability is best-effort
+                logger.exception("diagnosis state snapshot failed")
         return reports
 
     def _publish_worker_gauges(self, snap: DiagnosisSnapshot,

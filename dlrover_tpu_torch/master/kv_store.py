@@ -10,19 +10,24 @@ client needs one RPC per ~20 s window instead of one per poll tick.
 Hot keys (``dcn/``, ``coord/``) carry a generation in the key itself
 (``coord/<rdzv>/<round>``), and the store garbage-collects superseded
 generations on write, so a stale previous-episode value can neither be
-adopted nor accumulate. The mutation log and the snapshot export that
-make these keys survive a master restart belong to the state backend,
-which is not ported yet (ROADMAP Queue A item 12).
+adopted nor accumulate. ``coord/`` mutations append their resulting
+value to the attached mutation log (``master/state_backend.py``) instead
+of triggering a snapshot; ``dcn/`` payloads are per-step and never
+logged. ``export_state``/``restore_state`` carry the store through a
+snapshot (values base64), and ``replay_mutations`` applies the log over
+it on a restarted or promoted master.
 """
 
 from __future__ import annotations
 
+import base64
 import re
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
 from dlrover_tpu_torch.common.constants import HOT_KV_PREFIXES as HOT_PREFIXES
+from dlrover_tpu_torch.common.constants import LOGGED_KV_PREFIXES
 
 # Generation-namespaced key shapes → (group, generation). The GROUP is the
 # key with its generation component removed; within one group only the
@@ -60,12 +65,31 @@ class KVStoreService:
         self._keep_generations = max(1, keep_generations)
         self._generations: Dict[str, Dict[int, List[str]]] = {}
         self.collected_total = 0
+        # hot-key durability: appended per mutation instead of
+        # triggering a snapshot (state_backend.MutationLog; None = off)
+        self._mutation_log = None
 
     # -- hot-key plumbing ------------------------------------------------
     @staticmethod
     def is_hot(key: str) -> bool:
-        """Hot keys live on the gradient path."""
+        """Hot keys live on the gradient path: they never trigger a
+        control-plane snapshot (the servicer checks this)."""
         return key.startswith(HOT_PREFIXES)
+
+    def attach_mutation_log(self, log) -> None:
+        """Durability sink for hot mutations (replayed over the last
+        snapshot by a restarted or promoted master)."""
+        with self._cond:
+            self._mutation_log = log
+
+    def _log_mutation_locked(self, key: str, value: bytes) -> None:
+        """(lock held) Append the RESULTING value (not the op), so
+        replay is idempotent last-wins even for ``add``. Only the
+        durable-worthy hot prefixes (LOGGED_KV_PREFIXES) land in the
+        log."""
+        if (self._mutation_log is not None
+                and key.startswith(LOGGED_KV_PREFIXES)):
+            self._mutation_log.append(key, value)
 
     def _gc_superseded_locked(self, key: str) -> int:
         """(lock held) Register ``key``'s generation and drop every key
@@ -88,6 +112,7 @@ class KVStoreService:
             for stale_key in gens.pop(gen):
                 if self._store.pop(stale_key, None) is not None:
                     collected += 1
+                    self._log_mutation_locked(stale_key, b"")
         if collected:
             self.collected_total += collected
         return collected
@@ -108,6 +133,7 @@ class KVStoreService:
     def set(self, key: str, value: bytes) -> None:
         with self._cond:
             self._store[key] = value
+            self._log_mutation_locked(key, value)
             collected = self._gc_superseded_locked(key)
             self._cond.notify_all()
         self._count_collected(collected)
@@ -123,6 +149,7 @@ class KVStoreService:
             current = int(self._store.get(key, b"0"))
             current += amount
             self._store[key] = str(current).encode()
+            self._log_mutation_locked(key, self._store[key])
             collected = self._gc_superseded_locked(key)
             self._cond.notify_all()
         self._count_collected(collected)
@@ -142,7 +169,8 @@ class KVStoreService:
 
     def delete(self, key: str) -> None:
         with self._cond:
-            self._store.pop(key, None)
+            if self._store.pop(key, None) is not None:
+                self._log_mutation_locked(key, b"")
 
     def clear_prefix(self, prefix: str) -> int:
         """Drop all keys under a (round-scoped) prefix; returns count."""
@@ -150,8 +178,55 @@ class KVStoreService:
             stale = [k for k in self._store if k.startswith(prefix)]
             for k in stale:
                 del self._store[k]
+                self._log_mutation_locked(k, b"")
             return len(stale)
 
     def num_keys(self) -> int:
         with self._cond:
             return len(self._store)
+
+    # -- crash-consistent state (master/state_backend.py) ------------------
+    def export_state(self) -> dict:
+        """Values are bytes: base64 keeps the snapshot JSON-safe."""
+        with self._cond:
+            return {k: base64.b64encode(v).decode("ascii")
+                    for k, v in self._store.items()}
+
+    def restore_state(self, state: dict) -> None:
+        with self._cond:
+            self._store = {k: base64.b64decode(v)
+                           for k, v in state.items()}
+            # rebuild the generation index from the restored keys so
+            # hygiene picks up where the dead master left off
+            self._generations = {}
+            for key in self._store:
+                split = split_generation(key)
+                if split is not None:
+                    group, generation = split
+                    self._generations.setdefault(
+                        group, {}).setdefault(generation, []).append(key)
+            # restored keys may satisfy a blocked wait
+            self._cond.notify_all()
+
+    def replay_mutations(self, entries) -> int:
+        """Apply (key, value) pairs from a mutation log over the
+        restored snapshot (value b"" = deletion). Last-wins, idempotent;
+        returns the number applied."""
+        applied = 0
+        with self._cond:
+            for key, value in entries:
+                if value:
+                    self._store[key] = value
+                else:
+                    self._store.pop(key, None)
+                applied += 1
+                split = split_generation(key)
+                if split is not None and value:
+                    group, generation = split
+                    gens = self._generations.setdefault(group, {})
+                    keys = gens.setdefault(generation, [])
+                    if key not in keys:
+                        keys.append(key)
+            if applied:
+                self._cond.notify_all()
+        return applied

@@ -530,6 +530,17 @@ class RendezvousManager:
         with self._lock:
             return dict(self._latest_world)
 
+    def world_for(self, node_rank: int) -> Dict[int, int]:
+        """The world ``node_rank`` belongs to (the reconnect handshake's
+        intact check): the fleet world, since the port has no slice
+        mode (ROADMAP Queue A item 6.4)."""
+        return self.latest_world
+
+    def round_for(self, node_rank: int) -> int:
+        """The latest completed round in ``node_rank``'s scope."""
+        with self._lock:
+            return self._rdzv_round - 1
+
     @property
     def rdzv_round(self) -> int:
         with self._lock:
@@ -542,7 +553,7 @@ class RendezvousManager:
         exported: a restored master restarts them (stale clocks would
         reap every member at its first poll)."""
         with self._lock:
-            return {
+            state = {
                 "round": self._rdzv_round,
                 "latest_world": {str(r): n
                                  for r, n in self._latest_world.items()},
@@ -562,10 +573,24 @@ class RendezvousManager:
                     for r, s in self._peer_stores.items()
                 },
             }
+            # subclass fields join the SAME cut: one lock acquisition
+            self._export_extra(state)
+            return state
+
+    def _export_extra(self, state: dict) -> None:
+        """Subclass hook appending extra exported fields (lock held)."""
+
+    def _restore_extra(self, state: dict) -> None:
+        """Subclass hook restoring extra exported fields (lock held)."""
 
     def restore_state(self, state: dict) -> None:
         """Rehydrate from ``export_state`` (this package's or the JAX
-        manager's; the fields the port does not hold are ignored)."""
+        manager's; the fields the port does not hold are ignored). A
+        lineage the JAX package's sharded manager wrote (``"shards"``)
+        restores its fleet partition: the per-slice partitions belong to
+        slice mode (ROADMAP Queue A items 6.4 and 12.2)."""
+        if "shards" in state:
+            state = _fleet_partition(state)
         now = time.time()
         with self._lock:
             self._rdzv_round = int(state.get("round", 0))
@@ -596,8 +621,26 @@ class RendezvousManager:
             # every restored member gets a fresh liveness clock
             self._last_seen = {rank: now for rank in self._alive_nodes}
             self._latest_round_start = now
+            self._restore_extra(state)
             self._mutations += 1
         self._publish_draining_gauge()
+
+
+# the JAX package's sharded rendezvous keeps the sliceless fleet world
+# in the partition of this shard id (``master/rendezvous_shards.py``)
+_FLEET_SHARD = "-1"
+
+
+def _fleet_partition(state: dict) -> dict:
+    """The flat manager's state from a sharded snapshot: the fleet
+    shard's partition plus the router-level fields, as the JAX
+    package's ``flatten_sharded_state`` builds them for a sliceless
+    job."""
+    fleet = (state.get("shards") or {}).get(_FLEET_SHARD, {})
+    flat = dict(fleet)
+    flat["world_epoch"] = int(state.get("world_epoch", 0))
+    flat["peer_stores"] = dict(state.get("peer_stores") or {})
+    return flat
 
 
 class ElasticTrainingRendezvousManager(RendezvousManager):
@@ -725,3 +768,29 @@ class NetworkCheckRendezvousManager(RendezvousManager):
     def network_check_success(self) -> bool:
         fault, rounds = self.check_fault_node()
         return rounds > 0 and not fault
+
+    def _export_extra(self, state: dict) -> None:
+        """Check-cycle fields join the base export's cut (lock held)."""
+        state["check_round"] = self._check_round
+        state["reports"] = {
+            str(rnd): {str(r): [ok, t]
+                       for r, (ok, t) in reports.items()}
+            for rnd, reports in self._reports.items()
+        }
+        state["groups"] = {
+            str(rnd): groups
+            for rnd, groups in self._groups.items()
+        }
+
+    def _restore_extra(self, state: dict) -> None:
+        """(lock held)"""
+        self._check_round = int(state.get("check_round", 0))
+        self._reports = {
+            int(rnd): {int(r): (bool(v[0]), float(v[1]))
+                       for r, v in reports.items()}
+            for rnd, reports in state.get("reports", {}).items()
+        }
+        self._groups = {
+            int(rnd): [[int(r) for r in group] for group in groups]
+            for rnd, groups in state.get("groups", {}).items()
+        }

@@ -28,8 +28,17 @@ The optional components are fed as the JAX master feeds them:
   telemetry reports, served over ``StepTraceRequest``; ``ClockProbe``
   answers the master's wall clock for the workers' clock alignment.
 
-A ``TelemetryReport`` is processed in the RPC (the JAX master's bounded
-ingest queue is the coordination tier's, ROADMAP Queue A item 12.3).
+Crash consistency, as in the JAX servicer: after any request that may
+have mutated control-plane state the servicer calls ``state_sink``
+(wired by ``JobMaster`` to its snapshot writer). Step reports,
+heartbeats, telemetry and hot (``coord/``, ``dcn/``) kv keys do not
+snapshot: they are the per-step paths. A ``ReconnectRequest`` from an
+agent in master-lost mode puts its rank back in the alive set and
+answers ``world_intact``; join and reconnect results carry the
+coordination tier's address. A ``TelemetryReport`` is queued on the
+bounded drop-oldest :class:`TelemetryIngestQueue` and replayed by one
+drainer thread; ``master_chaos`` (a master-role ``ChaosInjector``) is
+fed the step of every ``GlobalStepReport``.
 """
 
 from __future__ import annotations
@@ -37,7 +46,7 @@ from __future__ import annotations
 import json
 import threading
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import grpc
 
@@ -50,6 +59,7 @@ from dlrover_tpu_torch.common.constants import (
 )
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch import obs
+from dlrover_tpu_torch.master.coord_service import TelemetryIngestQueue
 from dlrover_tpu_torch.master.diagnosis.manager import DiagnosisManager
 from dlrover_tpu_torch.master.kv_store import KVStoreService
 from dlrover_tpu_torch.master.rendezvous import (
@@ -69,9 +79,24 @@ _NOT_PORTED = {
     msg.PlanCalibrationRequest: "6.3 (calibration)",
     msg.SliceStatusRequest: "6.4 (slice mode)",
     msg.ShardPlanRequest: "6.3 (re-planning)",
-    msg.ReconnectRequest: "12 (master-loss reconnect)",
     msg.ScaleRequest: "12 (job manager)",
 }
+
+# report() payloads that mutate snapshotted control-plane state (the
+# early-return branches, join, reconnect, drain and kv add, sink inline).
+# Step reports, heartbeats and telemetry are deliberately absent, and a
+# KeyValuePair sinks inline only for a cold key.
+_MUTATING_REPORTS = (
+    msg.DatasetShardParams,
+    msg.TaskResult,
+    msg.LeaveRendezvousRequest,
+    msg.NetworkStatusReport,
+    msg.NodeFailureReport,
+    msg.NodeAddressReport,   # writes node-addr/<rank> into the kv store
+    msg.ShardCheckpoint,
+    msg.ModelInfo,
+    msg.PeerStoreReport,     # the donor registry feeds restore plans
+)
 
 
 def _not_ported(request: msg.Message) -> msg.Response:
@@ -116,8 +141,23 @@ class MasterServicer:
         # the tuned config is read on RPC threads and replaced by reports
         self._paral_lock = threading.Lock()
         self._paral_config = msg.ParallelConfig()
-        # master generation token; 0 = no state backend (not ported)
+        # crash-consistency hook (wired by JobMaster): called after any
+        # request that may have mutated control-plane state
+        self.state_sink: Optional[Callable[[], None]] = None
+        # master generation token (bumped per restart over one state
+        # lineage); 0 = no state backend, tokens disabled
         self.generation = 0
+        # step-driven chaos for the master itself (kill:master:0@step),
+        # wired by JobMaster and fed from GlobalStepReports
+        self.master_chaos = None
+        # the coordination tier's address ("" = not split out), carried
+        # by join and reconnect results
+        self.coord_addr = ""
+        # telemetry rides a bounded drop-oldest queue: a span storm
+        # degrades observability, never liveness
+        self.telemetry_queue = TelemetryIngestQueue(
+            self._process_telemetry,
+            maxlen=Context.singleton().telemetry_queue_size)
 
     # ------------------------------------------------------------------
     # raw byte endpoints (wired into comm.build_server)
@@ -149,11 +189,21 @@ class MasterServicer:
         if type(request) in _NOT_PORTED:
             return _not_ported(request)
         if isinstance(request, msg.TaskRequest):
-            return self.task_manager.get_dataset_task(
+            # the counter, not the task, gates the snapshot: a final-epoch
+            # splitter flip mutates state yet answers WAIT/NONE
+            before = self.task_manager.mutation_count
+            task = self.task_manager.get_dataset_task(
                 request.worker_id, request.dataset_name)
+            if self.task_manager.mutation_count != before:
+                self._sink_state()
+            return task
         if isinstance(request, msg.CommWorldRequest):
             mgr = self.rdzv_managers[request.rdzv_name]
+            # only a poll that cut a round pays for a snapshot
+            before = mgr.mutation_count
             rdzv_round, group, world = mgr.get_comm_world(request.node_id)
+            if mgr.mutation_count != before:
+                self._sink_state()
             if world and request.rdzv_name == RendezvousName.TRAINING:
                 # a cut training world: the ledger opens an incarnation
                 # per new round (idempotent for repeat polls)
@@ -168,6 +218,7 @@ class MasterServicer:
             before = mgr.mutation_count
             mgr.reap_dead_nodes(Context.singleton().dead_node_timeout_s)
             if mgr.mutation_count != before:
+                self._sink_state()   # a dead member was reaped
                 self._evict_departed(mgr)
             return msg.WaitingNodeNum(
                 waiting_num=mgr.num_nodes_waiting(request.node_id))
@@ -307,6 +358,7 @@ class MasterServicer:
                 rdzv_round = mgr.join_rendezvous(
                     request.node_rank, request.local_world_size,
                     request.node_ip)
+            self._sink_state()
             plan_json = ""
             if request.rdzv_name == RendezvousName.TRAINING:
                 # the restore plan rides the join result: which donor
@@ -319,7 +371,10 @@ class MasterServicer:
                     plan_json = json.dumps(plan)
             return msg.JoinRendezvousResult(round=rdzv_round,
                                             generation=self.generation,
-                                            restore_plan_json=plan_json)
+                                            restore_plan_json=plan_json,
+                                            coord_addr=self.coord_addr)
+        elif isinstance(request, msg.ReconnectRequest):
+            return self._handle_reconnect(request)
         elif isinstance(request, msg.LeaveRendezvousRequest):
             mgr = self.rdzv_managers[request.rdzv_name]
             mgr.leave_waiting(request.node_rank)
@@ -329,8 +384,14 @@ class MasterServicer:
                                       request.elapsed_time)
         elif isinstance(request, msg.KeyValuePair):
             self.kv_store.set(request.key, request.value)
+            if not self.kv_store.is_hot(request.key):
+                # cold keys keep write-through durability; hot ones
+                # ride the mutation log instead
+                self._sink_state()
         elif isinstance(request, msg.KVAddRequest):
             value = self.kv_store.add(request.key, request.amount)
+            if not self.kv_store.is_hot(request.key):
+                self._sink_state()
             return msg.KVIntResult(value=value)
         elif isinstance(request, msg.GlobalStepReport):
             # keyed by RANK when the sender provides one (node_id
@@ -350,6 +411,11 @@ class MasterServicer:
                 mfu=request.mfu)
             self._observe_step_evidence(rank, request)
             self._touch_rendezvous(request.node_rank)
+            # deliberately NOT a snapshot trigger (the per-step path);
+            # the step high-water mark rides on the next mutation's
+            # snapshot
+            if self.master_chaos is not None:
+                self.master_chaos.maybe_inject(request.step)
         elif isinstance(request, msg.NodeResourceStats):
             if self.diagnosis_manager is not None:
                 self.diagnosis_manager.observe_resource_stats(request)
@@ -380,7 +446,9 @@ class MasterServicer:
         elif isinstance(request, msg.DrainReport):
             return self._handle_drain(request)
         elif isinstance(request, msg.TelemetryReport):
-            self._process_telemetry(request)
+            # the RPC returns after one append, however large the span
+            # replay backlog is
+            self.telemetry_queue.push(request)
         elif isinstance(request, msg.PeerStoreReport):
             mgr = self.rdzv_managers.get(
                 request.rdzv_name or RendezvousName.TRAINING)
@@ -429,7 +497,48 @@ class MasterServicer:
             logger.warning("report: unknown request %s",
                            type(request).__name__)
             ok, reason = False, "unknown request"
+        if isinstance(request, _MUTATING_REPORTS):
+            self._sink_state()
         return msg.Response(success=ok, reason=reason)
+
+    # ------------------------------------------------------------------
+    def _handle_reconnect(self, request: msg.ReconnectRequest
+                          ) -> msg.ReconnectResult:
+        """An agent lost us (or our predecessor) and is re-registering.
+        Its rank re-enters the alive set either way; ``world_intact``
+        tells it whether the worker it kept running still forms the
+        master's latest world at the round it reported, or whether it
+        must re-join rendezvous."""
+        name = request.rdzv_name or RendezvousName.TRAINING
+        mgr = self.rdzv_managers.get(name)
+        if mgr is None:
+            return msg.ReconnectResult(generation=self.generation)
+        mgr.add_alive_node(request.node_rank)
+        world = mgr.world_for(request.node_rank)
+        latest_round = mgr.round_for(request.node_rank)
+        intact = (bool(world) and request.node_rank in world
+                  and request.rdzv_round == latest_round)
+        restarted = (self.generation != 0
+                     and request.generation != self.generation)
+        logger.info(
+            "agent %d reconnected (rank %d, saw generation %d, ours %d, "
+            "round %d): %s", request.node_id, request.node_rank,
+            request.generation, self.generation, request.rdzv_round,
+            "world intact" if intact else "must re-join rendezvous")
+        obs.get_flight_recorder().record_event(
+            "agent_reconnect", node=request.node_id,
+            rank=request.node_rank, world_intact=intact,
+            master_restarted=restarted)
+        obs.get_registry().counter(
+            "dlrover_tpu_agent_reconnects_total",
+            "Agents that re-registered after a master-lost episode",
+            labelnames=("world_intact",),
+        ).labels(world_intact=str(intact).lower()).inc()
+        self._sink_state()
+        return msg.ReconnectResult(generation=self.generation,
+                                   world_intact=intact,
+                                   round=latest_round,
+                                   coord_addr=self.coord_addr)
 
     # ------------------------------------------------------------------
     def _handle_drain(self, request: msg.DrainReport) -> msg.DrainResult:
@@ -480,6 +589,7 @@ class MasterServicer:
             "dlrover_tpu_drains_total",
             "Drain protocol messages by phase",
             labelnames=("phase",)).labels(phase=request.phase).inc()
+        self._sink_state()
         return msg.DrainResult(success=True,
                                checkpoint_ranks=checkpoint_ranks)
 
@@ -505,11 +615,22 @@ class MasterServicer:
             self.tsdb.ingest("dlrover_tpu_worker_hbm_peak_mb", peak_mb,
                              node)
 
+    def _sink_state(self) -> None:
+        """Post-mutation crash-consistency hook; a snapshot failure
+        never fails the RPC that triggered it."""
+        sink = self.state_sink
+        if sink is None:
+            return
+        try:
+            sink()
+        except Exception:  # noqa: BLE001 — durability is best-effort
+            logger.exception("control-plane state snapshot failed")
+
     def _process_telemetry(self, report: msg.TelemetryReport) -> None:
         """Replay a node's metric samples on the master's registry, feed
         its spans into the master's flight recorder, the span histogram
         and the goodput ledger, and its step-trace records into the
-        assembler."""
+        assembler (on the ingest queue's drainer thread)."""
         registry = obs.get_registry()
         for sample in report.samples:
             if not sample.name:

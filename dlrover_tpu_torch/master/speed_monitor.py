@@ -376,6 +376,37 @@ class SpeedMonitor:
                 return False
             return (time.time() - self._last_step_time) > hang_seconds
 
+    def export_state(self) -> dict:
+        with self._lock:
+            return {"global_step": self._global_step,
+                    "tokens_per_step": self._tokens_per_step,
+                    "seq_len": self._seq_len,
+                    "flops_per_token": self._flops_per_token,
+                    "peak_flops_total": self._peak_flops_total,
+                    "peak_flops_per_chip": self._peak_flops_per_chip}
+
+    def restore_state(self, state: dict) -> None:
+        """Rehydrate the step high-water mark so post-failover hang
+        detection and the exposition don't restart from 0. Wall-clock
+        fields restart fresh: the first step delta after a master
+        restart spans the outage, not training."""
+        with self._lock:
+            self._global_step = int(state.get("global_step", 0))
+            self._tokens_per_step = int(state.get("tokens_per_step", 0))
+            self._seq_len = int(state.get("seq_len", 0))
+            self._flops_per_token = float(
+                state.get("flops_per_token", 0.0))
+            self._peak_flops_total = float(
+                state.get("peak_flops_total", 0.0))
+            self._peak_flops_per_chip = float(
+                state.get("peak_flops_per_chip", 0.0))
+            self._last_step_time = time.time()
+            self._samples.clear()
+            self._skip_next_step_time = True
+            self._peak_speed = 0.0
+            self._worker_times.clear()
+            self._task_latency.clear()
+
     def reset_running_speed(self) -> None:
         """Call at membership change: old samples reflect the old world,
         and the next step-report delta spans the failover gap — neither

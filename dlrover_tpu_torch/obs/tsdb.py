@@ -11,9 +11,9 @@ time.
 :class:`TsdbCollector` samples the allowlisted registry gauges and the
 goodput ledger into the store on the master's cadence.
 :class:`TimeSeriesSidecar` persists the downsampled tiers to a
-checksummed file in a state directory (the raw ring does not persist);
-the port's master builds its collector without one until it has a
-state directory (ROADMAP Queue A item 12.1).
+checksummed file in the master's state directory (the raw ring does not
+persist): the master builds its collector with ``state_dir``, and a
+restarted master or a promoted standby reloads the history from it.
 """
 
 from __future__ import annotations

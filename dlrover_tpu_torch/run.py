@@ -11,6 +11,13 @@ Usage:
         dlrover_tpu_torch/examples/llama_train.py --config llama_1b
     python -m dlrover_tpu_torch.run --nnodes 2:4 --node-rank $RANK \\
         --master-addr $DLROVER_TPU_MASTER_ADDR train.py
+    DLROVER_TPU_MASTER_BOOTSTRAP_FILE=B python -m dlrover_tpu_torch.run \\
+        train.py
+
+With no ``--master-addr`` (and no ``DLROVER_TPU_MASTER_ADDR``) the agent
+finds the master through the bootstrap file a master started with
+``--bootstrap-file B`` publishes, as its master-lost reconnect does; the
+worker inherits the file's path through the environment.
 
 Not ported yet: ``--slice-id`` (ROADMAP Queue A item 6.4) and
 ``--network-check`` with ``--exclude-straggler`` (item 11).
@@ -95,8 +102,11 @@ def run(args: argparse.Namespace) -> int:
         master_addr = master.addr
         logger.info("standalone master at %s", master_addr)
     if not master_addr:
+        master_addr = MasterClient.resolve_master_addr()
+    if not master_addr:
         raise SystemExit(
-            "--master-addr (or DLROVER_TPU_MASTER_ADDR) is required unless "
+            "--master-addr (or DLROVER_TPU_MASTER_ADDR, or a bootstrap "
+            "file in DLROVER_TPU_MASTER_BOOTSTRAP_FILE) is required unless "
             "--standalone"
         )
 

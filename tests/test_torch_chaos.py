@@ -66,18 +66,54 @@ def test_bad_specs_fail_loudly_alike(spec):
 
 
 @pytest.mark.parametrize("spec,item", [
-    ("kill:master:0@7", "12.1-12.3"),
-    ("hang:shard:1@5:3", "12.1-12.3"),
+    ("hang:shard:1@5:3", "12.2"),
     ("kill:slice:0@5", "6.4"),
     ("resize:-1@4", "12.10"),
     ("offer:slice:+1@10:300", "12.10"),
     ("revoke:slice:1@10:20", "12.10"),
-    ("kill:worker:0@5;kill:master:0@7", "12.1-12.3"),
+    ("kill:master:0@7;kill:shard:0@5", "12.2"),
 ])
 def test_unported_faults_parse_then_refuse_by_item(spec, item):
     assert tchaos.parse_chaos(spec)
-    with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
-        tchaos.ChaosInjector(role="worker", rank=0, spec=spec)
+    for role in ("worker", "master"):
+        with pytest.raises(NotImplementedError,
+                           match=item.replace(".", r"\.")):
+            tchaos.ChaosInjector(role=role, rank=0, spec=spec)
+
+
+@pytest.mark.parametrize("spec", [
+    "kill:master:0@7", "kill:worker:0@5;kill:master:0@7",
+    "hang:master:0@3:2;slow:worker:1@2:0.5"])
+def test_master_faults_arm_on_the_master_and_are_skipped_by_workers(spec):
+    """A ``master`` fault arms on the master's injector only, and every
+    worker injector skips it, as the JAX injectors do."""
+    for role, rank in (("master", 0), ("worker", 0), ("worker", 1)):
+        port = tchaos.ChaosInjector(role=role, rank=rank, spec=spec)
+        jax = jchaos.ChaosInjector(role=role, rank=rank, spec=spec,
+                                   slice_id=-1)
+        assert _fields(port.faults) == _fields(jax.faults), (role, rank)
+        assert all(f.role == role and f.rank == rank for f in port.faults)
+    master = tchaos.ChaosInjector(role="master", rank=0, spec=spec)
+    assert [f.role for f in master.faults] == ["master"]
+
+
+def test_master_kill_fires_once_at_its_step(tmp_path, monkeypatch):
+    """``kill:master:0@7`` SIGKILLs the master process at the first step
+    report at or past 7, after claiming its one-shot marker, so a
+    restarted master over the same state does not kill itself again."""
+    monkeypatch.setenv(tchaos.CHAOS_STATE_ENV, str(tmp_path))
+    kills = []
+    monkeypatch.setattr(tchaos.os, "kill",
+                        lambda pid, sig: kills.append((pid, sig)))
+    inj = tchaos.ChaosInjector(role="master", rank=0,
+                               spec="kill:master:0@7")
+    for step in (5, 6, 8, 9):
+        inj.maybe_inject(step)
+    assert kills == [(tchaos.os.getpid(), tchaos.signal.SIGKILL)]
+    again = tchaos.ChaosInjector(role="master", rank=0,
+                                 spec="kill:master:0@7")
+    again.maybe_inject(10)
+    assert len(kills) == 1
 
 
 def _injectors(monkeypatch, spec, rank=0):

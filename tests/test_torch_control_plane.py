@@ -294,8 +294,7 @@ def test_unported_requests_are_refused_by_name(contexts):
     master = JobMaster(port=0, host="127.0.0.1")
     try:
         for request in (T.PlanCalibrationRequest(), T.SliceStatusRequest(),
-                        T.AutoscaleStatusRequest(), T.ShardPlanRequest(),
-                        T.ReconnectRequest()):
+                        T.AutoscaleStatusRequest(), T.ShardPlanRequest()):
             send = (master.servicer.report_bytes
                     if type(request).__name__.endswith("Report")
                     else master.servicer.get_bytes)
@@ -307,6 +306,30 @@ def test_unported_requests_are_refused_by_name(contexts):
         answer = T.deserialize_message(master.servicer.report_bytes(
             T.serialize_message(T.JoinRendezvousRequest(slice_id=0)), None))
         assert not answer.success and "6.4" in answer.reason
+    finally:
+        master.stop()
+
+
+def test_reconnect_request_is_answered(contexts):
+    """A ``ReconnectRequest`` (an agent back from master-lost mode) puts
+    its rank back in the alive set and answers ``world_intact`` for the
+    round it reports, where it was once refused as not ported."""
+    master = JobMaster(port=0, host="127.0.0.1")
+    try:
+        report = master.servicer.report
+        report(T.JoinRendezvousRequest(node_id=0, node_rank=0,
+                                       local_world_size=1,
+                                       rdzv_name=TRAIN))
+        master.servicer.get(T.CommWorldRequest(node_id=0,
+                                               rdzv_name=TRAIN))
+        answers = [report(T.ReconnectRequest(
+            node_id=0, node_rank=0, rdzv_name=TRAIN, rdzv_round=rnd))
+            for rnd in (0, 1, -1)]
+        assert [type(a).__name__ for a in answers] == [
+            "ReconnectResult"] * 3
+        assert [a.world_intact for a in answers] == [True, False, False]
+        assert {a.round for a in answers} == {0}
+        assert {a.coord_addr for a in answers} == {""}
     finally:
         master.stop()
 

@@ -2,7 +2,9 @@
 versions, the wrappers' refusals, the launch counters, the model's
 attention and norm paths, the checkpoint on the card, and what the
 master observes of it (the allocator telemetry, a profiler capture
-naming the kernels, an agent that never opens the card). Every test is marked ``cuda`` and skips where
+naming the kernels, an agent that never opens the card), and a worker on
+the card training through a standby's promotion. Every test is marked
+``cuda`` and skips where
 ``torch.cuda.is_available()`` is false. This file imports no JAX, so it
 also runs on a machine without it:
 
@@ -640,3 +642,49 @@ def test_agent_monitors_never_touch_the_card(cuda, tmp_path):
             proc.kill()
     assert proc.returncode == 0, err[-3000:]
     assert worker_held and not agent_held
+
+
+def test_worker_on_the_card_trains_through_a_standby_promotion(cuda,
+                                                               tmp_path):
+    """chip_smoke.py's failover drill, short, on the card: Llama-1B's
+    width at sequence 128 and batch 2 (the flash and RMSNorm kernels on
+    the path), the primary master SIGKILLs itself at step 4's report,
+    the standby promotes at generation 2, the agent reconnects with its
+    world intact, and the same worker finishes every step in order."""
+    import os
+    import sys
+
+    from dlrover_tpu_torch.common.config import Context
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    knobs = {"rpc_backoff_s": 0.05, "standby_health_interval_s": 0.25,
+             "standby_promote_failures": 2}
+    Context.reset()
+    Context.singleton().update(**knobs)
+    try:
+        budget = chip_smoke.failover_budget(0.2, 0.5, kill_at=4,
+                                            checkpoint=False)
+    finally:
+        Context.reset()
+    env = {f"DLROVER_TPU_{k.upper()}": str(v) for k, v in knobs.items()}
+    env.update(TMPDIR=str(tmp_path), DLROVER_TPU_RPC_TIMEOUT_S="0.5",
+               DLROVER_TPU_MASTER_SNAPSHOT_RETAIN="1000",
+               DLROVER_TPU_TSDB_SAMPLE_INTERVAL_S="0.2",
+               DLROVER_TPU_TSDB_FLUSH_INTERVAL_S="0.5",
+               DLROVER_TPU_FLIGHT_DIR=str(tmp_path / "flight"))
+    out = chip_smoke.failover_drill(
+        str(tmp_path), repo, ["--config", "llama_1b", "--seq", "128",
+                              "--global-batch", "2"],
+        budget["steps"], 4, 0.2, env, timeout_s=300,
+        worker_chaos="slow:worker:0@1:0.2")
+    run = out["run"]
+    assert "device=cuda" in open(tmp_path / "worker.log").read()
+    assert run["launches"]["flash_fwd"] > 0 and run["launches"]["rms_fwd"] > 0
+    assert sorted(run["steps"]) == list(range(1, budget["steps"] + 1))
+    assert out["snapshot"]["promoted_generation"] == 2
+    assert out["steps_after_reconnect"] >= 10

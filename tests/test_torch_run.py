@@ -10,7 +10,13 @@ keeps on the card): the agent relaunches it, the new incarnation
 restores from the host copy the first one staged in the agent's peer
 cache (source ``peer``) at the newer of the committed and the staged
 step, both read after the kill, and its steps are the same bits as an
-uninterrupted in-process run."""
+uninterrupted in-process run;
+(c) the failover drill of chip_smoke.py's ``failover`` phase at a tiny
+width: a primary master process that SIGKILLs itself at step 4's report
+(``kill:master:0@4``), a hot standby process that promotes, and an agent
+that finds the master through the bootstrap file, reconnects with its
+world intact and keeps the same worker, whose every step is the bits of
+an uninterrupted run."""
 
 import functools
 import glob
@@ -180,3 +186,41 @@ def test_killed_worker_is_relaunched_and_resumes_the_same_bits(tmp_path):
     assert runs[1] == {n: want[n] for n in range(resumed + 1, 8)}
     # the agent removed its work directory at exit
     assert not glob.glob(str(agent_tmp / "dlrover-tpu-agent-*"))
+
+
+def test_worker_trains_through_a_killed_master(tmp_path):
+    from dlrover_tpu_torch.common.config import Context
+
+    knobs = {"rpc_backoff_s": 0.05, "standby_health_interval_s": 0.25,
+             "standby_promote_failures": 2}
+    Context.reset()
+    Context.singleton().update(**knobs)
+    try:
+        budget = chip_smoke.failover_budget(0.2, 0.5, kill_at=4)
+    finally:
+        Context.reset()
+    agent_tmp = tmp_path / "agent"
+    agent_tmp.mkdir()
+    env = {f"DLROVER_TPU_{k.upper()}": str(v) for k, v in knobs.items()}
+    env.update(TMPDIR=str(agent_tmp), OMP_NUM_THREADS="1",
+               DLROVER_TPU_RPC_TIMEOUT_S="0.5",
+               DLROVER_TPU_MASTER_SNAPSHOT_RETAIN="1000",
+               DLROVER_TPU_TSDB_SAMPLE_INTERVAL_S="0.2",
+               DLROVER_TPU_TSDB_FLUSH_INTERVAL_S="0.5",
+               DLROVER_TPU_FLIGHT_DIR=str(tmp_path / "flight"))
+    out = chip_smoke.failover_drill(
+        str(tmp_path), REPO,
+        ["--config", "tiny", "--device", "cpu", "--save-interval", "3",
+         "--ckpt-dir", str(tmp_path / "ckpt")],
+        budget["steps"], 4, 0.2, env, timeout_s=150,
+        # steps of 0.2 s: the sidecar (flushed every 0.5 s) holds the
+        # first step reports before the kill
+        worker_chaos="slow:worker:0@1:0.2")
+    want = _uninterrupted(16, 8, budget["steps"])
+    got = {n: (r[1], r[2]) for n, r in out["run"]["steps"].items()}
+    assert got == want
+    assert out["snapshot"]["promoted_generation"] == 2
+    # the worker dials the dead primary to the end, as the JAX loop does
+    reports = out["step_reports"]
+    assert reports["reached_promoted_master"] == 0, reports
+    assert 0 < out["marks"]["kill_to_promoted_s"] < 15
