@@ -149,15 +149,44 @@ Phases (each one's failure ends the run with a nonzero exit):
            reconnect, the step period before the kill, in the outage and
            after the reconnect, the step reports that reached the
            promoted master, its goodput buckets and the phase's time
+  replan   re-planning on resize: the port's JobMaster in this process
+           (min 1, max 2 nodes, diagnosis every 2 s, a speed window of 8
+           samples) and two `python -m dlrover_tpu_torch.run
+           --monitor-interval 0.5` agents, ranks 0 and 1, each around the
+           Llama-1B worker as a `--solo-replica` (no process group, its
+           own checkpoint directory) at batch 8 in micro batches of 2,
+           both on the one card, 32 steps, a report a step, no interval
+           save, `resize:-1@6`. Rank 1 leaves with the clean-drain exit at
+           step 6, the master removes it, rank 0's agent stops its worker
+           (the stop forces a save and a peer stage) and respawns it in
+           one rendezvous round into world 1. Gates: the stamped plan goes
+           from world 2 to world 1 at a higher epoch, feasible, the
+           survivor applying "batch" (replica mode) then "mesh+batch";
+           one round; the leaver drained; the restore from the
+           survivor's own staged cut (source peer, no checkpoint read);
+           replan_plan, replan_migrate (source peer) and replan_rebuild
+           once each for the resize; the resumed steps bit for bit those
+           of a solo world-1 worker in this process restored from the
+           same staged cut (hard-linked aside); the master's speed
+           re-anchored at the re-join (its window emptied, one card) and
+           its tokens/s and MFU within 2% of the survivor's own over the
+           same steps (its step lines' mean period); the calibration's world-1 entry with >= 3
+           samples, predicted by the planner's formula on the ModelInfo
+           (989e12); the ledger's replans row holding plan, migrate and
+           rebuild; each worker's kernel launches exactly its steps'.
+           Prints predicted against measured step time, whether
+           PlanRegressionRule fired, the three legs' seconds, the leaver's
+           drain to the first resumed step, both replicas' steps while
+           they share the card and their allocator peaks
 
 The line before the last is the kernels' JSON record (the quantization
 pair's launches are the resume phase's checkpoint path; each kernel's
 "standalone_launches" are those the worker under the agent printed for
 its resumed incarnation, its "faults_launches" the sum over the faults
 phase's three worker processes, its "observe_launches" the observe
-phase worker's and its "failover_launches" the failover phase
-worker's); the last line is {"ok": true, "device": {...}}. Imports
-nothing of JAX.
+phase worker's, its "failover_launches" the failover phase worker's and
+its "replan_launches" the replan phase's three incarnations'); the last
+line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -2063,13 +2092,13 @@ def _first(lines: list, pattern: str) -> float:
     raise AssertionError(f"no agent line matches {pattern!r}")
 
 
-def _launch_agent(master, cmd_args: list, env_extra: dict, out: str,
-                  err: str, agent_tmp: str, repo: str,
-                  run_args: tuple = ()) -> int:
-    """Run ``python -m dlrover_tpu_torch.run`` (with ``run_args``) against
-    ``master`` to its end (core dumps off: a SIGABRTed worker holding
-    15 GB of page-locked memory must not write one); returns its exit
-    code."""
+def _spawn_agent(master, cmd_args: list, env_extra: dict, out: str,
+                 err: str, agent_tmp: str, repo: str,
+                 run_args: tuple = ()):
+    """Start ``python -m dlrover_tpu_torch.run`` (with ``run_args``)
+    against ``master`` with core dumps off (a SIGABRTed worker holding
+    15 GB of page-locked memory must not write one); returns the Popen
+    and its two open log files."""
     import os
     import resource
 
@@ -2080,19 +2109,31 @@ def _launch_agent(master, cmd_args: list, env_extra: dict, out: str,
     # the agent inherits this process's soft core limit (set here, not
     # in a preexec_fn: the master's gRPC threads make that unsafe)
     soft, hard = resource.getrlimit(resource.RLIMIT_CORE)
-    with open(out, "w") as fo, open(err, "w") as fe:
-        resource.setrlimit(resource.RLIMIT_CORE, (0, hard))
-        try:
-            proc = subprocess.Popen(cmd, cwd=repo, env=env, stdout=fo,
-                                    stderr=fe)
-        finally:
-            resource.setrlimit(resource.RLIMIT_CORE, (soft, hard))
-        try:
-            return proc.wait(timeout=900)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+    fo, fe = open(out, "w"), open(err, "w")
+    resource.setrlimit(resource.RLIMIT_CORE, (0, hard))
+    try:
+        proc = subprocess.Popen(cmd, cwd=repo, env=env, stdout=fo,
+                                stderr=fe)
+    finally:
+        resource.setrlimit(resource.RLIMIT_CORE, (soft, hard))
+    return proc, (fo, fe)
+
+
+def _launch_agent(master, cmd_args: list, env_extra: dict, out: str,
+                  err: str, agent_tmp: str, repo: str,
+                  run_args: tuple = ()) -> int:
+    """Run ``python -m dlrover_tpu_torch.run`` (with ``run_args``) against
+    ``master`` to its end (``_spawn_agent``); returns its exit code."""
+    proc, files = _spawn_agent(master, cmd_args, env_extra, out, err,
+                               agent_tmp, repo, run_args)
+    try:
+        return proc.wait(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for f in files:
+            f.close()
 
 
 def phase_faults(smi: str, llama1b: dict, resume: dict) -> dict:
@@ -3136,15 +3177,484 @@ def phase_failover(smi: str) -> dict:
     return out
 
 
+# the replan phase: two solo replicas of Llama-1B on the one card under
+# the port's master (min 1, max 2 nodes), each a micro batch of 2; the
+# top rank leaves at step 6 and the survivor re-plans to world 1. No
+# interval save: the survivor's only checkpoint is the one its stop
+# forces (a commit in flight would hold the leaver's exit for its whole
+# 16-26 s, and the survivor trains on meanwhile). 32 steps leave room
+# for the survivor's stop, which lands some steps after 6, and for three
+# diagnosis rounds after the re-plan.
+REPLAN_STEPS = 32
+REPLAN_LEAVE_AT = 6
+REPLAN_MICRO = 2
+REPLAN_MONITOR_S = 0.5
+REPLAN_INTERVAL_S = 2.0
+# the master's speed window (samples): the last seven step periods, clear
+# of the resumed incarnation's first-step collection
+REPLAN_SPEED_WINDOW = 8
+REPLAN_SPEED_TOL = 0.02
+
+
+def _link_stage(cache: str, step: int, dest: str) -> str:
+    """Hard-link a peer cache's stage of ``step`` into a new cache
+    directory ``dest`` (the same bytes, no copy), with that stage's
+    manifest as the top-level one; returns ``dest``."""
+    import os
+    import shutil
+
+    from dlrover_tpu_torch.checkpoint.peer_restore import MANIFEST
+
+    stage = os.path.join(cache, f"stage-{step}")
+    target = os.path.join(dest, f"stage-{step}")
+    os.makedirs(target)
+    for name in os.listdir(stage):
+        os.link(os.path.join(stage, name), os.path.join(target, name))
+    shutil.copyfile(os.path.join(stage, MANIFEST),
+                    os.path.join(dest, MANIFEST))
+    return dest
+
+
+def _replan_reference(cfg, cache: str, ckpt_dir: str, steps: int) -> dict:
+    """A solo world-1 worker in this process restored from the staged cut
+    in ``cache`` (no master: the local pseudo-plan) at the survivor's
+    shape (batch 8, micro 2), trained to ``steps``: its source, start
+    and {step: (loss, grad_norm)}."""
+    import os
+
+    from dlrover_tpu_torch.common.constants import NodeEnv
+    from dlrover_tpu_torch.models.llama import Llama, cross_entropy_loss
+    from dlrover_tpu_torch.trainer.elastic_loop import (
+        ElasticTrainLoop,
+        TrainLoopConfig,
+    )
+
+    os.environ[NodeEnv.PEER_CACHE_DIR] = cache
+    try:
+        loop = ElasticTrainLoop(
+            functools.partial(Llama, cfg), _adamw, cross_entropy_loss,
+            TrainLoopConfig(global_batch=8, seq_len=cfg.max_seq_len,
+                            max_micro_per_replica=REPLAN_MICRO,
+                            checkpoint_dir=ckpt_dir,
+                            save_interval_steps=10 ** 6,
+                            report_interval_steps=0))
+    finally:
+        del os.environ[NodeEnv.PEER_CACHE_DIR]
+    sampler, data = _sampler_and_data(cfg)
+    state, start = loop.restore_or_init(0, sampler)
+    out = {"source": loop.last_restore_source, "start": start}
+    loop.config.max_steps = steps - start
+    state, metrics = loop.run(state, data, start, sampler)
+    loop.close()
+    out["steps"] = {r["step"]: (r["loss"], r["grad_norm"])
+                    for r in metrics["history"]}
+    del state, loop
+    _free_memory()
+    return out
+
+
+def phase_replan(smi: str) -> dict:
+    """Re-planning on resize: two solo replicas of Llama-1B on the card
+    under the port's master, the top rank leaving at step 6, the
+    survivor re-planned to world 1 in one round (see the module
+    docstring)."""
+    import glob
+    import os
+    import re
+    import shutil
+    import statistics as stats
+    import tempfile
+
+    from dlrover_tpu_torch import obs
+    from dlrover_tpu_torch.agent.master_client import MasterClient
+    from dlrover_tpu_torch.common import messages as msg
+    from dlrover_tpu_torch.common.config import Context
+    from dlrover_tpu_torch.common.constants import RendezvousName
+    from dlrover_tpu_torch.master.job_master import JobMaster
+    from dlrover_tpu_torch.models.llama import LlamaConfig
+    from dlrover_tpu_torch.parallel import planner
+
+    t_phase = time.monotonic()
+    cfg = LlamaConfig.llama_1b(max_seq_len=2048, attn_impl="flash",
+                               norm_impl="fused", embed_impl="gather")
+    state_bytes = 3 * 4 * cfg.param_count()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_replan_")
+    agent_tmp = ""
+    ctx = Context.singleton()
+    saved = {k: getattr(ctx, k) for k in ("diagnosis_interval_s",
+                                          "speed_sample_window")}
+    ctx.update(diagnosis_interval_s=REPLAN_INTERVAL_S,
+               speed_sample_window=REPLAN_SPEED_WINDOW)
+    master = JobMaster(min_nodes=1, max_nodes=2, host="127.0.0.1")
+    mgr = master.servicer.rdzv_managers[RendezvousName.TRAINING]
+    # both ranks alive up front: the first round cuts once, when the
+    # second joins
+    for rank in (0, 1):
+        mgr.add_alive_node(rank)
+    seen = {"model_info": [], "spans": []}
+    report = master.servicer.report
+
+    def recording_report(request):
+        if isinstance(request, msg.ModelInfo):
+            seen["model_info"].append(request)
+        elif isinstance(request, msg.TelemetryReport) and request.spans_json:
+            seen["spans"] += [(request.node_rank, s) for s in
+                              json.loads(request.spans_json)]
+        return report(request)
+
+    master.servicer.report = recording_report
+    note_replan = master.servicer._note_replan
+
+    def recording_note_replan(plan):
+        # the speed monitor's window right after the re-anchor
+        note_replan(plan)
+        seen.setdefault("replans", []).append(
+            (plan, len(master.speed_monitor._samples)))
+
+    master.servicer._note_replan = recording_note_replan
+    master.prepare()
+    procs, files = [], []
+    out = {"card": smi}
+    _free_memory()
+    try:
+        free = shutil.disk_usage(tmp).free
+        log(f"replan: checkpoints in {tmp}, {free / 1e9:.1f} GB free; the "
+            f"run needs room for two of {state_bytes / 1e9:.2f} GB")
+        if free < 2 * state_bytes:
+            raise AssertionError(f"{free / 1e9:.1f} GB free in {tmp}: less "
+                                 f"than two checkpoints")
+        agent_tmp = peer_root(state_bytes, tmp, smi, "replan")
+        logs = [f"{tmp}/rank{rank}.log" for rank in (0, 1)]
+        errs = [f"{tmp}/agent{rank}.err" for rank in (0, 1)]
+        env = {"DLROVER_TPU_CHAOS": f"resize:-1@{REPLAN_LEAVE_AT}",
+               "DLROVER_TPU_CHAOS_STATE": f"{tmp}/chaos",
+               "DLROVER_TPU_FLIGHT_DIR": f"{tmp}/flight"}
+        t_launch = time.time()
+        for rank in (0, 1):
+            proc, pair = _spawn_agent(
+                master, ["--config", "llama_1b", "--steps",
+                         str(REPLAN_STEPS), "--save-interval",
+                         str(10 ** 6), "--report-interval", "1",
+                         "--max-micro", str(REPLAN_MICRO), "--solo-replica",
+                         "--ckpt-dir", f"{tmp}/ckpt", "--log-file",
+                         logs[rank]],
+                env, f"{tmp}/agent{rank}.out", errs[rank], agent_tmp, repo,
+                run_args=("--node-rank", str(rank), "--devices-per-node",
+                          "1", "--monitor-interval", str(REPLAN_MONITOR_S)))
+            procs.append(proc)
+            files += pair
+        # watch the run: the plans the master stamps, and the survivor's
+        # staged cut, linked aside as soon as its second incarnation
+        # starts (the agent removes its cache when it exits)
+        plans, ref_cache, rounds_at_resize = [], "", None
+        deadline = time.monotonic() + 900
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline:
+                raise AssertionError("replan: the agents outlived 900 s")
+            plan = mgr.last_shard_plan
+            if plan and (not plans or plan != plans[-1]):
+                plans.append(plan)
+            if rounds_at_resize is None and 1 not in mgr.alive_nodes:
+                rounds_at_resize = mgr.rdzv_round
+            runs = _worker_log(logs[0]) if os.path.exists(logs[0]) else []
+            if not ref_cache and len(runs) > 1:
+                step = runs[1]["start"]
+                caches = [c for c in glob.glob(
+                    f"{agent_tmp}/dlrover-tpu-agent-*/peer_cache")
+                    if os.path.isdir(f"{c}/stage-{step}")]
+                if len(caches) != 1:
+                    raise AssertionError(f"replan: stage {step} in "
+                                         f"{caches}")
+                ref_cache = _link_stage(caches[0], step,
+                                        f"{agent_tmp}/reference_cache")
+            time.sleep(0.2)
+        out["agents_s"] = time.time() - t_launch
+        codes = [p.returncode for p in procs]
+        for f in files:
+            f.close()
+        tails = {rank: "\n".join(t for _, t in _agent_lines(errs[rank])[-10:])
+                 for rank in (0, 1)}
+        if codes != [0, 0]:
+            raise AssertionError(f"replan: agents exited {codes}: {tails}")
+        survivor, leaver = _worker_log(logs[0]), _worker_log(logs[1])
+        if len(survivor) != 2 or len(leaver) != 1:
+            raise AssertionError(f"replan: {len(survivor)} survivor and "
+                                 f"{len(leaver)} leaver incarnations")
+        first, resumed = survivor
+        stop = resumed["start"]
+        out["stop_step"] = stop
+        log(f"replan: the leaver stopped after step "
+            f"{max(leaver[0]['steps'])}, the survivor's stop forced its "
+            f"save at step {stop}; its resumed incarnation trained "
+            f"{sorted(resumed['steps'])}")
+        if (sorted(leaver[0]["steps"]) != list(range(1, REPLAN_LEAVE_AT + 1))
+                or stop < REPLAN_LEAVE_AT or stop > REPLAN_STEPS - 4
+                or sorted(resumed["steps"]) != list(
+                    range(stop + 1, REPLAN_STEPS + 1))):
+            raise AssertionError(
+                f"replan: leaver steps {sorted(leaver[0]['steps'])}, "
+                f"survivor {sorted(first['steps'])} then "
+                f"{sorted(resumed['steps'])}")
+
+        # gate 1: the plans, world 2 → 1, a new epoch, feasible; the
+        # survivor's incarnations applied the two (the second's plan, an
+        # RPC after the cut, carries the round of the cut as generation)
+        applied = []
+        with open(logs[0]) as f:
+            for line in f:
+                m = re.search(r"shard plan applied \((\S+)\): .* "
+                              r"generation=(\d+) epoch=(\d+)", line)
+                if m:
+                    applied.append((m.group(1), int(m.group(2)),
+                                    int(m.group(3))))
+        out["applied"] = applied
+        two = [p for p in plans if p["world_size"] == 2]
+        one = [p for p in plans if p["world_size"] == 1]
+        out["plans"] = [{k: p[k] for k in ("world_size", "epoch",
+                                           "generation", "mesh",
+                                           "global_batch", "feasible",
+                                           "predicted_step_s")}
+                        for p in plans]
+        log(f"replan plans stamped: {json.dumps(out['plans'])}")
+        if (not two or not one or plans[-1] != one[-1]
+                or not one[-1]["feasible"]
+                or one[-1]["epoch"] <= two[-1]["epoch"]
+                or [a[0] for a in applied] != ["batch", "mesh+batch"]
+                or applied[1][2] != one[-1]["epoch"]):
+            raise AssertionError(f"replan: plans {out['plans']}, applied "
+                                 f"{applied}")
+        post = dict(one[-1], generation=applied[1][1])
+
+        # gate 2: one rendezvous round, the restore from the survivor's
+        # own staged cut (no checkpoint read), the leaver's clean drain
+        drained = [e for e in obs.get_flight_recorder().snapshot()
+                   if e.get("name") == "node_drained"
+                   and e["attrs"].get("rank") == 1]
+        out["rounds"] = {"at_resize": rounds_at_resize,
+                         "final": mgr.rdzv_round}
+        out["restore"] = {"source": resumed["source"],
+                          "timings": resumed["restore"]}
+        log(f"replan restore: {json.dumps(out['restore'])}; rounds "
+            f"{json.dumps(out['rounds'])}")
+        if (rounds_at_resize is None or mgr.rdzv_round != rounds_at_resize + 1
+                or resumed["source"] != "peer"
+                or "dcp_read_s" in resumed["restore"] or not drained):
+            raise AssertionError(
+                f"replan: rounds {out['rounds']}, restore {out['restore']},"
+                f" drained {drained}")
+
+        # gate 3: the spans of the resize, each once, from the survivor
+        priced = [s for rank, s in seen["spans"] if rank == 0
+                  and s.get("name", "").startswith("replan_")
+                  and (s.get("attrs") or {}).get("generation")
+                  == post["generation"]]
+        names = sorted(s["name"] for s in priced)
+        out["spans"] = {s["name"][len("replan_"):]: s["duration_s"]
+                        for s in priced}
+        migrate = [s for s in priced if s["name"] == "replan_migrate"]
+        log(f"replan spans of generation {post['generation']}: "
+            f"{json.dumps(out['spans'])} s ({smi})")
+        if (names != ["replan_migrate", "replan_plan", "replan_rebuild"]
+                or migrate[0]["attrs"].get("source") != "peer"):
+            raise AssertionError(f"replan: spans {priced}")
+
+        # gate 4: the survivor's resumed steps, bit for bit a solo
+        # world-1 worker restored from the same staged cut
+        ckpt_ref = f"{tmp}/reference_ckpt"
+        ref = _replan_reference(cfg, ref_cache, ckpt_ref, REPLAN_STEPS)
+        same = {n: (r[1], r[2]) == ref["steps"].get(n)
+                for n, r in resumed["steps"].items()}
+        log(f"replan: the reference restored {ref['start']} from "
+            f"{ref['source']}; the survivor's resumed steps against it: "
+            f"{json.dumps(same)}")
+        if (ref["source"] != "peer" or ref["start"] != stop
+                or not all(same.values())):
+            raise AssertionError(f"replan: reference {ref['source']} at "
+                                 f"{ref['start']}, steps {same}")
+        shared = {rank: [r["steps"][n][3] for n in range(2,
+                                                          REPLAN_LEAVE_AT + 1)]
+                  for rank, r in ((0, first), (1, leaver[0]))}
+        out["same_bits_both_replicas"] = all(
+            first["steps"][n][1:3] == leaver[0]["steps"][n][1:3]
+            for n in range(1, REPLAN_LEAVE_AT + 1))
+
+        # gate 5: the master's speed from post-resize samples only: the
+        # re-plan re-anchored it (its window emptied, one card) at the
+        # survivor's re-join. (A replica whose plan request follows the
+        # other's first ModelInfo sees the world-2 plan re-stamped with
+        # the real batch, which both packages' masters count as a
+        # re-plan too: at most one such re-anchor at two cards before.)
+        replans = [(p["total_devices"], n) for p, n in seen.get("replans",
+                                                               [])]
+        out["reanchor"] = replans
+        if replans[-1:] != [(1, 0)] or replans[:-1] not in ([], [(2, 0)]):
+            raise AssertionError(f"replan: re-anchors {replans}")
+        monitor = master.speed_monitor
+        samples = list(monitor._samples)
+        speed = monitor.export_state()
+        info = seen["model_info"][-1]
+        tokens = 8 * cfg.max_seq_len
+        window = [s for _, s in samples]
+        # the survivor's own rate over the master's window, from its step
+        # lines' clock: the mean period, as the master's window is a
+        # mean (the median printed beside it: steps at micro 2 have
+        # outliers of 10%, which part a mean from a median)
+        times = {n: r[0] for n, r in resumed["steps"].items()}
+        periods = [times[n] - times[n - 1] for n in window[1:]
+                   if n - 1 in times]
+        own_tps = tokens / stats.mean(periods)
+        own_mfu = own_tps * info.flops_per_token / info.peak_flops_per_chip
+        out["speed"] = {
+            "window_steps": window,
+            "master_tokens_per_s": monitor.tokens_per_second(),
+            "master_mfu": monitor.running_mfu(),
+            "survivor_tokens_per_s": own_tps, "survivor_mfu": own_mfu,
+            "survivor_median_tokens_per_s": tokens / stats.median(periods),
+            "master_periods_s": [b[0] - a[0] for a, b in
+                                 zip(samples, samples[1:])],
+            "survivor_periods_s": periods,
+            "survivor_step_s": [resumed["steps"][n][3] for n in window],
+            "tokens_per_step": speed["tokens_per_step"],
+            "peak_flops_total": speed["peak_flops_total"]}
+        log(f"replan speed: {json.dumps(out['speed'])} ({smi})")
+        if (speed["tokens_per_step"] != tokens
+                or speed["peak_flops_total"] != info.peak_flops_per_chip
+                or not window or min(window) <= stop
+                or abs(out["speed"]["master_tokens_per_s"] / own_tps - 1)
+                > REPLAN_SPEED_TOL
+                or abs(out["speed"]["master_mfu"] / own_mfu - 1)
+                > REPLAN_SPEED_TOL):
+            raise AssertionError(f"replan: speed {out['speed']}")
+
+        # gate 6: the calibration holds the world-1 signature with its
+        # samples, predicted by the planner's formula on the ModelInfo
+        client = MasterClient(master.addr, node_id=99, node_rank=-1)
+        try:
+            calibration = client.get_plan_calibration()
+            goodput = client.get_goodput()
+            reports = client.get_diagnosis_reports()
+        finally:
+            client.close()
+        entry = [e for e in calibration["table"]
+                 if e["total_devices"] == 1][-1:]
+        profile = planner.ModelProfile(
+            param_count=info.param_count, param_bytes=info.param_bytes,
+            flops_per_token=info.flops_per_token,
+            peak_flops_per_chip=info.peak_flops_per_chip,
+            seq_len=info.seq_len, global_batch=info.batch_size)
+        formula = planner.plan_parallelism({0: 1}, profile)
+        by_hand = (info.batch_size * info.seq_len * info.flops_per_token
+                   / (info.peak_flops_per_chip * 0.6))
+        out["calibration"] = entry[0] if entry else {}
+        log(f"replan calibration: {json.dumps(out['calibration'])}; the "
+            f"planner's formula {formula['predicted_step_s']!r} s, by hand "
+            f"{by_hand!r} s ({smi})")
+        if (not entry or entry[0]["samples"] < 3
+                or info.peak_flops_per_chip != PEAK_BF16_FLOPS
+                or entry[0]["predicted_step_s"]
+                != round(formula["predicted_step_s"], 9)
+                or abs(formula["predicted_step_s"] / by_hand - 1) > 1e-12):
+            raise AssertionError(f"replan: calibration {calibration}, "
+                                 f"formula {formula}")
+
+        # gate 7: the ledger's replans row holds plan, migrate, rebuild
+        row = [r for r in goodput.get("replans", [])
+               if r["rank"] == 0 and r["generation"] == post["generation"]]
+        out["ledger_row"] = row[0] if row else {}
+        if not row or sorted(row[0]["phases"]) != ["migrate", "plan",
+                                                   "rebuild"]:
+            raise AssertionError(f"replan: ledger replans "
+                                 f"{goodput.get('replans')}")
+
+        # gate 8: both workers launched every training kernel, exactly
+        # as their steps and micro batches imply
+        accum = 8 // REPLAN_MICRO
+        launches = {"leaver": leaver[0].get("launches"),
+                    "survivor": resumed.get("launches")}
+        want = {"leaver": _expected_launches(cfg, REPLAN_LEAVE_AT * accum),
+                "survivor": _expected_launches(
+                    cfg, (REPLAN_STEPS - stop) * accum)}
+        if launches != want:
+            raise AssertionError(f"replan: launches {launches}, want {want}")
+        out["launches"] = {name: launches["survivor"][name]
+                           + launches["leaver"][name]
+                           + first.get("launches", {}).get(name, 0)
+                           for name in want["survivor"]}
+
+        # printed, not gated
+        regression = [r for r in reports if r["rule"] == "plan_regression"]
+        leave_line = [t for t, text in _agent_lines(errs[1])
+                      if "drain complete" in text]
+        t_first = min(r[0] for r in resumed["steps"].values())
+        # the drain to the first resumed step by part, on the wall clock
+        spawn = [t for t, text in _agent_lines(errs[0])
+                 if "spawning worker (round 1," in text]
+        times = resumed.get("times", {})
+        marks = [("drained", leave_line[0] if leave_line else None),
+                 ("stop_save_committed", first["commits"].get(stop)),
+                 ("respawned", spawn[0] if spawn else None),
+                 ("imported", times.get("imported")),
+                 ("loop_built", times.get("loop_built")),
+                 ("restored", times.get("restored")),
+                 ("first_resumed_step", t_first)]
+        resize_parts = {f"{a}->{b}": tb - ta for (a, ta), (b, tb)
+                        in zip(marks, marks[1:])
+                        if ta is not None and tb is not None}
+        peaks = {}
+        for rank in (0, 1):
+            with open(logs[rank]) as f:
+                peaks[rank] = max(
+                    (json.loads(line.split("worker_allocator_peak ", 1)[1])
+                     ["bytes"] for line in f
+                     if "worker_allocator_peak " in line), default=0)
+        out["printed"] = {
+            "predicted_step_s": entry[0]["predicted_step_s"],
+            "measured_step_s": entry[0]["measured_step_s"],
+            "ratio": entry[0]["ratio"],
+            "plan_regression": [{k: r[k] for k in ("severity", "summary")}
+                                | {"windows_over": r.get("details", {})
+                                   .get("windows_over")}
+                                for r in regression],
+            "plan_migrate_rebuild_s": out["spans"],
+            "migrate_bytes": migrate[0]["attrs"].get("bytes"),
+            "leaver_drained_to_first_resumed_step_s": (
+                t_first - leave_line[0] if leave_line else None),
+            "resize_parts_s": resize_parts,
+            "shared_step_ms_median": {
+                rank: stats.median(v) * 1e3 for rank, v in shared.items()},
+            "resumed_step_ms_median": stats.median(
+                r[3] for r in resumed["steps"].values()) * 1e3,
+            "allocator_peak_bytes": peaks,
+            "same_bits_both_replicas": out["same_bits_both_replicas"]}
+        log(f"replan printed: {json.dumps(out['printed'])} ({smi})")
+        out["phase_s"] = time.monotonic() - t_phase
+        log(f"replan: the phase took {out['phase_s']:.1f} s (the agents "
+            f"{out['agents_s']:.1f} s) ({smi})")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in files:
+            f.close()
+        master.stop(grace_s=0.5)
+        ctx.update(**saved)
+        shutil.rmtree(tmp, ignore_errors=True)
+        if agent_tmp:
+            shutil.rmtree(agent_tmp, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases",
                         default="kernels,quant,parity,llama1b,resume,"
-                                "standalone,faults,observe,failover",
+                                "standalone,faults,observe,failover,replan",
                         help="comma-separated subset of kernels, quant, "
                              "parity, llama1b, resume, standalone, faults, "
-                             "observe, failover (device and build always "
-                             "run)")
+                             "observe, failover, replan (device and build "
+                             "always run)")
     parser.add_argument("--profile", default="",
                         help="after the Llama-1B run, profile one more "
                              "step and write the kernel table here")
@@ -3199,6 +3709,12 @@ def main(argv=None) -> int:
         failover = phase_failover(smi)
         for rec in train_records + quant_records:
             rec["failover_launches"] = failover["launches"][rec["name"]]
+    if "replan" in phases:
+        # the two replicas' incarnations, the leaver's and the
+        # survivor's two, summed
+        replan = phase_replan(smi)
+        for rec in train_records + quant_records:
+            rec["replan_launches"] = replan["launches"][rec["name"]]
     records = train_records + quant_records
     log(f"elapsed {time.monotonic() - t0:.1f} s")
     print(json.dumps({"kernels": records}))

@@ -267,6 +267,11 @@ class ElasticAgent:
         self.peer_cache_dir = os.path.join(self._workdir, "peer_cache")
         self.restore_plan_file = os.path.join(self._workdir,
                                               "restore_plan.json")
+        # the parallelism plan of the join result (parallel/planner.py):
+        # the spawned worker builds its shape from this file, or
+        # re-fetches a fresh plan by RPC
+        self.shard_plan_file = os.path.join(self._workdir,
+                                            "shard_plan.json")
         self._peer_donor = None
         # (ino, mtime_ns, size) of the manifest at the last report: the
         # monitor tick re-parses and re-reports only a changed manifest
@@ -372,6 +377,7 @@ class ElasticAgent:
             NodeEnv.PROFILE_REQUEST_FILE: self.profile_request_file,
             NodeEnv.PEER_CACHE_DIR: self.peer_cache_dir,
             NodeEnv.RESTORE_PLAN_FILE: self.restore_plan_file,
+            NodeEnv.SHARD_PLAN_FILE: self.shard_plan_file,
             NodeEnv.TIMELINE_FILE: self.timeline_file,
             NodeEnv.DRAIN_REQUEST_FILE: self.drain_request_file,
             # the worker sees the notice path the agent polls, so the
@@ -1024,17 +1030,22 @@ class ElasticAgent:
             logger.warning("could not report the peer store to the master")
 
     def _publish_restore_plan(self) -> None:
-        """The restore plan the join result carried → the plan file the
-        spawned worker reads (a worker with a master client re-fetches a
-        fresh plan by RPC; this copy serves the rest)."""
-        payload = self._client.last_restore_plan_json or "{}"
-        tmp = f"{self.restore_plan_file}.tmp"
-        try:
-            with open(tmp, "w") as f:
-                f.write(payload)
-            os.replace(tmp, self.restore_plan_file)
-        except OSError:
-            logger.warning("could not publish the restore plan file")
+        """The restore and parallelism plans the join result carried →
+        the plan files the spawned worker reads (a worker with a master
+        client re-fetches fresh plans by RPC; these copies serve the
+        rest)."""
+        for payload, path, what in (
+                (self._client.last_restore_plan_json,
+                 self.restore_plan_file, "restore"),
+                (self._client.last_shard_plan_json,
+                 self.shard_plan_file, "shard")):
+            tmp = f"{path}.tmp"
+            try:
+                with open(tmp, "w") as f:
+                    f.write(payload or "{}")
+                os.replace(tmp, path)
+            except OSError:
+                logger.warning("could not publish the %s plan file", what)
 
 
 def init_distributed(device=None) -> None:

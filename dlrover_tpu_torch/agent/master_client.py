@@ -16,8 +16,8 @@ restarted or promoted master rewrites, ``reconnect`` re-dials, and
 ``reresolve_if_moved`` is there for a worker's failure paths; like the
 JAX package, only slice mode calls it.
 
-Not ported yet: the wrappers of the re-planning (ROADMAP Queue A item
-6.3), slice (6.4) and autoscale (12.10) RPCs.
+Not ported yet: the wrappers of the slice (ROADMAP Queue A item 6.4)
+and autoscale (12.10) RPCs.
 """
 
 from __future__ import annotations
@@ -106,6 +106,9 @@ class MasterClient:
         # the peer-restore plan the last join result carried ("" =
         # none): the agent publishes it to the worker through a file
         self.last_restore_plan_json = ""
+        # the parallelism plan the last join result carried ("" = none):
+        # the agent publishes it to the worker through a file
+        self.last_shard_plan_json = ""
         # owned by the CLIENT, not the stub: a seeded chaos injector
         # keeps its sequence across reconnect()s
         self._fault_injector = TransportFaultInjector.from_env()
@@ -340,6 +343,7 @@ class MasterClient:
         if result.generation:
             self.master_generation = result.generation
         self.last_restore_plan_json = result.restore_plan_json
+        self.last_shard_plan_json = result.shard_plan_json
         self.set_coord_addr(result.coord_addr)
         return result.round
 
@@ -426,6 +430,22 @@ class MasterClient:
             step=step, rdzv_name=rdzv_name, keys=list(keys),
             total_bytes=total_bytes, slice_id=self.slice_id,
         )).success
+
+    @retry_rpc(retries=3)
+    def get_shard_plan(self, rdzv_name: str = RendezvousName.TRAINING
+                       ) -> dict:
+        """The current parallelism plan for this rank's world
+        (``parallel/planner.py``; {} = no plan)."""
+        result = self._get_typed(msg.ShardPlanRequest(
+            node_id=self.node_id, node_rank=self.node_rank,
+            rdzv_name=rdzv_name), msg.ShardPlanResult)
+        plan = self._json_dict(result.plan_json) if result.found else {}
+        if plan:
+            # the envelope's epoch and generation are authoritative:
+            # staleness checks read them on the plan
+            plan.setdefault("epoch", result.epoch)
+            plan.setdefault("generation", result.generation)
+        return plan
 
     @retry_rpc(retries=3)
     def get_restore_plan(self, rdzv_name: str = RendezvousName.TRAINING,
@@ -640,6 +660,14 @@ class MasterClient:
             spans_json=json.dumps(spans) if spans else "",
             steptrace_json=json.dumps(steptrace) if steptrace else "",
         )).success
+
+    def get_plan_calibration(self) -> dict:
+        """The planner's calibration table and learned axis discounts
+        (``parallel/calibration.py``): {"table": [...], "discounts": {},
+        "min_samples": n}; {} from a master without one."""
+        result = self._get_typed(msg.PlanCalibrationRequest(),
+                                 msg.PlanCalibrationReport)
+        return self._json_dict(result.report_json)
 
     def get_goodput(self, window_s: float = 0.0) -> dict:
         """The master's goodput-ledger snapshot (``obs/goodput.py``); {}

@@ -908,7 +908,7 @@ class PeerRestorer:
                                              ""))
         # stripe mode: RPC plans list every same-step holder of a shard
         # and the receiver fetches its byte ranges from all of them (set
-        # by a parallelism re-plan, not ported yet: ROADMAP Queue A 6.3)
+        # by the loop when a parallelism re-plan changed the shape)
         self.stripe = False
 
     @classmethod

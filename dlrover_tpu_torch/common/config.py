@@ -118,6 +118,20 @@ class Context:
         self.tsdb_flush_interval_s: float = (
             DefaultValues.TSDB_FLUSH_INTERVAL_S
         )
+        # planner calibration (parallel/calibration.py) and the
+        # PlanRegressionRule thresholds (master/diagnosis/rules.py)
+        self.calibration_min_samples: int = (
+            DefaultValues.CALIBRATION_MIN_SAMPLES
+        )
+        self.plan_regression_ratio: float = (
+            DefaultValues.PLAN_REGRESSION_RATIO
+        )
+        self.plan_regression_windows: int = (
+            DefaultValues.PLAN_REGRESSION_WINDOWS
+        )
+        self.plan_regression_clear_windows: int = (
+            DefaultValues.PLAN_REGRESSION_CLEAR_WINDOWS
+        )
         # per-step critical-path tracing (obs/steptrace.py,
         # master/steptrace.py) and the CriticalPathRule's threshold
         self.steptrace_enabled: bool = DefaultValues.STEPTRACE_ENABLED
@@ -158,6 +172,10 @@ class Context:
             DefaultValues.PEER_RESTORE_TIMEOUT_S
         )
         self.peer_donor_port: int = DefaultValues.PEER_DONOR_PORT
+        # online parallelism re-planning (parallel/planner.py): the
+        # worker builds its mesh and batch shape from the master's shard
+        # plan; False pins the configured shape
+        self.replan_enabled: bool = DefaultValues.REPLAN_ENABLED
         # preemption-aware graceful drain (agent/preemption.py) and the
         # deadline-bounded emergency checkpoint (checkpoint/, trainer/)
         self.preempt_default_grace_s: float = (

@@ -240,10 +240,12 @@ class DefaultValues:
     # sidecar-flush cadences (0 = no sampler thread; flush only at stop)
     TSDB_SAMPLE_INTERVAL_S = 5.0
     TSDB_FLUSH_INTERVAL_S = 30.0
-    # PlanRegressionRule (master/diagnosis/rules.py): a plan's samples
-    # before it is evidence, the measured/predicted ratio, and the
-    # rounds over it to alert and under it to clear; constants until
-    # the planner's calibration (ROADMAP Queue A item 6.3) feeds the rule
+    # planner calibration (parallel/calibration.py): the samples a plan
+    # signature needs before it is evidence (each a windowed worker
+    # mean); PlanRegressionRule (master/diagnosis/rules.py) alerts when
+    # the measured step time exceeds the plan's prediction by the ratio
+    # for PLAN_REGRESSION_WINDOWS rounds and clears after
+    # PLAN_REGRESSION_CLEAR_WINDOWS under it (ratio 0 = rule off)
     CALIBRATION_MIN_SAMPLES = 3
     PLAN_REGRESSION_RATIO = 1.5
     PLAN_REGRESSION_WINDOWS = 3
@@ -268,6 +270,10 @@ class DefaultValues:
     PEER_RESTORE_ENABLED = True
     PEER_RESTORE_TIMEOUT_S = 120.0
     PEER_DONOR_PORT = 0
+    # online parallelism re-planning (parallel/planner.py): apply the
+    # master's shard plan when building the worker (mesh + batch and
+    # accumulation); False pins the configured shape
+    REPLAN_ENABLED = True
     # flight recorder rings (obs/flight_recorder.py)
     FLIGHT_RING_EVENTS = 4096
     FLIGHT_RING_SPANS = 4096

@@ -27,18 +27,32 @@ grammar:
     kill:master:0@10       the master SIGKILLs itself when a worker
                            reports step 10 (armed on the master; a hot
                            standby promotes, the agents reconnect)
+    resize:-1@6            at step 6 the highest rank leaves with the
+                           clean-drain exit: the master removes it and
+                           the survivors re-plan the smaller world in
+                           one round (armed on every worker; whether a
+                           rank is among the |k| leavers is decided at
+                           fire time against $DLROVER_TPU_WORLD_SIZE)
+    resize:+2@3            rank 0 writes the resize-request file
+                           ($DLROVER_TPU_RESIZE_REQUEST) the launcher
+                           polls: spawning processes is its power
 
-Each injector arms the faults of its own role and rank and skips the
-rest, as the JAX injector does: a worker skips a ``master`` fault. The
-grammar also parses the faults whose subsystem the port lacks, and the
-injector refuses them by name (``NotImplementedError`` with their
-ROADMAP Queue A item): the ``shard`` role (12.2, the sharded
-rendezvous), the ``slice`` role (6.4, slice mode), and
-``offer``/``revoke``/``resize`` (12.10, the brain's fleet controller).
+Each injector arms the faults of its own role and rank (and a worker
+every worker-unit resize) and skips the rest, as the JAX injector does:
+a worker skips a ``master`` fault. The grammar also parses the faults
+whose subsystem the port lacks, and the injector refuses them by name
+(``NotImplementedError`` with their ROADMAP Queue A item): the ``shard``
+role (12.2, the sharded rendezvous), the ``slice`` role and the
+slice-unit resize (6.4, slice mode), and ``offer``/``revoke`` (12.10,
+the brain's fleet controller).
 
-Each kill/hang/preempt fault fires at most once per process; slow
-applies from its step onward. The hook is a no-op (one env read at
-construction) when the variable is unset.
+Each kill/hang/preempt/resize fault fires at most once per process;
+slow applies from its step onward. A resize fault also records a
+JOB-wide consumed marker (with CHAOS_STATE_ENV set) when it fires,
+holding the world it was judged against: a survivor respawned into the
+smaller world never re-evaluates the delta and drains itself, and a
+leaver respawned before it reached the step still leaves. The hook is a
+no-op (one env read at construction) when the variable is unset.
 
 One-shot markers (CHAOS_STATE_ENV) are keyed by the fault's INDEX in
 the full spec, so duplicate faults fire independently, and are created
@@ -58,7 +72,7 @@ import time
 from typing import List, Optional
 
 from dlrover_tpu_torch.common.config import Context
-from dlrover_tpu_torch.common.constants import NodeEnv
+from dlrover_tpu_torch.common.constants import NodeEnv, WorkerExit
 from dlrover_tpu_torch.common.log import default_logger as logger
 
 CHAOS_ENV = "DLROVER_TPU_CHAOS"
@@ -167,7 +181,7 @@ def parse_chaos(spec: str) -> List[ChaosFault]:
 def _unported_item(fault: ChaosFault) -> str:
     """The ROADMAP Queue A item whose subsystem ``fault`` needs and the
     port lacks, "" when the port can inject it."""
-    if fault.action in ("offer", "revoke", "resize"):
+    if fault.action in ("offer", "revoke"):
         return "12.10 (the brain's fleet controller)"
     if fault.role == "shard":
         return "12.2 (the sharded rendezvous)"
@@ -197,8 +211,12 @@ class ChaosInjector:
                     f"chaos fault {fault.action}:{fault.role}:{fault.rank}"
                     f"@{fault.at_step} is not ported yet (ROADMAP Queue A "
                     f"item {item})")
+        # a worker-unit resize arms on EVERY worker: whether this rank
+        # leaves is decided at fire time against the world
         self.faults = [f for f in faults
-                       if f.role == role and f.rank == rank]
+                       if (f.action == "resize" and role == "worker")
+                       or (f.action != "resize" and f.role == role
+                           and f.rank == rank)]
         for fault in self.faults:
             if self._already_fired(fault):
                 fault.fired = True
@@ -208,15 +226,68 @@ class ChaosInjector:
 
     def _marker(self, fault: ChaosFault) -> str:
         # keyed by spec index: two faults that agree on
-        # action/role/rank/step still get their own markers
+        # action/role/rank/step still get their own markers. A resize
+        # fault also keys on THIS node's rank: every leaver fires its
+        # own copy
+        per_node = f"_n{self._rank}" if fault.action == "resize" else ""
         return os.path.join(
             self._state_dir,
             f"chaos_{fault.index}_{fault.action}_{fault.role}"
-            f"_{fault.rank}_{fault.at_step}")
+            f"_{fault.rank}_{fault.at_step}{per_node}")
+
+    def _job_marker(self, fault: ChaosFault) -> str:
+        """The JOB-wide marker of a resize fault, holding the world it
+        was judged against when it first fired."""
+        return self._marker(fault).replace(f"_n{self._rank}", "_job")
+
+    def _job_fire_world(self, fault: ChaosFault) -> Optional[int]:
+        """The world size recorded when the resize fault first fired
+        anywhere in the job; None = not fired yet (or no state dir)."""
+        if not self._state_dir:
+            return None
+        try:
+            with open(self._job_marker(fault)) as f:
+                payload = json.loads(f.read() or "{}")
+            return int(payload.get("world", 0)) or 0
+        except (OSError, ValueError):
+            return None
+
+    def _record_job_fired(self, fault: ChaosFault, world: int) -> None:
+        """The first claimer records the fire-time world (O_EXCL: one
+        writer; later ranks and incarnations read it back)."""
+        if not self._state_dir:
+            return
+        try:
+            os.makedirs(self._state_dir, exist_ok=True)
+            fd = os.open(self._job_marker(fault),
+                         os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+        except OSError:
+            return
+        with os.fdopen(fd, "w") as f:
+            json.dump({"world": int(world), "pid": os.getpid()}, f)
+
+    def _resize_leaving(self, fault: ChaosFault, world: int) -> bool:
+        """Is this rank among the departing set of a scale-down fault
+        judged against ``world``?"""
+        return self._rank >= world + fault.rank
 
     def _already_fired(self, fault: ChaosFault) -> bool:
-        return bool(self._state_dir) and os.path.exists(
-            self._marker(fault))
+        if not self._state_dir:
+            return False
+        if os.path.exists(self._marker(fault)):
+            return True
+        if fault.action != "resize":
+            return False
+        fired_world = self._job_fire_world(fault)
+        if fired_world is None:
+            return False
+        if fault.rank > 0 or not fired_world:
+            # scale-up (one writer), or a marker without its world:
+            # consumed
+            return True
+        # scale-down: consumed for the survivors of the fire-time world;
+        # a leaver respawned before the step still fires
+        return not self._resize_leaving(fault, fired_world)
 
     def _record_fired(self, fault: ChaosFault) -> bool:
         """Claim the one-shot marker; returns whether THIS process won.
@@ -262,9 +333,63 @@ class ChaosInjector:
                 if not self._record_fired(fault):
                     continue
                 self._write_preemption_notice(fault, step)
+            elif fault.action == "resize":
+                self._inject_resize(fault, step)
             elif fault.action == "slow":
                 # applies every step from at_step on (a real straggler)
                 time.sleep(fault.duration)
+
+    def _inject_resize(self, fault: ChaosFault, step: int) -> None:
+        """A deterministic mid-run resize. Scale-DOWN (delta < 0): this
+        process leaves with the clean-drain exit when its rank is among
+        the |delta| highest of the fire-time world; the agent reports a
+        planned departure, the master removes the rank at once and the
+        survivors re-plan and re-form in one round. Scale-UP (delta >
+        0): rank 0 atomically writes the resize-request file the
+        launcher polls."""
+        delta = fault.rank
+        if delta < 0:
+            # the job marker's recorded world wins over the env: a
+            # respawn into the shrunken world neither cascades nor
+            # under-delivers
+            world = (self._job_fire_world(fault)
+                     or int(os.environ.get(NodeEnv.WORLD_SIZE, "0")))
+            if world <= 0:
+                logger.warning("chaos resize:%d needs %s in the env; "
+                               "skipping", delta, NodeEnv.WORLD_SIZE)
+                fault.fired = True
+                return
+            self._record_job_fired(fault, world)
+            leaving = self._resize_leaving(fault, world)
+            fault.fired = True
+            if not leaving:
+                return
+            if not self._record_fired(fault):
+                return
+            logger.warning(
+                "chaos: resize %+d at step %d — %s-%d leaves with the "
+                "clean-drain exit (survivors re-plan the smaller world)",
+                delta, step, self._role, self._rank)
+            raise SystemExit(WorkerExit.DRAIN)
+        # scale-up: one writer (rank 0) hands the request to the
+        # launcher; everyone else marks the fault consumed
+        fault.fired = True
+        if self._rank != 0:
+            return
+        if not self._record_fired(fault):
+            return
+        path = os.environ.get(NodeEnv.RESIZE_REQUEST_FILE, "")
+        logger.warning("chaos: resize %+d (%ss) requested at step %d -> %s",
+                       delta, fault.role, step,
+                       path or "<no request file>")
+        if not path:
+            return
+        payload = {"delta": delta, "unit": fault.role, "step": step,
+                   "ts": time.time()}
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
+            json.dump(payload, f)
+        os.replace(tmp, path)
 
     def _write_preemption_notice(self, fault: ChaosFault,
                                  step: int) -> None:

@@ -16,6 +16,14 @@ and on the CPU at a tiny width:
     python -m dlrover_tpu_torch.run --standalone \\
         dlrover_tpu_torch/examples/llama_train.py --config tiny --device cpu
 
+With ``--solo-replica`` each worker is an independent full replica: it
+joins no process group and keeps its checkpoints in its own directory,
+``<ckpt-dir>/rank<N>``. Under a master that plans a larger world, the
+loop then applies only the plan's batch (the replica mode of
+``trainer/elastic_loop.py``), so several agents on one host, even on
+one card, exercise the control plane of a multi-host job: re-planning
+on a resize, the donors, the restore plans.
+
 A SIGKILL mid-run restarts the worker through the agent; the new
 incarnation resumes from the latest committed checkpoint with the data
 position intact. SIGTERM finishes the step, saves it and exits 0. A
@@ -79,6 +87,12 @@ def parse_args(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--ckpt-dir", default="")
     parser.add_argument("--save-interval", type=int, default=20)
+    parser.add_argument("--max-micro", type=int, default=0,
+                        help="largest micro batch a replica runs at once "
+                             "(0 = the global batch, no accumulation)")
+    parser.add_argument("--solo-replica", action="store_true",
+                        help="an independent full replica: no process "
+                             "group, checkpoints in <ckpt-dir>/rank<N>")
     parser.add_argument("--report-interval", type=int, default=10)
     parser.add_argument("--log-file", default="",
                         help="append the worker's lines here (tests parse "
@@ -136,7 +150,13 @@ def main(argv=None) -> int:
     from dlrover_tpu_torch.trainer.synthetic import batches, synthetic_corpus
 
     times = {"start": T_START, "imported": time.time(), "pid": os.getpid()}
-    init_distributed(device)   # joins the round's process group
+    ckpt_dir = args.ckpt_dir
+    if args.solo_replica:
+        rank = int(os.environ.get("DLROVER_TPU_NODE_RANK", "0"))
+        if ckpt_dir:
+            ckpt_dir = os.path.join(ckpt_dir, f"rank{rank}")
+    else:
+        init_distributed(device)   # joins the round's process group
     cfg, seq = build_config(args.config, args.seq)
 
     client = None
@@ -153,9 +173,9 @@ def main(argv=None) -> int:
         TrainLoopConfig(
             global_batch=args.global_batch,
             seq_len=seq,
-            max_micro_per_replica=args.global_batch,
+            max_micro_per_replica=args.max_micro or args.global_batch,
             max_steps=args.steps,
-            checkpoint_dir=args.ckpt_dir,
+            checkpoint_dir=ckpt_dir,
             save_interval_steps=args.save_interval,
             report_interval_steps=args.report_interval,
         ),

@@ -20,8 +20,10 @@ every conclusion
   ``Context.diagnosis_actions_enabled``; a per-rank cooldown, so a
   persistently slow rank is profiled once, not every interval).
 
-The snapshot carries no plan calibration (the planner's, ROADMAP Queue
-A item 6.3), so ``PlanRegressionRule`` has no evidence yet.
+The snapshot carries the planner calibration's current entry
+(``parallel/calibration.py``), the ``PlanRegressionRule``'s evidence;
+after each round the learned per-axis discounts go to ``discount_sink``
+(wired by ``JobMaster`` to the servicer's ``push_axis_discounts``).
 ``request_checkpoint`` fans an urgent save-and-continue out to the
 survivors of a drain, bypassing the cooldown; ``request_drain`` serves
 slice mode (ROADMAP Queue A item 6.4), whose master side the port does
@@ -64,7 +66,8 @@ _STATS_FRESH_S = 120.0
 
 class DiagnosisManager:
     def __init__(self, speed_monitor, rules: Optional[List[Rule]] = None,
-                 goodput_ledger=None, steptrace=None,
+                 goodput_ledger=None, plan_calibration=None,
+                 steptrace=None,
                  clock: Callable[[], float] = time.time):
         self._speed_monitor = speed_monitor
         # the wall clock of every report, action and freshness check
@@ -73,6 +76,10 @@ class DiagnosisManager:
         # optional goodput ledger (obs/goodput.py): its trailing-window
         # summary rides on every snapshot as the GoodputRule's evidence
         self._goodput_ledger = goodput_ledger
+        # optional planner calibration (parallel/calibration.py): the
+        # running plan's predicted-vs-measured entry is the
+        # PlanRegressionRule's evidence
+        self._plan_calibration = plan_calibration
         # optional steptrace assembler (master/steptrace.py): its
         # windowed critical-path summary is the CriticalPathRule's
         # evidence
@@ -90,6 +97,11 @@ class DiagnosisManager:
         # crash-consistency hook (wired by JobMaster): called after a
         # round that appended reports
         self.state_sink: Optional[Callable[[], None]] = None
+        # calibration feedback hook (JobMaster wires the servicer's
+        # push_axis_discounts): the learned discounts are recomputed on
+        # this loop's cadence, not per step report
+        self.discount_sink: Optional[Callable[[Dict[str, float]],
+                                              None]] = None
         registry = obs.get_registry()
         self._reports_total = registry.counter(
             "dlrover_tpu_diagnosis_reports_total",
@@ -312,6 +324,12 @@ class DiagnosisManager:
                     Context.singleton().goodput_window_s)
             except Exception:  # noqa: BLE001 — evidence, not the chain
                 logger.exception("goodput window summary failed")
+        calibration = None
+        if self._plan_calibration is not None:
+            try:
+                calibration = self._plan_calibration.current()
+            except Exception:  # noqa: BLE001 — evidence, not the chain
+                logger.exception("plan calibration read failed")
         steptrace = None
         if self._steptrace is not None:
             try:
@@ -328,6 +346,7 @@ class DiagnosisManager:
             running_mfu=self._speed_monitor.running_mfu(),
             peak_mfu=self._speed_monitor.peak_mfu(),
             goodput=goodput,
+            plan_calibration=calibration,
             steptrace=steptrace,
         )
 
@@ -352,6 +371,13 @@ class DiagnosisManager:
                 self.state_sink()
             except Exception:  # noqa: BLE001 — durability is best-effort
                 logger.exception("diagnosis state snapshot failed")
+        if self._plan_calibration is not None \
+                and self.discount_sink is not None:
+            try:
+                self.discount_sink(
+                    self._plan_calibration.axis_discounts())
+            except Exception:  # noqa: BLE001 — advisory feedback
+                logger.exception("axis discount push failed")
         return reports
 
     def _publish_worker_gauges(self, snap: DiagnosisSnapshot,

@@ -11,8 +11,8 @@ drain:{rank} | alert``.
 Rule state (hysteresis counters) is mutated only inside ``evaluate``;
 the :class:`~dlrover_tpu_torch.master.diagnosis.manager.DiagnosisManager`
 serializes evaluations under its own lock. ``PlanRegressionRule`` reads
-the planner's calibration, which the port's master does not have yet
-(ROADMAP Queue A item 6.3): with no evidence it concludes nothing.
+the current entry of the planner's calibration
+(``parallel/calibration.py``).
 """
 
 from __future__ import annotations
@@ -22,7 +22,6 @@ import statistics
 from typing import Any, Dict, List, Optional
 
 from dlrover_tpu_torch.common.config import Context
-from dlrover_tpu_torch.common.constants import DefaultValues
 from dlrover_tpu_torch.master.speed_monitor import WorkerSpeed
 
 # severity levels, mildest first
@@ -419,13 +418,13 @@ class HbmPressureRule(Rule):
 
 class PlanRegressionRule(Rule):
     """Measured step time exceeds the planner's prediction for the
-    RUNNING plan by ``PLAN_REGRESSION_RATIO`` — the plan the fleet is
+    RUNNING plan by ``plan_regression_ratio`` — the plan the fleet is
     executing is slower than what it was chosen FOR, so the planner's
     ranking (and every future resize decision scored with the same
     prior) is suspect. Hysteresis like StragglerRule: the ratio must
-    hold for ``PLAN_REGRESSION_WINDOWS`` consecutive diagnosis rounds
+    hold for ``plan_regression_windows`` consecutive diagnosis rounds
     (one slow window — a checkpoint, a GC pause — is noise), and fall
-    under for ``PLAN_REGRESSION_CLEAR_WINDOWS`` to clear. A signature
+    under for ``plan_regression_clear_windows`` to clear. A signature
     change (a new plan applied) resets the evidence: the new shape is
     judged on its own measurements. The calibration loop
     (parallel/calibration.py) feeds the per-axis discounts back into
@@ -441,8 +440,10 @@ class PlanRegressionRule(Rule):
         self._alerted = False
 
     def evaluate(self, snapshot, ctx=None):
+        ctx = ctx or Context.singleton()
+        ratio_floor = ctx.plan_regression_ratio
         entry = snapshot.plan_calibration
-        if not entry:
+        if ratio_floor <= 0.0 or not entry:
             return []
         if entry.get("signature", "") != self._signature:
             self._signature = str(entry.get("signature", ""))
@@ -452,15 +453,14 @@ class PlanRegressionRule(Rule):
         measured = float(entry.get("measured_step_s", 0.0))
         samples = int(entry.get("samples", 0))
         if predicted <= 0.0 or measured <= 0.0 \
-                or samples < DefaultValues.CALIBRATION_MIN_SAMPLES:
+                or samples < ctx.calibration_min_samples:
             return []
         ratio = measured / predicted
-        if ratio > DefaultValues.PLAN_REGRESSION_RATIO:
+        if ratio > ratio_floor:
             self._under = 0
             self._over += 1
             if not self._alerted \
-                    and self._over >= (
-                        DefaultValues.PLAN_REGRESSION_WINDOWS):
+                    and self._over >= ctx.plan_regression_windows:
                 self._alerted = True
                 mesh = entry.get("mesh", {})
                 return [DiagnosisReport(
@@ -482,8 +482,7 @@ class PlanRegressionRule(Rule):
         self._over = 0
         if self._alerted:
             self._under += 1
-            if self._under >= (
-                    DefaultValues.PLAN_REGRESSION_CLEAR_WINDOWS):
+            if self._under >= ctx.plan_regression_clear_windows:
                 self._alerted = False
                 self._under = 0
                 return [DiagnosisReport(

@@ -38,15 +38,20 @@ The master survives its own death, as the JAX master does:
 - a ``master``-role chaos fault (``kill:master:0@N``) is armed on the
   master and fed from the worker's step reports.
 
-The JAX master's snapshot also holds ``plan_calibration`` (the
-planner's calibration, ROADMAP Queue A item 6.3), ``fleet_controller``
-(the brain, 12.10) and ``job_manager`` (12.7); the port neither writes
-nor restores them, and ignores them in a JAX snapshot.
+The planner's calibration (``parallel/calibration.py``) is built here
+and handed to the servicer (stamped plans' predictions, step reports'
+measurements) and the diagnosis engine (``PlanRegressionRule``'s
+evidence; each round pushes the learned discounts back into the
+planner). It is snapshotted as ``plan_calibration``, byte-compatible
+with the JAX master's; a restore re-pushes its discounts at once.
+
+The JAX master's snapshot also holds ``fleet_controller`` (the brain,
+ROADMAP Queue A item 12.10) and ``job_manager`` (12.7); the port neither
+writes nor restores them, and ignores them in a JAX snapshot.
 
 Not ported yet (ROADMAP Queue A item 12): the sharded rendezvous
-router (12.2), the fleet controller, the planner's calibration, the job
-manager with its scalers and watchers, the brain and the metrics HTTP
-exporter.
+router (12.2), the fleet controller, the job manager with its scalers
+and watchers, the brain and the metrics HTTP exporter.
 """
 
 from __future__ import annotations
@@ -80,6 +85,7 @@ from dlrover_tpu_torch.master.state_backend import (
 )
 from dlrover_tpu_torch.master.steptrace import StepTraceAssembler
 from dlrover_tpu_torch.master.sync_service import ElasticPsService, SyncService
+from dlrover_tpu_torch.parallel.calibration import PlanCalibration
 
 
 class JobMaster:
@@ -125,6 +131,10 @@ class JobMaster:
         # dir) and fed per rank by the servicer
         self.tsdb = obs.TimeSeriesStore()
         self.tsdb_collector = None
+        # the planner's prediction against measurement: stamped plans
+        # register their predicted step time, step reports the measured
+        # one, and the learned per-axis discounts feed back into scoring
+        self.plan_calibration = PlanCalibration()
         # per-step critical paths: feeds the tsdb gating series and the
         # CriticalPathRule
         self.steptrace = StepTraceAssembler(tsdb=self.tsdb)
@@ -132,6 +142,7 @@ class JobMaster:
         if ctx.diagnosis_enabled:
             self.diagnosis_manager = DiagnosisManager(
                 self.speed_monitor, goodput_ledger=self.goodput_ledger,
+                plan_calibration=self.plan_calibration,
                 steptrace=self.steptrace)
         self.servicer = MasterServicer(
             task_manager=self.task_manager,
@@ -144,7 +155,13 @@ class JobMaster:
             diagnosis_manager=self.diagnosis_manager,
             tsdb=self.tsdb,
             steptrace=self.steptrace,
+            plan_calibration=self.plan_calibration,
         )
+        if self.diagnosis_manager is not None:
+            # the learned discounts ride the diagnosis cadence, not the
+            # per-report path
+            self.diagnosis_manager.discount_sink = \
+                self.servicer.push_axis_discounts
         self._host = host
         self._server, self.port = build_server(
             self.servicer.get_bytes, self.servicer.report_bytes,
@@ -282,6 +299,7 @@ class JobMaster:
             "kv_store": self.kv_store.export_state(),
             "speed_monitor": self.speed_monitor.export_state(),
             "goodput": self.goodput_ledger.export_state(),
+            "plan_calibration": self.plan_calibration.export_state(),
         }
         if self.diagnosis_manager is not None:
             state["diagnosis"] = self.diagnosis_manager.export_state()
@@ -289,9 +307,9 @@ class JobMaster:
 
     def _restore_state(self, state: dict) -> None:
         """Rebuild every ported component from a snapshot of either
-        package. A JAX snapshot's ``plan_calibration`` (ROADMAP Queue A
-        item 6.3), ``fleet_controller`` (12.10) and ``job_manager``
-        (12.7) keys name parts the port lacks and are ignored."""
+        package. A JAX snapshot's ``fleet_controller`` (ROADMAP Queue A
+        item 12.10) and ``job_manager`` (12.7) keys name parts the port
+        lacks and are ignored."""
         self.generation = int(state.get("generation", 0)) + 1
         for name, rdzv_state in state.get("rendezvous", {}).items():
             mgr = self.rdzv_managers.get(name)
@@ -302,6 +320,15 @@ class JobMaster:
         self.speed_monitor.restore_state(state.get("speed_monitor", {}))
         if "goodput" in state:
             self.goodput_ledger.restore_state(state["goodput"])
+        if "plan_calibration" in state:
+            self.plan_calibration.restore_state(
+                state["plan_calibration"])
+            # re-arm the planner with the restored discounts now, not at
+            # the first diagnosis round: the re-formation plan is scored
+            # with them
+            discounts = self.plan_calibration.axis_discounts()
+            if discounts:
+                self.servicer.push_axis_discounts(discounts)
         if self.diagnosis_manager is not None and "diagnosis" in state:
             self.diagnosis_manager.restore_state(state["diagnosis"])
 
@@ -510,7 +537,9 @@ class JobMaster:
                 reason="master-stop")
             try:
                 recorder.record_event(
-                    "tsdb", snapshot=self.tsdb_collector.flight_snapshot())
+                    "tsdb", snapshot=self.tsdb_collector.flight_snapshot(),
+                    calibration=self.plan_calibration.table(),
+                    axis_discounts=self.plan_calibration.axis_discounts())
                 recorder.record_event(
                     "steptrace", snapshot=self.steptrace.flight_snapshot())
             except Exception:  # noqa: BLE001 — the dump must land

@@ -24,10 +24,16 @@ the drain. ``export_state``/``restore_state`` round-trip the protocol
 state the port holds (membership, worlds, draining set, donors) in the
 JAX manager's format.
 
-Not ported yet: slice-scoped worlds (ROADMAP Queue A item 6.4), the
-parallelism planner (6.3), the sharded router (12.2) and the state
-backend that persists the export (12.1). Without slices every remote
-donor is on the "cross-slice" tier.
+Re-planning: ``compute_shard_plan`` runs the parallelism planner
+(``parallel/planner.py``) over the world about to form, from the model
+profile the servicer feeds (``set_model_profile``, ``set_chip_hbm``,
+``set_axis_discounts``), stamped with the round as its generation and
+with the world epoch; it reports whether the execution shape really
+changed (a re-plan) or was re-stamped for another rank.
+
+Not ported yet: slice-scoped worlds (ROADMAP Queue A item 6.4) and the
+sharded router (12.2). Without slices every remote donor is on the
+"cross-slice" tier, and every plan has one slice.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from dlrover_tpu_torch import obs
 from dlrover_tpu_torch.common.config import Context
 from dlrover_tpu_torch.common.constants import RendezvousName
 from dlrover_tpu_torch.common.log import default_logger as logger
+from dlrover_tpu_torch.parallel import planner
 
 
 @dataclass
@@ -152,6 +159,26 @@ class RendezvousManager:
         # complete_drain (or a blown deadline) the world re-forms in one
         # round
         self._draining: Dict[int, float] = {}
+        # -- online parallelism re-planning (parallel/planner.py) ------
+        # the model profile from ModelInfo reports and the cards' HBM
+        # total from chip stats: what the planner scores against. Empty
+        # until the first worker reports (plans then rank on topology)
+        self._model_profile: Dict[str, float] = {}
+        self._chip_hbm_bytes: int = 0
+        # the last stamped plan: its mesh feeds the migration term of
+        # the next plan, and a change against it is a REAL re-plan. The
+        # inputs it was computed from memoize the planner (every join
+        # and every worker's ShardPlanRequest asks)
+        self._last_plan: Optional[Dict] = None
+        self._last_plan_inputs: Optional[Tuple] = None
+        # learned per-axis discounts pushed from the calibration loop:
+        # part of every plan's inputs, not exported (the calibration
+        # persists and re-pushes after a restore)
+        self._axis_discounts: Dict[str, float] = {}
+        # rank -> cards, kept across world invalidations: the planner
+        # sees the EXPECTED post-re-formation world at the first
+        # survivor's join, so a resize stamps one plan, not one a joiner
+        self._known_chips: Dict[int, int] = {}
 
     # -- membership --------------------------------------------------------
     def update_rdzv_params(self, min_nodes: int, max_nodes: int,
@@ -184,11 +211,6 @@ class RendezvousManager:
             return
         with self._lock:
             self._last_seen[node_rank] = time.time()
-
-    def compute_shard_plan(self, node_rank: int):
-        raise NotImplementedError(
-            "the parallelism planner is not ported yet (ROADMAP Queue A "
-            "item 6.3)")
 
     def reap_dead_nodes(self, timeout_s: float) -> None:
         """Declare ranks silent for > timeout_s dead (world invalidation
@@ -284,6 +306,9 @@ class RendezvousManager:
         with self._lock:
             self._waiting[node_rank] = _WaitingNode(node_rank,
                                                     local_world_size)
+            # the planner's expected-world card map (kept across world
+            # invalidations; see _plan_world_locked)
+            self._known_chips[node_rank] = local_world_size
             self._alive_nodes.add(node_rank)
             self._last_seen[node_rank] = time.time()
             self._pending_rejoin.discard(node_rank)
@@ -503,6 +528,134 @@ class RendezvousManager:
         with self._lock:
             return {rank: dict(s) for rank, s in self._peer_stores.items()}
 
+    # -- online parallelism re-planning (parallel/planner.py) --------------
+    def set_model_profile(self, param_count: int = 0,
+                          param_bytes: int = 0,
+                          flops_per_token: float = 0.0,
+                          peak_flops_per_chip: float = 0.0,
+                          seq_len: int = 0,
+                          global_batch: int = 0,
+                          tensor_divisor: int = 0,
+                          fsdp_divisor: int = 0) -> None:
+        """Teach the planner the model's shape (fed from ModelInfo
+        reports by the servicer). Zero fields leave the previous value
+        standing: a re-report that only updates the FLOPs model must not
+        erase the batch."""
+        updates = {"param_count": param_count, "param_bytes": param_bytes,
+                   "flops_per_token": flops_per_token,
+                   "peak_flops_per_chip": peak_flops_per_chip,
+                   "seq_len": seq_len, "global_batch": global_batch,
+                   "tensor_divisor": tensor_divisor,
+                   "fsdp_divisor": fsdp_divisor}
+        with self._lock:
+            for key, value in updates.items():
+                if value and value > 0:
+                    if self._model_profile.get(key) != value:
+                        self._model_profile[key] = value
+                        self._mutations += 1
+
+    def set_chip_hbm(self, hbm_bytes: int) -> None:
+        """The observed per-card memory total (from NodeResourceStats):
+        the planner's memory-fit budget. 0 stays 0, unconstrained."""
+        with self._lock:
+            if hbm_bytes > 0 and self._chip_hbm_bytes != int(hbm_bytes):
+                self._chip_hbm_bytes = int(hbm_bytes)
+                self._mutations += 1
+
+    def set_axis_discounts(self, discounts: Dict[str, float]) -> None:
+        """Learned per-axis efficiency corrections from the calibration
+        loop: a scoring input of every later plan. Derived state, so it
+        does not count as a mutation."""
+        with self._lock:
+            self._axis_discounts = {str(k): float(v)
+                                    for k, v in (discounts or {}).items()
+                                    if v and v > 0}
+
+    def _plan_world_locked(self) -> Dict[int, int]:
+        """(lock held) The world the next plan must cover: every alive,
+        non-draining rank, its cards from the cut world, the waiting list
+        or the remembered ``_known_chips`` (a survivor whose world was
+        invalidated an instant ago is part of the world about to form).
+        The first join after a membership change so sees the final plan:
+        one re-plan a resize, not one a joiner."""
+        chips: Dict[int, int] = dict(self._known_chips)
+        chips.update(self._latest_world)
+        for rank, waiting in self._waiting.items():
+            chips[rank] = waiting.local_world_size
+        return {rank: int(n) for rank, n in chips.items()
+                if rank in self._alive_nodes
+                and rank not in self._draining}
+
+    def compute_shard_plan(self, node_rank: int) -> Tuple[Dict, bool]:
+        """The deterministic parallelism plan for the (forming) world:
+        the mesh and the batch and accumulation shape, stamped with the
+        round as its generation and with the world epoch. Returns (plan,
+        changed): ``changed`` when the execution shape differs from the
+        last stamped plan's after a world has formed (a REAL re-plan,
+        not a re-stamp for another joiner, nor formation)."""
+        with self._lock:
+            world = self._plan_world_locked()
+            profile = planner.ModelProfile(
+                param_count=int(self._model_profile.get(
+                    "param_count", 0)),
+                param_bytes=int(self._model_profile.get(
+                    "param_bytes", 0)),
+                flops_per_token=float(self._model_profile.get(
+                    "flops_per_token", 0.0)),
+                peak_flops_per_chip=float(self._model_profile.get(
+                    "peak_flops_per_chip", 0.0)),
+                seq_len=int(self._model_profile.get("seq_len", 0)),
+                global_batch=int(self._model_profile.get(
+                    "global_batch", 0)),
+                hbm_bytes_per_chip=self._chip_hbm_bytes,
+                tensor_divisor=int(self._model_profile.get(
+                    "tensor_divisor", 0)),
+                fsdp_divisor=int(self._model_profile.get(
+                    "fsdp_divisor", 0)),
+            )
+            generation = round_ = self._rdzv_round
+            discounts = dict(self._axis_discounts)
+            inputs = (tuple(sorted(world.items())), profile, 1,
+                      generation, self._world_epoch, round_,
+                      tuple(sorted(discounts.items())))
+            if (self._last_plan is not None
+                    and inputs == self._last_plan_inputs):
+                # identical inputs give the identical plan: answer the
+                # memo instead of re-enumerating under the lock
+                return dict(self._last_plan), False
+            plan = planner.plan_parallelism(
+                world, profile, slices=1, prev_plan=self._last_plan,
+                generation=generation, epoch=self._world_epoch,
+                round_=round_, axis_discounts=discounts or None)
+            self._last_plan_inputs = inputs
+            equivalent = planner.plans_equivalent(self._last_plan, plan)
+            # bootstrap joins refine the first plan as members arrive:
+            # formation, not a resize
+            changed = (self._last_plan is not None
+                       and self._rdzv_round > 0 and not equivalent)
+            prev = None
+            if not equivalent:
+                prev = self._last_plan
+                self._last_plan = plan
+                self._mutations += 1
+        if changed and prev is not None:
+            obs.get_flight_recorder().record_event(
+                "replan_stamped", rdzv=self.name,
+                world_size=plan.get("world_size"),
+                devices=plan.get("total_devices"),
+                mesh=plan.get("mesh"), prev_mesh=prev.get("mesh"),
+                global_batch=plan.get("global_batch"),
+                batch_adjusted=plan.get("batch_adjusted"),
+                resharded=plan.get("resharded"),
+                generation=plan.get("generation"),
+                epoch=plan.get("epoch"))
+        return plan, changed
+
+    @property
+    def last_shard_plan(self) -> Optional[Dict]:
+        with self._lock:
+            return dict(self._last_plan) if self._last_plan else None
+
     def compute_restore_plan(self, node_rank: int,
                              stripe: bool = False) -> Dict:
         """Which live donor serves each staged shard that ``node_rank``
@@ -572,6 +725,16 @@ class RendezvousManager:
                              "bytes": s.get("bytes", 0)}
                     for r, s in self._peer_stores.items()
                 },
+                # re-planning: the model profile and the last stamped
+                # plan survive a master failover (a master that forgot
+                # them would stamp a migration-blind plan and mistake it
+                # for a re-plan)
+                "model_profile": dict(self._model_profile),
+                "chip_hbm_bytes": self._chip_hbm_bytes,
+                "last_plan": (dict(self._last_plan)
+                              if self._last_plan else None),
+                "known_chips": {str(r): n for r, n
+                                in self._known_chips.items()},
             }
             # subclass fields join the SAME cut: one lock acquisition
             self._export_extra(state)
@@ -618,6 +781,19 @@ class RendezvousManager:
                          "bytes": int(s.get("bytes", 0)),
                          "ts": now}
                 for r, s in state.get("peer_stores", {}).items()}
+            self._model_profile = {
+                str(k): float(v) for k, v in
+                (state.get("model_profile") or {}).items()}
+            self._chip_hbm_bytes = int(state.get("chip_hbm_bytes", 0))
+            last_plan = state.get("last_plan")
+            self._last_plan = (dict(last_plan)
+                               if isinstance(last_plan, dict) else None)
+            self._known_chips = {
+                int(r): int(n) for r, n in
+                (state.get("known_chips") or {}).items()}
+            # the memo key is not exported: the first ask after a
+            # restore recomputes and re-stamps the same plan, unchanged
+            self._last_plan_inputs = None
             # every restored member gets a fresh liveness clock
             self._last_seen = {rank: now for rank in self._alive_nodes}
             self._latest_round_start = now

@@ -26,7 +26,19 @@ The optional components are fed as the JAX master feeds them:
   served over ``TimeSeriesQuery``;
 - the step-trace assembler (``master/steptrace.py``): the records of
   telemetry reports, served over ``StepTraceRequest``; ``ClockProbe``
-  answers the master's wall clock for the workers' clock alignment.
+  answers the master's wall clock for the workers' clock alignment;
+- the re-planner (``master/rendezvous.py::compute_shard_plan``): fed the
+  model profile from ``ModelInfo`` and the cards' memory total from
+  ``NodeResourceStats``; every training join and ``ShardPlanRequest``
+  stamps the plan of the forming world (the join result carries it as
+  ``shard_plan_json``), and a real re-plan re-anchors the speed monitor
+  and attributes the next re-formation to ``replan`` in the ledger
+  (``_note_replan``);
+- the planner's calibration (``parallel/calibration.py``, optional):
+  each stamped plan's prediction and each step report's measurement,
+  tagged with the plan generation the sender applied; served over
+  ``PlanCalibrationRequest``, its learned discounts pushed back into
+  the planner through ``push_axis_discounts``.
 
 Crash consistency, as in the JAX servicer: after any request that may
 have mutated control-plane state the servicer calls ``state_sink``
@@ -71,14 +83,13 @@ from dlrover_tpu_torch.master.shard.task_manager import TaskManager
 from dlrover_tpu_torch.master.speed_monitor import SpeedMonitor
 from dlrover_tpu_torch.master.steptrace import StepTraceAssembler
 from dlrover_tpu_torch.master.sync_service import ElasticPsService, SyncService
+from dlrover_tpu_torch.parallel.calibration import PlanCalibration
 
 # the requests whose subsystem the port lacks, with the ROADMAP Queue A
 # item that ports it
 _NOT_PORTED = {
     msg.AutoscaleStatusRequest: "12 (brain)",
-    msg.PlanCalibrationRequest: "6.3 (calibration)",
     msg.SliceStatusRequest: "6.4 (slice mode)",
-    msg.ShardPlanRequest: "6.3 (re-planning)",
     msg.ScaleRequest: "12 (job manager)",
 }
 
@@ -119,6 +130,7 @@ class MasterServicer:
         diagnosis_manager: Optional[DiagnosisManager] = None,
         tsdb: Optional[obs.TimeSeriesStore] = None,
         steptrace: Optional[StepTraceAssembler] = None,
+        plan_calibration: Optional[PlanCalibration] = None,
     ):
         self.task_manager = task_manager or TaskManager()
         self.rdzv_managers: Dict[str, RendezvousManager] = rdzv_managers or {
@@ -138,6 +150,11 @@ class MasterServicer:
         self.tsdb = tsdb or obs.TimeSeriesStore()
         self.steptrace = steptrace or StepTraceAssembler(tsdb=self.tsdb)
         self.diagnosis_manager = diagnosis_manager
+        # the planner's calibration (parallel/calibration.py): stamped
+        # plans register predictions, step reports measurements, and the
+        # learned discounts push back into the planner
+        self.plan_calibration = plan_calibration
+        self._pushed_discounts: Dict[str, float] = {}
         # the tuned config is read on RPC threads and replaced by reports
         self._paral_lock = threading.Lock()
         self._paral_config = msg.ParallelConfig()
@@ -319,6 +336,31 @@ class MasterServicer:
                 epoch=int(plan.get("epoch", 0)),
                 step=int(plan.get("step", -1)),
                 found=bool(plan.get("entries")))
+        if isinstance(request, msg.ShardPlanRequest):
+            mgr = self.rdzv_managers.get(
+                request.rdzv_name or RendezvousName.TRAINING)
+            if mgr is None:
+                return msg.ShardPlanResult()
+            before = mgr.mutation_count
+            plan, changed = mgr.compute_shard_plan(request.node_rank)
+            if changed:
+                self._note_replan(plan)
+            self._observe_plan(plan)
+            if mgr.mutation_count != before:
+                self._sink_state()   # a new plan was stamped
+            return msg.ShardPlanResult(
+                plan_json=json.dumps(plan),
+                epoch=int(plan.get("epoch", 0)),
+                generation=int(plan.get("generation", 0)),
+                found=bool(plan.get("mesh")))
+        if isinstance(request, msg.PlanCalibrationRequest):
+            if self.plan_calibration is None:
+                return msg.PlanCalibrationReport(report_json="")
+            return msg.PlanCalibrationReport(report_json=json.dumps({
+                "table": self.plan_calibration.table(),
+                "discounts": self.plan_calibration.axis_discounts(),
+                "min_samples": self.plan_calibration.min_samples,
+            }))
         if isinstance(request, msg.JobStatusRequest):
             stage = (JobStage.SUCCEEDED if self.task_manager.finished()
                      else JobStage.RUNNING)
@@ -360,19 +402,38 @@ class MasterServicer:
                     request.node_ip)
             self._sink_state()
             plan_json = ""
+            shard_plan_json = ""
             if request.rdzv_name == RendezvousName.TRAINING:
                 # the restore plan rides the join result: which donor
                 # serves each staged shard this rank may need. A donor
                 # registering later is picked up by the worker's own
-                # RestorePlanRequest. (The JAX master's shard plan stays
-                # empty here: re-planning is ROADMAP Queue A item 6.3.)
+                # RestorePlanRequest.
                 plan = mgr.compute_restore_plan(request.node_rank)
                 if plan.get("entries"):
                     plan_json = json.dumps(plan)
-            return msg.JoinRendezvousResult(round=rdzv_round,
-                                            generation=self.generation,
-                                            restore_plan_json=plan_json,
-                                            coord_addr=self.coord_addr)
+                # the parallelism plan of the world this join forms: the
+                # same deterministic shape for every rank of it, so a
+                # resize resolves in one rendezvous round
+                try:
+                    before = mgr.mutation_count
+                    shard_plan, changed = mgr.compute_shard_plan(
+                        request.node_rank)
+                    shard_plan_json = json.dumps(shard_plan)
+                    if changed:
+                        self._note_replan(shard_plan)
+                    self._observe_plan(shard_plan)
+                    if mgr.mutation_count != before:
+                        self._sink_state()   # the stamped plan is state
+                except Exception:  # noqa: BLE001 — the planner never
+                    # fails a join; workers fall back to their configured
+                    # shape (a loud replan_fallback on their side)
+                    logger.exception("shard-plan computation failed "
+                                     "for rank %d", request.node_rank)
+            return msg.JoinRendezvousResult(
+                round=rdzv_round, generation=self.generation,
+                restore_plan_json=plan_json,
+                shard_plan_json=shard_plan_json,
+                coord_addr=self.coord_addr)
         elif isinstance(request, msg.ReconnectRequest):
             return self._handle_reconnect(request)
         elif isinstance(request, msg.LeaveRendezvousRequest):
@@ -419,9 +480,15 @@ class MasterServicer:
         elif isinstance(request, msg.NodeResourceStats):
             if self.diagnosis_manager is not None:
                 self.diagnosis_manager.observe_resource_stats(request)
-            # the agent's payload made scrapeable on the master (the JAX
-            # master also hands the cards' HBM total to its re-planner,
-            # ROADMAP Queue A item 6.3)
+            # the cards' memory total bounds the planner's memory fit
+            hbm_mb = max((c.hbm_total_mb for c in request.chip_stats),
+                         default=0.0)
+            if hbm_mb > 0:
+                training = self.rdzv_managers.get(
+                    RendezvousName.TRAINING)
+                if training is not None:
+                    training.set_chip_hbm(int(hbm_mb * (1 << 20)))
+            # the agent's payload made scrapeable on the master
             obs.publish_node_stats(request)
         elif isinstance(request, msg.NodeHeartbeat):
             self._touch_rendezvous(request.node_rank)
@@ -488,11 +555,24 @@ class MasterServicer:
             self.speed_monitor.set_tokens_per_step(
                 effective * request.seq_len,
                 seq_len=request.seq_len)
-            # MFU = tokens/s × FLOPs/token / aggregate peak
+            # MFU = tokens/s × FLOPs/token / aggregate peak; the per-card
+            # peak is kept so a re-plan can re-anchor the denominator
             self.speed_monitor.set_model_flops(
                 request.flops_per_token,
                 request.peak_flops_per_chip * max(1, request.chips),
                 peak_flops_per_chip=request.peak_flops_per_chip)
+            # the planner's model profile (parallel/planner.py)
+            training = self.rdzv_managers.get(RendezvousName.TRAINING)
+            if training is not None:
+                training.set_model_profile(
+                    param_count=request.param_count,
+                    param_bytes=request.param_bytes,
+                    flops_per_token=request.flops_per_token,
+                    peak_flops_per_chip=request.peak_flops_per_chip,
+                    seq_len=request.seq_len,
+                    global_batch=request.batch_size,
+                    tensor_divisor=request.tensor_divisor,
+                    fsdp_divisor=request.fsdp_divisor)
         else:
             logger.warning("report: unknown request %s",
                            type(request).__name__)
@@ -614,6 +694,49 @@ class MasterServicer:
         if peak_mb >= 0.0:
             self.tsdb.ingest("dlrover_tpu_worker_hbm_peak_mb", peak_mb,
                              node)
+        if self.plan_calibration is not None \
+                and request.step_time_s > 0:
+            # appends only: the learned discounts are recomputed on the
+            # diagnosis loop's cadence (DiagnosisManager.discount_sink)
+            self.plan_calibration.observe_step(
+                request.step_time_s, mfu=request.mfu,
+                plan_generation=int(request.plan_generation))
+
+    def push_axis_discounts(self, discounts: Dict[str, float]) -> None:
+        """Feed learned calibration discounts into planner scoring,
+        deduplicated on change (also the restore path's push)."""
+        if discounts == self._pushed_discounts:
+            return
+        self._pushed_discounts = discounts
+        training = self.rdzv_managers.get(RendezvousName.TRAINING)
+        if training is not None:
+            training.set_axis_discounts(discounts)
+
+    def _note_replan(self, plan: Dict) -> None:
+        """A REAL re-plan was stamped (the execution shape changed):
+        the goodput ledger attributes the next world re-formation to
+        it, and the speed monitor re-anchors its denominators to the
+        new card count and the planned batch."""
+        self.goodput_ledger.note_elasticity_event("replan")
+        tokens_per_step = (int(plan.get("global_batch", 0) or 0)
+                           * int(self.speed_monitor.seq_len_hint or 0))
+        self.speed_monitor.reanchor_plan(
+            chips=int(plan.get("total_devices", 0) or 0),
+            tokens_per_step=tokens_per_step)
+        obs.get_registry().counter(
+            "dlrover_tpu_replans_total",
+            "Parallelism re-plans stamped (the execution shape "
+            "changed at a resize)").inc()
+
+    def _observe_plan(self, plan: Dict) -> None:
+        """Register a stamped plan's prediction with the calibration
+        table (idempotent per signature)."""
+        if self.plan_calibration is None:
+            return
+        try:
+            self.plan_calibration.observe_plan(plan)
+        except Exception:  # noqa: BLE001 — calibration is advisory
+            logger.exception("plan calibration observe failed")
 
     def _sink_state(self) -> None:
         """Post-mutation crash-consistency hook; a snapshot failure

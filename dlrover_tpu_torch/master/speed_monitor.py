@@ -253,6 +253,27 @@ class SpeedMonitor:
             if peak_flops_per_chip > 0.0:
                 self._peak_flops_per_chip = float(peak_flops_per_chip)
 
+    def reanchor_plan(self, chips: int = 0,
+                      tokens_per_step: int = 0) -> None:
+        """A parallelism re-plan changed the world's execution shape:
+        the aggregate peak re-anchors to the NEW chip count (from the
+        stored per-chip peak) and tokens/s to the planned (possibly
+        adjusted) batch, so post-resize MFU is never reported against
+        the old world's denominators. Windowed samples and the peak
+        speed reset as at any membership change: they describe the OLD
+        shape's throughput."""
+        with self._lock:
+            if tokens_per_step > 0:
+                self._tokens_per_step = int(tokens_per_step)
+            if chips > 0 and self._peak_flops_per_chip > 0.0:
+                self._peak_flops_total = (self._peak_flops_per_chip
+                                          * chips)
+            self._samples.clear()
+            self._skip_next_step_time = True
+            self._peak_speed = 0.0
+            self._worker_times.clear()
+            self._task_latency.clear()
+
     def _model_flops(self) -> float:
         with self._lock:
             return self._flops_per_token

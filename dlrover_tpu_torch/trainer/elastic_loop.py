@@ -74,14 +74,33 @@ inside a step's kernel launches and hold the card idle for its
 50-100 ms (Llama-1B on an H100). The oldest generation waits for the
 run's end.
 
-Not ported yet: the shard plan and re-planning (ROADMAP Queue A item
-6.3) and slice mode (6.4).
+Re-planning on resize (the JAX loop's, ``parallel/planner.py``): before
+the trainer is built, the loop fetches the master's shard plan for its
+world (``ShardPlanRequest``, else the agent's ``DLROVER_TPU_SHARD_PLAN``
+file) and applies it: the planned mesh and the planned (possibly
+deliberately trimmed) global batch, or only the batch when each process
+runs an independent full replica of a larger planned world (replica
+mode: no process group, ``examples/llama_train.py --solo-replica``). A
+plan that cannot be applied, or a planned mesh the model rejects, falls
+back loudly (``replan_fallback``) to the configured shape. A world whose
+dp does not divide the batch trims it to the nearest multiple
+(``replan_batch_adjusted``) and the sampler advances by the trimmed
+size. When the applied shape differs from the previous incarnation's
+(remembered in ``<plan file>.applied``, written once the restore
+landed), the resize is priced by the ``replan_plan``, ``replan_rebuild``
+and ``replan_migrate`` spans, and the peer restore asks for striped
+plans. Step reports carry the applied plan's generation (``-2`` when
+none or in replica mode), and step traces group under the plan's epoch.
+
+Not ported yet: slice mode (ROADMAP Queue A item 6.4).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import json
 import math
 import os
 import signal
@@ -103,6 +122,7 @@ from dlrover_tpu_torch.common.config import Context
 from dlrover_tpu_torch.common.constants import NodeEnv, WorkerExit
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.obs import mfu
+from dlrover_tpu_torch.parallel import planner
 from dlrover_tpu_torch.parallel.mesh import MeshSpec, create_mesh, dp_size
 from dlrover_tpu_torch.trainer.sampler import ElasticDistributedSampler
 from dlrover_tpu_torch.trainer.train_step import (
@@ -204,17 +224,31 @@ class ElasticTrainLoop:
                     master_client, device) -> None:
         self.client = master_client
         self.config = config
-        self.mesh = create_mesh(config.mesh_spec, device)
-        self.device = self.mesh.device
-        self.dp = dp_size(self.mesh)
+        # the master's parallelism plan for this world, applied before
+        # the trainer is built; a failure falls back loudly to the
+        # configured shape
+        self._shard_plan: Optional[Dict[str, Any]] = None
+        self._plan_mesh_spec: Optional[MeshSpec] = None
+        self._replan_applied = ""       # "" | "batch" | "mesh+batch"
+        # whether the applied shape differs from the previous
+        # incarnation's: only then is this (re)build a resize to price
+        self._replan_changed = False
+        self._pending_plan_signature = ""
         self.global_batch = config.global_batch
-        self.accum, self.micro_global = choose_accumulation(
-            config.global_batch, self.dp, config.max_micro_per_replica)
-        sample = np.zeros((self.micro_global, config.seq_len), np.int64)
-        self.trainer = build_trainer(
-            model, optimizer_factory, self.mesh, sample, loss_fn,
-            accum_steps=self.accum, micro_batch=self.micro_global,
-            rules=config.rules)
+        self._trim_batch = 0
+        self._resolve_shard_plan(config)
+        try:
+            self._build_trainer(model, optimizer_factory, loss_fn, config,
+                                device)
+        except Exception as e:  # noqa: BLE001 — a planned mesh the
+            # model cannot shard over falls back to the configured shape
+            if self._plan_mesh_spec is None:
+                raise
+            self._replan_fallback(
+                self._shard_plan,
+                f"planned mesh rejected by the model/trainer: {e}")
+            self._build_trainer(model, optimizer_factory, loss_fn, config,
+                                device)
         # peer-to-peer restore (checkpoint/peer_restore.py): the store
         # stages every save's host copy for the agent's donor; the
         # restorer turns a restore plan into a shard transfer
@@ -222,6 +256,10 @@ class ElasticTrainLoop:
                             if config.checkpoint_dir else None)
         self._peer_restorer = (PeerRestorer.from_env(client=master_client)
                                if config.checkpoint_dir else None)
+        if self._peer_restorer is not None and self._replan_changed:
+            # a re-plan migration: restore plans stripe each shard's byte
+            # ranges across every same-step holder
+            self._peer_restorer.stripe = True
         self.checkpointer = (
             FlashCheckpointer(config.checkpoint_dir,
                               config.save_interval_steps,
@@ -290,6 +328,245 @@ class ElasticTrainLoop:
         if self.client is not None:
             self._report_model_info(model)
 
+    # -- online parallelism re-planning (parallel/planner.py) --------------
+    def _build_trainer(self, model, optimizer_factory, loss_fn, config,
+                       device) -> None:
+        """The mesh, accumulation and trainer of the current shape (the
+        planned mesh when a plan applied, else the configured one). A
+        world whose dp does not divide the batch trims it to the nearest
+        dp multiple, loudly. Under a re-plan the build is the
+        ``replan_rebuild`` span. ``build_trainer`` itself rejects a
+        tensor axis the model's dims do not divide, inside the caller's
+        fallback."""
+        self.mesh = create_mesh(self._plan_mesh_spec or config.mesh_spec,
+                                device)
+        self.device = self.mesh.device
+        self.dp = dp_size(self.mesh)
+        if self.global_batch % self.dp:
+            # the planner's round-down-to-dp rule, applied locally: even
+            # the configured mesh must not crash-loop on such a world
+            adjusted = (self.global_batch // self.dp) * self.dp
+            if adjusted <= 0:
+                raise ValueError(
+                    f"dp size {self.dp} exceeds the global batch "
+                    f"{self.global_batch}: no mesh over this world holds "
+                    f"one sample a replica")
+            logger.error(
+                "world dp %d does not divide the global batch %d: "
+                "DELIBERATELY adjusting it to %d (input batches are "
+                "trimmed; the sampler advances by the adjusted size)",
+                self.dp, self.global_batch, adjusted)
+            obs.get_flight_recorder().record_event(
+                "replan_batch_adjusted", dp=self.dp,
+                requested=self.global_batch, adjusted=adjusted,
+                planned=self._plan_mesh_spec is not None)
+            self.global_batch = adjusted
+            self._trim_batch = adjusted
+        self.accum, self.micro_global = choose_accumulation(
+            self.global_batch, self.dp, config.max_micro_per_replica)
+        sample = np.zeros((self.micro_global, config.seq_len), np.int64)
+        rebuild = (
+            obs.span("replan_rebuild",
+                     {"generation": self._shard_plan.get("generation", 0),
+                      "mesh": self.mesh.shape})
+            if self._replan_applied and self._replan_changed
+            else contextlib.nullcontext())
+        with rebuild:
+            self.trainer = build_trainer(
+                model, optimizer_factory, self.mesh, sample, loss_fn,
+                accum_steps=self.accum, micro_batch=self.micro_global,
+                rules=config.rules)
+
+    def _resolve_shard_plan(self, config) -> None:
+        """Fetch and apply the master's parallelism plan for this world
+        (the RPC, else the agent's plan file). No plan at all is silent
+        (standalone runs); a plan that cannot be applied is a loud
+        ``replan_fallback``."""
+        if not Context.singleton().replan_enabled:
+            return
+        t0 = time.monotonic()
+        plan = None
+        if self.client is not None:
+            try:
+                plan = self.client.get_shard_plan() or None
+            except Exception:  # noqa: BLE001 — degrade to the file
+                logger.warning("shard-plan RPC failed; trying the "
+                               "join-result plan file", exc_info=True)
+        if plan is None:
+            path = os.environ.get(NodeEnv.SHARD_PLAN_FILE, "")
+            if path:
+                try:
+                    with open(path) as f:
+                        loaded = json.load(f)
+                    if isinstance(loaded, dict) and loaded.get("mesh"):
+                        plan = loaded
+                except (OSError, json.JSONDecodeError):
+                    pass
+        if plan is None:
+            return
+        try:
+            self._apply_shard_plan(plan, config)
+        except Exception as e:  # noqa: BLE001 — the fallback is always
+            # reachable: a broken plan never wedges the worker
+            self._replan_fallback(plan, f"plan application failed: {e}")
+        if self._replan_changed:
+            # the "plan" leg of the resize's pricing
+            obs.record_span(
+                "replan_plan", time.monotonic() - t0,
+                attrs={"applied": self._replan_applied,
+                       "generation": plan.get("generation", 0),
+                       "epoch": plan.get("epoch", 0)})
+
+    def _applied_plan_signature(self, plan: Dict[str, Any],
+                                batch: int) -> str:
+        """The execution shape this incarnation runs, as a stable
+        string."""
+        return json.dumps({"mesh": plan.get("mesh"),
+                           "global_batch": batch,
+                           "total_devices": plan.get("total_devices"),
+                           "applied": self._replan_applied},
+                          sort_keys=True)
+
+    def _note_replan_changed(self, plan: Dict[str, Any],
+                             batch: int) -> None:
+        """A RESIZE (the shape differs from the previous incarnation's,
+        read from the sidecar beside the agent's plan file) or a plain
+        relaunch of the same plan? No plan file: no memory, so changed.
+        The sidecar is written only once the restore landed
+        (``_commit_applied_plan``): a worker that dies mid-resize re-runs
+        and re-prices it."""
+        self._pending_plan_signature = self._applied_plan_signature(
+            plan, batch)
+        path = os.environ.get(NodeEnv.SHARD_PLAN_FILE, "")
+        if not path:
+            self._replan_changed = True
+            return
+        previous = None
+        try:
+            with open(f"{path}.applied") as f:
+                previous = f.read()
+        except OSError:
+            pass
+        self._replan_changed = previous != self._pending_plan_signature
+
+    def _commit_applied_plan(self) -> None:
+        """The resize completed: remember the applied signature, so the
+        next incarnation tells a plain relaunch from a resize."""
+        path = os.environ.get(NodeEnv.SHARD_PLAN_FILE, "")
+        if not self._pending_plan_signature or not path:
+            return
+        try:
+            tmp = f"{path}.applied.{os.getpid()}.tmp"
+            with open(tmp, "w") as f:
+                f.write(self._pending_plan_signature)
+            os.replace(tmp, f"{path}.applied")
+        except OSError:
+            pass
+
+    def _apply_shard_plan(self, plan: Dict[str, Any], config) -> None:
+        """The planned mesh and batch, or only the batch in replica mode
+        (each process an independent full replica of a larger planned
+        world: no process group, one card)."""
+        error = planner.validate_plan(plan, n_devices=0)
+        if error is not None:
+            self._replan_fallback(plan, error)
+            return
+        mesh_dict = dict(plan.get("mesh", {}))
+        mesh_total = math.prod(int(mesh_dict.get(k, 1)) for k in
+                               ("dcn", "data", "fsdp", "tensor", "pipe"))
+        grouped = (torch.distributed.is_available()
+                   and torch.distributed.is_initialized())
+        n_devices = torch.distributed.get_world_size() if grouped else 1
+        world_size = max(1, int(plan.get("world_size", 1) or 1))
+        apply_mesh = mesh_total == n_devices
+        if not apply_mesh:
+            replica_mode = (not grouped and world_size > 1
+                            and mesh_total == n_devices * world_size)
+            if not replica_mode:
+                self._replan_fallback(
+                    plan, f"plan mesh covers {mesh_total} device(s); "
+                          f"this process sees {n_devices}")
+                return
+        # the batch contract: the planned batch when the plan was made
+        # for this loop's configured batch; a plan from a stale profile
+        # adjusts locally by the same round-down-to-dp rule
+        planned_batch = int(plan.get("global_batch", 0) or 0)
+        requested = int(plan.get("requested_global_batch", 0) or 0)
+        if requested != config.global_batch \
+                or planned_batch > config.global_batch:
+            dp = int(plan.get("dp", 0) or 0) or 1
+            planned_batch, _ = planner.adjust_global_batch(
+                config.global_batch, dp)
+            if planned_batch <= 0:
+                self._replan_fallback(
+                    plan, f"planned dp {dp} exceeds the configured "
+                          f"global batch {config.global_batch}")
+                return
+        if apply_mesh:
+            self._plan_mesh_spec = MeshSpec(
+                data=int(mesh_dict.get("data", 1)),
+                fsdp=int(mesh_dict.get("fsdp", 1)),
+                tensor=int(mesh_dict.get("tensor", 1)),
+                pipe=int(mesh_dict.get("pipe", 1)),
+                dcn=int(mesh_dict.get("dcn", 1)))
+        self.global_batch = planned_batch
+        self._trim_batch = (planned_batch
+                            if planned_batch < config.global_batch else 0)
+        self._shard_plan = plan
+        self._replan_applied = "mesh+batch" if apply_mesh else "batch"
+        self._note_replan_changed(plan, planned_batch)
+        obs.get_flight_recorder().record_event(
+            "replan_applied",
+            applied=self._replan_applied,
+            changed=self._replan_changed,
+            mesh=mesh_dict,
+            global_batch=planned_batch,
+            requested_global_batch=config.global_batch,
+            batch_adjusted=planned_batch != config.global_batch,
+            resharded=bool(plan.get("resharded")),
+            generation=plan.get("generation", 0),
+            epoch=plan.get("epoch", 0),
+            world_size=world_size)
+        obs.get_registry().counter(
+            "dlrover_tpu_replan_applied_total",
+            "Parallelism plans applied at worker (re)build",
+            labelnames=("applied",),
+        ).labels(applied=self._replan_applied).inc()
+        if planned_batch != config.global_batch:
+            logger.warning(
+                "re-plan DELIBERATELY adjusted the global batch %d -> %d "
+                "(dp %s does not divide it); input batches are trimmed, "
+                "the sampler advances by the adjusted size",
+                config.global_batch, planned_batch, plan.get("dp"))
+        logger.info(
+            "shard plan applied (%s): mesh=%s batch=%d generation=%s "
+            "epoch=%s", self._replan_applied, mesh_dict, planned_batch,
+            plan.get("generation"), plan.get("epoch"))
+
+    def _replan_fallback(self, plan: Optional[Dict[str, Any]],
+                         reason: str) -> None:
+        """The hard fallback to the configured shape (the checkpoint
+        path of a plain restart), loud by contract: the flight record
+        and a counter show it."""
+        self._shard_plan = None
+        self._plan_mesh_spec = None
+        self._replan_applied = ""
+        self._replan_changed = False
+        self.global_batch = self.config.global_batch
+        self._trim_batch = 0
+        obs.get_flight_recorder().record_event(
+            "replan_fallback", reason=reason[:256],
+            generation=(plan or {}).get("generation", 0),
+            epoch=(plan or {}).get("epoch", 0),
+            mesh=(plan or {}).get("mesh"))
+        obs.get_registry().counter(
+            "dlrover_tpu_replan_fallbacks_total",
+            "Re-plans abandoned for the configured-shape "
+            "checkpoint-restart path").inc()
+        logger.error(
+            "parallelism re-plan falling back to the configured shape: "
+            "%s (the checkpoint-restart path still applies)", reason)
+
     # -- master reporting --------------------------------------------------
     def _report_model_info(self, model) -> None:
         """One-shot static stats to the master plus the FLOPs model
@@ -341,11 +618,18 @@ class ElasticTrainLoop:
             self._flops_per_token, self.peak_flops)
         # the window's device-truth peak (0 off the card)
         hbm = self.device_telemetry.drain()
+        # the calibration attributes this window to the plan the loop
+        # applied; -2 (no plan, a fallback, or replica mode, which runs
+        # a full local replica rather than the stamped mesh) is dropped
+        plan_gen = (int(self._shard_plan.get("generation", 0) or 0)
+                    if self._shard_plan is not None
+                    and self._replan_applied == "mesh+batch" else -2)
         try:
             self.client.report_global_step(
                 step, step_time_s=mean_step,
                 data_wait_fraction=stats.get("data_wait_fraction", -1.0),
-                mfu=step_mfu, hbm_peak_bytes=hbm["hbm_peak_bytes"])
+                mfu=step_mfu, hbm_peak_bytes=hbm["hbm_peak_bytes"],
+                plan_generation=plan_gen)
         except Exception:  # noqa: BLE001 — droppable by contract
             logger.warning("step report failed", exc_info=True)
         if self._steptrace is not None:
@@ -403,13 +687,33 @@ class ElasticTrainLoop:
         timings: Dict[str, float] = {}
         self.last_restore_timings = timings
         with obs.span("restore_or_init") as restore_span:
+            t_migrate = time.monotonic()
             state, step = self._restore_or_init(seed, sampler, timings)
+            if self._shard_plan is not None and self._replan_changed:
+                # the "migrate" leg of plan → migrate → rebuild: the
+                # live state landed under the new shape, from peers when
+                # any survive (nested evidence; restore_or_init stays
+                # the ledger's restore bucket)
+                migrate_s = time.monotonic() - t_migrate
+                timings["replan_migrate_s"] = migrate_s
+                obs.record_span(
+                    "replan_migrate", migrate_s,
+                    attrs={"step": step,
+                           "source": self.last_restore_source,
+                           "bytes": timings.get("peer_bytes", 0.0),
+                           "generation": self._shard_plan.get(
+                               "generation", 0),
+                           "resharded": bool(self._shard_plan.get(
+                               "resharded"))})
             restore_span.set_attr("start_step", step)
             restore_span.set_attr("source", self.last_restore_source)
             for key, value in timings.items():
                 restore_span.set_attr(key, value)
         if timings:
             logger.info("restore timings: %s", timings)
+        # the migration landed: a later plain relaunch of this shape is
+        # not re-priced as a resize
+        self._commit_applied_plan()
         self._flush_telemetry()
         return state, step
 
@@ -585,6 +889,12 @@ class ElasticTrainLoop:
                 tokens, targets = next(batch_iter)
             except StopIteration:
                 break
+            if self._trim_batch and len(tokens) > self._trim_batch:
+                # the plan's deliberate batch adjustment (recorded in
+                # replan_applied): the pipeline yields the configured
+                # batch; train on the planned dp-divisible prefix
+                tokens = tokens[:self._trim_batch]
+                targets = targets[:self._trim_batch]
             t0 = time.monotonic()
             tok, tgt = self.trainer.shard_batch(tokens, targets)
             state, metrics = self.trainer.step(state, tok, tgt)
@@ -604,6 +914,8 @@ class ElasticTrainLoop:
             # scripted fault injection (a no-op unless DLROVER_TPU_CHAOS)
             self._chaos.maybe_inject(step)
             if sampler is not None:
+                # the EFFECTIVE batch: the position advances by what
+                # the step consumed
                 sampler.record_batch(self.global_batch)
             t_compute_end = time.monotonic()
             self.device_telemetry.on_step(step)
@@ -678,9 +990,19 @@ class ElasticTrainLoop:
                   ("compute", cursor, compute_end - cursor)]
         if ckpt_s > 0:
             phases.append(("checkpoint", compute_end, ckpt_s))
-        # one static world: the generation is 0 until the shard plan's
-        # epochs land (ROADMAP Queue A item 6.3)
-        self._steptrace.record(step, 0, t0_wall, phases)
+        # the membership episode: the applied plan's epoch (0 without)
+        self._steptrace.record(step, self._trace_generation(), t0_wall,
+                               phases)
+
+    def _trace_generation(self) -> int:
+        """The episode step-trace records group under: the applied
+        plan's epoch, else 0 (a static world)."""
+        if self._shard_plan is not None:
+            try:
+                return int(self._shard_plan.get("epoch", 0) or 0)
+            except (TypeError, ValueError):
+                pass
+        return 0
 
     # -- preemption drain --------------------------------------------------
     def _consume_drain(self, drain: Dict[str, Any], step: int, state,

@@ -68,7 +68,7 @@ def test_bad_specs_fail_loudly_alike(spec):
 @pytest.mark.parametrize("spec,item", [
     ("hang:shard:1@5:3", "12.2"),
     ("kill:slice:0@5", "6.4"),
-    ("resize:-1@4", "12.10"),
+    ("resize:slice:-1@4", "6.4"),
     ("offer:slice:+1@10:300", "12.10"),
     ("revoke:slice:1@10:20", "12.10"),
     ("kill:master:0@7;kill:shard:0@5", "12.2"),

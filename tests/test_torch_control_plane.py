@@ -56,10 +56,10 @@ def contexts(monkeypatch, tmp_path):
     Context.reset()
 
 
-# fields the JAX master fills from a subsystem the port leaves out: its
-# re-planner (ROADMAP Queue A item 6.3) stamps a parallelism plan on
-# every join; the port's field stays "" (asserted below)
-UNPORTED_FIELDS = {"JoinRendezvousResult": ("shard_plan_json",)}
+# fields the JAX master fills from a subsystem the port leaves out (each
+# asserted "" on the port's side below); none since the port's
+# re-planner stamps the same parallelism plan on every join
+UNPORTED_FIELDS = {}
 
 
 class FakeClock:
@@ -73,9 +73,8 @@ class FakeClock:
 # (kind, message name, fields) in order; "tick" advances the clock,
 # "speed" reads the speed monitor
 SEQUENCE = [
-    # the model first: a model profile that changes between two cuts
-    # makes the JAX master's re-planner (not ported, ROADMAP Queue A item
-    # 6.3) stamp a new plan at the second cut and clear its speed samples
+    # the model first: both masters' re-planners stamp their plans on
+    # every join from this profile
     ("report", "ModelInfo",
      dict(param_count=1_000_000, param_bytes=4_000_000,
           flops_per_step=6e6 * 4096, batch_size=8, seq_len=512,
@@ -293,8 +292,8 @@ def test_servicers_answer_a_scripted_sequence_alike(contexts, monkeypatch):
 def test_unported_requests_are_refused_by_name(contexts):
     master = JobMaster(port=0, host="127.0.0.1")
     try:
-        for request in (T.PlanCalibrationRequest(), T.SliceStatusRequest(),
-                        T.AutoscaleStatusRequest(), T.ShardPlanRequest()):
+        for request in (T.SliceStatusRequest(),
+                        T.AutoscaleStatusRequest()):
             send = (master.servicer.report_bytes
                     if type(request).__name__.endswith("Report")
                     else master.servicer.get_bytes)
@@ -308,6 +307,64 @@ def test_unported_requests_are_refused_by_name(contexts):
         assert not answer.success and "6.4" in answer.reason
     finally:
         master.stop()
+
+
+def test_replanning_requests_are_answered_as_jax(contexts):
+    """``ShardPlanRequest`` and ``PlanCalibrationRequest`` (once refused
+    as not ported) are answered, byte for byte as the JAX master answers
+    them, before any join and after a world of two with a model profile
+    and step reports has formed."""
+    answers = []
+    for Master, m in ((JMaster, J), (JobMaster, T)):
+        master = Master(port=0, min_nodes=2, max_nodes=2,
+                        host="127.0.0.1")
+        got = []
+
+        def ask(request):
+            got.append(master.servicer.get_bytes(
+                m.serialize_message(request), None))
+
+        try:
+            ask(m.ShardPlanRequest(node_rank=0, rdzv_name=TRAIN))
+            ask(m.PlanCalibrationRequest())
+            master.servicer.report(m.ModelInfo(
+                param_count=110_000, param_bytes=440_000,
+                flops_per_token=6.6e5, peak_flops_per_chip=1e12,
+                batch_size=8, seq_len=32, chips=1))
+            for rank in (0, 1):
+                master.servicer.report(m.JoinRendezvousRequest(
+                    node_id=rank, node_rank=rank, local_world_size=1,
+                    rdzv_name=TRAIN))
+            master.servicer.get(m.CommWorldRequest(node_id=0,
+                                                   rdzv_name=TRAIN))
+            ask(m.ShardPlanRequest(node_rank=1, rdzv_name=TRAIN))
+            plan = json.loads(m.deserialize_message(got[-1]).plan_json)
+            for step in (1, 2, 3):
+                master.servicer.report(m.GlobalStepReport(
+                    node_id=0, node_rank=0, step=step, step_time_s=0.5,
+                    mfu=0.3, plan_generation=plan["generation"]))
+            ask(m.PlanCalibrationRequest())
+        finally:
+            master.stop()
+        answers.append(got)
+    jax, port = answers
+    for want, got in zip(jax, port):
+        want, got = J.deserialize_message(want), T.deserialize_message(got)
+        assert type(got).__name__ == type(want).__name__
+        want, got = dataclasses.asdict(want), dataclasses.asdict(got)
+        if "report_json" in got and got["report_json"]:
+            # the table's first_ts is each master's own clock
+            want, got = (json.loads(x["report_json"]) for x in (want, got))
+            for row in want["table"] + got["table"]:
+                assert row.pop("signature")
+        assert got == want
+    plan = json.loads(T.deserialize_message(port[2]).plan_json)
+    assert plan["world_size"] == 2 and plan["feasible"]
+    table = json.loads(T.deserialize_message(port[3]).report_json)["table"]
+    # the first join stamped a world of one, the second a world of two;
+    # the step reports name the second's generation
+    assert [(row["total_devices"], row["samples"]) for row in table] == [
+        (1, 0), (2, 3)]
 
 
 def test_reconnect_request_is_answered(contexts):
@@ -918,11 +975,9 @@ def test_observation_requests_answer_the_jax_bytes(contexts, monkeypatch):
     assert [n for n, _ in answers] == [n for n, _ in jax_answers]
     for (name, want), (_, got) in zip(jax_answers, answers):
         if name == "JoinRendezvousRequest":
-            # the JAX re-planner's field (UNPORTED_FIELDS)
+            # both re-planners' plans, byte for byte on the wire
             got = dataclasses.asdict(T.deserialize_message(got))
             want = dataclasses.asdict(J.deserialize_message(want))
-            assert got.pop("shard_plan_json") == ""
-            want.pop("shard_plan_json")
         assert got == want, name
     decoded = [(n, T.deserialize_message(a)) for n, a in answers
                if n != "ClockProbe"]

@@ -49,10 +49,10 @@ TRAIN = RendezvousName.TRAINING
 SLEEPER = [sys.executable, "-c", "import time; time.sleep(120)"]
 # the components both packages' snapshots hold
 PORTED = ("rendezvous", "task_manager", "kv_store", "speed_monitor",
-          "goodput", "diagnosis")
+          "goodput", "diagnosis", "plan_calibration")
 # the JAX snapshot's keys of parts the port lacks (ROADMAP Queue A items
-# 6.3, 12.10, 12.7)
-UNPORTED = ("plan_calibration", "fleet_controller", "job_manager")
+# 12.10, 12.7)
+UNPORTED = ("fleet_controller", "job_manager")
 
 
 def _knobs(tmp_path, **extra):
@@ -217,13 +217,15 @@ def test_either_master_restores_the_others_snapshot(ctx, writer,
 
 
 def test_unported_snapshot_keys_are_ignored(ctx, tmp_path):
-    """A JAX snapshot carrying the planner's calibration, the fleet
-    controller and the job manager restores into the port's master,
-    which neither applies nor re-exports them."""
+    """A JAX snapshot carrying the fleet controller and the job manager
+    restores into the port's master, which neither applies nor
+    re-exports them; its planner calibration, ported since, is restored
+    and exported as it was loaded."""
     ctx.update(coord_port=-1)
+    calibration = {"version": 1, "current": "", "entries": {}}
     state = {"generation": 4,
              "kv_store": {"k": "dg=="},
-             "plan_calibration": {"entries": [{"signature": "x"}]},
+             "plan_calibration": calibration,
              "fleet_controller": {"decisions": [1, 2]},
              "job_manager": {"nodes": {"0": "running"}}}
     master = JobMaster(port=0, host="127.0.0.1",
@@ -233,7 +235,7 @@ def test_unported_snapshot_keys_are_ignored(ctx, tmp_path):
         assert master.kv_store.get("k") == b"v"
         exported = master._export_state()
         assert not set(UNPORTED) & set(exported)
-        assert not hasattr(master, "plan_calibration")
+        assert exported["plan_calibration"] == calibration
     finally:
         master.stop(grace_s=0.1)
 

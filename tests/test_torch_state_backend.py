@@ -42,6 +42,8 @@ def _load(root: str) -> types.SimpleNamespace:
             mod("master.shard.dataset_splitter").TableDatasetSplitter),
         DatasetShardParams=mod("common.messages").DatasetShardParams,
         SpeedMonitor=mod("master.speed_monitor").SpeedMonitor,
+        PlanCalibration=mod("parallel.calibration").PlanCalibration,
+        planner=mod("parallel.planner"),
         Context=mod("common.config").Context,
         JobMaster=mod("master.job_master").JobMaster,
     )
@@ -302,6 +304,49 @@ def test_snapshot_written_by_one_package_loads_in_the_other(
         str(tmp_path / "a")).load_latest()
     assert (loaded, version) == (state, 1)
     other = read.MasterStateBackend(str(tmp_path / "b")).save(state)
+    with open(path, "rb") as f, open(other, "rb") as g:
+        assert f.read() == g.read()
+
+
+def _calibration(pkg):
+    """A calibration with two stamped shapes and their samples, under a
+    clock that starts at the same instant in either package."""
+    ticks = iter(range(100))
+    cal = pkg.PlanCalibration(clock=lambda: 1.7e9 + next(ticks),
+                              min_samples=2)
+    profile = pkg.planner.ModelProfile(
+        param_count=110_000, param_bytes=440_000, flops_per_token=6.6e5,
+        peak_flops_per_chip=1e12, seq_len=32, global_batch=12)
+    for gen, world in enumerate((4, 3)):
+        plan = pkg.planner.plan_parallelism(
+            {r: 1 for r in range(world)}, profile, generation=gen)
+        cal.observe_plan(plan)
+        for k in range(3):
+            cal.observe_step(0.2 + 0.01 * k + gen, mfu=0.4,
+                             plan_generation=gen)
+    return cal
+
+
+@pytest.mark.parametrize("writer", [0, 1], ids=["jax-writes",
+                                                 "port-writes"])
+def test_snapshot_with_plan_calibration_is_byte_compatible(both, writer,
+                                                           tmp_path):
+    """A snapshot holding ``plan_calibration`` written by either package
+    loads in the other, whose calibration restores it and exports it
+    back unchanged; both packages write the same bytes for it."""
+    write, read = both[writer], both[1 - writer]
+    state = {"generation": 2,
+             "plan_calibration": _calibration(write).export_state()}
+    path = write.MasterStateBackend(str(tmp_path / "a")).save(state)
+    loaded, _ = read.MasterStateBackend(str(tmp_path / "a")).load_latest()
+    assert loaded == json.loads(json.dumps(state))
+    restored = read.PlanCalibration()
+    restored.restore_state(loaded["plan_calibration"])
+    assert restored.export_state() == loaded["plan_calibration"]
+    assert restored.table() == _calibration(write).table()
+    other = read.MasterStateBackend(str(tmp_path / "b")).save(
+        {"generation": 2,
+         "plan_calibration": restored.export_state()})
     with open(path, "rb") as f, open(other, "rb") as g:
         assert f.read() == g.read()
 
