@@ -11,10 +11,14 @@ Phases (each one's failure ends the run with a nonzero exit):
            for every kernel; fail if a wgmma kernel (the flash forward,
            dQ or dK/dV) spills
   kernels  each flash-attention and RMSNorm kernel against its plain
-           PyTorch version on the card at the Llama-1B slice shape and at
-           edge shapes, with stated tolerances, and o, dQ, dK and dV the
-           same bits in a second call; time kernel, plain version and the
-           library yardstick (SDPA, F.rms_norm)
+           PyTorch version on the card at the Llama-1B slice shape, at
+           edge shapes, at head dims 16, 32 and 96 (zero-padded by the
+           wrappers to the kernels' 64 and 128) and at the GPT-2 small
+           (b 12, h 12, s 1024, d 64, causal) and BERT-base (b 32, h 12,
+           s 512, d 64, bidirectional) shapes, with stated tolerances,
+           and o, dQ, dK and dV the same bits in a second call; time
+           kernel, plain version and the library yardstick (SDPA,
+           F.rms_norm) at the slice shape and at the two model shapes
   quant    the quantization API (quantize, dequantize, swizzled,
            quant_reduce) on a Llama-1B gate_proj gradient, int8 and int4,
            bf16 input, group 8, zero and tie groups: every output equals
@@ -28,8 +32,10 @@ Phases (each one's failure ends the run with a nonzero exit):
            trained through ElasticTrainLoop, 2 warm-up + 5 timed steps;
            each flash kernel launches 22 times per step, rms_fwd and
            rms_bwd 45 times
-  resume   the same Llama-1B through ElasticTrainLoop with a flash
-           checkpoint in a temporary directory (deleted at the end; the
+  resume   Llama-1B at full width cut to 8 of its 22 layers
+           (CKPT_LAYERS; also standalone's and faults') through
+           ElasticTrainLoop with a flash checkpoint in a temporary
+           directory (deleted at the end; the
            phase fails if the disk cannot hold one checkpoint, or the
            host's memory the pinned host copy plus one restore): A 7
            steps saving at 3, its host copy staged into a peer cache (on
@@ -41,17 +47,19 @@ Phases (each one's failure ends the run with a nonzero exit):
            cache and no master restores 3 through the local pseudo-plan:
            source "peer", the same bits as A, the same peak bound, its
            restore by part beside B's read; C the same as B with int8
-           parameters, losses within 0.1% of A's, 201 quantize and 201
-           dequantize launches, codes bit for bit with the plain versions;
+           parameters, losses within 0.1% of A's, a quantize launch a
+           parameter saving and a dequantize restoring (75 at 8 layers),
+           codes bit for bit with the plain versions;
            D a worker process at 2 layers gets SIGTERM after its second
            step, saves where it stops and a second one resumes there; E 3
            steps with AdamW's moments in pinned host memory, the same bits
-           as A's first 3
+           as A's first 3 (its step and peak beside A's)
   standalone
            the control plane: the port's JobMaster in this process, and
            `python -m dlrover_tpu_torch.run --master-addr ...` running
            the worker script dlrover_tpu_torch/examples/llama_train.py
-           (Llama-1B, 7 steps saving at 3 and 6, a step report each step)
+           (Llama-1B at 8 layers, 7 steps saving at 3 and 6, a step report
+           each step)
            under the port's agent, whose work directory (peer cache) is on
            /dev/shm when that holds two stages; once step 3 is committed
            and a peer stage at least as new is complete (the commit and
@@ -66,7 +74,7 @@ Phases (each one's failure ends the run with a nonzero exit):
            holds step 7, its tokens/s read just after the kill (the first
            incarnation's step reports) is within 5% of the worker's own
            over the same steps, and the worker launched each flash kernel
-           22 times and each RMSNorm kernel 45 times a resumed step. Prints
+           8 times and each RMSNorm kernel 17 times a resumed step. Prints
            host memory, the recovery time by part (the restore split into
            plan, transfer and assemble) up to the first resumed step and
            on to the second, the blocking saves by piece (each process's
@@ -74,8 +82,8 @@ Phases (each one's failure ends the run with a nonzero exit):
            step times beside the writers that ran under them
   faults   planned and silent failures under the port's JobMaster (in
            this process) and `python -m dlrover_tpu_torch.run`, the same
-           Llama-1B worker (7 steps saving at 3 and 6, a step report
-           each step). Launch 1: a chaos `preempt` notice at step 4 with
+           Llama-1B worker at 8 layers (7 steps saving at 3 and 6, a step
+           report each step). Launch 1: a chaos `preempt` notice at step 4 with
            a 90 s grace (and a `slow` hold of 3 s so the drain request
            lands at step 4's boundary): the agent exits 0, the worker
            76 classified drained, no charge, the emergency save
@@ -95,13 +103,13 @@ Phases (each one's failure ends the run with a nonzero exit):
            goodput ledger through `MasterClient.get_goodput`: its
            buckets cover the elapsed rank-seconds (within 5%), drain >
            0, 0 < hang ≤ the watchdog's 12 s. Each of the three worker
-           processes launched every flash kernel 22 times and every
-           RMSNorm kernel 45 times a step it finished
+           processes launched every flash kernel 8 times and every
+           RMSNorm kernel 17 times a step it finished
 
   observe  the master observes the card: the port's JobMaster in this
            process (diagnosis rounds and tsdb samples every 2 s, every
            other knob at its default) and `python -m dlrover_tpu_torch.run
-           --monitor-interval 1` around the same Llama-1B worker (46
+           --monitor-interval 1` around the Llama-1B worker (46
            steps, no checkpoint, a step report each step) under the
            agent with its monitors, and a chaos `slow` fault of 1.5 s a
            step from step 37 on. Gates: every step report's
@@ -178,15 +186,40 @@ Phases (each one's failure ends the run with a nonzero exit):
            PlanRegressionRule fired, the three legs' seconds, the leaver's
            drain to the first resumed step, both replicas' steps while
            they share the card and their allocator peaks
+  models   the GPT-2 and BERT families at their published widths
+           through ElasticTrainLoop (flash attention, bf16 activations,
+           f32 master weights, AdamW(3e-4, wd 0.1), seed 0, 2 warm-up +
+           5 timed steps): GPT-2 small (GPTConfig(): 12 x 768, 12 heads
+           of 64, vocab 50304) at seq 1024, micro 12, global 480 (40
+           micro-steps, nanoGPT's config/train_gpt2.py on one GPU) on the
+           synthetic corpus; BERT-base (BertConfig.base(), non-causal) at
+           seq 512, micro 32, global 256 (8 micro-steps) under mlm_loss
+           with dense targets (each token scored against itself). Gates:
+           finite losses and grad norms, the first loss near ln(vocab),
+           the last timed loss below the first, each flash kernel
+           launched 12 layers x micro-steps a step (480 and 96) and no
+           other kernel. Prints the step's median and spread, tokens/s,
+           MFU as the loop reports it and with the attention term in
+           full, and the allocator peak. Then each family at 2 layers,
+           full width, trained 3 steps with flash and with reference
+           attention from one init: losses, grad norms and one step's
+           gradients within the parity phase's limits. Then
+           `python -m dlrover_tpu_torch.run --standalone` around
+           dlrover_tpu_torch/examples/nanogpt_train.py --config gpt2
+           (seq 1024, global batch 48, a save every 3 steps): 6 steps,
+           exit 0; again to 9 steps: it resumes at step 6 and finishes 9
 
 The line before the last is the kernels' JSON record (the quantization
 pair's launches are the resume phase's checkpoint path; each kernel's
 "standalone_launches" are those the worker under the agent printed for
 its resumed incarnation, its "faults_launches" the sum over the faults
 phase's three worker processes, its "observe_launches" the observe
-phase worker's, its "failover_launches" the failover phase worker's and
-its "replan_launches" the replan phase's three incarnations'); the last
-line is {"ok": true, "device": {...}}. Imports nothing of JAX.
+phase worker's, its "failover_launches" the failover phase worker's,
+its "replan_launches" the replan phase's three incarnations' and its
+"models_launches" the models phase's GPT-2 and BERT runs'; each flash
+kernel's "at_gpt2" and "at_bert" hold its times, bound and error at
+those shapes); the last line is {"ok": true, "device": {...}}. Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -248,6 +281,21 @@ EDGE_SHAPES = [
     dict(b=1, h=4, h_kv=1, s_q=64, s_k=64, d=64, causal=False),
     dict(b=1, h=8, h_kv=2, s_q=200, s_k=200, d=128, causal=True),
 ]
+# head dims the kernels are not built for: zero-padded to the next of 64
+# and 128 by the wrappers (GPT and BERT nano/tiny use 32, Llama tiny 16)
+PADDED_SHAPES = [
+    dict(b=1, h=4, h_kv=2, s_q=200, s_k=200, d=16, causal=True),
+    dict(b=2, h=4, h_kv=4, s_q=130, s_k=130, d=32, causal=False),
+    dict(b=1, h=4, h_kv=4, s_q=256, s_k=320, d=96, causal=True),
+]
+# the flash kernels as GPT-2 small (micro 12, seq 1024, causal) and
+# BERT-base (micro 32, seq 512, bidirectional) call them
+MODEL_SHAPES = {
+    "gpt2": dict(b=12, h=12, h_kv=12, s_q=1024, s_k=1024, d=64,
+                 causal=True),
+    "bert": dict(b=32, h=12, h_kv=12, s_q=512, s_k=512, d=64,
+                 causal=False),
+}
 # kernels that must not spill: the warp-specialised ones, whose consumer
 # warpgroups run at 240 registers under setmaxnreg
 NO_SPILL = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
@@ -278,6 +326,12 @@ NORM_EDGES = [
 # 128 (43 a row); every code, scale and output equal to the plain
 # versions' bit for bit.
 QUANT_SHAPE = (2048, 5504)
+# the checkpoint paths (resume, standalone, faults) run Llama-1B at its
+# full width cut to 8 of its 22 layers: what they check (bits across a
+# save and a restore, peer and int8 restores, a kill, a drain, a hang) does
+# not depend on the depth, and their 15 GB checkpoints at 22 layers took
+# most of the script's time (6.7 GB at 8)
+CKPT_LAYERS = 8
 
 
 def log(msg: str) -> None:
@@ -493,22 +547,17 @@ def phase_kernels() -> list:
     return flash_kernels() + norm_kernels()
 
 
-def flash_kernels() -> list:
+def time_flash(shape, seed: int) -> dict:
+    """Each flash kernel's card time at ``shape`` beside its plain
+    version's, its bound and the library yardstick: SDPA's forward, its
+    backward alone (dQ, dK and dV in one call, the graph kept) and both
+    (yardsticks only, never called on the path)."""
     import torch.nn.functional as F
 
     from dlrover_tpu_torch.ops import flash_attention as fa
 
-    # every shape is checked and printed before a failure ends the phase
-    bad = []
-    for i, shape in enumerate(EDGE_SHAPES):
-        bad += check_shape(shape, seed=100 + i)[1]
-    slice_errs, slice_bad = check_shape(SLICE, seed=1)
-    if bad + slice_bad:
-        raise AssertionError(f"kernels beyond tolerance: {bad + slice_bad}")
-
-    # times at the slice shape
-    causal = SLICE["causal"]
-    q, k, v, do = _inputs(SLICE, seed=2)
+    causal = shape["causal"]
+    q, k, v, do = _inputs(shape, seed)
     o, lse = fa.flash_fwd(q, k, v, causal)
     delta = (do.float() * o.float()).sum(-1, keepdim=True)
     timings = {
@@ -523,8 +572,6 @@ def flash_kernels() -> list:
             lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta,
                                            causal)),
     }
-    # yardsticks only, never called on the path: SDPA's forward, its
-    # backward alone (dQ, dK and dV in one call, the graph kept), and both
     sdpa_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=causal))
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
@@ -537,26 +584,61 @@ def flash_kernels() -> list:
             qg, kg, vg, is_causal=causal), (qg, kg, vg), do)
 
     sdpa_fwd_bwd_ms = time_ms(sdpa_fwd_bwd)
-    dims = [SLICE[x] for x in ("b", "h", "h_kv", "s_q", "s_k", "d",
+    dims = [shape[x] for x in ("b", "h", "h_kv", "s_q", "s_k", "d",
                                "causal")]
-    err_of = {"flash_fwd": max(slice_errs["o"], slice_errs["lse"]),
-              "flash_bwd_dq": slice_errs["dq"],
-              "flash_bwd_dkv": max(slice_errs["dk"], slice_errs["dv"])}
-    records = []
+    out = {}
     for name, (kernel, plain) in timings.items():
         ms = time_ms(kernel)
         plain_ms = time_ms(plain)
         bound_ms, bound_by = bound(name, *dims)
         library_ms = sdpa_fwd_ms if name == "flash_fwd" else sdpa_bwd_ms
-        records.append(record(name, ms, plain_ms, bound_ms, bound_by,
-                              library_ms, err_of[name],
-                              library_fwd_bwd_ms=sdpa_fwd_bwd_ms))
-        log(f"  {name}: {ms:.3f} ms (bound {bound_ms:.4f} ms by "
-            f"{bound_by}, {bound_ms / ms:.1%} of it), plain {plain_ms:.3f}"
-            f" ms, sdpa fwd {sdpa_fwd_ms:.3f} ms, sdpa bwd alone "
-            f"{sdpa_bwd_ms:.3f} ms, sdpa fwd+bwd {sdpa_fwd_bwd_ms:.3f} ms")
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=library_ms,
+                         library_fwd_bwd_ms=sdpa_fwd_bwd_ms)
+        log(f"  {name} at {shape}: {ms:.4f} ms (bound {bound_ms:.4f} ms by "
+            f"{bound_by}, {bound_ms / ms:.1%} of it), plain "
+            f"{plain_ms:.3f} ms, sdpa fwd {sdpa_fwd_ms:.4f} ms, sdpa bwd "
+            f"alone {sdpa_bwd_ms:.4f} ms, sdpa fwd+bwd "
+            f"{sdpa_fwd_bwd_ms:.4f} ms")
     del q, k, v, do, o, lse, delta, qg, kg, vg, og
     torch.cuda.empty_cache()
+    return out
+
+
+def _errors_of(errs: dict) -> dict:
+    return {"flash_fwd": max(errs["o"], errs["lse"]),
+            "flash_bwd_dq": errs["dq"],
+            "flash_bwd_dkv": max(errs["dk"], errs["dv"])}
+
+
+def flash_kernels() -> list:
+    # every shape is checked and printed before a failure ends the phase
+    bad = []
+    for i, shape in enumerate(EDGE_SHAPES + PADDED_SHAPES):
+        bad += check_shape(shape, seed=100 + i)[1]
+    slice_errs, slice_bad = check_shape(SLICE, seed=1)
+    bad += slice_bad
+    model_errs = {}
+    for i, (model, shape) in enumerate(MODEL_SHAPES.items()):
+        model_errs[model], model_bad = check_shape(shape, seed=10 + i)
+        bad += model_bad
+    if bad:
+        raise AssertionError(f"kernels beyond tolerance: {bad}")
+
+    # times at the slice shape, then at the GPT-2 and BERT shapes
+    times = time_flash(SLICE, seed=2)
+    at_models = {model: time_flash(shape, seed=20 + i)
+                 for i, (model, shape) in enumerate(MODEL_SHAPES.items())}
+    records = []
+    for name, t in times.items():
+        extra = {f"at_{model}": dict(
+            at_models[model][name],
+            max_abs_err=_errors_of(model_errs[model])[name])
+            for model in MODEL_SHAPES}
+        records.append(record(
+            name, t["ms"], t["plain_ms"], t["bound_ms"], t["bound_by"],
+            t["library_ms"], _errors_of(slice_errs)[name],
+            library_fwd_bwd_ms=t["library_fwd_bwd_ms"], **extra))
     return records
 
 
@@ -807,6 +889,19 @@ def phase_quant() -> list:
 # ---------------------------------------------------------------------------
 
 
+def ckpt_config():
+    """The checkpoint paths' model: Llama-1B in the JAX headline
+    configuration, ``CKPT_LAYERS`` deep."""
+    import dataclasses
+
+    from dlrover_tpu_torch.models.llama import LlamaConfig
+
+    return dataclasses.replace(
+        LlamaConfig.llama_1b(max_seq_len=2048, attn_impl="flash",
+                             norm_impl="fused", embed_impl="gather"),
+        num_layers=CKPT_LAYERS)
+
+
 def _adamw(params):
     # optax.adamw(3e-4, weight_decay=0.1)
     return torch.optim.AdamW(params, lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
@@ -814,7 +909,13 @@ def _adamw(params):
 
 
 def _train(cfg, global_batch: int, steps: int, max_micro: int,
-           profile_out: str = ""):
+           profile_out: str = "", model_cls=None, loss_fn=None,
+           seq: int = 0, same_targets: bool = False):
+    """Train ``model_cls(cfg)`` (Llama by default, with its loss)
+    through ElasticTrainLoop on the synthetic corpus at ``seq`` (the
+    config's ``max_seq_len`` by default) from seed 0: (the history, the
+    kernel launches of the run). ``same_targets`` scores each token
+    against itself (a masked LM's dense targets)."""
     from dlrover_tpu_torch.models.llama import Llama, cross_entropy_loss
     from dlrover_tpu_torch.trainer.elastic_loop import (
         ElasticTrainLoop,
@@ -823,16 +924,20 @@ def _train(cfg, global_batch: int, steps: int, max_micro: int,
     from dlrover_tpu_torch.trainer.sampler import ElasticDistributedSampler
     from dlrover_tpu_torch.trainer.synthetic import batches, synthetic_corpus
 
+    seq = seq or cfg.max_seq_len
     loop = ElasticTrainLoop(
-        functools.partial(Llama, cfg), _adamw, cross_entropy_loss,
-        TrainLoopConfig(global_batch=global_batch, seq_len=cfg.max_seq_len,
+        functools.partial(model_cls or Llama, cfg), _adamw,
+        loss_fn or cross_entropy_loss,
+        TrainLoopConfig(global_batch=global_batch, seq_len=seq,
                         max_micro_per_replica=max_micro, max_steps=steps,
                         report_interval_steps=0))
     sampler = ElasticDistributedSampler(dataset_size=10 ** 6, shuffle=True,
                                         seed=0)
     state, start = loop.restore_or_init(0, sampler)
     data = batches(synthetic_corpus(cfg.vocab_size), sampler, global_batch,
-                   cfg.max_seq_len)
+                   seq)
+    if same_targets:
+        data = ((tokens, tokens) for tokens, _ in data)
     state, metrics = loop.run(state, data, start_step=start,
                               sampler=sampler)
     # the main path's launches, read before any profiled step adds more
@@ -848,7 +953,8 @@ def _train(cfg, global_batch: int, steps: int, max_micro: int,
 
 def _category(name: str) -> str:
     lowered = name.lower()
-    for key, cat in (("rms_fwd", "rms_fwd kernel"),
+    for key, cat in (("layer_norm", "layer norm"),
+                     ("rms_fwd", "rms_fwd kernel"),
                      ("rms_bwd", "rms_bwd kernel"),
                      ("rms_dw_sum", "rms_bwd kernel"),
                      ("flash_fwd", "flash fwd kernel"),
@@ -904,14 +1010,16 @@ def profile_step(run_step, out_path: str) -> None:
             sort_by="self_device_time_total", row_limit=60))
 
 
-def _one_step_grads(cfg, tokens, targets) -> dict:
+def _one_step_grads(cfg, tokens, targets, model_cls=None,
+                    loss_fn=None) -> dict:
     """Each parameter's f32 gradient of one loss, from the seed-0 init
-    the training runs start from."""
+    the training runs start from (Llama and its loss by default)."""
     from dlrover_tpu_torch.models.llama import Llama, cross_entropy_loss
 
-    model = Llama(cfg, seed=0)
-    cross_entropy_loss(model(tokens), targets).backward()
-    return {n: p.grad.float() for n, p in model.named_parameters()}
+    model = (model_cls or Llama)(cfg, seed=0)
+    (loss_fn or cross_entropy_loss)(model(tokens), targets).backward()
+    return {n: p.grad.float() for n, p in model.named_parameters()
+            if p.grad is not None}
 
 
 def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -921,10 +1029,13 @@ def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
 def _expected_launches(cfg, micro_steps: int) -> dict:
     """Each kernel's launches over ``micro_steps`` forward+backward passes
     of ``cfg``: a flash kernel once a layer, an RMSNorm kernel at each of
-    the 2·L+1 norms, nothing of the quantization pair."""
-    flash = cfg.num_layers * micro_steps if cfg.attn_impl == "flash" else 0
-    norm = ((2 * cfg.num_layers + 1) * micro_steps
-            if cfg.norm_impl == "fused" else 0)
+    a Llama's 2·L+1 norms, nothing of the quantization pair (GPT and
+    BERT normalise with LayerNorm, plain PyTorch as in the JAX
+    package)."""
+    layers = getattr(cfg, "num_layers", 0) or cfg.n_layer
+    flash = layers * micro_steps if cfg.attn_impl == "flash" else 0
+    norm = ((2 * layers + 1) * micro_steps
+            if getattr(cfg, "norm_impl", "") == "fused" else 0)
     return {"flash_fwd": flash, "flash_bwd_dq": flash, "flash_bwd_dkv": flash,
             "rms_fwd": norm, "rms_bwd": norm, "quantize": 0,
             "dequantize": 0}
@@ -1303,7 +1414,7 @@ def _sigterm_drill(tmp: str) -> dict:
     return {"stopped_at": first["step"], "resumed_at": second["start"]}
 
 
-def phase_resume(smi: str, llama1b: dict) -> dict:
+def phase_resume(smi: str) -> dict:
     """Llama-1B at full width and depth through ElasticTrainLoop with a
     flash checkpoint: A 7 steps saving at 3 (staged into a peer cache) and
     once more after 7; B a fresh loop restores 3 from disk and trains 4-6,
@@ -1320,15 +1431,10 @@ def phase_resume(smi: str, llama1b: dict) -> dict:
     from dlrover_tpu_torch.checkpoint import quantized as cq
     from dlrover_tpu_torch.checkpoint.peer_restore import load_manifest
     from dlrover_tpu_torch.common.constants import NodeEnv
-    from dlrover_tpu_torch.models.llama import (
-        Llama,
-        LlamaConfig,
-        cross_entropy_loss,
-    )
+    from dlrover_tpu_torch.models.llama import Llama, cross_entropy_loss
     from dlrover_tpu_torch.trainer.train_step import build_trainer
 
-    cfg = LlamaConfig.llama_1b(max_seq_len=2048, attn_impl="flash",
-                               norm_impl="fused", embed_impl="gather")
+    cfg = ckpt_config()
     params = cfg.param_count()
     state_bytes = 3 * 4 * params
     tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
@@ -1352,6 +1458,7 @@ def phase_resume(smi: str, llama1b: dict) -> dict:
         os.environ[NodeEnv.PEER_CACHE_DIR] = cache
         loop = _resume_loop(cfg, dir_a, 0, 3)
         sampler, data = _sampler_and_data(cfg)
+        torch.cuda.reset_peak_memory_stats()
         state, _ = loop.restore_or_init(0, sampler)
         state, m1 = loop.run(state, data, 0, sampler)
         first_save = dict(loop.checkpointer.last_save)
@@ -1362,6 +1469,7 @@ def phase_resume(smi: str, llama1b: dict) -> dict:
         loop.checkpointer.wait()
         steady_save = dict(loop.checkpointer.last_save)
         hist_a = m1["history"] + m2["history"]
+        peak_a = torch.cuda.max_memory_allocated() / 2 ** 30
         pinned_gb = loop.checkpointer.host.nbytes / 1e9
         pinning_s = first_save["host_alloc_s"]
         loop.close()
@@ -1388,6 +1496,7 @@ def phase_resume(smi: str, llama1b: dict) -> dict:
                     "staged_bytes": sum(m["nbytes"] for m in
                                         staged["shards"].values()),
                     "steps_ms": [r["step_time_s"] * 1e3 for r in hist_a],
+                    "peak_gb": peak_a,
                     "note": "run() waits for the commit at its end, "
                             "so steps 4-7 ran under step 3's peer-cache "
                             "write only"}
@@ -1534,8 +1643,10 @@ def phase_resume(smi: str, llama1b: dict) -> dict:
         log(f"resume C: {json.dumps(out['c'])} ({smi})")
         if start != 3 or len(hist_c) != 3 or not rel_c < 1e-3:
             raise AssertionError(f"C: start {start}, losses off by {rel_c}")
+        # one quantize a parameter saving, one dequantize restoring
+        leaves_n = len(list(Llama(cfg, device="meta").parameters()))
         if (save_launches["quantize"], restore_launches["dequantize"]) != (
-                201, 201):
+                leaves_n, leaves_n):
             raise AssertionError(f"C launched {save_launches} saving and "
                                  f"{restore_launches} restoring")
         shutil.rmtree(dir_c)
@@ -1567,9 +1678,8 @@ def phase_resume(smi: str, llama1b: dict) -> dict:
         out["e"] = {"losses": [x for x, _ in hist_e],
                     "step_ms": [t * 1e3 for _, t in hist_e],
                     "peak_gb": peak_e, "pinned_between_steps": pinned,
-                    "llama1b_step_ms": llama1b.get("step_ms", "not measured"),
-                    "llama1b_peak_gb": llama1b.get("peak_mem_gb",
-                                                   "not measured")}
+                    "a_step_median_ms": _bare_loop_median_ms(out),
+                    "a_peak_gb": peak_a}
         log(f"resume E (offload): {json.dumps(out['e'])} ({smi})")
         if out["e"]["losses"] != out["a"]["losses"][:3] or not pinned:
             raise AssertionError(f"offloaded steps {out['e']['losses']} "
@@ -1799,7 +1909,7 @@ def _wait_dead(pid: int, timeout_s: float = 60.0) -> None:
                          f"SIGKILL")
 
 
-def phase_standalone(smi: str, llama1b: dict, resume: dict) -> dict:
+def phase_standalone(smi: str, resume: dict) -> dict:
     """Llama-1B under the port's master and agent, with a SIGKILL after
     the first committed checkpoint (see the module docstring)."""
     import os
@@ -1808,10 +1918,8 @@ def phase_standalone(smi: str, llama1b: dict, resume: dict) -> dict:
 
     from dlrover_tpu_torch.common.constants import RendezvousName
     from dlrover_tpu_torch.master.job_master import JobMaster
-    from dlrover_tpu_torch.models.llama import LlamaConfig
 
-    cfg = LlamaConfig.llama_1b(max_seq_len=2048, attn_impl="flash",
-                               norm_impl="fused", embed_impl="gather")
+    cfg = ckpt_config()
     ref, ref_from = _reference_steps(cfg, resume)
     state_bytes = 3 * 4 * cfg.param_count()
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -1839,7 +1947,8 @@ def phase_standalone(smi: str, llama1b: dict, resume: dict) -> dict:
         cmd = [sys.executable, "-m", "dlrover_tpu_torch.run",
                "--master-addr", master.addr,
                "dlrover_tpu_torch/examples/llama_train.py",
-               "--config", "llama_1b", "--steps", str(STANDALONE_STEPS),
+               "--config", "llama_1b", "--layers", str(CKPT_LAYERS),
+               "--steps", str(STANDALONE_STEPS),
                "--save-interval", str(SAVE_EVERY), "--report-interval", "1",
                "--ckpt-dir", ckpt, "--log-file", worker_log]
         env = dict(os.environ, PYTHONPATH=repo, TMPDIR=agent_tmp)
@@ -2005,8 +2114,7 @@ def phase_standalone(smi: str, llama1b: dict, resume: dict) -> dict:
         out["step_under_agent"] = {
             "median_ms": statistics.median(under_agent) * 1e3,
             "steps_ms": [t * 1e3 for t in under_agent],
-            "llama1b_median_ms": llama1b.get("step_median_ms",
-                                             "not measured")}
+            "bare_loop_median_ms": _bare_loop_median_ms(resume)}
         log(f"standalone step under the agent: "
             f"{json.dumps(out['step_under_agent'])} ({smi})")
         log(f"standalone host memory after the run: "
@@ -2039,6 +2147,14 @@ HANG_AT = 7
 HANG_WATCHDOG_S = 12.0
 HANG_SLEEP_S = 20.0
 DEFAULT_GRACE_S = 30.0     # Context.preempt_default_grace_s
+
+
+def _bare_loop_median_ms(resume: dict):
+    """The median step of resume's run A past its first (the same model
+    in this process, no agent), or "not measured"."""
+    if not resume.get("a"):
+        return "not measured"
+    return statistics.median(resume["a"]["steps_ms"][1:])
 
 
 def _reference_steps(cfg, resume: dict) -> tuple:
@@ -2136,7 +2252,7 @@ def _launch_agent(master, cmd_args: list, env_extra: dict, out: str,
             f.close()
 
 
-def phase_faults(smi: str, llama1b: dict, resume: dict) -> dict:
+def phase_faults(smi: str, resume: dict) -> dict:
     """Planned and silent failures under the port's master and agent:
     a preemption notice drained through an emergency checkpoint, then a
     hang the watchdog aborts and the agent relaunches uncharged; the
@@ -2149,11 +2265,9 @@ def phase_faults(smi: str, llama1b: dict, resume: dict) -> dict:
     from dlrover_tpu_torch.agent.master_client import MasterClient
     from dlrover_tpu_torch.common.config import Context
     from dlrover_tpu_torch.master.job_master import JobMaster
-    from dlrover_tpu_torch.models.llama import LlamaConfig
     from dlrover_tpu_torch.obs import render_snapshot
 
-    cfg = LlamaConfig.llama_1b(max_seq_len=2048, attn_impl="flash",
-                               norm_impl="fused", embed_impl="gather")
+    cfg = ckpt_config()
     ref, ref_from = _reference_steps(cfg, resume)
     state_bytes = 3 * 4 * cfg.param_count()
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -2177,7 +2291,8 @@ def phase_faults(smi: str, llama1b: dict, resume: dict) -> dict:
             raise AssertionError(f"{free / 1e9:.1f} GB free in {tmp}: less "
                                  f"than three checkpoints")
         agent_tmp = peer_root(state_bytes, tmp, smi, "faults")
-        common = ["--config", "llama_1b", "--steps", str(STANDALONE_STEPS),
+        common = ["--config", "llama_1b", "--layers", str(CKPT_LAYERS),
+                  "--steps", str(STANDALONE_STEPS),
                   "--save-interval", str(SAVE_EVERY), "--report-interval",
                   "1", "--ckpt-dir", ckpt]
 
@@ -2352,8 +2467,7 @@ def phase_faults(smi: str, llama1b: dict, resume: dict) -> dict:
         out["step_under_agent"] = {
             "median_ms": statistics.median(under_agent) * 1e3,
             "steps_ms": [t * 1e3 for t in under_agent],
-            "llama1b_median_ms": llama1b.get("step_median_ms",
-                                             "not measured")}
+            "bare_loop_median_ms": _bare_loop_median_ms(resume)}
         log(f"faults step under the agent: "
             f"{json.dumps(out['step_under_agent'])} ({smi})")
 
@@ -3646,18 +3760,274 @@ def phase_replan(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# models: the GPT-2 and BERT families at their published widths
+# ---------------------------------------------------------------------------
+
+# nanoGPT's config/train_gpt2.py on one GPU: batch_size 12, block_size
+# 1024, gradient_accumulation_steps 5 * 8 (a global batch of 480)
+GPT2_MICRO, GPT2_GLOBAL, GPT2_SEQ = 12, 480, 1024
+# the BERT paper's seq-512 pretraining batch of 256 sequences, in micro
+# batches of 32
+BERT_MICRO, BERT_GLOBAL, BERT_SEQ = 32, 256, 512
+MODELS_WARMUP, MODELS_TIMED = 2, 5
+# the flash-against-reference check at full width, cut to 2 layers
+MODELS_PARITY_LAYERS = 2
+# the nanoGPT example under the port's agent: 6 steps saving every 3,
+# then 9 from the committed step 6
+EXAMPLE_BATCH, EXAMPLE_STEPS, EXAMPLE_RESUMED_STEPS = 48, 6, 9
+
+
+def _model_family(name: str, layers: int = 0, attn_impl: str = "flash"):
+    """(config, model class, loss, seq, micro, global batch) of GPT-2
+    small or BERT-base, ``layers`` deep when given."""
+    from dlrover_tpu_torch.models.bert import Bert, BertConfig, mlm_loss
+    from dlrover_tpu_torch.models.gpt import GPT, GPTConfig
+    from dlrover_tpu_torch.models.llama import cross_entropy_loss
+
+    if name == "gpt2":
+        cfg = GPTConfig(attn_impl=attn_impl,
+                        **({"n_layer": layers} if layers else {}))
+        return (cfg, GPT, cross_entropy_loss, GPT2_SEQ, GPT2_MICRO,
+                GPT2_GLOBAL)
+    cfg = BertConfig.base(attn_impl=attn_impl,
+                          **({"num_layers": layers} if layers else {}))
+    return cfg, Bert, mlm_loss, BERT_SEQ, BERT_MICRO, BERT_GLOBAL
+
+
+def _train_family(name: str, profile_out: str) -> tuple:
+    """GPT-2 small or BERT-base at full width through ElasticTrainLoop,
+    2 warm-up and 5 timed steps: (result, launches). BERT scores each
+    token against itself (dense MLM targets)."""
+    from dlrover_tpu_torch.trainer.elastic_loop import model_flops_per_token
+
+    cfg, model_cls, loss_fn, seq, micro, global_batch = _model_family(name)
+    steps = MODELS_WARMUP + MODELS_TIMED
+    accum = global_batch // micro
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    hist, launches = _train(cfg, global_batch, steps, micro,
+                            profile_out=profile_out, model_cls=model_cls,
+                            loss_fn=loss_fn, seq=seq,
+                            same_targets=name == "bert")
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    for r in hist:
+        log(f"  {name} step {r['step']}: loss {r['loss']:.4f} grad_norm "
+            f"{r['grad_norm']:.4f} {r['step_time_s'] * 1e3:.1f} ms")
+    if len(hist) != steps:
+        raise AssertionError(f"{name}: ran {len(hist)} steps")
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+               for r in hist):
+        raise AssertionError(f"{name}: non-finite loss or grad norm")
+    if abs(hist[0]["loss"] - math.log(cfg.vocab_size)) > 1.0:
+        raise AssertionError(f"{name}: first loss {hist[0]['loss']} is not "
+                             f"near ln(vocab) = "
+                             f"{math.log(cfg.vocab_size):.3f}")
+    timed = hist[MODELS_WARMUP:]
+    if not timed[-1]["loss"] < timed[0]["loss"]:
+        raise AssertionError(f"{name}: the loss did not fall over the "
+                             f"timed steps: {[r['loss'] for r in timed]}")
+    want = _expected_launches(cfg, accum * steps)
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, want {want} "
+                             f"({steps} steps of {accum} micro-batches)")
+    params = sum(p.numel() for p in model_cls(cfg, device="meta")
+                 .parameters())
+    flops = model_flops_per_token(cfg, params, seq)
+    # the attention term counted in full (obs/mfu.py: 12·L·h·s a token,
+    # halved when causal): GPT's config has no num_layers/hidden_size,
+    # so the loop counts none; BERT's it counts as causal, half its work
+    layers = getattr(cfg, "num_layers", 0) or cfg.n_layer
+    width = getattr(cfg, "hidden_size", 0) or cfg.n_embd
+    flops_full = 6.0 * params + (6.0 if name == "gpt2" else 12.0) \
+        * layers * width * seq
+    step_ms = [r["step_time_s"] * 1e3 for r in timed]
+    mfu = statistics.mean(r["mfu"] for r in timed)
+    tokens_per_s = global_batch * seq / (statistics.mean(step_ms) / 1e3)
+    result = {"params": params, "micro_batch": micro,
+              "global_batch": global_batch, "seq": seq,
+              "step_median_ms": statistics.median(step_ms),
+              "step_min_ms": min(step_ms), "step_max_ms": max(step_ms),
+              "step_mean_ms": statistics.mean(step_ms),
+              "tokens_per_s": tokens_per_s, "flops_per_token": flops,
+              "mfu": mfu, "flops_per_token_full": flops_full,
+              "mfu_full": mfu * flops_full / flops,
+              "peak_mem_gb": peak_gb,
+              "losses": [r["loss"] for r in hist],
+              "launches_per_step": {n: c / steps
+                                    for n, c in launches.items()}}
+    log(f"models {name}: {json.dumps(result)}")
+    return result, launches
+
+
+def _family_parity(name: str) -> None:
+    """Reduced depth at full width: the same init trained 3 steps with
+    attn_impl="flash" and "reference", one step's gradients of each;
+    held to the parity phase's limits (``_compare_runs``)."""
+    losses, grad_norms, grads = {}, {}, {}
+    same = name == "bert"
+    for attn in ("flash", "reference"):
+        cfg, model_cls, loss_fn, seq, micro, _ = _model_family(
+            name, MODELS_PARITY_LAYERS, attn)
+        g = torch.Generator(device="cuda").manual_seed(5)
+        tokens = torch.randint(0, cfg.vocab_size, (micro, seq), generator=g,
+                               device="cuda")
+        targets = tokens if same else torch.randint(
+            0, cfg.vocab_size, (micro, seq), generator=g, device="cuda")
+        grads[attn] = _one_step_grads(cfg, tokens, targets, model_cls,
+                                      loss_fn)
+        reset_counts()
+        hist, launches = _train(cfg, micro, 3, micro, model_cls=model_cls,
+                                loss_fn=loss_fn, seq=seq, same_targets=same)
+        losses[attn] = [r["loss"] for r in hist]
+        grad_norms[attn] = [r["grad_norm"] for r in hist]
+        want = _expected_launches(cfg, len(hist))
+        if launches != want:
+            raise AssertionError(f"{name} {attn} parity run launches "
+                                 f"{launches}, want {want}")
+    block = "block" if name == "gpt2" else "layer"
+    _compare_runs(f"{name} attention, {MODELS_PARITY_LAYERS} layers",
+                  "flash", "reference", losses, grad_norms, grads,
+                  [f"{block}_{i}.qkv.kernel"
+                   for i in range(MODELS_PARITY_LAYERS)])
+    del grads
+    torch.cuda.empty_cache()
+
+
+def _example_run(repo: str, tmp: str, steps: int, tag: str,
+                 agent_tmp: str) -> list:
+    """``python -m dlrover_tpu_torch.run --standalone`` around the nanoGPT
+    example at GPT-2 small (seq 1024, global batch 48, a save every 3
+    steps into ``tmp``), the agent's work directory (its peer cache) in
+    ``agent_tmp``; returns the worker's log lines and prints the agent's
+    marks. Fails unless the agent exits 0."""
+    import os
+    import re
+
+    ckpt, log_file = os.path.join(tmp, "ckpt"), os.path.join(tmp, "log")
+    cmd = [sys.executable, "-m", "dlrover_tpu_torch.run", "--standalone",
+           "--monitor-interval", "1",
+           "dlrover_tpu_torch/examples/nanogpt_train.py", "--config",
+           "gpt2", "--seq", str(GPT2_SEQ), "--global-batch",
+           str(EXAMPLE_BATCH), "--steps", str(steps), "--save-interval",
+           "3", "--ckpt-dir", ckpt, "--log-file", log_file]
+    env = dict(os.environ, PYTHONPATH=repo, TMPDIR=agent_tmp)
+    t0 = time.time()
+    err = os.path.join(tmp, f"{tag}.err")
+    with open(os.path.join(tmp, f"{tag}.out"), "w") as fo, \
+            open(err, "w") as fe:
+        proc = subprocess.Popen(cmd, cwd=repo, env=env, stdout=fo,
+                                stderr=fe)
+        try:
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    elapsed = time.time() - t0
+    # the first of each mark, the last commit
+    marks = {}
+    for t, text in _agent_lines(err):
+        for key, pattern in (("spawned", r"^spawning worker"),
+                             ("loop built", r"^elastic loop: device"),
+                             ("first step", r"^step \d+ loss"),
+                             ("last commit",
+                              r"^flash checkpoint: step \d+ committed"),
+                             ("worker exit", r"^worker finished")):
+            if re.search(pattern, text) and (key == "last commit"
+                                             or key not in marks):
+                marks[key] = round(t - t0, 2)
+    with open(err) as f:
+        err_tail = f.read()[-3000:]
+    lines = []
+    if os.path.exists(log_file):
+        with open(log_file) as f:
+            lines = f.read().splitlines()
+    log(f"models example {tag}: exit {rc} in {elapsed:.1f} s, marks (s "
+        f"from the start) {json.dumps(marks)}; log {lines}")
+    if rc != 0:
+        raise AssertionError(f"nanoGPT example {tag} exited {rc}:\n"
+                             f"{err_tail}")
+    return lines
+
+
+def phase_models(smi: str, profile: str = "") -> dict:
+    """GPT-2 small and BERT-base train at their published widths through
+    the port's loop with the flash kernels at head dim 64 (causal and
+    bidirectional); flash against reference at 2 layers; the nanoGPT
+    example under the port's agent resumes from its checkpoint."""
+    import os
+    import shutil
+    import tempfile
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.monotonic()
+    out = {"launches": {}}
+    for name in ("gpt2", "bert"):
+        result, launches = _train_family(
+            name, f"{profile}.{name}" if profile else "")
+        out[name] = result
+        for kernel, count in launches.items():
+            out["launches"][kernel] = (out["launches"].get(kernel, 0)
+                                       + count)
+        log(f"models {name} on {smi}: step median "
+            f"{result['step_median_ms']:.1f} ms (min "
+            f"{result['step_min_ms']:.1f}, max {result['step_max_ms']:.1f}),"
+            f" {result['tokens_per_s']:.0f} tokens/s, MFU "
+            f"{result['mfu']:.4f} as the loop reports it, "
+            f"{result['mfu_full']:.4f} with the attention term in full, "
+            f"allocator peak {result['peak_mem_gb']:.2f} GiB")
+        torch.cuda.empty_cache()
+    for name in ("gpt2", "bert"):
+        _family_parity(name)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_models_")
+    agent_tmps = []
+    try:
+        # each agent's work directory (its peer cache of two stages) on
+        # /dev/shm when that holds them, as the standalone phase's
+        state_bytes = 3 * 4 * out["gpt2"]["params"]
+        agent_tmps = [peer_root(state_bytes, tmp, smi, "models example")
+                      for _ in range(2)]
+        first = _example_run(repo, tmp, EXAMPLE_STEPS, "first",
+                             agent_tmps[0])
+        if not any(line.startswith(f"nanogpt: done step={EXAMPLE_STEPS} ")
+                   for line in first):
+            raise AssertionError(f"the example did not finish step "
+                                 f"{EXAMPLE_STEPS}: {first}")
+        second = _example_run(repo, tmp, EXAMPLE_RESUMED_STEPS, "resumed",
+                              agent_tmps[1])
+        new = second[len(first):]
+        if not any(line.startswith(f"nanogpt: start_step={EXAMPLE_STEPS} ")
+                   for line in new):
+            raise AssertionError(f"the example did not resume at step "
+                                 f"{EXAMPLE_STEPS}: {new}")
+        if not any(line.startswith(
+                f"nanogpt: done step={EXAMPLE_RESUMED_STEPS} ")
+                for line in new):
+            raise AssertionError(f"the resumed example did not finish "
+                                 f"step {EXAMPLE_RESUMED_STEPS}: {new}")
+    finally:
+        for path in agent_tmps + [tmp]:
+            shutil.rmtree(path, ignore_errors=True)
+    log(f"models: phase {time.monotonic() - t0:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases",
                         default="kernels,quant,parity,llama1b,resume,"
-                                "standalone,faults,observe,failover,replan",
+                                "standalone,faults,observe,failover,replan,"
+                                "models",
                         help="comma-separated subset of kernels, quant, "
                              "parity, llama1b, resume, standalone, faults, "
-                             "observe, failover, replan (device and build "
-                             "always run)")
+                             "observe, failover, replan, models (device "
+                             "and build always run)")
     parser.add_argument("--profile", default="",
                         help="after the Llama-1B run, profile one more "
-                             "step and write the kernel table here")
+                             "step and write the kernel table here (and "
+                             "after GPT-2's and BERT's runs, to this path "
+                             "with .gpt2 and .bert added)")
     args = parser.parse_args(argv)
     phases = args.phases.split(",")
     # a SIGTERM (a time limit) unwinds through the phases' ``finally``
@@ -3681,19 +4051,19 @@ def main(argv=None) -> int:
     if "resume" in phases:
         # the quantization pair's path: the int8 checkpoint's save and
         # restore
-        resume = phase_resume(smi, llama1b)
+        resume = phase_resume(smi)
         for rec in quant_records:
             rec["launches"] = resume["c"][f"{rec['name']}_launches"]
     if "standalone" in phases:
         # the worker under the agent counts its own launches, printed at
         # its exit: the resumed incarnation's steps
-        standalone = phase_standalone(smi, llama1b, resume)
+        standalone = phase_standalone(smi, resume)
         for rec in train_records + quant_records:
             rec["standalone_launches"] = standalone["launches"][rec["name"]]
     if "faults" in phases:
         # the drained worker's, the hung one's up to its last finished
         # step, and its relaunch's, summed
-        faults = phase_faults(smi, llama1b, resume)
+        faults = phase_faults(smi, resume)
         for rec in train_records + quant_records:
             rec["faults_launches"] = sum(
                 counts[rec["name"]]
@@ -3715,6 +4085,11 @@ def main(argv=None) -> int:
         replan = phase_replan(smi)
         for rec in train_records + quant_records:
             rec["replan_launches"] = replan["launches"][rec["name"]]
+    if "models" in phases:
+        # GPT-2 small's and BERT-base's runs, summed
+        models = phase_models(smi, args.profile)
+        for rec in train_records + quant_records:
+            rec["models_launches"] = models["launches"][rec["name"]]
     records = train_records + quant_records
     log(f"elapsed {time.monotonic() - t0:.1f} s")
     print(json.dumps({"kernels": records}))

@@ -1,10 +1,13 @@
-"""Carry Llama parameters between the JAX package and the port.
+"""Carry model parameters between the JAX package and the port.
 
-The flax tree's path ``layer_0/attn/q_proj/kernel`` is the port's
-``state_dict`` key ``layer_0.attn.q_proj.kernel``; dense kernels keep the
-``(in, out)`` layout in both, so values cross unchanged. The tree is
-given as nested dicts of numpy arrays (unbox flax's partitioning
-metadata first).
+Every model family of the port names its modules and parameters as the
+flax tree does, so one mapping serves them all: the flax path
+``layer_0/attn/q_proj/kernel`` (Llama), ``block_3/qkv/kernel`` or
+``block_0/ln1/scale`` (GPT), ``layer_0/attn_norm/bias`` (BERT) is the
+port's ``state_dict`` key with dots, and tables such as ``wte`` or
+``word_embed`` keep their names. Dense kernels keep the ``(in, out)``
+layout in both, so values cross unchanged. The tree is given as nested
+dicts of numpy arrays (unbox flax's partitioning metadata first).
 """
 
 from __future__ import annotations

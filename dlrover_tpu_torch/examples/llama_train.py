@@ -93,6 +93,9 @@ def parse_args(argv=None):
     parser.add_argument("--solo-replica", action="store_true",
                         help="an independent full replica: no process "
                              "group, checkpoints in <ckpt-dir>/rank<N>")
+    parser.add_argument("--layers", type=int, default=0,
+                        help="the configuration cut to this many layers "
+                             "at its full width (0 = all of them)")
     parser.add_argument("--report-interval", type=int, default=10)
     parser.add_argument("--log-file", default="",
                         help="append the worker's lines here (tests parse "
@@ -100,21 +103,27 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def build_config(name: str, seq: int):
+def build_config(name: str, seq: int, layers: int = 0):
     """(LlamaConfig, sequence length) of a named configuration: Llama-1B
     in the JAX headline configuration (flash attention, fused norm,
-    gather embedding), or a tiny f32 one for CPU runs."""
+    gather embedding), or a tiny f32 one for CPU runs; ``layers`` deep
+    when given."""
+    import dataclasses
+
     import torch
 
     from dlrover_tpu_torch.models.llama import LlamaConfig
 
     if name == "llama_1b":
         seq = seq or 2048
-        return LlamaConfig.llama_1b(max_seq_len=seq, attn_impl="flash",
-                                    norm_impl="fused",
-                                    embed_impl="gather"), seq
-    seq = seq or 16
-    return LlamaConfig.tiny(dtype=torch.float32), seq
+        cfg = LlamaConfig.llama_1b(max_seq_len=seq, attn_impl="flash",
+                                   norm_impl="fused", embed_impl="gather")
+    else:
+        seq = seq or 16
+        cfg = LlamaConfig.tiny(dtype=torch.float32)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    return cfg, seq
 
 
 def main(argv=None) -> int:
@@ -157,7 +166,7 @@ def main(argv=None) -> int:
             ckpt_dir = os.path.join(ckpt_dir, f"rank{rank}")
     else:
         init_distributed(device)   # joins the round's process group
-    cfg, seq = build_config(args.config, args.seq)
+    cfg, seq = build_config(args.config, args.seq, args.layers)
 
     client = None
     if os.environ.get("DLROVER_TPU_MASTER_ADDR"):

@@ -1,0 +1,138 @@
+"""nanoGPT elastic training worker: the script the agent spawns.
+
+The port's counterpart of the JAX package's ``examples/nanogpt/train.py``,
+with the same command line, corpus and batches (the same tokens for the
+same sampler seed): ``python -m dlrover_tpu_torch.run --standalone``
+starts a local master and agent; the agent spawns this worker, which
+joins the round's process group, trains a GPT through
+``ElasticTrainLoop`` with a flash checkpoint (sampler position
+included), and reports to the master when ``DLROVER_TPU_MASTER_ADDR``
+is set. ``--config nano`` (the default, as in the JAX example) is the
+4-layer, 128-wide GPT; ``--config gpt2`` is GPT-2 small (12 × 768,
+vocabulary 50304). Attention runs through the flash kernels on the card
+and the plain path on the CPU.
+
+Run single-host, on the card:
+    python -m dlrover_tpu_torch.run --standalone \\
+        dlrover_tpu_torch/examples/nanogpt_train.py --config gpt2 \\
+        --seq 1024 --global-batch 48 --steps 200 --ckpt-dir /tmp/gpt2-ckpt
+and on the CPU:
+    python -m dlrover_tpu_torch.run --standalone \\
+        dlrover_tpu_torch/examples/nanogpt_train.py --device cpu
+
+A SIGKILL mid-run restarts the worker through the agent; the new
+incarnation resumes from the latest committed checkpoint with the data
+position intact, and logs ``nanogpt: start_step=N``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import os
+import sys
+
+if not __package__:
+    # run as a script from a checkout: the package is two levels up
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))))
+
+from dlrover_tpu_torch.trainer.synthetic import (  # noqa: E402
+    batches,
+    synthetic_corpus,
+)
+
+__all__ = ["batches", "main", "parse_args", "synthetic_corpus"]
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser("nanogpt-train")
+    parser.add_argument("--config", choices=("nano", "gpt2"),
+                        default="nano")
+    parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    parser.add_argument("--steps", type=int, default=100)
+    parser.add_argument("--global-batch", type=int, default=8)
+    parser.add_argument("--seq", type=int, default=64)
+    parser.add_argument("--lr", type=float, default=3e-4)
+    parser.add_argument("--ckpt-dir", default="")
+    parser.add_argument("--save-interval", type=int, default=20)
+    parser.add_argument("--log-file", default="",
+                        help="append step logs here (tests parse it)")
+    return parser.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    device = "cpu" if args.device == "cpu" else None
+
+    import torch
+
+    from dlrover_tpu_torch.agent.elastic_agent import init_distributed
+    from dlrover_tpu_torch.models.gpt import GPT, GPTConfig
+    from dlrover_tpu_torch.models.llama import cross_entropy_loss
+    from dlrover_tpu_torch.trainer.elastic_loop import (
+        ElasticTrainLoop,
+        TrainLoopConfig,
+    )
+    from dlrover_tpu_torch.trainer.sampler import ElasticDistributedSampler
+
+    init_distributed(device)   # joins the round's process group
+    attn_impl = "reference" if device == "cpu" else "flash"
+    cfg = (GPTConfig(attn_impl=attn_impl) if args.config == "gpt2"
+           else GPTConfig.nano(attn_impl=attn_impl))
+
+    client = None
+    if os.environ.get("DLROVER_TPU_MASTER_ADDR"):
+        from dlrover_tpu_torch.agent.master_client import MasterClient
+
+        client = MasterClient.singleton()
+
+    loop = ElasticTrainLoop(
+        functools.partial(GPT, cfg),
+        lambda p: torch.optim.AdamW(p, lr=args.lr, betas=(0.9, 0.999),
+                                    eps=1e-8, weight_decay=0.1),
+        cross_entropy_loss,
+        TrainLoopConfig(
+            global_batch=args.global_batch,
+            seq_len=args.seq,
+            max_steps=args.steps,
+            checkpoint_dir=args.ckpt_dir,
+            save_interval_steps=args.save_interval,
+            report_interval_steps=10,
+        ),
+        master_client=client,
+        device=device,
+    )
+    loop.install_signal_handler()
+
+    corpus = synthetic_corpus(cfg.vocab_size)
+    sampler = ElasticDistributedSampler(
+        dataset_size=10 ** 6, shuffle=True, seed=0)
+    state, start_step = loop.restore_or_init(0, sampler)
+
+    def log(message: str) -> None:
+        print(message, flush=True)
+        if args.log_file:
+            with open(args.log_file, "a") as f:
+                f.write(message + "\n")
+
+    log(f"nanogpt: start_step={start_step} "
+        f"dp={loop.dp} accum={loop.accum} device={loop.device}")
+    if args.steps <= start_step:
+        log("nanogpt: nothing to do")
+        loop.close()
+        return 0
+
+    data = batches(corpus, sampler, args.global_batch, args.seq)
+    loop.config.max_steps = args.steps - start_step
+    state, metrics = loop.run(state, data, start_step=start_step,
+                              sampler=sampler)
+    final_step = int(metrics.get("step", start_step))
+    log(f"nanogpt: done step={final_step} "
+        f"loss={metrics.get('loss', -1):.4f}")
+    loop.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,88 @@
+"""The layers the GPT and BERT families share, as flax builds them.
+
+Counterparts of flax's ``nn.Dense`` with a bias, ``nn.LayerNorm`` and
+``nn.gelu``, with flax's parameter names and numerics:
+
+- ``Dense``: ``kernel`` ``(in, out)`` and ``bias``, both in
+  ``cfg.param_dtype``, cast to ``cfg.dtype`` at the product; the bias is
+  added in ``cfg.dtype`` after it, as flax promotes all three to
+  ``dtype`` and adds the bias to the product's result.
+- ``LayerNorm``: ``scale`` and ``bias`` in f32 (flax's ``param_dtype``
+  default, whatever the model's), the statistics and the normalisation
+  in f32 and one cast to ``cfg.dtype`` at the end. flax's default eps is
+  1e-6, not torch's 1e-5; the caller passes it. flax takes the variance
+  as E[x²] − E[x]² (clipped at 0) where torch takes the mean square of
+  the centred values: the same in exact arithmetic, f32 rounding apart.
+- ``gelu``: the tanh approximation, flax's default (torch's is erf).
+
+Parameters carry logical axes (``param_axes``) as the flax modules box
+them; LayerNorm's carry none, so they are replicated on every mesh, as
+flax leaves them unboxed.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def check_options(cfg) -> None:
+    """The model options every family refuses until they are ported."""
+    if cfg.attn_impl not in ("flash", "reference"):
+        raise NotImplementedError(
+            f"attn_impl={cfg.attn_impl!r} is not ported yet (ROADMAP "
+            f"Queue A item 8, parallel/ring_attention.py)")
+    if cfg.remat:
+        raise NotImplementedError(
+            "remat=True is not ported yet (ROADMAP Queue A item 11, "
+            "ops/remat.py)")
+    if cfg.embed_impl not in ("gather", "onehot"):
+        raise ValueError(f"unknown embed_impl {cfg.embed_impl!r}")
+
+
+def normal_param(shape, std, cfg, device, generator) -> nn.Parameter:
+    """A ``cfg.param_dtype`` parameter drawn from normal(0, std), as
+    flax's ``normal`` initializer (the random streams differ)."""
+    t = torch.empty(shape, dtype=cfg.param_dtype, device=device)
+    return nn.Parameter(t.normal_(0.0, std, generator=generator))
+
+
+class Dense(nn.Module):
+    """Biased linear, ``(in, out)`` layout; ``axes`` are the kernel's
+    logical axes, and the bias takes the output one."""
+
+    def __init__(self, d_in, d_out, axes, cfg, device, generator):
+        super().__init__()
+        self.dtype = cfg.dtype
+        self.param_axes = {"kernel": axes, "bias": (axes[-1],)}
+        self.kernel = normal_param((d_in, d_out), 0.02, cfg, device,
+                                   generator)
+        self.bias = nn.Parameter(torch.zeros(d_out, dtype=cfg.param_dtype,
+                                             device=device))
+
+    def forward(self, x):
+        return (torch.matmul(x, self.kernel.to(self.dtype))
+                + self.bias.to(self.dtype))
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(epsilon=eps, dtype=cfg.dtype)``."""
+
+    def __init__(self, dim, eps, cfg, device):
+        super().__init__()
+        self.eps, self.dtype = eps, cfg.dtype
+        self.scale = nn.Parameter(torch.ones(dim, dtype=torch.float32,
+                                             device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, dtype=torch.float32,
+                                             device=device))
+
+    def forward(self, x):
+        y = F.layer_norm(x.float(), self.scale.shape, self.scale.float(),
+                         self.bias.float(), self.eps)
+        return y.to(self.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """flax's ``nn.gelu``: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")

@@ -34,6 +34,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Replicate
 
 from dlrover_tpu_torch.common.device import resolve_device
+from dlrover_tpu_torch.models.layers import check_options, normal_param
 from dlrover_tpu_torch.ops.flash_attention import (
     flash_attention,
     reference_attention,
@@ -119,23 +120,15 @@ class LlamaConfig:
 def _check_supported(cfg: LlamaConfig) -> None:
     """Options this slice does not port raise instead of doing something
     else."""
-    if cfg.attn_impl not in ("flash", "reference"):
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} is not ported yet (ROADMAP "
-            f"Queue A item 8, parallel/ring_attention.py)")
-    if cfg.remat:
-        raise NotImplementedError(
-            "remat=True is not ported yet (ROADMAP Queue A item 11, "
-            "ops/remat.py)")
-    if cfg.embed_impl not in ("gather", "onehot"):
-        raise ValueError(f"unknown embed_impl {cfg.embed_impl!r}")
+    check_options(cfg)
     if cfg.norm_impl not in ("fused", "reference"):
         raise ValueError(f"unknown norm_impl {cfg.norm_impl!r}")
 
 
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,
-                 cfg: LlamaConfig) -> torch.Tensor:
-    """Token embedding lookup in ``cfg.dtype``. ``"onehot"`` (a one-hot
+                 cfg) -> torch.Tensor:
+    """Token embedding lookup in ``cfg.dtype`` (``cfg`` needs only
+    ``dtype``; GPT's and BERT's configs work too). ``"onehot"`` (a one-hot
     matmul in the reference) gives the same values as ``"gather"``, so
     both gather here; the f32 rows are gathered before the cast, which
     rounds each value exactly as casting the table first would. A table
@@ -148,9 +141,20 @@ def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,
     return x.to(cfg.dtype)
 
 
-def _normal(shape, std, cfg, device, generator) -> nn.Parameter:
-    t = torch.empty(shape, dtype=cfg.param_dtype, device=device)
-    return nn.Parameter(t.normal_(0.0, std, generator=generator))
+def dispatch_attention(impl: str, q, k, v, causal: bool = True
+                       ) -> torch.Tensor:
+    """The model families' shared attention: ``(b, seq, heads, dim)`` in
+    and out; ``impl`` is ``"flash"`` (the port's kernels) or
+    ``"reference"`` (plain torch). ``"ring"`` and ``"ulysses"`` are not
+    ported yet and raise."""
+    if impl not in ("flash", "reference"):
+        raise NotImplementedError(
+            f"attn_impl={impl!r} is not ported yet (ROADMAP Queue A item "
+            f"8, parallel/ring_attention.py)")
+    # (b, heads, seq, dim) layout for the kernels
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    attention = flash_attention if impl == "flash" else reference_attention
+    return attention(q, k, v, causal).transpose(1, 2)
 
 
 class Dense(nn.Module):
@@ -161,7 +165,8 @@ class Dense(nn.Module):
         super().__init__()
         self.dtype = cfg.dtype
         self.param_axes = {"kernel": axes}
-        self.kernel = _normal((d_in, d_out), 0.02, cfg, device, generator)
+        self.kernel = normal_param((d_in, d_out), 0.02, cfg, device,
+                                   generator)
 
     def forward(self, x):
         return torch.matmul(x, self.kernel.to(self.dtype))
@@ -219,14 +224,8 @@ class Attention(nn.Module):
         v = self.v_proj(x).view(batch, seq, cfg.num_kv_heads, cfg.head_dim)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-        # (b, heads, seq, dim) layout for the kernels
-        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
-        if cfg.attn_impl == "flash":
-            out = flash_attention(q, k, v, True)
-        else:
-            out = reference_attention(q, k, v, True)
-        out = out.transpose(1, 2).reshape(batch, seq, -1)
-        return self.o_proj(out)
+        out = dispatch_attention(cfg.attn_impl, q, k, v, causal=True)
+        return self.o_proj(out.reshape(batch, seq, -1))
 
 
 class MLP(nn.Module):
@@ -277,15 +276,15 @@ class Llama(nn.Module):
             self.param_axes["lm_head"] = ("embed", "vocab")
         generator = (None if device.type == "meta" else
                      torch.Generator(device=device).manual_seed(seed))
-        self.embed = _normal((cfg.vocab_size, cfg.hidden_size), 0.02, cfg,
-                             device, generator)
+        self.embed = normal_param((cfg.vocab_size, cfg.hidden_size), 0.02,
+                                  cfg, device, generator)
         for layer in range(cfg.num_layers):
             self.add_module(f"layer_{layer}",
                             DecoderBlock(cfg, device, generator))
         self.final_norm = RMSNorm(cfg.hidden_size, cfg, device)
         if not cfg.tie_embeddings:
-            self.lm_head = _normal((cfg.hidden_size, cfg.vocab_size), 0.02,
-                                   cfg, device, generator)
+            self.lm_head = normal_param((cfg.hidden_size, cfg.vocab_size),
+                                        0.02, cfg, device, generator)
 
     def kernel_libraries(self) -> Tuple[str, ...]:
         """The CUDA libraries (``ops/csrc/<name>.cu``) a training step of

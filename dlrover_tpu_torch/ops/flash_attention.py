@@ -11,9 +11,14 @@ lse in natural-log units. The causal mask is top-left (``q_idx >=
 k_idx``), as in the reference.
 
 A CUDA tensor goes to the kernel, or the wrapper raises (bf16 and
-head_dim 64 or 128 only). A CPU tensor goes to the plain version, which
-repeats the kernel's arithmetic and rounding points in f32; nothing else
-falls back. ``launch_counts`` counts the kernel launches, one per
+head_dim at most 128). The kernels are built for head dims 64 and 128;
+any other head dim up to 128 is zero-padded on its last dim to the next
+of the two, run at the scale of its true head dim and sliced back
+(``padded_fwd``, ``padded_bwd_dq``, ``padded_bwd_dkv``), which is exact:
+the padded columns add zeros to every dot product, and dO's padded
+columns are zero. A CPU tensor goes to the plain version, which repeats
+the kernel's arithmetic and rounding points in f32; nothing else falls
+back. ``launch_counts`` counts the kernel launches, one per
 wrapper call that launched.
 """
 
@@ -25,6 +30,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
@@ -48,6 +54,20 @@ def reset_launch_counts() -> None:
 
 def _scale(sm_scale: Optional[float], q: torch.Tensor) -> float:
     return sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
+
+
+def kernel_head_dim(d: int) -> int:
+    """The head dim the kernels run ``d`` at: the next of ``HEAD_DIMS``
+    at or above it; raises above the largest."""
+    for width in HEAD_DIMS:
+        if d <= width:
+            return width
+    raise ValueError(f"head_dim {d} not supported by the CUDA kernels "
+                     f"(at most {HEAD_DIMS[-1]})")
+
+
+def _pad(t: torch.Tensor, width: int) -> torch.Tensor:
+    return F.pad(t, (0, width - t.shape[-1]))
 
 
 # ===========================================================================
@@ -130,6 +150,50 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool = True,
 
 
 # ===========================================================================
+# Head dims other than the kernels' own
+# ===========================================================================
+#
+# ``run`` is the kernel launch on the card (the plain version in the CPU
+# tests of this path). At a head dim the kernels take, it runs as is.
+
+
+def padded_fwd(run, q, k, v, causal: bool, sm_scale: float):
+    """(o, lse) of ``run`` on q, k, v zero-padded to the kernels' head dim,
+    o sliced back to q's."""
+    d = q.shape[-1]
+    width = kernel_head_dim(d)
+    if width == d:
+        return run(q, k, v, causal, sm_scale)
+    o, lse = run(_pad(q, width), _pad(k, width), _pad(v, width), causal,
+                 sm_scale)
+    return o[..., :d].contiguous(), lse
+
+
+def padded_bwd_dq(run, q, k, v, do, lse, delta, causal: bool,
+                  sm_scale: float):
+    """dQ of ``run`` on padded q, k, v and dO, sliced back."""
+    d = q.shape[-1]
+    width = kernel_head_dim(d)
+    if width == d:
+        return run(q, k, v, do, lse, delta, causal, sm_scale)
+    dq = run(_pad(q, width), _pad(k, width), _pad(v, width),
+             _pad(do, width), lse, delta, causal, sm_scale)
+    return dq[..., :d].contiguous()
+
+
+def padded_bwd_dkv(run, q, k, v, do, lse, delta, causal: bool,
+                   sm_scale: float):
+    """(dK, dV) of ``run`` on padded q, k, v and dO, sliced back."""
+    d = q.shape[-1]
+    width = kernel_head_dim(d)
+    if width == d:
+        return run(q, k, v, do, lse, delta, causal, sm_scale)
+    dk, dv = run(_pad(q, width), _pad(k, width), _pad(v, width),
+                 _pad(do, width), lse, delta, causal, sm_scale)
+    return dk[..., :d].contiguous(), dv[..., :d].contiguous()
+
+
+# ===========================================================================
 # CUDA wrappers
 # ===========================================================================
 
@@ -174,8 +238,8 @@ def _check_shapes(q, k, v, do=None, lse=None, delta=None) -> Tuple[int, ...]:
 
 def _check_kernel_inputs(bf16s, f32s, dims) -> None:
     """What the CUDA kernels take beyond the shapes: bf16 operands, f32
-    row statistics, head_dim 64 or 128, nothing empty, contiguous and
-    16-byte aligned."""
+    row statistics, head_dim 64 or 128 (the padded one), nothing empty,
+    contiguous and 16-byte aligned."""
     b, h, _, s_q, s_k, d = dims
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not supported by the CUDA kernels "
@@ -193,14 +257,8 @@ def _check_kernel_inputs(bf16s, f32s, dims) -> None:
                              "aligned tensors")
 
 
-def flash_fwd(q, k, v, causal: bool = True,
-              sm_scale: Optional[float] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(o, lse): the forward kernel for CUDA tensors, the plain version
-    for CPU tensors."""
+def _launch_fwd(q, k, v, causal: bool, sm_scale: float):
     dims = _check_shapes(q, k, v)
-    if _launch.device_kind("flash attention", q, k, v) == "cpu":
-        return flash_fwd_plain(q, k, v, causal, sm_scale)
     _check_kernel_inputs((q, k, v), (), dims)
     b, h, h_kv, s_q, s_k, d = dims
     lib = _library()
@@ -209,20 +267,15 @@ def flash_fwd(q, k, v, causal: bool = True,
     with torch.cuda.device(q.device):
         code = lib.flash_fwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), b, h, h_kv, s_q, s_k, d, _scale(sm_scale, q),
-            int(causal), _launch.stream(q))
+            lse.data_ptr(), b, h, h_kv, s_q, s_k, d, sm_scale, int(causal),
+            _launch.stream(q))
     _build.check(lib, code, "flash_fwd_bf16")
     launch_counts["flash_fwd"] += 1
     return o, lse
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
-                 sm_scale: Optional[float] = None) -> torch.Tensor:
-    """dQ: the dQ kernel for CUDA tensors, the plain version for CPU."""
+def _launch_bwd_dq(q, k, v, do, lse, delta, causal: bool, sm_scale: float):
     dims = _check_shapes(q, k, v, do, lse, delta)
-    if _launch.device_kind("flash attention", q, k, v, do, lse,
-                           delta) == "cpu":
-        return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, sm_scale)
     _check_kernel_inputs((q, k, v, do), (lse, delta), dims)
     b, h, h_kv, s_q, s_k, d = dims
     lib = _library()
@@ -231,23 +284,15 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
         code = lib.flash_bwd_dq_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, h_kv,
-            s_q, s_k, d, _scale(sm_scale, q), int(causal),
-            _launch.stream(q))
+            s_q, s_k, d, sm_scale, int(causal), _launch.stream(q))
     _build.check(lib, code, "flash_bwd_dq_bf16")
     launch_counts["flash_bwd_dq"] += 1
     return dq
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
-                  sm_scale: Optional[float] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dK, dV), summed over each GQA group: the dK/dV kernel for CUDA
-    tensors, the plain version for CPU."""
+def _launch_bwd_dkv(q, k, v, do, lse, delta, causal: bool,
+                    sm_scale: float):
     dims = _check_shapes(q, k, v, do, lse, delta)
-    if _launch.device_kind("flash attention", q, k, v, do, lse,
-                           delta) == "cpu":
-        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
-                                   sm_scale)
     _check_kernel_inputs((q, k, v, do), (lse, delta), dims)
     b, h, h_kv, s_q, s_k, d = dims
     lib = _library()
@@ -257,11 +302,47 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
         code = lib.flash_bwd_dkv_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, h_kv, s_q, s_k, d, _scale(sm_scale, q), int(causal),
+            b, h, h_kv, s_q, s_k, d, sm_scale, int(causal),
             _launch.stream(q))
     _build.check(lib, code, "flash_bwd_dkv_bf16")
     launch_counts["flash_bwd_dkv"] += 1
     return dk, dv
+
+
+def flash_fwd(q, k, v, causal: bool = True,
+              sm_scale: Optional[float] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse): the forward kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    _check_shapes(q, k, v)
+    if _launch.device_kind("flash attention", q, k, v) == "cpu":
+        return flash_fwd_plain(q, k, v, causal, sm_scale)
+    return padded_fwd(_launch_fwd, q, k, v, causal, _scale(sm_scale, q))
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
+                 sm_scale: Optional[float] = None) -> torch.Tensor:
+    """dQ: the dQ kernel for CUDA tensors, the plain version for CPU."""
+    _check_shapes(q, k, v, do, lse, delta)
+    if _launch.device_kind("flash attention", q, k, v, do, lse,
+                           delta) == "cpu":
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, sm_scale)
+    return padded_bwd_dq(_launch_bwd_dq, q, k, v, do, lse, delta, causal,
+                         _scale(sm_scale, q))
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
+                  sm_scale: Optional[float] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV), summed over each GQA group: the dK/dV kernel for CUDA
+    tensors, the plain version for CPU."""
+    _check_shapes(q, k, v, do, lse, delta)
+    if _launch.device_kind("flash attention", q, k, v, do, lse,
+                           delta) == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
+                                   sm_scale)
+    return padded_bwd_dkv(_launch_bwd_dkv, q, k, v, do, lse, delta, causal,
+                          _scale(sm_scale, q))
 
 
 # ===========================================================================

@@ -177,17 +177,39 @@ class TrainLoopConfig:
     profile_num_steps: int = 3
 
 
-def model_flops_per_token(cfg, seq_len: int) -> float:
-    """obs/mfu.py's accounting for a LlamaConfig: 6·params, less a gather
-    embedding table with untied head (it does no matmul), plus the causal
-    attention term."""
+def model_flops_per_token(cfg, param_count: int, seq_len: int) -> float:
+    """obs/mfu.py's accounting for any model config, read as the JAX
+    loop reads it (``getattr`` with its fallbacks): 6·params, less a
+    gather embedding table with an untied head (it does no matmul), plus
+    the causal attention term from ``num_layers`` and ``hidden_size``.
+    A config without those names (GPT's ``n_layer``/``n_embd``) gets no
+    attention term, and BERT's is halved as if it were causal: the
+    reference's accounting, kept so both masters see one ``ModelInfo``
+    (ROADMAP Queue C11)."""
     uncounted = 0.0
-    if cfg.embed_impl == "gather" and not cfg.tie_embeddings:
-        uncounted = cfg.vocab_size * cfg.hidden_size
+    if (getattr(cfg, "embed_impl", "") == "gather"
+            and not getattr(cfg, "tie_embeddings", True)):
+        uncounted = (getattr(cfg, "vocab_size", 0)
+                     * getattr(cfg, "hidden_size", 0))
     return mfu.flops_per_token(
-        cfg.param_count(), num_layers=cfg.num_layers,
-        hidden_size=cfg.hidden_size, seq_len=seq_len,
+        param_count, num_layers=getattr(cfg, "num_layers", 0),
+        hidden_size=getattr(cfg, "hidden_size", 0), seq_len=seq_len,
         uncounted_embed_params=uncounted)
+
+
+def model_divisors(cfg) -> Tuple[int, int]:
+    """(tensor_divisor, fsdp_divisor), the planner's dim-divisibility
+    granules, read as the JAX loop reads them: a tensor way must divide
+    every tensor-sharded dim (heads, kv heads, MLP, vocabulary; their
+    gcd, 0 when the config names none), an fsdp way the embed dim."""
+    tensor_dims = [int(getattr(cfg, k, 0) or 0)
+                   for k in ("num_heads", "n_head", "num_kv_heads",
+                             "intermediate_size", "vocab_size")]
+    tensor_dims = [d for d in tensor_dims if d > 0]
+    tensor_divisor = math.gcd(*tensor_dims) if tensor_dims else 0
+    fsdp_divisor = int(getattr(cfg, "hidden_size", 0)
+                       or getattr(cfg, "n_embd", 0) or 0)
+    return tensor_divisor, fsdp_divisor
 
 
 class ElasticTrainLoop:
@@ -323,10 +345,14 @@ class ElasticTrainLoop:
             static_dir=config.profile_dir,
             static_start=config.profile_start_step,
             static_num=config.profile_num_steps)
-        # FLOPs/token of the model (obs/mfu.py); set by _report_model_info
+        # the model's sizes and FLOPs/token (obs/mfu.py): from the model
+        # built on ``meta`` when a master wants them now, else from the
+        # trained model at the first run
         self._flops_per_token = 0.0
         if self.client is not None:
-            self._report_model_info(model)
+            self._model_stats(model if isinstance(model, torch.nn.Module)
+                              else model(device="meta", seed=0))
+            self._report_model_info()
 
     # -- online parallelism re-planning (parallel/planner.py) --------------
     def _build_trainer(self, model, optimizer_factory, loss_fn, config,
@@ -568,28 +594,30 @@ class ElasticTrainLoop:
             "%s (the checkpoint-restart path still applies)", reason)
 
     # -- master reporting --------------------------------------------------
-    def _report_model_info(self, model) -> None:
-        """One-shot static stats to the master plus the FLOPs model
-        behind every MFU number (obs/mfu.py): 6·params with the causal
-        attention term, less a gather embedding table with an untied
-        head. The sizes come from the model built on ``meta``."""
+    def _model_stats(self, module: torch.nn.Module) -> None:
+        """The model's sizes and the FLOPs model behind every MFU number
+        (obs/mfu.py): the parameter count and bytes summed over the
+        module's parameters (a DTensor counts whole), as the JAX loop
+        sums its leaves."""
+        params = list(module.parameters())
+        self._param_count = sum(p.numel() for p in params)
+        self._param_bytes = sum(p.numel() * p.element_size()
+                                for p in params)
+        self._model_config = getattr(module, "config", None)
+        self._flops_per_token = model_flops_per_token(
+            self._model_config, self._param_count, self.config.seq_len)
+
+    def _report_model_info(self) -> None:
+        """One-shot static stats to the master: the sizes, the FLOPs
+        model and the planner's divisibility granules."""
         try:
-            probe = (model if isinstance(model, torch.nn.Module)
-                     else model(device="meta", seed=0))
-            params = list(probe.parameters())
-            param_count = sum(p.numel() for p in params)
-            param_bytes = sum(p.numel() * p.element_size() for p in params)
-            cfg = probe.config
-            self._flops_per_token = model_flops_per_token(
-                cfg, self.config.seq_len)
             tokens_per_step = self.global_batch * self.config.seq_len
-            # dim-divisibility granules (the JAX planner's filters)
-            tensor_dims = [d for d in (cfg.num_heads, cfg.num_kv_heads,
-                                       cfg.intermediate_size,
-                                       cfg.vocab_size) if d > 0]
+            tensor_divisor, fsdp_divisor = model_divisors(
+                self._model_config)
             cards = self.mesh.spec.total
             self.client.report_model_info(
-                param_count=param_count, param_bytes=param_bytes,
+                param_count=self._param_count,
+                param_bytes=self._param_bytes,
                 flops_per_step=self._flops_per_token * tokens_per_step,
                 batch_size=self.config.global_batch,
                 seq_len=self.config.seq_len,
@@ -597,8 +625,8 @@ class ElasticTrainLoop:
                 peak_flops_per_chip=self.peak_flops / cards,
                 chips=cards,
                 flops_source="analytic",
-                tensor_divisor=math.gcd(*tensor_dims),
-                fsdp_divisor=cfg.hidden_size,
+                tensor_divisor=tensor_divisor,
+                fsdp_divisor=fsdp_divisor,
                 effective_global_batch=self.global_batch,
             )
         except Exception:   # noqa: BLE001 — stats are advisory
@@ -858,8 +886,9 @@ class ElasticTrainLoop:
                 gc.enable()
 
     def _run(self, state, batches, start_step, sampler):
-        cfg = state.model.config
-        flops = model_flops_per_token(cfg, self.config.seq_len)
+        if not self._flops_per_token:
+            self._model_stats(state.model)
+        flops = self._flops_per_token
         tokens_per_step = self.global_batch * self.config.seq_len
         history = []
         step = start_step

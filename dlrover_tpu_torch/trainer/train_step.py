@@ -301,7 +301,13 @@ class Trainer:
                 loss = self.loss_fn(model(tokens[i]), targets[i])
                 loss.backward()
                 loss_sum += to_local(loss.detach()).float()
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        for p in model.parameters():
+            if p.grad is None:
+                # a parameter the loss does not reach (BERT's token-type
+                # table without token types): a zero gradient, as jax.grad
+                # gives it, so the optimizer still decays and counts it
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in model.parameters()]
         group = self._dp_group()
         if group is not None:
             # the parameters FSDP does not manage, and the loss
@@ -501,15 +507,22 @@ def build_trainer(
 def _check_tensor_axis(model: nn.Module, mesh: Mesh, rules) -> None:
     """Every dim the tensor axis shards must divide by it, and a GQA
     model's kv heads too: each rank's query heads must find their kv
-    heads among its own."""
+    heads among its own. A model with a fused qkv projection (GPT, BERT)
+    is refused."""
     tensor = mesh.shape[MeshAxis.TENSOR]
     if tensor == 1:
         return
     cfg = getattr(model, "config", None)
-    for attr in ("num_heads", "num_kv_heads"):
+    for attr in ("num_heads", "n_head", "num_kv_heads"):
         if cfg is not None and getattr(cfg, attr, tensor) % tensor:
             raise ValueError(f"{attr}={getattr(cfg, attr)} does not divide "
                              f"over tensor={tensor}")
+    if getattr(model, "fused_qkv", False):
+        # DTensor splits the fused kernel's columns into contiguous blocks,
+        # which are not whole q, k and v heads on each rank
+        raise NotImplementedError(
+            f"a fused qkv projection ({type(model).__name__}) over a tensor "
+            f"axis is not ported yet (ROADMAP Queue A item 10)")
     column = mesh.axis_names.index(MeshAxis.TENSOR)
     shapes = dict(model.named_parameters())
     for name, placements in mesh_placements(model, mesh, rules).items():

@@ -122,18 +122,50 @@ def test_autograd_counts_one_launch_per_kernel(cuda):
                for t in (q, k, v))
 
 
-@pytest.mark.parametrize("bad", ["f32", "head_dim_96", "strided"])
+@pytest.mark.parametrize("bad", ["f32", "head_dim_160", "strided"])
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda, bad):
     q = torch.zeros(1, 2, 64, 64, device=cuda, dtype=torch.bfloat16)
     if bad == "f32":
         q, exc = q.float(), TypeError
-    elif bad == "head_dim_96":
-        q, exc = torch.zeros(1, 2, 64, 96, device=cuda,
+    elif bad == "head_dim_160":
+        # up to 128 a head dim is padded to the kernels' (see
+        # test_padded_head_dims_match_plain); above, it raises
+        q, exc = torch.zeros(1, 2, 64, 160, device=cuda,
                              dtype=torch.bfloat16), ValueError
     else:
         q, exc = q.transpose(1, 2), ValueError
     with pytest.raises(exc):
         fa.flash_fwd(q, q, q)
+
+
+# the flash kernels as GPT-2 small (micro 12, seq 1024, causal) and
+# BERT-base (micro 32, seq 512, bidirectional) call them, head dim 64
+MODEL_SHAPES = [
+    (12, 12, 12, 1024, 1024, 64, True),
+    (32, 12, 12, 512, 512, 64, False),
+]
+# head dims the kernels reach by zero-padding to 64 or 128
+PADDED_SHAPES = [
+    (1, 4, 2, 200, 200, 16, True),
+    (2, 4, 4, 130, 130, 32, False),
+    (1, 4, 4, 256, 320, 96, True),
+]
+
+
+@pytest.mark.parametrize("shape", MODEL_SHAPES, ids=["gpt2", "bert"])
+def test_kernels_match_plain_at_the_model_shapes(cuda, shape):
+    test_kernels_match_plain(cuda, shape)
+
+
+@pytest.mark.parametrize("shape", PADDED_SHAPES, ids=["d16", "d32", "d96"])
+def test_padded_head_dims_match_plain(cuda, shape):
+    """A head dim the kernels are not built for runs them on zero-padded
+    inputs: the outputs keep the true head dim, match the plain versions
+    and each wrapper call launches its kernel once."""
+    fa.reset_launch_counts()
+    test_kernels_match_plain(cuda, shape)
+    assert fa.launch_counts == {"flash_fwd": 1, "flash_bwd_dq": 1,
+                                "flash_bwd_dkv": 1}
 
 
 # (rows, dim, dtype): ragged rows, narrow and wide rows, a dim that is

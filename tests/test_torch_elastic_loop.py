@@ -513,3 +513,175 @@ def test_drain_at_step_3_and_resume_match_jax(cpu_devices, tmp_path,
     assert start == jstart == 3
     assert metrics["step"] == 5
     np.testing.assert_allclose(metrics["loss"], jmetrics["loss"], rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the GPT and BERT families through the loop
+# ---------------------------------------------------------------------------
+
+
+class _InfoClient:
+    """The MasterClient surface both loops call at construction; keeps
+    the ``ModelInfo`` they report."""
+
+    def __init__(self):
+        self.model_info = []
+
+    def report_model_info(self, **kwargs):
+        self.model_info.append(kwargs)
+        return True
+
+    def probe_clock(self):
+        return time.time()
+
+    def get_shard_plan(self):
+        return None
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
+
+
+def _family(name):
+    from dlrover_tpu.models import bert as jbert
+    from dlrover_tpu.models import gpt as jgpt
+    from dlrover_tpu_torch.models import bert as tbert
+    from dlrover_tpu_torch.models import gpt as tgpt
+
+    if name == "gpt":
+        return (jgpt.GPT(jgpt.GPTConfig.tiny(dtype=jnp.float32)),
+                functools.partial(tgpt.GPT,
+                                  tgpt.GPTConfig.tiny(dtype=torch.float32)),
+                jllama.cross_entropy_loss, cross_entropy_loss)
+    return (jbert.Bert(jbert.BertConfig.tiny(dtype=jnp.float32)),
+            functools.partial(tbert.Bert,
+                              tbert.BertConfig.tiny(dtype=torch.float32)),
+            jbert.mlm_loss, tbert.mlm_loss)
+
+
+@pytest.mark.parametrize("family", ["gpt", "bert"])
+def test_gpt_and_bert_report_the_jax_loops_model_info(cpu_devices, family):
+    """Both loops, the same tiny config, one recording client each: the
+    same parameter count (the sum over the parameters, biases and norms
+    included), bytes, FLOPs/token (GPT's without an attention term, as
+    its config has n_layer/n_embd; BERT's halved as if causal) and the
+    planner's divisors."""
+    jmodel, tmodel, jloss, tloss = _family(family)
+    jclient, tclient = _InfoClient(), _InfoClient()
+    cfg = dict(global_batch=8, seq_len=16, max_micro_per_replica=4)
+    jl = jloop.ElasticTrainLoop(jmodel, optax.adamw(1e-3), jloss,
+                                jloop.TrainLoopConfig(**cfg),
+                                master_client=jclient,
+                                devices=cpu_devices[:1])
+    tl = ElasticTrainLoop(tmodel, _adamw, tloss, TrainLoopConfig(**cfg),
+                          master_client=tclient, device="cpu")
+    jl.close()
+    tl.close()
+    want, got = jclient.model_info[0], tclient.model_info[0]
+    for key in ("param_count", "param_bytes", "flops_per_token",
+                "flops_per_step", "tensor_divisor", "fsdp_divisor",
+                "batch_size", "seq_len", "effective_global_batch"):
+        assert got[key] == want[key], key
+    probe = tmodel(device="meta")
+    n = sum(p.numel() for p in probe.parameters())
+    assert got["param_count"] == n
+    if family == "gpt":
+        assert got["flops_per_token"] == 6.0 * n
+        assert got["fsdp_divisor"] == probe.config.n_embd
+    else:
+        c = probe.config
+        assert got["flops_per_token"] == 6.0 * n + 6.0 * c.num_layers \
+            * c.hidden_size * 16
+
+
+@pytest.mark.parametrize("family", ["gpt", "bert"])
+def test_gpt_and_bert_train_through_the_loop(family):
+    from dlrover_tpu_torch.trainer.sampler import ElasticDistributedSampler
+    from dlrover_tpu_torch.trainer.synthetic import batches, synthetic_corpus
+
+    _, tmodel, _, tloss = _family(family)
+    vocab = tmodel(device="meta").config.vocab_size
+    loop = ElasticTrainLoop(
+        tmodel, _adamw, tloss,
+        TrainLoopConfig(global_batch=8, seq_len=32, max_micro_per_replica=4,
+                        max_steps=3), device="cpu")
+    assert (loop.accum, loop.micro_global) == (2, 4)
+    sampler = ElasticDistributedSampler(dataset_size=10 ** 6, seed=0)
+    state, start = loop.restore_or_init(0, sampler)
+    data = batches(synthetic_corpus(vocab), sampler, 8, 32)
+    state, metrics = loop.run(state, data, sampler=sampler)
+    loop.close()
+    hist = metrics["history"]
+    assert metrics["step"] == state.step == len(hist) == 3
+    for rec in hist:
+        assert np.isfinite(rec["loss"]) and np.isfinite(rec["grad_norm"])
+    assert abs(hist[0]["loss"] - np.log(vocab)) < 1.0
+
+
+def test_gpt_resumes_with_the_uninterrupted_runs_bits(tmp_path):
+    """GPT tiny saves at step 2 of 4; a fresh loop restores step 2 and
+    trains steps 3-4 with the bits of the run that was never stopped."""
+    from dlrover_tpu_torch.trainer.sampler import ElasticDistributedSampler
+    from dlrover_tpu_torch.trainer.synthetic import batches, synthetic_corpus
+
+    _, tmodel, _, tloss = _family("gpt")
+
+    def run(ckpt, steps):
+        loop = ElasticTrainLoop(
+            tmodel, _adamw, tloss,
+            TrainLoopConfig(global_batch=4, seq_len=32,
+                            max_micro_per_replica=4, max_steps=steps,
+                            checkpoint_dir=ckpt, save_interval_steps=2),
+            device="cpu")
+        sampler = ElasticDistributedSampler(dataset_size=10 ** 6, seed=0)
+        state, start = loop.restore_or_init(0, sampler)
+        loop.config.max_steps = steps - start
+        data = batches(synthetic_corpus(128), sampler, 4, 32)
+        state, metrics = loop.run(state, data, start_step=start,
+                                  sampler=sampler)
+        loop.close()
+        return start, [(r["loss"], r["grad_norm"])
+                       for r in metrics["history"]], state
+
+    _, whole, whole_state = run("", 4)
+    first_start, first, _ = run(str(tmp_path / "c"), 2)
+    start, resumed, state = run(str(tmp_path / "c"), 4)
+    assert (first_start, start) == (0, 2)
+    assert first + resumed == whole
+    for (name, a), b in zip(state.model.state_dict().items(),
+                            whole_state.model.state_dict().values()):
+        assert torch.equal(a, b), name
+
+
+def test_nanogpt_example_resumes_in_process(tmp_path):
+    """The port's nanoGPT worker, called in this process on the CPU: 4
+    steps saving at 2, then a second call resumes at 4 and finishes 6.
+    Its corpus and batches are the JAX example's tokens."""
+    import importlib.util
+
+    from dlrover_tpu_torch.examples import nanogpt_train
+    from dlrover_tpu_torch.trainer.sampler import ElasticDistributedSampler
+
+    spec = importlib.util.spec_from_file_location(
+        "jax_nanogpt_train", os.path.join(REPO, "examples", "nanogpt",
+                                          "train.py"))
+    jexample = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jexample)
+    corpus = nanogpt_train.synthetic_corpus(256)
+    np.testing.assert_array_equal(corpus, jexample.synthetic_corpus(256))
+    got = nanogpt_train.batches(corpus, ElasticDistributedSampler(
+        dataset_size=10 ** 6, seed=0), 8, 64)
+    want = jexample.batches(corpus, JSampler(10 ** 6, seed=0), 8, 64)
+    for _ in range(2):
+        for a, b in zip(next(got), next(want)):
+            np.testing.assert_array_equal(a, b)
+
+    log = tmp_path / "log"
+    args = ["--device", "cpu", "--save-interval", "2", "--ckpt-dir",
+            str(tmp_path / "c"), "--log-file", str(log)]
+    assert nanogpt_train.main(args + ["--steps", "4"]) == 0
+    assert nanogpt_train.main(args + ["--steps", "6"]) == 0
+    lines = log.read_text().splitlines()
+    assert lines[0].startswith("nanogpt: start_step=0 ")
+    assert lines[1].startswith("nanogpt: done step=4 ")
+    assert lines[2].startswith("nanogpt: start_step=4 ")
+    assert lines[3].startswith("nanogpt: done step=6 ")

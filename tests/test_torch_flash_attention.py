@@ -313,3 +313,45 @@ def test_backward_wrappers_reject_bad_row_shapes():
     with pytest.raises(ValueError):
         tfa.flash_bwd_dkv(q, q, q, q, lse, lse)
 
+
+
+@pytest.mark.parametrize("dim", [16, 32, 96])
+@pytest.mark.parametrize("causal", [True, False])
+def test_padded_head_dim_is_exact(dim, causal):
+    """The kernels' path for a head dim they are not built for: inputs
+    zero-padded to the next of 64 and 128, run at the true head dim's
+    scale, outputs sliced back. Run here through the plain versions, o,
+    lse, dQ, dK and dV equal the unpadded plain results within 1e-6 (the
+    padded columns add exact zeros; the sums' f32 order may differ)."""
+    q, k, v, do = (_t(x) for x in _inputs(4, 2, 96, 80, dim=dim, seed=dim))
+    scale = 1.0 / np.sqrt(dim)
+    o, lse = tfa.padded_fwd(tfa.flash_fwd_plain, q, k, v, causal, scale)
+    po, plse = tfa.flash_fwd_plain(q, k, v, causal)
+    assert o.shape == q.shape and o.is_contiguous()
+    delta = (do * po).sum(-1, keepdim=True)
+    dq = tfa.padded_bwd_dq(tfa.flash_bwd_dq_plain, q, k, v, do, plse, delta,
+                           causal, scale)
+    dk, dv = tfa.padded_bwd_dkv(tfa.flash_bwd_dkv_plain, q, k, v, do, plse,
+                                delta, causal, scale)
+    pdq = tfa.flash_bwd_dq_plain(q, k, v, do, plse, delta, causal)
+    pdk, pdv = tfa.flash_bwd_dkv_plain(q, k, v, do, plse, delta, causal)
+    for got, want in ((o, po), (lse, plse), (dq, pdq), (dk, pdk),
+                      (dv, pdv)):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6,
+                                   rtol=1e-6)
+
+
+def test_kernel_head_dims():
+    assert [tfa.kernel_head_dim(d) for d in (8, 16, 32, 64, 65, 96, 128)] \
+        == [64, 64, 64, 64, 128, 128, 128]
+    q = torch.zeros(1, 2, 16, 160)
+    # a head dim over 128 raises on the kernel path, before any launch
+    for padded in (
+            lambda: tfa.padded_fwd(tfa.flash_fwd_plain, q, q, q, True, 1.0),
+            lambda: tfa.padded_bwd_dq(tfa.flash_bwd_dq_plain, q, q, q, q,
+                                      None, None, True, 1.0),
+            lambda: tfa.padded_bwd_dkv(tfa.flash_bwd_dkv_plain, q, q, q, q,
+                                       None, None, True, 1.0)):
+        with pytest.raises(ValueError, match="at most 128"):
+            padded()

@@ -1357,7 +1357,9 @@ class TestReplanPricing:
                                                       monkeypatch):
         """The reference's ``tools/diagnose.py`` renders the port's own
         flight record of a resize: the stamped re-plan, a fallback and
-        the migrate span."""
+        the migrate span. Only this test's records are rendered: the
+        recorder is the process's, and an earlier test's migrate (a
+        real restore's milliseconds) would add to the total."""
         import importlib.util
 
         spec = importlib.util.spec_from_file_location(
@@ -1365,6 +1367,7 @@ class TestReplanPricing:
         diagnose = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(diagnose)
         recorder = obs.get_flight_recorder()
+        t0 = time.time()
         mgr = ElasticTrainingRendezvousManager()
         mgr.update_rdzv_params(5, 5)
         mgr.set_model_profile(**PROFILE_KW)
@@ -1380,7 +1383,9 @@ class TestReplanPricing:
         monkeypatch.setenv(NodeEnv.SHARD_PLAN_FILE, str(plan_file))
         _port_loop(tmp_path, 8).close()
         obs.record_span("replan_migrate", 1.5, attrs={})
-        out = diagnose.render_replans({"events": recorder.snapshot()})
+        out = diagnose.render_replans({"events": [
+            e for e in recorder.snapshot()
+            if e.get("end_ts", e.get("ts", 0.0)) >= t0]})
         assert "replan_stamped" in out
 
         def shape(plan):
