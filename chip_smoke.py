@@ -15,10 +15,12 @@ Phases (each one's failure ends the run with a nonzero exit):
            edge shapes, at head dims 16, 32 and 96 (zero-padded by the
            wrappers to the kernels' 64 and 128) and at the GPT-2 small
            (b 12, h 12, s 1024, d 64, causal) and BERT-base (b 32, h 12,
-           s 512, d 64, bidirectional) shapes, with stated tolerances,
-           and o, dQ, dK and dV the same bits in a second call; time
-           kernel, plain version and the library yardstick (SDPA,
-           F.rms_norm) at the slice shape and at the two model shapes
+           s 512, d 64, bidirectional) and Llama-7B (b 2, h 32, s 2048, d
+           128, causal; the norms at 4096 rows of 4096) shapes, with
+           stated tolerances, and o, dQ, dK and dV the same bits in a
+           second call; time kernel, plain version and the library
+           yardstick (SDPA, F.rms_norm) at the slice shape and at the
+           three model shapes
   quant    the quantization API (quantize, dequantize, swizzled,
            quant_reduce) on a Llama-1B gate_proj gradient, int8 and int4,
            bf16 input, group 8, zero and tie groups: every output equals
@@ -208,6 +210,31 @@ Phases (each one's failure ends the run with a nonzero exit):
            dlrover_tpu_torch/examples/nanogpt_train.py --config gpt2
            (seq 1024, global batch 48, a save every 3 steps): 6 steps,
            exit 0; again to 9 steps: it resumes at step 6 and finishes 9
+  llama7b  Llama-7B on one card (LlamaConfig.llama_7b: 32 x 4096, 32
+           heads of 128, seq 2048, flash attention, fused norm, gather
+           embedding, f32 weights) at micro 2 under the factored-RMS
+           optimizer (optax.scale_by_factored_rms chained with
+           scale(-3e-4), per leaf), the JAX headline's lean branch for a
+           card over 60 GB. (a) at full width cut to 2 layers, one
+           streaming and one dense step from one init on one batch:
+           losses within 1e-3, grad norms 1e-2 relative, each
+           parameter's update 2^-5 relative L2; (b) the streaming step
+           (trainer/streaming.py) and (c) the dense step under
+           remat="nothing_saveable", at full depth through
+           ElasticTrainLoop, 2 warm-up + 5 timed steps: the loss falls,
+           prints the step median and spread, tokens/s, the loop's MFU
+           and the allocator peak; (d) the streaming trainer at 4 layers
+           through ElasticTrainLoop(trainer=...) under a JobMaster in
+           this process (a step report a step), its batches from
+           prefetch_to_device at the prefetch tuner's depth: 6 steps
+           against 3 saving at 3 and 3 more in a rebuilt loop from the
+           restore, the same losses and parameters bit for bit; prints
+           the depth gauge and the data-wait share; (e) Llama-1B as the
+           llama1b phase runs it with remat under "nothing_saveable" and
+           "dots_saveable": the peak below the llama1b run's, its step
+           beside. Every run's launches as predicted with the recompute
+           counted: flash_fwd 2 a layer and rms_fwd 4 a layer + 1 where
+           the blocks run again (streaming, remat), else 1 and 2 + 1
 
 The line before the last is the kernels' JSON record (the quantization
 pair's launches are the resume phase's checkpoint path; each kernel's
@@ -215,11 +242,13 @@ pair's launches are the resume phase's checkpoint path; each kernel's
 its resumed incarnation, its "faults_launches" the sum over the faults
 phase's three worker processes, its "observe_launches" the observe
 phase worker's, its "failover_launches" the failover phase worker's,
-its "replan_launches" the replan phase's three incarnations' and its
-"models_launches" the models phase's GPT-2 and BERT runs'; each flash
-kernel's "at_gpt2" and "at_bert" hold its times, bound and error at
-those shapes); the last line is {"ok": true, "device": {...}}. Imports
-nothing of JAX.
+its "replan_launches" the replan phase's three incarnations', its
+"models_launches" the models phase's GPT-2 and BERT runs' and its
+"llama7b_launches" the llama7b phase's streaming and dense remat runs at
+full depth; each flash kernel's "at_gpt2", "at_bert" and "at_llama7b",
+and each norm kernel's "at_llama7b" (4096 rows of 4096), hold its
+times, bound and error at those shapes); the last line is {"ok": true,
+"device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -288,13 +317,16 @@ PADDED_SHAPES = [
     dict(b=2, h=4, h_kv=4, s_q=130, s_k=130, d=32, causal=False),
     dict(b=1, h=4, h_kv=4, s_q=256, s_k=320, d=96, causal=True),
 ]
-# the flash kernels as GPT-2 small (micro 12, seq 1024, causal) and
-# BERT-base (micro 32, seq 512, bidirectional) call them
+# the flash kernels as GPT-2 small (micro 12, seq 1024, causal),
+# BERT-base (micro 32, seq 512, bidirectional) and Llama-7B (micro 2, seq
+# 2048, 32 heads of 128, causal) call them
 MODEL_SHAPES = {
     "gpt2": dict(b=12, h=12, h_kv=12, s_q=1024, s_k=1024, d=64,
                  causal=True),
     "bert": dict(b=32, h=12, h_kv=12, s_q=512, s_k=512, d=64,
                  causal=False),
+    "llama7b": dict(b=2, h=32, h_kv=32, s_q=2048, s_k=2048, d=128,
+                    causal=True),
 }
 # kernels that must not spill: the warp-specialised ones, whose consumer
 # warpgroups run at 240 registers under setmaxnreg
@@ -316,6 +348,8 @@ PARITY_GRAD_TOL = 2.0 ** -5
 # plus their own size. dw must be the same bits in two calls.
 NORM_EPS = 1e-5
 NORM_SLICE = (8 * 2048, 2048, torch.bfloat16)
+# the norms as Llama-7B calls them: micro 2 x seq 2048 rows of 4096
+NORM_MODEL_SHAPES = {"llama7b": (2 * 2048, 4096, torch.bfloat16)}
 NORM_EDGES = [
     (1000, 2048, torch.bfloat16), (4096, 64, torch.bfloat16),
     (512, 4096, torch.bfloat16), (300, 100, torch.bfloat16),
@@ -703,25 +737,18 @@ def norm_bound(name: str, rows: int, dim: int, esize: int) -> tuple:
                     + 8 * dim)
 
 
-def norm_kernels() -> list:
+def time_norm(rows: int, dim: int, dtype, errs: dict, seed: int) -> dict:
+    """Both norm kernels' card time at (rows, dim) beside their plain
+    versions', their bounds and the library yardstick, F.rms_norm with
+    the weight in x's type (its fused kernel takes one type): its
+    forward, its backward alone (dx and dw, the graph kept) and both
+    (yardsticks only, never called on the path)."""
     import torch.nn.functional as F
 
     from dlrover_tpu_torch.ops import norms
 
-    bad = []
-    for i, shape in enumerate(NORM_EDGES):
-        bad += check_norm(*shape, seed=200 + i)[1]
-    slice_errs, slice_bad = check_norm(*NORM_SLICE, seed=4)
-    if bad + slice_bad:
-        raise AssertionError(f"norm kernels beyond tolerance: "
-                             f"{bad + slice_bad}")
-
-    rows, dim, dtype = NORM_SLICE
-    x, w, dy = _norm_inputs(rows, dim, dtype, seed=5)
+    x, w, dy = _norm_inputs(rows, dim, dtype, seed)
     _, rstd = norms.rms_fwd(x, w, NORM_EPS)
-    # yardstick only, never called on the path: F.rms_norm with the weight
-    # in x's type (its fused kernel takes one type), its backward alone
-    # (dx and dw, the graph kept), and both
     xl = x.detach().clone().requires_grad_()
     wl = w.to(dtype).requires_grad_()
     lib_fwd_ms = time_ms(lambda: F.rms_norm(x, (dim,), wl, NORM_EPS))
@@ -733,25 +760,51 @@ def norm_kernels() -> list:
     timings = {
         "rms_fwd": (lambda: norms.rms_fwd(x, w, NORM_EPS),
                     lambda: norms.rms_fwd_plain(x, w, NORM_EPS), lib_fwd_ms,
-                    max(slice_errs["y"], slice_errs["rstd"])),
+                    max(errs["y"], errs["rstd"])),
         "rms_bwd": (lambda: norms.rms_bwd(x, w, rstd, dy),
                     lambda: norms.rms_bwd_plain(x, w, rstd, dy), lib_bwd_ms,
-                    max(slice_errs["dx"], slice_errs["dw"])),
+                    max(errs["dx"], errs["dw"])),
     }
-    records = []
+    out = {}
     for name, (kernel, plain, library_ms, err) in timings.items():
         ms = time_ms(kernel)
         plain_ms = time_ms(plain)
         bound_ms, bound_by = norm_bound(name, rows, dim, x.element_size())
-        records.append(record(name, ms, plain_ms, bound_ms, bound_by,
-                              library_ms, err,
-                              library_fwd_bwd_ms=lib_fwd_bwd_ms))
-        log(f"  {name}: {ms:.4f} ms (bound {bound_ms:.4f} ms by "
-            f"{bound_by}, {bound_ms / ms:.1%} of it), plain {plain_ms:.3f}"
-            f" ms, F.rms_norm {library_ms:.4f} ms, F.rms_norm fwd+bwd "
-            f"{lib_fwd_bwd_ms:.4f} ms")
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=library_ms,
+                         library_fwd_bwd_ms=lib_fwd_bwd_ms, max_abs_err=err)
+        log(f"  {name} at {(rows, dim)}: {ms:.4f} ms (bound {bound_ms:.4f} "
+            f"ms by {bound_by}, {bound_ms / ms:.1%} of it), plain "
+            f"{plain_ms:.3f} ms, F.rms_norm {library_ms:.4f} ms, F.rms_norm "
+            f"fwd+bwd {lib_fwd_bwd_ms:.4f} ms")
     del x, w, dy, rstd, xl, wl, yl
     torch.cuda.empty_cache()
+    return out
+
+
+def norm_kernels() -> list:
+    bad = []
+    for i, shape in enumerate(NORM_EDGES):
+        bad += check_norm(*shape, seed=200 + i)[1]
+    slice_errs, slice_bad = check_norm(*NORM_SLICE, seed=4)
+    model_errs = {}
+    for i, (model, shape) in enumerate(NORM_MODEL_SHAPES.items()):
+        model_errs[model], model_bad = check_norm(*shape, seed=40 + i)
+        bad += model_bad
+    if bad + slice_bad:
+        raise AssertionError(f"norm kernels beyond tolerance: "
+                             f"{bad + slice_bad}")
+    times = time_norm(*NORM_SLICE, slice_errs, seed=5)
+    at_models = {model: time_norm(*shape, model_errs[model], seed=50 + i)
+                 for i, (model, shape) in enumerate(NORM_MODEL_SHAPES.items())}
+    records = []
+    for name, t in times.items():
+        records.append(record(
+            name, t["ms"], t["plain_ms"], t["bound_ms"], t["bound_by"],
+            t["library_ms"], t["max_abs_err"],
+            library_fwd_bwd_ms=t["library_fwd_bwd_ms"],
+            **{f"at_{model}": at_models[model][name]
+               for model in NORM_MODEL_SHAPES}))
     return records
 
 
@@ -910,12 +963,15 @@ def _adamw(params):
 
 def _train(cfg, global_batch: int, steps: int, max_micro: int,
            profile_out: str = "", model_cls=None, loss_fn=None,
-           seq: int = 0, same_targets: bool = False):
+           seq: int = 0, same_targets: bool = False,
+           optimizer_factory=None, trainer=None):
     """Train ``model_cls(cfg)`` (Llama by default, with its loss)
     through ElasticTrainLoop on the synthetic corpus at ``seq`` (the
     config's ``max_seq_len`` by default) from seed 0: (the history, the
     kernel launches of the run). ``same_targets`` scores each token
-    against itself (a masked LM's dense targets)."""
+    against itself (a masked LM's dense targets). AdamW unless
+    ``optimizer_factory``; ``trainer`` (the streaming one) takes the
+    dense trainer's place."""
     from dlrover_tpu_torch.models.llama import Llama, cross_entropy_loss
     from dlrover_tpu_torch.trainer.elastic_loop import (
         ElasticTrainLoop,
@@ -926,11 +982,11 @@ def _train(cfg, global_batch: int, steps: int, max_micro: int,
 
     seq = seq or cfg.max_seq_len
     loop = ElasticTrainLoop(
-        functools.partial(model_cls or Llama, cfg), _adamw,
-        loss_fn or cross_entropy_loss,
+        functools.partial(model_cls or Llama, cfg),
+        optimizer_factory or _adamw, loss_fn or cross_entropy_loss,
         TrainLoopConfig(global_batch=global_batch, seq_len=seq,
                         max_micro_per_replica=max_micro, max_steps=steps,
-                        report_interval_steps=0))
+                        report_interval_steps=0), trainer=trainer)
     sampler = ElasticDistributedSampler(dataset_size=10 ** 6, shuffle=True,
                                         seed=0)
     state, start = loop.restore_or_init(0, sampler)
@@ -1026,19 +1082,26 @@ def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
     return ((got - want).norm() / want.norm()).item()
 
 
-def _expected_launches(cfg, micro_steps: int) -> dict:
+def _expected_launches(cfg, micro_steps: int, recompute: bool = False
+                       ) -> dict:
     """Each kernel's launches over ``micro_steps`` forward+backward passes
     of ``cfg``: a flash kernel once a layer, an RMSNorm kernel at each of
     a Llama's 2·L+1 norms, nothing of the quantization pair (GPT and
     BERT normalise with LayerNorm, plain PyTorch as in the JAX
-    package)."""
+    package). Where each block's forward runs again in the backward
+    (``cfg.remat`` under any policy, or ``recompute``: the streaming
+    step), the forward kernels of the blocks launch twice: flash_fwd
+    2·L, rms_fwd 4·L+1 (the final norm once)."""
     layers = getattr(cfg, "num_layers", 0) or cfg.n_layer
+    again = recompute or getattr(cfg, "remat", False)
     flash = layers * micro_steps if cfg.attn_impl == "flash" else 0
     norm = ((2 * layers + 1) * micro_steps
             if getattr(cfg, "norm_impl", "") == "fused" else 0)
-    return {"flash_fwd": flash, "flash_bwd_dq": flash, "flash_bwd_dkv": flash,
-            "rms_fwd": norm, "rms_bwd": norm, "quantize": 0,
-            "dequantize": 0}
+    return {"flash_fwd": 2 * flash if again else flash,
+            "flash_bwd_dq": flash, "flash_bwd_dkv": flash,
+            "rms_fwd": norm + 2 * layers * micro_steps
+            if again and norm else norm,
+            "rms_bwd": norm, "quantize": 0, "dequantize": 0}
 
 
 def _compare_runs(what: str, a: str, b: str, losses, grad_norms, grads,
@@ -4013,21 +4076,391 @@ def phase_models(smi: str, profile: str = "") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# llama7b: the streaming step, rematerialization, the per-leaf optimizer
+# and the prefetch tuner at Llama-7B
+# ---------------------------------------------------------------------------
+
+# the JAX headline's lean branch for a card over 60 GB (bench.py:386-411):
+# Llama-7B, micro 2, seq 2048, optax.scale_by_factored_rms chained with
+# scale(-3e-4)
+LLAMA7B_MICRO, LLAMA7B_SEQ, LLAMA7B_LR = 2, 2048, 3e-4
+LLAMA7B_WARMUP, LLAMA7B_TIMED = 2, 5
+# the streaming step against the dense one at full width, cut to 2 layers:
+# one step each from one init on one batch. The forward is the same
+# kernels on the same inputs; the head's loss is summed over 512-token
+# chunks in one and taken whole in the other, so the loss and the head's
+# products differ in f32 and bf16 rounding and so does every gradient
+# below them. Held: the losses within 1e-3, the grad norms within the
+# parity phase's 1e-2 relative, and each parameter's update (new − old,
+# a factored-RMS step of size ≈ lr) within 2^-5 relative L2
+STREAM_LOSS_TOL = 1e-3
+STREAM_UPDATE_TOL = 2.0 ** -5
+LLAMA7B_PARITY_LAYERS = 2
+# the streaming trainer under the loop: full width cut to 4 layers, 6
+# uninterrupted steps against 3 saving at 3, then 3 more from the restore
+LLAMA7B_LOOP_LAYERS, LLAMA7B_LOOP_STEPS, LLAMA7B_LOOP_SAVE = 4, 6, 3
+# Llama-1B under remat beside the llama1b phase's run: the policies
+REMAT_POLICIES = ("nothing_saveable", "dots_saveable")
+
+
+def llama7b_config(layers: int = 0, **kw):
+    """``LlamaConfig.llama_7b`` in the JAX headline configuration (flash
+    attention, fused norm, gather embedding, f32 weights, bf16
+    activations), ``layers`` deep when given."""
+    import dataclasses
+
+    from dlrover_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig.llama_7b(max_seq_len=LLAMA7B_SEQ, attn_impl="flash",
+                               norm_impl="fused", embed_impl="gather", **kw)
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+
+
+def _factored_rms():
+    """(the per-leaf transform, the dense optimizer factory over it)."""
+    from dlrover_tpu_torch.optim import LeafOptimizer, factored_rms
+
+    transform = factored_rms(LLAMA7B_LR)
+    return transform, functools.partial(LeafOptimizer, transform=transform)
+
+
+def _streaming_trainer(cfg):
+    from dlrover_tpu_torch.trainer.streaming import build_streaming_trainer
+
+    return build_streaming_trainer(cfg, _factored_rms()[0], LLAMA7B_MICRO)
+
+
+def _stream_parity() -> dict:
+    """(a) One streaming and one dense step at full width, 2 layers, from
+    one init on one batch: losses, grad norms and every parameter's
+    update within the STREAM_* limits; each step's launches as
+    predicted."""
+    import numpy as np
+
+    from dlrover_tpu_torch.models.llama import Llama, cross_entropy_loss
+    from dlrover_tpu_torch.trainer.train_step import build_trainer
+
+    cfg = llama7b_config(LLAMA7B_PARITY_LAYERS)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    tokens, targets = (torch.randint(0, cfg.vocab_size,
+                                     (1, LLAMA7B_MICRO, LLAMA7B_SEQ),
+                                     generator=g, device="cuda")
+                       for _ in range(2))
+    trainers = {
+        "streaming": _streaming_trainer(cfg),
+        "dense": build_trainer(
+            functools.partial(Llama, cfg), _factored_rms()[1], None,
+            np.zeros((LLAMA7B_MICRO, LLAMA7B_SEQ)), cross_entropy_loss,
+            micro_batch=LLAMA7B_MICRO)}
+    runs = {}
+    for name, trainer in trainers.items():
+        state = trainer.init(0)
+        before = {n: p.detach().clone()
+                  for n, p in state.model.named_parameters()}
+        reset_counts()
+        state, metrics = trainer.step(state, tokens, targets)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        want = _expected_launches(cfg, 1, recompute=name == "streaming")
+        if launches != want:
+            raise AssertionError(f"llama7b parity {name} launches "
+                                 f"{launches}, want {want}")
+        runs[name] = (float(metrics["loss"]), float(metrics["grad_norm"]),
+                      {n: (p.detach() - before[n]).float()
+                       for n, p in state.model.named_parameters()})
+        del state, before
+        _free_memory()
+    (s_loss, s_norm, s_upd), (d_loss, d_norm, d_upd) = (
+        runs["streaming"], runs["dense"])
+    errs = {n: _rel_l2(s_upd[n], d_upd[n]) for n in d_upd}
+    worst = sorted(errs, key=errs.get, reverse=True)
+    out = {"loss": [s_loss, d_loss], "grad_norm": [s_norm, d_norm],
+           "loss_diff": abs(s_loss - d_loss),
+           "grad_norm_rel_diff": abs(s_norm - d_norm) / d_norm,
+           "worst_update_rel_l2": {n: errs[n] for n in worst[:4]}}
+    log(f"llama7b parity (streaming vs dense, {LLAMA7B_PARITY_LAYERS} "
+        f"layers): {json.dumps(out)} (limits: loss {STREAM_LOSS_TOL}, grad "
+        f"norm {PARITY_GRAD_NORM_TOL}, update {STREAM_UPDATE_TOL})")
+    if not out["loss_diff"] <= STREAM_LOSS_TOL:
+        raise AssertionError("llama7b parity: losses disagree")
+    if not out["grad_norm_rel_diff"] <= PARITY_GRAD_NORM_TOL:
+        raise AssertionError("llama7b parity: grad norms disagree")
+    if not errs[worst[0]] <= STREAM_UPDATE_TOL:
+        raise AssertionError(f"llama7b parity: updates disagree: {worst[0]} "
+                             f"{errs[worst[0]]}")
+    del runs, s_upd, d_upd
+    _free_memory()
+    return out
+
+
+def _llama7b_run(kind: str, smi: str, profile_out: str = "") -> tuple:
+    """(b) the streaming step or (c) the dense step under
+    remat="nothing_saveable", at Llama-7B's full width and depth through
+    ElasticTrainLoop, 2 warm-up + 5 timed steps: (result, launches); with
+    ``profile_out``, one more step profiled after them."""
+    streaming = kind == "streaming"
+    cfg = (llama7b_config() if streaming else
+           llama7b_config(remat=True, remat_policy="nothing_saveable"))
+    steps = LLAMA7B_WARMUP + LLAMA7B_TIMED
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    hist, launches = _train(
+        cfg, LLAMA7B_MICRO, steps, LLAMA7B_MICRO, profile_out=profile_out,
+        optimizer_factory=_factored_rms()[1],
+        trainer=_streaming_trainer(cfg) if streaming else None)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    for r in hist:
+        log(f"  llama7b {kind} step {r['step']}: loss {r['loss']:.4f} "
+            f"grad_norm {r['grad_norm']:.4f} {r['step_time_s'] * 1e3:.1f} ms")
+    if len(hist) != steps:
+        raise AssertionError(f"llama7b {kind}: ran {len(hist)} steps")
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+               for r in hist):
+        raise AssertionError(f"llama7b {kind}: non-finite loss or grad norm")
+    if abs(hist[0]["loss"] - math.log(cfg.vocab_size)) > 1.0:
+        raise AssertionError(f"llama7b {kind}: first loss {hist[0]['loss']} "
+                             f"is not near ln(vocab)")
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        raise AssertionError(f"llama7b {kind}: the loss did not fall: "
+                             f"{[r['loss'] for r in hist]}")
+    want = _expected_launches(cfg, steps, recompute=streaming)
+    if launches != want:
+        raise AssertionError(f"llama7b {kind}: launches {launches}, want "
+                             f"{want} ({steps} steps)")
+    timed = hist[LLAMA7B_WARMUP:]
+    step_ms = [r["step_time_s"] * 1e3 for r in timed]
+    result = {"kind": kind, "params": cfg.param_count(),
+              "layers": cfg.num_layers, "micro_batch": LLAMA7B_MICRO,
+              "seq": LLAMA7B_SEQ, "remat": cfg.remat,
+              "step_median_ms": statistics.median(step_ms),
+              "step_min_ms": min(step_ms), "step_max_ms": max(step_ms),
+              "tokens_per_s": LLAMA7B_MICRO * LLAMA7B_SEQ
+              / (statistics.mean(step_ms) / 1e3),
+              "mfu": statistics.mean(r["mfu"] for r in timed),
+              "peak_mem_gb": peak_gb, "losses": [r["loss"] for r in hist],
+              "launches_per_step": {n: c / steps
+                                    for n, c in launches.items()},
+              "seconds": time.monotonic() - t0}
+    log(f"llama7b {kind}: {json.dumps(result)}")
+    log(f"llama7b {kind} on {smi}: step median "
+        f"{result['step_median_ms']:.1f} ms (min {result['step_min_ms']:.1f},"
+        f" max {result['step_max_ms']:.1f}), {result['tokens_per_s']:.0f} "
+        f"tokens/s, MFU {result['mfu']:.4f} as the loop reports it, "
+        f"allocator peak {peak_gb:.2f} GiB")
+    _free_memory()
+    return result, launches
+
+
+def _streaming_loop_resume(smi: str) -> dict:
+    """(d) the streaming trainer through ElasticTrainLoop(trainer=...) at
+    full width, 4 layers, under a JobMaster in this process (a step
+    report a step, so the prefetch tuner observes every window), batches
+    from prefetch_to_device at the tuner's depth: 6 uninterrupted steps,
+    against 3 saving at 3 and 3 more in a rebuilt loop from the restore;
+    the same losses and final parameters, bit for bit."""
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch import obs
+    from dlrover_tpu_torch.agent.master_client import MasterClient
+    from dlrover_tpu_torch.data.prefetch import prefetch_to_device
+    from dlrover_tpu_torch.master.job_master import JobMaster
+    from dlrover_tpu_torch.trainer.elastic_loop import (
+        ElasticTrainLoop,
+        TrainLoopConfig,
+    )
+    from dlrover_tpu_torch.trainer.sampler import ElasticDistributedSampler
+    from dlrover_tpu_torch.trainer.synthetic import batches, synthetic_corpus
+
+    cfg = llama7b_config(LLAMA7B_LOOP_LAYERS)
+    master = JobMaster(host="127.0.0.1")
+    master.prepare()
+    client = MasterClient(master.addr, node_id=0, timeout_s=30.0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_7b_")
+    corpus = synthetic_corpus(cfg.vocab_size)
+    out = {"launches": {}}
+
+    def run(tag: str, ckpt: str, steps: int):
+        loop = ElasticTrainLoop(
+            None, None, None,
+            TrainLoopConfig(global_batch=LLAMA7B_MICRO, seq_len=LLAMA7B_SEQ,
+                            max_micro_per_replica=LLAMA7B_MICRO,
+                            max_steps=steps, checkpoint_dir=ckpt,
+                            save_interval_steps=LLAMA7B_LOOP_SAVE,
+                            report_interval_steps=1),
+            master_client=client, trainer=_streaming_trainer(cfg))
+        tuner = loop.prefetch_tuner
+        if tuner is None:
+            raise AssertionError("the loop built no prefetch tuner")
+        # each report window's (data-wait share, depth) as the tuner
+        # takes it
+        windows, observe = [], tuner.observe
+
+        def logged(wait):
+            depth = observe(wait)
+            windows.append((round(wait, 4), depth))
+            return depth
+
+        tuner.observe = logged
+        sampler = ElasticDistributedSampler(dataset_size=10 ** 6, seed=0)
+        state, start = loop.restore_or_init(0, sampler)
+        reset_counts()
+        state, metrics = loop.run(
+            state, prefetch_to_device(
+                batches(corpus, sampler, LLAMA7B_MICRO, LLAMA7B_SEQ),
+                depth=tuner.depth_fn),
+            start_step=start, sampler=sampler)
+        launches = read_counts()
+        loop.close()
+        hist = metrics["history"]
+        want = _expected_launches(cfg, len(hist), recompute=True)
+        if len(hist) != steps or launches != want:
+            raise AssertionError(f"llama7b loop {tag}: {len(hist)} steps, "
+                                 f"launches {launches}, want {want}")
+        gauge = [float(line.split()[1]) for line in
+                 obs.get_registry().render().splitlines()
+                 if line.startswith("dlrover_tpu_prefetch_depth ")]
+        if gauge != [tuner.depth] or len(windows) != steps:
+            raise AssertionError(f"llama7b loop {tag}: depth gauge {gauge}, "
+                                 f"tuner depth {tuner.depth}, "
+                                 f"{len(windows)} windows observed")
+        wait = loop.timeline.window_stats(len(hist)).get(
+            "data_wait_fraction", -1.0)
+        log(f"llama7b loop {tag}: start {start} ({loop.last_restore_source})"
+            f", losses {[r['loss'] for r in hist]}, prefetch depth gauge "
+            f"{gauge}; (data-wait share, depth) a report window {windows};"
+            f" data-wait share {wait:.4f} over the run's {len(hist)} steps "
+            f"(the first pull builds the sampler's order), step median "
+            f"{statistics.median(r['step_time_s'] for r in hist) * 1e3:.1f} "
+            f"ms ({smi})")
+        out["launches"][tag] = launches
+        out[tag] = {"start": start, "source": loop.last_restore_source,
+                    "losses": [r["loss"] for r in hist],
+                    "prefetch_depth": tuner.depth, "windows": windows,
+                    "data_wait_fraction": wait}
+        return state
+
+    try:
+        t0 = time.monotonic()
+        whole = run("uninterrupted", "", LLAMA7B_LOOP_STEPS)
+        run("first", tmp, LLAMA7B_LOOP_SAVE)
+        resumed = run("resumed", tmp, LLAMA7B_LOOP_STEPS - LLAMA7B_LOOP_SAVE)
+        if out["resumed"]["start"] != LLAMA7B_LOOP_SAVE or \
+                out["resumed"]["source"] != "checkpoint":
+            raise AssertionError(f"llama7b loop: resumed at "
+                                 f"{out['resumed']['start']} from "
+                                 f"{out['resumed']['source']}")
+        if out["first"]["losses"] + out["resumed"]["losses"] != \
+                out["uninterrupted"]["losses"]:
+            raise AssertionError("llama7b loop: the resumed losses are not "
+                                 "the uninterrupted run's bits")
+        differ = [n for (n, p), q in zip(whole.model.named_parameters(),
+                                         resumed.model.parameters())
+                  if not torch.equal(p, q)]
+        if differ:
+            raise AssertionError(f"llama7b loop: parameters differ from the "
+                                 f"uninterrupted run's: {differ[:4]}")
+        out["seconds"] = time.monotonic() - t0
+        log(f"llama7b loop: the resume trained the uninterrupted run's bits "
+            f"(losses and {sum(1 for _ in whole.model.parameters())} "
+            f"parameters) in {out['seconds']:.1f} s")
+    finally:
+        client.close()
+        master.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+        _free_memory()
+    return out
+
+
+def _remat_llama1b(smi: str, llama1b: dict) -> dict:
+    """(e) the llama1b phase's run with remat under each of
+    REMAT_POLICIES: peak and step beside the no-remat run's of this call
+    (run here when the llama1b phase did not run)."""
+    import dataclasses
+
+    from dlrover_tpu_torch.models.llama import LlamaConfig
+
+    if not llama1b:
+        _, llama1b = phase_llama1b()
+        _free_memory()
+    base = LlamaConfig.llama_1b(max_seq_len=2048, attn_impl="flash",
+                                norm_impl="fused", embed_impl="gather")
+    out = {"none": {"peak_mem_gb": llama1b["peak_mem_gb"],
+                    "step_median_ms": llama1b["step_median_ms"]}}
+    for policy in REMAT_POLICIES:
+        cfg = dataclasses.replace(base, remat=True, remat_policy=policy)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        hist, launches = _train(cfg, global_batch=8, steps=7, max_micro=8)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = _expected_launches(cfg, len(hist))
+        if launches != want:
+            raise AssertionError(f"llama1b remat {policy}: launches "
+                                 f"{launches}, want {want}")
+        if not all(math.isfinite(r["loss"]) for r in hist):
+            raise AssertionError(f"llama1b remat {policy}: non-finite loss")
+        step_ms = statistics.median(r["step_time_s"] for r in hist[2:]) * 1e3
+        out[policy] = {"peak_mem_gb": peak_gb, "step_median_ms": step_ms,
+                       "losses": [r["loss"] for r in hist]}
+        log(f"llama1b remat {policy} on {smi}: peak {peak_gb:.2f} GiB "
+            f"(no remat {out['none']['peak_mem_gb']:.2f}), step median "
+            f"{step_ms:.1f} ms (no remat "
+            f"{out['none']['step_median_ms']:.1f})")
+        _free_memory()
+    if not out["nothing_saveable"]["peak_mem_gb"] < out["none"]["peak_mem_gb"]:
+        raise AssertionError("llama1b: remat did not lower the peak")
+    return out
+
+
+def phase_llama7b(smi: str, llama1b: dict, profile: str = "") -> dict:
+    """Llama-7B on one card: (a) streaming against dense at 2 layers, (b)
+    the streaming step and (c) the dense step under remat at full depth
+    (with ``profile``, one more step of each profiled into
+    ``<profile>.llama7b_<kind>``), (d) the streaming trainer's save and
+    resume under the loop with the prefetch tuner, (e) remat on
+    Llama-1B."""
+    t0 = time.monotonic()
+    _free_memory()
+    out = {"seconds": {}}
+    mark = time.monotonic()
+    out["parity"] = _stream_parity()
+    out["seconds"]["parity"] = time.monotonic() - mark
+    out["launches"] = {}
+    for kind in ("streaming", "dense_remat"):
+        mark = time.monotonic()
+        out[kind], out["launches"][kind] = _llama7b_run(
+            kind, smi, f"{profile}.llama7b_{kind}" if profile else "")
+        out["seconds"][kind] = time.monotonic() - mark
+    mark = time.monotonic()
+    out["loop"] = _streaming_loop_resume(smi)
+    out["seconds"]["loop"] = time.monotonic() - mark
+    mark = time.monotonic()
+    out["remat_llama1b"] = _remat_llama1b(smi, llama1b)
+    out["seconds"]["remat_llama1b"] = time.monotonic() - mark
+    out["seconds"]["phase"] = time.monotonic() - t0
+    log(f"llama7b: seconds by part {json.dumps(out['seconds'])}")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases",
                         default="kernels,quant,parity,llama1b,resume,"
                                 "standalone,faults,observe,failover,replan,"
-                                "models",
+                                "models,llama7b",
                         help="comma-separated subset of kernels, quant, "
                              "parity, llama1b, resume, standalone, faults, "
-                             "observe, failover, replan, models (device "
-                             "and build always run)")
+                             "observe, failover, replan, models, llama7b "
+                             "(device and build always run)")
     parser.add_argument("--profile", default="",
                         help="after the Llama-1B run, profile one more "
                              "step and write the kernel table here (and "
-                             "after GPT-2's and BERT's runs, to this path "
-                             "with .gpt2 and .bert added)")
+                             "after GPT-2's and BERT's runs, and Llama-7B's "
+                             "streaming and dense remat runs, to this path "
+                             "with .gpt2, .bert, .llama7b_streaming and "
+                             ".llama7b_dense_remat added)")
     args = parser.parse_args(argv)
     phases = args.phases.split(",")
     # a SIGTERM (a time limit) unwinds through the phases' ``finally``
@@ -4090,6 +4523,13 @@ def main(argv=None) -> int:
         models = phase_models(smi, args.profile)
         for rec in train_records + quant_records:
             rec["models_launches"] = models["launches"][rec["name"]]
+    if "llama7b" in phases:
+        # the streaming and the dense remat run at full depth
+        llama7b = phase_llama7b(smi, llama1b, args.profile)
+        for rec in train_records + quant_records:
+            rec["llama7b_launches"] = {
+                kind: counts[rec["name"]]
+                for kind, counts in llama7b["launches"].items()}
     records = train_records + quant_records
     log(f"elapsed {time.monotonic() - t0:.1f} s")
     print(json.dumps({"kernels": records}))

@@ -189,6 +189,14 @@ class Context:
         )
         # step-hang watchdog (trainer/watchdog.py); 0 = disabled
         self.hang_watchdog_s: float = DefaultValues.HANG_WATCHDOG_S
+        # the input pipeline's auto-tune (data/prefetch.py): the prefetch
+        # depth from the timeline's data-wait share
+        self.prefetch_autotune: bool = DefaultValues.PREFETCH_AUTOTUNE
+        self.prefetch_depth_min: int = DefaultValues.PREFETCH_DEPTH_MIN
+        self.prefetch_depth_max: int = DefaultValues.PREFETCH_DEPTH_MAX
+        self.data_wait_tune_fraction: float = (
+            DefaultValues.DATA_WAIT_TUNE_FRACTION
+        )
         self._load_env_overrides()
 
     def _load_env_overrides(self) -> None:

@@ -220,6 +220,11 @@ class DefaultValues:
     STRAGGLER_CLEAR_WINDOWS = 2
     # data-wait fraction above which a worker is input-bound
     DIAGNOSIS_DATA_WAIT_FRACTION = 0.5
+    # the data-wait-driven device-prefetch depth (data/prefetch.py)
+    PREFETCH_AUTOTUNE = True
+    PREFETCH_DEPTH_MIN = 1
+    PREFETCH_DEPTH_MAX = 8
+    DATA_WAIT_TUNE_FRACTION = 0.2
     # per-card HBM used/total % that raises an hbm_pressure report
     DIAGNOSIS_HBM_PRESSURE_PCT = 92.0
     # throughput collapse: windowed MFU (or steps/s) under ratio × the

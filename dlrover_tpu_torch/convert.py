@@ -8,14 +8,22 @@ port's ``state_dict`` key with dots, and tables such as ``wte`` or
 ``word_embed`` keep their names. Dense kernels keep the ``(in, out)``
 layout in both, so values cross unchanged. The tree is given as nested
 dicts of numpy arrays (unbox flax's partitioning metadata first).
+
+``streaming_state_from_jax`` carries the JAX package's streaming state
+(``trainer/streaming.py``: every block leaf stacked over the layers, the
+optimizer's state stacked alike) to the port's per-layer parameters and
+each one's factored-RMS state.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+
+# the per-leaf state of the factored-RMS optimizer (optim/factored.py)
+FACTORED_KEYS = ("v_row", "v_col", "v")
 
 
 def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -45,3 +53,65 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]
             node = node.setdefault(name, {})
         node[leaf] = tensor.detach().cpu().numpy()
     return tree
+
+
+def _flat(tree: Any, prefix: str = "") -> Dict[str, Any]:
+    """Nested mappings → {dotted path: leaf}; a bare leaf is ``prefix``."""
+    if not isinstance(tree, Mapping):
+        return {prefix: tree}
+    out: Dict[str, Any] = {}
+    for name, child in tree.items():
+        out.update(_flat(child, f"{prefix}.{name}" if prefix else name))
+    return out
+
+
+def _factored(opt_state: Any) -> Any:
+    """The ``scale_by_factored_rms`` part of an optax chain's state (the
+    part with ``v_row``)."""
+    parts = [opt_state] if hasattr(opt_state, "v_row") else list(opt_state)
+    for part in parts:
+        if hasattr(part, "v_row"):
+            return part
+    raise ValueError("the optimizer state holds no scale_by_factored_rms "
+                     "state")
+
+
+def _tensor(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, copy=True))
+
+
+def streaming_state_from_jax(state: Any) -> Tuple[
+        int, Dict[str, torch.Tensor], Dict[str, Dict[str, torch.Tensor]]]:
+    """A JAX ``StreamingState`` (its leaves numpy arrays, its optimizer
+    ``optax.chain(scale_by_factored_rms(), scale(-lr))``) → (step, the
+    parameters by the port's names, each parameter's factored-RMS state
+    ``{"count", "v_row", "v_col", "v"}`` by the same names): layer i of
+    a stacked block leaf ``attn.q_proj.kernel`` is ``layer_{i}.attn
+    .q_proj.kernel``, the tables ``embed`` and ``lm_head``, the final
+    norm ``final_norm.weight``."""
+    params: Dict[str, torch.Tensor] = {}
+    opt: Dict[str, Dict[str, torch.Tensor]] = {}
+
+    def leaf_state(factored, path: str, index=None) -> Dict[str, Any]:
+        count = np.asarray(factored.count)
+        out = {"count": _tensor(count if index is None else count[index])}
+        for key in FACTORED_KEYS:
+            value = _flat(getattr(factored, key))[path]
+            out[key] = _tensor(value if index is None else value[index])
+        return out
+
+    blocks = _factored(state.block_opt)
+    for path, leaf in _flat(state.block_params).items():
+        for i in range(np.shape(leaf)[0]):
+            params[f"layer_{i}.{path}"] = _tensor(np.asarray(leaf)[i])
+            opt[f"layer_{i}.{path}"] = leaf_state(blocks, path, i)
+    singles = [("embed", state.embed, state.embed_opt, ""),
+               ("lm_head", state.head, state.head_opt, "")]
+    singles += [(f"final_norm.{path}", leaf, state.norm_opt, path)
+                for path, leaf in _flat(state.norm_params).items()]
+    for name, value, opt_state, path in singles:
+        if value is None:          # a tied head
+            continue
+        params[name] = _tensor(value)
+        opt[name] = leaf_state(_factored(opt_state), path)
+    return int(np.asarray(state.step)), params, opt

@@ -32,6 +32,7 @@ from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.models.layers import (
     Dense,
     LayerNorm,
+    call_block,
     check_options,
     gelu,
     normal_param,
@@ -55,7 +56,8 @@ class BertConfig:
     # are not ported yet and raise
     attn_impl: str = "flash"
     embed_impl: str = "gather"
-    remat: bool = False              # not ported yet: True raises
+    # rematerialize each block under remat_policy (ops/remat.py)
+    remat: bool = False
     remat_policy: str = "nothing_saveable"
 
     @classmethod
@@ -161,7 +163,7 @@ class Bert(nn.Module):
             x = x + self.type_embed.to(cfg.dtype)[token_types]
         x = self.embed_norm(x)
         for layer in range(cfg.num_layers):
-            x = getattr(self, f"layer_{layer}")(x)
+            x = call_block(getattr(self, f"layer_{layer}"), cfg, x)
         x = self.mlm_norm(gelu(self.mlm_transform(x)))
         return torch.matmul(x, self.word_embed.to(cfg.dtype).t()).float()
 

@@ -28,6 +28,7 @@ from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.models.layers import (
     Dense,
     LayerNorm,
+    call_block,
     check_options,
     gelu,
     normal_param,
@@ -51,7 +52,8 @@ class GPTConfig:
     # raise
     attn_impl: str = "flash"
     embed_impl: str = "gather"
-    remat: bool = False              # not ported yet: True raises
+    # rematerialize each block under remat_policy (ops/remat.py)
+    remat: bool = False
     remat_policy: str = "nothing_saveable"
 
     @classmethod
@@ -134,7 +136,7 @@ class GPT(nn.Module):
         x = (embed_lookup(self.wte, tokens, cfg)
              + self.wpe[:seq].to(cfg.dtype))
         for layer in range(cfg.n_layer):
-            x = getattr(self, f"block_{layer}")(x)
+            x = call_block(getattr(self, f"block_{layer}"), cfg, x)
         x = self.ln_f(x)
         # weight-tied LM head (as nanoGPT)
         return torch.matmul(x, self.wte.to(cfg.dtype).t()).float()

@@ -17,7 +17,8 @@ Counterparts of flax's ``nn.Dense`` with a bias, ``nn.LayerNorm`` and
 
 Parameters carry logical axes (``param_axes``) as the flax modules box
 them; LayerNorm's carry none, so they are replicated on every mesh, as
-flax leaves them unboxed.
+flax leaves them unboxed. ``call_block`` runs a block under the
+config's rematerialization policy.
 """
 
 from __future__ import annotations
@@ -26,19 +27,30 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dlrover_tpu_torch.ops.remat import remat_call, resolve_remat_policy
+
 
 def check_options(cfg) -> None:
-    """The model options every family refuses until they are ported."""
+    """The model options every family refuses until they are ported,
+    and a remat policy no name of ``ops/remat.py`` gives."""
     if cfg.attn_impl not in ("flash", "reference"):
         raise NotImplementedError(
             f"attn_impl={cfg.attn_impl!r} is not ported yet (ROADMAP "
             f"Queue A item 8, parallel/ring_attention.py)")
     if cfg.remat:
-        raise NotImplementedError(
-            "remat=True is not ported yet (ROADMAP Queue A item 11, "
-            "ops/remat.py)")
+        # an unknown policy name raises ValueError here, at the build
+        resolve_remat_policy(cfg.remat_policy)
     if cfg.embed_impl not in ("gather", "onehot"):
         raise ValueError(f"unknown embed_impl {cfg.embed_impl!r}")
+
+
+def call_block(block: nn.Module, cfg, *args):
+    """``block(*args)``, its activations rematerialized under
+    ``cfg.remat_policy`` when ``cfg.remat`` (``ops/remat.py``), as the
+    JAX families wrap each block in ``nn.remat``."""
+    if cfg.remat:
+        return remat_call(block, cfg.remat_policy, *args)
+    return block(*args)
 
 
 def normal_param(shape, std, cfg, device, generator) -> nn.Parameter:

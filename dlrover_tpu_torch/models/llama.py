@@ -34,7 +34,11 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Replicate
 
 from dlrover_tpu_torch.common.device import resolve_device
-from dlrover_tpu_torch.models.layers import check_options, normal_param
+from dlrover_tpu_torch.models.layers import (
+    call_block,
+    check_options,
+    normal_param,
+)
 from dlrover_tpu_torch.ops.flash_attention import (
     flash_attention,
     reference_attention,
@@ -62,7 +66,8 @@ class LlamaConfig:
     # both ("onehot" is the reference's workaround for TPU SPMD).
     embed_impl: str = "onehot"
     norm_impl: str = "fused"         # "fused" | "reference"
-    remat: bool = False              # not ported yet: True raises
+    # rematerialize each block under remat_policy (ops/remat.py)
+    remat: bool = False
     remat_policy: str = "nothing_saveable"
     tie_embeddings: bool = False
 
@@ -299,7 +304,8 @@ class Llama(nn.Module):
         positions = torch.arange(tokens.shape[-1], device=tokens.device
                                  ).expand(tokens.shape)
         for layer in range(cfg.num_layers):
-            x = getattr(self, f"layer_{layer}")(x, positions)
+            x = call_block(getattr(self, f"layer_{layer}"), cfg, x,
+                           positions)
         x = self.final_norm(x)
         head = (self.embed.t() if cfg.tie_embeddings else self.lm_head)
         logits = torch.matmul(x, head.to(cfg.dtype))

@@ -92,6 +92,14 @@ and ``replan_migrate`` spans, and the peer restore asks for striped
 plans. Step reports carry the applied plan's generation (``-2`` when
 none or in replica mode), and step traces group under the plan's epoch.
 
+An injected ``trainer`` (the streaming step of ``trainer/streaming.py``)
+takes the place of the dense one, as in the JAX loop: it is saved,
+restored and reported as the dense one is. With ``prefetch_autotune``
+the loop keeps a ``PrefetchAutoTuner`` (``data/prefetch.py``), feeds it
+the window's data-wait share at each progress report and exports its
+depth as the ``dlrover_tpu_prefetch_depth`` gauge; the input pipeline
+reads ``loop.prefetch_tuner.depth_fn``.
+
 Not ported yet: slice mode (ROADMAP Queue A item 6.4).
 """
 
@@ -121,11 +129,13 @@ from dlrover_tpu_torch.checkpoint.peer_restore import (
 from dlrover_tpu_torch.common.config import Context
 from dlrover_tpu_torch.common.constants import NodeEnv, WorkerExit
 from dlrover_tpu_torch.common.log import default_logger as logger
+from dlrover_tpu_torch.data.prefetch import PrefetchAutoTuner
 from dlrover_tpu_torch.obs import mfu
 from dlrover_tpu_torch.parallel import planner
 from dlrover_tpu_torch.parallel.mesh import MeshSpec, create_mesh, dp_size
 from dlrover_tpu_torch.trainer.sampler import ElasticDistributedSampler
 from dlrover_tpu_torch.trainer.train_step import (
+    Trainer,
     TrainState,
     build_trainer,
     choose_accumulation,
@@ -221,6 +231,7 @@ class ElasticTrainLoop:
         config: TrainLoopConfig,
         master_client=None,
         device: Optional[Union[str, torch.device]] = None,
+        trainer: Optional[Trainer] = None,
     ):
         """``model``: a built module or a ``(device=, seed=) -> module``
         factory (see ``build_trainer``). ``device`` defaults to the
@@ -228,7 +239,13 @@ class ElasticTrainLoop:
         The world is the initialized process group's (``agent/
         elastic_agent.py::init_distributed``), or this process alone.
         ``master_client``: a ``MasterClient`` to report to (None: no
-        master)."""
+        master). ``trainer``: a built trainer with the dense
+        ``Trainer``'s surface (the streaming one of
+        ``trainer/streaming.py``) in place of the dense one; it brings
+        its own model, optimizer, mesh and batch shape (``model``,
+        ``optimizer_factory`` and ``loss_fn`` may be None), no shard plan
+        applies, and the configured global batch must be its
+        accum × micro."""
         # finished spans batched for the master (flushed at report
         # intervals); registered before any span below. A failed
         # construction deregisters it (the sink list outlives this
@@ -237,13 +254,13 @@ class ElasticTrainLoop:
         obs.add_span_sink(self._span_exporter)
         try:
             self._init_inner(model, optimizer_factory, loss_fn, config,
-                             master_client, device)
+                             master_client, device, trainer)
         except BaseException:
             obs.remove_span_sink(self._span_exporter)
             raise
 
     def _init_inner(self, model, optimizer_factory, loss_fn, config,
-                    master_client, device) -> None:
+                    master_client, device, trainer) -> None:
         self.client = master_client
         self.config = config
         # the master's parallelism plan for this world, applied before
@@ -258,19 +275,24 @@ class ElasticTrainLoop:
         self._pending_plan_signature = ""
         self.global_batch = config.global_batch
         self._trim_batch = 0
-        self._resolve_shard_plan(config)
-        try:
-            self._build_trainer(model, optimizer_factory, loss_fn, config,
-                                device)
-        except Exception as e:  # noqa: BLE001 — a planned mesh the
-            # model cannot shard over falls back to the configured shape
-            if self._plan_mesh_spec is None:
-                raise
-            self._replan_fallback(
-                self._shard_plan,
-                f"planned mesh rejected by the model/trainer: {e}")
-            self._build_trainer(model, optimizer_factory, loss_fn, config,
-                                device)
+        if trainer is not None:
+            self._take_trainer(trainer, config, device)
+            model = trainer.model_factory
+        else:
+            self._resolve_shard_plan(config)
+            try:
+                self._build_trainer(model, optimizer_factory, loss_fn,
+                                    config, device)
+            except Exception as e:  # noqa: BLE001 — a planned mesh the
+                # model cannot shard over falls back to the configured
+                # shape
+                if self._plan_mesh_spec is None:
+                    raise
+                self._replan_fallback(
+                    self._shard_plan,
+                    f"planned mesh rejected by the model/trainer: {e}")
+                self._build_trainer(model, optimizer_factory, loss_fn,
+                                    config, device)
         # peer-to-peer restore (checkpoint/peer_restore.py): the store
         # stages every save's host copy for the agent's donor; the
         # restorer turns a restore plan into a shard transfer
@@ -310,6 +332,18 @@ class ElasticTrainLoop:
             rank=int(os.environ.get(NodeEnv.NODE_RANK, "-1")))
         self._timeline_path = os.environ.get(NodeEnv.TIMELINE_FILE, "")
         self._timeline_exported_at = 0.0
+        # the input pipeline's auto-tune (data/prefetch.py): fed the
+        # timeline's windowed data-wait share at each progress report;
+        # the pipeline reads ``prefetch_tuner.depth_fn`` batch by batch
+        self.prefetch_tuner: Optional[PrefetchAutoTuner] = None
+        if Context.singleton().prefetch_autotune:
+            self.prefetch_tuner = PrefetchAutoTuner()
+            obs.get_registry().gauge(
+                "dlrover_tpu_prefetch_depth",
+                "Auto-tuned device-prefetch depth (data/prefetch.py; "
+                "grows while the timeline's data_wait fraction exceeds "
+                "the tune threshold, decays when the pipeline is calm)",
+            ).set_function(self.prefetch_tuner.depth_fn)
         # drain and urgent-checkpoint requests from the agent, consumed
         # at step boundaries (one os.stat a step when armed)
         self._drain_source = DrainRequestSource()
@@ -353,6 +387,24 @@ class ElasticTrainLoop:
             self._model_stats(model if isinstance(model, torch.nn.Module)
                               else model(device="meta", seed=0))
             self._report_model_info()
+
+    def _take_trainer(self, trainer: Trainer, config,
+                      device) -> None:
+        """An injected trainer: its mesh and batch shape are the loop's,
+        and the configured batch must be what its step takes."""
+        self.trainer = trainer
+        self.mesh = trainer.mesh
+        self.device = self.mesh.device
+        if device is not None and torch.device(device) != self.device:
+            raise ValueError(f"device {device} is not the trainer's "
+                             f"{self.device}")
+        self.dp = dp_size(self.mesh)
+        self.accum = trainer.accum_steps
+        self.micro_global = trainer.micro_batch
+        if self.accum * self.micro_global != config.global_batch:
+            raise ValueError(
+                f"the trainer steps {self.accum} x {self.micro_global} "
+                f"rows, the loop's global batch is {config.global_batch}")
 
     # -- online parallelism re-planning (parallel/planner.py) --------------
     def _build_trainer(self, model, optimizer_factory, loss_fn, config,
@@ -644,6 +696,9 @@ class ElasticTrainLoop:
         step_mfu = mfu.achieved_mfu(
             tokens_per_step / mean_step if mean_step > 0 else -1.0,
             self._flops_per_token, self.peak_flops)
+        if self.prefetch_tuner is not None:
+            self.prefetch_tuner.observe(
+                stats.get("data_wait_fraction", -1.0))
         # the window's device-truth peak (0 off the card)
         hbm = self.device_telemetry.drain()
         # the calibration attributes this window to the plan the loop

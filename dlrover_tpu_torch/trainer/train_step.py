@@ -387,13 +387,18 @@ class Trainer:
         """Host numpy (global_batch, seq) → this rank's device tensors
         shaped (accum, micro / dp, seq): its block of each micro-batch's
         rows over the joint data axes (dcn, data, fsdp), as the JAX
-        package's batch sharding P(None, (dcn, data, fsdp))."""
+        package's batch sharding P(None, (dcn, data, fsdp)). A batch
+        already on the device (``data/prefetch.py``) is cut there."""
         t0 = time.monotonic()
         accum, micro = self.accum_steps, self.micro_batch
         local = micro // dp_size(self.mesh)
         start = dp_index(self.mesh) * local
 
         def put(x):
+            if torch.is_tensor(x):
+                x = x.reshape(accum, micro, *x.shape[1:])
+                return x[:, start:start + local].to(
+                    self.device, torch.int64).contiguous()
             x = np.asarray(x).reshape(accum, micro, *x.shape[1:])
             x = np.ascontiguousarray(x[:, start:start + local])
             return torch.from_numpy(x.astype(np.int64)).to(self.device)

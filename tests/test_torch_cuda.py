@@ -2,8 +2,9 @@
 versions, the wrappers' refusals, the launch counters, the model's
 attention and norm paths, the checkpoint on the card, and what the
 master observes of it (the allocator telemetry, a profiler capture
-naming the kernels, an agent that never opens the card), and a worker on
-the card training through a standby's promotion. Every test is marked
+naming the kernels, an agent that never opens the card), a worker on
+the card training through a standby's promotion, and the kernels under
+remat, the streaming step and the device prefetch. Every test is marked
 ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false. This file imports no JAX, so it
 also runs on a machine without it:
@@ -22,7 +23,11 @@ reference's RMS plus their own size. Quantization is bit for bit.
 import pytest
 import torch
 
-from dlrover_tpu_torch.models.llama import Llama, LlamaConfig
+from dlrover_tpu_torch.models.llama import (
+    Llama,
+    LlamaConfig,
+    cross_entropy_loss,
+)
 from dlrover_tpu_torch.ops import flash_attention as fa
 from dlrover_tpu_torch.ops import norms
 from dlrover_tpu_torch.ops import quantization as quant
@@ -359,6 +364,117 @@ def test_fused_and_reference_norm_models_agree(cuda):
     assert norms.launch_counts == {"rms_fwd": 5, "rms_bwd": 0}
     err = (logits["fused"] - logits["reference"]).abs().max().item()
     assert err <= 3e-2, err
+
+
+# ---------------------------------------------------------------------------
+# remat, the streaming step and the prefetch on the card
+# ---------------------------------------------------------------------------
+
+
+def _small_llama(**kw):
+    return LlamaConfig(vocab_size=256, hidden_size=256,
+                       intermediate_size=512, num_layers=2, num_heads=2,
+                       num_kv_heads=1, max_seq_len=256, embed_impl="gather",
+                       **kw)
+
+
+def _launches():
+    return {**fa.launch_counts, **norms.launch_counts}
+
+
+@pytest.mark.parametrize("policy", ["nothing_saveable", "dots_saveable",
+                                    "dots_with_no_batch_dims"])
+def test_remat_runs_the_forward_kernels_again_for_the_same_gradients(
+        cuda, policy):
+    """Under every policy the blocks' forward kernels launch again in the
+    backward (flash_fwd 2 a layer, rms_fwd 4 a layer + 1) and the
+    gradients are remat=False's bits: the kernels are deterministic."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    tokens, targets = (torch.randint(0, 256, (2, 256), device=cuda,
+                                     generator=gen) for _ in range(2))
+    grads, launches = {}, {}
+    for remat in (False, True):
+        model = Llama(_small_llama(remat=remat, remat_policy=policy),
+                      device=cuda, seed=0)
+        fa.reset_launch_counts()
+        norms.reset_launch_counts()
+        cross_entropy_loss(model(tokens), targets).backward()
+        torch.cuda.synchronize()
+        launches[remat] = _launches()
+        grads[remat] = {n: p.grad for n, p in model.named_parameters()}
+    layers = 2
+    assert launches[False] == {"flash_fwd": layers, "flash_bwd_dq": layers,
+                               "flash_bwd_dkv": layers,
+                               "rms_fwd": 2 * layers + 1,
+                               "rms_bwd": 2 * layers + 1}
+    assert launches[True] == dict(launches[False], flash_fwd=2 * layers,
+                                  rms_fwd=4 * layers + 1)
+    for name, g in grads[False].items():
+        assert torch.equal(grads[True][name], g), name
+
+
+def test_streaming_step_on_the_card_matches_the_dense_step(cuda):
+    """One streaming and one dense step of a small Llama through the
+    kernels under the factored-RMS optimizer: the loss within 1e-3, each
+    parameter's update within 2^-5 relative L2 (chip_smoke.py's limits
+    at full width), the launches with the recompute counted."""
+    import functools
+
+    import numpy as np
+
+    from dlrover_tpu_torch.optim import LeafOptimizer, factored_rms
+    from dlrover_tpu_torch.trainer.streaming import build_streaming_trainer
+    from dlrover_tpu_torch.trainer.train_step import build_trainer
+
+    cfg = _small_llama()
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    tokens, targets = (torch.randint(0, 256, (1, 2, 256), device=cuda,
+                                     generator=gen) for _ in range(2))
+    trainers = {
+        "streaming": build_streaming_trainer(cfg, factored_rms(1e-3), 2),
+        "dense": build_trainer(functools.partial(Llama, cfg),
+                               functools.partial(
+                                   LeafOptimizer,
+                                   transform=factored_rms(1e-3)),
+                               None, np.zeros((2, 256)), cross_entropy_loss,
+                               micro_batch=2)}
+    out = {}
+    for name, trainer in trainers.items():
+        state = trainer.init(0)
+        before = {n: p.detach().clone()
+                  for n, p in state.model.named_parameters()}
+        fa.reset_launch_counts()
+        norms.reset_launch_counts()
+        state, metrics = trainer.step(state, tokens, targets)
+        torch.cuda.synchronize()
+        out[name] = (float(metrics["loss"]), _launches(),
+                     {n: (p.detach() - before[n]).float()
+                      for n, p in state.model.named_parameters()})
+    (s_loss, s_launch, s_upd), (d_loss, d_launch, d_upd) = (
+        out["streaming"], out["dense"])
+    assert abs(s_loss - d_loss) <= 1e-3
+    assert s_launch == dict(d_launch, flash_fwd=4, rms_fwd=9)
+    for n, u in d_upd.items():
+        err = ((s_upd[n] - u).norm() / u.norm()).item()
+        assert err <= 2.0 ** -5, (n, err)
+
+
+def test_prefetch_hands_over_batches_copied_on_a_side_stream(cuda):
+    """Every batch arrives on the card in order with its values, copied on
+    the prefetch's own stream and handed to the consumer's stream."""
+    import numpy as np
+
+    from dlrover_tpu_torch.data.prefetch import prefetch_to_device
+
+    source = [(np.full((2, 1024), i, np.int32),
+               np.arange(1024, dtype=np.int64) + i) for i in range(9)]
+    depths = iter([1, 3, 3, 2, 4, 1, 1, 1, 1, 1])
+    got = list(prefetch_to_device(iter(source), depth=lambda: next(depths)))
+    assert len(got) == len(source)
+    for i, (tokens, extra) in enumerate(got):
+        assert tokens.is_cuda and extra.is_cuda
+        assert torch.equal(tokens.cpu(), torch.from_numpy(source[i][0]))
+        assert torch.equal(extra.cpu(), torch.from_numpy(source[i][1]))
 
 
 # ---------------------------------------------------------------------------

@@ -316,9 +316,13 @@ def test_kernel_libraries_follow_the_attention():
 
 
 @pytest.mark.parametrize("option", [
-    dict(attn_impl="ring"), dict(attn_impl="ulysses"), dict(remat=True)])
+    (dict(attn_impl="ring"), NotImplementedError),
+    (dict(attn_impl="ulysses"), NotImplementedError),
+    # remat is ported: only a policy name the JAX package does not know
+    (dict(remat=True, remat_policy="offload"), ValueError)])
 def test_unported_options_raise(option):
-    with pytest.raises(NotImplementedError):
+    option, error = option
+    with pytest.raises(error):
         tgpt.GPT(tgpt.GPTConfig.tiny(**option), device="cpu")
 
 

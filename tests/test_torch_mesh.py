@@ -8,7 +8,8 @@ process per rank under the agent's environment contract
 (``DLROVER_TPU_WORLD_SIZE``, ``DLROVER_TPU_PROCESS_ID``,
 ``DLROVER_TPU_COORDINATOR``) on a free localhost port, with a timeout of
 its own. Each worker prints one JSON line last; the launcher returns
-them in rank order.
+them in rank order. A launch whose port another process took before
+rank 0 bound it (EADDRINUSE) is run again on a new port.
 """
 
 import json
@@ -42,13 +43,35 @@ def _free_port() -> int:
     return port
 
 
+# launches of one run_workers call: another process may take the free
+# port between _free_port() and rank 0's bind (EADDRINUSE); the whole
+# launch is then retried on a new port
+PORT_ATTEMPTS = 3
+
+
+def _port_taken(stderr: str) -> bool:
+    return "EADDRINUSE" in stderr or "ddress already in use" in stderr
+
+
 def run_workers(tmp_path, source: str, world: int, args=(),
                 timeout: float = WORKER_TIMEOUT_S, name: str = "worker"):
     """Run ``source`` as ``world`` gloo ranks; return each rank's last
     stdout line parsed as JSON. A rank that fails or outlives the timeout
-    fails the test with its stderr."""
+    fails the test with its stderr; a launch whose coordinator port was
+    taken before rank 0 bound it is retried on another port."""
     script = tmp_path / f"{name}.py"
     script.write_text(textwrap.dedent(source))
+    for attempt in range(PORT_ATTEMPTS):
+        results = _launch(script, tmp_path, world, args, timeout, name,
+                          retry=attempt + 1 < PORT_ATTEMPTS)
+        if results is not None:
+            return results
+    raise AssertionError("unreachable: the last attempt fails the test")
+
+
+def _launch(script, tmp_path, world, args, timeout, name, retry):
+    """One launch on a fresh port: each rank's JSON, or None when the
+    port was taken and ``retry`` allows another launch."""
     port = _free_port()
     procs = []
     for rank in range(world):
@@ -70,6 +93,8 @@ def run_workers(tmp_path, source: str, world: int, args=(),
             except subprocess.TimeoutExpired:
                 pytest.fail(f"{name} rank {rank} outlived {timeout} s")
             if proc.returncode:
+                if retry and _port_taken(err):
+                    return None
                 pytest.fail(f"{name} rank {rank} exited {proc.returncode}:"
                             f"\n{err[-6000:]}")
             results.append(json.loads(out.strip().splitlines()[-1]))
