@@ -16,11 +16,13 @@ Phases (each one's failure ends the run with a nonzero exit):
            wrappers to the kernels' 64 and 128) and at the GPT-2 small
            (b 12, h 12, s 1024, d 64, causal) and BERT-base (b 32, h 12,
            s 512, d 64, bidirectional) and Llama-7B (b 2, h 32, s 2048, d
-           128, causal; the norms at 4096 rows of 4096) shapes, with
+           128, causal; the norms at 4096 rows of 4096) and Mixtral-width
+           MoE (b 4, h 32 over 8 KV heads, s 2048, d 128, causal; the
+           norms at 8192 rows of 4096) shapes, with
            stated tolerances, and o, dQ, dK and dV the same bits in a
            second call; time kernel, plain version and the library
            yardstick (SDPA, F.rms_norm) at the slice shape and at the
-           three model shapes
+           four model shapes
   quant    the quantization API (quantize, dequantize, swizzled,
            quant_reduce) on a Llama-1B gate_proj gradient, int8 and int4,
            bf16 input, group 8, zero and tie groups: every output equals
@@ -120,8 +122,9 @@ Phases (each one's failure ends the run with a nonzero exit):
            NodeResourceStats carries the card's use and total; the
            step-time, tokens/s, MFU and HBM-peak series hold a point per
            sample interval of training; StepTraceRequest answers one
-           group a step, gated by rank 0, its phases (data wait
-           included) within 5% of the period to the next step's start,
+           group a step, gated by rank 0, its phases (data wait and
+           the step report's host_sync included) within 5% of the
+           period to the next step's start,
            the capture's two boundaries reported apart and the loop's
            young-generation collection at a boundary (logged by the
            worker) taken out of its period; the solo rank's
@@ -235,6 +238,30 @@ Phases (each one's failure ends the run with a nonzero exit):
            beside. Every run's launches as predicted with the recompute
            counted: flash_fwd 2 a layer and rms_fwd 4 a layer + 1 where
            the blocks run again (streaming, remat), else 1 and 2 + 1
+  moe      the Mixtral-style family (models/llama_moe.py) at Mixtral-8x7B's
+           published widths (MIXTRAL_WIDTHS: 4096 wide, experts of
+           14336, 32 heads of 128 over 8 KV heads, 8 experts top-2, vocab
+           32000) cut from 32 to 4 layers, flash attention, fused norm,
+           gather embedding, f32 weights, bf16 activations, training
+           routing (deterministic=False), Adafactor(3e-4) (the port's copy
+           of optax.adafactor, the JAX example's), seq 2048, micro 4,
+           global 8, seed 0. (a) 2 warm-up + 5 timed steps through
+           ElasticTrainLoop: finite losses, the last timed loss below the
+           first, each flash kernel 8 launches a step and each norm kernel
+           18; prints the step median and spread, tokens/s, the loop's
+           MFU (every expert counted, ROADMAP C12) and the MFU over the
+           products done, the allocator peak, the aux loss, the share of
+           top-2 assignments dropped at capacity (C13) and each expert's
+           filled slots by layer; (b) 2 layers at full width from one
+           init with flash and with reference attention: 3 training steps'
+           losses and grad norms within the parity phase's limits, one
+           step's gradients within its gradient limit with the reference
+           run's routing pinned to the flash run's (a bf16 rounding before
+           a router moves near-tied tokens to other experts; the share of
+           assignments moved and the gradients with free routing are
+           printed); (c) `python -m dlrover_tpu_torch.run
+           --standalone` around dlrover_tpu_torch/examples/moe_train.py at
+           its defaults: 6 steps saving every 3, then a resume to 9
 
 The line before the last is the kernels' JSON record (the quantization
 pair's launches are the resume phase's checkpoint path; each kernel's
@@ -243,17 +270,20 @@ its resumed incarnation, its "faults_launches" the sum over the faults
 phase's three worker processes, its "observe_launches" the observe
 phase worker's, its "failover_launches" the failover phase worker's,
 its "replan_launches" the replan phase's three incarnations', its
-"models_launches" the models phase's GPT-2 and BERT runs' and its
+"models_launches" the models phase's GPT-2 and BERT runs', its
 "llama7b_launches" the llama7b phase's streaming and dense remat runs at
-full depth; each flash kernel's "at_gpt2", "at_bert" and "at_llama7b",
-and each norm kernel's "at_llama7b" (4096 rows of 4096), hold its
-times, bound and error at those shapes); the last line is {"ok": true,
+full depth and its "moe_launches" the moe phase's Mixtral-width run;
+each flash kernel's "at_gpt2", "at_bert", "at_llama7b" and
+"at_mixtral", and each norm kernel's "at_llama7b" (4096 rows of 4096)
+and "at_mixtral" (8192 rows of 4096), hold its times, bound and error
+at those shapes); the last line is {"ok": true,
 "device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import math
@@ -318,14 +348,18 @@ PADDED_SHAPES = [
     dict(b=1, h=4, h_kv=4, s_q=256, s_k=320, d=96, causal=True),
 ]
 # the flash kernels as GPT-2 small (micro 12, seq 1024, causal),
-# BERT-base (micro 32, seq 512, bidirectional) and Llama-7B (micro 2, seq
-# 2048, 32 heads of 128, causal) call them
+# BERT-base (micro 32, seq 512, bidirectional), Llama-7B (micro 2, seq
+# 2048, 32 heads of 128, causal) and the Mixtral-width MoE (micro 4, 8 KV
+# heads) call them
 MODEL_SHAPES = {
     "gpt2": dict(b=12, h=12, h_kv=12, s_q=1024, s_k=1024, d=64,
                  causal=True),
     "bert": dict(b=32, h=12, h_kv=12, s_q=512, s_k=512, d=64,
                  causal=False),
     "llama7b": dict(b=2, h=32, h_kv=32, s_q=2048, s_k=2048, d=128,
+                    causal=True),
+    # Mixtral-8x7B's attention (32 heads of 128, GQA 4:1) at micro 4
+    "mixtral": dict(b=4, h=32, h_kv=8, s_q=2048, s_k=2048, d=128,
                     causal=True),
 }
 # kernels that must not spill: the warp-specialised ones, whose consumer
@@ -348,8 +382,10 @@ PARITY_GRAD_TOL = 2.0 ** -5
 # plus their own size. dw must be the same bits in two calls.
 NORM_EPS = 1e-5
 NORM_SLICE = (8 * 2048, 2048, torch.bfloat16)
-# the norms as Llama-7B calls them: micro 2 x seq 2048 rows of 4096
-NORM_MODEL_SHAPES = {"llama7b": (2 * 2048, 4096, torch.bfloat16)}
+# the norms as Llama-7B (micro 2) and the Mixtral-width MoE (micro 4)
+# call them: x seq 2048 rows of 4096
+NORM_MODEL_SHAPES = {"llama7b": (2 * 2048, 4096, torch.bfloat16),
+                     "mixtral": (4 * 2048, 4096, torch.bfloat16)}
 NORM_EDGES = [
     (1000, 2048, torch.bfloat16), (4096, 64, torch.bfloat16),
     (512, 4096, torch.bfloat16), (300, 100, torch.bfloat16),
@@ -591,6 +627,8 @@ def time_flash(shape, seed: int) -> dict:
     from dlrover_tpu_torch.ops import flash_attention as fa
 
     causal = shape["causal"]
+    # SDPA takes fewer kv heads only when told (GQA)
+    gqa = shape["h"] != shape["h_kv"]
     q, k, v, do = _inputs(shape, seed)
     o, lse = fa.flash_fwd(q, k, v, causal)
     delta = (do.float() * o.float()).sum(-1, keepdim=True)
@@ -607,15 +645,16 @@ def time_flash(shape, seed: int) -> dict:
                                            causal)),
     }
     sdpa_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=causal))
+        q, k, v, is_causal=causal, enable_gqa=gqa))
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+    og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
+                                        enable_gqa=gqa)
     sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
         og, (qg, kg, vg), do, retain_graph=True))
 
     def sdpa_fwd_bwd():
         torch.autograd.grad(F.scaled_dot_product_attention(
-            qg, kg, vg, is_causal=causal), (qg, kg, vg), do)
+            qg, kg, vg, is_causal=causal, enable_gqa=gqa), (qg, kg, vg), do)
 
     sdpa_fwd_bwd_ms = time_ms(sdpa_fwd_bwd)
     dims = [shape[x] for x in ("b", "h", "h_kv", "s_q", "s_k", "d",
@@ -964,14 +1003,16 @@ def _adamw(params):
 def _train(cfg, global_batch: int, steps: int, max_micro: int,
            profile_out: str = "", model_cls=None, loss_fn=None,
            seq: int = 0, same_targets: bool = False,
-           optimizer_factory=None, trainer=None):
+           optimizer_factory=None, trainer=None, after=None):
     """Train ``model_cls(cfg)`` (Llama by default, with its loss)
     through ElasticTrainLoop on the synthetic corpus at ``seq`` (the
     config's ``max_seq_len`` by default) from seed 0: (the history, the
     kernel launches of the run). ``same_targets`` scores each token
     against itself (a masked LM's dense targets). AdamW unless
     ``optimizer_factory``; ``trainer`` (the streaming one) takes the
-    dense trainer's place."""
+    dense trainer's place. ``after(state, data)``, when given, is called
+    with the trained state and the batches to come, after the launches
+    are read."""
     from dlrover_tpu_torch.models.llama import Llama, cross_entropy_loss
     from dlrover_tpu_torch.trainer.elastic_loop import (
         ElasticTrainLoop,
@@ -998,6 +1039,8 @@ def _train(cfg, global_batch: int, steps: int, max_micro: int,
                               sampler=sampler)
     # the main path's launches, read before any profiled step adds more
     launches = read_counts()
+    if after is not None:
+        after(state, data)
     if profile_out:
         loop.config.max_steps = 1
         profile_step(lambda: loop.run(state, data, sampler=sampler),
@@ -2825,7 +2868,7 @@ def phase_observe(smi: str, llama1b: dict) -> dict:
         boundaries = {"capture_start": captured[0] - 1,
                       "capture_stop": captured[-1]}
         collections = run["collections"]
-        misses, waits, gaps = {}, {}, {}
+        misses, waits, gaps, syncs = {}, {}, {}, {}
         for n in steps:
             group = groups.get(n)
             if group is None:
@@ -2835,6 +2878,10 @@ def phase_observe(smi: str, llama1b: dict) -> dict:
                       for seg in lane["phases"]]
             waits[n] = sum(d for name, _, d in phases
                            if name == "data_wait")
+            # the boundary's host work before the save: the step
+            # report's RPCs to this process's master
+            syncs[n] = sum(d for name, _, d in phases
+                           if name == "host_sync")
             if group["gating_rank"] != 0:
                 misses[n] = ("gating rank", group["gating_rank"])
             if n + 1 not in groups:
@@ -2856,6 +2903,10 @@ def phase_observe(smi: str, llama1b: dict) -> dict:
                                 (w for n, w in waits.items() if n > 1),
                                 default=0.0)},
             "collections_ms": {n: c * 1e3 for n, c in collections.items()},
+            "host_sync_ms": {
+                "median": (statistics.median(syncs.values()) * 1e3
+                           if syncs else None),
+                "max": max(syncs.values(), default=0.0) * 1e3},
             "untraced_between_steps_ms": {
                 "median": statistics.median(outside) * 1e3,
                 "max": max(outside) * 1e3,
@@ -3957,23 +4008,28 @@ def _family_parity(name: str) -> None:
     torch.cuda.empty_cache()
 
 
+# the nanoGPT example at GPT-2 small: seq 1024, global batch 48
+NANOGPT_WORKER = ["dlrover_tpu_torch/examples/nanogpt_train.py", "--config",
+                  "gpt2", "--seq", str(GPT2_SEQ), "--global-batch",
+                  str(EXAMPLE_BATCH)]
+
+
 def _example_run(repo: str, tmp: str, steps: int, tag: str,
-                 agent_tmp: str) -> list:
-    """``python -m dlrover_tpu_torch.run --standalone`` around the nanoGPT
-    example at GPT-2 small (seq 1024, global batch 48, a save every 3
-    steps into ``tmp``), the agent's work directory (its peer cache) in
-    ``agent_tmp``; returns the worker's log lines and prints the agent's
-    marks. Fails unless the agent exits 0."""
+                 agent_tmp: str, worker=None, what: str = "models") -> list:
+    """``python -m dlrover_tpu_torch.run --standalone`` around an example
+    worker (``worker``: its script and arguments, NANOGPT_WORKER by
+    default) for ``steps`` steps with a save every 3 into ``tmp``, the
+    agent's work directory (its peer cache) in ``agent_tmp``; returns the
+    worker's log lines and prints the agent's marks. Fails unless the
+    agent exits 0."""
     import os
     import re
 
     ckpt, log_file = os.path.join(tmp, "ckpt"), os.path.join(tmp, "log")
     cmd = [sys.executable, "-m", "dlrover_tpu_torch.run", "--standalone",
-           "--monitor-interval", "1",
-           "dlrover_tpu_torch/examples/nanogpt_train.py", "--config",
-           "gpt2", "--seq", str(GPT2_SEQ), "--global-batch",
-           str(EXAMPLE_BATCH), "--steps", str(steps), "--save-interval",
-           "3", "--ckpt-dir", ckpt, "--log-file", log_file]
+           "--monitor-interval", "1", *(worker or NANOGPT_WORKER),
+           "--steps", str(steps), "--save-interval", "3", "--ckpt-dir", ckpt,
+           "--log-file", log_file]
     env = dict(os.environ, PYTHONPATH=repo, TMPDIR=agent_tmp)
     t0 = time.time()
     err = os.path.join(tmp, f"{tag}.err")
@@ -4006,10 +4062,10 @@ def _example_run(repo: str, tmp: str, steps: int, tag: str,
     if os.path.exists(log_file):
         with open(log_file) as f:
             lines = f.read().splitlines()
-    log(f"models example {tag}: exit {rc} in {elapsed:.1f} s, marks (s "
+    log(f"{what} example {tag}: exit {rc} in {elapsed:.1f} s, marks (s "
         f"from the start) {json.dumps(marks)}; log {lines}")
     if rc != 0:
-        raise AssertionError(f"nanoGPT example {tag} exited {rc}:\n"
+        raise AssertionError(f"{what} example {tag} exited {rc}:\n"
                              f"{err_tail}")
     return lines
 
@@ -4443,24 +4499,354 @@ def phase_llama7b(smi: str, llama1b: dict, profile: str = "") -> dict:
     log(f"llama7b: seconds by part {json.dumps(out['seconds'])}")
     return out
 
+# ---------------------------------------------------------------------------
+# moe: the Mixtral-style family at Mixtral-8x7B's widths
+# ---------------------------------------------------------------------------
+
+# Mixtral-8x7B's published widths (Mistral AI, mistralai/Mixtral-8x7B-v0.1,
+# config.json): hidden 4096, expert intermediate 14336, 32 heads of 128 and
+# 8 KV heads, 8 experts with top-2 routing, vocabulary 32000, rope_theta
+# 1e6, rms_norm_eps 1e-5, 32 layers. The repo's expert MLP is wi, gelu, wo
+# (not Mixtral's SwiGLU), kept as the JAX package has it. Cut to 4 layers
+# so that the f32 weights and gradients (33.5 GB) fit one card.
+MIXTRAL_WIDTHS = dict(vocab_size=32000, hidden_size=4096,
+                      intermediate_size=14336, num_heads=32, num_kv_heads=8,
+                      num_experts=8, top_k=2, rope_theta=1e6,
+                      rms_norm_eps=1e-5)
+MIXTRAL_PUBLISHED_LAYERS = 32
+MOE_LAYERS = 4
+# the JAX example's optimizer (optax.adafactor) and learning rate; micro
+# 4, global 8 (2 micro-steps), seq 2048
+MOE_SEQ, MOE_MICRO, MOE_GLOBAL, MOE_LR = 2048, 4, 8, 3e-4
+MOE_WARMUP, MOE_TIMED = 2, 5
+# flash against reference attention at full width, cut to 2 layers
+MOE_PARITY_LAYERS = 2
+# the MoE example under the port's agent at its defaults: 6 steps saving
+# every 3, then 9 from the committed step 6
+MOE_WORKER = ["dlrover_tpu_torch/examples/moe_train.py"]
+
+
+def mixtral_config(layers: int = MOE_LAYERS, attn_impl: str = "flash"):
+    """LlamaMoE at Mixtral-8x7B's widths, ``layers`` deep, in the JAX
+    headline configuration (flash attention, fused norm, gather
+    embedding, f32 weights, bf16 activations)."""
+    from dlrover_tpu_torch.models.llama_moe import LlamaMoEConfig
+
+    return LlamaMoEConfig(num_layers=layers, max_seq_len=MOE_SEQ,
+                          attn_impl=attn_impl, norm_impl="fused",
+                          embed_impl="gather", **MIXTRAL_WIDTHS)
+
+
+def _llama_moe(cfg, **kw):
+    """LlamaMoE in training routing (the example's deterministic=False)."""
+    from dlrover_tpu_torch.models.llama_moe import LlamaMoE
+
+    return LlamaMoE(cfg, deterministic=False, **kw)
+
+
+def _adafactor(params):
+    # optax.adafactor(3e-4)
+    from dlrover_tpu_torch.optim import LeafOptimizer, adafactor
+
+    return LeafOptimizer(params, adafactor(MOE_LR))
+
+
+def moe_flops_done(cfg, seq: int) -> float:
+    """The products a token costs in a training step as the code runs
+    them (forward ×3 for forward and backward): the attention
+    projections, the causal scores and values (mean (s + 1)/2 keys a
+    query), the router, the dispatch and combine einsums (E·C slots a
+    group of s tokens) and the experts at every slot (filled or not, E·C
+    of them), and the head."""
+    from dlrover_tpu_torch.parallel.moe import _capacity
+
+    h, m, e = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts
+    kv = cfg.num_kv_heads * cfg.head_dim
+    slots = min(_capacity(seq, e, cfg.capacity_factor, 4), seq) * e
+    per_layer = (2 * (2 * h * h + 2 * h * kv)
+                 + 4 * h * (seq + 1) / 2
+                 + 2 * h * e
+                 + 2 * 2 * slots * h
+                 + slots / seq * 4 * h * m)
+    return 3.0 * (cfg.num_layers * per_layer + 2 * h * cfg.vocab_size)
+
+
+def _routing_stats(model, tokens) -> dict:
+    """One forward of ``model`` on ``tokens``, each MoE layer's routing
+    read back by a hook: the aux loss (the model's sum, weighted), the
+    share of the top-k assignments dropped at capacity and each expert's
+    filled slots (ROADMAP Queue C13)."""
+    from dlrover_tpu_torch.parallel.moe import _capacity, top_k_gating
+
+    cfg = model.config
+    loads, capacities, dropped, assigned = [], set(), 0, 0
+
+    def hook(module, args, _out):
+        x = args[0].reshape(-1, *args[0].shape[-2:]).float()
+        capacity = min(_capacity(x.shape[1], cfg.num_experts,
+                                 cfg.capacity_factor, 4), x.shape[1])
+        dispatch, _, _ = top_k_gating(x @ module.router.float(),
+                                      cfg.top_k, capacity)
+        load = dispatch.sum(dim=(0, 1, 3))
+        loads.append([int(v) for v in load.tolist()])
+        capacities.add(capacity)
+        nonlocal dropped, assigned
+        assigned += x.shape[0] * x.shape[1] * cfg.top_k
+        dropped += x.shape[0] * x.shape[1] * cfg.top_k - int(load.sum())
+
+    handles = [getattr(model, f"layer_{i}").moe.register_forward_hook(hook)
+               for i in range(cfg.num_layers)]
+    try:
+        with torch.no_grad():
+            _, aux = model(tokens, with_losses=True)
+    finally:
+        for handle in handles:
+            handle.remove()
+    return {"aux_loss": aux.item(), "dropped_share": dropped / assigned,
+            "capacity": sorted(capacities), "expert_load_by_layer": loads}
+
+
+def _moe_train(smi: str, profile_out: str) -> tuple:
+    """(a) LlamaMoE at Mixtral-8x7B's widths, 4 layers, through
+    ElasticTrainLoop under Adafactor, 2 warm-up + 5 timed steps:
+    (result, launches)."""
+    from dlrover_tpu_torch.trainer.elastic_loop import model_flops_per_token
+
+    cfg = mixtral_config()
+    steps = MOE_WARMUP + MOE_TIMED
+    accum = MOE_GLOBAL // MOE_MICRO
+    # the routing of one micro-batch of uniform tokens, by the seed-0 init
+    # the run starts from and by the trained model
+    tokens = torch.randint(0, cfg.vocab_size, (MOE_MICRO, MOE_SEQ),
+                           device="cuda", generator=torch.Generator(
+                               device="cuda").manual_seed(9))
+    routing = {"init": _routing_stats(_llama_moe(cfg, seed=0), tokens)}
+    _free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    hist, launches = _train(
+        cfg, MOE_GLOBAL, steps, MOE_MICRO, profile_out=profile_out,
+        model_cls=_llama_moe, optimizer_factory=_adafactor,
+        after=lambda state, _: routing.update(
+            trained=_routing_stats(state.model, tokens)))
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    for r in hist:
+        log(f"  moe step {r['step']}: loss {r['loss']:.4f} grad_norm "
+            f"{r['grad_norm']:.4f} {r['step_time_s'] * 1e3:.1f} ms")
+    if len(hist) != steps:
+        raise AssertionError(f"moe: ran {len(hist)} steps")
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+               for r in hist):
+        raise AssertionError("moe: non-finite loss or grad norm")
+    timed = hist[MOE_WARMUP:]
+    if not timed[-1]["loss"] < timed[0]["loss"]:
+        raise AssertionError(f"moe: the loss did not fall over the timed "
+                             f"steps: {[r['loss'] for r in timed]}")
+    want = _expected_launches(cfg, accum * steps)
+    if launches != want:
+        raise AssertionError(f"moe: launches {launches}, want {want} "
+                             f"({steps} steps of {accum} micro-batches)")
+    params = cfg.param_count()
+    step_ms = [r["step_time_s"] * 1e3 for r in timed]
+    tokens_per_s = MOE_GLOBAL * MOE_SEQ / (statistics.mean(step_ms) / 1e3)
+    done = moe_flops_done(cfg, MOE_SEQ)
+    result = {"params": params, "active_params": cfg.active_param_count(),
+              "layers": cfg.num_layers, "micro_batch": MOE_MICRO,
+              "global_batch": MOE_GLOBAL, "seq": MOE_SEQ,
+              "step_median_ms": statistics.median(step_ms),
+              "step_min_ms": min(step_ms), "step_max_ms": max(step_ms),
+              "step_mean_ms": statistics.mean(step_ms),
+              "tokens_per_s": tokens_per_s,
+              "flops_per_token_loop": model_flops_per_token(cfg, params,
+                                                            MOE_SEQ),
+              "mfu": statistics.mean(r["mfu"] for r in timed),
+              "flops_per_token_done": done,
+              "mfu_done": done * tokens_per_s / PEAK_BF16_FLOPS,
+              "peak_mem_gb": peak_gb,
+              "losses": [r["loss"] for r in hist],
+              "launches_per_step": {n: c / steps
+                                    for n, c in launches.items()},
+              "routing": routing}
+    log(f"moe train: {json.dumps(result)}")
+    log(f"moe on {smi}: step median {result['step_median_ms']:.1f} ms (min "
+        f"{result['step_min_ms']:.1f}, max {result['step_max_ms']:.1f}), "
+        f"{tokens_per_s:.0f} tokens/s, MFU {result['mfu']:.4f} as the loop "
+        f"reports it (every expert counted, ROADMAP C12), "
+        f"{result['mfu_done']:.4f} over the products done "
+        f"({done / 1e9:.2f} GFLOP a token), allocator peak {peak_gb:.2f} "
+        f"GiB; " + "; ".join(
+            f"{when}: aux loss {r['aux_loss']:.5f}, top-{cfg.top_k} "
+            f"assignments dropped {r['dropped_share']:.1%} at capacity "
+            f"{r['capacity']} (ROADMAP C13), per-expert load by layer "
+            f"{r['expert_load_by_layer']}" for when, r in routing.items()))
+    _free_memory()
+    return result, launches
+
+
+@contextlib.contextmanager
+def _pinned_routing(record=None, replay=None):
+    """Each MoE layer's routing recorded (its dispatch masks appended to
+    ``record``, in call order) or replayed (``replay``'s masks, in call
+    order, with the combine weights from this run's own router
+    probabilities at the replayed slots, which is what routing computes
+    for those slots): two runs that differ in a path before the router
+    then take the same discrete decisions."""
+    from dlrover_tpu_torch.parallel import moe
+
+    route = moe.top_k_gating
+    masks = iter(replay or ())
+
+    def gating(logits, top_k, capacity):
+        dispatch, combine, aux = route(logits, top_k, capacity)
+        if record is not None:
+            record.append(dispatch)
+        if replay is not None:
+            dispatch = next(masks)
+            combine = dispatch * torch.softmax(logits.float(), -1)[..., None]
+            combine = combine / combine.sum(dim=(2, 3), keepdim=True
+                                            ).clamp(min=1e-9)
+        return dispatch, combine, aux
+
+    moe.top_k_gating = gating
+    try:
+        yield
+    finally:
+        moe.top_k_gating = route
+
+
+def _moe_parity() -> dict:
+    """(b) The model at full width, 2 layers, from one init, with
+    attn_impl="flash" and "reference": 3 training steps each (losses and
+    grad norms within the parity phase's limits) and one step's
+    gradients. Routing is discrete: a bf16 rounding in attention's output
+    can move a token whose top experts nearly tie to another expert, and
+    every token queued behind it in both experts' capacity, so the
+    gradients are held with the reference run's routing pinned to the
+    flash run's (``_pinned_routing``), within PARITY_GRAD_TOL; the
+    gradients with free routing, and the share of the kept (token,
+    expert) assignments that moved, are printed beside them."""
+    losses, grad_norms, grads, masks = {}, {}, {}, {}
+    g = torch.Generator(device="cuda").manual_seed(5)
+    tokens, targets = (torch.randint(0, MIXTRAL_WIDTHS["vocab_size"],
+                                     (MOE_MICRO, MOE_SEQ), generator=g,
+                                     device="cuda") for _ in range(2))
+    for run, attn in (("flash", "flash"), ("reference", "reference"),
+                      ("pinned", "reference")):
+        cfg = mixtral_config(MOE_PARITY_LAYERS, attn)
+        masks[run] = []
+        with _pinned_routing(
+                record=None if run == "pinned" else masks[run],
+                replay=masks["flash"] if run == "pinned" else None):
+            grads[run] = _one_step_grads(cfg, tokens, targets, _llama_moe)
+        _free_memory()
+        if run == "pinned":
+            continue
+        reset_counts()
+        hist, launches = _train(cfg, MOE_MICRO, 3, MOE_MICRO,
+                                model_cls=_llama_moe,
+                                optimizer_factory=_adafactor)
+        losses[run] = [r["loss"] for r in hist]
+        grad_norms[run] = [r["grad_norm"] for r in hist]
+        want = _expected_launches(cfg, len(hist))
+        if launches != want:
+            raise AssertionError(f"moe {attn} parity run launches "
+                                 f"{launches}, want {want}")
+        _free_memory()
+    # the (token, expert) assignments kept, by layer: a slot that moves
+    # within an expert's queue computes the same, a changed expert not
+    moved = [((a.any(-1) != b.any(-1)).sum() / a.any(-1).sum()).item()
+             for a, b in zip(masks["flash"], masks["reference"])]
+    free = {n: _rel_l2(grads["reference"][n], grads["flash"][n])
+            for n in grads["flash"]}
+    worst = sorted(free, key=free.get, reverse=True)[:4]
+    log(f"parity (moe routing, {MOE_PARITY_LAYERS} layers): kept (token, "
+        f"expert) assignments that differ between flash and reference, by "
+        f"layer, per assignment kept: {moved}; one step's gradients with "
+        f"free routing, "
+        f"relative L2: worst " + ", ".join(f"{n} {free[n]:.3g}"
+                                           for n in worst))
+    losses["pinned"], grad_norms["pinned"] = (losses["reference"],
+                                              grad_norms["reference"])
+    _compare_runs(f"moe attention, {MOE_PARITY_LAYERS} layers, routing "
+                  f"pinned", "flash", "pinned", losses, grad_norms, grads,
+                  [f"layer_{i}.{p}" for i in range(MOE_PARITY_LAYERS)
+                   for p in ("attn.k_proj.kernel", "moe.router",
+                             "moe.ExpertMLP_0.wi")])
+    out = {"moved_assignments_by_layer": moved,
+           "free_routing_worst_grad_rel_l2": {n: free[n] for n in worst}}
+    del grads, masks
+    _free_memory()
+    return out
+
+
+def phase_moe(smi: str, profile: str = "") -> dict:
+    """The Mixtral-style family: (a) Mixtral-8x7B's widths at 4 layers
+    train through the loop (with ``profile``, one more step profiled into
+    ``<profile>.moe``), (b) flash against reference at 2 layers, (c) the
+    MoE example under the port's agent resumes from its checkpoint."""
+    import os
+    import shutil
+    import tempfile
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.monotonic()
+    out = {"seconds": {}}
+    _free_memory()
+    out["train"], out["launches"] = _moe_train(
+        smi, f"{profile}.moe" if profile else "")
+    out["seconds"]["train"] = time.monotonic() - t0
+    mark = time.monotonic()
+    out["parity"] = _moe_parity()
+    out["seconds"]["parity"] = time.monotonic() - mark
+    mark = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_moe_")
+    agent_tmps = []
+    try:
+        agent_tmps = [tempfile.mkdtemp(prefix="agent_", dir=tmp)
+                      for _ in range(2)]
+        first = _example_run(repo, tmp, EXAMPLE_STEPS, "first",
+                             agent_tmps[0], MOE_WORKER, "moe")
+        if not any(line.startswith(f"moe: done step={EXAMPLE_STEPS} ")
+                   for line in first):
+            raise AssertionError(f"the MoE example did not finish step "
+                                 f"{EXAMPLE_STEPS}: {first}")
+        second = _example_run(repo, tmp, EXAMPLE_RESUMED_STEPS, "resumed",
+                              agent_tmps[1], MOE_WORKER, "moe")
+        new = second[len(first):]
+        if not any(line.startswith(f"moe: start_step={EXAMPLE_STEPS} ")
+                   for line in new):
+            raise AssertionError(f"the MoE example did not resume at step "
+                                 f"{EXAMPLE_STEPS}: {new}")
+        if not any(line.startswith(f"moe: done step={EXAMPLE_RESUMED_STEPS} ")
+                   for line in new):
+            raise AssertionError(f"the resumed MoE example did not finish "
+                                 f"step {EXAMPLE_RESUMED_STEPS}: {new}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"]["example"] = time.monotonic() - mark
+    out["seconds"]["phase"] = time.monotonic() - t0
+    log(f"moe: seconds by part {json.dumps(out['seconds'])}")
+    return out
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases",
                         default="kernels,quant,parity,llama1b,resume,"
                                 "standalone,faults,observe,failover,replan,"
-                                "models,llama7b",
+                                "models,llama7b,moe",
                         help="comma-separated subset of kernels, quant, "
                              "parity, llama1b, resume, standalone, faults, "
-                             "observe, failover, replan, models, llama7b "
-                             "(device and build always run)")
+                             "observe, failover, replan, models, llama7b, "
+                             "moe (device and build always run)")
     parser.add_argument("--profile", default="",
                         help="after the Llama-1B run, profile one more "
                              "step and write the kernel table here (and "
-                             "after GPT-2's and BERT's runs, and Llama-7B's "
-                             "streaming and dense remat runs, to this path "
-                             "with .gpt2, .bert, .llama7b_streaming and "
-                             ".llama7b_dense_remat added)")
+                             "after GPT-2's and BERT's runs, Llama-7B's "
+                             "streaming and dense remat runs and the MoE "
+                             "run, to this path with .gpt2, .bert, "
+                             ".llama7b_streaming, .llama7b_dense_remat and "
+                             ".moe added)")
     args = parser.parse_args(argv)
     phases = args.phases.split(",")
     # a SIGTERM (a time limit) unwinds through the phases' ``finally``
@@ -4530,6 +4916,11 @@ def main(argv=None) -> int:
             rec["llama7b_launches"] = {
                 kind: counts[rec["name"]]
                 for kind, counts in llama7b["launches"].items()}
+    if "moe" in phases:
+        # the Mixtral-width run's 7 steps
+        moe = phase_moe(smi, args.profile)
+        for rec in train_records + quant_records:
+            rec["moe_launches"] = moe["launches"][rec["name"]]
     records = train_records + quant_records
     log(f"elapsed {time.monotonic() - t0:.1f} s")
     print(json.dumps({"kernels": records}))

@@ -3,13 +3,19 @@
 Every model family of the port names its modules and parameters as the
 flax tree does, so one mapping serves them all: the flax path
 ``layer_0/attn/q_proj/kernel`` (Llama), ``block_3/qkv/kernel`` or
-``block_0/ln1/scale`` (GPT), ``layer_0/attn_norm/bias`` (BERT) is the
+``block_0/ln1/scale`` (GPT), ``layer_0/attn_norm/bias`` (BERT),
+``layer_0/moe/ExpertMLP_0/wi`` or ``layer_0/moe/router`` (LlamaMoE) is the
 port's ``state_dict`` key with dots, and tables such as ``wte`` or
 ``word_embed`` keep their names. Dense kernels keep the ``(in, out)``
 layout in both, so values cross unchanged. The tree is given as nested
 dicts of numpy arrays (unbox flax's partitioning metadata first).
 
-``streaming_state_from_jax`` carries the JAX package's streaming state
+``factored_state_from_jax`` carries an optax chain's factored-RMS state
+(``optax.adafactor``'s, or ``scale_by_factored_rms`` chained with
+``scale``) to each parameter's per-leaf state by the port's names, the
+layout of ``LeafOptimizer`` over ``optim.adafactor`` or
+``optim.factored_rms``; ``streaming_state_from_jax`` carries the JAX
+package's streaming state
 (``trainer/streaming.py``: every block leaf stacked over the layers, the
 optimizer's state stacked alike) to the port's per-layer parameters and
 each one's factored-RMS state.
@@ -78,6 +84,19 @@ def _factored(opt_state: Any) -> Any:
 
 def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, copy=True))
+
+
+def factored_state_from_jax(opt_state: Any
+                            ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """An optax chain's state holding a ``scale_by_factored_rms`` (its
+    leaves numpy arrays) → each parameter's ``{"count", "v_row", "v_col",
+    "v"}`` by the port's names (``layer_0.moe.ExpertMLP_0.wi``)."""
+    factored = _factored(opt_state)
+    trees = {key: _flat(getattr(factored, key)) for key in FACTORED_KEYS}
+    return {path: {"count": _tensor(factored.count),
+                   **{key: _tensor(trees[key][path])
+                      for key in FACTORED_KEYS}}
+            for path in trees["v"]}
 
 
 def streaming_state_from_jax(state: Any) -> Tuple[

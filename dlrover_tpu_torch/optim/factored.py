@@ -8,6 +8,11 @@ row and a column mean of g² + eps over them (``v_row``, ``v_col``), any
 other leaf the full second moment ``v``; the unused entries hold a
 zero of shape (1,), as optax's state does, so a JAX state converts leaf
 for leaf (``convert.py``).
+
+A DTensor parameter (sharded over an expert or a data axis) keeps its
+statistics as DTensors laid out alike; a mean over a dim the parameter is
+sharded on is made whole on every rank (``settled``), as XLA reduces a
+sharded leaf.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from dlrover_tpu_torch.optim.base import LeafState, LeafTransform, count_like
 
@@ -32,6 +38,73 @@ def factored_dims(shape, min_dim_size_to_factor: int
     return int(order[-2]), int(order[-1])
 
 
+def settled(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's partial values (a reduction over a dim it is sharded
+    on) made whole on every rank; any other tensor as it is."""
+    if isinstance(t, DTensor) and any(p.is_partial() for p in t.placements):
+        return t.redistribute(t.device_mesh, [
+            Replicate() if p.is_partial() else p for p in t.placements])
+    return t
+
+
+def _zeros_without(p: torch.Tensor, dim: int) -> torch.Tensor:
+    """Zeros of ``p``'s shape without ``dim``, laid out as ``p`` is."""
+    if isinstance(p, DTensor):
+        return settled(torch.zeros_like(p).mean(dim=dim))
+    return torch.zeros(np.delete(p.shape, dim).tolist(), dtype=p.dtype,
+                       device=p.device)
+
+
+def factored_init(p: torch.Tensor, min_dim_size_to_factor: int
+                  ) -> LeafState:
+    """optax's ``scale_by_factored_rms`` state of one leaf: its step
+    count and the unused entries as zeros of shape (1,)."""
+    def unused():
+        return torch.zeros((1,), dtype=p.dtype, device=p.device)
+
+    dims = factored_dims(tuple(p.shape), min_dim_size_to_factor)
+    state = {"count": count_like(p), "v_row": unused(), "v_col": unused(),
+             "v": unused()}
+    if dims is None:
+        state["v"] = torch.zeros_like(p)
+    else:
+        d1, d0 = dims
+        state["v_row"] = _zeros_without(p, d0)
+        state["v_col"] = _zeros_without(p, d1)
+    return state
+
+
+def factored_scale(g: torch.Tensor, state: LeafState, p: torch.Tensor,
+                   decay_rate: float, step_offset: int,
+                   min_dim_size_to_factor: int, epsilon: float
+                   ) -> Tuple[torch.Tensor, LeafState]:
+    """optax's ``scale_by_factored_rms`` update of one leaf: (the scaled
+    gradient, the new state)."""
+    count = state["count"]
+    t = (count - step_offset + 1).float()
+    decay = 1.0 - t ** -decay_rate
+    grad_sqr = g * g + epsilon
+    new = dict(state, count=count + 1)
+    dims = factored_dims(tuple(p.shape), min_dim_size_to_factor)
+    if dims is not None:
+        d1, d0 = dims
+        v_row = (decay * state["v_row"] + (1.0 - decay)
+                 * settled(grad_sqr.mean(dim=d0))).to(p.dtype)
+        v_col = (decay * state["v_col"] + (1.0 - decay)
+                 * settled(grad_sqr.mean(dim=d1))).to(p.dtype)
+        reduced_d1 = d1 - 1 if d1 > d0 else d1
+        row_col_mean = settled(v_row.mean(dim=reduced_d1, keepdim=True))
+        row_factor = (v_row / row_col_mean) ** -0.5
+        col_factor = v_col ** -0.5
+        u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+        new.update(v_row=v_row, v_col=v_col)
+    else:
+        v = (decay * state["v"] + (1.0 - decay) * grad_sqr).to(p.dtype)
+        u = g * v ** -0.5
+        new["v"] = v
+    return u, new
+
+
 def factored_rms(learning_rate: float, decay_rate: float = 0.8,
                  step_offset: int = 0, min_dim_size_to_factor: int = 128,
                  epsilon: float = 1e-30) -> LeafTransform:
@@ -41,44 +114,12 @@ def factored_rms(learning_rate: float, decay_rate: float = 0.8,
     schedule."""
 
     def init(p: torch.Tensor) -> LeafState:
-        def zeros(shape):
-            return torch.zeros(shape, dtype=p.dtype, device=p.device)
-
-        dims = factored_dims(tuple(p.shape), min_dim_size_to_factor)
-        state = {"count": count_like(p), "v_row": zeros((1,)),
-                 "v_col": zeros((1,)), "v": zeros((1,))}
-        if dims is None:
-            state["v"] = zeros(p.shape)
-        else:
-            d1, d0 = dims
-            state["v_row"] = zeros(np.delete(p.shape, d0).tolist())
-            state["v_col"] = zeros(np.delete(p.shape, d1).tolist())
-        return state
+        return factored_init(p, min_dim_size_to_factor)
 
     def update(g: torch.Tensor, state: LeafState, p: torch.Tensor,
                lr: float):
-        count = state["count"]
-        t = (count - step_offset + 1).float()
-        decay = 1.0 - t ** -decay_rate
-        grad_sqr = g * g + epsilon
-        new = dict(state, count=count + 1)
-        dims = factored_dims(tuple(p.shape), min_dim_size_to_factor)
-        if dims is not None:
-            d1, d0 = dims
-            v_row = (decay * state["v_row"]
-                     + (1.0 - decay) * grad_sqr.mean(dim=d0)).to(p.dtype)
-            v_col = (decay * state["v_col"]
-                     + (1.0 - decay) * grad_sqr.mean(dim=d1)).to(p.dtype)
-            reduced_d1 = d1 - 1 if d1 > d0 else d1
-            row_col_mean = v_row.mean(dim=reduced_d1, keepdim=True)
-            row_factor = (v_row / row_col_mean) ** -0.5
-            col_factor = v_col ** -0.5
-            u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
-            new.update(v_row=v_row, v_col=v_col)
-        else:
-            v = (decay * state["v"] + (1.0 - decay) * grad_sqr).to(p.dtype)
-            u = g * v ** -0.5
-            new["v"] = v
+        u, new = factored_scale(g, state, p, decay_rate, step_offset,
+                                min_dim_size_to_factor, epsilon)
         return u * -lr, new
 
     return LeafTransform(init, update, learning_rate)

@@ -53,12 +53,16 @@ What the master observes of the card (the JAX loop's telemetry):
   stats file the agent relays (``agent/monitor.py::export_chip_stats``,
   ``DLROVER_TPU_CHIP_STATS``) at the report cadence;
 - one step-trace record a step (``obs/steptrace.py``: data_wait, h2d,
-  compute, checkpoint), stamped with the clock offset against the master
-  (probed once at construction, refreshed at the report cadence) and
-  flushed with the spans; the compute phase runs to the end of the
-  step's host work (the chaos hook included), and the checkpoint phase
-  is the save's own blocking time, since the port records its timeline
-  before the save;
+  compute, host_sync, checkpoint), stamped with the clock offset against
+  the master (probed once at construction, refreshed at the report
+  cadence) and flushed with the spans; the compute phase runs to the end
+  of the step's host work (the chaos hook included), host_sync is the
+  boundary's work before the save (the telemetry and timeline records
+  and, when due, the step report's RPCs, which wait on the master), and
+  the checkpoint phase is the save's own blocking time. The record is
+  made after both, so it ships with the next step's flush (the JAX loop
+  records before its report and leaves that time untraced). The port
+  records its timeline before the save;
 - ``torch.profiler`` captures (``obs/profiler.py``): the static window of
   ``profile_dir`` and the agent's on-demand requests
   (``DLROVER_TPU_PROFILE_REQUEST``), polled at the step boundary before
@@ -1010,6 +1014,7 @@ class ElasticTrainLoop:
                 if interval and step % interval == 0:
                     self._report_progress(step)
                     self._flush_telemetry()
+            t_host_end = time.monotonic()
             if self.checkpointer is not None:
                 t_save = time.monotonic()
                 data_state = self._data_state(sampler)
@@ -1027,7 +1032,7 @@ class ElasticTrainLoop:
                 record["checkpoint_s"] = time.monotonic() - t_save
             if self._steptrace is not None:
                 self._record_steptrace(step, t_wait, t0, t_compute_end,
-                                       record["checkpoint_s"])
+                                       t_host_end, record["checkpoint_s"])
             # the collections, at the boundary, outside the timed step
             if len(history) == 1 or step % GC_EVERY_STEPS == 0:
                 t_gc = time.monotonic()
@@ -1059,7 +1064,8 @@ class ElasticTrainLoop:
                        "history": history}
 
     def _record_steptrace(self, step: int, t_step: float, t_data: float,
-                          t_compute_end: float, ckpt_s: float) -> None:
+                          t_compute_end: float, t_host_end: float,
+                          ckpt_s: float) -> None:
         """One step's trace record from the loop's monotonic marks: a
         handful of float ops and one bounded-ring append."""
         now_mono = time.monotonic()
@@ -1070,10 +1076,12 @@ class ElasticTrainLoop:
         h2d_d = max(0.0, float(self.trainer.last_shard_batch_s))
         cursor = data_d + h2d_d
         compute_end = max(cursor, t_compute_end - t_step)
+        host_end = max(compute_end, t_host_end - t_step)
         phases = [("data_wait", 0.0, data_d), ("h2d", data_d, h2d_d),
-                  ("compute", cursor, compute_end - cursor)]
+                  ("compute", cursor, compute_end - cursor),
+                  ("host_sync", compute_end, host_end - compute_end)]
         if ckpt_s > 0:
-            phases.append(("checkpoint", compute_end, ckpt_s))
+            phases.append(("checkpoint", host_end, ckpt_s))
         # the membership episode: the applied plan's epoch (0 without)
         self._steptrace.record(step, self._trace_generation(), t0_wall,
                                phases)

@@ -29,9 +29,21 @@ model and optimizer are updated in place, so the parameters and moments
 are never held twice. A single-process mesh places nothing: that
 trainer is the single-device one.
 
-Not ported yet, and raising: ``sequence`` (ROADMAP Queue A item 8),
-``expert`` and ``pipe`` (item 10) axes above 1, and
-``grad_reduce_bits`` (item 9).
+- **expert**: the leaves with an ``expert`` logical axis (an MoE
+  model's experts and router) as DTensors sharded over the ``expert``
+  axis; the batch is not sharded over it, so the ranks of an expert
+  group see the same tokens and their other gradients agree, and the
+  expert leaves' gradients are averaged over the data axes only
+  (``parallel/moe.py`` holds the layer's collectives).
+
+A model that sows auxiliary losses (``sows_losses``: the MoE family's
+router balancing) is called with ``with_losses=True`` and a gating seed
+folded from ``RNG_SEED``, the step and the micro-step, and its aux sum is
+added to the loss, as the JAX step adds the ``losses`` collection.
+
+Not ported yet, and raising: ``sequence`` (ROADMAP Queue A item 8) and
+``pipe`` (item 10) axes above 1, a ``tensor`` axis under an MoE model
+(item 10), and ``grad_reduce_bits`` (item 9).
 """
 
 from __future__ import annotations
@@ -57,11 +69,18 @@ from dlrover_tpu_torch.parallel.mesh import (
     dp_index,
     dp_size,
 )
+from dlrover_tpu_torch.parallel.moe import fold_seed
 from dlrover_tpu_torch.parallel.sharding import (
     DEFAULT_RULES,
+    logical_axes,
     mesh_placements,
     to_local,
 )
+
+
+# the seed the stochastic model paths (MoE router jitter) fold the step
+# and the micro-step into: the JAX build_trainer's default rng_seed
+RNG_SEED = 0
 
 
 @dataclasses.dataclass
@@ -176,26 +195,35 @@ class Trainer:
             return model
         placements = mesh_placements(model, mesh, self.rules)
         if mesh.shape[MeshAxis.TENSOR] > 1:
-            tp_mesh = mesh.submesh([MeshAxis.TENSOR])
-            tp = mesh.axis_names.index(MeshAxis.TENSOR)
-            for prefix, module in model.named_modules():
-                for name, param in list(module.named_parameters(
-                        recurse=False)):
-                    if isinstance(param, DTensor):
-                        continue
-                    full = f"{prefix}.{name}" if prefix else name
-                    # every rank holds the same full value: each keeps
-                    # its own shard, with no communication
-                    module.register_parameter(name, nn.Parameter(
-                        distribute_tensor(param.detach(), tp_mesh,
-                                          [placements[full][tp]],
-                                          src_data_rank=None),
-                        requires_grad=param.requires_grad))
+            self._distribute(model, placements, MeshAxis.TENSOR, every=True)
+        if mesh.shape[MeshAxis.EXPERT] > 1:
+            self._distribute(model, placements, MeshAxis.EXPERT, every=False)
         from torch.distributed.fsdp import FSDPModule
 
         if dp_size(mesh) > 1 and not isinstance(model, FSDPModule):
             self._fully_shard(model, placements)
         return model
+
+    def _distribute(self, model: nn.Module, placements: Dict[str, list],
+                    axis: str, every: bool) -> None:
+        """Each parameter as a DTensor over the mesh's ``axis`` in its
+        placement there: every parameter (``every``) or only those the
+        axis shards."""
+        sub = self.mesh.submesh([axis])
+        column = self.mesh.axis_names.index(axis)
+        for prefix, module in model.named_modules():
+            for name, param in list(module.named_parameters(recurse=False)):
+                full = f"{prefix}.{name}" if prefix else name
+                placement = placements[full][column]
+                if isinstance(param, DTensor) or not (
+                        every or isinstance(placement, Shard)):
+                    continue
+                # every rank holds the same full value: each keeps its own
+                # shard, with no communication
+                module.register_parameter(name, nn.Parameter(
+                    distribute_tensor(param.detach(), sub, [placement],
+                                      src_data_rank=None),
+                    requires_grad=param.requires_grad))
 
     def _fully_shard(self, model: nn.Module,
                      placements: Dict[str, list]) -> None:
@@ -298,7 +326,8 @@ class Trainer:
                     # reduce the summed gradient once, after the last
                     model.set_requires_gradient_sync(
                         i == self.accum_steps - 1)
-                loss = self.loss_fn(model(tokens[i]), targets[i])
+                loss = self._micro_loss(model, tokens[i], targets[i],
+                                        state.step, i)
                 loss.backward()
                 loss_sum += to_local(loss.detach()).float()
         for p in model.parameters():
@@ -326,6 +355,19 @@ class Trainer:
             torch._foreach_div_([to_local(g) for g in grads],
                                 float(self.accum_steps))
         return loss_sum / self.accum_steps
+
+    def _micro_loss(self, model: nn.Module, tokens: torch.Tensor,
+                    targets: torch.Tensor, step: int, micro: int
+                    ) -> torch.Tensor:
+        """One micro-batch's loss: the loss function's, plus the aux
+        losses of a model that sows them, whose stochastic routing draws
+        from a seed folded from ``RNG_SEED``, the step and the micro
+        index (the same on every rank and across a restart)."""
+        if not getattr(model, "sows_losses", False):
+            return self.loss_fn(model(tokens), targets)
+        logits, aux = model(tokens, with_losses=True,
+                            gating_seed=fold_seed(RNG_SEED, step, micro))
+        return self.loss_fn(logits, targets) + aux
 
     def _apply(self, state: TrainState) -> torch.Tensor:
         grads = [p.grad for p in state.model.parameters()
@@ -472,7 +514,6 @@ def build_trainer(
                          f"{mesh.device}")
     shape = mesh.shape
     for axis, item in ((MeshAxis.SEQUENCE, "8, parallel/ring_attention.py"),
-                       (MeshAxis.EXPERT, "10, parallel/moe.py"),
                        (MeshAxis.PIPE, "10, parallel/pipeline.py")):
         if shape[axis] > 1:
             raise NotImplementedError(
@@ -493,7 +534,7 @@ def build_trainer(
         model_factory = model
         probe = model(device="meta", seed=0)
     rules = list(rules if rules is not None else DEFAULT_RULES)
-    _check_tensor_axis(probe, mesh, rules)
+    _check_model_axes(probe, mesh, rules)
     if tuple(sample_batch.shape[:1]) != (micro_batch,):
         raise ValueError(f"sample batch {tuple(sample_batch.shape)} does "
                          f"not hold micro_batch={micro_batch} rows")
@@ -509,14 +550,34 @@ def build_trainer(
                    libraries=tuple(libraries))
 
 
-def _check_tensor_axis(model: nn.Module, mesh: Mesh, rules) -> None:
-    """Every dim the tensor axis shards must divide by it, and a GQA
-    model's kv heads too: each rank's query heads must find their kv
-    heads among its own. A model with a fused qkv projection (GPT, BERT)
-    is refused."""
+def _check_model_axes(model: nn.Module, mesh: Mesh, rules) -> None:
+    """Every dim the tensor or the expert axis shards must divide by it
+    (``ValueError``): an MoE model's expert count by the expert way, and
+    under a tensor axis a GQA model's kv heads too, since each rank's
+    query heads must find their kv heads among its own. A model with a
+    fused qkv projection (GPT, BERT) or with experts is refused a tensor
+    axis."""
+    expert = mesh.shape[MeshAxis.EXPERT]
     tensor = mesh.shape[MeshAxis.TENSOR]
+    if expert == 1 and tensor == 1:
+        return
+    shapes = dict(model.named_parameters())
+    placements = mesh_placements(model, mesh, rules)
+    column = mesh.axis_names.index(MeshAxis.EXPERT)
+    for name, p in placements.items():
+        p = p[column]
+        if (expert > 1 and isinstance(p, Shard)
+                and shapes[name].shape[p.dim] % expert):
+            raise ValueError(f"{name} {tuple(shapes[name].shape)}: dim "
+                             f"{p.dim} does not divide over "
+                             f"expert={expert}")
     if tensor == 1:
         return
+    if any("expert" in axes for axes in logical_axes(model).values()):
+        # the expert layer computes on its local experts, not on DTensors
+        raise NotImplementedError(
+            f"an MoE model ({type(model).__name__}) over a tensor axis is "
+            f"not ported yet (ROADMAP Queue A item 10)")
     cfg = getattr(model, "config", None)
     for attr in ("num_heads", "n_head", "num_kv_heads"):
         if cfg is not None and getattr(cfg, attr, tensor) % tensor:
@@ -529,9 +590,8 @@ def _check_tensor_axis(model: nn.Module, mesh: Mesh, rules) -> None:
             f"a fused qkv projection ({type(model).__name__}) over a tensor "
             f"axis is not ported yet (ROADMAP Queue A item 10)")
     column = mesh.axis_names.index(MeshAxis.TENSOR)
-    shapes = dict(model.named_parameters())
-    for name, placements in mesh_placements(model, mesh, rules).items():
-        p = placements[column]
+    for name, p in placements.items():
+        p = p[column]
         if isinstance(p, Shard) and shapes[name].shape[p.dim] % tensor:
             raise ValueError(f"{name} {tuple(shapes[name].shape)}: dim "
                              f"{p.dim} does not divide over "

@@ -3,8 +3,9 @@ versions, the wrappers' refusals, the launch counters, the model's
 attention and norm paths, the checkpoint on the card, and what the
 master observes of it (the allocator telemetry, a profiler capture
 naming the kernels, an agent that never opens the card), a worker on
-the card training through a standby's promotion, and the kernels under
-remat, the streaming step and the device prefetch. Every test is marked
+the card training through a standby's promotion, the kernels under
+remat, the streaming step and the device prefetch, and the MoE model's
+kernels. Every test is marked
 ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false. This file imports no JAX, so it
 also runs on a machine without it:
@@ -409,6 +410,49 @@ def test_remat_runs_the_forward_kernels_again_for_the_same_gradients(
                                "rms_bwd": 2 * layers + 1}
     assert launches[True] == dict(launches[False], flash_fwd=2 * layers,
                                   rms_fwd=4 * layers + 1)
+    for name, g in grads[False].items():
+        assert torch.equal(grads[True][name], g), name
+
+
+def test_moe_model_on_the_card_counts_its_kernels_once_a_layer(cuda):
+    """A small LlamaMoE (GQA 4:1, 4 experts top-2, training routing) on
+    the card: one step's loss (cross entropy + the router aux) launches
+    each flash kernel once a layer and each norm kernel at the 2·L + 1
+    norms; under remat the forward kernels launch again, the aux is
+    counted once and the gradients are the same bits."""
+    from dlrover_tpu_torch.models.llama_moe import (
+        LlamaMoE,
+        LlamaMoEConfig,
+        moe_cross_entropy_loss,
+    )
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    tokens, targets = (torch.randint(0, 256, (2, 256), device=cuda,
+                                     generator=gen) for _ in range(2))
+    losses, grads, launches = {}, {}, {}
+    for remat in (False, True):
+        cfg = LlamaMoEConfig(vocab_size=256, hidden_size=256,
+                             intermediate_size=512, num_layers=2,
+                             num_heads=4, num_kv_heads=1, max_seq_len=256,
+                             embed_impl="gather", num_experts=4, remat=remat)
+        model = LlamaMoE(cfg, device=cuda, seed=0, deterministic=False)
+        fa.reset_launch_counts()
+        norms.reset_launch_counts()
+        loss = moe_cross_entropy_loss(model, tokens, targets)
+        loss.backward()
+        torch.cuda.synchronize()
+        launches[remat] = _launches()
+        losses[remat] = loss.detach()
+        grads[remat] = {n: p.grad for n, p in model.named_parameters()}
+    layers = 2
+    assert launches[False] == {"flash_fwd": layers, "flash_bwd_dq": layers,
+                               "flash_bwd_dkv": layers,
+                               "rms_fwd": 2 * layers + 1,
+                               "rms_bwd": 2 * layers + 1}
+    assert launches[True] == dict(launches[False], flash_fwd=2 * layers,
+                                  rms_fwd=4 * layers + 1)
+    assert torch.isfinite(losses[False]) and torch.equal(losses[False],
+                                                         losses[True])
     for name, g in grads[False].items():
         assert torch.equal(grads[True][name], g), name
 

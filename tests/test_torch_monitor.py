@@ -384,9 +384,19 @@ class _LoopClient:
         return ""
 
 
-def _run_tiny_loop(tmp_path, monkeypatch, **config):
-    """A tiny Llama loop on the CPU reporting to a ``_LoopClient``: the
-    client and the run's history."""
+class _SlowReportClient(_LoopClient):
+    """A master whose step report takes ``REPORT_S`` to answer."""
+
+    REPORT_S = 0.05
+
+    def report_global_step(self, step, **kwargs):
+        time.sleep(self.REPORT_S)
+        return super().report_global_step(step, **kwargs)
+
+
+def _run_tiny_loop(tmp_path, monkeypatch, client=None, **config):
+    """A tiny Llama loop on the CPU reporting to ``client`` (a new
+    ``_LoopClient`` by default): the client and the run's history."""
     import functools
 
     from dlrover_tpu_torch.common.constants import NodeEnv
@@ -410,7 +420,7 @@ def _run_tiny_loop(tmp_path, monkeypatch, **config):
     monkeypatch.setenv(NodeEnv.CHIP_STATS_FILE, str(tmp_path / "chips"))
     monkeypatch.setenv(NodeEnv.NODE_RANK, "0")
     cfg = LlamaConfig.tiny(embed_impl="gather")
-    client = _LoopClient()
+    client = client if client is not None else _LoopClient()
     loop = ElasticTrainLoop(
         functools.partial(Llama, cfg),
         lambda p: torch.optim.AdamW(p, lr=1e-3), cross_entropy_loss,
@@ -443,7 +453,7 @@ def test_loop_reports_traces_and_profiles_a_static_window(tmp_path,
     for rec, hist in zip(client.traces, history):
         assert rec["rank"] == 0 and 4.9 < rec["off"] < 5.1
         names = [p[0] for p in rec["phases"]]
-        assert names == ["data_wait", "h2d", "compute"]
+        assert names == ["data_wait", "h2d", "compute", "host_sync"]
         after_batch = sum(p[2] for p in rec["phases"][1:])
         assert after_batch >= hist["step_time_s"]
     (capture,) = os.listdir(tmp_path / "static")
@@ -458,7 +468,7 @@ def test_loop_traces_a_checkpointing_step_by_its_own_marks(tmp_path,
                                                            monkeypatch):
     """With a checkpointer the trace still starts its compute phase at
     the batch's arrival, and its ``checkpoint`` phase is the save's own
-    time, after the compute."""
+    time, after the compute and the boundary's host work."""
     client, history = _run_tiny_loop(
         tmp_path, monkeypatch, checkpoint_dir=str(tmp_path / "ckpt"),
         save_interval_steps=2)
@@ -470,6 +480,26 @@ def test_loop_traces_a_checkpointing_step_by_its_own_marks(tmp_path,
         start, dur = phases["checkpoint"]
         assert dur == pytest.approx(hist["checkpoint_s"], abs=1e-6)
         assert start == pytest.approx(sum(
-            phases[n][1] for n in ("data_wait", "h2d", "compute")),
+            phases[n][1] for n in ("data_wait", "h2d", "compute",
+                                   "host_sync")),
             abs=1e-5)
     assert [h["step"] for h in history if "checkpoint_wait_s" in h] == [2, 4]
+
+
+def test_loop_traces_a_slow_step_report_as_host_sync(tmp_path, monkeypatch):
+    """A step report that waits on a busy master is traced: the record's
+    ``host_sync`` phase starts where the compute ends and lasts at least
+    the report's wait, and no step's phases run past the next step's
+    start."""
+    client, _ = _run_tiny_loop(tmp_path, monkeypatch,
+                               client=_SlowReportClient())
+    assert [r["step"] for r in client.traces] == [1, 2, 3, 4]
+    for rec, nxt in zip(client.traces, client.traces[1:] + [None]):
+        names = [p[0] for p in rec["phases"]]
+        assert names == ["data_wait", "h2d", "compute", "host_sync"]
+        phases = {name: (start, dur) for name, start, dur in rec["phases"]}
+        start, dur = phases["host_sync"]
+        assert start == pytest.approx(sum(phases["compute"]), abs=1e-5)
+        assert dur >= _SlowReportClient.REPORT_S
+        if nxt is not None:
+            assert nxt["t0"] - rec["t0"] >= start + dur - 1e-3

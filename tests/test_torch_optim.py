@@ -116,6 +116,46 @@ def test_factored_rms_matches_optax(kw):
                 rtol=1e-5, atol=0, err_msg=f"{k}.{name}")
 
 
+@pytest.mark.parametrize("kw", [
+    dict(), dict(min_dim_size_to_factor=64), dict(clipping_threshold=None),
+    dict(clipping_threshold=0.5),
+])
+def test_adafactor_matches_optax(kw):
+    """optax.adafactor's chain on a factored 2-D leaf, a 2-D leaf under
+    min_dim_size_to_factor, a 3-D (expert-shaped) leaf factored over its
+    two largest dims and a 1-D leaf; the state converts leaf for leaf."""
+    params, grads = _leaves(), _grads()
+    want, jstate = _run_jax(optax.adafactor(3e-2, **kw), params, grads)
+    got, opt, tensors = _run_port(optim.adafactor(3e-2, **kw), params,
+                                  grads)
+    _assert_close(got, want)
+    converted = convert.factored_state_from_jax(
+        jax.tree.map(np.asarray, jstate))
+    for k, p in tensors.items():
+        for name in ("count", "v_row", "v_col", "v"):
+            np.testing.assert_allclose(
+                opt.state[p][name].numpy(), converted[k][name].numpy(),
+                rtol=1e-5, atol=0, err_msg=f"{k}.{name}")
+
+
+def test_adafactor_clip_bites_as_optax_does():
+    """A second gradient 100 times the first: each leaf's update RMS
+    passes 1 (the decayed statistics lag), so clip_by_block_rms(1.0)
+    divides it, in both; without the clip the parameters move further."""
+    params, grads = _leaves(), _grads()
+    grads[1] = {k: 100.0 * g for k, g in grads[1].items()}
+    want, _ = _run_jax(optax.adafactor(3e-2), params, grads)
+    got, _, _ = _run_port(optim.adafactor(3e-2), params, grads)
+    _assert_close(got, want)
+    unclipped, _, _ = _run_port(optim.adafactor(3e-2,
+                                                clipping_threshold=None),
+                                params, grads)
+    for k in params:
+        moved = (got[1][k] - got[0][k]).abs().sum()
+        moved_unclipped = (unclipped[1][k] - unclipped[0][k]).abs().sum()
+        assert moved < moved_unclipped, k
+
+
 def test_factored_dims_follow_optax():
     from optax._src.factorized import _factored_dims
 

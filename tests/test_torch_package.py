@@ -83,12 +83,17 @@ SLICE_7B_MODULES = ("optim/base.py", "optim/factored.py", "optim/agd.py",
                     "optim/bf16.py", "optim/wsam.py", "optim/sparse.py",
                     "ops/remat.py", "trainer/streaming.py",
                     "data/prefetch.py")
+# the MoE slice's modules: the expert layer, the model family, Adafactor
+# and the worker script
+SLICE_MOE_MODULES = ("parallel/moe.py", "models/llama_moe.py",
+                     "optim/adafactor.py", "examples/moe_train.py")
 
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     sources = _port_sources()
     assert len(sources) > 10
-    for name in FAULT_MODULES + REPLAN_MODULES + SLICE_7B_MODULES:
+    for name in (FAULT_MODULES + REPLAN_MODULES + SLICE_7B_MODULES
+                 + SLICE_MOE_MODULES):
         assert PACKAGE / name in sources, name
     for path in sources:
         bad = _imported_roots(path) & FORBIDDEN
@@ -109,7 +114,8 @@ def test_importing_the_port_loads_no_jax():
                          check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
     assert "dlrover_tpu_torch.trainer.elastic_loop" in modules
-    for name in FAULT_MODULES + REPLAN_MODULES + SLICE_7B_MODULES:
+    for name in (FAULT_MODULES + REPLAN_MODULES + SLICE_7B_MODULES
+                 + SLICE_MOE_MODULES):
         module = "dlrover_tpu_torch." + name[:-3].replace("/", ".")
         assert module in modules, module
 

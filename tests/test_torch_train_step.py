@@ -284,22 +284,28 @@ def test_abstract_state_and_precompile_on_cpu():
 
 @pytest.mark.parametrize("spec,kw,exc", [
     (dict(sequence=2), {}, NotImplementedError),
-    (dict(expert=2), {}, NotImplementedError),
+    # 4 experts (the MoE tiny model) over 3 expert ranks
+    (dict(expert=3), dict(moe=True), ValueError),
     (dict(pipe=2), {}, NotImplementedError),
     (dict(), dict(grad_reduce_bits=8), NotImplementedError),
     (dict(tensor=4), {}, ValueError),        # 2 kv heads over 4 ranks
     (dict(data=3), {}, ValueError),          # micro 2 over 3 ranks
 ])
 def test_unported_axes_and_unsplittable_shapes_raise(spec, kw, exc):
+    from dlrover_tpu_torch.models import llama_moe as tlm
     from dlrover_tpu_torch.parallel import mesh as tmesh
 
     resolved = tmesh.MeshSpec(**spec)
     resolved = resolved.with_total_devices(
         resolved.total if resolved.data else resolved.total)
     mesh = tmesh.Mesh(resolved, torch.device("cpu"))
+    kw = dict(kw)
+    model = (functools.partial(tlm.LlamaMoE,
+                               tlm.LlamaMoEConfig.mixtral_tiny())
+             if kw.pop("moe", False) else
+             functools.partial(tllama.Llama, tllama.LlamaConfig.tiny()))
     with pytest.raises(exc):
         tts.build_trainer(
-            functools.partial(tllama.Llama, tllama.LlamaConfig.tiny()),
-            functools.partial(torch.optim.AdamW, lr=LR), mesh,
+            model, functools.partial(torch.optim.AdamW, lr=LR), mesh,
             np.zeros((MICRO, SEQ)), tllama.cross_entropy_loss,
             micro_batch=MICRO, **kw)
