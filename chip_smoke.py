@@ -16,13 +16,15 @@ Phases (each one's failure ends the run with a nonzero exit):
            wrappers to the kernels' 64 and 128) and at the GPT-2 small
            (b 12, h 12, s 1024, d 64, causal) and BERT-base (b 32, h 12,
            s 512, d 64, bidirectional) and Llama-7B (b 2, h 32, s 2048, d
-           128, causal; the norms at 4096 rows of 4096) and Mixtral-width
+           128, causal; the norms at 4096 rows of 4096), Mixtral-width
            MoE (b 4, h 32 over 8 KV heads, s 2048, d 128, causal; the
-           norms at 8192 rows of 4096) shapes, with
+           norms at 8192 rows of 4096) and pipeline (Llama-1B's
+           microbatch of 2: b 2, h 16, s 2048, d 128, causal; the norms
+           at 4096 rows of 2048) shapes, with
            stated tolerances, and o, dQ, dK and dV the same bits in a
            second call; time kernel, plain version and the library
            yardstick (SDPA, F.rms_norm) at the slice shape and at the
-           four model shapes
+           five model shapes
   quant    the quantization API (quantize, dequantize, swizzled,
            quant_reduce) on a Llama-1B gate_proj gradient, int8 and int4,
            bf16 input, group 8, zero and tie groups: every output equals
@@ -37,7 +39,8 @@ Phases (each one's failure ends the run with a nonzero exit):
            each flash kernel launches 22 times per step, rms_fwd and
            rms_bwd 45 times
   resume   Llama-1B at full width cut to 8 of its 22 layers
-           (CKPT_LAYERS; also standalone's and faults') through
+           (CKPT_LAYERS; also standalone's, faults', failover's,
+           replan's and pipeline (d)'s) through
            ElasticTrainLoop with a flash checkpoint in a temporary
            directory (deleted at the end; the
            phase fails if the disk cannot hold one checkpoint, or the
@@ -143,7 +146,8 @@ Phases (each one's failure ends the run with a nonzero exit):
            (the same with `--standby`, at its defaults: a probe every
            2 s, promotion after 3 failures) and `python -m
            dlrover_tpu_torch.run --monitor-interval 1` finding the
-           master through B, around the same Llama-1B worker (a report
+           master through B, around the same Llama-1B worker at
+           CKPT_LAYERS (a report
            a step, saves every 8; the steps derived from the code's
            detection, promotion and reconnect bounds so that 10 follow
            the reconnect, printed); every master RPC of the agent and
@@ -166,7 +170,8 @@ Phases (each one's failure ends the run with a nonzero exit):
            (min 1, max 2 nodes, diagnosis every 2 s, a speed window of 8
            samples) and two `python -m dlrover_tpu_torch.run
            --monitor-interval 0.5` agents, ranks 0 and 1, each around the
-           Llama-1B worker as a `--solo-replica` (no process group, its
+           Llama-1B worker at CKPT_LAYERS as a `--solo-replica` (no
+           process group, its
            own checkpoint directory) at batch 8 in micro batches of 2,
            both on the one card, 32 steps, a report a step, no interval
            save, `resize:-1@6`. Rank 1 leaves with the clean-drain exit at
@@ -262,8 +267,30 @@ Phases (each one's failure ends the run with a nonzero exit):
            printed); (c) `python -m dlrover_tpu_torch.run
            --standalone` around dlrover_tpu_torch/examples/moe_train.py at
            its defaults: 6 steps saving every 3, then a resume to 9
+  pipeline the circular pipeline (parallel/pipeline.py) and
+           PipelinedTrainer (trainer/pipeline_trainer.py) at pipe 1.
+           (a) Llama-1B at full width and depth (flash, fused norm,
+           gather embedding, AdamW(3e-4, wd 0.1)) through
+           build_pipeline_trainer at two rounds of 11 layers and 4
+           microbatches of 2 rows (8 × 2048 tokens a step), through
+           ElasticTrainLoop(trainer=...), 2 warm-up + 5 timed steps:
+           finite losses, the first near ln(vocab), each flash kernel 88
+           launches a step and each norm kernel 176 (the blocks' 2·L
+           norms a microbatch: the exit's final norm is the plain one);
+           prints the step's median and spread, tokens/s, the loop's MFU
+           and the allocator peak beside the llama1b phase's; (b) the
+           same weights through the dense trainer at accum 4, micro 2 on
+           one batch: the step's loss and grad norm within the parity
+           phase's limits, then 3 dense steps timed (the dense step at
+           the pipeline's microbatching); (c) bound_activations (every schedule step
+           checkpointed): 1 + 3 steps, flash_fwd and rms_fwd launched
+           again in the recompute, its peak and step beside (a)'s; (d) at
+           CKPT_LAYERS (two rounds of 4) through the loop with its
+           checkpointer: 5 steps saving at 3, a new loop restoring 3
+           trains 4-5 with the same losses and grad norms bit for bit
 
-The line before the last is the kernels' JSON record (the quantization
+Each phase's seconds are printed before the elapsed time. The line
+before the last is the kernels' JSON record (the quantization
 pair's launches are the resume phase's checkpoint path; each kernel's
 "standalone_launches" are those the worker under the agent printed for
 its resumed incarnation, its "faults_launches" the sum over the faults
@@ -272,10 +299,12 @@ phase worker's, its "failover_launches" the failover phase worker's,
 its "replan_launches" the replan phase's three incarnations', its
 "models_launches" the models phase's GPT-2 and BERT runs', its
 "llama7b_launches" the llama7b phase's streaming and dense remat runs at
-full depth and its "moe_launches" the moe phase's Mixtral-width run;
-each flash kernel's "at_gpt2", "at_bert", "at_llama7b" and
-"at_mixtral", and each norm kernel's "at_llama7b" (4096 rows of 4096)
-and "at_mixtral" (8192 rows of 4096), hold its times, bound and error
+full depth, its "moe_launches" the moe phase's Mixtral-width run and
+its "pipeline_launches" the pipeline phase's run (a);
+each flash kernel's "at_gpt2", "at_bert", "at_llama7b",
+"at_mixtral" and "at_pipeline", and each norm kernel's "at_llama7b"
+(4096 rows of 4096), "at_mixtral" (8192 rows of 4096) and
+"at_pipeline" (4096 rows of 2048), hold its times, bound and error
 at those shapes); the last line is {"ok": true,
 "device": {...}}. Imports nothing of JAX.
 """
@@ -349,8 +378,8 @@ PADDED_SHAPES = [
 ]
 # the flash kernels as GPT-2 small (micro 12, seq 1024, causal),
 # BERT-base (micro 32, seq 512, bidirectional), Llama-7B (micro 2, seq
-# 2048, 32 heads of 128, causal) and the Mixtral-width MoE (micro 4, 8 KV
-# heads) call them
+# 2048, 32 heads of 128, causal), the Mixtral-width MoE (micro 4, 8 KV
+# heads) and Llama-1B through the pipeline (microbatches of 2) call them
 MODEL_SHAPES = {
     "gpt2": dict(b=12, h=12, h_kv=12, s_q=1024, s_k=1024, d=64,
                  causal=True),
@@ -361,6 +390,9 @@ MODEL_SHAPES = {
     # Mixtral-8x7B's attention (32 heads of 128, GQA 4:1) at micro 4
     "mixtral": dict(b=4, h=32, h_kv=8, s_q=2048, s_k=2048, d=128,
                     causal=True),
+    # Llama-1B's through the pipeline phase: microbatches of 2 rows
+    "pipeline": dict(b=2, h=16, h_kv=16, s_q=2048, s_k=2048, d=128,
+                     causal=True),
 }
 # kernels that must not spill: the warp-specialised ones, whose consumer
 # warpgroups run at 240 registers under setmaxnreg
@@ -383,9 +415,11 @@ PARITY_GRAD_TOL = 2.0 ** -5
 NORM_EPS = 1e-5
 NORM_SLICE = (8 * 2048, 2048, torch.bfloat16)
 # the norms as Llama-7B (micro 2) and the Mixtral-width MoE (micro 4)
-# call them: x seq 2048 rows of 4096
+# call them (x seq 2048 rows of 4096), and Llama-1B through the pipeline
+# (2 × 2048 rows of 2048)
 NORM_MODEL_SHAPES = {"llama7b": (2 * 2048, 4096, torch.bfloat16),
-                     "mixtral": (4 * 2048, 4096, torch.bfloat16)}
+                     "mixtral": (4 * 2048, 4096, torch.bfloat16),
+                     "pipeline": (2 * 2048, 2048, torch.bfloat16)}
 NORM_EDGES = [
     (1000, 2048, torch.bfloat16), (4096, 64, torch.bfloat16),
     (512, 4096, torch.bfloat16), (300, 100, torch.bfloat16),
@@ -396,11 +430,12 @@ NORM_EDGES = [
 # 128 (43 a row); every code, scale and output equal to the plain
 # versions' bit for bit.
 QUANT_SHAPE = (2048, 5504)
-# the checkpoint paths (resume, standalone, faults) run Llama-1B at its
-# full width cut to 8 of its 22 layers: what they check (bits across a
-# save and a restore, peer and int8 restores, a kill, a drain, a hang) does
-# not depend on the depth, and their 15 GB checkpoints at 22 layers took
-# most of the script's time (6.7 GB at 8)
+# the checkpoint paths (resume, standalone, faults, failover, replan and
+# the pipeline's resume) run Llama-1B at its full width cut to 8 of its 22
+# layers: what they check (bits across a save and a restore, peer and int8
+# restores, a kill, a drain, a hang, a master's death, a resize) does not
+# depend on the depth, and their 15 GB checkpoints at 22 layers took most
+# of the script's time (6.7 GB at 8)
 CKPT_LAYERS = 8
 
 
@@ -2279,12 +2314,13 @@ _REFERENCE: dict = {}
 
 
 def _reference_prefix(cfg, steps: int) -> list:
-    """The first ``steps`` of the longest uninterrupted in-process run so
-    far (its steps do not depend on the run's length), running a longer
-    one when none reaches ``steps``."""
-    if len(_REFERENCE.get("long", ())) < steps:
-        _REFERENCE["long"] = _reference_run(cfg, steps)
-    return _REFERENCE["long"][:steps]
+    """The first ``steps`` of the longest uninterrupted in-process run of
+    ``cfg``'s depth so far (its steps do not depend on the run's length),
+    running a longer one when none reaches ``steps``."""
+    key = ("long", cfg.num_layers)
+    if len(_REFERENCE.get(key, ())) < steps:
+        _REFERENCE[key] = _reference_run(cfg, steps)
+    return _REFERENCE[key][:steps]
 
 
 def _agent_lines(path: str) -> list:
@@ -3327,11 +3363,8 @@ def phase_failover(smi: str) -> dict:
     import shutil
     import tempfile
 
-    from dlrover_tpu_torch.models.llama import LlamaConfig
-
     t_phase = time.monotonic()
-    cfg = LlamaConfig.llama_1b(max_seq_len=2048, attn_impl="flash",
-                               norm_impl="fused", embed_impl="gather")
+    cfg = ckpt_config()
     budget = failover_budget(FAILOVER_MONITOR_S, FAILOVER_RPC_TIMEOUT_S)
     steps = budget["steps"]
     log(f"failover: the agent polls every {FAILOVER_MONITOR_S} s (cut from "
@@ -3361,7 +3394,8 @@ def phase_failover(smi: str) -> dict:
         agent_tmp = peer_root(state_bytes, tmp, smi, "failover")
         out = failover_drill(
             tmp, repo,
-            ["--config", "llama_1b", "--save-interval",
+            ["--config", "llama_1b", "--layers", str(CKPT_LAYERS),
+             "--save-interval",
              str(FAILOVER_SAVE_EVERY), "--ckpt-dir", f"{tmp}/ckpt"],
             steps, FAILOVER_KILL_AT, FAILOVER_MONITOR_S,
             {"TMPDIR": agent_tmp,
@@ -3499,12 +3533,10 @@ def phase_replan(smi: str) -> dict:
     from dlrover_tpu_torch.common.config import Context
     from dlrover_tpu_torch.common.constants import RendezvousName
     from dlrover_tpu_torch.master.job_master import JobMaster
-    from dlrover_tpu_torch.models.llama import LlamaConfig
     from dlrover_tpu_torch.parallel import planner
 
     t_phase = time.monotonic()
-    cfg = LlamaConfig.llama_1b(max_seq_len=2048, attn_impl="flash",
-                               norm_impl="fused", embed_impl="gather")
+    cfg = ckpt_config()
     state_bytes = 3 * 4 * cfg.param_count()
     repo = os.path.dirname(os.path.abspath(__file__))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_replan_")
@@ -3561,7 +3593,8 @@ def phase_replan(smi: str) -> dict:
         t_launch = time.time()
         for rank in (0, 1):
             proc, pair = _spawn_agent(
-                master, ["--config", "llama_1b", "--steps",
+                master, ["--config", "llama_1b", "--layers",
+                         str(CKPT_LAYERS), "--steps",
                          str(REPLAN_STEPS), "--save-interval",
                          str(10 ** 6), "--report-interval", "1",
                          "--max-micro", str(REPLAN_MICRO), "--solo-replica",
@@ -4829,24 +4862,284 @@ def phase_moe(smi: str, profile: str = "") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# pipeline: the circular schedule and PipelinedTrainer on the card
+# ---------------------------------------------------------------------------
+
+# Llama-1B through build_pipeline_trainer at pipe 1: two rounds of 11
+# layers, 4 microbatches of 2 rows (the llama1b phase's 8 × 2048 tokens a
+# step)
+PIPE_ROUNDS = 2
+PIPE_MICRO = 2
+PIPE_MICROBATCHES = 4
+PIPE_WARMUP, PIPE_TIMED = 2, 5
+# (c) bound_activations: 1 warm-up and 3 timed steps, for the peak
+PIPE_BOUND_TIMED = 3
+# (b) times the dense trainer at the pipeline's microbatching too: the
+# compared step as its warm-up, then these
+PIPE_DENSE_TIMED = 3
+
+
+def _pipeline_trainer(cfg, bound: bool = False):
+    from dlrover_tpu_torch.models.llama import cross_entropy_loss
+    from dlrover_tpu_torch.trainer.pipeline_trainer import (
+        build_pipeline_trainer,
+    )
+
+    return build_pipeline_trainer(
+        cfg, _adamw, None, PIPE_MICROBATCHES, PIPE_MICRO, cfg.max_seq_len,
+        cross_entropy_loss, num_rounds=PIPE_ROUNDS, bound_activations=bound)
+
+
+def _pipeline_launches(cfg, micro_steps: int, recompute: bool = False
+                       ) -> dict:
+    """``_expected_launches`` less the final norm's: the pipeline's exit
+    normalises with the plain norm (the JAX exit's
+    ``reference_rms_norm``), so the norm kernels run at the blocks' 2·L
+    norms a microbatch (4·L forward under the recompute)."""
+    want = _expected_launches(cfg, micro_steps, recompute)
+    if cfg.norm_impl == "fused":
+        want["rms_fwd"] -= micro_steps
+        want["rms_bwd"] -= micro_steps
+    return want
+
+
+def _pipeline_run(cfg, steps: int, warmup: int, bound: bool,
+                  profile_out: str = "") -> tuple:
+    """(history, launches, result) of the pipelined trainer through
+    ElasticTrainLoop; fails on non-finite losses or launches other than
+    predicted."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    global_batch = PIPE_MICROBATCHES * PIPE_MICRO
+    hist, launches = _train(cfg, global_batch, steps, PIPE_MICRO,
+                            profile_out=profile_out,
+                            trainer=_pipeline_trainer(cfg, bound))
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    what = "pipeline (c)" if bound else "pipeline (a)"
+    for r in hist:
+        log(f"  {what} step {r['step']}: loss {r['loss']:.4f} grad_norm "
+            f"{r['grad_norm']:.4f} {r['step_time_s'] * 1e3:.1f} ms")
+    if len(hist) != steps or not all(
+            math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+            for r in hist):
+        raise AssertionError(f"{what}: {len(hist)} steps, losses "
+                             f"{[r['loss'] for r in hist]}")
+    want = _pipeline_launches(cfg, PIPE_MICROBATCHES * steps, bound)
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, want {want}")
+    timed = hist[warmup:]
+    times = [r["step_time_s"] * 1e3 for r in timed]
+    result = {"step_median_ms": statistics.median(times),
+              "step_min_ms": min(times), "step_max_ms": max(times),
+              "tokens_per_s": global_batch * cfg.max_seq_len
+              / statistics.mean(r["step_time_s"] for r in timed),
+              "mfu": statistics.mean(r["mfu"] for r in timed),
+              "peak_mem_gib": peak_gb,
+              "launches_per_step": {n: c / steps
+                                    for n, c in launches.items()}}
+    return hist, launches, result
+
+
+def _pipeline_against_dense(cfg) -> dict:
+    """(b): one step of the pipelined trainer and one of the port's dense
+    trainer (accum 4, micro 2) from the same weights on the same batch:
+    the loss within PARITY_LOSS_TOL, the grad norm within
+    PARITY_GRAD_NORM_TOL relative. Then PIPE_DENSE_TIMED more dense
+    steps, timed: the dense step at the pipeline's microbatching, beside
+    (a)'s."""
+    import numpy as np
+
+    from dlrover_tpu_torch.models.llama import Llama, cross_entropy_loss
+    from dlrover_tpu_torch.trainer.train_step import build_trainer
+
+    rng = np.random.default_rng(5)
+    rows = PIPE_MICROBATCHES * PIPE_MICRO
+    tokens, targets = (rng.integers(0, cfg.vocab_size,
+                                    (rows, cfg.max_seq_len))
+                       for _ in range(2))
+    trainer = _pipeline_trainer(cfg)
+    state = trainer.init(0)
+    weights = {n: p.detach().cpu() for n, p in
+               state.model.state_dict().items()}
+    state, piped = trainer.step(state, *trainer.shard_batch(tokens, targets))
+    piped = {k: v.item() for k, v in piped.items()}
+    del state, trainer
+    _free_memory()
+    dense = build_trainer(functools.partial(Llama, cfg), _adamw, None,
+                          np.zeros((PIPE_MICRO, cfg.max_seq_len)),
+                          cross_entropy_loss,
+                          accum_steps=PIPE_MICROBATCHES,
+                          micro_batch=PIPE_MICRO)
+    dstate = dense.init(0)
+    dstate.model.load_state_dict(weights)
+    del weights
+    dstate, flat = dense.step(dstate, *dense.shard_batch(tokens, targets))
+    flat = {k: v.item() for k, v in flat.items()}
+    times = []
+    for _ in range(PIPE_DENSE_TIMED):
+        t0 = time.monotonic()
+        dstate, metrics = dense.step(dstate, *dense.shard_batch(tokens,
+                                                                targets))
+        metrics["loss"].item()
+        times.append((time.monotonic() - t0) * 1e3)
+    del dstate, dense
+    _free_memory()
+    out = {"pipeline": piped, "dense": flat,
+           "dense_step_median_ms": statistics.median(times),
+           "dense_step_ms": times,
+           "loss_diff": abs(piped["loss"] - flat["loss"]),
+           "grad_norm_rel_diff": abs(piped["grad_norm"] - flat["grad_norm"])
+           / flat["grad_norm"]}
+    log(f"pipeline (b): pipelined {piped} dense {flat}: loss diff "
+        f"{out['loss_diff']:.3g} (tolerance {PARITY_LOSS_TOL}), grad norm "
+        f"relative diff {out['grad_norm_rel_diff']:.3g} (tolerance "
+        f"{PARITY_GRAD_NORM_TOL}); the dense step at accum "
+        f"{PIPE_MICROBATCHES}, micro {PIPE_MICRO}: {times} ms")
+    if not (out["loss_diff"] <= PARITY_LOSS_TOL
+            and out["grad_norm_rel_diff"] <= PARITY_GRAD_NORM_TOL):
+        raise AssertionError("pipeline (b): the pipelined step disagrees "
+                             "with the dense one")
+    return out
+
+
+def _pipeline_loop(cfg, ckpt_dir: str, steps: int):
+    from dlrover_tpu_torch.models.llama import Llama
+    from dlrover_tpu_torch.trainer.elastic_loop import (
+        ElasticTrainLoop,
+        TrainLoopConfig,
+    )
+
+    return ElasticTrainLoop(
+        functools.partial(Llama, cfg), None, None,
+        TrainLoopConfig(global_batch=PIPE_MICROBATCHES * PIPE_MICRO,
+                        seq_len=cfg.max_seq_len,
+                        max_micro_per_replica=PIPE_MICRO, max_steps=steps,
+                        checkpoint_dir=ckpt_dir, save_interval_steps=3,
+                        report_interval_steps=0),
+        trainer=_pipeline_trainer(cfg))
+
+
+def _pipeline_resume(smi: str) -> dict:
+    """(d): the pipelined trainer at CKPT_LAYERS (two rounds of 4) through
+    the loop with its checkpointer: A 5 steps saving at 3, B a new loop
+    restoring 3 trains 4-5, the same bits as A."""
+    import shutil
+    import tempfile
+
+    cfg = ckpt_config()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pipeline_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        state_bytes = 3 * 4 * cfg.param_count()
+        log(f"pipeline (d): checkpoints in {tmp}, {free / 1e9:.1f} GB free, "
+            f"one is {state_bytes / 1e9:.2f} GB ({smi})")
+        if free < 1.1 * state_bytes:
+            raise AssertionError(f"{free / 1e9:.1f} GB free: less than one "
+                                 f"checkpoint")
+        loop = _pipeline_loop(cfg, tmp, 3)
+        sampler, data = _sampler_and_data(cfg)
+        state, _ = loop.restore_or_init(0, sampler)
+        state, m1 = loop.run(state, data, 0, sampler)
+        loop.checkpointer.save_interval_steps = 0
+        loop.config.max_steps = 2
+        state, m2 = loop.run(state, data, 3, sampler)
+        hist_a = m1["history"] + m2["history"]
+        save = dict(loop.checkpointer.last_save)
+        loop.close()
+        del state, loop
+        _free_memory()
+        loop = _pipeline_loop(cfg, tmp, 2)
+        sampler, data = _sampler_and_data(cfg)
+        state, start = loop.restore_or_init(0, sampler)
+        source = loop.last_restore_source
+        restore = dict(loop.last_restore_timings)
+        state, m3 = loop.run(state, data, start, sampler)
+        loop.close()
+        del state, loop
+        _free_memory()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    a = [(r["loss"], r["grad_norm"]) for r in hist_a]
+    b = [(r["loss"], r["grad_norm"]) for r in m3["history"]]
+    out = {"a": a, "b": b, "start": start, "source": source,
+           "blocking_save_s": save.get("blocking_s"),
+           "commit_s": save.get("commit_s"),
+           "dcp_read_s": restore.get("dcp_read_s")}
+    log(f"pipeline (d): {json.dumps(out)}")
+    if start != 3 or source != "checkpoint" or b != a[3:]:
+        raise AssertionError(f"pipeline (d): resumed at {start} from "
+                             f"{source!r}, steps 4-5 {b}, want {a[3:]}")
+    return out
+
+
+def phase_pipeline(smi: str, llama1b: dict, profile: str = "") -> dict:
+    """The circular pipeline on the card: (a) Llama-1B through
+    build_pipeline_trainer at pipe 1 and ElasticTrainLoop (with
+    ``profile``, one more step profiled into ``<profile>.pipeline``), (b)
+    the same weights through the dense trainer, and its step at the
+    pipeline's microbatching, (c) bound_activations (profiled into
+    ``<profile>.pipeline_bound``), (d) a save and a bit-exact resume at
+    CKPT_LAYERS."""
+    from dlrover_tpu_torch.models.llama import LlamaConfig
+
+    t0 = time.monotonic()
+    out = {"card": smi, "seconds": {}}
+    cfg = LlamaConfig.llama_1b(max_seq_len=2048, attn_impl="flash",
+                               norm_impl="fused", embed_impl="gather")
+    _free_memory()
+    steps = PIPE_WARMUP + PIPE_TIMED
+    hist, out["launches"], out["a"] = _pipeline_run(
+        cfg, steps, PIPE_WARMUP, False,
+        f"{profile}.pipeline" if profile else "")
+    if abs(hist[0]["loss"] - math.log(cfg.vocab_size)) > 1.0:
+        raise AssertionError(f"pipeline (a): first loss {hist[0]['loss']} "
+                             f"is not near ln(vocab)")
+    if llama1b:
+        out["a"]["llama1b_step_median_ms"] = llama1b["step_median_ms"]
+        out["a"]["llama1b_peak_mem_gib"] = llama1b["peak_mem_gb"]
+    log(f"pipeline (a): {json.dumps(out['a'])} ({smi})")
+    out["seconds"]["a"] = time.monotonic() - t0
+    mark = time.monotonic()
+    out["b"] = _pipeline_against_dense(cfg)
+    out["seconds"]["b"] = time.monotonic() - mark
+    mark = time.monotonic()
+    _free_memory()
+    _, _, out["c"] = _pipeline_run(
+        cfg, 1 + PIPE_BOUND_TIMED, 1, True,
+        f"{profile}.pipeline_bound" if profile else "")
+    log(f"pipeline (c) bound_activations: {json.dumps(out['c'])} beside "
+        f"(a)'s step {out['a']['step_median_ms']:.1f} ms and peak "
+        f"{out['a']['peak_mem_gib']:.2f} GiB ({smi})")
+    out["seconds"]["c"] = time.monotonic() - mark
+    mark = time.monotonic()
+    _free_memory()
+    out["d"] = _pipeline_resume(smi)
+    out["seconds"]["d"] = time.monotonic() - mark
+    out["seconds"]["phase"] = time.monotonic() - t0
+    log(f"pipeline: seconds {json.dumps(out['seconds'])} ({smi})")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases",
                         default="kernels,quant,parity,llama1b,resume,"
                                 "standalone,faults,observe,failover,replan,"
-                                "models,llama7b,moe",
+                                "models,llama7b,moe,pipeline",
                         help="comma-separated subset of kernels, quant, "
                              "parity, llama1b, resume, standalone, faults, "
                              "observe, failover, replan, models, llama7b, "
-                             "moe (device and build always run)")
+                             "moe, pipeline (device and build always run)")
     parser.add_argument("--profile", default="",
                         help="after the Llama-1B run, profile one more "
                              "step and write the kernel table here (and "
                              "after GPT-2's and BERT's runs, Llama-7B's "
-                             "streaming and dense remat runs and the MoE "
-                             "run, to this path with .gpt2, .bert, "
-                             ".llama7b_streaming, .llama7b_dense_remat and "
-                             ".moe added)")
+                             "streaming and dense remat runs, the MoE "
+                             "run and the pipelined Llama-1B runs, to this "
+                             "path with .gpt2, .bert, .llama7b_streaming, "
+                             ".llama7b_dense_remat, .moe, .pipeline and "
+                             ".pipeline_bound added)")
     args = parser.parse_args(argv)
     phases = args.phases.split(",")
     # a SIGTERM (a time limit) unwinds through the phases' ``finally``
@@ -4854,18 +5147,31 @@ def main(argv=None) -> int:
     # among them)
     signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     t0 = time.monotonic()
+    # each phase's seconds, printed at the end
+    seconds, mark = {}, [t0]
+
+    def lap(name: str) -> None:
+        now = time.monotonic()
+        seconds[name] = round(now - mark[0], 1)
+        mark[0] = now
+
     smi = phase_device()
     phase_build()
+    lap("device+build")
     train_records = phase_kernels() if "kernels" in phases else []
+    lap("kernels")
     quant_records = phase_quant() if "quant" in phases else []
+    lap("quant")
     if "parity" in phases:
         phase_parity()
+        lap("parity")
     llama1b = {}
     if "llama1b" in phases:
         # the training path's kernels take their launches from its run
         launches, llama1b = phase_llama1b(profile_out=args.profile)
         for rec in train_records:
             rec["launches"] = launches[rec["name"]]
+        lap("llama1b")
     resume = {}
     if "resume" in phases:
         # the quantization pair's path: the int8 checkpoint's save and
@@ -4873,12 +5179,14 @@ def main(argv=None) -> int:
         resume = phase_resume(smi)
         for rec in quant_records:
             rec["launches"] = resume["c"][f"{rec['name']}_launches"]
+        lap("resume")
     if "standalone" in phases:
         # the worker under the agent counts its own launches, printed at
         # its exit: the resumed incarnation's steps
         standalone = phase_standalone(smi, resume)
         for rec in train_records + quant_records:
             rec["standalone_launches"] = standalone["launches"][rec["name"]]
+        lap("standalone")
     if "faults" in phases:
         # the drained worker's, the hung one's up to its last finished
         # step, and its relaunch's, summed
@@ -4887,28 +5195,33 @@ def main(argv=None) -> int:
             rec["faults_launches"] = sum(
                 counts[rec["name"]]
                 for counts in faults["launches"].values())
+        lap("faults")
     if "observe" in phases:
         # the worker under the master that diagnoses it: its launches
         # over every step, the profiled ones among them
         observe = phase_observe(smi, llama1b)
         for rec in train_records + quant_records:
             rec["observe_launches"] = observe["launches"][rec["name"]]
+        lap("observe")
     if "failover" in phases:
         # the worker that trained through its master's death
         failover = phase_failover(smi)
         for rec in train_records + quant_records:
             rec["failover_launches"] = failover["launches"][rec["name"]]
+        lap("failover")
     if "replan" in phases:
         # the two replicas' incarnations, the leaver's and the
         # survivor's two, summed
         replan = phase_replan(smi)
         for rec in train_records + quant_records:
             rec["replan_launches"] = replan["launches"][rec["name"]]
+        lap("replan")
     if "models" in phases:
         # GPT-2 small's and BERT-base's runs, summed
         models = phase_models(smi, args.profile)
         for rec in train_records + quant_records:
             rec["models_launches"] = models["launches"][rec["name"]]
+        lap("models")
     if "llama7b" in phases:
         # the streaming and the dense remat run at full depth
         llama7b = phase_llama7b(smi, llama1b, args.profile)
@@ -4916,12 +5229,21 @@ def main(argv=None) -> int:
             rec["llama7b_launches"] = {
                 kind: counts[rec["name"]]
                 for kind, counts in llama7b["launches"].items()}
+        lap("llama7b")
     if "moe" in phases:
         # the Mixtral-width run's 7 steps
         moe = phase_moe(smi, args.profile)
         for rec in train_records + quant_records:
             rec["moe_launches"] = moe["launches"][rec["name"]]
+        lap("moe")
+    if "pipeline" in phases:
+        # the pipelined Llama-1B run's 7 steps of 4 microbatches
+        pipeline = phase_pipeline(smi, llama1b, args.profile)
+        for rec in train_records + quant_records:
+            rec["pipeline_launches"] = pipeline["launches"][rec["name"]]
+        lap("pipeline")
     records = train_records + quant_records
+    log(f"phase seconds: {json.dumps(seconds)}")
     log(f"elapsed {time.monotonic() - t0:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -19,11 +19,20 @@ package's streaming state
 (``trainer/streaming.py``: every block leaf stacked over the layers, the
 optimizer's state stacked alike) to the port's per-layer parameters and
 each one's factored-RMS state.
+
+``pipeline_params_from_jax`` and ``pipeline_params_to_jax`` carry the JAX
+``PipelinedTrainer``'s parameters (``{"shared": ..., "chunks": ...}``,
+every block leaf stacked as (C, S, layers_per_chunk, ...)) to the port's
+``PipelineStage`` names and back: layer ℓ = (r·S + s)·layers_per_chunk +
+j's leaves under ``layer_{ℓ}`` (GPT's ``block_{ℓ}``), the shared ones by
+their names (Llama's bare ``final_norm`` as ``final_norm.weight``);
+``pipeline_adamw_from_jax`` carries an ``optax.adamw`` state of those
+parameters to ``torch.optim.AdamW``'s per-parameter state.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -134,3 +143,91 @@ def streaming_state_from_jax(state: Any) -> Tuple[
         params[name] = _tensor(value)
         opt[name] = leaf_state(_factored(opt_state), path)
     return int(np.asarray(state.step)), params, opt
+
+
+# pipeline spec family → (its blocks' name prefix, {JAX shared path: the
+# port's name} where they differ)
+PIPELINE_LAYOUTS = {
+    "llama": ("layer", {"final_norm": "final_norm.weight"}),
+    "llama_moe": ("layer", {"final_norm": "final_norm.weight"}),
+    "gpt": ("block", {}),
+    "bert": ("layer", {}),
+}
+
+
+def _chunk_layers(leaf_shape, stage: Optional[int]):
+    """((r, s, j) index, layer ℓ) of a (C, S, per, ...) chunk leaf, for
+    every stage or one."""
+    rounds, stages, per = leaf_shape[:3]
+    for r in range(rounds):
+        for s in range(stages):
+            if stage is not None and s != stage:
+                continue
+            for j in range(per):
+                yield (r, s, j), (r * stages + s) * per + j
+
+
+def _pipeline_items(tree: Mapping[str, Any], family: str,
+                    stage: Optional[int]):
+    """(the port's name, numpy value) of a {"shared", "chunks"} tree."""
+    prefix, renames = PIPELINE_LAYOUTS[family]
+    for path, leaf in _flat(tree["shared"]).items():
+        yield renames.get(path, path), np.asarray(leaf)
+    for path, leaf in _flat(tree["chunks"]).items():
+        leaf = np.asarray(leaf)
+        for index, layer in _chunk_layers(leaf.shape, stage):
+            yield f"{prefix}_{layer}.{path}", leaf[index]
+
+
+def pipeline_params_from_jax(params: Mapping[str, Any], family: str,
+                             stage: Optional[int] = None
+                             ) -> Dict[str, torch.Tensor]:
+    """A JAX pipelined trainer's parameters (numpy leaves) → the port's
+    by name: stage ``stage``'s (a ``PipelineStage``'s ``state_dict``),
+    or every layer's when None (the dense model's names). ``family``: a
+    key of ``PIPELINE_LAYOUTS``."""
+    return {name: _tensor(value)
+            for name, value in _pipeline_items(params, family, stage)}
+
+
+def pipeline_params_to_jax(state_dict: Mapping[str, torch.Tensor],
+                           family: str, num_stages: int,
+                           num_rounds: int = 1) -> Dict[str, Any]:
+    """Every layer's parameters by the port's names (the stages'
+    ``state_dict``s merged) → the JAX ``{"shared", "chunks"}`` tree of
+    numpy arrays, chunk leaves (C, S, layers_per_chunk, ...)."""
+    prefix, renames = PIPELINE_LAYOUTS[family]
+    back = {port: path for path, port in renames.items()}
+    shared: Dict[str, Any] = {}
+    layers: Dict[int, Dict[str, np.ndarray]] = {}
+    for name, tensor in state_dict.items():
+        value = tensor.detach().cpu().numpy()
+        head, _, rest = name.partition(".")
+        if head.startswith(prefix + "_") and head[len(prefix) + 1:].isdigit():
+            layers.setdefault(int(head[len(prefix) + 1:]), {})[rest] = value
+        else:
+            shared[back.get(name, name)] = value
+    per = len(layers) // (num_stages * num_rounds)
+    stacked = {
+        path: np.stack([layers[i][path] for i in range(len(layers))])
+        .reshape((num_rounds, num_stages, per)
+                 + layers[0][path].shape)
+        for path in layers[0]}
+    return {"shared": params_to_jax({k: torch.from_numpy(v)
+                                     for k, v in shared.items()}),
+            "chunks": params_to_jax({k: torch.from_numpy(v)
+                                     for k, v in stacked.items()})}
+
+
+def pipeline_adamw_from_jax(opt_state: Any, family: str
+                            ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """An ``optax.adamw`` state of a JAX pipelined trainer's parameters
+    (numpy leaves) → each parameter's ``torch.optim.AdamW`` state
+    ``{"step", "exp_avg", "exp_avg_sq"}`` by the port's names, every
+    layer's (a stage takes its own by name)."""
+    adam = next(part for part in opt_state if hasattr(part, "mu"))
+    step = torch.tensor(float(np.asarray(adam.count)))
+    mu = dict(_pipeline_items(adam.mu, family, None))
+    nu = dict(_pipeline_items(adam.nu, family, None))
+    return {name: {"step": step.clone(), "exp_avg": _tensor(mu[name]),
+                   "exp_avg_sq": _tensor(nu[name])} for name in mu}

@@ -96,9 +96,12 @@ and ``replan_migrate`` spans, and the peer restore asks for striped
 plans. Step reports carry the applied plan's generation (``-2`` when
 none or in replica mode), and step traces group under the plan's epoch.
 
-An injected ``trainer`` (the streaming step of ``trainer/streaming.py``)
-takes the place of the dense one, as in the JAX loop: it is saved,
-restored and reported as the dense one is. With ``prefetch_autotune``
+An injected ``trainer`` (the streaming step of ``trainer/streaming.py``,
+the pipelined one of ``trainer/pipeline_trainer.py``) takes the place of
+the dense one, as in the JAX loop: it is saved, restored and reported as
+the dense one is, and no shard plan applies to it. A pipelined trainer's
+ranks each save their stage's keys and the replicated shared ones, and
+restore at the same pipe size. With ``prefetch_autotune``
 the loop keeps a ``PrefetchAutoTuner`` (``data/prefetch.py``), feeds it
 the window's data-wait share at each progress report and exports its
 depth as the ``dlrover_tpu_prefetch_depth`` gauge; the input pipeline
@@ -245,7 +248,9 @@ class ElasticTrainLoop:
         ``master_client``: a ``MasterClient`` to report to (None: no
         master). ``trainer``: a built trainer with the dense
         ``Trainer``'s surface (the streaming one of
-        ``trainer/streaming.py``) in place of the dense one; it brings
+        ``trainer/streaming.py``, the pipelined one of
+        ``trainer/pipeline_trainer.py``, whose ``model`` argument only
+        gives the reported config) in place of the dense one; it brings
         its own model, optimizer, mesh and batch shape (``model``,
         ``optimizer_factory`` and ``loss_fn`` may be None), no shard plan
         applies, and the configured global batch must be its
@@ -281,7 +286,8 @@ class ElasticTrainLoop:
         self._trim_batch = 0
         if trainer is not None:
             self._take_trainer(trainer, config, device)
-            model = trainer.model_factory
+            if not hasattr(trainer, "param_stats"):
+                model = trainer.model_factory
         else:
             self._resolve_shard_plan(config)
             try:
@@ -387,9 +393,9 @@ class ElasticTrainLoop:
         # built on ``meta`` when a master wants them now, else from the
         # trained model at the first run
         self._flops_per_token = 0.0
+        self._model_arg = model
         if self.client is not None:
-            self._model_stats(model if isinstance(model, torch.nn.Module)
-                              else model(device="meta", seed=0))
+            self._model_stats(model)
             self._report_model_info()
 
     def _take_trainer(self, trainer: Trainer, config,
@@ -650,16 +656,27 @@ class ElasticTrainLoop:
             "%s (the checkpoint-restart path still applies)", reason)
 
     # -- master reporting --------------------------------------------------
-    def _model_stats(self, module: torch.nn.Module) -> None:
+    def _model_stats(self, model) -> None:
         """The model's sizes and the FLOPs model behind every MFU number
         (obs/mfu.py): the parameter count and bytes summed over the
-        module's parameters (a DTensor counts whole), as the JAX loop
-        sums its leaves."""
-        params = list(module.parameters())
-        self._param_count = sum(p.numel() for p in params)
-        self._param_bytes = sum(p.numel() * p.element_size()
-                                for p in params)
-        self._model_config = getattr(module, "config", None)
+        parameters of ``model`` (a module, or a factory built on
+        ``meta``; a DTensor counts whole), as the JAX loop sums its
+        leaves. A trainer with ``param_stats`` (the pipelined one, whose
+        rank holds one stage) counts every stage itself, and the config
+        is the loop's ``model`` argument's (None when there is none), as
+        the JAX loop reads both."""
+        stats = getattr(self.trainer, "param_stats", None)
+        if stats is not None:
+            self._param_count, self._param_bytes = stats()
+            model = self._model_arg
+        if model is not None and not isinstance(model, torch.nn.Module):
+            model = model(device="meta", seed=0)
+        if stats is None:
+            params = list(model.parameters())
+            self._param_count = sum(p.numel() for p in params)
+            self._param_bytes = sum(p.numel() * p.element_size()
+                                    for p in params)
+        self._model_config = getattr(model, "config", None)
         self._flops_per_token = model_flops_per_token(
             self._model_config, self._param_count, self.config.seq_len)
 

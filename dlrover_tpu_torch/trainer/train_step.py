@@ -41,9 +41,12 @@ router balancing) is called with ``with_losses=True`` and a gating seed
 folded from ``RNG_SEED``, the step and the micro-step, and its aux sum is
 added to the loss, as the JAX step adds the ``losses`` collection.
 
-Not ported yet, and raising: ``sequence`` (ROADMAP Queue A item 8) and
-``pipe`` (item 10) axes above 1, a ``tensor`` axis under an MoE model
-(item 10), and ``grad_reduce_bits`` (item 9).
+Not ported yet, and raising: a ``sequence`` axis above 1 (ROADMAP Queue
+A item 8), a ``tensor`` axis under an MoE model (item 10), and
+``grad_reduce_bits`` (item 9). A ``pipe`` axis is the pipelined
+trainer's (``trainer/pipeline_trainer.py``, which shares ``TrainState``
+and this trainer's state, offload and batch handling); this one refuses
+it.
 """
 
 from __future__ import annotations
@@ -370,9 +373,7 @@ class Trainer:
         return self.loss_fn(logits, targets) + aux
 
     def _apply(self, state: TrainState) -> torch.Tensor:
-        grads = [p.grad for p in state.model.parameters()
-                 if p.grad is not None]
-        grad_norm = _global_norm(grads)
+        grad_norm = self._grad_norm(state.model)
         opt = state.optimizer
         if self.offload_opt_state:
             self._moments_to_device(opt)
@@ -381,6 +382,10 @@ class Trainer:
             self._moments_to_host(opt)
         state.step += 1
         return grad_norm
+
+    def _grad_norm(self, model: nn.Module) -> torch.Tensor:
+        return _global_norm([p.grad for p in model.parameters()
+                             if p.grad is not None])
 
     def _dp_group(self):
         if self.mesh.device_mesh is None or dp_size(self.mesh) == 1:
@@ -513,12 +518,15 @@ def build_trainer(
         raise ValueError(f"device {device} is not the mesh's "
                          f"{mesh.device}")
     shape = mesh.shape
-    for axis, item in ((MeshAxis.SEQUENCE, "8, parallel/ring_attention.py"),
-                       (MeshAxis.PIPE, "10, parallel/pipeline.py")):
-        if shape[axis] > 1:
-            raise NotImplementedError(
-                f"a {axis} axis is not ported yet (ROADMAP Queue A item "
-                f"{item})")
+    if shape[MeshAxis.SEQUENCE] > 1:
+        raise NotImplementedError(
+            f"a {MeshAxis.SEQUENCE} axis is not ported yet (ROADMAP Queue A "
+            f"item 8, parallel/ring_attention.py)")
+    if shape[MeshAxis.PIPE] > 1:
+        raise NotImplementedError(
+            f"the dense trainer has no {MeshAxis.PIPE} axis: build a "
+            f"pipelined one with build_pipeline_trainer "
+            f"(trainer/pipeline_trainer.py)")
     if grad_reduce_bits:
         raise NotImplementedError(
             "grad_reduce_bits is not ported yet (ROADMAP Queue A item 9, "

@@ -4,8 +4,8 @@ attention and norm paths, the checkpoint on the card, and what the
 master observes of it (the allocator telemetry, a profiler capture
 naming the kernels, an agent that never opens the card), a worker on
 the card training through a standby's promotion, the kernels under
-remat, the streaming step and the device prefetch, and the MoE model's
-kernels. Every test is marked
+remat, the streaming step and the device prefetch, the MoE model's
+kernels, and the pipelined trainer's. Every test is marked
 ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false. This file imports no JAX, so it
 also runs on a machine without it:
@@ -412,6 +412,58 @@ def test_remat_runs_the_forward_kernels_again_for_the_same_gradients(
                                   rms_fwd=4 * layers + 1)
     for name, g in grads[False].items():
         assert torch.equal(grads[True][name], g), name
+
+
+def test_pipelined_trainer_on_the_card_matches_the_plain_path(cuda):
+    """A small Llama (4 layers, two rounds of 2) through the pipelined
+    trainer at pipe 1, 4 microbatches of 2 rows: with flash attention and
+    the fused norm, and with both plain, from one init on one batch. The
+    loss within 2e-2, the grad norm within 1e-2 relative and every
+    gradient within 2^-5 relative L2 (chip_smoke's parity limits: the two
+    paths differ by bf16 rounding); each flash kernel launched once a
+    layer and microbatch, each norm kernel at the blocks' 2·L norms a
+    microbatch (the exit's final norm is the plain one), none on the
+    plain path."""
+    import dataclasses
+
+    from dlrover_tpu_torch.trainer.pipeline_trainer import (
+        build_pipeline_trainer,
+    )
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    tokens, targets = (torch.randint(0, 256, (8, 256), device=cuda,
+                                     generator=gen) for _ in range(2))
+    layers, micro_steps = 4, 4
+    out = {}
+    for impl in ("kernels", "plain"):
+        fused = impl == "kernels"
+        cfg = dataclasses.replace(
+            _small_llama(attn_impl="flash" if fused else "reference",
+                         norm_impl="fused" if fused else "reference"),
+            num_layers=layers)
+        trainer = build_pipeline_trainer(
+            cfg, lambda p: torch.optim.AdamW(p, lr=1e-3), None, micro_steps,
+            2, 256, cross_entropy_loss, num_rounds=2, device=cuda)
+        state = trainer.init(0)
+        fa.reset_launch_counts()
+        norms.reset_launch_counts()
+        loss = trainer._accumulate(state, *trainer.shard_batch(tokens,
+                                                               targets))
+        grad_norm = trainer._grad_norm(state.model)
+        torch.cuda.synchronize()
+        out[impl] = (loss.item(), grad_norm.item(), _launches(),
+                     {n: p.grad.float() for n, p in
+                      state.model.named_parameters()})
+    flash = layers * micro_steps
+    assert out["kernels"][2] == {
+        "flash_fwd": flash, "flash_bwd_dq": flash, "flash_bwd_dkv": flash,
+        "rms_fwd": 2 * flash, "rms_bwd": 2 * flash}
+    assert not any(out["plain"][2].values())
+    assert abs(out["kernels"][0] - out["plain"][0]) <= 2e-2
+    assert abs(out["kernels"][1] - out["plain"][1]) <= 1e-2 * out["plain"][1]
+    for name, want in out["plain"][3].items():
+        got = out["kernels"][3][name]
+        assert ((got - want).norm() / want.norm()).item() <= 2.0 ** -5, name
 
 
 def test_moe_model_on_the_card_counts_its_kernels_once_a_layer(cuda):
