@@ -288,6 +288,48 @@ Phases (each one's failure ends the run with a nonzero exit):
            CKPT_LAYERS (two rounds of 4) through the loop with its
            checkpointer: 5 steps saving at 3, a new loop restoring 3
            trains 4-5 with the same losses and grad norms bit for bit
+  embedding
+           the job manager and elastic embedding training: the port's
+           JobMaster in this process with job_args for 2 workers
+           (restart_count 1) on a LocalCluster, and a CTR model at the
+           MLPerf Training DLRM reference's scale on Criteo 1TB (26
+           fields hashed into one table of 10M rows, cut from the
+           reference's 40M cap, × 128 f32; batch 2048; the top MLP 3328 →
+           1024 → 1024 → 512 → 256 → 1; BCE on 0/1 labels; data from
+           seed 0, each field's ids a power law of exponent 1.2) through
+           ElasticEmbeddingTrainer (row-sparse Adagrad 0.05 on the
+           table, Adam 1e-3 on the tower), fed by ShardedDataset from
+           the master's dynamic sharding, a FlashCheckpointer saving
+           every 3 steps (on /dev/shm when it holds two checkpoints,
+           else on disk). (a) 7 steps: after 3, the table's touched
+           rows, their accumulator and the tower against the plain CPU
+           run of the same 3 steps from the carried state (rows
+           elementwise within rtol 1e-4 / atol 1e-7, the table's
+           update within 1e-3 relative L2 and the accumulator's within
+           5e-2, losses 1e-5 relative, the tower's update 1e-2 relative
+           L2; the accumulator moved on some rows); no untouched row
+           moved in
+           the table or the accumulator, and some accumulator rows
+           did; (b)
+           LocalCluster.fail_pod on worker 1, which holds a shard: the
+           global version goes to exactly 1, the shard is back in the
+           queue, the job manager relaunches the pod (relaunch 1 of 1)
+           and the trainer's needs_reconcile() turns true; a step on the
+           stale view; (c) maybe_reconcile restores step 6: the table
+           and accumulator the committed bits (the save's host copy),
+           the step and data state rolled back, the local version
+           published and read master-side, wait_reconciled_cluster over
+           the live ids (the relaunch adopting the version) true, steps
+           7-8 replayed the same bits and losses as they ran; (d) the
+           master merges dataloader_batch_size 1024, the agent's
+           ParalConfigTuner writes the file, the live ShardedDataset
+           feed's next batch has 1024 rows and trains a step with a
+           finite loss; (e) JobStatus reads the job manager's
+           stage, GET /metrics on the exporter answers 200, the master
+           stops (the node monitor ends, the exporter's socket closes).
+           No kernel launches. Prints the step times, the allocator
+           peak, the saves (blocking, commit, page-locking), the restore,
+           the version timeline and the phase's seconds
 
 Each phase's seconds are printed before the elapsed time. The line
 before the last is the kernels' JSON record (the quantization
@@ -300,7 +342,9 @@ its "replan_launches" the replan phase's three incarnations', its
 "models_launches" the models phase's GPT-2 and BERT runs', its
 "llama7b_launches" the llama7b phase's streaming and dense remat runs at
 full depth, its "moe_launches" the moe phase's Mixtral-width run and
-its "pipeline_launches" the pipeline phase's run (a);
+its "pipeline_launches" the pipeline phase's run (a), its
+"embedding_launches" the embedding phase's steps, reconcile and replay
+(none of the kernels is on that path: 0);
 each flash kernel's "at_gpt2", "at_bert", "at_llama7b",
 "at_mixtral" and "at_pipeline", and each norm kernel's "at_llama7b"
 (4096 rows of 4096), "at_mixtral" (8192 rows of 4096) and
@@ -1329,7 +1373,8 @@ def data():
                                       sampler, 8, 2048)):
         if first and i == 2:
             print("ready", flush=True)
-            time.sleep(5)
+            # the parent signals as it reads the line: milliseconds
+            time.sleep(1)
         yield batch
 
 state, metrics = loop.run(state, data(), start_step=start, sampler=sampler)
@@ -5121,16 +5166,573 @@ def phase_pipeline(smi: str, llama1b: dict, profile: str = "") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# embedding: the job manager and elastic embedding training
+# ---------------------------------------------------------------------------
+
+# A CTR model at the scale of the MLPerf Training DLRM reference on
+# Criteo 1TB (mlcommons/training recommendation_v2/torchrec_dlrm: 26
+# categorical fields, embedding dim 128, top MLP 1024-1024-512-256-1,
+# tables capped at 40M rows): the 26 fields hashed into one table of
+# EMB_ROWS rows (cut from 40M: the row-sparse update holds ≈8 table-sized
+# tensors, ≈164 GB at 40M), batch 2048, BCE on 0/1 labels
+EMB_ROWS, EMB_DIM, EMB_FIELDS, EMB_BATCH = 10_000_000, 128, 26, 2048
+EMB_TOP_MLP = (1024, 1024, 512, 256, 1)
+EMB_SEED = 0
+EMB_STEPS, EMB_SAVE_EVERY = 7, 3
+EMB_SHARD = 2 * EMB_BATCH                 # records a shard
+EMB_RECORDS = 6 * EMB_SHARD               # records in the dataset
+EMB_CLICK_RATE = 0.25
+# each field's values follow a power law, as Criteo's categorical values
+# do (a few values take most of the records): rank k of a field drawn
+# with probability ∝ (k + 1)^-EMB_ZIPF_S over EMB_ROWS ranks, hashed to a
+# row by one permutation, each field at its own offset. The hot rows
+# take hundreds of ids a batch, so their accumulator moves (a row hit
+# once gains a g² below half an ulp of Adagrad's initial 0.1)
+EMB_ZIPF_S = 1.2
+EMB_TUNED_BATCH = 1024                    # the batch size (d) merges
+EMB_DATASET = "criteo-hashed"
+# (a) the card's first 3 steps against the plain CPU run of the same
+# steps from the same carried state (on the rows they touch: no other
+# row moves): f32, the card's matmul and embedding-backward orders. The
+# table's rows and the accumulator elementwise, and each by the relative
+# L2 of its 3-step update (an update's error against the update's size:
+# the elementwise bound alone admits an update off by tens of percent).
+# The accumulator's looser: its 3-step increments are a few ulps of its
+# 0.1 (g² of a hot row is 1e-9-1e-7), so one increment that the other
+# order rounds to the next ulp is ≈1/150 of the update's L2, and an
+# increment 10% off is ≈1e-1 of it. The tower's parameters by the relative L2
+# of their update alone (Adam's first steps move an element by about lr
+# whatever its gradient's size, so a near-zero gradient rounded to the
+# other sign moves it the other way)
+EMB_ROW_RTOL, EMB_ROW_ATOL = 1e-4, 1e-7
+EMB_ROW_UPDATE_TOL = 1e-3
+EMB_ACC_UPDATE_TOL = 5e-2
+EMB_DENSE_UPDATE_TOL = 1e-2
+EMB_LOSS_RTOL = 1e-5
+
+
+class _CtrTower(torch.nn.Module):
+    """The top MLP over the 26 looked-up rows concatenated (3328 wide):
+    Linear layers of EMB_TOP_MLP, ReLU between them, one logit a row."""
+
+    def __init__(self, device):
+        super().__init__()
+        layers, width = [], EMB_FIELDS * EMB_DIM
+        for out in EMB_TOP_MLP:
+            layers += [torch.nn.Linear(width, out, device=device),
+                       torch.nn.ReLU()]
+            width = out
+        self.mlp = torch.nn.Sequential(*layers[:-1])
+
+    def forward(self, emb):
+        return self.mlp(emb.reshape(emb.shape[0], -1))[:, 0]
+
+
+class _CtrRecords:
+    """The dataset the master shards: record i is its 26 hashed ids and
+    its label, one int64 row (made in bulk from the seed; the ids skewed
+    as EMB_ZIPF_S says)."""
+
+    def __init__(self, seed: int):
+        import numpy as np
+
+        rng = np.random.default_rng(seed)
+        # the continuous power law's inverse CDF over [1, EMB_ROWS + 1)
+        # (bounded Zipf), floored to a 0-based rank
+        tail = 1.0 - (EMB_ROWS + 1.0) ** (1.0 - EMB_ZIPF_S)
+        u = rng.random((EMB_RECORDS, EMB_FIELDS))
+        ranks = np.minimum((1.0 - u * tail) ** (1.0 / (1.0 - EMB_ZIPF_S)),
+                           EMB_ROWS).astype(np.int64) - 1
+        offsets = np.arange(EMB_FIELDS) * (EMB_ROWS // EMB_FIELDS)
+        self.rows = np.empty((EMB_RECORDS, EMB_FIELDS + 1), np.int64)
+        self.rows[:, :EMB_FIELDS] = rng.permutation(EMB_ROWS)[
+            (ranks + offsets) % EMB_ROWS]
+        self.rows[:, EMB_FIELDS] = rng.random(EMB_RECORDS) < EMB_CLICK_RATE
+
+    def __len__(self):
+        return EMB_RECORDS
+
+    def __getitem__(self, i):
+        return self.rows[i]
+
+
+def _ctr_bce(logits, labels):
+    return torch.nn.functional.binary_cross_entropy_with_logits(
+        logits, labels)
+
+
+def _ctr_trainer(rows: int, device):
+    """(trainer, state) of the CTR model, its table and tower from
+    EMB_SEED (the tower from the global generator, as nn.Linear does)."""
+    from dlrover_tpu_torch.parallel.mesh import MeshSpec, create_mesh
+    from dlrover_tpu_torch.trainer.embedding import (
+        ElasticEmbeddingTrainer,
+        EmbeddingConfig,
+        ShardedEmbedding,
+    )
+
+    generator = torch.Generator(device=device).manual_seed(EMB_SEED)
+    embedding = ShardedEmbedding(EmbeddingConfig(rows, EMB_DIM),
+                                 device=device, generator=generator)
+    torch.manual_seed(EMB_SEED)
+    trainer = ElasticEmbeddingTrainer(create_mesh(MeshSpec(), device),
+                                      embedding, _CtrTower(device),
+                                      _ctr_bce)
+    return trainer, trainer.init()
+
+
+def _split(batch):
+    return batch[:, :EMB_FIELDS], batch[:, EMB_FIELDS].astype("float32")
+
+
+def _carried(state, touched):
+    """The card's state as ``load_state`` takes it, the table and its
+    accumulator cut to the ``touched`` rows, on the host."""
+    table = state.model.embedding.table
+    embed_opt, dense_opt = state.optimizer
+    params = {"embedding.table": table.detach()[touched].cpu()}
+    opt = {"embedding.table": {"accumulator": embed_opt.state[table][
+        "accumulator"][touched].cpu()}}
+    for name, p in state.model.dense.named_parameters():
+        params[f"dense.{name}"] = p.detach().cpu().clone()
+        opt[f"dense.{name}"] = {k: v.detach().cpu().clone()
+                                for k, v in dense_opt.state[p].items()}
+    return params, opt
+
+
+def _emb_parity(carried, touched, batches, card_losses, state) -> dict:
+    """(a): the plain CPU run of ``batches`` from the carried state on the
+    touched rows (ids renumbered into them) against the card's."""
+    import numpy as np
+
+    trainer, cpu = _ctr_trainer(len(touched), "cpu")
+    trainer.load_state(cpu, *carried)
+    step = trainer.build_step()
+    order = touched.cpu().numpy()
+    losses = []
+    for ids, labels in batches:
+        losses.append(float(step(cpu, np.searchsorted(order, ids), labels)))
+    table = state.model.embedding.table
+    card_rows = table.detach()[touched].cpu()
+    card_acc = state.optimizer[0].state[table]["accumulator"][touched].cpu()
+    cpu_table = cpu.model.embedding.table.detach()
+    cpu_acc = cpu.optimizer[0].state[cpu.model.embedding.table][
+        "accumulator"]
+    start = carried[0]
+    start_acc = carried[1]["embedding.table"]["accumulator"]
+
+    def update_rel_l2(got, want, before):
+        return float((got - want).norm()
+                     / (want - before).norm().clamp_min(1e-30))
+
+    errs = {"loss_rel": max(abs(a - b) / abs(b)
+                            for a, b in zip(card_losses, losses)),
+            "table_max_abs": float((card_rows - cpu_table).abs().max()),
+            "acc_max_abs": float((card_acc - cpu_acc).abs().max()),
+            "table_update_rel_l2": update_rel_l2(
+                card_rows, cpu_table, start["embedding.table"]),
+            "acc_update_rel_l2": update_rel_l2(card_acc, cpu_acc, start_acc),
+            # rows whose accumulator the CPU run moved: (a)'s accumulator
+            # checks hold nothing when it is 0
+            "acc_moved_rows": int((cpu_acc != start_acc).any(dim=1).sum())}
+    ok = (errs["loss_rel"] <= EMB_LOSS_RTOL
+          and torch.allclose(card_rows, cpu_table, rtol=EMB_ROW_RTOL,
+                             atol=EMB_ROW_ATOL)
+          and torch.allclose(card_acc, cpu_acc, rtol=EMB_ROW_RTOL,
+                             atol=EMB_ROW_ATOL)
+          and errs["table_update_rel_l2"] <= EMB_ROW_UPDATE_TOL
+          and errs["acc_update_rel_l2"] <= EMB_ACC_UPDATE_TOL
+          and errs["acc_moved_rows"] > 0)
+    worst = 0.0
+    for name, p in state.model.dense.named_parameters():
+        want = dict(cpu.model.dense.named_parameters())[name].detach()
+        before = start[f"dense.{name}"]
+        moved = want - before
+        worst = max(worst, float((p.detach().cpu() - want).norm()
+                                 / moved.norm().clamp_min(1e-30)))
+    errs["dense_update_rel_l2"] = worst
+    ok = ok and worst <= EMB_DENSE_UPDATE_TOL
+    errs["ok"] = bool(ok)
+    errs["cpu_losses"] = losses
+    return errs
+
+
+def _same_bits(state, ref) -> bool:
+    """The table, the accumulator and every tower parameter equal to
+    ``ref``'s copies, bit for bit."""
+    table = state.model.embedding.table
+    if not (torch.equal(table.detach(), ref["table"]) and torch.equal(
+            state.optimizer[0].state[table]["accumulator"], ref["acc"])):
+        return False
+    return all(torch.equal(p.detach(), ref["dense"][n])
+               for n, p in state.model.dense.named_parameters())
+
+
+def _snapshot(state) -> dict:
+    table = state.model.embedding.table
+    return {"table": table.detach().clone(),
+            "acc": state.optimizer[0].state[table]["accumulator"].clone(),
+            "dense": {n: p.detach().clone()
+                      for n, p in state.model.dense.named_parameters()}}
+
+
+def phase_embedding(smi: str, device: str = "cuda") -> dict:
+    """Elastic embedding training at a 10M-row table under the port's
+    job-managed master (see the module docstring). ``device`` "cpu" is
+    the rehearsal at a cut size (the tests'); the card is the run."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    from dlrover_tpu_torch.agent.master_client import MasterClient
+    from dlrover_tpu_torch.agent.monitor import ParalConfigTuner
+    from dlrover_tpu_torch.checkpoint.flash_checkpoint import (
+        FlashCheckpointer,
+    )
+    from dlrover_tpu_torch.common.constants import (
+        JobStage,
+        NodeExitReason,
+        NodeStatus,
+        NodeType,
+    )
+    from dlrover_tpu_torch.common.node import NodeGroupResource, NodeResource
+    from dlrover_tpu_torch.master.job_master import JobMaster
+    from dlrover_tpu_torch.scheduler.job import JobArgs, NodeArgs
+    from dlrover_tpu_torch.scheduler.local import LocalCluster
+    from dlrover_tpu_torch.trainer.dataloader import ShardedDataset
+    from dlrover_tpu_torch.trainer.embedding import EmbeddingFailoverClient
+
+    t_phase = time.monotonic()
+    out = {"card": smi}
+    timeline = []
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    peak_gib = ((lambda: torch.cuda.max_memory_allocated() / 2 ** 30)
+                if on_card else (lambda: 0.0))
+    if on_card:
+        _free_memory()
+        torch.cuda.reset_peak_memory_stats()
+
+    def wait(pred, what: str, timeout_s: float = 10.0) -> None:
+        end = time.monotonic() + timeout_s
+        while not pred():
+            if time.monotonic() > end:
+                raise AssertionError(f"embedding: {what} within "
+                                     f"{timeout_s:.0f} s")
+            time.sleep(0.02)
+
+    args = JobArgs(job_name="ctr")
+    args.node_args[NodeType.WORKER] = NodeArgs(
+        group_resource=NodeGroupResource(
+            count=2, node_resource=NodeResource(cpu=8, memory_mb=65536,
+                                                chips=1)),
+        restart_count=1)
+    cluster = LocalCluster()
+    master = JobMaster(min_nodes=2, max_nodes=2, job_args=args,
+                       cluster=cluster, host="127.0.0.1")
+    master.prepare()
+    manager = master.job_manager
+    clients, ckpt = [], None
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_embedding_")
+    ckpt_root = ""
+    try:
+        wait(lambda: len(manager.get_running_workers()) == 2,
+             "two running workers")
+        client = MasterClient(master.addr, node_id=0, node_rank=0)
+        peer = MasterClient(master.addr, node_id=1, node_rank=1)
+        clients += [client, peer]
+        records = _CtrRecords(EMB_SEED)
+        # the agent's ParalConfigTuner writes the tuned config here; the
+        # feed reloads its batch size from it at batch boundaries
+        config = os.path.join(tmp, "paral_config.json")
+        feed = ShardedDataset(client, EMB_DATASET, records, EMB_BATCH,
+                              wait_poll_s=0.05, config_file=config)
+        feed.register(shard_size=EMB_SHARD, num_epochs=1)
+        # worker 1 holds a shard in flight when it dies
+        held = peer.get_task(EMB_DATASET)
+        batches = iter(feed)
+
+        t0 = time.monotonic()
+        trainer, state = _ctr_trainer(EMB_ROWS, device)
+        sync()
+        out["init_s"] = time.monotonic() - t0
+        table = state.model.embedding.table
+        table_bytes = table.numel() * table.element_size()
+        state_bytes = 2 * table_bytes + 3 * sum(
+            p.numel() * 4 for p in state.model.dense.parameters())
+        mem = host_memory()
+        on_shm = min(mem["shm_free"], mem["MemAvailable"] - 2 * state_bytes
+                     ) >= 2.2 * state_bytes
+        ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_embedding_ckpt_",
+                                     dir="/dev/shm" if on_shm else tmp)
+        free = shutil.disk_usage(ckpt_root).free
+        log(f"embedding: table {EMB_ROWS} x {EMB_DIM} f32 "
+            f"({table_bytes / 1e9:.2f} GB), state {state_bytes / 1e9:.2f} GB;"
+            f" checkpoints in {ckpt_root} "
+            f"({'/dev/shm' if on_shm else 'disk'}, {free / 1e9:.1f} GB free;"
+            f" two kept); host MemAvailable "
+            f"{mem['MemAvailable'] / 1e9:.1f} GB ({smi})")
+        if free < 2.1 * state_bytes:
+            raise AssertionError(f"{free / 1e9:.1f} GB free: less than two "
+                                 f"checkpoints")
+        init_table = table.detach().clone()
+        acc0 = float(state.optimizer[0].state[table]["accumulator"][0, 0])
+        failover = EmbeddingFailoverClient(client)
+        if failover.start() != 0:
+            raise AssertionError("the global version is not 0 at start")
+        timeline.append(("start", failover.local_version))
+
+        step = trainer.build_step()
+        # (a)'s carried state: the rows steps 1-3 touch, before step 1
+        seen = {i: _split(next(batches)) for i in (1, 2, 3)}
+        parity_rows = torch.from_numpy(np.unique(np.concatenate(
+            [seen[i][0].ravel() for i in (1, 2, 3)]))).to(device)
+        carried = _carried(state, parity_rows)
+        losses, step_ms, saves = [], [], {}
+        ckpt = FlashCheckpointer(ckpt_root, save_interval_steps=EMB_SAVE_EVERY)
+        reset_counts()
+        for i in range(1, EMB_STEPS + 1):
+            if i not in seen:
+                seen[i] = _split(next(batches))
+            sync()
+            t0 = time.monotonic()
+            losses.append(float(step(state, *seen[i])))
+            step_ms.append((time.monotonic() - t0) * 1e3)
+            if ckpt.maybe_save(i, state, {"step": i,
+                                          "records": i * EMB_BATCH}):
+                # the committer adds commit_s to this save's dict
+                saves[i] = ckpt.last_save
+            if i == 3:
+                # on the host while the step-3 commit runs
+                parity = _emb_parity(carried, parity_rows,
+                                     [seen[k] for k in (1, 2, 3)],
+                                     losses[:3], state)
+                out["parity"] = parity
+                log(f"embedding (a): 3 card steps against the plain CPU "
+                    f"run from the carried state on "
+                    f"{len(parity_rows)} touched rows: "
+                    f"{json.dumps(parity)}")
+                if not parity["ok"]:
+                    raise AssertionError(f"embedding (a): the card's steps "
+                                         f"disagree with the CPU run: "
+                                         f"{parity}")
+        out["train_peak_gib"] = peak_gib()
+        # (a): no row the 7 steps' ids missed moved, in the table or
+        # the accumulator
+        touched = torch.zeros(EMB_ROWS, dtype=torch.bool, device=device)
+        for i in seen:
+            touched[torch.from_numpy(seen[i][0].ravel()).to(device)] = True
+        acc = state.optimizer[0].state[table]["accumulator"]
+        moved = (table.detach() != init_table).any(dim=1)
+        acc_moved = (acc != acc0).any(dim=1)
+        out["rows"] = {"touched": int(touched.sum()),
+                       "moved": int(moved.sum()),
+                       "acc_moved": int(acc_moved.sum()),
+                       "untouched_moved": int((moved & ~touched).sum()),
+                       "untouched_acc_moved": int((acc_moved & ~touched)
+                                                  .sum())}
+        del init_table, moved, acc_moved
+        log(f"embedding (a): rows over the 7 steps {json.dumps(out['rows'])}")
+        if out["rows"]["untouched_moved"] or out["rows"][
+                "untouched_acc_moved"] or not out["rows"]["acc_moved"]:
+            raise AssertionError(f"embedding (a): untouched rows moved, or "
+                                 f"no accumulator row: {out['rows']}")
+
+        # -- (b) a worker dies --------------------------------------------
+        counts_before = client.get_task_counts(EMB_DATASET)
+        victim = [n for n in manager.get_running_workers() if n.id == 1][0]
+        t_fail = time.monotonic()
+        cluster.fail_pod(victim.name, NodeExitReason.UNKNOWN_ERROR)
+        wait(lambda: client.get_cluster_version("global") >= 1,
+             "the global version rising")
+        t_bump = time.monotonic()
+        wait(lambda: len(manager.get_running_workers()) == 2
+             and any(n.relaunch_count == 1 and n.status == NodeStatus.RUNNING
+                     for n in manager.get_nodes(NodeType.WORKER)),
+             "the relaunch running")
+        t_relaunched = time.monotonic()
+        replacement = [n for n in manager.get_running_workers()
+                       if n.relaunch_count == 1][0]
+        counts_after = client.get_task_counts(EMB_DATASET)
+        version = client.get_cluster_version("global")
+        timeline.append(("worker-1 failed", version))
+        stale = failover.needs_reconcile()
+        out["failure"] = {
+            "global_version": version, "tasks_before": counts_before,
+            "tasks_after": counts_after, "held_task": held.task_id,
+            "replacement": [replacement.name, replacement.rank_index,
+                            replacement.relaunch_count,
+                            replacement.max_relaunch_count],
+            "fail_to_bump_s": t_bump - t_fail,
+            "fail_to_relaunch_running_s": t_relaunched - t_fail,
+            "needs_reconcile": stale}
+        log(f"embedding (b): {json.dumps(out['failure'])}")
+        if (version != 1 or not stale
+                or counts_after != (counts_before[0] + 1,
+                                    counts_before[1] - 1)
+                or replacement.rank_index != victim.rank_index
+                or replacement.relaunch_count > replacement.max_relaunch_count):
+            raise AssertionError(f"embedding (b): {out['failure']}")
+
+        # a step on the stale view (step 8), then the uninterrupted run
+        # from the step-6 checkpoint is steps 7 and 8 as they ran
+        seen[EMB_STEPS + 1] = _split(next(batches))
+        losses.append(float(step(state, *seen[EMB_STEPS + 1])))
+        uninterrupted = _snapshot(state)
+
+        # -- (c) reconcile ------------------------------------------------
+        # the step-6 save's host copy: the committed bits
+        host = dict(ckpt.exact_host_items())
+        committed = {
+            "table": host["model.embedding.table"],
+            "accumulator": host["optim.state.embedding.table.accumulator"]}
+        t0 = time.monotonic()
+        result = trainer.maybe_reconcile(failover, ckpt, state)
+        sync()
+        restore_s = time.monotonic() - t0
+        timeline.append(("reconciled (local)", failover.local_version))
+        restored_bits = (
+            torch.equal(table.detach(), committed["table"].to(device))
+            and torch.equal(state.optimizer[0].state[table]["accumulator"],
+                            committed["accumulator"].to(device)))
+        # the relaunched worker adopts and publishes the global version
+        clients.append(MasterClient(master.addr, node_id=replacement.id,
+                                    node_rank=replacement.rank_index))
+        EmbeddingFailoverClient(clients[-1]).start()
+        live = sorted([0, replacement.id])
+        reconciled_cluster = failover.wait_reconciled_cluster(live,
+                                                              timeout_s=10)
+        seen_local = client.get_cluster_version("local", task_id=0)
+        replay = [float(step(state, *seen[i]))
+                  for i in range(result.step + 1, EMB_STEPS + 2)]
+        replay_bits = _same_bits(state, uninterrupted)
+        del uninterrupted
+        launches = read_counts()
+        out["launches"] = launches
+        out["reconcile"] = {
+            "reconciled": result.reconciled, "step": result.step,
+            "state_step_after_replay": state.step,
+            "data_state": result.data_state, "committed_bits": restored_bits,
+            "local_version": failover.local_version,
+            "local_seen_by_master": seen_local, "live_ids": live,
+            "wait_reconciled_cluster": reconciled_cluster,
+            "replayed_losses": replay,
+            "uninterrupted_losses": losses[result.step:],
+            "replay_same_bits": replay_bits, "restore_s": restore_s,
+            "restore_phases": dict(ckpt.last_restore_phases)}
+        log(f"embedding (c): {json.dumps(out['reconcile'])}")
+        if not (result.reconciled
+                and result.step == EMB_STEPS - EMB_STEPS % EMB_SAVE_EVERY
+                and result.data_state == {"step": result.step,
+                                          "records": result.step * EMB_BATCH}
+                and restored_bits and seen_local == 1
+                and failover.local_version == 1 and reconciled_cluster
+                and replay == losses[result.step:] and replay_bits):
+            raise AssertionError(f"embedding (c): {out['reconcile']}")
+        if any(launches.values()):
+            raise AssertionError(f"embedding: a kernel launched on the "
+                                 f"embedding path: {launches}")
+
+        # -- (d) the tuned batch size reaches the live feed ---------------
+        first = len(seen[EMB_STEPS + 1][0])
+        merged = master.servicer.merge_paral_config(
+            dataloader_batch_size=EMB_TUNED_BATCH)
+        wrote = ParalConfigTuner(client, config).poll_once()
+        tuned = _split(next(batches))
+        tuned_loss = float(step(state, *tuned))
+        out["batch_reload"] = {"before": first, "merged_version":
+                               merged.version, "tuner_wrote": wrote,
+                               "after": len(tuned[0]),
+                               "loss_at_the_tuned_batch": tuned_loss}
+        log(f"embedding (d): {json.dumps(out['batch_reload'])}")
+        if ((first, len(tuned[0]), wrote) != (EMB_BATCH, EMB_TUNED_BATCH,
+                                              True)
+                or not math.isfinite(tuned_loss)):
+            raise AssertionError(f"embedding (d): {out['batch_reload']}")
+
+        # -- (e) the stage, the exporter, a clean stop --------------------
+        stage = client.get_job_status().stage
+        url = f"http://127.0.0.1:{master.metrics_port}/metrics"
+        with urllib.request.urlopen(url, timeout=10) as reply:
+            scraped = reply.status, reply.read().decode()
+        for c in clients:
+            c.close()
+        clients = []
+        t0 = time.monotonic()
+        master.stop()
+        stop_s = time.monotonic() - t0
+        wait(lambda: not any(t.name == "node-monitor"
+                             for t in threading.enumerate()),
+             "the node monitor ending")
+        try:
+            urllib.request.urlopen(url, timeout=5)
+            exporter_closed = False
+        except (urllib.error.URLError, OSError):
+            exporter_closed = True
+        exits = master.metric_collector._reporter.records("job_exit")
+        out["stop"] = {"job_stage": stage, "metrics_status": scraped[0],
+                       "metrics_bytes": len(scraped[1]), "stop_s": stop_s,
+                       "exporter_closed": exporter_closed,
+                       "job_exit": exits[-1]["stage"] if exits else None}
+        log(f"embedding (e): {json.dumps(out['stop'])}")
+        if (stage != JobStage.RUNNING or scraped[0] != 200
+                or "dlrover_tpu_checkpoint_saves_total" not in scraped[1]
+                or not exporter_closed
+                or out["stop"]["job_exit"] != JobStage.RUNNING):
+            raise AssertionError(f"embedding (e): {out['stop']}")
+
+        out["steps"] = {"losses": losses, "step_ms": step_ms,
+                        "median_ms": statistics.median(step_ms[1:]),
+                        "min_ms": min(step_ms[1:]),
+                        "max_ms": max(step_ms[1:]),
+                        "first_ms": step_ms[0]}
+        save_times = {step_: [v.get(k) for k in ("blocking_s", "host_alloc_s",
+                                                 "wait_s", "commit_s")]
+                      for step_, v in saves.items()}
+        out["saves"] = save_times
+        out["peak_gib"] = peak_gib()
+        out["timeline"] = timeline
+        out["phase_s"] = time.monotonic() - t_phase
+        log(f"embedding on {smi}: steps 2-{EMB_STEPS} median "
+            f"{out['steps']['median_ms']:.2f} ms (min "
+            f"{out['steps']['min_ms']:.2f}, max {out['steps']['max_ms']:.2f};"
+            f" step 1 {step_ms[0]:.1f}), losses {losses}; allocator peak "
+            f"{out['train_peak_gib']:.2f} GiB over the steps, "
+            f"{out['peak_gib']:.2f} GiB in the phase; saves (blocking, "
+            f"of it page-locking, the wait for the previous commit, "
+            f"commit) {json.dumps(save_times)};"
+            f" restore {restore_s:.2f} s (read "
+            f"{ckpt.last_restore_phases.get('tensor_read_s', 0.0):.2f} s); "
+            f"versions {timeline}; phase {out['phase_s']:.1f} s")
+    finally:
+        for c in clients:
+            c.close()
+        if ckpt is not None:
+            ckpt.close()
+        master.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+        if ckpt_root:
+            shutil.rmtree(ckpt_root, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases",
                         default="kernels,quant,parity,llama1b,resume,"
                                 "standalone,faults,observe,failover,replan,"
-                                "models,llama7b,moe,pipeline",
+                                "models,llama7b,moe,pipeline,embedding",
                         help="comma-separated subset of kernels, quant, "
                              "parity, llama1b, resume, standalone, faults, "
                              "observe, failover, replan, models, llama7b, "
-                             "moe, pipeline (device and build always run)")
+                             "moe, pipeline, embedding (device and build "
+                             "always run)")
     parser.add_argument("--profile", default="",
                         help="after the Llama-1B run, profile one more "
                              "step and write the kernel table here (and "
@@ -5242,6 +5844,12 @@ def main(argv=None) -> int:
         for rec in train_records + quant_records:
             rec["pipeline_launches"] = pipeline["launches"][rec["name"]]
         lap("pipeline")
+    if "embedding" in phases:
+        # the embedding path runs none of the kernels: its counts, 0
+        embedding = phase_embedding(smi)
+        for rec in train_records + quant_records:
+            rec["embedding_launches"] = embedding["launches"][rec["name"]]
+        lap("embedding")
     records = train_records + quant_records
     log(f"phase seconds: {json.dumps(seconds)}")
     log(f"elapsed {time.monotonic() - t0:.1f} s")

@@ -465,13 +465,16 @@ class ElasticAgent:
         # predecessor, so one SIGTERM yields both the flight dump and the
         # drain notice
         self._start_preemption_watcher()
-        self._start_peer_donor()
         if threading.current_thread() is threading.main_thread():
             # postmortem timeline even when the agent itself is SIGTERMed
             recorder.install_signal_handlers()
         recorder.install_excepthook()
         try:
             self._spawn()
+            # after the spawn: the donor's module imports torch (seconds),
+            # which now overlaps the worker's own start; nothing is staged
+            # to donate before the worker's first save
+            self._start_peer_donor()
             self._start_monitors()
             return WorkerExit.to_exit_status(self._run_loop())
         except BaseException:

@@ -10,7 +10,7 @@ Counterpart of ``dlrover_tpu/checkpoint/flash_checkpoint.py`` over
   save's allocation) is the only part the training loop waits for. DCP
   writes
   those buffers from a background thread (its stager hands them on
-  untouched); each rank writes its own shards. The peer cache
+  untouched); each rank writes its own shards, four files at once. The peer cache
   (``checkpoint/peer_restore.py``) stages the same buffers, so the next
   save waits for both readers before it overwrites them.
 - **Commit marker**: a step is written under ``<step>.tmp`` and renamed
@@ -51,6 +51,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 import torch.distributed.checkpoint as dcp
+from torch.distributed.checkpoint import FileSystemWriter
 from torch.distributed.checkpoint.staging import AsyncStager
 from torch.distributed.checkpoint.state_dict import (
     get_state_dict,
@@ -70,6 +71,10 @@ from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.parallel.sharding import to_local
 
 _DATA_FILE = "data.json"
+# files each rank's commit writes at once (DCP splits the items among
+# them by size): one writer moves well under a core's memory rate, and
+# the trainer keeps the other cores
+_WRITER_THREADS = 4
 _TMP_SUFFIX = ".tmp"
 # data-item key marking a quantized state payload (and its bit width)
 _QUANT_KEY = "_ckpt_quantized_bits"
@@ -357,9 +362,11 @@ class FlashCheckpointer:
                       if self.peer_store is not None else {})
         self._exact_host = shard_items(host_exact)
         t1 = time.monotonic()
-        future = dcp.async_save(host_trees[0], checkpoint_id=tmp,
-                                process_group=self._pg,
-                                async_stager=_PreStaged())
+        future = dcp.async_save(
+            host_trees[0],
+            storage_writer=FileSystemWriter(tmp,
+                                            thread_count=_WRITER_THREADS),
+            process_group=self._pg, async_stager=_PreStaged())
         times["dispatch_s"] = time.monotonic() - t1
         blocking_s = time.monotonic() - t0
         times["blocking_s"] = blocking_s
@@ -530,9 +537,30 @@ class FlashCheckpointer:
         run reaches those numbers again and must be able to save them).
         Only when every step fails does the newest step's error
         propagate: silently starting over would throw away the job's
-        progress."""
+        progress.
+
+        A save of this checkpointer still in flight (a reconcile between
+        steps: ``ElasticEmbeddingTrainer.maybe_reconcile``) is committed
+        first: its ``<step>.tmp`` is not a torn save, and its step is the
+        newest state to restore. A commit that fails is logged and dropped:
+        its ``<step>.tmp`` goes with the torn saves, and the restore falls
+        back to the newest committed step."""
         self.last_restore_phases = {}
         t0 = time.monotonic()
+        if self._pending is not None:
+            pending_step = self._pending_step
+            try:
+                self._wait_pending()
+            # DCP's CheckpointException derives from BaseException
+            except (Exception, dcp.CheckpointException) as e:  # noqa: BLE001
+                self._pending = self._pending_step = None
+                logger.error("flash checkpoint: the in-flight save of step "
+                             "%s FAILED (%s: %s); restoring the newest "
+                             "committed step", pending_step,
+                             type(e).__name__, e)
+            self.last_restore_phases["pending_commit_s"] = (
+                time.monotonic() - t0)
+            t0 = time.monotonic()
         self._remove_torn_saves()
         steps = sorted(self.all_steps(), reverse=True)
         discovery_s = time.monotonic() - t0

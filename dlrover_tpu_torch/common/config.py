@@ -18,10 +18,15 @@ class Context:
     _lock = threading.Lock()
 
     def __init__(self):
+        self.metrics_port: int = DefaultValues.METRICS_PORT
         self.rdzv_timeout_s: float = DefaultValues.RDZV_TIMEOUT_S
         self.rdzv_wait_new_node_s: float = DefaultValues.RDZV_WAIT_NEW_NODE_S
         self.task_timeout_s: float = DefaultValues.TASK_TIMEOUT_S
         self.hang_seconds: float = DefaultValues.HANG_SECONDS
+        # the job auto-scaler's round (master/node/job_auto_scaler.py)
+        self.seconds_per_scale_check: float = (
+            DefaultValues.SECONDS_PER_SCALE_CHECK
+        )
         self.dead_node_timeout_s: float = DefaultValues.DEAD_NODE_TIMEOUT_S
         # client RPC budget (agent/master_client.py): per-call deadline,
         # attempt count and the jittered-exponential-backoff envelope

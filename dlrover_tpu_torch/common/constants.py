@@ -6,6 +6,24 @@ the port uses; a test holds each equal to the original.
 """
 
 
+class PlatformType:
+    LOCAL = "local"          # single-machine dev: master + agents as processes
+    KUBERNETES = "k8s"       # pods per host
+    RAY = "ray"
+
+
+class DistributionStrategy:
+    ALLREDUCE = "allreduce"   # SPMD data/model parallel over a mesh
+    PS = "ps"                 # parameter-server-style (elastic embeddings)
+    LOCAL = "local"
+
+
+class OptimizeMode:
+    MANUAL = "manual"
+    SINGLE_JOB = "single-job"
+    CLUSTER = "cluster"       # ask the brain service for resource plans
+
+
 class NodeType:
     MASTER = "master"
     WORKER = "worker"        # a host running one training process
@@ -27,6 +45,12 @@ class NodeStatus:
     @classmethod
     def terminal(cls):
         return {cls.SUCCEEDED, cls.FAILED, cls.DELETED}
+
+
+class NodeEventType:
+    ADDED = "added"
+    MODIFIED = "modified"
+    DELETED = "deleted"
 
 
 class NodeExitReason:
@@ -167,10 +191,13 @@ class MeshAxis:
 class DefaultValues:
     """The defaults of the knobs the ported modules read (``Context``)."""
 
+    METRICS_PORT = 0                # /metrics exposition; 0 → free port,
+    #                                 -1 → disabled
     RDZV_TIMEOUT_S = 600.0
     RDZV_WAIT_NEW_NODE_S = 30.0     # grace window for extra nodes past min
     TASK_TIMEOUT_S = 1800.0
     HANG_SECONDS = 1800.0
+    SECONDS_PER_SCALE_CHECK = 60.0
     # an agent silent this long is declared dead and its world
     # invalidated
     DEAD_NODE_TIMEOUT_S = 90.0

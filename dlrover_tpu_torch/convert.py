@@ -28,6 +28,11 @@ j's leaves under ``layer_{ℓ}`` (GPT's ``block_{ℓ}``), the shared ones by
 their names (Llama's bare ``final_norm`` as ``final_norm.weight``);
 ``pipeline_adamw_from_jax`` carries an ``optax.adamw`` state of those
 parameters to ``torch.optim.AdamW``'s per-parameter state.
+
+``embedding_state_from_jax`` carries the JAX ``ElasticEmbeddingTrainer``'s
+state (embed params, ``RowSparseAdagradState``, dense params,
+``optax.adam``'s state) to the port's ``EmbeddingTrainState`` names, for
+``ElasticEmbeddingTrainer.load_state``.
 """
 
 from __future__ import annotations
@@ -231,3 +236,31 @@ def pipeline_adamw_from_jax(opt_state: Any, family: str
     nu = dict(_pipeline_items(adam.nu, family, None))
     return {name: {"step": step.clone(), "exp_avg": _tensor(mu[name]),
                    "exp_avg_sq": _tensor(nu[name])} for name in mu}
+
+
+def embedding_state_from_jax(state: Tuple[Any, Any, Any, Any]
+                             ) -> Tuple[Dict[str, torch.Tensor],
+                                        Dict[str, Dict[str, torch.Tensor]]]:
+    """The JAX embedding trainer's ``(embed_params, embed_opt,
+    dense_params, dense_opt)`` (numpy leaves; the dense tree a mapping
+    whose dotted paths are the port's dense tower's parameter names) →
+    (parameters by the port's ``EmbeddingModel`` names, each one's
+    optimizer state): ``embedding.table`` with the row-sparse Adagrad
+    ``accumulator``, ``dense.<path>`` with ``torch.optim.Adam``'s
+    ``step``, ``exp_avg`` and ``exp_avg_sq`` from optax.adam's ``count``,
+    ``mu`` and ``nu``."""
+    embed_params, embed_opt, dense_params, dense_opt = state
+    params = {"embedding.table": _tensor(embed_params["table"])}
+    opt = {"embedding.table": {
+        "accumulator": _tensor(embed_opt.accumulator["table"])}}
+    adam = next(part for part in (
+        [dense_opt] if hasattr(dense_opt, "mu") else list(dense_opt))
+        if hasattr(part, "mu"))
+    step = torch.tensor(float(np.asarray(adam.count)))
+    mu, nu = _flat(adam.mu), _flat(adam.nu)
+    for path, value in _flat(dense_params).items():
+        name = f"dense.{path}"
+        params[name] = _tensor(value)
+        opt[name] = {"step": step.clone(), "exp_avg": _tensor(mu[path]),
+                     "exp_avg_sq": _tensor(nu[path])}
+    return params, opt

@@ -45,13 +45,29 @@ evidence; each round pushes the learned discounts back into the
 planner). It is snapshotted as ``plan_calibration``, byte-compatible
 with the JAX master's; a restore re-pushes its discounts at once.
 
-The JAX master's snapshot also holds ``fleet_controller`` (the brain,
-ROADMAP Queue A item 12.10) and ``job_manager`` (12.7); the port neither
-writes nor restores them, and ignores them in a JAX snapshot.
+A master built with ``job_args`` (and a ``cluster``: the platform's
+client, a ``scheduler.local.LocalCluster`` on the local platform) owns
+node lifecycle, as the JAX master does: ``create_job_manager`` wires the
+platform's scaler and watcher, and three node-event callbacks follow a
+node's death (``TaskRescheduleCallback`` requeues its shards,
+``RendezvousMembershipCallback`` drops it from the rendezvous, the speed
+monitor and the diagnosis engine, ``PsFailoverCallback`` bumps the
+global cluster version of ``ElasticPsService``). ``_attach_optimization``
+adds the metric collector, the local resource optimizer and, unless
+``optimize_mode`` is manual, the auto-scaler, whose tuned knobs reach
+the served ``ParallelConfig`` through ``merge_paral_config``.
+``prepare()`` starts them, ``run()`` ends on the job's stage, and the
+snapshot holds the job manager's state under ``job_manager``, the same
+JSON as the JAX master's. ``prepare()`` also serves the metrics registry
+on ``/metrics`` (``metrics_port``; 0 = any free port, -1 = off).
 
-Not ported yet (ROADMAP Queue A item 12): the sharded rendezvous
-router (12.2), the fleet controller, the job manager with its scalers
-and watchers, the brain and the metrics HTTP exporter.
+The JAX master's snapshot also holds ``fleet_controller`` (the brain,
+ROADMAP Queue A item 12.10); the port neither writes nor restores it, and
+ignores it in a JAX snapshot.
+
+Not ported yet: the sharded rendezvous router (ROADMAP Queue A item
+12.2); the fleet controller, the brain and the Kubernetes and Ray
+platforms (12.10).
 """
 
 from __future__ import annotations
@@ -66,11 +82,26 @@ from typing import Optional
 from dlrover_tpu_torch import obs
 from dlrover_tpu_torch.common.comm import build_server, local_ip
 from dlrover_tpu_torch.common.config import Context
-from dlrover_tpu_torch.common.constants import NodeType, RendezvousName
+from dlrover_tpu_torch.common.constants import (
+    JobStage,
+    NodeType,
+    OptimizeMode,
+    RendezvousName,
+)
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.master.coord_service import CoordServicer
 from dlrover_tpu_torch.master.diagnosis import DiagnosisManager
 from dlrover_tpu_torch.master.kv_store import KVStoreService
+from dlrover_tpu_torch.master.node.event_callback import (
+    PsFailoverCallback,
+    RendezvousMembershipCallback,
+    TaskRescheduleCallback,
+)
+from dlrover_tpu_torch.master.node.job_auto_scaler import JobAutoScaler
+from dlrover_tpu_torch.master.node.job_manager import create_job_manager
+from dlrover_tpu_torch.master.resource.local_optimizer import (
+    LocalResourceOptimizer,
+)
 from dlrover_tpu_torch.master.rendezvous import (
     ElasticTrainingRendezvousManager,
     NetworkCheckRendezvousManager,
@@ -79,6 +110,11 @@ from dlrover_tpu_torch.master.rendezvous import (
 from dlrover_tpu_torch.master.servicer import MasterServicer
 from dlrover_tpu_torch.master.shard.task_manager import TaskManager
 from dlrover_tpu_torch.master.speed_monitor import SpeedMonitor
+from dlrover_tpu_torch.master.stats.job_collector import JobMetricCollector
+from dlrover_tpu_torch.master.stats.reporter import (
+    ReporterType,
+    StatsReporter,
+)
 from dlrover_tpu_torch.master.state_backend import (
     MasterStateBackend,
     MutationLog,
@@ -97,7 +133,10 @@ class JobMaster:
         min_nodes: int = 1,
         max_nodes: int = 1,
         node_unit: int = 1,
+        job_args=None,
+        cluster=None,
         host: str = "0.0.0.0",
+        brain_addr: str = "",
         state_dir: Optional[str] = None,
         preloaded_state: Optional[tuple] = None,
     ):
@@ -123,6 +162,7 @@ class JobMaster:
             keep_generations=ctx.kv_gc_keep_generations)
         self.sync_service = SyncService(expected_workers=min_nodes)
         self.elastic_ps_service = ElasticPsService()
+        self.job_manager = None  # built below when job_args is given
         # the goodput ledger classifies every rank-second of the job
         # (obs/goodput.py); fed by the servicer, queried over RPC
         self.goodput_ledger = obs.GoodputLedger()
@@ -170,6 +210,26 @@ class JobMaster:
         self._init_coord_tier(host)
         self._stopped = threading.Event()
         self._exit_reason = ""
+        self.metric_collector = None
+        self.auto_scaler = None
+        self._metrics_server = None
+        self.metrics_port = 0
+        if job_args is not None:
+            manager = create_job_manager(
+                job_args, master_addr=self.addr,
+                speed_monitor=self.speed_monitor, cluster=cluster)
+            manager.add_event_callback(
+                TaskRescheduleCallback(self.task_manager))
+            manager.add_event_callback(
+                RendezvousMembershipCallback(
+                    self.rdzv_managers, self.speed_monitor,
+                    diagnosis_manager=self.diagnosis_manager))
+            manager.add_event_callback(
+                PsFailoverCallback(self.elastic_ps_service))
+            self.job_manager = manager
+            self._attach_optimization(job_args, brain_addr)
+            self.servicer.job_manager = manager
+            self.servicer.metric_collector = self.metric_collector
         self._init_state_backend(
             state_dir if state_dir is not None else ctx.master_state_dir,
             ctx.master_snapshot_retain,
@@ -303,13 +363,15 @@ class JobMaster:
         }
         if self.diagnosis_manager is not None:
             state["diagnosis"] = self.diagnosis_manager.export_state()
+        if self.job_manager is not None:
+            state["job_manager"] = self.job_manager.export_state()
         return state
 
     def _restore_state(self, state: dict) -> None:
         """Rebuild every ported component from a snapshot of either
-        package. A JAX snapshot's ``fleet_controller`` (ROADMAP Queue A
-        item 12.10) and ``job_manager`` (12.7) keys name parts the port
-        lacks and are ignored."""
+        package. A JAX snapshot's ``fleet_controller`` key (ROADMAP Queue A
+        item 12.10) names a part the port lacks and is ignored, as its
+        ``job_manager`` key is when this master has no job manager."""
         self.generation = int(state.get("generation", 0)) + 1
         for name, rdzv_state in state.get("rendezvous", {}).items():
             mgr = self.rdzv_managers.get(name)
@@ -331,6 +393,8 @@ class JobMaster:
                 self.servicer.push_axis_discounts(discounts)
         if self.diagnosis_manager is not None and "diagnosis" in state:
             self.diagnosis_manager.restore_state(state["diagnosis"])
+        if self.job_manager is not None and "job_manager" in state:
+            self.job_manager.restore_state(state["job_manager"])
 
     def _maybe_snapshot(self, force: bool = False) -> None:
         """Persist the control-plane state if it changed (the
@@ -471,6 +535,40 @@ class JobMaster:
                     "published to %s", self.addr,
                     self.coord_addr or "-", self.generation, path)
 
+    def _attach_optimization(self, job_args, brain_addr: str) -> None:
+        """Wire stats collection, resource optimization and auto-scaling
+        (reference: dist_master.py:116-127 reporter selection and the
+        JobResourceOptimizer/JobAutoScaler composition). The brain's
+        optimizer (``optimize_mode`` cluster with a ``brain_addr``) is
+        ROADMAP Queue A item 12.10."""
+        if job_args.optimize_mode == OptimizeMode.CLUSTER and brain_addr:
+            raise NotImplementedError(
+                "the brain's resource optimizer is not ported: ROADMAP "
+                "Queue A item 12.10")
+        reporter = StatsReporter.new_reporter(ReporterType.LOCAL)
+        optimizer = LocalResourceOptimizer()
+        self.metric_collector = JobMetricCollector(
+            job_args.job_name, reporter, stats=optimizer.stats)
+        self.metric_collector.attach(speed_monitor=self.speed_monitor,
+                                     job_manager=self.job_manager)
+        worker_args = job_args.worker_args()
+        if worker_args is not None:
+            resource = worker_args.group_resource.node_resource
+            self.metric_collector.report_job_meta(
+                worker_count=worker_args.group_resource.count,
+                cpu=resource.cpu, memory_mb=resource.memory_mb,
+                chips=resource.chips, chip_type=resource.chip_type,
+                distribution_strategy=job_args.distribution_strategy,
+            )
+        if job_args.optimize_mode != OptimizeMode.MANUAL:
+            self.auto_scaler = JobAutoScaler(
+                self.job_manager, optimizer,
+                speed_monitor=self.speed_monitor,
+                interval_s=Context.singleton().seconds_per_scale_check,
+            )
+            self.auto_scaler.paral_config_sink = (
+                self.servicer.merge_paral_config)
+
     # ------------------------------------------------------------------
     def prepare(self) -> None:
         self._server.start()
@@ -478,19 +576,48 @@ class JobMaster:
             self._coord_server.start()
             logger.info("coordination tier serving on port %d",
                         self.coord_port)
+        if self.job_manager is not None:
+            self.job_manager.start()
+        if self.metric_collector is not None:
+            self.metric_collector.start()
+        if self.auto_scaler is not None:
+            self.auto_scaler.start()
         self.task_manager.start_timeout_recovery()
         if self.diagnosis_manager is not None:
             self.diagnosis_manager.start()
         self.tsdb_collector.start()
+        self._start_metrics_exporter()
         self._publish_bootstrap_addr()
         logger.info("job master serving on port %d", self.port)
+
+    def _start_metrics_exporter(self) -> None:
+        """Serve the Prometheus exposition (``metrics_port``: 0 = any free
+        port, negative = disabled). Scrape: GET /metrics."""
+        port = Context.singleton().metrics_port
+        if port < 0:
+            return
+        try:
+            self._metrics_server, self.metrics_port = (
+                obs.start_http_exporter(port=port))
+        except OSError as e:
+            logger.warning("metrics exporter failed to bind: %s", e)
+            return
+        logger.info("metrics exposition on :%d/metrics", self.metrics_port)
 
     def run(self, poll_interval_s: float = 30.0) -> int:
         """Block until the job finishes; returns an exit code."""
         ctx = Context.singleton()
         exit_code = 0
         while not self._stopped.is_set():
-            if self.task_manager.finished():
+            if self.job_manager is not None:
+                stage = self.job_manager.job_stage()
+                if stage == JobStage.SUCCEEDED:
+                    break
+                if stage == JobStage.FAILED:
+                    exit_code = 1
+                    self._exit_reason = self.job_manager.exit_reason()
+                    break
+            elif self.task_manager.finished():
                 logger.info("all datasets exhausted: job succeeded")
                 break
             if self.speed_monitor.is_hanged(ctx.hang_seconds):
@@ -514,8 +641,21 @@ class JobMaster:
     def stop(self, grace_s: float = 1.0) -> None:
         if not self._stopped.is_set():
             self._stopped.set()
+            if self.metric_collector is not None:
+                stage = (self.job_manager.job_stage()
+                         if self.job_manager else "")
+                self.metric_collector.report_job_exit(stage,
+                                                      self._exit_reason)
+                self.metric_collector.stop()
+            if self.auto_scaler is not None:
+                self.auto_scaler.stop()
             if self.diagnosis_manager is not None:
                 self.diagnosis_manager.stop()
+            if self.job_manager is not None:
+                self.job_manager.stop()
+            if self._metrics_server is not None:
+                self._metrics_server.shutdown()
+                self._metrics_server.server_close()  # release the socket
             with self._snapshot_lock:
                 if self._snapshot_timer is not None:
                     self._snapshot_timer.cancel()
@@ -609,6 +749,10 @@ def run_master_main(args=None) -> int:
     parser.add_argument("--min-nodes", type=int, default=1)
     parser.add_argument("--max-nodes", type=int, default=1)
     parser.add_argument("--node-unit", type=int, default=1)
+    parser.add_argument("--metrics-port", type=int,
+                        default=Context.singleton().metrics_port,
+                        help="Prometheus /metrics port (0 = any free "
+                             "port, -1 = disabled)")
     parser.add_argument("--state-dir",
                         default=Context.singleton().master_state_dir,
                         help="directory for crash-consistent control-"
@@ -628,7 +772,8 @@ def run_master_main(args=None) -> int:
                              "stops answering")
     ns = parser.parse_args(args)
     Context.singleton().update(master_state_dir=ns.state_dir,
-                               master_bootstrap_file=ns.bootstrap_file)
+                               master_bootstrap_file=ns.bootstrap_file,
+                               metrics_port=ns.metrics_port)
     if ns.standby:
         from dlrover_tpu_torch.master.standby import StandbyMaster
 

@@ -34,6 +34,13 @@ The optional components are fed as the JAX master feeds them:
   ``shard_plan_json``), and a real re-plan re-anchors the speed monitor
   and attributes the next re-formation to ``replan`` in the ledger
   (``_note_replan``);
+- the job manager (``master/node/job_manager.py``, optional: a master
+  built with ``job_args``): ``NodeResourceStats``, typed heartbeats,
+  ``NodeFailureReport``, ``ScaleRequest`` and ``ModelInfo``; it answers
+  ``JobStatusRequest`` with the job's stage. The metric collector
+  (``master/stats/job_collector.py``) takes the resource stats and the
+  model profile; the auto-scaler's tuned knobs reach the served
+  ``ParallelConfig`` through ``merge_paral_config``;
 - the planner's calibration (``parallel/calibration.py``, optional):
   each stamped plan's prediction and each step report's measurement,
   tagged with the plan generation the sender applied; served over
@@ -55,6 +62,7 @@ fed the step of every ``GlobalStepReport``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import threading
 import time
@@ -90,7 +98,6 @@ from dlrover_tpu_torch.parallel.calibration import PlanCalibration
 _NOT_PORTED = {
     msg.AutoscaleStatusRequest: "12 (brain)",
     msg.SliceStatusRequest: "6.4 (slice mode)",
-    msg.ScaleRequest: "12 (job manager)",
 }
 
 # report() payloads that mutate snapshotted control-plane state (the
@@ -105,6 +112,7 @@ _MUTATING_REPORTS = (
     msg.NodeFailureReport,
     msg.NodeAddressReport,   # writes node-addr/<rank> into the kv store
     msg.ShardCheckpoint,
+    msg.ScaleRequest,
     msg.ModelInfo,
     msg.PeerStoreReport,     # the donor registry feeds restore plans
 )
@@ -150,6 +158,10 @@ class MasterServicer:
         self.tsdb = tsdb or obs.TimeSeriesStore()
         self.steptrace = steptrace or StepTraceAssembler(tsdb=self.tsdb)
         self.diagnosis_manager = diagnosis_manager
+        # the node lifecycle owner and the stats sink: set by a JobMaster
+        # built with job_args, else None
+        self.job_manager = None
+        self.metric_collector = None
         # the planner's calibration (parallel/calibration.py): stamped
         # plans register predictions, step reports measurements, and the
         # learned discounts push back into the planner
@@ -362,9 +374,7 @@ class MasterServicer:
                 "min_samples": self.plan_calibration.min_samples,
             }))
         if isinstance(request, msg.JobStatusRequest):
-            stage = (JobStage.SUCCEEDED if self.task_manager.finished()
-                     else JobStage.RUNNING)
-            return msg.JobStatus(stage=stage)
+            return self._get_job_status()
         logger.warning("get: unknown request %s", type(request).__name__)
         return msg.Response(success=False, reason="unknown request")
 
@@ -478,6 +488,10 @@ class MasterServicer:
             if self.master_chaos is not None:
                 self.master_chaos.maybe_inject(request.step)
         elif isinstance(request, msg.NodeResourceStats):
+            if self.job_manager is not None:
+                self.job_manager.update_node_resource_usage(request)
+            if self.metric_collector is not None:
+                self.metric_collector.collect_node_stats(request)
             if self.diagnosis_manager is not None:
                 self.diagnosis_manager.observe_resource_stats(request)
             # the cards' memory total bounds the planner's memory fit
@@ -491,12 +505,18 @@ class MasterServicer:
             # the agent's payload made scrapeable on the master
             obs.publish_node_stats(request)
         elif isinstance(request, msg.NodeHeartbeat):
+            if self.job_manager is not None:
+                self.job_manager.collect_heartbeat(
+                    request.node_id, request.timestamp,
+                    node_type=request.node_type)
             self._touch_rendezvous(request.node_rank)
         elif isinstance(request, msg.NodeFailureReport):
             logger.warning("node %d failure (level=%s, kind=%s): %s",
                            request.node_id, request.level,
                            request.exit_kind or "-",
                            request.error_data[:512])
+            if self.job_manager is not None:
+                self.job_manager.handle_failure_report(request)
             self.task_manager.recover_tasks(request.node_id)
             failed_rank = (request.node_rank if request.node_rank >= 0
                            else request.node_id)
@@ -542,6 +562,11 @@ class MasterServicer:
         elif isinstance(request, msg.ParallelConfig):
             with self._paral_lock:
                 self._paral_config = request
+        elif isinstance(request, msg.ScaleRequest):
+            if self.job_manager is not None:
+                self.job_manager.handle_scale_request(request)
+            else:
+                ok, reason = False, "no job manager"
         elif isinstance(request, msg.ModelInfo):
             logger.info(
                 "model info: %.3gB params, flops/token=%.3g (%s), "
@@ -549,6 +574,10 @@ class MasterServicer:
                 request.param_count / 1e9, request.flops_per_token,
                 request.flops_source or "analytic",
                 request.batch_size, request.seq_len, request.chips)
+            if self.job_manager is not None:
+                self.job_manager.collect_model_info(request)
+            if self.metric_collector is not None:
+                self.metric_collector.collect_model_info(request)
             # tokens/s = steps/s × tokens per step (the EFFECTIVE batch)
             effective = (request.effective_global_batch
                          or request.batch_size)
@@ -815,6 +844,27 @@ class MasterServicer:
         for mgr in self.rdzv_managers.values():
             mgr.touch(node_rank)
 
+    def _get_job_status(self) -> msg.JobStatus:
+        if self.job_manager is not None:
+            return msg.JobStatus(stage=self.job_manager.job_stage())
+        stage = (JobStage.SUCCEEDED if self.task_manager.finished()
+                 else JobStage.RUNNING)
+        return msg.JobStatus(stage=stage)
+
     def update_paral_config(self, config: msg.ParallelConfig) -> None:
         with self._paral_lock:
             self._paral_config = config
+
+    def merge_paral_config(self, **fields) -> msg.ParallelConfig:
+        """Merge tuned knobs into the current config and bump its version
+        (a partial update must not clobber other tuned fields or publish
+        a stale version). The auto-scaler merges on its own thread while
+        RPC threads replace the config, so the read-modify-write holds
+        ``_paral_lock``. Falsy fields are left as they were."""
+        with self._paral_lock:
+            current = self._paral_config
+            merged = dataclasses.replace(
+                current, version=current.version + 1,
+                **{k: v for k, v in fields.items() if v})
+            self._paral_config = merged
+        return merged

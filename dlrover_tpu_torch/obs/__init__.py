@@ -7,8 +7,7 @@ Own copy of the parts of the JAX package's ``obs/`` that the ported
 master, agent and loop call. Importing the package wires the defaults:
 every finished span is recorded into the process flight recorder and
 observed into the ``dlrover_tpu_span_duration_seconds`` histogram.
-
-Not ported yet: the metrics HTTP exporter (ROADMAP Queue A item 12).
+``start_http_exporter`` serves the registry on ``/metrics``.
 """
 
 from __future__ import annotations
@@ -33,6 +32,7 @@ from dlrover_tpu_torch.obs.metrics import (
     DEFAULT_BUCKETS,
     MetricsRegistry,
     get_registry,
+    start_http_exporter,
 )
 from dlrover_tpu_torch.obs.profiler import (
     ProfilerCapture,
@@ -100,6 +100,7 @@ __all__ = [
     "render_snapshot",
     "snapshot_from_flight",
     "span",
+    "start_http_exporter",
     "write_profile_request",
 ]
 

@@ -2,9 +2,9 @@
 
 Own copy of the JAX package's ``obs/metrics.py``: thread-safe Counter /
 Gauge / Histogram families with labels and a process-wide default
-registry, rendered in the Prometheus text format 0.0.4. The HTTP
-exporter the JAX master serves ``/metrics`` from is not ported yet
-(ROADMAP Queue A item 12).
+registry, rendered in the Prometheus text format 0.0.4, and the small
+HTTP exporter the master serves ``/metrics`` from
+(``start_http_exporter``, started by ``JobMaster.prepare``).
 
 stdlib-only: the agent and worker import it without torch.
 """
@@ -14,6 +14,7 @@ from __future__ import annotations
 import bisect
 import re
 import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 # Wide span: sub-ms lock waits up to multi-minute restores/compiles.
@@ -315,3 +316,42 @@ def get_registry() -> MetricsRegistry:
             _default_registry = MetricsRegistry()
         return _default_registry
 
+
+# --------------------------------------------------------------------------
+# HTTP exporter (master-side /metrics endpoint)
+# --------------------------------------------------------------------------
+
+
+class _MetricsHandler(BaseHTTPRequestHandler):
+    registry: MetricsRegistry  # set on the subclass by start_http_exporter
+
+    def do_GET(self):  # noqa: N802 — BaseHTTPRequestHandler contract
+        if self.path.split("?")[0] not in ("/metrics", "/"):
+            self.send_error(404)
+            return
+        body = self.registry.render().encode()
+        self.send_response(200)
+        self.send_header("Content-Type",
+                         "text/plain; version=0.0.4; charset=utf-8")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def log_message(self, *args):  # scrapes must not spam the job log
+        pass
+
+
+def start_http_exporter(registry: Optional[MetricsRegistry] = None,
+                        host: str = "0.0.0.0", port: int = 0
+                        ) -> Tuple[ThreadingHTTPServer, int]:
+    """Serve ``registry.render()`` on http://host:port/metrics in a daemon
+    thread; returns (server, bound_port). port=0 picks a free port."""
+    registry = registry or get_registry()
+    handler = type("BoundMetricsHandler", (_MetricsHandler,),
+                   {"registry": registry})
+    server = ThreadingHTTPServer((host, port), handler)
+    server.daemon_threads = True
+    thread = threading.Thread(target=server.serve_forever, daemon=True,
+                              name="metrics-exporter")
+    thread.start()
+    return server, server.server_address[1]

@@ -5,7 +5,8 @@ master observes of it (the allocator telemetry, a profiler capture
 naming the kernels, an agent that never opens the card), a worker on
 the card training through a standby's promotion, the kernels under
 remat, the streaming step and the device prefetch, the MoE model's
-kernels, and the pipelined trainer's. Every test is marked
+kernels, the pipelined trainer's, and the elastic embedding step
+against its CPU run. Every test is marked
 ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false. This file imports no JAX, so it
 also runs on a machine without it:
@@ -932,3 +933,67 @@ def test_worker_on_the_card_trains_through_a_standby_promotion(cuda,
     assert sorted(run["steps"]) == list(range(1, budget["steps"] + 1))
     assert out["snapshot"]["promoted_generation"] == 2
     assert out["steps_after_reconnect"] >= 10
+
+
+def test_embedding_step_on_the_card_matches_the_plain_path(cuda):
+    """Three ElasticEmbeddingTrainer steps on the card against the same
+    steps on the CPU from the same state (the card's embedding backward
+    sums a row's gradient in another order): the table and accumulator
+    within rtol 1e-4 / atol 1e-7, the table's update within 1e-3 and the
+    accumulator's within 5e-2 relative L2 (its increments are a few ulps
+    of 0.1: chip_smoke.py's EMB_ACC_UPDATE_TOL), the losses within 1e-5
+    relative; rows no id touched keep their bits; no kernel launches. The
+    ids are skewed (a power law), so hot rows' accumulators move."""
+    import numpy as np
+
+    from dlrover_tpu_torch.parallel.mesh import MeshSpec, create_mesh
+    from dlrover_tpu_torch.trainer.embedding import (
+        ElasticEmbeddingTrainer,
+        EmbeddingConfig,
+        ShardedEmbedding,
+    )
+
+    rows, dim, fields, batch = 50000, 32, 8, 256
+    rng = np.random.default_rng(0)
+    data = [((rng.zipf(1.2, (batch, fields)) - 1) % (rows // 2),
+             (rng.random(batch) < 0.25).astype(np.float32))
+            for _ in range(3)]
+
+    def run(device):
+        torch.manual_seed(0)
+        embedding = ShardedEmbedding(
+            EmbeddingConfig(rows, dim), device="cpu",
+            generator=torch.Generator().manual_seed(0)).to(device)
+        dense = torch.nn.Sequential(
+            torch.nn.Flatten(), torch.nn.Linear(fields * dim, 64),
+            torch.nn.ReLU(), torch.nn.Linear(64, 1),
+            torch.nn.Flatten(0)).to(device)
+        trainer = ElasticEmbeddingTrainer(
+            create_mesh(MeshSpec(), device), embedding, dense,
+            torch.nn.functional.binary_cross_entropy_with_logits)
+        state = trainer.init()
+        step = trainer.build_step()
+        before = embedding.table.detach().cpu().clone()
+        losses = [float(step(state, ids, labels)) for ids, labels in data]
+        table = embedding.table
+        return (losses, before, table.detach().cpu(),
+                state.optimizer[0].state[table]["accumulator"].cpu())
+
+    fa.reset_launch_counts()
+    norms.reset_launch_counts()
+    card = run(cuda)
+    assert not any(fa.launch_counts.values())
+    assert not any(norms.launch_counts.values())
+    plain = run("cpu")
+    np.testing.assert_allclose(card[0], plain[0], rtol=1e-5)
+    assert torch.equal(card[1], plain[1])
+    assert torch.allclose(card[2], plain[2], rtol=1e-4, atol=1e-7)
+    assert torch.allclose(card[3], plain[3], rtol=1e-4, atol=1e-7)
+    for got, want, start, tol in ((card[2], plain[2], plain[1], 1e-3),
+                                  (card[3], plain[3], 0.1, 5e-2)):
+        moved = want - start
+        assert float(moved.abs().max()) > 0
+        assert float((got - want).norm() / moved.norm()) <= tol
+    untouched = rows // 2
+    assert torch.equal(card[2][untouched:], card[1][untouched:])
+    assert bool((card[3][untouched:] == 0.1).all())

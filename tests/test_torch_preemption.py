@@ -136,6 +136,10 @@ def test_drain_request_channel_and_ack(writer, reader, tmp_path):
 def test_sigterm_chains_flight_dump_and_drain_notice(tmp_path):
     recorder = obs.FlightRecorder(role="chaintest", dump_dir=str(tmp_path))
     source = tpre.SignalNoticeSource()
+    # start the chain from the default disposition: a handler that an
+    # earlier test in this process left behind must not join it
+    saved = signal.getsignal(signal.SIGTERM)
+    signal.signal(signal.SIGTERM, signal.SIG_DFL)
     try:
         source.install()
         recorder.install_signal_handlers()
@@ -147,6 +151,8 @@ def test_sigterm_chains_flight_dump_and_drain_notice(tmp_path):
     finally:
         recorder.uninstall_signal_handlers()
         source.close()
+        if saved is not None:
+            signal.signal(signal.SIGTERM, saved)
 
 
 def _watchdogs(clock, aborts, **kw):
