@@ -6,10 +6,12 @@
 Phases (each one's failure ends the run with a nonzero exit):
   device   torch sees a card; print nvidia-smi's name and power limit
   build    build the three CUDA libraries of ops/csrc (flash attention,
-           norms, quantization), one nvcc each, all started together;
-           print each one's seconds and ptxas's register / spill report
-           for every kernel; fail if a wgmma kernel (the flash forward,
-           dQ or dK/dV) spills
+           norms, quantization), one nvcc each, all started together,
+           and beside them the operator's native reconciler
+           (native/*.cpp with g++ into build/native/); print each one's
+           seconds and ptxas's register / spill report for every
+           kernel; fail if a wgmma kernel (the flash forward, dQ or
+           dK/dV) spills
   kernels  each flash-attention and RMSNorm kernel against its plain
            PyTorch version on the card at the Llama-1B slice shape, at
            edge shapes, at head dims 16, 32 and 96 (zero-padded by the
@@ -58,7 +60,10 @@ Phases (each one's failure ends the run with a nonzero exit):
            parameter saving and a dequantize restoring (75 at 8 layers),
            codes bit for bit with the plain versions;
            D a worker process at 2 layers gets SIGTERM after its second
-           step, saves where it stops and a second one resumes there; E 3
+           step, saves where it stops and a second one resumes there (both
+           processes are spawned when the phase starts and wait at a gate
+           file once their loop is built, so their start-up runs beside
+           A-C); E 3
            steps with AdamW's moments in pinned host memory, the same bits
            as A's first 3 (its step and peak beside A's)
   standalone
@@ -330,6 +335,49 @@ Phases (each one's failure ends the run with a nonzero exit):
            No kernel launches. Prints the step times, the allocator
            peak, the saves (blocking, commit, page-locking), the restore,
            the version timeline and the phase's seconds
+  brain    the brain, the fleet controller and the operator: the port's
+           BrainService on a local port (its sqlite store in a temporary
+           directory) and a job-managed JobMaster on the local platform
+           with optimize_mode "cluster", the brain's address and the fleet
+           controller on (the JAX acceptance test's knobs: hysteresis 1,
+           cooldown 0, claim margin 1.2, a 30 s goodput window; its own
+           loop's cadence set past the phase, which evaluates itself).
+           Rank 0 is Llama-1B at full width and depth (flash attention,
+           fused norm, micro and global batch 2) through ElasticTrainLoop
+           in this process, a step report a step; this process plays its
+           agent (joins, re-joins, publishes the round's address). (b) A
+           chaos `offer:slice:+1@30` through the master's injector; the
+           phase evaluates the controller: a claim, priced under
+           `autoscale` in the ledger, whose grant starts rank 1 (the same
+           model as a `--solo-replica` worker under `python -m
+           dlrover_tpu_torch.run`: a process, as the replan phase's
+           replicas are. A thread would cost no start-up, but would share
+           this process's launch counters and default stream and skip
+           the agent's drain) and joins it in one rendezvous round;
+           prints offer →
+           decision (ms), decision → world of 2 (s). (c) A chaos
+           `revoke:slice:1@8` on rank 1 (its slice) writes the preemption
+           notice, its agent drains it (exit 76) and reports the drain;
+           the master's copy, armed as rank 1 nears its step 8, books
+           the revocation; the world goes back to 1 and rank 0 trains 5
+           more steps, none lost; AutoscaleStatusRequest over the wire
+           shows the claim "revoked" and no quarantine, the ledger's
+           incarnations hold autoscale and drain, the flight record
+           capacity_offer, autoscale_decision and capacity_revoke, the
+           snapshot fleet_controller. Prints both replicas' steps, rank
+           0's step alone and shared, both allocator peaks. (a) The
+           brain's records of the live job by type (job_meta, model,
+           runtime; job_exit once the master stops), the same over
+           get_job_metrics; the runtime record's step (the card's) and
+           allocator peak (the step reports' hbm_peak_bytes, within 1% of
+           both processes' peaks); the master's BrainResourceOptimizer's
+           oom-recovery plan from the brain: 1.8x the stored runtime
+           peak. (d) The native reconciler built from native/*.cpp into
+           build/native/ and in use (its calls counted): one ElasticJob
+           on tests/fake_k8s.py (loaded by path): master pod, phase
+           Running, a ScalePlan relayed to the phase's master; the pod
+           scaler's worker pods request nvidia.com/gpu. Each flash kernel
+           launches 22 times and each norm kernel 45 a step a replica
 
 Each phase's seconds are printed before the elapsed time. The line
 before the last is the kernels' JSON record (the quantization
@@ -344,7 +392,8 @@ its "replan_launches" the replan phase's three incarnations', its
 full depth, its "moe_launches" the moe phase's Mixtral-width run and
 its "pipeline_launches" the pipeline phase's run (a), its
 "embedding_launches" the embedding phase's steps, reconcile and replay
-(none of the kernels is on that path: 0);
+(none of the kernels is on that path: 0), its "brain_launches" the
+brain phase's two replicas' steps;
 each flash kernel's "at_gpt2", "at_bert", "at_llama7b",
 "at_mixtral" and "at_pipeline", and each norm kernel's "at_llama7b"
 (4096 rows of 4096), "at_mixtral" (8192 rows of 4096) and
@@ -508,12 +557,25 @@ def phase_device() -> str:
 def phase_build() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
+    from dlrover_tpu_torch import native_build
     from dlrover_tpu_torch.ops import _build
 
+    def native() -> float:
+        t = time.monotonic()
+        native_build.load_native()
+        return time.monotonic() - t
+
     t0 = time.monotonic()
-    with ThreadPoolExecutor(max_workers=len(LIBRARIES)) as pool:
+    with ThreadPoolExecutor(max_workers=len(LIBRARIES) + 1) as pool:
+        # the operator's native reconciler (g++) beside the three nvcc
+        # builds: it costs no time of its own
+        native_s = pool.submit(native)
         libs = dict(zip(LIBRARIES, pool.map(_build.load, LIBRARIES)))
+        native_s = native_s.result()
     log(f"build: {len(libs)} libraries in {time.monotonic() - t0:.1f} s")
+    native_so = native_build.so_path()
+    log(f"build: {native_so.parent.parent.name}/{native_so.parent.name}/"
+        f"{native_so.name} (g++, native/*.cpp) in {native_s:.1f} s")
     spills = []
     for name, info in libs.items():
         log(f"build: {name}.cu in {info.build_seconds:.1f} s")
@@ -1340,9 +1402,12 @@ def phase_llama1b(warmup: int = 2, timed: int = 5,
 # ---------------------------------------------------------------------------
 
 # the SIGTERM drill's worker: Llama-1B at 2 layers and full width, run
-# through the port only, with the loop's SIGTERM handler installed. The
-# first run prints "ready" after its second step and pauses there, so the
-# signal lands before its third step; the second run resumes.
+# through the port only, with the loop's SIGTERM handler installed. Both
+# runs are spawned when the resume phase starts: each imports and builds
+# its loop, then waits for its gate file, so their start-up overlaps legs
+# A-C. The first run prints "ready" after its second step and pauses
+# there, so the signal lands before its third step; the second run
+# resumes.
 SIGTERM_WORKER = r'''
 import dataclasses, functools, json, sys, time
 import torch
@@ -1351,7 +1416,7 @@ from dlrover_tpu_torch.trainer.elastic_loop import ElasticTrainLoop, TrainLoopCo
 from dlrover_tpu_torch.trainer.sampler import ElasticDistributedSampler
 from dlrover_tpu_torch.trainer.synthetic import batches, synthetic_corpus
 
-ckpt, first = sys.argv[1], sys.argv[2] == "first"
+ckpt, first, gate = sys.argv[1], sys.argv[2] == "first", sys.argv[3]
 cfg = dataclasses.replace(LlamaConfig.llama_1b(
     max_seq_len=2048, attn_impl="flash", norm_impl="fused",
     embed_impl="gather"), num_layers=2)
@@ -1364,6 +1429,9 @@ loop = ElasticTrainLoop(
                     max_steps=8 if first else 2, checkpoint_dir=ckpt,
                     save_interval_steps=1000, report_interval_steps=0))
 loop.install_signal_handler()
+import os
+while not os.path.exists(gate):
+    time.sleep(0.05)
 sampler = ElasticDistributedSampler(dataset_size=10 ** 6, seed=0)
 state, start = loop.restore_or_init(0, sampler)
 position = sampler.completed_num
@@ -1559,9 +1627,10 @@ def _quant_kernel_times() -> dict:
     return out
 
 
-def _sigterm_drill(tmp: str) -> dict:
-    """D: a worker process gets SIGTERM after its second step, saves the
-    step it stops on and exits 0; a second worker resumes there."""
+def _sigterm_workers(tmp: str) -> list:
+    """D's two worker processes, spawned at once; each builds its loop
+    and waits for its gate file (``_sigterm_drill`` opens them in turn).
+    Returns [(mode, process, gate)]."""
     import os
 
     script = os.path.join(tmp, "sigterm_worker.py")
@@ -1570,24 +1639,38 @@ def _sigterm_drill(tmp: str) -> dict:
     ckpt = os.path.join(tmp, "sigterm")
     env = dict(os.environ, PYTHONPATH=os.path.dirname(
         os.path.abspath(__file__)))
-    outs = []
+    workers = []
     for mode in ("first", "second"):
-        proc = subprocess.Popen([sys.executable, script, ckpt, mode],
-                                stdout=subprocess.PIPE, text=True, env=env)
-        try:
+        gate = os.path.join(tmp, f"sigterm_{mode}.go")
+        workers.append((mode, subprocess.Popen(
+            [sys.executable, script, ckpt, mode, gate],
+            stdout=subprocess.PIPE, text=True, env=env), gate))
+    return workers
+
+
+def _sigterm_drill(workers: list) -> dict:
+    """D: a worker process gets SIGTERM after its second step, saves the
+    step it stops on and exits 0; a second worker resumes there (the
+    processes of ``_sigterm_workers``, opened in turn)."""
+    outs = []
+    try:
+        for mode, proc, gate in workers:
+            open(gate, "w").close()
             lines = []
             for line in proc.stdout:
                 lines.append(line)
                 if line.strip() == "ready":
                     proc.send_signal(signal.SIGTERM)
             code = proc.wait(timeout=300)
-        finally:
+            if code != 0:
+                raise AssertionError(f"SIGTERM drill {mode} run exited "
+                                     f"{code}")
+            outs.append(json.loads(lines[-1]))
+    finally:
+        for _, proc, _ in workers:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-        if code != 0:
-            raise AssertionError(f"SIGTERM drill {mode} run exited {code}")
-        outs.append(json.loads(lines[-1]))
     first, second = outs
     log(f"resume D (SIGTERM): first run stopped at step {first['step']} "
         f"(latest saved {first['latest']}), second started at "
@@ -1626,6 +1709,9 @@ def phase_resume(smi: str) -> dict:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
     out = {"card": smi}
     peer_dir = ""
+    # D's workers start now and wait at their gates: their start-up runs
+    # beside A-C
+    sigterm = _sigterm_workers(tmp)
     try:
         free = shutil.disk_usage(tmp).free
         log(f"resume: checkpoints in {tmp}, {free / 1e9:.1f} GB free; one "
@@ -1837,7 +1923,7 @@ def phase_resume(smi: str) -> dict:
                                  f"{restore_launches} restoring")
         shutil.rmtree(dir_c)
 
-        out["d"] = _sigterm_drill(tmp)
+        out["d"] = _sigterm_drill(sigterm)
 
         # E: the first 3 steps again, moments in host memory between steps
         trainer = build_trainer(functools.partial(Llama, cfg), _adamw, None,
@@ -1872,6 +1958,10 @@ def phase_resume(smi: str) -> dict:
                                  f"against {out['a']['losses'][:3]}, pinned "
                                  f"{pinned}")
     finally:
+        for _, proc, _ in sigterm:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         # the peer cache may lie on /dev/shm, outside ``tmp``
         if peer_dir:
             shutil.rmtree(peer_dir, ignore_errors=True)
@@ -5722,17 +5812,566 @@ def phase_embedding(smi: str, device: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# brain: the brain, the fleet controller and the operator
+# ---------------------------------------------------------------------------
+
+# the fleet controller's knobs, the JAX acceptance test's
+# (tests/test_fleet_controller.py _ACCEPT_KNOBS); the loop's own cadence
+# (30 s) is set past the phase: the phase evaluates once, right after the
+# offer lands, as the acceptance test does
+BRAIN_KNOBS = dict(fleet_controller_enabled=True,
+                   autoscale_hysteresis_windows=1, autoscale_cooldown_s=0.0,
+                   autoscale_max_decisions_per_hour=100,
+                   autoscale_claim_margin=1.2, goodput_window_s=30.0,
+                   autoscale_interval_s=3600.0)
+BRAIN_MICRO = 2            # micro (and global) batch of each replica
+# rank 0's step the master's offer fires at: past the steps whose build
+# the goodput window still holds, so that the measured goodput prices
+# the claim above its margin
+BRAIN_OFFER_AT = 30
+BRAIN_REVOKE_AT = 8        # rank 1's step its revoke notice fires at
+BRAIN_AFTER = 5            # rank 0's steps in the world of 1 after the drain
+BRAIN_JOB = "llama-1b-brain"
+
+
+def _load_fake_k8s(repo: str):
+    """tests/fake_k8s.py (stdlib only), loaded by path."""
+    import importlib.util
+    import os
+
+    path = os.path.join(repo, "tests", "fake_k8s.py")
+    spec = importlib.util.spec_from_file_location("fake_k8s", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _brain_operator(repo: str, master_addr: str, smi: str) -> dict:
+    """(d) The operator: one ElasticJob reconciled by the native table
+    against the fake API server (master pod, phase Running, a ScalePlan
+    relayed to the phase's master), and the pod scaler's worker pods
+    requesting their cards as nvidia.com/gpu."""
+    from dlrover_tpu_torch import native_build
+    from dlrover_tpu_torch.common.node import NodeGroupResource, NodeResource
+    from dlrover_tpu_torch.master.scaler.base import ScalePlan
+    from dlrover_tpu_torch.master.scaler.pod_scaler import PodScaler
+    from dlrover_tpu_torch.operator import native
+    from dlrover_tpu_torch.operator.crd import ElasticJob
+    from dlrover_tpu_torch.operator.k8s_operator import K8sElasticJobOperator
+    from dlrover_tpu_torch.scheduler.kubernetes import K8sApi, K8sClient
+
+    def wait(pred, what: str, timeout_s: float = 10.0) -> None:
+        end = time.monotonic() + timeout_s
+        while not pred():
+            if time.monotonic() > end:
+                raise AssertionError(f"brain (d): {what} within "
+                                     f"{timeout_s:.0f} s")
+            time.sleep(0.02)
+
+    card = smi.split(",")[0].strip()
+    job = {"apiVersion": "elastic.dlrover-tpu.org/v1alpha1",
+           "kind": "ElasticJob",
+           "metadata": {"name": "llama", "namespace": "default",
+                        "uid": "u-1"},
+           "spec": {"replicaSpecs": {"worker": {
+               "replicas": 2, "restartCount": 1,
+               "template": {"spec": {
+                   "containers": [{
+                       "name": "main", "image": "dlrover-tpu-torch",
+                       "command": ["/bin/sh", "-c", "python -m "
+                                   "dlrover_tpu_torch.run llama_train.py"],
+                       "resources": {"limits": {
+                           "cpu": "8", "memory": "96Gi",
+                           "nvidia.com/gpu": "1"}}}],
+                   "nodeSelector": {
+                       "cloud.google.com/gke-accelerator": card}}}}}}}
+    fake = _load_fake_k8s(repo).FakeK8s()
+    host = fake.start()
+    operator = None
+    try:
+        path = native_build.so_path()
+        lib = native_build.load_native()
+        client = K8sClient("default", api=K8sApi(host=host, token="t"))
+        fake.elasticjobs["llama"] = job
+        calls = native.native_calls
+        operator = K8sElasticJobOperator(client=client,
+                                         reconcile_interval_s=0.05)
+        operator.start()
+        wait(lambda: "llama-master-0" in fake.pods, "the master pod")
+        fake.set_pod_phase("llama-master-0", "Running")
+        wait(lambda: any(p["body"].get("status", {}).get("phase")
+                         == "Running" and "elasticjobs/llama" in p["path"]
+                         for p in fake.patches), "phase Running")
+        controller = operator._controllers["llama"]
+        controller.master_addr = master_addr
+        wait(lambda: fake.watcher_count("scaleplans") > 0, "the plan watch")
+        fake.push_event("scaleplans", "ADDED", {
+            "metadata": {"name": "keep"},
+            "spec": {"ownerJob": "llama",
+                     "replicaResourceSpecs": {"worker": {"replicas": 1}}}})
+        wait(lambda: any("scaleplans/keep/status" in p["path"]
+                         for p in fake.patches), "the plan relayed")
+        wait(lambda: not controller.pending_scale_plans,
+             "the relay drained")
+        operator.stop()
+        operator = None
+        native_used = native.native_calls - calls
+        # the worker pods the master's pod scaler creates for the CR
+        worker = ElasticJob.from_manifest(job).spec.replica_specs["worker"]
+        scaler = PodScaler("llama", client, master_addr, image=worker.image,
+                           command=worker.command, retry_interval_s=0.05)
+        scaler.start()
+        try:
+            scaler.scale(ScalePlan(node_group_resources={
+                "worker": NodeGroupResource(
+                    count=2, node_resource=NodeResource(
+                        cpu=worker.resource.cpu,
+                        memory_mb=worker.resource.memory_mb,
+                        chips=worker.resource.chips,
+                        chip_type=worker.resource.chip_type))}))
+            wait(lambda: sum(1 for n in fake.pods if "-worker-" in n) == 2,
+                 "two worker pods")
+        finally:
+            scaler.stop()
+        limits = [fake.pods[n]["spec"]["containers"][0]["resources"][
+            "limits"] for n in sorted(fake.pods) if "-worker-" in n]
+        out = {"library": str(path), "abi": lib.reconciler_abi_version(),
+               "native_calls": native_used, "master_pod": sorted(fake.pods)[0],
+               "phases_patched": [p["body"]["status"]["phase"]
+                                  for p in fake.patches
+                                  if "elasticjobs/llama" in p["path"]],
+               "plans_relayed": [p["path"].split("/")[-2]
+                                 for p in fake.patches
+                                 if "scaleplans/" in p["path"]],
+               "worker_limits": limits}
+        log(f"brain (d) operator: {json.dumps(out)}")
+        if (path.parent.name != "native" or path.parent.parent.name
+                != "build" or native_used < 2
+                or out["plans_relayed"] != ["keep"]
+                or "Running" not in out["phases_patched"]
+                or [lim.get("nvidia.com/gpu") for lim in limits]
+                != ["1", "1"]
+                or any("google.com/tpu" in lim for lim in limits)):
+            raise AssertionError(f"brain (d): {out}")
+        return out
+    finally:
+        if operator is not None:
+            operator.stop()
+        fake.stop()
+
+
+def phase_brain(smi: str, device: str = "cuda") -> dict:
+    """A Llama-1B job on the card under a brain-optimised,
+    fleet-controlled master: the brain's records and plan, a claim whose
+    grant joins a second replica, a revoke that drains it, and the
+    operator (see the module docstring). ``device`` "cpu" is the
+    rehearsal with the tiny model, without the card's checks (kernel
+    launches, allocator peaks); the card is the run."""
+    import os
+    import re
+    import shutil
+    import tempfile
+    import threading
+
+    from dlrover_tpu_torch import obs
+    from dlrover_tpu_torch.agent.master_client import MasterClient
+    from dlrover_tpu_torch.brain.client import BrainClient
+    from dlrover_tpu_torch.brain.datastore import MetricsStore
+    from dlrover_tpu_torch.brain.service import BrainService
+    from dlrover_tpu_torch.common.bootstrap import publish_or_wait_coordinator
+    from dlrover_tpu_torch.common.config import Context
+    from dlrover_tpu_torch.common.constants import (
+        JobStage,
+        NodeType,
+        RendezvousName,
+    )
+    from dlrover_tpu_torch.common.node import NodeGroupResource, NodeResource
+    from dlrover_tpu_torch.master.job_master import JobMaster
+    from dlrover_tpu_torch.models.llama import (
+        Llama,
+        LlamaConfig,
+        cross_entropy_loss,
+    )
+    from dlrover_tpu_torch.scheduler.job import JobArgs, NodeArgs
+    from dlrover_tpu_torch.scheduler.local import LocalCluster
+    from dlrover_tpu_torch.trainer.elastic_loop import (
+        ElasticTrainLoop,
+        TrainLoopConfig,
+    )
+    from dlrover_tpu_torch.trainer.sampler import ElasticDistributedSampler
+    from dlrover_tpu_torch.trainer.synthetic import batches, synthetic_corpus
+
+    t_phase = time.monotonic()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_brain_")
+    on_card = device == "cuda"
+    if on_card:
+        cfg = LlamaConfig.llama_1b(max_seq_len=2048, attn_impl="flash",
+                                   norm_impl="fused", embed_impl="gather")
+        worker_cfg = ["--config", "llama_1b"]
+    else:
+        cfg = LlamaConfig.tiny(dtype=torch.float32)
+        worker_cfg = ["--config", "tiny", "--device", "cpu"]
+    out = {"card": smi}
+    ctx = Context.singleton()
+    saved = {k: getattr(ctx, k) for k in BRAIN_KNOBS}
+    ctx.update(**BRAIN_KNOBS)
+    if on_card:
+        _free_memory()
+        torch.cuda.reset_peak_memory_stats()
+    brain = BrainService(store=MetricsStore(f"{tmp}/brain.sqlite"), port=0,
+                         host="127.0.0.1")
+    brain.start()
+    brain_addr = f"127.0.0.1:{brain.port}"
+    args = JobArgs(job_name=BRAIN_JOB, optimize_mode="cluster")
+    args.node_args[NodeType.WORKER] = NodeArgs(
+        group_resource=NodeGroupResource(
+            count=1, node_resource=NodeResource(cpu=8, memory_mb=98304,
+                                                chips=1)),
+        restart_count=1)
+    master = JobMaster(min_nodes=1, max_nodes=2, job_args=args,
+                       cluster=LocalCluster(), host="127.0.0.1",
+                       brain_addr=brain_addr)
+    # the market's offer, through the master's injector at rank 0's step
+    master._arm_master_chaos(f"offer:slice:+1@{BRAIN_OFFER_AT}")
+    master.prepare()
+    mgr = master.rdzv_managers[RendezvousName.TRAINING]
+    provider, controller = master.capacity_provider, master.fleet_controller
+    client0 = MasterClient(master.addr, node_id=0, node_rank=0,
+                           timeout_s=30.0)
+    stop = threading.Event()
+    marks, proc, files, worker = {}, None, [], None
+    log1 = f"{tmp}/rank1.log"
+    agent_tmp = tempfile.mkdtemp(prefix="agent_", dir=tmp)
+
+    def world_of(n: int, what: str, timeout_s: float = 120.0) -> float:
+        """Until rank 0's world has ``n`` members; then, as rank 0's agent
+        would, publish the round's process-group address (rank 1's agent
+        waits for it; the solo replicas never dial it)."""
+        end = time.monotonic() + timeout_s
+        while True:
+            rdzv_round, _, world = client0.get_comm_world()
+            if len(world) == n:
+                publish_or_wait_coordinator(
+                    client0, f"coord/{RendezvousName.TRAINING}/"
+                    f"{rdzv_round}", 0, 60.0)
+                return time.time()
+            if time.monotonic() > end:
+                raise AssertionError(f"brain: no world of {n} {what} "
+                                     f"within {timeout_s:.0f} s ({world})")
+            time.sleep(0.05)
+
+    def rank1_runs():
+        return _worker_log(log1) if os.path.exists(log1) else []
+
+    def grant(offer):
+        # the new capacity: rank 1's agent around a second solo replica
+        # on the card, admitted to the next round with rank 0 (whose
+        # agent this process plays: it re-joins)
+        nonlocal proc, files
+        marks["grant"] = time.time()
+        mgr.add_alive_node(1)
+        proc, files = _spawn_agent(
+            master, worker_cfg + ["--steps", "10000",
+                     "--global-batch", str(BRAIN_MICRO), "--max-micro",
+                     str(BRAIN_MICRO), "--report-interval", "1",
+                     "--solo-replica", "--log-file", log1],
+            {"DLROVER_TPU_CHAOS": f"revoke:slice:1@{BRAIN_REVOKE_AT}",
+             "DLROVER_TPU_SLICE_ID": "1",
+             "DLROVER_TPU_REPORT_RESOURCE_INTERVAL_S": "1",
+             "DLROVER_TPU_FLIGHT_DIR": f"{tmp}/flight"},
+            f"{tmp}/agent1.out", f"{tmp}/agent1.err", agent_tmp, repo,
+            run_args=("--node-rank", "1", "--devices-per-node", "1",
+                      "--monitor-interval", "0.5"))
+        client0.join_rendezvous(local_world_size=1)
+        return [1]
+
+    provider.grant_fn = grant
+    try:
+        client0.join_rendezvous(local_world_size=1)
+        world_of(1, "at the start")
+        loop = ElasticTrainLoop(
+            functools.partial(Llama, cfg), _adamw, cross_entropy_loss,
+            TrainLoopConfig(global_batch=BRAIN_MICRO, seq_len=cfg.max_seq_len,
+                            max_micro_per_replica=BRAIN_MICRO,
+                            report_interval_steps=1),
+            master_client=client0, device=device)
+        sampler = ElasticDistributedSampler(dataset_size=10 ** 6,
+                                            shuffle=True, seed=0)
+        state, start = loop.restore_or_init(0, sampler)
+        data = batches(synthetic_corpus(cfg.vocab_size), sampler,
+                       BRAIN_MICRO, cfg.max_seq_len)
+        fed = []           # the wall clock at each batch handed out
+
+        def feed():
+            for batch in data:
+                if stop.is_set():
+                    return
+                fed.append(time.time())
+                yield batch
+
+        reset_counts()
+        result = {}
+
+        def train():
+            try:
+                result["state"], result["metrics"] = loop.run(
+                    state, feed(), start, sampler)
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                result["error"] = e
+
+        worker = threading.Thread(target=train, name="rank0-train")
+        worker.start()
+
+        # -- (b) the offer → the claim → a world of 2 --------------------
+        end = time.monotonic() + 300
+        while not provider.open_offers():
+            if time.monotonic() > end or not worker.is_alive():
+                raise AssertionError(f"brain: no offer by rank 0's step "
+                                     f"{BRAIN_OFFER_AT} ({result})")
+            time.sleep(0.01)
+        offer = provider.open_offers()[0]
+        # one evaluation, as the controller's loop makes one at its
+        # cadence; more only while the window's evidence is short of the
+        # claim's margin (counted)
+        evaluations, record = 0, None
+        end = time.monotonic() + 60
+        while record is None or record["kind"] != "claim":
+            if time.monotonic() > end or record is not None:
+                raise AssertionError(f"brain (b): no claim after "
+                                     f"{evaluations} evaluations: {record} "
+                                     f"(window {master.goodput_ledger
+                                     .window_summary(30.0)})")
+            evaluations += 1
+            record = controller.evaluate_once()
+            if record is None:
+                time.sleep(0.05)
+        marks["decision"] = record["ts"]
+        rounds = mgr.rdzv_round
+        marks["world2"] = world_of(2, "after the claim")
+        claim = {"decision": record, "offer": offer.to_dict(),
+                 "evaluations": evaluations,
+                 "offer_to_decision_ms": (marks["decision"]
+                                          - offer.offered_at) * 1e3,
+                 "decision_to_world2_s": marks["world2"]
+                 - marks["decision"],
+                 "rounds": mgr.rdzv_round - rounds}
+        log(f"brain (b) claim: {json.dumps(claim)} ({smi})")
+        if (not record or record["kind"] != "claim"
+                or record["evidence"]["granted"] != [1]
+                or claim["rounds"] != 1):
+            raise AssertionError(f"brain (b): {claim}")
+
+        # -- (c) the revoke → rank 1 drains → a world of 1 ---------------
+        end = time.monotonic() + 300
+        while True:
+            runs = rank1_runs()
+            steps1 = runs[0]["steps"] if runs else {}
+            if len(steps1) >= BRAIN_REVOKE_AT - 1:
+                break
+            if time.monotonic() > end or proc.poll() is not None:
+                raise AssertionError(f"brain: rank 1 reached step "
+                                     f"{len(steps1)} (agent exit "
+                                     f"{proc.poll()})")
+            time.sleep(0.05)
+        # the master's copy of the revoke, at rank 0's next step
+        step0 = len(fed)
+        master._arm_master_chaos(f"revoke:slice:1@{step0 + 1}")
+        code = proc.wait(timeout=300)
+        marks["rank1_exit"] = time.time()
+        with open(f"{tmp}/agent1.err") as f:
+            agent_tail = f.read()[-3000:]
+        if code != 0:
+            raise AssertionError(f"brain: rank 1's agent exited {code}: "
+                                 f"{agent_tail}")
+        client0.join_rendezvous(local_world_size=1)
+        marks["world1"] = world_of(1, "after the drain")
+        after = len(fed)
+        end = time.monotonic() + 120
+        while len(fed) < after + BRAIN_AFTER:
+            if time.monotonic() > end or not worker.is_alive():
+                raise AssertionError(f"brain: rank 0 stopped at "
+                                     f"{len(fed)} ({result})")
+            time.sleep(0.02)
+        stop.set()
+        worker.join(timeout=120)
+        if "error" in result:
+            raise result["error"]
+        launches0 = read_counts()
+        peak0 = torch.cuda.max_memory_allocated() if on_card else 0
+        hist = result["metrics"]["history"]
+        loop.close()
+        del state, result
+
+        runs = rank1_runs()
+        if len(runs) != 1:
+            raise AssertionError(f"brain: {len(runs)} rank-1 incarnations")
+        r1 = runs[0]
+        with open(log1) as f:
+            accum1 = int(re.search(r"accum=(\d+)", f.read()).group(1))
+        drained = r1["marks"].get("drained", (0.0, ""))[1]
+        step1 = sorted(r1["steps"])
+        notice = r1["marks"].get("notice", (0.0, ""))[0]
+        first1 = r1["steps"][step1[0]][0]
+        # rank 0's steps by world: the batch of step n was handed out at
+        # fed[n - 1]; a step is shared while rank 1 trains
+        t_last1 = r1["steps"][step1[-1]][0]
+        shared = [r["step_time_s"] for r in hist
+                  if first1 <= fed[r["step"] - 1] <= t_last1]
+        alone = [r["step_time_s"] for r in hist[2:]
+                 if not first1 - 1.0 <= fed[r["step"] - 1]
+                 <= marks["rank1_exit"]]
+        with open(log1) as f:
+            peaks1 = [int(json.loads(line.split(" ", 2)[2])["bytes"])
+                      for line in f
+                      if line.split(" ", 2)[1:2] == ["worker_allocator_peak"]]
+        revoke = {
+            "rank1_steps": step1, "rank1_accum": accum1,
+            # the grant's process start, import and build to its first
+            # step
+            "decision_to_rank1_first_step_s": first1 - marks["decision"],
+            "rank1_times": r1.get("times"),
+            "drained": drained, "revoke_notice_to_world1_s":
+            marks["world1"] - notice if notice else None,
+            "rank1_exit_to_world1_s": marks["world1"] - marks["rank1_exit"],
+            "rank0_steps": len(hist),
+            "rank0_steps_lost": sum(1 for a, b in zip(hist, hist[1:])
+                                    if b["step"] != a["step"] + 1)
+            + (hist[0]["step"] - 1),
+            "rank0_step_alone_ms": statistics.median(alone) * 1e3,
+            "rank0_step_shared_ms": (statistics.median(shared) * 1e3
+                                     if shared else None),
+            "rank1_step_ms": statistics.median(
+                r1["steps"][n][3] for n in step1[1:]) * 1e3,
+            "rank0_peak_gib": peak0 / 2 ** 30 if on_card else None,
+            "rank1_peak_gib": max(peaks1) / 2 ** 30 if peaks1 else None}
+        log(f"brain (c) revoke: {json.dumps(revoke)} ({smi})")
+        if (not drained.startswith("drained at step")
+                or step1[0] != 1 or len(step1) < BRAIN_REVOKE_AT
+                or revoke["rank0_steps_lost"] != 0
+                or not all(math.isfinite(r["loss"]) for r in hist)
+                or abs(hist[0]["loss"] - math.log(cfg.vocab_size)) > 1.0
+                or not shared):
+            raise AssertionError(f"brain (c): {revoke}")
+        status = client0.get_autoscale_status()
+        claims = [d for d in status.get("decisions", [])
+                  if d["kind"] == "claim"]
+        reasons = [inc.get("reason") for inc in
+                   master.goodput_ledger.snapshot()["incarnations"]]
+        events = [e.get("name") for e in
+                  obs.get_flight_recorder().snapshot()]
+        snapshot = master._export_state()
+        books = {"claims": [(d["id"], d["outcome"]) for d in claims],
+                 "quarantine": status.get("quarantine"),
+                 "incarnations": reasons,
+                 "flight": {n: events.count(n) for n in (
+                     "capacity_offer", "autoscale_decision",
+                     "capacity_revoke")},
+                 "snapshot_fleet_controller": sorted(
+                     snapshot.get("fleet_controller", {}))}
+        log(f"brain (c) books: {json.dumps(books)} ({smi})")
+        if ([o for _, o in books["claims"]] != ["revoked"]
+                or books["quarantine"] != {}
+                or "autoscale" not in reasons or "drain" not in reasons
+                or not all(books["flight"].values())
+                or snapshot.get("fleet_controller")
+                != controller.export_state()):
+            raise AssertionError(f"brain (c): {books}")
+
+        # -- (a) the brain --------------------------------------------------
+        node1 = master.metric_collector.stats.latest_node_sample(
+            NodeType.WORKER, 1)
+        master.metric_collector.report_runtime()
+        records = BrainClient(brain_addr).get_job_metrics(BRAIN_JOB)
+        counts = {}
+        for r in records:
+            counts[r["record_type"]] = counts.get(r["record_type"], 0) + 1
+        runtime = next(r["payload"] for r in records
+                       if r["record_type"] == "runtime")
+        plan = master.resource_optimizer.generate_plan(
+            "oom-recovery", {"memory_mb": 1.0})
+        worker_plan = plan.node_group_resources.get("worker")
+        card_peak_mb = max([peak0] + peaks1) / 2 ** 20
+        stored = brain.store.query(job_name=BRAIN_JOB)
+        brain_out = {
+            "records": counts, "runtime": runtime,
+            "rank1_resource_sample": node1 is not None,
+            "allocator_peak_mb": card_peak_mb,
+            "plan": {"count": worker_plan.count if worker_plan else None,
+                     "memory_mb": worker_plan.node_resource.memory_mb
+                     if worker_plan else None},
+            "same_over_the_wire": [r["payload"] for r in records]
+            == [r["payload"] for r in stored]}
+        log(f"brain (a): {json.dumps(brain_out)} ({smi})")
+        peak_mem = max(r["payload"].get("peak_memory_mb", 0.0)
+                       for r in stored if r["record_type"] == "runtime")
+        if (counts.get("job_meta") != 1 or counts.get("model", 0) < 1
+                or counts.get("runtime", 0) < 1
+                or runtime.get("global_step", 0) < len(hist)
+                or (on_card and abs(runtime.get("hbm_peak_mb", 0.0)
+                                    - card_peak_mb) > 0.01 * card_peak_mb)
+                or not brain_out["same_over_the_wire"]
+                or worker_plan is None or peak_mem <= 0
+                or abs(worker_plan.node_resource.memory_mb
+                       - 1.8 * peak_mem) > 1e-6 * peak_mem):
+            raise AssertionError(f"brain (a): {brain_out}")
+
+        # launches: rank 0's, in this process, and rank 1's, its log's
+        want0 = _expected_launches(cfg, len(hist))
+        want1 = _expected_launches(cfg, len(step1) * accum1)
+        launches1 = r1.get("launches")
+        if not on_card:       # the plain versions on the CPU: no launch
+            want0 = want1 = dict.fromkeys(want0, 0)
+        if launches0 != want0 or launches1 != want1:
+            raise AssertionError(f"brain launches: rank 0 {launches0} "
+                                 f"(want {want0}), rank 1 {launches1} "
+                                 f"(want {want1})")
+        out["launches"] = {k: launches0[k] + launches1[k] for k in want0}
+        out["launches_by_rank"] = {"0": launches0, "1": launches1}
+        out.update(claim=claim, revoke=revoke, books=books, brain=brain_out)
+
+        # -- (d) the operator -----------------------------------------------
+        out["operator"] = _brain_operator(repo, master.addr, smi)
+        # the master's stop reports the job's exit into the brain
+        client0.close()
+        master.stop()
+        exits = [r["payload"]["stage"] for r in BrainClient(
+            brain_addr).get_job_metrics(BRAIN_JOB, "job_exit")]
+        out["job_exit"] = exits
+        if exits != [JobStage.RUNNING]:
+            raise AssertionError(f"brain: job_exit records {exits}")
+    finally:
+        stop.set()
+        if worker is not None:
+            worker.join(timeout=120)
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for f in files:
+            f.close()
+        client0.close()
+        master.stop()
+        ctx.update(**saved)
+        brain.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.monotonic() - t_phase
+    log(f"brain on {smi}: phase {out['phase_s']:.1f} s, launches "
+        f"{json.dumps(out['launches'])}")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases",
                         default="kernels,quant,parity,llama1b,resume,"
                                 "standalone,faults,observe,failover,replan,"
-                                "models,llama7b,moe,pipeline,embedding",
+                                "models,llama7b,moe,pipeline,embedding,brain",
                         help="comma-separated subset of kernels, quant, "
                              "parity, llama1b, resume, standalone, faults, "
                              "observe, failover, replan, models, llama7b, "
-                             "moe, pipeline, embedding (device and build "
-                             "always run)")
+                             "moe, pipeline, embedding, brain (device and "
+                             "build always run)")
     parser.add_argument("--profile", default="",
                         help="after the Llama-1B run, profile one more "
                              "step and write the kernel table here (and "
@@ -5850,6 +6489,13 @@ def main(argv=None) -> int:
         for rec in train_records + quant_records:
             rec["embedding_launches"] = embedding["launches"][rec["name"]]
         lap("embedding")
+    if "brain" in phases:
+        # both replicas' steps: rank 0's in this process and rank 1's
+        # under its agent, summed
+        brain = phase_brain(smi)
+        for rec in train_records + quant_records:
+            rec["brain_launches"] = brain["launches"][rec["name"]]
+        lap("brain")
     records = train_records + quant_records
     log(f"phase seconds: {json.dumps(seconds)}")
     log(f"elapsed {time.monotonic() - t0:.1f} s")

@@ -16,8 +16,8 @@ restarted or promoted master rewrites, ``reconnect`` re-dials, and
 ``reresolve_if_moved`` is there for a worker's failure paths; like the
 JAX package, only slice mode calls it.
 
-Not ported yet: the wrappers of the slice (ROADMAP Queue A item 6.4)
-and autoscale (12.10) RPCs.
+Not ported yet: the wrappers of the slice RPCs (ROADMAP Queue A item
+6.4).
 """
 
 from __future__ import annotations
@@ -675,6 +675,14 @@ class MasterClient:
         result = self._get_typed(msg.GoodputRequest(window_s=window_s),
                                  msg.GoodputReport)
         return self._json_dict(result.report_json)
+
+    def get_autoscale_status(self) -> dict:
+        """The fleet controller's decision history and guardrail state
+        (brain/fleet_controller.py): {"decisions", "watch",
+        "quarantine", "offers", ...}; {} from a master without one."""
+        result = self._get_typed(msg.AutoscaleStatusRequest(),
+                                 msg.AutoscaleStatus)
+        return self._json_dict(result.status_json)
 
     def report_node_address(self, addr: str) -> bool:
         return self._report(msg.NodeAddressReport(

@@ -162,6 +162,39 @@ class Context:
         )
         self.quarantine_failures: int = DefaultValues.QUARANTINE_FAILURES
         self.quarantine_window_s: float = DefaultValues.QUARANTINE_WINDOW_S
+        # the fleet controller (brain/fleet_controller.py): claim / shed
+        # / hold from the measured ledger, behind hysteresis, cooldown,
+        # a rate limit and the rollback watchdog
+        self.fleet_controller_enabled: bool = (
+            DefaultValues.FLEET_CONTROLLER_ENABLED
+        )
+        self.autoscale_interval_s: float = (
+            DefaultValues.AUTOSCALE_INTERVAL_S
+        )
+        self.autoscale_cooldown_s: float = (
+            DefaultValues.AUTOSCALE_COOLDOWN_S
+        )
+        self.autoscale_hysteresis_windows: int = (
+            DefaultValues.AUTOSCALE_HYSTERESIS_WINDOWS
+        )
+        self.autoscale_max_decisions_per_hour: int = (
+            DefaultValues.AUTOSCALE_MAX_DECISIONS_PER_HOUR
+        )
+        self.autoscale_rollback_drop_fraction: float = (
+            DefaultValues.AUTOSCALE_ROLLBACK_DROP_FRACTION
+        )
+        self.autoscale_rollback_window_s: float = (
+            DefaultValues.AUTOSCALE_ROLLBACK_WINDOW_S
+        )
+        self.autoscale_quarantine_backoff_s: float = (
+            DefaultValues.AUTOSCALE_QUARANTINE_BACKOFF_S
+        )
+        self.autoscale_claim_margin: float = (
+            DefaultValues.AUTOSCALE_CLAIM_MARGIN
+        )
+        self.autoscale_shed_wait_fraction: float = (
+            DefaultValues.AUTOSCALE_SHED_WAIT_FRACTION
+        )
         # speed-aware dynamic sharding (master/shard/task_manager.py)
         self.dispatch_speed_weighted: bool = (
             DefaultValues.DISPATCH_SPEED_WEIGHTED

@@ -309,6 +309,28 @@ class DefaultValues:
     # flight recorder rings (obs/flight_recorder.py)
     FLIGHT_RING_EVENTS = 4096
     FLIGHT_RING_SPANS = 4096
+    # the fleet controller (brain/fleet_controller.py): claims offered
+    # capacity, sheds a gating slice, or holds. Off by default: it
+    # changes fleet membership on its own authority; jobs opt in
+    FLEET_CONTROLLER_ENABLED = False
+    AUTOSCALE_INTERVAL_S = 30.0          # evaluation cadence
+    # no new actuation this long after one (the rollback watch concludes)
+    AUTOSCALE_COOLDOWN_S = 120.0
+    # consecutive evaluations agreeing before a decision actuates
+    AUTOSCALE_HYSTERESIS_WINDOWS = 2
+    # actuations an hour, claims and sheds together (rollbacks exempt)
+    AUTOSCALE_MAX_DECISIONS_PER_HOUR = 6
+    # a windowed goodput drop beyond this reverts the decision and
+    # quarantines its class
+    AUTOSCALE_ROLLBACK_DROP_FRACTION = 0.2
+    AUTOSCALE_ROLLBACK_WINDOW_S = 120.0  # actuation → the watch's read
+    # quarantine base of a rolled-back class; doubles a consecutive
+    # rollback, capped at 8x
+    AUTOSCALE_QUARANTINE_BACKOFF_S = 600.0
+    # a claim's predicted gain must beat its join+re-plan cost by this
+    AUTOSCALE_CLAIM_MARGIN = 1.2
+    # a shed needs the trace's gating slice AND this cross-slice wait
+    AUTOSCALE_SHED_WAIT_FRACTION = 0.3
     # speed-aware dynamic sharding (master/shard/)
     DISPATCH_SPEED_WEIGHTED = False
     DISPATCH_WEIGHT_FLOOR = 0.25

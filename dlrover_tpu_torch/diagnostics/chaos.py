@@ -36,15 +36,35 @@ grammar:
     resize:+2@3            rank 0 writes the resize-request file
                            ($DLROVER_TPU_RESIZE_REQUEST) the launcher
                            polls: spawning processes is its power
+    offer:slice:+1@10:300  preemptible-market event: the MASTER-side
+                           injector hands the fleet controller's local
+                           CapacityProvider (brain/fleet_controller.py)
+                           an offer of 1 slice with an expected lifetime
+                           of 300 s when any worker reports step 10 (TTL
+                           omitted: the provider's default lifetime).
+                           The controller decides whether claiming it
+                           beats the join+re-plan cost
+    revoke:slice:1@10:20   the market takes slice 1 back at step 10 with
+                           a 20 s grace. Fires on both sides: every
+                           worker whose $DLROVER_TPU_SLICE_ID is 1 gets
+                           the advance preemption notice (the file and
+                           drain chain of ``preempt``), and the
+                           master-side injector tells the
+                           CapacityProvider, so the controller prices
+                           the revocation. Grace omitted:
+                           Context.preempt_default_grace_s
 
 Each injector arms the faults of its own role and rank (and a worker
 every worker-unit resize) and skips the rest, as the JAX injector does:
-a worker skips a ``master`` fault. The grammar also parses the faults
-whose subsystem the port lacks, and the injector refuses them by name
-(``NotImplementedError`` with their ROADMAP Queue A item): the ``shard``
-role (12.2, the sharded rendezvous), the ``slice`` role and the
-slice-unit resize (6.4, slice mode), and ``offer``/``revoke`` (12.10,
-the brain's fleet controller).
+a worker skips a ``master`` fault; ``offer`` arms on the master only and
+``revoke`` on the master and on the revoked slice's workers. The
+grammar also parses the faults whose subsystem the port lacks, and the
+injector refuses them by name (``NotImplementedError`` with their
+ROADMAP Queue A item): the ``shard`` role (12.2, the sharded
+rendezvous), and every other ``slice``-role fault and the slice-unit
+resize (6.4, slice mode). ``offer`` and ``revoke`` carry the ``slice``
+role in their grammar but need only the fleet controller, not slice
+mode.
 
 Each kill/hang/preempt/resize fault fires at most once per process;
 slow applies from its step onward. A resize fault also records a
@@ -182,7 +202,7 @@ def _unported_item(fault: ChaosFault) -> str:
     """The ROADMAP Queue A item whose subsystem ``fault`` needs and the
     port lacks, "" when the port can inject it."""
     if fault.action in ("offer", "revoke"):
-        return "12.10 (the brain's fleet controller)"
+        return ""
     if fault.role == "shard":
         return "12.2 (the sharded rendezvous)"
     if fault.role == "slice":
@@ -196,13 +216,22 @@ class ChaosInjector:
 
     def __init__(self, role: str = "worker",
                  rank: Optional[int] = None,
-                 spec: Optional[str] = None):
+                 spec: Optional[str] = None,
+                 slice_id: Optional[int] = None):
         spec = spec if spec is not None else os.environ.get(CHAOS_ENV, "")
         if rank is None:
             rank = int(os.environ.get(NodeEnv.NODE_RANK, "0"))
+        if slice_id is None:
+            slice_id = int(os.environ.get(NodeEnv.SLICE_ID, "-1"))
         self._role = role
         self._rank = rank
+        self._slice = slice_id
         self._state_dir = os.environ.get(CHAOS_STATE_ENV, "")
+        # the market faults' master-side hooks (JobMaster wires them to
+        # the fleet controller's LocalCapacityProvider):
+        # offer_fn(count, ttl_s, step), revoke_fn(slice_id, grace_s, step)
+        self.offer_fn = None
+        self.revoke_fn = None
         faults = parse_chaos(spec) if spec else []
         for fault in faults:
             item = _unported_item(fault)
@@ -212,11 +241,19 @@ class ChaosInjector:
                     f"@{fault.at_step} is not ported yet (ROADMAP Queue A "
                     f"item {item})")
         # a worker-unit resize arms on EVERY worker: whether this rank
-        # leaves is decided at fire time against the world
-        self.faults = [f for f in faults
-                       if (f.action == "resize" and role == "worker")
-                       or (f.action != "resize" and f.role == role
-                           and f.rank == rank)]
+        # leaves is decided at fire time against the world. An offer
+        # arms on the master only, a revoke on the master and on the
+        # revoked slice's workers
+        self.faults = [
+            f for f in faults
+            if (f.action == "resize" and role == "worker")
+            or (f.action == "offer" and role == "master")
+            or (f.action == "revoke"
+                and (role == "master"
+                     or (role == "worker" and slice_id >= 0
+                         and f.rank == slice_id)))
+            or (f.action not in ("resize", "offer", "revoke")
+                and f.role == role and f.rank == rank)]
         for fault in self.faults:
             if self._already_fired(fault):
                 fault.fired = True
@@ -227,9 +264,16 @@ class ChaosInjector:
     def _marker(self, fault: ChaosFault) -> str:
         # keyed by spec index: two faults that agree on
         # action/role/rank/step still get their own markers. A resize
-        # fault also keys on THIS node's rank: every leaver fires its
-        # own copy
-        per_node = f"_n{self._rank}" if fault.action == "resize" else ""
+        # or slice-role fault also keys on THIS node's rank: every
+        # member fires its own copy. The master's copy of a market fault
+        # has its own suffix, so a worker sharing the state dir never
+        # consumes it
+        if self._role == "master" and fault.action in ("offer", "revoke"):
+            per_node = "_market"
+        elif fault.role == "slice" or fault.action == "resize":
+            per_node = f"_n{self._rank}"
+        else:
+            per_node = ""
         return os.path.join(
             self._state_dir,
             f"chaos_{fault.index}_{fault.action}_{fault.role}"
@@ -310,7 +354,16 @@ class ChaosInjector:
         for fault in self.faults:
             if fault.fired or step < fault.at_step:
                 continue
-            if fault.action == "kill":
+            if (fault.action in ("offer", "revoke")
+                    and self._role == "master"):
+                self._inject_market(fault, step)
+            elif fault.action == "revoke":
+                # worker side: the revoked slice's members get the
+                # advance preemption notice, the drain chain unchanged
+                if not self._record_fired(fault):
+                    continue
+                self._write_preemption_notice(fault, step)
+            elif fault.action == "kill":
                 # record BEFORE dying, or the respawned incarnation
                 # replays the fault forever
                 if not self._record_fired(fault):
@@ -338,6 +391,35 @@ class ChaosInjector:
             elif fault.action == "slow":
                 # applies every step from at_step on (a real straggler)
                 time.sleep(fault.duration)
+
+    def _inject_market(self, fault: ChaosFault, step: int) -> None:
+        """Master-side market events, delivered to the fleet controller's
+        capacity provider through the wired hooks (a warning and nothing
+        else when no controller runs)."""
+        if not self._record_fired(fault):
+            return
+        if fault.action == "offer":
+            if self.offer_fn is None:
+                logger.warning(
+                    "chaos offer:slice:+%d armed but no capacity "
+                    "provider wired (fleet_controller_enabled off?)",
+                    fault.rank)
+                return
+            logger.warning(
+                "chaos: market offers %d slice(s) at step %d "
+                "(ttl %.1fs)", fault.rank, step, fault.duration)
+            self.offer_fn(fault.rank, fault.duration, step)
+            return
+        grace = (fault.duration if fault.duration > 0
+                 else Context.singleton().preempt_default_grace_s)
+        if self.revoke_fn is None:
+            logger.warning(
+                "chaos revoke:slice:%d armed but no capacity provider "
+                "wired (fleet_controller_enabled off?)", fault.rank)
+            return
+        logger.warning("chaos: market revokes slice %d at step %d "
+                       "(grace %.1fs)", fault.rank, step, grace)
+        self.revoke_fn(fault.rank, grace, step)
 
     def _inject_resize(self, fault: ChaosFault, step: int) -> None:
         """A deterministic mid-run resize. Scale-DOWN (delta < 0): this

@@ -239,6 +239,22 @@ class DiagnosisManager:
         with self._diag_lock:
             self._emit(report, Context.singleton())
 
+    def observe_autoscale(self, kind: str, reason: str,
+                          evidence: Optional[Dict[str, Any]] = None,
+                          severity: str = "info") -> None:
+        """A fleet-controller decision (brain/fleet_controller.py): claim,
+        shed, hold or rollback lands in the report history, so a
+        postmortem reads why the fleet changed shape beside the evidence
+        that drove it."""
+        report = DiagnosisReport(
+            rule="autoscale", severity=severity, worker_id=-1,
+            summary=f"autoscale {kind}: {reason}",
+            details=dict(evidence or {}, kind=kind),
+            ts=self._clock(),
+        )
+        with self._diag_lock:
+            self._emit(report, Context.singleton())
+
     def request_checkpoint(self, ranks, deadline: float,
                            reason: str = "") -> List[int]:
         """Urgent ``checkpoint`` fan-out (a peer is draining): enqueue a
@@ -261,6 +277,13 @@ class DiagnosisManager:
         with self._lock:
             if not self._slice_map:
                 return []
+        return self.request_exit(ranks, deadline, reason)
+
+    def request_exit(self, ranks, deadline: float,
+                     reason: str = "") -> List[int]:
+        """Urgent save-and-EXIT actions for ``ranks`` (the fleet
+        controller's shed orders its notice rank out this way: it has no
+        notice file). Same urgency contract as request_checkpoint."""
         return self._request_urgent("drain", ranks, deadline, reason)
 
     def _request_urgent(self, kind: str, ranks, deadline: float,

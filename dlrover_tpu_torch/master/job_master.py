@@ -53,21 +53,34 @@ node's death (``TaskRescheduleCallback`` requeues its shards,
 ``RendezvousMembershipCallback`` drops it from the rendezvous, the speed
 monitor and the diagnosis engine, ``PsFailoverCallback`` bumps the
 global cluster version of ``ElasticPsService``). ``_attach_optimization``
-adds the metric collector, the local resource optimizer and, unless
+adds the metric collector, the resource optimizer and, unless
 ``optimize_mode`` is manual, the auto-scaler, whose tuned knobs reach
-the served ``ParallelConfig`` through ``merge_paral_config``.
-``prepare()`` starts them, ``run()`` ends on the job's stage, and the
-snapshot holds the job manager's state under ``job_manager``, the same
-JSON as the JAX master's. ``prepare()`` also serves the metrics registry
-on ``/metrics`` (``metrics_port``; 0 = any free port, -1 = off).
+the served ``ParallelConfig`` through ``merge_paral_config``. With
+``optimize_mode`` ``cluster`` and a ``brain_addr`` the reporter is the
+brain's (``brain/client.py::BrainReporter``: the job's meta, model,
+runtime and exit records persist in the brain service) and so is the
+optimizer (``BrainResourceOptimizer``, falling back to the local one when
+the brain has no plan); otherwise both are local. ``prepare()`` starts
+them, ``run()`` ends on the job's stage, and the snapshot holds the job
+manager's state under ``job_manager``, the same JSON as the JAX
+master's. ``prepare()`` also serves the metrics registry on ``/metrics``
+(``metrics_port``; 0 = any free port, -1 = off). On ``--platform k8s``
+the CLI master reads its own ElasticJob CR and runs the pod scaler and
+watcher, as the JAX master does.
 
-The JAX master's snapshot also holds ``fleet_controller`` (the brain,
-ROADMAP Queue A item 12.10); the port neither writes nor restores it, and
-ignores it in a JAX snapshot.
+With ``fleet_controller_enabled`` the master runs the fleet controller
+(``brain/fleet_controller.py``) over its ledger, speed monitor, step
+traces, calibration, rendezvous and diagnosis, with a
+``LocalCapacityProvider`` as its market: the chaos faults
+``offer:slice:+k@step`` and ``revoke:slice:S@step`` of the master's
+injector feed the provider, a shed or a rollback actuates through the
+servicer's drain chain (``_controller_shed``), its state rides the
+snapshot as ``fleet_controller`` (the JAX master's JSON, restored across
+packages), its status is served over ``AutoscaleStatusRequest`` and
+recorded in the flight dump of a graceful ``stop()``.
 
 Not ported yet: the sharded rendezvous router (ROADMAP Queue A item
-12.2); the fleet controller, the brain and the Kubernetes and Ray
-platforms (12.10).
+12.2).
 """
 
 from __future__ import annotations
@@ -184,6 +197,26 @@ class JobMaster:
                 self.speed_monitor, goodput_ledger=self.goodput_ledger,
                 plan_calibration=self.plan_calibration,
                 steptrace=self.steptrace)
+        # the fleet controller (brain/fleet_controller.py): claims offered
+        # capacity, sheds a gating slice, holds behind guardrails. Gated
+        # on its own knob: it changes membership on its own authority
+        self.capacity_provider = None
+        self.fleet_controller = None
+        if ctx.fleet_controller_enabled:
+            from dlrover_tpu_torch.brain.fleet_controller import (
+                FleetController,
+                LocalCapacityProvider,
+            )
+
+            self.capacity_provider = LocalCapacityProvider()
+            self.fleet_controller = FleetController(
+                ledger=self.goodput_ledger,
+                speed_monitor=self.speed_monitor,
+                steptrace=self.steptrace,
+                plan_calibration=self.plan_calibration,
+                rendezvous=self.rdzv_managers[RendezvousName.TRAINING],
+                diagnosis=self.diagnosis_manager,
+                provider=self.capacity_provider)
         self.servicer = MasterServicer(
             task_manager=self.task_manager,
             rdzv_managers=self.rdzv_managers,
@@ -196,7 +229,11 @@ class JobMaster:
             tsdb=self.tsdb,
             steptrace=self.steptrace,
             plan_calibration=self.plan_calibration,
+            fleet_controller=self.fleet_controller,
         )
+        if self.fleet_controller is not None:
+            # a shed actuates through the servicer's drain chain
+            self.fleet_controller.shed_sink = self._controller_shed
         if self.diagnosis_manager is not None:
             # the learned discounts ride the diagnosis cadence, not the
             # per-report path
@@ -211,6 +248,7 @@ class JobMaster:
         self._stopped = threading.Event()
         self._exit_reason = ""
         self.metric_collector = None
+        self.resource_optimizer = None
         self.auto_scaler = None
         self._metrics_server = None
         self.metrics_port = 0
@@ -325,6 +363,8 @@ class JobMaster:
                 self.coord_servicer.state_sink = self._maybe_snapshot
             if self.diagnosis_manager is not None:
                 self.diagnosis_manager.state_sink = self._maybe_snapshot
+            if self.fleet_controller is not None:
+                self.fleet_controller.state_sink = self._maybe_snapshot
             # the generation bump itself must be durable before the
             # first RPC is served
             self._maybe_snapshot()
@@ -363,15 +403,18 @@ class JobMaster:
         }
         if self.diagnosis_manager is not None:
             state["diagnosis"] = self.diagnosis_manager.export_state()
+        if self.fleet_controller is not None:
+            state["fleet_controller"] = \
+                self.fleet_controller.export_state()
         if self.job_manager is not None:
             state["job_manager"] = self.job_manager.export_state()
         return state
 
     def _restore_state(self, state: dict) -> None:
-        """Rebuild every ported component from a snapshot of either
-        package. A JAX snapshot's ``fleet_controller`` key (ROADMAP Queue A
-        item 12.10) names a part the port lacks and is ignored, as its
-        ``job_manager`` key is when this master has no job manager."""
+        """Rebuild every component from a snapshot of either package. The
+        ``fleet_controller`` and ``job_manager`` keys are ignored by a
+        master built without that part, as the JAX master ignores
+        them."""
         self.generation = int(state.get("generation", 0)) + 1
         for name, rdzv_state in state.get("rendezvous", {}).items():
             mgr = self.rdzv_managers.get(name)
@@ -393,6 +436,11 @@ class JobMaster:
                 self.servicer.push_axis_discounts(discounts)
         if self.diagnosis_manager is not None and "diagnosis" in state:
             self.diagnosis_manager.restore_state(state["diagnosis"])
+        if self.fleet_controller is not None and \
+                "fleet_controller" in state:
+            # decision history, cooldowns, quarantines and an open
+            # rollback watch survive failover: no double actuation
+            self.fleet_controller.restore_state(state["fleet_controller"])
         if self.job_manager is not None and "job_manager" in state:
             self.job_manager.restore_state(state["job_manager"])
 
@@ -493,14 +541,35 @@ class JobMaster:
             "Bootstrap publishes refused because a higher-generation "
             "master already owns the file").inc()
 
-    def _arm_master_chaos(self) -> None:
-        """``kill:master:0@step``, fed from the workers' step reports so
-        a chaos run can kill the control plane at a chosen step."""
+    def _arm_master_chaos(self, spec: Optional[str] = None) -> None:
+        """The master's faults of ``spec`` (default ``$DLROVER_TPU_CHAOS``),
+        fed from the workers' step reports: ``kill:master:0@step`` kills
+        the control plane at a chosen step, and the market faults
+        (``offer``, ``revoke``) feed the fleet controller's capacity
+        provider. A later call replaces the armed injector."""
         from dlrover_tpu_torch.diagnostics.chaos import ChaosInjector
 
-        chaos = ChaosInjector(role=NodeType.MASTER, rank=0)
+        chaos = ChaosInjector(role=NodeType.MASTER, rank=0, spec=spec)
+        if self.capacity_provider is not None:
+            chaos.offer_fn = self.capacity_provider.offer
+            chaos.revoke_fn = self.capacity_provider.revoke
         if chaos.faults:
             self.servicer.master_chaos = chaos
+
+    def _controller_shed(self, rank: int, deadline: float,
+                         reason: str) -> None:
+        """The fleet controller's shed actuator: a synthetic advance-notice
+        drain through the servicer's drain chain, and a save-and-exit
+        action for the notice rank (a controller-initiated shed has no
+        notice file to drive its exit)."""
+        from dlrover_tpu_torch.common import messages as msg
+
+        if self.diagnosis_manager is not None:
+            self.diagnosis_manager.request_exit(
+                [rank], deadline, reason=reason)
+        self.servicer._handle_drain(msg.DrainReport(
+            node_rank=rank, phase="notice", deadline=deadline,
+            reason=reason))
 
     def _publish_bootstrap_addr(self) -> None:
         """Atomically write the advertised addresses and the generation
@@ -538,15 +607,23 @@ class JobMaster:
     def _attach_optimization(self, job_args, brain_addr: str) -> None:
         """Wire stats collection, resource optimization and auto-scaling
         (reference: dist_master.py:116-127 reporter selection and the
-        JobResourceOptimizer/JobAutoScaler composition). The brain's
-        optimizer (``optimize_mode`` cluster with a ``brain_addr``) is
-        ROADMAP Queue A item 12.10."""
+        JobResourceOptimizer/JobAutoScaler composition): the brain's
+        reporter and optimizer in ``cluster`` mode with a
+        ``brain_addr``, else the local ones."""
         if job_args.optimize_mode == OptimizeMode.CLUSTER and brain_addr:
-            raise NotImplementedError(
-                "the brain's resource optimizer is not ported: ROADMAP "
-                "Queue A item 12.10")
-        reporter = StatsReporter.new_reporter(ReporterType.LOCAL)
-        optimizer = LocalResourceOptimizer()
+            from dlrover_tpu_torch.brain.client import (
+                BrainResourceOptimizer,
+            )
+
+            reporter = StatsReporter.new_reporter(
+                ReporterType.BRAIN, addr=brain_addr,
+                job_name=job_args.job_name, job_uuid=job_args.job_uuid)
+            optimizer = BrainResourceOptimizer(brain_addr,
+                                               job_args.job_name)
+        else:
+            reporter = StatsReporter.new_reporter(ReporterType.LOCAL)
+            optimizer = LocalResourceOptimizer()
+        self.resource_optimizer = optimizer
         self.metric_collector = JobMetricCollector(
             job_args.job_name, reporter, stats=optimizer.stats)
         self.metric_collector.attach(speed_monitor=self.speed_monitor,
@@ -585,6 +662,8 @@ class JobMaster:
         self.task_manager.start_timeout_recovery()
         if self.diagnosis_manager is not None:
             self.diagnosis_manager.start()
+        if self.fleet_controller is not None:
+            self.fleet_controller.start()
         self.tsdb_collector.start()
         self._start_metrics_exporter()
         self._publish_bootstrap_addr()
@@ -651,6 +730,15 @@ class JobMaster:
                 self.auto_scaler.stop()
             if self.diagnosis_manager is not None:
                 self.diagnosis_manager.stop()
+            if self.fleet_controller is not None:
+                self.fleet_controller.stop()
+                try:
+                    # the decision history rides in the dump: the payload
+                    # the live RPC served
+                    obs.get_flight_recorder().record_event(
+                        "autoscale", status=self.fleet_controller.status())
+                except Exception:  # noqa: BLE001 — the dump must land
+                    logger.exception("autoscale flight snapshot failed")
             if self.job_manager is not None:
                 self.job_manager.stop()
             if self._metrics_server is not None:
@@ -741,7 +829,12 @@ def _bootstrap_publish_lock(path: str):
 
 
 def run_master_main(args=None) -> int:
-    """CLI entry: ``python -m dlrover_tpu_torch.master.job_master``."""
+    """CLI entry: ``python -m dlrover_tpu_torch.master.job_master``.
+
+    On ``--platform k8s`` the master fetches its own ElasticJob CR (the
+    operator passes only the job's name) and runs the job manager with
+    the pod scaler and watcher; otherwise it is the standalone
+    rendezvous master."""
     import argparse
 
     parser = argparse.ArgumentParser("dlrover-tpu-torch master")
@@ -749,6 +842,11 @@ def run_master_main(args=None) -> int:
     parser.add_argument("--min-nodes", type=int, default=1)
     parser.add_argument("--max-nodes", type=int, default=1)
     parser.add_argument("--node-unit", type=int, default=1)
+    parser.add_argument("--platform", default="local",
+                        choices=["local", "k8s"])
+    parser.add_argument("--job-name", default="")
+    parser.add_argument("--namespace", default="default")
+    parser.add_argument("--brain-addr", default="")
     parser.add_argument("--metrics-port", type=int,
                         default=Context.singleton().metrics_port,
                         help="Prometheus /metrics port (0 = any free "
@@ -783,8 +881,35 @@ def run_master_main(args=None) -> int:
             max_nodes=ns.max_nodes, node_unit=ns.node_unit)
         print("DLROVER_TPU_STANDBY=watching", flush=True)
         return standby.run()
-    master = JobMaster(port=ns.port, min_nodes=ns.min_nodes,
-                       max_nodes=ns.max_nodes, node_unit=ns.node_unit)
+    if ns.platform == "k8s":
+        from dlrover_tpu_torch.operator.crd import (
+            ELASTICJOB_PLURAL,
+            GROUP,
+            VERSION,
+            ElasticJob,
+        )
+        from dlrover_tpu_torch.scheduler import kubernetes
+
+        client = kubernetes.K8sClient(namespace=ns.namespace)
+        manifest = client.api.request(
+            "GET",
+            f"/apis/{GROUP}/{VERSION}/namespaces/{ns.namespace}"
+            f"/{ELASTICJOB_PLURAL}/{ns.job_name}")
+        job_args = ElasticJob.from_manifest(manifest).to_job_args()
+        worker = job_args.worker_args()
+        if worker is not None:
+            count = worker.group_resource.count
+            min_nodes = max(1, worker.min_count or count)
+            max_nodes = max(min_nodes, worker.max_count or count)
+        else:
+            min_nodes = max_nodes = 1
+        master = JobMaster(port=ns.port, min_nodes=min_nodes,
+                           max_nodes=max_nodes, node_unit=ns.node_unit,
+                           job_args=job_args, cluster=client,
+                           brain_addr=ns.brain_addr)
+    else:
+        master = JobMaster(port=ns.port, min_nodes=ns.min_nodes,
+                           max_nodes=ns.max_nodes, node_unit=ns.node_unit)
     master.prepare()
     print(f"DLROVER_TPU_MASTER_ADDR={master.addr}", flush=True)
     return master.run()

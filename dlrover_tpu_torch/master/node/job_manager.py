@@ -10,8 +10,9 @@ fails the job when a critical node is unrecoverable, and detects hang
 from heartbeats. Its ``export_state`` is the ``job_manager`` key of the
 master's snapshot, the same JSON as the JAX job manager's.
 
-Only the local platform is ported; ``create_job_manager`` refuses
-Kubernetes and Ray (ROADMAP Queue A item 12.10).
+``create_job_manager`` wires the local platform's scaler and watcher,
+the Kubernetes pod scaler and watcher, or the Ray actor scaler and
+watcher, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -463,10 +464,26 @@ def create_job_manager(
         scaler = LocalScaler(job_args.job_name, cluster,
                              master_addr=master_addr)
         watcher = LocalNodeWatcher(cluster, job_args.job_name)
-    elif job_args.platform in (PlatformType.KUBERNETES, PlatformType.RAY):
-        raise NotImplementedError(
-            f"platform {job_args.platform!r} is not ported: ROADMAP Queue "
-            f"A item 12.10")
+    elif job_args.platform == PlatformType.KUBERNETES:
+        from dlrover_tpu_torch.master.scaler.pod_scaler import PodScaler
+        from dlrover_tpu_torch.master.watcher.k8s_watcher import K8sPodWatcher
+        from dlrover_tpu_torch.scheduler.kubernetes import K8sClient
+
+        client = cluster if cluster is not None else K8sClient(
+            namespace=job_args.namespace)
+        scaler = PodScaler(job_args.job_name, client, master_addr,
+                           image=job_args.image, command=job_args.command)
+        watcher = K8sPodWatcher(client, job_args.job_name)
+    elif job_args.platform == PlatformType.RAY:
+        from dlrover_tpu_torch.master.scaler.ray_scaler import RayScaler
+        from dlrover_tpu_torch.master.watcher.ray_watcher import RayNodeWatcher
+        from dlrover_tpu_torch.scheduler.ray import RayClient
+
+        client = cluster if cluster is not None else RayClient(
+            job_args.job_name)
+        scaler = RayScaler(job_args.job_name, client, master_addr,
+                           command=job_args.command)
+        watcher = RayNodeWatcher(client, job_args.job_name)
     else:
         raise ValueError(f"unsupported platform {job_args.platform!r}")
     return JobManager(job_args, scaler, watcher,

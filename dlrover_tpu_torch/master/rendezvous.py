@@ -689,6 +689,19 @@ class RendezvousManager:
         mode (ROADMAP Queue A item 6.4)."""
         return self.latest_world
 
+    # the slice registry's read side, as the fleet controller reads it
+    # (brain/fleet_controller.py): without slice mode (ROADMAP Queue A
+    # item 6.4) no rank has a slice, so a shed never finds one
+    def slice_of(self, node_rank: int) -> int:
+        return -1
+
+    @property
+    def slice_map(self) -> Dict[int, int]:
+        return {}
+
+    def slice_members(self, slice_id: int) -> List[int]:
+        return []
+
     def round_for(self, node_rank: int) -> int:
         """The latest completed round in ``node_rank``'s scope."""
         with self._lock:

@@ -1,6 +1,6 @@
 """Resource plans, optimizers, auto-scaling
 (reference: dlrover/python/master/resource/). The brain's optimizer
-waits for ROADMAP Queue A item 12.10."""
+is ``brain/client.py::BrainResourceOptimizer``."""
 
 from dlrover_tpu_torch.master.resource.optimizer import (
     ResourceLimits,

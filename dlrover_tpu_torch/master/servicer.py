@@ -45,7 +45,12 @@ The optional components are fed as the JAX master feeds them:
   each stamped plan's prediction and each step report's measurement,
   tagged with the plan generation the sender applied; served over
   ``PlanCalibrationRequest``, its learned discounts pushed back into
-  the planner through ``push_axis_discounts``.
+  the planner through ``push_axis_discounts``;
+- the fleet controller (``brain/fleet_controller.py``, optional: a
+  master with ``fleet_controller_enabled``): its status is served over
+  ``AutoscaleStatusRequest`` ("" without one, as the JAX servicer
+  answers); the step reports' allocator peaks reach the metric
+  collector's runtime records (``observe_hbm_peak``).
 
 Crash consistency, as in the JAX servicer: after any request that may
 have mutated control-plane state the servicer calls ``state_sink``
@@ -96,7 +101,6 @@ from dlrover_tpu_torch.parallel.calibration import PlanCalibration
 # the requests whose subsystem the port lacks, with the ROADMAP Queue A
 # item that ports it
 _NOT_PORTED = {
-    msg.AutoscaleStatusRequest: "12 (brain)",
     msg.SliceStatusRequest: "6.4 (slice mode)",
 }
 
@@ -139,6 +143,7 @@ class MasterServicer:
         tsdb: Optional[obs.TimeSeriesStore] = None,
         steptrace: Optional[StepTraceAssembler] = None,
         plan_calibration: Optional[PlanCalibration] = None,
+        fleet_controller=None,
     ):
         self.task_manager = task_manager or TaskManager()
         self.rdzv_managers: Dict[str, RendezvousManager] = rdzv_managers or {
@@ -166,6 +171,9 @@ class MasterServicer:
         # plans register predictions, step reports measurements, and the
         # learned discounts push back into the planner
         self.plan_calibration = plan_calibration
+        # the fleet controller (brain/fleet_controller.py), served over
+        # AutoscaleStatusRequest; its loop runs on its own thread
+        self.fleet_controller = fleet_controller
         self._pushed_discounts: Dict[str, float] = {}
         # the tuned config is read on RPC threads and replaced by reports
         self._paral_lock = threading.Lock()
@@ -268,6 +276,11 @@ class MasterServicer:
         if isinstance(request, msg.GoodputRequest):
             return msg.GoodputReport(report_json=json.dumps(
                 self.goodput_ledger.snapshot(window_s=request.window_s)))
+        if isinstance(request, msg.AutoscaleStatusRequest):
+            if self.fleet_controller is None:
+                return msg.AutoscaleStatus(status_json="")
+            return msg.AutoscaleStatus(status_json=json.dumps(
+                self.fleet_controller.status()))
         if isinstance(request, msg.TimeSeriesQuery):
             return msg.TimeSeriesResult(result_json=json.dumps(
                 self.tsdb.query_payload(
@@ -714,6 +727,8 @@ class MasterServicer:
         peak_mb = hbm_peak / (1 << 20) if hbm_peak > 0 else -1.0
         if peak_mb >= 0.0 and self.diagnosis_manager is not None:
             self.diagnosis_manager.observe_step_watermark(rank, peak_mb)
+        if peak_mb >= 0.0 and self.metric_collector is not None:
+            self.metric_collector.observe_hbm_peak(rank, peak_mb)
         node = {"node": str(rank)}
         if request.step_time_s > 0:
             self.tsdb.ingest("dlrover_tpu_worker_step_time_seconds",

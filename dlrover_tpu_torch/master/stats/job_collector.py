@@ -3,7 +3,10 @@
 Own copy of the JAX package's ``master/stats/job_collector.py``, after
 JobMetricCollector (dlrover/python/master/stats/job_collector.py): job
 meta at start, periodic runtime stats (node usage + global step), model
-info once known, and the job-exit record, to the local reporter.
+info once known, and the job-exit record, to the local reporter or the
+brain. The port's runtime record also carries ``hbm_peak_mb``, the
+largest allocator peak the step reports have shown (the card's
+device-truth watermark), once one has come in.
 """
 
 from __future__ import annotations
@@ -38,6 +41,9 @@ class JobMetricCollector:
         self._speed_monitor = None
         self._job_manager = None
         self._model_reported = False
+        # rank → the newest step report's allocator peak (MiB)
+        self._hbm_peaks: dict = {}
+        self._hbm_lock = threading.Lock()
 
     def attach(self, speed_monitor=None, job_manager=None) -> None:
         # wired once during master construction, before start() spawns
@@ -66,6 +72,11 @@ class JobMetricCollector:
                 hbm_used_mb=hbm,
             ),
         )
+
+    def observe_hbm_peak(self, rank: int, peak_mb: float) -> None:
+        """A step report's allocator peak for ``rank``."""
+        with self._hbm_lock:
+            self._hbm_peaks[rank] = float(peak_mb)
 
     def collect_model_info(self, info: msg.ModelInfo) -> None:
         if not self._model_reported:
@@ -98,7 +109,11 @@ class JobMetricCollector:
 
     def _loop(self) -> None:
         while not self._stopped.wait(self._interval_s):
-            self._reporter.report("runtime", self._runtime_payload())
+            self.report_runtime()
+
+    def report_runtime(self) -> None:
+        """One runtime record now (the loop's, every ``interval_s``)."""
+        self._reporter.report("runtime", self._runtime_payload())
 
     def _runtime_payload(self) -> dict:
         payload = {"job": self._job_name}
@@ -114,6 +129,10 @@ class JobMetricCollector:
         peak = self.stats.max_node_usage(NodeType.WORKER)
         if peak["memory_mb"]:
             payload["peak_memory_mb"] = peak["memory_mb"]
+        with self._hbm_lock:
+            hbm = max(self._hbm_peaks.values(), default=-1.0)
+        if hbm >= 0.0:
+            payload["hbm_peak_mb"] = hbm
         latest = [
             s for s in (
                 self.stats.latest_node_sample(NodeType.WORKER, node_id)

@@ -1,9 +1,9 @@
-"""Stats reporters: the local log store (the brain's waits).
+"""Stats reporters: the local log store or the brain service.
 
 Own copy of the JAX package's ``master/stats/reporter.py``, after
 dlrover/python/master/stats/reporter.py (ReporterType LOCAL /
 DLROVER_BRAIN selection in dist_master.py:116-127). The brain reporter
-is ROADMAP Queue A item 12.10.
+is ``brain/client.py::BrainReporter``.
 """
 
 from __future__ import annotations
@@ -29,9 +29,9 @@ class StatsReporter(abc.ABC):
     def new_reporter(cls, reporter_type: str = ReporterType.LOCAL,
                      **kwargs) -> "StatsReporter":
         if reporter_type == ReporterType.BRAIN:
-            raise NotImplementedError(
-                "the brain reporter is not ported: ROADMAP Queue A item "
-                "12.10")
+            from dlrover_tpu_torch.brain.client import BrainReporter
+
+            return BrainReporter(**kwargs)
         return LocalStatsReporter(**kwargs)
 
 

@@ -1,7 +1,7 @@
 """Node event watchers (reference: dlrover/python/master/watcher/).
 
-The local watcher only; the Kubernetes and Ray watchers wait for ROADMAP
-Queue A item 12.10."""
+The local watcher, the Kubernetes pod watcher (``k8s_watcher.py``) and
+the Ray actor watcher (``ray_watcher.py``)."""
 
 from dlrover_tpu_torch.master.watcher.base import NodeEvent, NodeWatcher
 from dlrover_tpu_torch.master.watcher.local_watcher import LocalNodeWatcher

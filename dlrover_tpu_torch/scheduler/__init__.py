@@ -2,9 +2,9 @@
 
 Own copy of the JAX package's ``scheduler/``, after
 dlrover/python/scheduler/: ``JobArgs`` parsed per platform, the platform
-clients, and the factory. Only the local platform is ported: an
-in-memory cluster with a watch stream, used by tests and the standalone
-path. ``kubernetes`` and ``ray`` are ROADMAP Queue A item 12.10.
+clients and the factory: the local platform (an in-memory cluster with a
+watch stream, used by tests and the standalone path), the Kubernetes
+REST client (``kubernetes.py``) and Ray (``ray.py``).
 """
 
 from dlrover_tpu_torch.scheduler.job import JobArgs, NodeArgs

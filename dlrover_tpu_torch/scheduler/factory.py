@@ -1,7 +1,8 @@
 """Platform factory (reference: dlrover/python/scheduler/factory.py).
 
 Own copy of the JAX package's ``scheduler/factory.py``: the local
-platform only; Kubernetes and Ray wait for ROADMAP Queue A item 12.10.
+platform's in-memory cluster and the Kubernetes REST client (a Ray job's
+client is built by ``create_job_manager``, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -17,8 +18,8 @@ def new_platform_cluster(platform: str, namespace: str = "default",
         from dlrover_tpu_torch.scheduler.local import LocalCluster
 
         return LocalCluster(**kwargs)
-    if platform in (PlatformType.KUBERNETES, PlatformType.RAY):
-        raise NotImplementedError(
-            f"platform {platform!r} is not ported: ROADMAP Queue A item "
-            f"12.10")
+    if platform == PlatformType.KUBERNETES:
+        from dlrover_tpu_torch.scheduler.kubernetes import K8sClient
+
+        return K8sClient(namespace=namespace, **kwargs)
     raise ValueError(f"unknown platform {platform!r}")

@@ -69,8 +69,8 @@ def test_bad_specs_fail_loudly_alike(spec):
     ("hang:shard:1@5:3", "12.2"),
     ("kill:slice:0@5", "6.4"),
     ("resize:slice:-1@4", "6.4"),
-    ("offer:slice:+1@10:300", "12.10"),
-    ("revoke:slice:1@10:20", "12.10"),
+    ("preempt:slice:1@4:20", "6.4"),
+    ("hang:slice:0@3:2", "6.4"),
     ("kill:master:0@7;kill:shard:0@5", "12.2"),
 ])
 def test_unported_faults_parse_then_refuse_by_item(spec, item):

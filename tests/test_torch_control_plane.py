@@ -290,10 +290,22 @@ def test_servicers_answer_a_scripted_sequence_alike(contexts, monkeypatch):
 
 
 def test_unported_requests_are_refused_by_name(contexts):
+    """Slice mode's request is refused by its item; the autoscale status
+    (ported) is answered as the JAX master answers it."""
+    masters = [JMaster(port=0, host="127.0.0.1"),
+               JobMaster(port=0, host="127.0.0.1")]
+    try:
+        answers = [m.servicer.get_bytes(mod.serialize_message(
+            mod.AutoscaleStatusRequest()), None)
+            for m, mod in zip(masters, (J, T))]
+        assert answers[1] == answers[0]
+        assert T.deserialize_message(answers[1]).status_json == ""
+    finally:
+        for m in masters:
+            m.stop(grace_s=0.1)
     master = JobMaster(port=0, host="127.0.0.1")
     try:
-        for request in (T.SliceStatusRequest(),
-                        T.AutoscaleStatusRequest()):
+        for request in (T.SliceStatusRequest(),):
             send = (master.servicer.report_bytes
                     if type(request).__name__.endswith("Report")
                     else master.servicer.get_bytes)

@@ -50,8 +50,8 @@ SLEEPER = [sys.executable, "-c", "import time; time.sleep(120)"]
 # the components both packages' snapshots hold
 PORTED = ("rendezvous", "task_manager", "kv_store", "speed_monitor",
           "goodput", "diagnosis", "plan_calibration")
-# the JAX snapshot's keys of parts the port lacks (ROADMAP Queue A items
-# 12.10, 12.7)
+# the JAX snapshot's keys of parts these masters are built without (the
+# fleet controller is off by default; no job manager without job_args)
 UNPORTED = ("fleet_controller", "job_manager")
 
 

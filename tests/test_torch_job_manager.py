@@ -408,15 +408,32 @@ def test_scale_request_without_job_manager_is_refused_as_jax():
 
 
 def test_unported_platforms_are_refused():
-    for platform in ("k8s", "ray"):
-        args = make_job_args(1)
-        args.platform = platform
-        with pytest.raises(NotImplementedError, match="12.10"):
-            tjob.create_job_manager(args)
-        with pytest.raises(NotImplementedError, match="12.10"):
-            tfactory.new_platform_cluster(platform)
-    with pytest.raises(ValueError):
-        tfactory.new_platform_cluster("slurm")
+    """Kubernetes and Ray are ported: a k8s job manager gets the pod
+    scaler and watcher; Ray without its package, and a platform neither
+    package knows, are refused as the JAX package refuses them."""
+    from dlrover_tpu.master.node import job_manager as jjob
+    from dlrover_tpu.scheduler import factory as jfactory
+    from dlrover_tpu_torch.master.scaler.pod_scaler import PodScaler
+    from dlrover_tpu_torch.master.watcher.k8s_watcher import K8sPodWatcher
+    from dlrover_tpu_torch.scheduler.kubernetes import K8sClient
+
+    args = make_job_args(1)
+    args.platform = "k8s"
+    manager = tjob.create_job_manager(args)
+    assert isinstance(manager._scaler, PodScaler)
+    assert isinstance(manager._watcher, K8sPodWatcher)
+    assert isinstance(tfactory.new_platform_cluster("k8s"), K8sClient)
+    args.platform = "ray"
+    errors = []
+    for create in (jjob.create_job_manager, tjob.create_job_manager):
+        with pytest.raises(RuntimeError) as raised:
+            create(args)
+        errors.append(str(raised.value))
+    assert errors[1] == errors[0]
+    for platform in ("ray", "slurm"):
+        for factory in (jfactory, tfactory):
+            with pytest.raises(ValueError):
+                factory.new_platform_cluster(platform)
 
 
 def test_node_and_job_args_match_jax():

@@ -119,13 +119,29 @@ def test_prefetch_applies_the_transform_and_refuses_no_gpu():
             next(prefetch_to_device(iter([np.ones(3)])))
 
 
-def test_loop_feeds_its_tuner_and_exports_the_depth():
-    """A starving input (a sleep before every batch) under a live master:
-    each step report feeds the tuner the window's data-wait share, which
-    grows the depth above its start; the gauge reads it."""
+@pytest.fixture
+def default_knobs():
+    """The tuner's knobs at their defaults, whatever an earlier test on
+    this process left in the singleton."""
+    Context.reset()
+    yield Context.singleton()
+    Context.reset()
+
+
+def test_loop_feeds_its_tuner_and_exports_the_depth(default_knobs):
+    """A starving input under a live master: each step report feeds the
+    tuner the window's data-wait share, which grows the depth above its
+    start; the gauge reads it.
+
+    The input waits before every batch twice as long as the last step
+    took outside its own wait (0.2 s at least), so it starves however
+    slow a step is: a fixed sleep did not when the process was loaded
+    (a step of seconds behind busy threads holding the interpreter)."""
     from dlrover_tpu_torch.agent.master_client import MasterClient
     from dlrover_tpu_torch.master.job_master import JobMaster
 
+    assert all(getattr(default_knobs, k) == getattr(Context(), k)
+               for k in KNOBS)
     master = JobMaster(host="127.0.0.1")
     master.prepare()
     client = MasterClient(master.addr, node_id=0, timeout_s=10.0)
@@ -144,7 +160,10 @@ def test_loop_feeds_its_tuner_and_exports_the_depth():
         def slow():
             rng = np.random.default_rng(0)
             for _ in range(5):
-                time.sleep(0.2)
+                last = loop.timeline.snapshot()[-1:]
+                busy = sum(e["total_s"] - e["phases"]["data_wait"]
+                           for e in last)
+                time.sleep(max(0.2, 2.0 * busy))
                 tokens = rng.integers(0, cfg.vocab_size, (2, 16))
                 yield tokens, tokens
 

@@ -242,13 +242,26 @@ def test_job_collector_reports_as_jax(tmp_path):
 
 
 def test_brain_is_refused_by_name():
-    with pytest.raises(NotImplementedError, match="12.10"):
-        treport.StatsReporter.new_reporter(treport.ReporterType.BRAIN)
+    """The brain is ported (it was refused by name before): the brain
+    reporter is built, and a cluster-mode master with a brain address
+    attaches the brain's optimizer."""
+    from dlrover_tpu_torch.brain.client import (
+        BrainReporter,
+        BrainResourceOptimizer,
+    )
+
+    reporter = treport.StatsReporter.new_reporter(
+        treport.ReporterType.BRAIN, addr="127.0.0.1:1", job_name="j")
+    assert isinstance(reporter, BrainReporter)
     args = make_job_args(1)
     args.optimize_mode = "cluster"
-    with pytest.raises(NotImplementedError, match="12.10"):
-        JobMaster(port=0, host="127.0.0.1", job_args=args,
-                  brain_addr="127.0.0.1:1")
+    master = JobMaster(port=0, host="127.0.0.1", job_args=args,
+                       brain_addr="127.0.0.1:1")
+    try:
+        assert isinstance(master.auto_scaler._optimizer,
+                          BrainResourceOptimizer)
+    finally:
+        master.stop(grace_s=0.1)
 
 
 def test_master_attaches_the_optimization_as_jax():
