@@ -40,6 +40,34 @@ Phases (each one's failure ends the run with a nonzero exit):
            trained through ElasticTrainLoop, 2 warm-up + 5 timed steps;
            each flash kernel launches 22 times per step, rms_fwd and
            rms_bwd 45 times
+  auto     auto_accelerate (dlrover_tpu_torch/auto/) on the card, in this
+           process, from a Llama-1B factory written with the plain
+           attention (fused norm, gather embedding, seq 2048, AdamW
+           3e-4 wd 0.1). (a) ["amp", "module_replace"] at micro 8: the
+           lowered config is the llama1b phase's (flash attention) and
+           its steps through ElasticTrainLoop are that phase's losses
+           bit for bit; it runs on to the observe phase's 46 steps when
+           that phase runs, and is then its uninterrupted in-process
+           reference; prints its steps beside that phase's median. (b)
+           the default strategy (half + module_replace on one card) at
+           micro 8 trains 3 steps on batches a coworker subprocess (it
+           imports no torch) pushes through a ShmDataContext ring sized
+           by PrefetchAutoTuner.ring_capacity, then 3 on batches it pushes
+           with a CoworkerClient into a CoworkerDataService on 127.0.0.1;
+           each batch's CRC, stamped by the coworker's native crc32, is
+           recomputed on the card tensor by the checksum custom op and
+           must match; the losses equal those of the same 6 steps fed
+           the same batches directly; prints the coworker's start-up and
+           the ring's capacity. (c) strategy="auto" at micro 2 with
+           DLROVER_TPU_SEARCH_BUDGET=4 (the bo search's 4 dry runs of 1 +
+           3 steps over the planner's 8 candidates): prints each
+           candidate's steps/s or error; no candidate may fail on a
+           kernel's build or launch, the fallback must not be reached,
+           the pick trains 2 steps, and the allocator is back within 64
+           MiB of its level before the search. (d) each part's launches
+           as predicted from its lowered configs (22 a step a flash
+           kernel, 45 a norm kernel; twice the forward ones under
+           remat; none for a candidate with the plain attention)
   resume   Llama-1B at full width cut to 8 of its 22 layers
            (CKPT_LAYERS; also standalone's, faults', failover's,
            replan's and pipeline (d)'s) through
@@ -154,7 +182,7 @@ Phases (each one's failure ends the run with a nonzero exit):
            master through B, around the same Llama-1B worker at
            CKPT_LAYERS (a report
            a step, saves every 8; the steps derived from the code's
-           detection, promotion and reconnect bounds so that 10 follow
+           detection, promotion and reconnect bounds so that 5 follow
            the reconnect, printed); every master RPC of the agent and
            the worker has a 0.5 s deadline, cut from 30 s (a call to a
            dead master waits out its whole deadline). Gates: the primary
@@ -219,10 +247,15 @@ Phases (each one's failure ends the run with a nonzero exit):
            full width, trained 3 steps with flash and with reference
            attention from one init: losses, grad norms and one step's
            gradients within the parity phase's limits. Then
-           `python -m dlrover_tpu_torch.run --standalone` around
-           dlrover_tpu_torch/examples/nanogpt_train.py --config gpt2
-           (seq 1024, global batch 48, a save every 3 steps): 6 steps,
-           exit 0; again to 9 steps: it resumes at step 6 and finishes 9
+           `python -m dlrover_tpu_torch.run --standalone --network-check`
+           around dlrover_tpu_torch/examples/nanogpt_train.py --config
+           gpt2 (built through auto_accelerate; seq 1024, global batch
+           48, a save every 3 steps): the agent's probe runs on the card
+           first (two rounds, both normal, before the worker is spawned;
+           each round's window and the probe's time printed), 6 steps,
+           exit 0; again to 9 steps without the check: it resumes at step
+           6 and finishes 9; the 9 steps' losses and grad norms are those
+           of the same steps built directly in this process, bit for bit
   llama7b  Llama-7B on one card (LlamaConfig.llama_7b: 32 x 4096, 32
            heads of 128, seq 2048, flash attention, fused norm, gather
            embedding, f32 weights) at micro 2 under the factored-RMS
@@ -391,6 +424,7 @@ its "replan_launches" the replan phase's three incarnations', its
 "llama7b_launches" the llama7b phase's streaming and dense remat runs at
 full depth, its "moe_launches" the moe phase's Mixtral-width run and
 its "pipeline_launches" the pipeline phase's run (a), its
+"auto_launches" the auto phase's (a)-(c), its
 "embedding_launches" the embedding phase's steps, reconcile and replay
 (none of the kernels is on that path: 0), its "brain_launches" the
 brain phase's two replicas' steps;
@@ -1144,7 +1178,8 @@ def _adamw(params):
 def _train(cfg, global_batch: int, steps: int, max_micro: int,
            profile_out: str = "", model_cls=None, loss_fn=None,
            seq: int = 0, same_targets: bool = False,
-           optimizer_factory=None, trainer=None, after=None):
+           optimizer_factory=None, trainer=None, after=None,
+           data_source=None):
     """Train ``model_cls(cfg)`` (Llama by default, with its loss)
     through ElasticTrainLoop on the synthetic corpus at ``seq`` (the
     config's ``max_seq_len`` by default) from seed 0: (the history, the
@@ -1153,7 +1188,8 @@ def _train(cfg, global_batch: int, steps: int, max_micro: int,
     ``optimizer_factory``; ``trainer`` (the streaming one) takes the
     dense trainer's place. ``after(state, data)``, when given, is called
     with the trained state and the batches to come, after the launches
-    are read."""
+    are read. ``data_source``: (tokens, targets) batches in the synthetic
+    corpus's place (no sampler then)."""
     from dlrover_tpu_torch.models.llama import Llama, cross_entropy_loss
     from dlrover_tpu_torch.trainer.elastic_loop import (
         ElasticTrainLoop,
@@ -1174,6 +1210,8 @@ def _train(cfg, global_batch: int, steps: int, max_micro: int,
     state, start = loop.restore_or_init(0, sampler)
     data = batches(synthetic_corpus(cfg.vocab_size), sampler, global_batch,
                    seq)
+    if data_source is not None:
+        data, sampler = data_source, None
     if same_targets:
         data = ((tokens, tokens) for tokens, _ in data)
     state, metrics = loop.run(state, data, start_step=start,
@@ -1392,9 +1430,404 @@ def phase_llama1b(warmup: int = 2, timed: int = 5,
               "step_median_ms": median_ms,
               "tokens_per_s": tokens_per_s, "mfu": mfu,
               "peak_mem_gb": peak_gb, "launches_per_step": {
-                  n: c / len(hist) for n, c in launches.items()}}
+                  n: c / len(hist) for n, c in launches.items()},
+              "losses": [r["loss"] for r in hist]}
     log(f"llama1b: {json.dumps(result)}")
     return launches, result
+
+
+# ---------------------------------------------------------------------------
+# auto: auto_accelerate lowers Llama-1B from a strategy, a coworker feeds it
+# through the shared-memory ring and the coworker service, and the search
+# dry-runs candidates on the card
+# ---------------------------------------------------------------------------
+
+AUTO_MICRO, AUTO_SEQ = 8, 2048
+# (a): the llama1b phase's first steps, lowered from a strategy
+AUTO_STEPS = 3
+# (b): steps fed through the ring, then through the coworker service
+AUTO_RING_STEPS, AUTO_SERVICE_STEPS = 3, 3
+# (c): the search at micro 2, capped by its own knob: the bo search spends
+# DLROVER_TPU_SEARCH_BUDGET dry runs of 1 warm-up + 3 timed steps (the
+# planner's 8 one-device candidates outgrow it, so "auto" picks bo)
+AUTO_SEARCH_MICRO, AUTO_SEARCH_BUDGET = 2, 4
+AUTO_SEARCH_DRY_STEPS = 1 + 3
+AUTO_SEARCH_TRAIN_STEPS = 2
+# the allocator's level after the search against before it
+AUTO_MEMORY_SLACK = 64 << 20
+
+# the coworker: attaches the trainer's ring, pushes AUTO_RING_STEPS
+# batches of the synthetic corpus (the llama1b phase's sampler and data)
+# with their CRCs, closes the ring, then pushes AUTO_SERVICE_STEPS more
+# through a CoworkerClient. It imports no torch.
+COWORKER = r'''
+import json, sys, time
+t0 = time.monotonic()
+from dlrover_tpu_torch.data.shm_ring import ShmDataContext
+from dlrover_tpu_torch.ops.host_ops import crc32
+from dlrover_tpu_torch.trainer.sampler import ElasticDistributedSampler
+from dlrover_tpu_torch.trainer.synthetic import batches, synthetic_corpus
+names, addr, vocab, micro, seq, ring_steps, service_steps = json.loads(
+    sys.argv[1])
+ctx = ShmDataContext.attach(names)
+started_s = time.monotonic() - t0
+sampler = ElasticDistributedSampler(dataset_size=10 ** 6, shuffle=True,
+                                    seed=0)
+data = batches(synthetic_corpus(vocab), sampler, micro, seq)
+
+def stamped(tokens, targets):
+    tokens, targets = tokens.astype("int64"), targets.astype("int64")
+    return {"tokens": tokens, "targets": targets,
+            "crc": [crc32(tokens), crc32(targets)]}
+
+for _ in range(ring_steps):
+    ctx.push(stamped(*next(data)))
+ctx.close_producers()
+from dlrover_tpu_torch.data.coworker import CoworkerClient
+client = CoworkerClient(addr)
+for _ in range(service_steps):
+    if not client.push_batch(stamped(*next(data))):
+        raise SystemExit("the coworker service refused a batch")
+client.close()
+print(json.dumps({"started_s": started_s,
+                  "torch_imported": "torch" in sys.modules}), flush=True)
+'''
+
+
+def _sum_counts(*counts) -> dict:
+    out = {}
+    for c in counts:
+        for name, n in c.items():
+            out[name] = out.get(name, 0) + n
+    return out
+
+
+def _auto_lowering(smi: str, llama1b: dict, steps: int) -> tuple:
+    """(a) ``["amp", "module_replace"]`` on Llama-1B written with the
+    plain attention: the lowered config is the llama1b phase's, and its
+    first AUTO_STEPS losses are that phase's bit for bit (all of the
+    steps both ran). Run for ``steps``: its (loss, grad_norm) become the
+    uninterrupted in-process reference of that depth (``_REFERENCE``),
+    which the observe phase would otherwise train again."""
+    import numpy as np
+
+    from dlrover_tpu_torch.auto import auto_accelerate
+    from dlrover_tpu_torch.models.llama import (
+        Llama,
+        LlamaConfig,
+        cross_entropy_loss,
+    )
+
+    want_cfg = LlamaConfig.llama_1b(max_seq_len=AUTO_SEQ, attn_impl="flash",
+                                    norm_impl="fused", embed_impl="gather")
+    base = LlamaConfig.llama_1b(max_seq_len=AUTO_SEQ, attn_impl="reference",
+                                norm_impl="fused", embed_impl="gather")
+    if llama1b.get("losses"):
+        ref, ref_from = llama1b["losses"][:steps], "the llama1b phase"
+        ref_ms = llama1b["step_median_ms"]
+    else:
+        ref = [loss for loss, _ in _reference_prefix(want_cfg, AUTO_STEPS)]
+        ref_from, ref_ms = "an in-process direct build", "not measured"
+    t0 = time.monotonic()
+    result = auto_accelerate(
+        functools.partial(Llama, base), optim_factory=lambda: _adamw,
+        loss_fn=cross_entropy_loss,
+        sample_batch=np.zeros((AUTO_MICRO, AUTO_SEQ), np.int64),
+        strategy=["amp", "module_replace"], micro_batch=AUTO_MICRO)
+    lowered = result.context.model_config()
+    if lowered != want_cfg:
+        raise AssertionError(f"auto (a) lowered {lowered}, want the llama1b "
+                             f"phase's {want_cfg}")
+    lower_s = time.monotonic() - t0
+    reset_counts()
+    hist, launches = _train(lowered, AUTO_MICRO, steps, AUTO_MICRO,
+                            trainer=result.trainer)
+    losses = [r["loss"] for r in hist]
+    steps_ms = [r["step_time_s"] * 1e3 for r in hist]
+    out = {"strategy": result.strategy, "lower_s": lower_s,
+           "mesh": result.mesh.shape,
+           "accum_micro": [result.trainer.accum_steps,
+                           result.trainer.micro_batch],
+           "steps": steps, "losses": losses[:len(ref)],
+           "reference": ref_from, "steps_ms": steps_ms[:AUTO_STEPS],
+           "step_median_ms_after_the_first_2": statistics.median(
+               steps_ms[2:] or steps_ms),
+           "llama1b_step_median_ms": ref_ms,
+           "launches": launches,
+           "want_launches": _expected_launches(lowered, steps)}
+    log(f"auto (a): {json.dumps(out)} ({smi})")
+    if len(ref) < AUTO_STEPS or losses[:len(ref)] != ref:
+        raise AssertionError(f"auto (a) losses {losses[:len(ref)]}, "
+                             f"{ref_from}'s {ref}")
+    if steps > len(ref):
+        _REFERENCE[("long", lowered.num_layers)] = [
+            (r["loss"], r["grad_norm"]) for r in hist]
+    del result
+    _free_memory()
+    return out, launches
+
+
+def _auto_coworker(smi: str, repo: str) -> tuple:
+    """(b) the default strategy fed by a coworker: AUTO_RING_STEPS through
+    the shared-memory ring, AUTO_SERVICE_STEPS through the coworker
+    service, each batch's CRC recomputed on the card by the checksum op;
+    the losses those of the same steps fed the same batches directly."""
+    import os
+
+    import numpy as np
+
+    from dlrover_tpu_torch.auto import auto_accelerate
+    from dlrover_tpu_torch.data.coworker import CoworkerDataService
+    from dlrover_tpu_torch.data.prefetch import PrefetchAutoTuner
+    from dlrover_tpu_torch.data.shm_ring import ShmDataContext
+    from dlrover_tpu_torch.models.llama import (
+        Llama,
+        LlamaConfig,
+        cross_entropy_loss,
+    )
+    from dlrover_tpu_torch.ops.host_ops import checksum
+    from dlrover_tpu_torch.trainer.sampler import ElasticDistributedSampler
+    from dlrover_tpu_torch.trainer.synthetic import batches, synthetic_corpus
+
+    steps = AUTO_RING_STEPS + AUTO_SERVICE_STEPS
+    base = LlamaConfig.llama_1b(max_seq_len=AUTO_SEQ, attn_impl="reference",
+                                norm_impl="fused", embed_impl="gather")
+
+    def lowered():
+        return auto_accelerate(
+            functools.partial(Llama, base), optim_factory=lambda: _adamw,
+            loss_fn=cross_entropy_loss,
+            sample_batch=np.zeros((AUTO_MICRO, AUTO_SEQ), np.int64),
+            micro_batch=AUTO_MICRO)
+
+    result = lowered()
+    cfg = result.context.model_config()
+    capacity = PrefetchAutoTuner().ring_capacity()
+    crcs, out = [], {"strategy": result.strategy,
+                     "param_dtype": str(cfg.param_dtype),
+                     "attn_impl": cfg.attn_impl, "ring_capacity": capacity}
+    service = CoworkerDataService(capacity=8, port=0, host="127.0.0.1")
+    service.start()
+    proc = None
+    try:
+        with ShmDataContext(num_rings=1, capacity=capacity) as ctx:
+            t_spawn = time.monotonic()
+            proc = subprocess.Popen(
+                [sys.executable, "-c", COWORKER, json.dumps([
+                    ctx.ring_names, f"127.0.0.1:{service.port}",
+                    cfg.vocab_size, AUTO_MICRO, AUTO_SEQ, AUTO_RING_STEPS,
+                    AUTO_SERVICE_STEPS])],
+                cwd=repo, env=dict(os.environ, PYTHONPATH=repo),
+                stdout=subprocess.PIPE, text=True)
+            first = {}
+
+            def fed():
+                for source, batches_of in (
+                        ("ring", ctx.batches(timeout_s=120)),
+                        ("service", service.batches(timeout_s=120))):
+                    for batch in batches_of:
+                        first.setdefault(source, time.monotonic() - t_spawn)
+                        tokens = torch.from_numpy(batch["tokens"]).cuda()
+                        targets = torch.from_numpy(batch["targets"]).cuda()
+                        got = [int(checksum(tokens)), int(checksum(targets))]
+                        crcs.append({"source": source, "stamped":
+                                     batch["crc"], "on_card": got})
+                        if got != batch["crc"]:
+                            raise AssertionError(f"auto (b) CRC {got} on the "
+                                                 f"card, {batch['crc']} "
+                                                 f"stamped")
+                        yield tokens, targets
+
+            reset_counts()
+            hist, launches = _train(cfg, AUTO_MICRO, steps, AUTO_MICRO,
+                                    trainer=result.trainer,
+                                    data_source=fed())
+            report, _ = proc.communicate(timeout=120)
+            if proc.returncode != 0:
+                raise AssertionError(f"auto (b) coworker exited "
+                                     f"{proc.returncode}")
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        service.stop()
+    del result
+    _free_memory()
+    coworker = json.loads(report.strip().splitlines()[-1])
+    # the same steps fed the same batches directly
+    direct = lowered()
+    sampler = ElasticDistributedSampler(dataset_size=10 ** 6, shuffle=True,
+                                        seed=0)
+    ref, _ = _train(cfg, AUTO_MICRO, steps, AUTO_MICRO,
+                    trainer=direct.trainer, data_source=batches(
+                        synthetic_corpus(cfg.vocab_size), sampler,
+                        AUTO_MICRO, AUTO_SEQ))
+    del direct
+    _free_memory()
+    losses = [r["loss"] for r in hist]
+    out.update({"coworker_started_s": coworker["started_s"],
+                "coworker_imported_torch": coworker["torch_imported"],
+                "first_batch_after_spawn_s": first, "crcs": crcs,
+                "losses": losses,
+                "direct_losses": [r["loss"] for r in ref],
+                "steps_ms": [r["step_time_s"] * 1e3 for r in hist],
+                "launches": launches,
+                "want_launches": _expected_launches(cfg, steps)})
+    log(f"auto (b): {json.dumps(out)} ({smi})")
+    if coworker["torch_imported"]:
+        raise AssertionError("auto (b): the coworker imported torch")
+    if len(crcs) != steps or [c["source"] for c in crcs] != (
+            ["ring"] * AUTO_RING_STEPS + ["service"] * AUTO_SERVICE_STEPS):
+        raise AssertionError(f"auto (b): {len(crcs)} batches checked")
+    if losses != out["direct_losses"]:
+        raise AssertionError(f"auto (b) losses {losses}, fed directly "
+                             f"{out['direct_losses']}")
+    return out, launches
+
+
+def _auto_search(smi: str) -> tuple:
+    """(c) strategy="auto" at micro 2 under DLROVER_TPU_SEARCH_BUDGET: every
+    candidate's steps/s or error, the pick trains, no kernel error was
+    swallowed and no fallback reached, and the allocator comes back."""
+    import os
+
+    import numpy as np
+
+    from dlrover_tpu_torch.auto import ModelContext, accelerate
+    from dlrover_tpu_torch.auto.engine import acceleration_engine as engine
+    from dlrover_tpu_torch.auto.engine.dry_runner import is_kernel_error
+    from dlrover_tpu_torch.models.llama import (
+        Llama,
+        LlamaConfig,
+        cross_entropy_loss,
+    )
+
+    base = LlamaConfig.llama_1b(max_seq_len=AUTO_SEQ, attn_impl="reference",
+                                norm_impl="fused", embed_impl="gather")
+    factory = functools.partial(Llama, base)
+    sample = np.zeros((AUTO_SEARCH_MICRO, AUTO_SEQ), np.int64)
+
+    def lowered_config(strategy):
+        ctx = accelerate.apply_strategy(
+            ModelContext(factory, sample_batch=sample), strategy)
+        accelerate._edit_model(ctx)
+        return ctx.model_config()
+
+    runs = []
+    real_dry_run, real_fallback = engine.dry_run, engine._fallback_default
+
+    def recorded(context, strategy, warmup=0, steps=0):
+        t0 = time.monotonic()
+        try:
+            speed, err = real_dry_run(context, strategy, warmup, steps)
+        except Exception as e:
+            runs.append({"strategy": [n for n, _ in strategy],
+                         "raised": repr(e)[:300]})
+            raise
+        runs.append({"strategy": [n for n, _ in strategy],
+                     "steps_per_s": speed if err == "" else None,
+                     "error": err[:300], "s": time.monotonic() - t0,
+                     "kernel_error": bool(err) and is_kernel_error(
+                         RuntimeError(err)),
+                     "config": lowered_config(strategy)})
+        return speed, err
+
+    def no_fallback(context):
+        raise AssertionError("auto (c): every candidate failed; the search "
+                             "reached its fallback")
+
+    saved = os.environ.get("DLROVER_TPU_SEARCH_BUDGET")
+    os.environ["DLROVER_TPU_SEARCH_BUDGET"] = str(AUTO_SEARCH_BUDGET)
+    engine.dry_run, engine._fallback_default = recorded, no_fallback
+    _free_memory()
+    before = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.monotonic()
+    try:
+        result = accelerate.auto_accelerate(
+            factory, optim_factory=lambda: _adamw,
+            loss_fn=cross_entropy_loss, sample_batch=sample, strategy="auto",
+            micro_batch=AUTO_SEARCH_MICRO)
+    finally:
+        engine.dry_run, engine._fallback_default = (real_dry_run,
+                                                    real_fallback)
+        if saved is None:
+            os.environ.pop("DLROVER_TPU_SEARCH_BUDGET", None)
+        else:
+            os.environ["DLROVER_TPU_SEARCH_BUDGET"] = saved
+    search_s = time.monotonic() - t0
+    search_launches = read_counts()
+    # the trainer of the pick is built but holds nothing until its init
+    after = torch.cuda.memory_allocated()
+    picked = result.context.model_config()
+    strategy = [n for n, _ in result.strategy]
+    reset_counts()
+    hist, train_launches = _train(
+        picked, AUTO_SEARCH_MICRO, AUTO_SEARCH_TRAIN_STEPS,
+        AUTO_SEARCH_MICRO, trainer=result.trainer)
+    del result
+    _free_memory()
+    ok = [r for r in runs if r.get("error") == ""]
+    want = _sum_counts(
+        *[_expected_launches(r["config"], AUTO_SEARCH_DRY_STEPS)
+          for r in ok],
+        _expected_launches(picked, AUTO_SEARCH_TRAIN_STEPS))
+    launches = _sum_counts(search_launches, train_launches)
+    out = {"budget": AUTO_SEARCH_BUDGET, "micro_batch": AUTO_SEARCH_MICRO,
+           "dry_runs": [{k: v for k, v in r.items() if k != "config"}
+                        for r in runs],
+           "picked": strategy, "search_s": search_s,
+           "memory_before_mib": before / 2 ** 20,
+           "memory_after_mib": after / 2 ** 20,
+           "pick_losses": [r["loss"] for r in hist],
+           "launches": launches, "want_launches": want}
+    log(f"auto (c): {json.dumps(out)} ({smi})")
+    for r in runs:
+        log(f"  auto (c) candidate {r['strategy']}: "
+            + (f"{r['steps_per_s']:.3f} steps/s" if r.get("error") == ""
+               else f"error {r.get('error') or r.get('raised')}"))
+    if not runs or len(runs) > AUTO_SEARCH_BUDGET:
+        raise AssertionError(f"auto (c): {len(runs)} dry runs, want 1 to "
+                             f"{AUTO_SEARCH_BUDGET}")
+    if any(r.get("kernel_error") or "raised" in r for r in runs):
+        raise AssertionError(f"auto (c): a candidate failed on a kernel: "
+                             f"{out['dry_runs']}")
+    if not (len(hist) == AUTO_SEARCH_TRAIN_STEPS
+            and all(math.isfinite(r["loss"]) for r in hist)):
+        raise AssertionError(f"auto (c): the pick {strategy} did not train: "
+                             f"{out['pick_losses']}")
+    if abs(after - before) > AUTO_MEMORY_SLACK:
+        raise AssertionError(f"auto (c): {after / 2 ** 20:.1f} MiB allocated "
+                             f"after the search, {before / 2 ** 20:.1f} MiB "
+                             f"before")
+    return out, launches
+
+
+def phase_auto(smi: str, llama1b: dict, reference_steps: int) -> dict:
+    """auto_accelerate on the card: (a) a strategy's lowering trains the
+    llama1b phase's bits (for ``reference_steps``, the observe phase's
+    reference), (b) the default strategy fed by a coworker through the
+    ring and the service, (c) the search; (d) each part's launches as
+    predicted (see the module docstring)."""
+    import os
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.monotonic()
+    out = {"card": smi}
+    parts = {}
+    out["a"], parts["a"] = _auto_lowering(smi, llama1b, reference_steps)
+    out["b"], parts["b"] = _auto_coworker(smi, repo)
+    out["c"], parts["c"] = _auto_search(smi)
+    for part in ("a", "b", "c"):
+        if out[part]["launches"] != out[part]["want_launches"]:
+            raise AssertionError(f"auto ({part}) launches "
+                                 f"{out[part]['launches']}, want "
+                                 f"{out[part]['want_launches']}")
+    out["launches"] = _sum_counts(*parts.values())
+    out["phase_s"] = time.monotonic() - t0
+    log(f"auto: launches {json.dumps(out['launches'])}, phase "
+        f"{out['phase_s']:.1f} s ({smi})")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3158,8 +3591,9 @@ def phase_observe(smi: str, llama1b: dict) -> dict:
 # -- failover: the master survives its own death ----------------------------
 FAILOVER_KILL_AT = 10
 FAILOVER_SAVE_EVERY = 8
-# steps that must follow the agent's reconnect
-FAILOVER_AFTER_RECONNECT = 10
+# steps that must follow the agent's reconnect (each runs at the
+# degraded period of ROADMAP C1, ≈1.7 s on the card)
+FAILOVER_AFTER_RECONNECT = 5
 # the agent's poll cadence, cut from its 5 s default, and the deadline of
 # every master RPC of the agent and the worker, cut from 30 s: an RPC to
 # a dead master waits out its whole deadline (the channel waits for a
@@ -4183,19 +4617,21 @@ NANOGPT_WORKER = ["dlrover_tpu_torch/examples/nanogpt_train.py", "--config",
 
 
 def _example_run(repo: str, tmp: str, steps: int, tag: str,
-                 agent_tmp: str, worker=None, what: str = "models") -> list:
-    """``python -m dlrover_tpu_torch.run --standalone`` around an example
-    worker (``worker``: its script and arguments, NANOGPT_WORKER by
-    default) for ``steps`` steps with a save every 3 into ``tmp``, the
-    agent's work directory (its peer cache) in ``agent_tmp``; returns the
-    worker's log lines and prints the agent's marks. Fails unless the
-    agent exits 0."""
+                 agent_tmp: str, worker=None, what: str = "models",
+                 run_args: tuple = (), agent_log: list = None) -> list:
+    """``python -m dlrover_tpu_torch.run --standalone`` (with
+    ``run_args``) around an example worker (``worker``: its script and
+    arguments, NANOGPT_WORKER by default) for ``steps`` steps with a save
+    every 3 into ``tmp``, the agent's work directory (its peer cache) in
+    ``agent_tmp``; returns the worker's log lines (and extends
+    ``agent_log`` with the agent's) and prints the agent's marks. Fails
+    unless the agent exits 0."""
     import os
     import re
 
     ckpt, log_file = os.path.join(tmp, "ckpt"), os.path.join(tmp, "log")
     cmd = [sys.executable, "-m", "dlrover_tpu_torch.run", "--standalone",
-           "--monitor-interval", "1", *(worker or NANOGPT_WORKER),
+           "--monitor-interval", "1", *run_args, *(worker or NANOGPT_WORKER),
            "--steps", str(steps), "--save-interval", "3", "--ckpt-dir", ckpt,
            "--log-file", log_file]
     env = dict(os.environ, PYTHONPATH=repo, TMPDIR=agent_tmp)
@@ -4214,7 +4650,10 @@ def _example_run(repo: str, tmp: str, steps: int, tag: str,
     elapsed = time.time() - t0
     # the first of each mark, the last commit
     marks = {}
-    for t, text in _agent_lines(err):
+    agent_lines = _agent_lines(err)
+    if agent_log is not None:
+        agent_log.extend(agent_lines)
+    for t, text in agent_lines:
         for key, pattern in (("spawned", r"^spawning worker"),
                              ("loop built", r"^elastic loop: device"),
                              ("first step", r"^step \d+ loss"),
@@ -4236,6 +4675,71 @@ def _example_run(repo: str, tmp: str, steps: int, tag: str,
         raise AssertionError(f"{what} example {tag} exited {rc}:\n"
                              f"{err_tail}")
     return lines
+
+
+def _network_check_rounds(agent_lines: list, smi: str) -> dict:
+    """The network check in an agent's log: two rounds, both normal,
+    before the worker was spawned; each round's timed window and the
+    probe's time, and the check's whole time."""
+    import re
+
+    rounds, probe_s, total_s = [], [], None
+    t_rounds, t_spawn = [], None
+    for t, text in agent_lines:
+        m = re.match(r"network check round (\d+): normal=(\w+) "
+                     r"elapsed=([\d.]+)s", text)
+        if m:
+            rounds.append({"round": int(m.group(1)),
+                           "normal": m.group(2) == "True",
+                           "elapsed_s": float(m.group(3))})
+            t_rounds.append(t)
+        m = re.match(r"network check: the probe's round .* took ([\d.]+) s",
+                     text)
+        if m:
+            probe_s.append(float(m.group(1)))
+        m = re.match(r"network check: \d+ rounds in ([\d.]+) s", text)
+        if m:
+            total_s = float(m.group(1))
+        if t_spawn is None and text.startswith("spawning worker"):
+            t_spawn = t
+    out = {"rounds": rounds, "probe_round_s": probe_s,
+           "check_s": total_s}
+    log(f"models network check: {json.dumps(out)} ({smi})")
+    if ([r["round"] for r in rounds] != [0, 1]
+            or not all(r["normal"] for r in rounds)):
+        raise AssertionError(f"the network check's rounds: {rounds}")
+    if t_spawn is None or max(t_rounds) > t_spawn:
+        raise AssertionError("the worker was not spawned after the network "
+                             "check's rounds")
+    return out
+
+
+def _example_against_direct(agent_lines: list, smi: str) -> dict:
+    """The example's steps, as its loop logged them in both launches,
+    against the same steps built directly in this process (GPT-2 small,
+    the example's batch, seq, optimizer and data): the same losses and
+    grad norms, bit for bit."""
+    import re
+
+    from dlrover_tpu_torch.models.gpt import GPT, GPTConfig
+
+    logged = {}
+    for _, text in agent_lines:
+        m = re.match(r"step (\d+) loss (\S+) grad_norm (\S+) ", text)
+        if m:
+            logged[int(m.group(1))] = (float(m.group(2)), float(m.group(3)))
+    reset_counts()
+    hist, _ = _train(GPTConfig(), EXAMPLE_BATCH, EXAMPLE_RESUMED_STEPS, 8,
+                     model_cls=GPT, seq=GPT2_SEQ)
+    direct = {r["step"]: (r["loss"], r["grad_norm"]) for r in hist}
+    same = {n: logged.get(n) == direct[n] for n in direct}
+    log(f"models example against the direct build: {json.dumps(same)} "
+        f"({smi})")
+    if sorted(logged) != sorted(direct) or not all(same.values()):
+        raise AssertionError(f"the example's steps {logged}, built directly "
+                             f"{direct}")
+    torch.cuda.empty_cache()
+    return same
 
 
 def phase_models(smi: str, profile: str = "") -> dict:
@@ -4275,14 +4779,19 @@ def phase_models(smi: str, profile: str = "") -> dict:
         state_bytes = 3 * 4 * out["gpt2"]["params"]
         agent_tmps = [peer_root(state_bytes, tmp, smi, "models example")
                       for _ in range(2)]
+        # the first launch runs the network check's probe on the card
+        # before its worker
+        agent_first, agent_second = [], []
         first = _example_run(repo, tmp, EXAMPLE_STEPS, "first",
-                             agent_tmps[0])
+                             agent_tmps[0], run_args=("--network-check",),
+                             agent_log=agent_first)
         if not any(line.startswith(f"nanogpt: done step={EXAMPLE_STEPS} ")
                    for line in first):
             raise AssertionError(f"the example did not finish step "
                                  f"{EXAMPLE_STEPS}: {first}")
+        out["network_check"] = _network_check_rounds(agent_first, smi)
         second = _example_run(repo, tmp, EXAMPLE_RESUMED_STEPS, "resumed",
-                              agent_tmps[1])
+                              agent_tmps[1], agent_log=agent_second)
         new = second[len(first):]
         if not any(line.startswith(f"nanogpt: start_step={EXAMPLE_STEPS} ")
                    for line in new):
@@ -4293,6 +4802,8 @@ def phase_models(smi: str, profile: str = "") -> dict:
                 for line in new):
             raise AssertionError(f"the resumed example did not finish "
                                  f"step {EXAMPLE_RESUMED_STEPS}: {new}")
+        out["example_bits"] = _example_against_direct(
+            agent_first + agent_second, smi)
     finally:
         for path in agent_tmps + [tmp]:
             shutil.rmtree(path, ignore_errors=True)
@@ -6364,14 +6875,15 @@ def phase_brain(smi: str, device: str = "cuda") -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases",
-                        default="kernels,quant,parity,llama1b,resume,"
-                                "standalone,faults,observe,failover,replan,"
-                                "models,llama7b,moe,pipeline,embedding,brain",
+                        default="kernels,quant,parity,llama1b,auto,"
+                                "resume,standalone,faults,observe,failover,"
+                                "replan,models,llama7b,moe,pipeline,"
+                                "embedding,brain",
                         help="comma-separated subset of kernels, quant, "
-                             "parity, llama1b, resume, standalone, faults, "
-                             "observe, failover, replan, models, llama7b, "
-                             "moe, pipeline, embedding, brain (device and "
-                             "build always run)")
+                             "parity, llama1b, auto, resume, standalone, "
+                             "faults, observe, failover, replan, models, "
+                             "llama7b, moe, pipeline, embedding, brain "
+                             "(device and build always run)")
     parser.add_argument("--profile", default="",
                         help="after the Llama-1B run, profile one more "
                              "step and write the kernel table here (and "
@@ -6413,6 +6925,17 @@ def main(argv=None) -> int:
         for rec in train_records:
             rec["launches"] = launches[rec["name"]]
         lap("llama1b")
+    if "auto" in phases:
+        # auto_accelerate's three runs: (a) the lowered strategy, (b) the
+        # coworker-fed default strategy, (c) the search's dry runs and
+        # its pick's steps, summed
+        # (a) trains as long as the observe phase's reference, which it
+        # then is
+        auto = phase_auto(smi, llama1b, OBSERVE_STEPS
+                          if "observe" in phases else AUTO_STEPS)
+        for rec in train_records + quant_records:
+            rec["auto_launches"] = auto["launches"][rec["name"]]
+        lap("auto")
     resume = {}
     if "resume" in phases:
         # the quantization pair's path: the int8 checkpoint's save and

@@ -155,3 +155,12 @@ class PrefetchAutoTuner:
             else:
                 self._calm_windows = 0
             return self._depth
+
+    def ring_capacity(self, base_capacity: int = 64 << 20) -> int:
+        """The ``ShmDataContext`` ring capacity for the current depth:
+        the default depth's (2) capacity scaled with the depth, so a
+        deeper prefetch window never stalls its producers on a full
+        ring. Advisory: read when a ring is (re)built, never live."""
+        with self._lock:
+            scale = max(1, self._depth) / 2.0
+        return int(base_capacity * max(1.0, scale))

@@ -4,10 +4,13 @@ The port's counterpart of the JAX package's ``examples/nanogpt/train.py``,
 with the same command line, corpus and batches (the same tokens for the
 same sampler seed): ``python -m dlrover_tpu_torch.run --standalone``
 starts a local master and agent; the agent spawns this worker, which
-joins the round's process group, trains a GPT through
-``ElasticTrainLoop`` with a flash checkpoint (sampler position
-included), and reports to the master when ``DLROVER_TPU_MASTER_ADDR``
-is set. ``--config nano`` (the default, as in the JAX example) is the
+joins the round's process group, builds a GPT through ``auto_accelerate``
+(``["amp", "module_replace"]``: bf16 compute over f32 weights, the flash
+kernels on the card and the plain attention on the CPU, over a
+data-parallel mesh of the world, each micro batch at most 8 rows a
+rank, as the loop's own build), trains it through ``ElasticTrainLoop``
+with a flash checkpoint (sampler position included), and reports to the
+master when ``DLROVER_TPU_MASTER_ADDR`` is set. ``--config nano`` (the default, as in the JAX example) is the
 4-layer, 128-wide GPT; ``--config gpt2`` is GPT-2 small (12 × 768,
 vocabulary 50304). Attention runs through the flash kernels on the card
 and the plain path on the CPU.
@@ -44,6 +47,9 @@ from dlrover_tpu_torch.trainer.synthetic import (  # noqa: E402
 
 __all__ = ["batches", "main", "parse_args", "synthetic_corpus"]
 
+# rows a micro batch holds on each rank at most (TrainLoopConfig's default)
+MAX_MICRO = 8
+
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser("nanogpt-train")
@@ -65,9 +71,12 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     device = "cpu" if args.device == "cpu" else None
 
+    import numpy as np
     import torch
+    import torch.distributed as dist
 
     from dlrover_tpu_torch.agent.elastic_agent import init_distributed
+    from dlrover_tpu_torch.auto import auto_accelerate
     from dlrover_tpu_torch.models.gpt import GPT, GPTConfig
     from dlrover_tpu_torch.models.llama import cross_entropy_loss
     from dlrover_tpu_torch.trainer.elastic_loop import (
@@ -77,9 +86,17 @@ def main(argv=None) -> int:
     from dlrover_tpu_torch.trainer.sampler import ElasticDistributedSampler
 
     init_distributed(device)   # joins the round's process group
-    attn_impl = "reference" if device == "cpu" else "flash"
-    cfg = (GPTConfig(attn_impl=attn_impl) if args.config == "gpt2"
-           else GPTConfig.nano(attn_impl=attn_impl))
+    cfg = GPTConfig() if args.config == "gpt2" else GPTConfig.nano()
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    result = auto_accelerate(
+        functools.partial(GPT, cfg),
+        optim_factory=lambda: lambda p: torch.optim.AdamW(
+            p, lr=args.lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.1),
+        loss_fn=cross_entropy_loss,
+        sample_batch=np.zeros((1, args.seq), np.int64),
+        strategy=["amp", "module_replace"],
+        global_batch=args.global_batch, micro_batch=MAX_MICRO,
+        devices=None if device is None else [device] * world)
 
     client = None
     if os.environ.get("DLROVER_TPU_MASTER_ADDR"):
@@ -88,20 +105,21 @@ def main(argv=None) -> int:
         client = MasterClient.singleton()
 
     loop = ElasticTrainLoop(
-        functools.partial(GPT, cfg),
-        lambda p: torch.optim.AdamW(p, lr=args.lr, betas=(0.9, 0.999),
-                                    eps=1e-8, weight_decay=0.1),
+        result.model,
+        None,                   # the optimizer lives in the trainer
         cross_entropy_loss,
         TrainLoopConfig(
             global_batch=args.global_batch,
             seq_len=args.seq,
             max_steps=args.steps,
+            max_micro_per_replica=MAX_MICRO,
             checkpoint_dir=args.ckpt_dir,
             save_interval_steps=args.save_interval,
             report_interval_steps=10,
         ),
         master_client=client,
         device=device,
+        trainer=result.trainer,
     )
     loop.install_signal_handler()
 

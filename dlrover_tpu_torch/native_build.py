@@ -1,5 +1,6 @@
 """Build and load the native host library (the reconciler core, the shm
-ring and the host custom ops).
+ring and the host custom ops), with every entry point's argument and
+result types bound.
 
 The port's own loader of ``native/{shm_ring,reconciler,custom_op}.cpp``:
 on first use ``g++`` compiles them with ``native/Makefile``'s flags into
@@ -68,8 +69,11 @@ def build() -> Path:
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [cxx, *CXX_FLAGS, *(str(NATIVE_DIR / s) for s in SOURCES),
            "-o", str(tmp), *LD_FLAGS]
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          timeout=300)
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=300)
+    except OSError as e:
+        raise NativeBuildError(f"cannot run {cxx}: {e}") from e
     if proc.returncode != 0:
         raise NativeBuildError(
             f"g++ failed ({proc.returncode}): {' '.join(cmd)}\n"
@@ -86,9 +90,41 @@ def load_native() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         lib = ctypes.CDLL(str(build()))
-        lib.reconciler_abi_version.restype = ctypes.c_int32
+        _bind(lib)
         _lib = lib
         return _lib
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    """The argument and result types of every entry point a consumer
+    calls: the reconciler's (``operator/native.py``), the shm ring's
+    (``data/shm_ring.py``) and the host ops' (``ops/host_ops.py``), as
+    the JAX package's loader sets them."""
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.reconciler_abi_version.restype = ctypes.c_int32
+    lib.shm_ring_open.restype = ctypes.c_void_p
+    lib.shm_ring_open.argtypes = [ctypes.c_char_p, ctypes.c_uint32,
+                                  ctypes.c_int]
+    lib.shm_ring_capacity.restype = ctypes.c_uint32
+    lib.shm_ring_capacity.argtypes = [ctypes.c_void_p]
+    lib.shm_ring_push.restype = ctypes.c_int
+    lib.shm_ring_push.argtypes = [ctypes.c_void_p, u8p, ctypes.c_uint32,
+                                  ctypes.c_int64]
+    lib.shm_ring_next_len.restype = ctypes.c_int64
+    lib.shm_ring_next_len.argtypes = [ctypes.c_void_p]
+    lib.shm_ring_pop.restype = ctypes.c_int64
+    lib.shm_ring_pop.argtypes = [ctypes.c_void_p, u8p, ctypes.c_uint32,
+                                 ctypes.c_int64]
+    lib.shm_ring_mark_closed.restype = None
+    lib.shm_ring_mark_closed.argtypes = [ctypes.c_void_p]
+    lib.shm_ring_close.restype = None
+    lib.shm_ring_close.argtypes = [ctypes.c_void_p]
+    lib.dlrover_tpu_crc32.restype = ctypes.c_uint32
+    lib.dlrover_tpu_crc32.argtypes = [u8p, ctypes.c_uint64, ctypes.c_uint32]
+    lib.dlrover_tpu_token_histogram.restype = ctypes.c_uint64
+    lib.dlrover_tpu_token_histogram.argtypes = [
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_uint64,
+        ctypes.POINTER(ctypes.c_uint64), ctypes.c_uint32, ctypes.c_int]
 
 
 def main() -> int:

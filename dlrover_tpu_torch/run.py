@@ -19,8 +19,13 @@ finds the master through the bootstrap file a master started with
 ``--bootstrap-file B`` publishes, as its master-lost reconnect does; the
 worker inherits the file's path through the environment.
 
-Not ported yet: ``--slice-id`` (ROADMAP Queue A item 6.4) and
-``--network-check`` with ``--exclude-straggler`` (item 11).
+``--network-check`` runs the 2-round probe of
+``diagnostics/network_check.py`` before the worker starts, on the card
+unless ``--device cpu`` asks for the CPU; a node the master finds faulty
+(or, with ``--exclude-straggler``, a straggler) does not train, and the
+agent exits 3.
+
+Not ported yet: ``--slice-id`` (ROADMAP Queue A item 6.4).
 """
 
 from __future__ import annotations
@@ -64,6 +69,17 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         default=DefaultValues.MONITOR_INTERVAL_S)
     parser.add_argument("--devices-per-node", type=int, default=0,
                         help="local card count (0 = detect)")
+    parser.add_argument("--network-check", action="store_true",
+                        help="run the card and fabric probe before "
+                             "training (reference: dlrover-run "
+                             "--network-check)")
+    parser.add_argument("--exclude-straggler", action="store_true",
+                        help="exit instead of training when this node is "
+                             "flagged as a straggler by the probe")
+    parser.add_argument("--device", choices=("cuda", "cpu"),
+                        default="cuda",
+                        help="where the network check's probe runs (the "
+                             "worker script takes its own)")
     parser.add_argument("--node-unit", type=int, default=1)
     parser.add_argument("--no-python", action="store_true",
                         help="run the entrypoint as a raw command")
@@ -131,6 +147,18 @@ def run(args: argparse.Namespace) -> int:
     )
     agent = ElasticAgent(client, spec)
     try:
+        if args.network_check:
+            from dlrover_tpu_torch.diagnostics.network_check import (
+                run_network_check,
+            )
+
+            ok = run_network_check(
+                client, devices, exclude_straggler=args.exclude_straggler,
+                device="cpu" if args.device == "cpu" else None)
+            if not ok:
+                logger.error("network check verdict: this node must not "
+                             "join training")
+                return 3
         return agent.run()
     finally:
         agent.shutdown()

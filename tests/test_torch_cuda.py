@@ -5,8 +5,10 @@ master observes of it (the allocator telemetry, a profiler capture
 naming the kernels, an agent that never opens the card), a worker on
 the card training through a standby's promotion, the kernels under
 remat, the streaming step and the device prefetch, the MoE model's
-kernels, the pipelined trainer's, and the elastic embedding step
-against its CPU run. Every test is marked
+kernels, the pipelined trainer's, the elastic embedding step
+against its CPU run, auto_accelerate's lowering to the kernels, the
+search's dry runs giving the card back, and the coworker ring's batches
+under the checksum op. Every test is marked
 ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false. This file imports no JAX, so it
 also runs on a machine without it:
@@ -997,3 +999,104 @@ def test_embedding_step_on_the_card_matches_the_plain_path(cuda):
     untouched = rows // 2
     assert torch.equal(card[2][untouched:], card[1][untouched:])
     assert bool((card[3][untouched:] == 0.1).all())
+
+
+# ---------------------------------------------------------------------------
+# auto_accelerate, the search's dry runs and the coworker ring on the card
+# ---------------------------------------------------------------------------
+
+
+def _small_llama(**kw):
+    import dataclasses
+
+    return dataclasses.replace(
+        LlamaConfig.llama_1b(max_seq_len=256, attn_impl="reference",
+                             **kw), num_layers=2, vocab_size=1024)
+
+
+def test_auto_accelerate_lowers_to_the_kernels_and_trains_the_direct_bits(
+        cuda):
+    """``["amp", "module_replace"]`` on the card sets the flash kernels
+    (the config asked for the plain attention) and trains the bits of
+    the same trainer built directly."""
+    import functools
+
+    import numpy as np
+
+    from dlrover_tpu_torch.auto import auto_accelerate
+    from dlrover_tpu_torch.trainer.train_step import build_trainer
+
+    def adamw(p):
+        return torch.optim.AdamW(p, lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=0.1)
+
+    result = auto_accelerate(
+        functools.partial(Llama, _small_llama()), optim_factory=lambda: adamw,
+        loss_fn=cross_entropy_loss, sample_batch=np.zeros((2, 256), np.int64),
+        strategy=["amp", "module_replace"], micro_batch=2)
+    cfg = result.context.model_config()
+    assert cfg.attn_impl == "flash" and result.trainer.device.type == "cuda"
+    direct = build_trainer(functools.partial(Llama, cfg), adamw, None,
+                           np.zeros((2, 256)), cross_entropy_loss,
+                           micro_batch=2)
+    tokens = np.random.default_rng(0).integers(0, 1024, (2, 256))
+    losses = []
+    for trainer in (result.trainer, direct):
+        state = trainer.init(0)
+        fa.reset_launch_counts()
+        run = [trainer.step(state, *trainer.shard_batch(tokens, tokens))[1]
+               ["loss"].item() for _ in range(2)]
+        torch.cuda.synchronize()
+        assert fa.launch_counts == {"flash_fwd": 4, "flash_bwd_dq": 4,
+                                    "flash_bwd_dkv": 4}
+        losses.append(run)
+        del state
+    assert losses[0] == losses[1]
+
+
+def test_dry_run_gives_the_card_back(cuda):
+    """A dry run, good or out of memory, leaves the allocator where it
+    found it."""
+    import functools
+
+    import numpy as np
+
+    from dlrover_tpu_torch.auto import ModelContext
+    from dlrover_tpu_torch.auto.engine.dry_runner import dry_run
+
+    context = ModelContext(functools.partial(Llama, _small_llama()),
+                           loss_fn=cross_entropy_loss,
+                           sample_batch=np.zeros((2, 256), np.int64))
+    before = torch.cuda.memory_allocated()
+    speed, err = dry_run(context, [("half", {}), ("module_replace", {})],
+                         warmup=1, steps=2)
+    assert speed > 0 and err == ""
+    assert torch.cuda.memory_allocated() - before < 64 << 20
+    # a batch far past the card's memory: scored, not raised
+    huge = ModelContext(functools.partial(Llama, _small_llama()),
+                        loss_fn=cross_entropy_loss,
+                        sample_batch=np.zeros((1, 256), np.int64))
+    huge.plan.micro_batch = 1 << 16
+    speed, err = dry_run(huge, [("amp", {})], warmup=1, steps=1)
+    assert speed == float("-inf") and "memory" in err.lower()
+    assert torch.cuda.memory_allocated() - before < 64 << 20
+
+
+def test_ring_batches_pass_the_checksum_op_on_the_card(cuda):
+    import numpy as np
+
+    from dlrover_tpu_torch.data.shm_ring import ShmRing
+    from dlrover_tpu_torch.ops.host_ops import checksum, crc32
+
+    rng = np.random.default_rng(0)
+    with ShmRing(capacity=1 << 20) as ring:
+        reader = ShmRing(ring.name, owner=False)
+        for _ in range(3):
+            tokens = rng.integers(0, 32000, (8, 256), dtype=np.int64)
+            ring.push({"tokens": tokens, "crc": crc32(tokens)})
+            got = reader.pop(timeout_s=5)
+            dev = torch.from_numpy(got["tokens"]).to(cuda)
+            crc = checksum(dev)
+            assert crc.device == dev.device
+            assert int(crc) == got["crc"]
+        reader.close()

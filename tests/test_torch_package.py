@@ -87,13 +87,23 @@ SLICE_7B_MODULES = ("optim/base.py", "optim/factored.py", "optim/agd.py",
 # and the worker script
 SLICE_MOE_MODULES = ("parallel/moe.py", "models/llama_moe.py",
                      "optim/adafactor.py", "examples/moe_train.py")
+# the auto-acceleration, network-check and data-plane slice's modules
+SLICE_AUTO_MODULES = (
+    "auto/__init__.py", "auto/strategy.py", "auto/model_context.py",
+    "auto/accelerate.py", "auto/opt_lib/__init__.py",
+    "auto/opt_lib/library.py", "auto/engine/__init__.py",
+    "auto/engine/analyser.py", "auto/engine/planner.py",
+    "auto/engine/sg_algo.py", "auto/engine/dry_runner.py",
+    "auto/engine/acceleration_engine.py", "diagnostics/network_check.py",
+    "ops/host_ops.py", "data/shm_ring.py", "data/coworker.py",
+    "examples/streaming_train.py")
 
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     sources = _port_sources()
     assert len(sources) > 10
     for name in (FAULT_MODULES + REPLAN_MODULES + SLICE_7B_MODULES
-                 + SLICE_MOE_MODULES):
+                 + SLICE_MOE_MODULES + SLICE_AUTO_MODULES):
         assert PACKAGE / name in sources, name
     for path in sources:
         bad = _imported_roots(path) & FORBIDDEN
@@ -115,7 +125,9 @@ def test_importing_the_port_loads_no_jax():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
     assert "dlrover_tpu_torch.trainer.elastic_loop" in modules
     for name in (FAULT_MODULES + REPLAN_MODULES + SLICE_7B_MODULES
-                 + SLICE_MOE_MODULES):
+                 + SLICE_MOE_MODULES + SLICE_AUTO_MODULES):
+        if name.endswith("__init__.py"):
+            continue
         module = "dlrover_tpu_torch." + name[:-3].replace("/", ".")
         assert module in modules, module
 
