@@ -22,11 +22,12 @@ Phases (each one's failure ends the run with a nonzero exit):
            MoE (b 4, h 32 over 8 KV heads, s 2048, d 128, causal; the
            norms at 8192 rows of 4096) and pipeline (Llama-1B's
            microbatch of 2: b 2, h 16, s 2048, d 128, causal; the norms
-           at 4096 rows of 2048) shapes, with
+           at 4096 rows of 2048) shapes, and at the sp phase's ring block
+           (b 1, h 16, s 2048, d 128, no mask), with
            stated tolerances, and o, dQ, dK and dV the same bits in a
            second call; time kernel, plain version and the library
            yardstick (SDPA, F.rms_norm) at the slice shape and at the
-           five model shapes
+           six model shapes
   quant    the quantization API (quantize, dequantize, swizzled,
            quant_reduce) on a Llama-1B gate_proj gradient, int8 and int4,
            bf16 input, group 8, zero and tie groups: every output equals
@@ -411,6 +412,41 @@ Phases (each one's failure ends the run with a nonzero exit):
            Running, a ScalePlan relayed to the phase's master; the pod
            scaler's worker pods request nvidia.com/gpu. Each flash kernel
            launches 22 times and each norm kernel 45 a step a replica
+  sp       sequence parallelism (parallel/ring_attention.py) and the
+           quantized gradient mean (parallel/quant_collectives.py) over two
+           rank processes that share the card in one gloo group (NCCL
+           puts no two ranks on one card; gloo moves a CUDA tensor through
+           page-locked host memory, parallel/collectives.py). The ranks
+           are spawned when the script starts: they import torch and the
+           port, join the group and wait at a gate file, which opens after
+           this process has trained the one-process reference and freed
+           it. (a) Llama-1B's attention (b 1, 16 heads of 128, 4096 tokens
+           as 2 × 2048), causal and not: each rank's output, dQ, dK and dV
+           of the ring over the flash kernels and of Ulysses (the kernels
+           on 8 heads over the whole sequence) within the flash tolerance
+           (the kernels phase's rule) of the same shards of the
+           one-process kernels on the whole sequence, and within its
+           relative L2 limit of the plain (einsum) ring on the same
+           inputs, which rounds at other points (f32 P and dS);
+           the causal ring's rank r launches r + 1 forward, dQ and dK/dV
+           kernels, the full ring 2 of each, Ulysses 1. (b) Llama-1B at
+           full width and depth (22 layers, hidden 2048; flash blocks,
+           fused norm, gather embedding, AdamW(3e-4, wd 0.1)) at seq 4096
+           and micro 1 over sequence 2, 3 steps with the ring and 3 with
+           Ulysses through build_trainer from the seed-0 init, against
+           the same rows trained at seq 4096 by this process alone with
+           attn_impl="flash": each step's loss within the parity phase's
+           2e-2 and its grad norm within 1e-2 relative; prints each step's
+           time, each rank's allocator peak and the host staging's seconds
+           a step; each rank's launches as predicted (the ring's rank r
+           22·(r + 1) of each flash kernel a step, Ulysses 22, the norms
+           45). (c) quantized_pmean over one Llama-1B block's gradient
+           leaves (q, k, v, o, gate, up, down, both norms: 50.6M values,
+           each rank's from its own seed) in gather and scatter mode at 8
+           and 4 bits: the kernels' result equals the plain versions' (the
+           same collective on CPU copies) bit for bit and is within the
+           reference's bound of the exact mean; a quantize and a dequantize
+           launch a leaf in gather mode, two of each in scatter
 
 Each phase's seconds are printed before the elapsed time. The line
 before the last is the kernels' JSON record (the quantization
@@ -427,9 +463,12 @@ its "pipeline_launches" the pipeline phase's run (a), its
 "auto_launches" the auto phase's (a)-(c), its
 "embedding_launches" the embedding phase's steps, reconcile and replay
 (none of the kernels is on that path: 0), its "brain_launches" the
-brain phase's two replicas' steps;
+brain phase's two replicas' steps, its "sp_launches" the sp phase's
+two ranks' (b) runs and (c) means;
 each flash kernel's "at_gpt2", "at_bert", "at_llama7b",
-"at_mixtral" and "at_pipeline", and each norm kernel's "at_llama7b"
+"at_mixtral", "at_pipeline" and "at_ring_block" (the sp phase's ring
+block without the mask: b 1, h 16, s 2048, d 128), and each norm
+kernel's "at_llama7b"
 (4096 rows of 4096), "at_mixtral" (8192 rows of 4096) and
 "at_pipeline" (4096 rows of 2048), hold its times, bound and error
 at those shapes); the last line is {"ok": true,
@@ -520,6 +559,11 @@ MODEL_SHAPES = {
     # Llama-1B's through the pipeline phase: microbatches of 2 rows
     "pipeline": dict(b=2, h=16, h_kv=16, s_q=2048, s_k=2048, d=128,
                      causal=True),
+    # the ring's off-diagonal block of Llama-1B at seq 4096 over sequence
+    # 2 (the sp phase): a shard's queries against an earlier shard's keys,
+    # no mask
+    "ring_block": dict(b=1, h=16, h_kv=16, s_q=2048, s_k=2048, d=128,
+                       causal=False),
 }
 # kernels that must not spill: the warp-specialised ones, whose consumer
 # warpgroups run at 240 registers under setmaxnreg
@@ -1710,7 +1754,7 @@ def _auto_search(smi: str) -> tuple:
     def lowered_config(strategy):
         ctx = accelerate.apply_strategy(
             ModelContext(factory, sample_batch=sample), strategy)
-        accelerate._edit_model(ctx)
+        accelerate._edit_model(ctx, accelerate.plan_mesh_spec(ctx))
         return ctx.model_config()
 
     runs = []
@@ -6872,17 +6916,599 @@ def phase_brain(smi: str, device: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# sp: sequence parallelism and the quantized gradient mean
+# ---------------------------------------------------------------------------
+
+SP_SEQ = 4096                 # Llama-1B's tokens a row, 2 × 2048
+SP_RANKS = 2
+SP_STEPS = 3
+SP_IMPLS = ("ring", "ulysses")
+SP_ATTN = dict(b=1, h=16, s=SP_SEQ, d=128)
+# (b) each step's loss and grad norm against the one-process run: the
+# parity phase's limits (bf16 attention outputs rounded at other points)
+SP_LOSS_TOL = PARITY_LOSS_TOL
+SP_GRAD_NORM_TOL = PARITY_GRAD_NORM_TOL
+# (c) one Llama-1B block's gradient leaves: q, k, v, o, gate, up, down and
+# the two norm scales (50.6M values)
+SP_BLOCK_LEAVES = ((2048, 2048),) * 4 + ((2048, 5504), (2048, 5504),
+                                         (5504, 2048), (2048,), (2048,))
+SP_QUANT = (("gather", 8), ("gather", 4), ("scatter", 8), ("scatter", 4))
+
+SP_WORKER = r'''
+import functools, json, os, sys, time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+rank, port, gate = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+spec = json.loads(sys.argv[4])
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        rank=rank, world_size=spec["ranks"])
+from dlrover_tpu_torch.models.llama import Llama, LlamaConfig, cross_entropy_loss
+from dlrover_tpu_torch.ops import flash_attention as fa
+from dlrover_tpu_torch.ops import norms, quantization
+from dlrover_tpu_torch.parallel import collectives
+from dlrover_tpu_torch.parallel import ring_attention as ra
+from dlrover_tpu_torch.parallel.mesh import MeshSpec, create_mesh
+from dlrover_tpu_torch.parallel.quant_collectives import quantized_pmean
+from dlrover_tpu_torch.trainer.train_step import build_trainer
+print(json.dumps({"part": "ready", "rank": rank}), flush=True)
+while not os.path.exists(gate):
+    time.sleep(0.05)
+dev = spec["device"]
+if dev == "cuda":
+    torch.cuda.set_device(0)
+MODULES = (fa, norms, quantization)
+group = dist.group.WORLD
+size = dist.get_world_size()
+# the world's lanes for (a)'s and (c)'s host-staged collectives (the
+# trainer gives its own groups theirs)
+collectives.set_lanes(group, [dist.new_group(backend="gloo")
+                              for _ in range(collectives.STAGE_LANES)])
+
+
+def reset():
+    for m in MODULES:
+        m.reset_launch_counts()
+
+
+def counts():
+    out = {}
+    for m in MODULES:
+        out.update(m.launch_counts)
+    return out
+
+
+def emit(**record):
+    print(json.dumps(dict(record, rank=rank)), flush=True)
+
+
+def sync():
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def config(impl):
+    return getattr(LlamaConfig, spec["model"])(
+        max_seq_len=spec["seq"], attn_impl=impl, norm_impl="fused",
+        embed_impl="gather")
+
+
+def attention_part():
+    """(a) the kernels in the ring and in Ulysses against the one-process
+    kernels on the whole sequence and the plain ring."""
+    a = spec["attn"]
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v, do = (torch.randn(a["b"], a["s"], a["h"], a["d"], generator=g,
+                               device=dev).bfloat16() for _ in range(4))
+    local = a["s"] // size
+    mine = slice(rank * local, (rank + 1) * local)
+
+    def run(fn, causal, block_impl):
+        ql, kl, vl = (t[:, mine].clone().requires_grad_() for t in (q, k, v))
+        o = fn(ql, kl, vl, group, causal=causal, block_impl=block_impl)
+        o.backward(do[:, mine])
+        return [o.detach(), ql.grad, kl.grad, vl.grad]
+
+    for causal in (True, False):
+        qf, kf, vf = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        of = fa.FlashAttentionFn.apply(qf, kf, vf, causal, None)
+        of.backward(do.transpose(1, 2).contiguous())
+        whole = [t.transpose(1, 2)[:, mine].contiguous()
+                 for t in (of.detach(), qf.grad, kf.grad, vf.grad)]
+        for kind, fn in (("ring", ra.ring_attention),
+                         ("ulysses", ra.ulysses_attention)):
+            plain = run(fn, causal, "einsum")
+            sync()
+            reset()
+            t0 = time.perf_counter()
+            got = run(fn, causal, "flash")
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            launched = counts()
+            errors = {}
+            for name, x, w1, w2 in zip(("o", "dq", "dk", "dv"), got, whole,
+                                       plain):
+                errors[name] = {"one_process": fa.bf16_error(x, w1),
+                                "plain_ring": fa.bf16_error(x, w2)}
+            emit(part="a", kind=kind, causal=causal, errors=errors,
+                 launches=launched, ms=ms,
+                 expected=ra.expected_launches(size, rank, causal, kind))
+
+
+def training_part(impl, batches):
+    """(b) Llama-1B at the sequence axis's full length, ``impl``
+    attention, a step a batch."""
+    cfg = config(impl)
+    mesh = create_mesh(MeshSpec(sequence=size), device=dev)
+
+    def adamw(params):
+        return torch.optim.AdamW(params, lr=3e-4, betas=(0.9, 0.999),
+                                 eps=1e-8, weight_decay=0.1)
+
+    trainer = build_trainer(functools.partial(Llama, cfg), adamw, mesh,
+                            np.zeros((1, spec["seq"])), cross_entropy_loss,
+                            micro_batch=1)
+    state = trainer.init(0)
+    sync()
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    steps = []
+    reset()
+    for tokens, targets in batches:
+        collectives.reset_staging_seconds()
+        t0 = time.perf_counter()
+        state, m = trainer.step(state, *trainer.shard_batch(tokens, targets))
+        loss, norm = m["loss"].item(), m["grad_norm"].item()
+        steps.append({"loss": loss, "grad_norm": norm,
+                      "ms": (time.perf_counter() - t0) * 1e3,
+                      "staging_s": dict(collectives.staging_seconds)})
+    launched = counts()
+    emit(part="b", impl=impl, steps=steps, launches=launched,
+         peak_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                   if dev == "cuda" else 0.0))
+    del state, trainer
+    import gc
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+
+def leaves_of(member):
+    g = torch.Generator(device=dev).manual_seed(1000 + member)
+    return [torch.randn(*shape, generator=g, device=dev)
+            for shape in spec["leaves"]]
+
+
+def quant_part():
+    """(c) the quantized mean of one Llama-1B block's gradient leaves,
+    each rank's from its own seed: the kernels against the plain versions
+    bit for bit, and within the reference's bound of the exact mean."""
+    mine = leaves_of(rank)
+    everyone = [leaves_of(r) for r in range(size)]
+    exact = [sum(m[i] for m in everyone) / size for i in range(len(mine))]
+    largest = [max(m[i].abs().max().item() for m in everyone)
+               for i in range(len(mine))]
+    host = [t.cpu() for t in mine]
+    for mode, bits in spec["quant"]:
+        sync()
+        reset()
+        t0 = time.perf_counter()
+        got = quantized_pmean(mine, group, size, bits=bits, mode=mode)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        launched = counts()
+        want = quantized_pmean(host, group, size, bits=bits, mode=mode)
+        same = all(torch.equal(x.cpu(), w) for x, w in zip(got, want))
+        qmax = 127 if bits == 8 else 7
+        passes = 2 if mode == "scatter" else 1
+        ratio = max((x - e).abs().max().item() / (passes * big / qmax)
+                    for x, e, big in zip(got, exact, largest))
+        emit(part="c", mode=mode, bits=bits, bitwise=same,
+             worst_of_bound=ratio, launches=launched, ms=ms,
+             values=sum(t.numel() for t in mine))
+
+
+# (a) and (c) beside the parent's one-process run; (b) once it has freed
+# the card's memory and opened the second gate
+if "a" in spec["parts"]:
+    attention_part()
+if "c" in spec["parts"]:
+    quant_part()
+if "b" in spec["parts"]:
+    while not os.path.exists(gate + ".b"):
+        time.sleep(0.05)
+    rng = np.random.default_rng(11)
+    vocab = config("ring").vocab_size
+    batches = [tuple(rng.integers(0, vocab, (1, spec["seq"]))
+                     for _ in range(2)) for _ in range(spec["steps"])]
+    for impl in spec["impls"]:
+        training_part(impl, batches)
+emit(part="done")
+'''
+
+
+def sp_spec(device: str = "cuda", small: bool = False,
+            parts: str = "abc") -> dict:
+    """What the ranks run: parts (a), (b) and (c) at the card's full
+    sizes, or ``small`` (the CPU rehearsal, ``device="cpu"``, and the
+    card tests) with the tiny Llama and small shapes."""
+    if device == "cuda" and not small:
+        return {"device": device, "ranks": SP_RANKS, "attn": SP_ATTN,
+                "seq": SP_SEQ, "model": "llama_1b", "steps": SP_STEPS,
+                "impls": list(SP_IMPLS), "parts": parts,
+                "leaves": [list(s) for s in SP_BLOCK_LEAVES],
+                "quant": [list(q) for q in SP_QUANT]}
+    return {"device": device, "ranks": SP_RANKS,
+            "attn": dict(b=1, h=4, s=384, d=64), "seq": 64, "model": "tiny",
+            "steps": SP_STEPS, "impls": list(SP_IMPLS), "parts": parts,
+            "leaves": [[64, 64], [64, 96], [2048]],
+            "quant": [list(q) for q in SP_QUANT]}
+
+
+def _sp_config(spec: dict, attn_impl: str):
+    from dlrover_tpu_torch.models.llama import LlamaConfig
+
+    return getattr(LlamaConfig, spec["model"])(
+        max_seq_len=spec["seq"], attn_impl=attn_impl, norm_impl="fused",
+        embed_impl="gather")
+
+
+def _sp_batches(spec: dict):
+    """The rows both the ranks and the one-process run train on: the
+    workers draw the same from the same seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    vocab = _sp_config(spec, "flash").vocab_size
+    return [tuple(rng.integers(0, vocab, (1, spec["seq"])) for _ in range(2))
+            for _ in range(spec["steps"])]
+
+
+SP_PROBE = r'''
+import json, os, sys, time
+
+import torch
+import torch.distributed as dist
+
+rank, port, gate, name = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        rank=rank, world_size=2)
+while not os.path.exists(gate):
+    time.sleep(0.05)
+x = torch.full((1024,), float(rank + 1), device="cuda")
+if name == "all_reduce":
+    dist.all_reduce(x)
+    got, want = x, torch.full_like(x, 3.0)
+elif name == "all_gather":
+    parts = [torch.empty_like(x) for _ in range(2)]
+    dist.all_gather(parts, x)
+    got, want = torch.cat(parts), torch.cat([torch.full_like(x, v)
+                                             for v in (1.0, 2.0)])
+elif name == "all_to_all_single":
+    got = torch.empty_like(x)
+    dist.all_to_all_single(got, x)
+    want = torch.cat([torch.full((512,), v, device="cuda")
+                      for v in (1.0, 2.0)])
+else:
+    got = torch.empty_like(x)
+    for work in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, x, 1 - rank),
+            dist.P2POp(dist.irecv, got, 1 - rank)]):
+        work.wait()
+    want = torch.full_like(x, float(2 - rank))
+torch.cuda.synchronize()
+print(json.dumps({"right": bool(torch.equal(got, want))}), flush=True)
+'''
+# the gloo collectives probed with CUDA tensors
+SP_PROBES = ("all_reduce", "all_gather", "all_to_all_single", "isend_irecv")
+
+
+def _sp_probes(tmp: str, gate: str) -> dict:
+    """Which gloo collectives take a CUDA tensor as it is on this torch
+    (the port stages every one through host memory regardless): a pair
+    of processes a collective, each pair alone, since gloo aborts its
+    process on a device address it cannot read. Spawned at the phase's
+    start, run at its gate; ``_sp_probe_results`` reads them."""
+    import os
+    import socket
+
+    script = os.path.join(tmp, "sp_probe.py")
+    with open(script, "w") as f:
+        f.write(SP_PROBE)
+    probes = {}
+    for name in SP_PROBES:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        probes[name] = [subprocess.Popen(
+            [sys.executable, script, str(rank), str(port), gate, name],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for rank in range(2)]
+    return probes
+
+
+def _sp_probe_results(probes: dict) -> dict:
+    out = {}
+    for name, pair in probes.items():
+        verdicts = []
+        for proc in pair:
+            try:
+                stdout, stderr = proc.communicate(timeout=120)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                stdout, stderr = proc.communicate()
+                verdicts.append("no answer in 120 s")
+                continue
+            if proc.returncode == 0:
+                right = json.loads(stdout.strip().splitlines()[-1])["right"]
+                verdicts.append("takes CUDA tensors" if right
+                                else "runs, wrong values")
+            else:
+                last = [line for line in stderr.splitlines()
+                        if line.strip()][-1:]
+                verdicts.append(f"exit {proc.returncode}: "
+                                f"{last[0][:160] if last else ''}")
+        out[name] = sorted(set(verdicts))
+    return out
+
+
+def _sp_workers(tmp: str, spec: dict) -> tuple:
+    """The phase's rank processes, spawned when the script starts: each
+    imports torch and the port, joins a gloo group of SP_RANKS on
+    127.0.0.1 and waits for the gate file (no CUDA before it). Returns
+    (processes, gate)."""
+    import os
+    import socket
+
+    script = os.path.join(tmp, "sp_worker.py")
+    with open(script, "w") as f:
+        f.write(SP_WORKER)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    gate = os.path.join(tmp, "sp.go")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    procs = []
+    for rank in range(SP_RANKS):
+        # stderr to a file: a pipe nobody reads until the phase would fill
+        with open(os.path.join(tmp, f"sp_rank{rank}.err"), "w") as err:
+            procs.append(subprocess.Popen(
+                [sys.executable, script, str(rank), str(port), gate,
+                 json.dumps(spec)], stdout=subprocess.PIPE,
+                stderr=err, text=True, env=env))
+    return procs, gate
+
+
+def _sp_reference(smi: str, spec: dict) -> list:
+    """(loss, grad_norm) of each step of the ranks' model at their whole
+    length trained by this process alone with the flash kernels on the
+    same rows, from the same seed-0 init; freed before the ranks start."""
+    from dlrover_tpu_torch.models.llama import Llama, cross_entropy_loss
+    from dlrover_tpu_torch.trainer.train_step import build_trainer
+
+    cfg = _sp_config(spec, "flash")
+    trainer = build_trainer(functools.partial(Llama, cfg), _adamw, None,
+                            torch.zeros((1, spec["seq"])),
+                            cross_entropy_loss, micro_batch=1,
+                            device=spec["device"])
+    state = trainer.init(0)
+    cuda = spec["device"] == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for tokens, targets in _sp_batches(spec):
+        t0 = time.perf_counter()
+        state, m = trainer.step(state, *trainer.shard_batch(tokens, targets))
+        steps.append({"loss": m["loss"].item(),
+                      "grad_norm": m["grad_norm"].item(),
+                      "ms": (time.perf_counter() - t0) * 1e3})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
+    log(f"sp reference (one process, flash, seq {spec['seq']}): "
+        f"{json.dumps(steps)}, peak {peak:.2f} GiB ({smi})")
+    del state, trainer
+    if cuda:
+        _free_memory()
+    return steps
+
+
+def _sp_records(procs: list, gate: str, timeout_s: float = 900.0
+                ) -> list:
+    """Every JSON line of each rank, [rank][i]; a rank that fails fails
+    the phase with its stderr."""
+    import os
+
+    deadline = time.monotonic() + timeout_s
+    out = []
+    for rank, proc in enumerate(procs):
+        try:
+            stdout, _ = proc.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"sp rank {rank} outlived {timeout_s} s")
+        if proc.returncode:
+            with open(os.path.join(os.path.dirname(gate),
+                                   f"sp_rank{rank}.err")) as f:
+                stderr = f.read()
+            raise AssertionError(f"sp rank {rank} exited {proc.returncode}:"
+                                 f"\n{stderr[-6000:]}")
+        out.append([json.loads(line) for line in stdout.splitlines()
+                    if line.startswith("{")])
+    return out
+
+
+def _sp_attention(records: list, smi: str, cuda: bool) -> list:
+    """(a): each rank's outputs and gradients within the flash tolerance
+    of the one-process kernels' (element by element and the whole
+    tensor's relative L2, the kernels phase's rule) and within its
+    relative L2 limit of the plain ring's, which rounds at other points
+    (f32 scores, probabilities and dS); the predicted launches (on the
+    card). Returns what failed."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    bad = []
+    for rank_records in records:
+        for rec in rank_records:
+            if rec["part"] != "a":
+                continue
+            want = dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                            rec["expected"]))
+            got = {k: rec["launches"][k] for k in want}
+            what = (f"{rec['kind']} {'causal' if rec['causal'] else 'full'} "
+                    f"rank {rec['rank']}")
+            log(f"sp (a) {what}: launches {got} (predicted {want}), "
+                f"{rec['ms']:.1f} ms forward + backward; errors "
+                + json.dumps({n: {ref: {k: round(v, 5) for k, v in e.items()}
+                                  for ref, e in refs.items()}
+                              for n, refs in rec["errors"].items()})
+                + f" ({smi})")
+            if cuda and got != want:
+                bad.append(f"{what}: launches {got}, predicted {want}")
+            for name, refs in rec["errors"].items():
+                for ref, err in refs.items():
+                    if not (fa.bf16_within_tolerance(err)
+                            if ref == "one_process"
+                            else err["rel_l2"] <= fa.BF16_REL_L2):
+                        bad.append(f"{what}: {name} against {ref} {err}")
+    return [f"sp (a) {b}" for b in bad]
+
+
+def _sp_training(records: list, reference: list, smi: str,
+                 spec: dict, bad: list) -> dict:
+    """(b): each rank's steps against the one-process run (what fails is
+    added to ``bad``); returns the runs' launches summed over ranks and
+    impls."""
+    layers = _sp_config(spec, "flash").num_layers
+    steps_n = spec["steps"]
+    total = {}
+    for impl in SP_IMPLS:
+        runs = [rec for rank_records in records for rec in rank_records
+                if rec["part"] == "b" and rec["impl"] == impl]
+        for rec in runs:
+            r = rec["rank"]
+            steps = rec["steps"]
+            dl = [abs(s["loss"] - w["loss"]) for s, w in zip(steps,
+                                                             reference)]
+            dn = [abs(s["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+                  for s, w in zip(steps, reference)]
+            staging = [round(sum(s["staging_s"].values()), 3)
+                       for s in steps]
+            log(f"sp (b) {impl} rank {r}: losses "
+                f"{[s['loss'] for s in steps]} grad norms "
+                f"{[s['grad_norm'] for s in steps]}; against one process: "
+                f"max |loss diff| {max(dl):.3g} (limit {SP_LOSS_TOL}), max "
+                f"grad-norm relative diff {max(dn):.3g} (limit "
+                f"{SP_GRAD_NORM_TOL}); step ms "
+                f"{[round(s['ms'], 1) for s in steps]}, host staging s a "
+                f"step {staging} ({json.dumps(steps[-1]['staging_s'])}), "
+                f"allocator peak {rec['peak_gib']:.2f} GiB ({smi})")
+            blocks = r + 1 if impl == "ring" else 1
+            want = {"flash_fwd": layers * blocks * steps_n,
+                    "flash_bwd_dq": layers * blocks * steps_n,
+                    "flash_bwd_dkv": layers * blocks * steps_n,
+                    "rms_fwd": (2 * layers + 1) * steps_n,
+                    "rms_bwd": (2 * layers + 1) * steps_n,
+                    "quantize": 0, "dequantize": 0}
+            if spec["device"] == "cuda" and rec["launches"] != want:
+                bad.append(f"sp (b) {impl} rank {r}: launches "
+                           f"{rec['launches']}, predicted {want}")
+            if len(steps) != steps_n or not (
+                    max(dl) <= SP_LOSS_TOL and max(dn) <= SP_GRAD_NORM_TOL
+                    and all(math.isfinite(s["loss"]) for s in steps)):
+                bad.append(f"sp (b) {impl} rank {r} disagrees with the "
+                           f"one-process run")
+            for k, v in rec["launches"].items():
+                total[k] = total.get(k, 0) + v
+    return total
+
+
+def _sp_quant(records: list, smi: str, spec: dict, bad: list) -> dict:
+    """(c): bit for bit, within the bound, the predicted launches (on the
+    card; what fails is added to ``bad``); returns the quantization
+    pair's launches summed over ranks."""
+    total = {"quantize": 0, "dequantize": 0}
+    leaves = len(spec["leaves"])
+    cuda = spec["device"] == "cuda"
+    for rank_records in records:
+        for rec in rank_records:
+            if rec["part"] != "c":
+                continue
+            calls = leaves * (2 if rec["mode"] == "scatter" else 1)
+            want = {"quantize": calls, "dequantize": calls}
+            got = {k: rec["launches"][k] for k in want}
+            log(f"sp (c) {rec['mode']} {rec['bits']}-bit rank "
+                f"{rec['rank']}: {rec['values']} values, {rec['ms']:.1f} ms, "
+                f"bit for bit with the plain versions: {rec['bitwise']}, "
+                f"worst error {rec['worst_of_bound']:.3f} of the bound, "
+                f"launches {got} (predicted {want}) ({smi})")
+            if not (rec["bitwise"] and rec["worst_of_bound"] <= 1.0
+                    and (got == want or not cuda)):
+                bad.append(f"sp (c) failed: {rec}")
+            for k in total:
+                total[k] += got[k]
+    return total
+
+
+def phase_sp(smi: str, workers: tuple, spec: dict) -> dict:
+    """Sequence parallelism and the quantized mean on the card, over two
+    rank processes that share it in one gloo group (see the module
+    docstring); ``workers`` from ``_sp_workers`` with ``spec``. The CPU
+    rehearsal (``sp_spec("cpu")``, the tiny Llama) checks everything but
+    the launches and the allocator."""
+    import os
+
+    procs, gate = workers
+    probes = (_sp_probes(os.path.dirname(gate), gate)
+              if spec["device"] == "cuda" else {})
+    try:
+        # the ranks run (a) and (c) beside the one-process run, (b) after
+        # it has been freed
+        t0 = time.monotonic()
+        open(gate, "w").close()
+        reference = (_sp_reference(smi, spec) if "b" in spec["parts"]
+                     else [])
+        open(gate + ".b", "w").close()
+        t1 = time.monotonic()
+        records = _sp_records(procs, gate)
+        log(f"sp: the ranks ran {time.monotonic() - t0:.1f} s after the "
+            f"first gate, {time.monotonic() - t1:.1f} s after the second")
+        if probes:
+            log(f"sp: gloo collectives with CUDA tensors on torch "
+                f"{torch.__version__}: "
+                f"{json.dumps(_sp_probe_results(probes))}")
+    finally:
+        for proc in procs + [p for pair in probes.values() for p in pair]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for path in (gate, gate + ".b"):
+            if os.path.exists(path):
+                os.remove(path)
+    # every part is printed before a failure ends the phase
+    bad = _sp_attention(records, smi, spec["device"] == "cuda")
+    launches = (_sp_training(records, reference, smi, spec, bad)
+                if "b" in spec["parts"] else {})
+    launches.update(_sp_quant(records, smi, spec, bad))
+    if bad:
+        raise AssertionError(f"sp: {bad}")
+    return {"launches": launches}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases",
                         default="kernels,quant,parity,llama1b,auto,"
                                 "resume,standalone,faults,observe,failover,"
                                 "replan,models,llama7b,moe,pipeline,"
-                                "embedding,brain",
+                                "embedding,brain,sp",
                         help="comma-separated subset of kernels, quant, "
                              "parity, llama1b, auto, resume, standalone, "
                              "faults, observe, failover, replan, models, "
-                             "llama7b, moe, pipeline, embedding, brain "
+                             "llama7b, moe, pipeline, embedding, brain, sp "
                              "(device and build always run)")
     parser.add_argument("--profile", default="",
                         help="after the Llama-1B run, profile one more "
@@ -6900,6 +7526,29 @@ def main(argv=None) -> int:
     # among them)
     signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     t0 = time.monotonic()
+    smi = phase_device()
+    sp_workers, sp_tmp = None, None
+    if "sp" in phases:
+        import tempfile
+
+        # the sp phase's ranks import torch and the port beside the phases
+        # before it, and wait at their gate
+        sp_tmp = tempfile.mkdtemp(prefix="chip_smoke_sp_")
+        sp_workers = _sp_workers(sp_tmp, sp_spec())
+    try:
+        return _run_phases(args, phases, smi, sp_workers, t0)
+    finally:
+        if sp_workers is not None:
+            import shutil
+
+            for proc in sp_workers[0]:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            shutil.rmtree(sp_tmp, ignore_errors=True)
+
+
+def _run_phases(args, phases: list, smi: str, sp_workers, t0: float) -> int:
     # each phase's seconds, printed at the end
     seconds, mark = {}, [t0]
 
@@ -6908,7 +7557,6 @@ def main(argv=None) -> int:
         seconds[name] = round(now - mark[0], 1)
         mark[0] = now
 
-    smi = phase_device()
     phase_build()
     lap("device+build")
     train_records = phase_kernels() if "kernels" in phases else []
@@ -7019,6 +7667,13 @@ def main(argv=None) -> int:
         for rec in train_records + quant_records:
             rec["brain_launches"] = brain["launches"][rec["name"]]
         lap("brain")
+    if "sp" in phases:
+        # both ranks' (b) training runs (ring, Ulysses) and their (c)
+        # quantized means, summed
+        sp = phase_sp(smi, sp_workers, sp_spec())
+        for rec in train_records + quant_records:
+            rec["sp_launches"] = sp["launches"].get(rec["name"], 0)
+        lap("sp")
     records = train_records + quant_records
     log(f"phase seconds: {json.dumps(seconds)}")
     log(f"elapsed {time.monotonic() - t0:.1f} s")

@@ -14,11 +14,14 @@ Counterpart of ``dlrover_tpu/auto/accelerate.py`` (after atorch's
 ``lower`` builds the port's trainers: ``build_trainer`` (dense, with
 FSDP2 and DTensor tensor parallelism), ``build_pipeline_trainer`` and
 ``build_streaming_trainer``. ``module_replace`` sets ``attn_impl="flash"``
-when this rank's device is a CUDA card and ``"reference"`` on the CPU.
-Passes whose lowering the port has not ported raise
-``NotImplementedError`` naming their ROADMAP Queue A item, never a
-plain path: ``sequence_parallel`` (item 8), ``quant_allreduce`` (item 9)
-and ``tensor_parallel`` on a model with a fused qkv projection (10b).
+when this rank's device is a CUDA card and ``"reference"`` on the CPU;
+``sequence_parallel`` at a size above 1 sets ``attn_impl`` to the plan's
+``sequence_impl`` (``"ring"`` or ``"ulysses"``), over a flash request,
+and ``quant_allreduce`` lowers as ``build_trainer``'s
+``grad_reduce_bits`` (the pipeline warns and drops it, as the JAX
+lowering does). ``tensor_parallel`` on a model with a fused qkv
+projection is not ported yet and raises ``NotImplementedError`` naming
+its ROADMAP Queue A item (10b), never a plain path.
 The streaming branch keeps the per-leaf contract: its optimizer must be
 a ``LeafTransform`` (``build_streaming_trainer`` refuses anything else).
 """
@@ -109,18 +112,7 @@ def plan_mesh_spec(context: ModelContext) -> MeshSpec:
     return MeshSpec(**dims).with_total_devices(n_devices)
 
 
-def _unported(plan) -> None:
-    if plan.sequence_parallel:
-        raise NotImplementedError(
-            "sequence_parallel is not ported yet (ROADMAP Queue A item 8, "
-            "parallel/ring_attention.py)")
-    if plan.grad_reduce_bits:
-        raise NotImplementedError(
-            "quant_allreduce is not ported yet (ROADMAP Queue A item 9, "
-            "parallel/quant_collectives.py)")
-
-
-def _edit_model(context: ModelContext) -> None:
+def _edit_model(context: ModelContext, spec: MeshSpec) -> None:
     plan = context.plan
     updates = {}
     if plan.compute_dtype is not None:
@@ -130,6 +122,10 @@ def _edit_model(context: ModelContext) -> None:
     if plan.flash_attention:
         updates["attn_impl"] = ("flash" if context.device.type == "cuda"
                                 else "reference")
+    if plan.sequence_parallel and spec.sequence > 1:
+        # the sequence is sharded: attention must be the ring or the
+        # all-to-all (over a flash request, whose kernel sees one shard)
+        updates["attn_impl"] = plan.sequence_impl
     if plan.remat:
         updates["remat"] = True
         if plan.remat_policy:
@@ -154,8 +150,7 @@ def lower(context: ModelContext) -> AccelerateResult:
     plan = context.plan
     n_devices = len(context.devices)
     spec = plan_mesh_spec(context)
-    _unported(plan)
-    _edit_model(context)
+    _edit_model(context, spec)
 
     rules = make_sharding_rules(
         fsdp=plan.fsdp and spec.fsdp > 1,
@@ -230,6 +225,12 @@ def lower(context: ModelContext) -> AccelerateResult:
         # the user's global batch is authoritative (accum × micro rows)
         num_micro = (accum if plan.global_batch
                      else max(plan.accum_steps, 2 * plan.pipeline_stages))
+        if plan.grad_reduce_bits:
+            logger.warning(
+                "quant_allreduce is not implemented for the pipeline "
+                "trainer: the data-axis gradient reduce stays exact "
+                "(grad_reduce_bits=%d ignored under pipeline_parallel)",
+                plan.grad_reduce_bits)
         trainer = build_pipeline_trainer(
             cfg, context.optimizer_factory(), mesh,
             num_microbatches=num_micro, micro_batch=micro,
@@ -244,7 +245,8 @@ def lower(context: ModelContext) -> AccelerateResult:
     trainer = build_trainer(
         context.model, context.optimizer_factory(), mesh, sample, loss_fn,
         accum_steps=accum, micro_batch=micro, rules=rules,
-        offload_opt_state=plan.offload_optimizer)
+        offload_opt_state=plan.offload_optimizer,
+        grad_reduce_bits=plan.grad_reduce_bits)
     return AccelerateResult(trainer=trainer, mesh=mesh, model=context.model,
                             strategy=[], context=context)
 

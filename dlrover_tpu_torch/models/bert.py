@@ -38,6 +38,8 @@ from dlrover_tpu_torch.models.layers import (
     normal_param,
 )
 from dlrover_tpu_torch.models.llama import dispatch_attention, embed_lookup
+from dlrover_tpu_torch.parallel.collectives import all_reduce_
+from dlrover_tpu_torch.parallel.mesh import sequence_offset, sequence_parallel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,8 +54,7 @@ class BertConfig:
     layer_norm_eps: float = 1e-12
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
-    # "flash" | "reference", both with causal=False; "ring" / "ulysses"
-    # are not ported yet and raise
+    # "flash" | "reference" | "ring" | "ulysses", all with causal=False
     attn_impl: str = "flash"
     embed_impl: str = "gather"
     # rematerialize each block under remat_policy (ops/remat.py)
@@ -149,7 +150,7 @@ class Bert(nn.Module):
     def kernel_libraries(self) -> Tuple[str, ...]:
         """The CUDA libraries (``ops/csrc/<name>.cu``) a training step of
         this configuration launches kernels from."""
-        return ("flash_attention",) if self.config.attn_impl == "flash" \
+        return ("flash_attention",) if self.config.attn_impl != "reference" \
             else ()
 
     def forward(self, tokens: torch.Tensor,
@@ -157,8 +158,10 @@ class Bert(nn.Module):
                 ) -> torch.Tensor:
         cfg = self.config
         seq = tokens.shape[-1]
+        # on a sequence shard, the positions from its offset on
+        start = sequence_offset(seq)
         x = (embed_lookup(self.word_embed, tokens, cfg)
-             + self.pos_embed[:seq].to(cfg.dtype))
+             + self.pos_embed[start:start + seq].to(cfg.dtype))
         if token_types is not None:
             x = x + self.type_embed.to(cfg.dtype)[token_types]
         x = self.embed_norm(x)
@@ -173,11 +176,23 @@ def mlm_loss(logits: torch.Tensor, targets: torch.Tensor,
     """Masked-LM cross entropy. ``weights`` marks the predicted
     positions (1 at [MASK]-ed tokens, 0 elsewhere and at padding); None
     scores every position (the dense-target form the loop's
-    ``loss_fn(logits, targets)`` takes)."""
+    ``loss_fn(logits, targets)`` takes).
+
+    On a sequence shard (the ambient mesh's ``sequence`` axis) the count
+    of weighted positions is the whole rows' (shards hold different
+    counts), scaled by the axis size: the trainer's mean over the axis is
+    then Σ nll·w / Σ w over the whole rows, not a mean of shard means."""
     nll = F.cross_entropy(logits.float().flatten(0, -2),
                           targets.flatten().long(),
                           reduction="none").view(targets.shape)
     if weights is None:
         return nll.mean()
     weights = weights.to(nll.dtype)
-    return (nll * weights).sum() / weights.sum().clamp_min(1.0)
+    count = weights.sum()
+    sp = sequence_parallel()
+    if sp is None:
+        return (nll * weights).sum() / count.clamp_min(1.0)
+    group, _, size = sp
+    count = count.detach().clone()
+    all_reduce_([count], group)
+    return (nll * weights).sum() / count.clamp_min(1.0) * size

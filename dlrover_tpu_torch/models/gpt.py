@@ -34,6 +34,7 @@ from dlrover_tpu_torch.models.layers import (
     normal_param,
 )
 from dlrover_tpu_torch.models.llama import dispatch_attention, embed_lookup
+from dlrover_tpu_torch.parallel.mesh import sequence_offset
 
 # flax nn.LayerNorm's default epsilon, which every GPT norm keeps
 LN_EPS = 1e-6
@@ -48,8 +49,7 @@ class GPTConfig:
     block_size: int = 1024
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
-    # "flash" | "reference"; "ring" / "ulysses" are not ported yet and
-    # raise
+    # "flash" | "reference" | "ring" | "ulysses"
     attn_impl: str = "flash"
     embed_impl: str = "gather"
     # rematerialize each block under remat_policy (ops/remat.py)
@@ -127,14 +127,16 @@ class GPT(nn.Module):
     def kernel_libraries(self) -> Tuple[str, ...]:
         """The CUDA libraries (``ops/csrc/<name>.cu``) a training step of
         this configuration launches kernels from."""
-        return ("flash_attention",) if self.config.attn_impl == "flash" \
+        return ("flash_attention",) if self.config.attn_impl != "reference" \
             else ()
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.config
         seq = tokens.shape[-1]
+        # on a sequence shard, the positions from its offset on
+        start = sequence_offset(seq)
         x = (embed_lookup(self.wte, tokens, cfg)
-             + self.wpe[:seq].to(cfg.dtype))
+             + self.wpe[start:start + seq].to(cfg.dtype))
         for layer in range(cfg.n_layer):
             x = call_block(getattr(self, f"block_{layer}"), cfg, x)
         x = self.ln_f(x)

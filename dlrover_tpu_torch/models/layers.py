@@ -30,13 +30,16 @@ from torch import nn
 from dlrover_tpu_torch.ops.remat import remat_call, resolve_remat_policy
 
 
+# the attentions every family takes (``dispatch_attention``)
+ATTN_IMPLS = ("flash", "reference", "ring", "ulysses")
+
+
 def check_options(cfg) -> None:
-    """The model options every family refuses until they are ported,
-    and a remat policy no name of ``ops/remat.py`` gives."""
-    if cfg.attn_impl not in ("flash", "reference"):
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} is not ported yet (ROADMAP "
-            f"Queue A item 8, parallel/ring_attention.py)")
+    """An attention, a remat policy or an embedding no family knows
+    (``ValueError``)."""
+    if cfg.attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}: expected "
+                         f"one of {ATTN_IMPLS}")
     if cfg.remat:
         # an unknown policy name raises ValueError here, at the build
         resolve_remat_policy(cfg.remat_policy)

@@ -8,7 +8,10 @@ f32 softmax statistics and f32 logits. Dense weights keep the JAX
 between the frameworks without a transpose (``dlrover_tpu_torch/
 convert.py``). The large matmuls are plain ``torch.matmul``, as the
 reference leaves them to XLA; attention goes through the port's flash
-kernels (``attn_impl="flash"``) or the plain path (``"reference"``), and
+kernels (``attn_impl="flash"``), the plain path (``"reference"``) or
+sequence parallelism over the trainer's mesh (``"ring"``,
+``"ulysses"``: ``parallel/ring_attention.py``, on a sequence shard
+whose positions start at its offset), and
 each RMSNorm through the port's fused kernels (``norm_impl="fused"``) or
 the plain norm (``"reference"``).
 
@@ -26,12 +29,14 @@ initializer: the trainer's restore target.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.models.layers import (
@@ -44,6 +49,8 @@ from dlrover_tpu_torch.ops.flash_attention import (
     reference_attention,
 )
 from dlrover_tpu_torch.ops.norms import fused_rms_norm, reference_rms_norm
+from dlrover_tpu_torch.parallel.mesh import sequence_offset, sequence_parallel
+from dlrover_tpu_torch.parallel.ring_attention import sequence_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,8 +66,8 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16        # activation/compute dtype
     param_dtype: torch.dtype = torch.float32   # master parameter dtype
-    # "flash" (the port's CUDA kernels) | "reference" (plain torch).
-    # "ring" / "ulysses" are not ported yet and raise.
+    # "flash" (the port's CUDA kernels) | "reference" (plain torch) |
+    # "ring" | "ulysses" (sequence parallelism, parallel/ring_attention.py)
     attn_impl: str = "flash"
     # "gather" and "onehot" give the same values; the port gathers for
     # both ("onehot" is the reference's workaround for TPU SPMD).
@@ -149,17 +156,57 @@ def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,
 def dispatch_attention(impl: str, q, k, v, causal: bool = True
                        ) -> torch.Tensor:
     """The model families' shared attention: ``(b, seq, heads, dim)`` in
-    and out; ``impl`` is ``"flash"`` (the port's kernels) or
-    ``"reference"`` (plain torch). ``"ring"`` and ``"ulysses"`` are not
-    ported yet and raise."""
-    if impl not in ("flash", "reference"):
-        raise NotImplementedError(
-            f"attn_impl={impl!r} is not ported yet (ROADMAP Queue A item "
-            f"8, parallel/ring_attention.py)")
+    and out. ``impl``: ``"flash"`` (the port's kernels), ``"reference"``
+    (plain torch), or ``"ring"``/``"ulysses"``: sequence parallelism over
+    the ambient mesh's ``sequence`` axis (the trainer enters its mesh
+    around each step), on this rank's shard of the sequence. At sequence
+    1, or off-mesh, those two run the flash kernels (their plain version
+    for CPU tensors), where the JAX package falls back to the plain
+    attention."""
+    if impl in ("ring", "ulysses"):
+        sp = sequence_parallel()
+        if sp is not None:
+            return _sequence_parallel_attention(impl, sp[0], q, k, v,
+                                                causal)
+        impl = "flash"
     # (b, heads, seq, dim) layout for the kernels
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     attention = flash_attention if impl == "flash" else reference_attention
     return attention(q, k, v, causal).transpose(1, 2)
+
+
+def _sequence_parallel_attention(impl: str, group, q, k, v,
+                                 causal: bool) -> torch.Tensor:
+    """Ring or Ulysses attention on this rank's sequence shard. Under
+    tensor parallelism q, k and v are DTensors sharded over heads: the
+    attention runs on their local heads (``local_map``), as the JAX
+    package composes the ``tensor`` axis with the sequence one."""
+    run = functools.partial(sequence_attention, impl, group=group,
+                            causal=causal)
+    if not any(isinstance(t, DTensor) for t in (q, k, v)):
+        return run(q, k, v)
+    placements = q.placements if isinstance(q, DTensor) else None
+    for t in (q, k, v):
+        if not isinstance(t, DTensor) or t.placements != placements:
+            raise ValueError("sequence-parallel attention takes q, k and v "
+                             "as DTensors of one placement")
+    if not all(isinstance(p, Replicate)
+               or (isinstance(p, Shard) and p.dim in (0, 2))
+               for p in placements):
+        raise ValueError(f"sequence-parallel attention shards over batch "
+                         f"or heads only, got {placements}")
+    return local_map(run, out_placements=list(placements),
+                     in_placements=(list(placements),) * 3,
+                     device_mesh=q.device_mesh)(q, k, v)
+
+
+def token_positions(tokens: torch.Tensor) -> torch.Tensor:
+    """Each token's position in its row: on a sequence shard (the
+    ambient mesh's ``sequence`` axis) the shard's offset onward."""
+    seq = tokens.shape[-1]
+    start = sequence_offset(seq)
+    return torch.arange(start, start + seq, device=tokens.device
+                        ).expand(tokens.shape)
 
 
 class Dense(nn.Module):
@@ -295,14 +342,13 @@ class Llama(nn.Module):
         """The CUDA libraries (``ops/csrc/<name>.cu``) a training step of
         this configuration launches kernels from."""
         cfg = self.config
-        return (("flash_attention",) if cfg.attn_impl == "flash" else ()) + (
-            ("norms",) if cfg.norm_impl == "fused" else ())
+        return (("flash_attention",) if cfg.attn_impl != "reference"
+                else ()) + (("norms",) if cfg.norm_impl == "fused" else ())
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.config
         x = embed_lookup(self.embed, tokens, cfg)
-        positions = torch.arange(tokens.shape[-1], device=tokens.device
-                                 ).expand(tokens.shape)
+        positions = token_positions(tokens)
         for layer in range(cfg.num_layers):
             x = call_block(getattr(self, f"layer_{layer}"), cfg, x,
                            positions)

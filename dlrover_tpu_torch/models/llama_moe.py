@@ -13,7 +13,11 @@ Where the JAX model sows each layer's weighted router aux loss into the
 ``losses`` collection, the port's blocks return it beside their output
 and the model sums it through the autograd graph: ``model(tokens,
 with_losses=True)`` gives ``(logits, aux)``, the counterpart of
-``model.apply(..., mutable=["losses"])`` and ``moe_aux_loss``. A block
+``model.apply(..., mutable=["losses"])`` and ``moe_aux_loss``. On a
+sequence shard (``attn_impl="ring"`` or ``"ulysses"`` under the
+trainer's mesh) each block gathers the whole rows before the router and
+keeps its own shard of the expert output, so routing, capacity and the
+aux loss are those of the whole rows, as in the JAX model. A block
 rematerialized in the backward returns the same aux again, but only the
 forward's value reaches the loss, so it is counted once.
 """
@@ -35,8 +39,11 @@ from dlrover_tpu_torch.models.llama import (
     _check_supported,
     cross_entropy_loss,
     embed_lookup,
+    token_positions,
 )
+from dlrover_tpu_torch.parallel.mesh import sequence_parallel
 from dlrover_tpu_torch.parallel.moe import MoEConfig, MoELayer, fold_seed
+from dlrover_tpu_torch.parallel.ring_attention import gather_sequence
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,8 +107,18 @@ class MoEDecoderBlock(nn.Module):
     def forward(self, x, positions, gating_seed: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         x = x + self.attn(self.attn_norm(x), positions)
-        out, aux = self.moe(self.moe_norm(x), gating_seed)
-        return x + out, aux
+        h = self.moe_norm(x)
+        sp = sequence_parallel()
+        if sp is None:
+            out, aux = self.moe(h, gating_seed)
+            return x + out, aux
+        # a row routes as a whole (capacity and slot order run along it):
+        # every member of the sequence axis routes the whole rows and keeps
+        # its own shard of the output
+        group, index, _ = sp
+        local = h.shape[1]
+        out, aux = self.moe(gather_sequence(h, group), gating_seed)
+        return x + out[:, index * local:(index + 1) * local], aux
 
 
 class LlamaMoE(nn.Module):
@@ -150,15 +167,14 @@ class LlamaMoE(nn.Module):
         """The CUDA libraries (``ops/csrc/<name>.cu``) a training step of
         this configuration launches kernels from."""
         cfg = self.config
-        return (("flash_attention",) if cfg.attn_impl == "flash" else ()) + (
-            ("norms",) if cfg.norm_impl == "fused" else ())
+        return (("flash_attention",) if cfg.attn_impl != "reference"
+                else ()) + (("norms",) if cfg.norm_impl == "fused" else ())
 
     def forward(self, tokens: torch.Tensor, with_losses: bool = False,
                 gating_seed: Optional[int] = None):
         cfg = self.config
         x = embed_lookup(self.embed, tokens, cfg)
-        positions = torch.arange(tokens.shape[-1], device=tokens.device
-                                 ).expand(tokens.shape)
+        positions = token_positions(tokens)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer in range(cfg.num_layers):
             seed = (None if gating_seed is None

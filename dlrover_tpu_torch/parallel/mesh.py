@@ -12,6 +12,7 @@ process, every axis of size 1, needs no process group: its mesh holds no
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -97,6 +98,8 @@ class Mesh:
     device_mesh: Optional[object] = None
     _flattened: Dict[Tuple[str, ...], object] = dataclasses.field(
         default_factory=dict, repr=False)
+    _lanes: Dict[Tuple[Tuple[str, ...], int], list] = dataclasses.field(
+        default_factory=dict, repr=False)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -123,6 +126,23 @@ class Mesh:
             self._flattened[names] = self.device_mesh[names]._flatten(
                 "_".join(names))
         return self._flattened[names]
+
+    def lanes(self, names: Sequence[str], count: int) -> list:
+        """``count`` more gloo groups of this rank's ranks along the named
+        axes, for collectives that run side by side (host-staged
+        all-reduces). Every rank calls this at one point of the program:
+        the groups of every coordinate are created, in one order."""
+        key = (tuple(names), count)
+        if key not in self._lanes:
+            grid = rank_grid(self.spec)
+            along = [self.axis_names.index(name) for name in names]
+            rest = [i for i in range(grid.dim()) if i not in along]
+            size = math.prod(self.shape[name] for name in names)
+            groups = grid.permute(rest + along).reshape(-1, size).tolist()
+            self._lanes[key] = [
+                dist.new_subgroups_by_enumeration(groups, backend="gloo")[0]
+                for _ in range(count)]
+        return self._lanes[key]
 
 
 def create_mesh(spec: Optional[MeshSpec] = None,
@@ -166,3 +186,46 @@ def dp_index(mesh: Mesh) -> int:
     for axis in data_axes(mesh):
         index = index * mesh.shape[axis] + coord[axis]
     return index
+
+
+# The ambient mesh stack (``use_mesh``). A plain module list, not a
+# context variable: a rematerialized block runs its forward again inside
+# the backward, on autograd's own thread, and must see the same mesh.
+_AMBIENT: List[Mesh] = []
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Mesh):
+    """Enter ``mesh`` as the ambient mesh, as the JAX package's
+    ``use_mesh``: the trainer enters its mesh around each step, and the
+    models read the ``sequence`` axis from it (``sequence_parallel``)."""
+    _AMBIENT.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _AMBIENT.pop()
+
+
+def current_mesh() -> Optional[Mesh]:
+    """The innermost mesh entered with ``use_mesh``, or None."""
+    return _AMBIENT[-1] if _AMBIENT else None
+
+
+def sequence_parallel() -> Optional[Tuple[object, int, int]]:
+    """(the ``sequence`` axis's process group, this rank's index on it,
+    its size) when the ambient mesh has a ``sequence`` axis above 1, else
+    None (off-mesh, or sequence 1)."""
+    mesh = current_mesh()
+    if (mesh is None or mesh.device_mesh is None
+            or mesh.shape[MeshAxis.SEQUENCE] == 1):
+        return None
+    return (mesh.submesh([MeshAxis.SEQUENCE]).get_group(),
+            mesh.coordinate()[MeshAxis.SEQUENCE],
+            mesh.shape[MeshAxis.SEQUENCE])
+
+
+def sequence_offset(local_len: int) -> int:
+    """The position of this rank's first token: its index on the
+    ``sequence`` axis times the shard's length (0 off-mesh)."""
+    sp = sequence_parallel()
+    return 0 if sp is None else sp[1] * local_len

@@ -29,7 +29,8 @@ out by the logical-axis rules; the replicated leaves by all-reduce). The
 grad norm sums each stage's chunks and the shared leaves once.
 
 Refused: a ``tensor`` or ``expert`` axis above 1 (ROADMAP Queue A item
-10) and a ``sequence`` axis (item 8). Not copied: the XLA-CPU f32 forcing
+10), and a ``sequence`` axis, which the JAX pipelined trainer does not
+split either (its batch is sharded over the data axes alone). Not copied: the XLA-CPU f32 forcing
 of MoE pipelines.
 """
 
@@ -446,8 +447,10 @@ def build_pipeline_trainer(cfg, optimizer_factory: Callable[..., Any],
                 f"10): a pipeline's mesh holds pipe, data and fsdp axes")
     if shape[MeshAxis.SEQUENCE] > 1:
         raise NotImplementedError(
-            "a sequence axis is not ported yet (ROADMAP Queue A item 8, "
-            "parallel/ring_attention.py)")
+            "the pipelined trainer does not split the sequence: its batch "
+            "is sharded over the data axes alone, as the JAX "
+            "PipelinedTrainer's (P(None, data axes)); train a sequence "
+            "axis with build_trainer")
     # LlamaMoEConfig subclasses LlamaConfig: checked first
     if isinstance(cfg, LlamaMoEConfig):
         spec = llama_moe_pipeline_spec(cfg, loss_fn)

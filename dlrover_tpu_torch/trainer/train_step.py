@@ -41,12 +41,30 @@ router balancing) is called with ``with_losses=True`` and a gating seed
 folded from ``RNG_SEED``, the step and the micro-step, and its aux sum is
 added to the loss, as the JAX step adds the ``losses`` collection.
 
-Not ported yet, and raising: a ``sequence`` axis above 1 (ROADMAP Queue
-A item 8), a ``tensor`` axis under an MoE model (item 10), and
-``grad_reduce_bits`` (item 9). A ``pipe`` axis is the pipelined
-trainer's (``trainer/pipeline_trainer.py``, which shares ``TrainState``
-and this trainer's state, offload and batch handling); this one refuses
-it.
+- **sequence**: each rank takes its columns of its rows (the JAX
+  package's batch sharding ``P(None, data axes, sequence)``) and the
+  model's ``"ring"`` or ``"ulysses"`` attention runs over the axis
+  (``parallel/ring_attention.py``; the trainer enters its mesh around
+  each step, ``use_mesh``, and the positions start at the shard's
+  offset). The parameters are replicated over the axis, so their
+  gradients are averaged over it too: under FSDP2 the axis is folded
+  into the dimension that shards and reduce-scatters (torchtitan's
+  ``dp_shard × cp``), else each gradient is all-reduced over it. The
+  loss is the mean of the ranks' shard means, the token mean of the
+  whole batch (``mlm_loss`` with weights counts the whole rows).
+- **grad_reduce_bits** (8 or 4): the gradients' mean over the ``data``
+  axis goes through ``parallel/quant_collectives.quantized_pmean`` (the
+  quantize and dequantize kernels on the card); every other axis
+  reduces exactly first, and FSDP2 then shards over (fsdp, sequence)
+  only, so that no replicate all-reduce runs beside the quantized one.
+  The reduce over ``dcn`` (the JAX package's axis when it spans slices)
+  waits for slice mode (ROADMAP Queue A item 6.4).
+
+Not ported yet, and raising: a ``tensor`` axis under an MoE model (item
+10) and ``grad_reduce_bits`` over a ``dcn`` axis (item 6.4). A ``pipe``
+axis is the pipelined trainer's (``trainer/pipeline_trainer.py``, which
+shares ``TrainState`` and this trainer's state, offload and batch
+handling); this one refuses it.
 """
 
 from __future__ import annotations
@@ -65,14 +83,24 @@ from torch.distributed.tensor import DTensor, Shard, distribute_tensor
 from torch.distributed.tensor.experimental import implicit_replication
 
 from dlrover_tpu_torch.common.constants import MeshAxis
+from dlrover_tpu_torch.parallel.collectives import (
+    STAGE_LANES,
+    all_reduce_,
+    set_lanes,
+)
 from dlrover_tpu_torch.parallel.mesh import (
     Mesh,
     create_mesh,
     data_axes,
     dp_index,
     dp_size,
+    use_mesh,
 )
 from dlrover_tpu_torch.parallel.moe import fold_seed
+from dlrover_tpu_torch.parallel.quant_collectives import (
+    quantized_pmean_leaf,
+)
+from dlrover_tpu_torch.parallel.ring_attention import check_ulysses_heads
 from dlrover_tpu_torch.parallel.sharding import (
     DEFAULT_RULES,
     logical_axes,
@@ -153,6 +181,8 @@ class Trainer:
     rules: List[Tuple[str, Any]]
     offload_opt_state: bool = False
     split_grad_apply: bool = False
+    # 8 or 4: the data axis's gradient mean quantized (0: exact)
+    grad_reduce_bits: int = 0
     # the CUDA libraries a step launches kernels from (precompile)
     libraries: Tuple[str, ...] = ()
     precompile_timings: Dict[str, float] = dataclasses.field(
@@ -203,9 +233,50 @@ class Trainer:
             self._distribute(model, placements, MeshAxis.EXPERT, every=False)
         from torch.distributed.fsdp import FSDPModule
 
-        if dp_size(mesh) > 1 and not isinstance(model, FSDPModule):
+        if self._fsdp_size() > 1 and not isinstance(model, FSDPModule):
             self._fully_shard(model, placements)
         return model
+
+    # -- which axes reduce what --------------------------------------------
+    @property
+    def _quantized(self) -> bool:
+        """The data axis's gradient mean goes through the quantized
+        collective (the reference wraps it only when the axis is
+        above 1)."""
+        return bool(self.grad_reduce_bits) and self.mesh.shape[
+            MeshAxis.DATA] > 1
+
+    def _shard_axes(self) -> Tuple[str, ...]:
+        """The axes FSDP2 shards over: fsdp, and the sequence axis folded
+        in when there is one."""
+        if self.mesh.shape[MeshAxis.SEQUENCE] > 1:
+            return (MeshAxis.FSDP, MeshAxis.SEQUENCE)
+        return (MeshAxis.FSDP,)
+
+    def _exact_axes(self) -> Tuple[str, ...]:
+        """The axes a gradient's exact mean runs over: every axis the
+        batch is split over, less the data axis when that one is
+        quantized."""
+        axes = data_axes(self.mesh)
+        if self._quantized:
+            axes = (MeshAxis.FSDP,)
+        if self.mesh.shape[MeshAxis.SEQUENCE] > 1:
+            axes = axes + (MeshAxis.SEQUENCE,)
+        return axes
+
+    def _size(self, axes: Sequence[str]) -> int:
+        return int(np.prod([self.mesh.shape[axis] for axis in axes]))
+
+    def _fsdp_size(self) -> int:
+        """The ranks FSDP2 spans (1: no FSDP2). With the data axis exact,
+        FSDP2 (HSDP) takes every batch axis whenever one is split over;
+        quantized, only the shard axes."""
+        if self.mesh.device_mesh is None:
+            return 1
+        if self._quantized:
+            return self._size(self._shard_axes())
+        return (self._size(self._exact_axes())
+                if dp_size(self.mesh) > 1 else 1)
 
     def _distribute(self, model: nn.Module, placements: Dict[str, list],
                     axis: str, every: bool) -> None:
@@ -233,7 +304,8 @@ class Trainer:
         from torch.distributed.fsdp import fully_shard
 
         mesh = self.mesh
-        fsdp = mesh.shape[MeshAxis.FSDP]
+        shard_axes = self._shard_axes()
+        fsdp = self._size(shard_axes)
         column = mesh.axis_names.index(MeshAxis.FSDP)
         shard_dims: Dict[nn.Parameter, Shard] = {}
         ignored: Dict[str, nn.Parameter] = {}
@@ -246,14 +318,20 @@ class Trainer:
                 # sanitize_shardings' rule: a leaf the fsdp rule does not
                 # fit stays replicated
                 ignored[name] = param
-        if mesh.shape[MeshAxis.DCN] > 1:
+        # the sequence axis folds into the sharding dimension (the
+        # parameters are replicated over it, their gradients averaged)
+        shard = mesh.submesh(shard_axes).mesh_dim_names[0]
+        if self._quantized:
+            # no replicate dimension: the data axis's mean is the
+            # quantized collective's
+            dp_mesh = mesh.device_mesh[shard]
+        elif mesh.shape[MeshAxis.DCN] > 1:
             replicate = mesh.submesh([MeshAxis.DCN, MeshAxis.DATA])
-            dp_mesh = mesh.device_mesh[(replicate.mesh_dim_names[0],
-                                        MeshAxis.FSDP)]
+            dp_mesh = mesh.device_mesh[(replicate.mesh_dim_names[0], shard)]
         elif mesh.shape[MeshAxis.DATA] > 1:
-            dp_mesh = mesh.device_mesh[(MeshAxis.DATA, MeshAxis.FSDP)]
+            dp_mesh = mesh.device_mesh[(MeshAxis.DATA, shard)]
         else:
-            dp_mesh = mesh.device_mesh[MeshAxis.FSDP]
+            dp_mesh = mesh.device_mesh[shard]
         kw = dict(mesh=dp_mesh, shard_placement_fn=shard_dims.get,
                   ignored_params=set(ignored.values()))
         # one FSDP unit per block (a child holding modules), the root
@@ -322,8 +400,9 @@ class Trainer:
         fsdp = isinstance(model, FSDPModule)
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         # plain tensors (positions, masks, the batch) meet DTensor
-        # parameters as replicated values
-        with implicit_replication():
+        # parameters as replicated values; the models read the sequence
+        # axis from the ambient mesh
+        with implicit_replication(), use_mesh(self.mesh):
             for i in range(self.accum_steps):
                 if fsdp:
                     # reduce the summed gradient once, after the last
@@ -340,24 +419,53 @@ class Trainer:
                 # gives it, so the optimizer still decays and counts it
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in model.parameters()]
+        self._reduce_gradients(model)
         group = self._dp_group()
         if group is not None:
-            # the parameters FSDP does not manage, and the loss
-            dp = dp_size(self.mesh)
-            params = dict(model.named_parameters())
-            for name in getattr(model, "dp_replicated_params", ()):
-                p = params[name]
-                if p.grad is not None:
-                    dist.all_reduce(to_local(p.grad), group=group)
-                    to_local(p.grad).div_(dp)
-            dist.all_reduce(loss_sum, group=group)
-            loss_sum /= dp
+            # the loss: the mean over every rank's share of the batch
+            all_reduce_([loss_sum], group)
+            loss_sum /= dist.get_world_size(group)
         if self.accum_steps > 1:
             # in place on each shard: FSDP's sharded gradients and the
             # replicated ones are DTensors of other meshes, or tensors
             torch._foreach_div_([to_local(g) for g in grads],
                                 float(self.accum_steps))
         return loss_sum / self.accum_steps
+
+    def _reduce_gradients(self, model: nn.Module) -> None:
+        """Average the summed gradients over every axis the batch is
+        split over (FSDP2 has reduced its own leaves): the exact mean over
+        ``_exact_axes`` of the leaves FSDP2 does not manage (every leaf
+        without FSDP2), then, when quantized, the quantized mean over the
+        data axis of every leaf's local tensor, as the reference reduces
+        ``grad_sum`` before dividing by the accumulation."""
+        if self.mesh.device_mesh is None:
+            return
+        from torch.distributed.fsdp import FSDPModule
+
+        exact = self._exact_axes()
+        size = self._size(exact)
+        if isinstance(model, FSDPModule):
+            params = dict(model.named_parameters())
+            # by name, in parameter order: the n-th all-reduce pairs the
+            # same tensor on each rank
+            exact_leaves = [params[name] for name in
+                            getattr(model, "dp_replicated_params", ())]
+        elif size > 1:
+            exact_leaves = list(model.parameters())
+        else:
+            exact_leaves = []
+        local = [to_local(p.grad) for p in exact_leaves]
+        if local and size > 1:
+            all_reduce_(local, self.mesh.submesh(exact).get_group())
+            torch._foreach_div_(local, float(size))
+        if self._quantized:
+            group = self.mesh.submesh([MeshAxis.DATA]).get_group()
+            n = self.mesh.shape[MeshAxis.DATA]
+            for p in model.parameters():
+                g = to_local(p.grad)
+                g.copy_(quantized_pmean_leaf(g, group, n,
+                                             bits=self.grad_reduce_bits))
 
     def _micro_loss(self, model: nn.Module, tokens: torch.Tensor,
                     targets: torch.Tensor, step: int, micro: int
@@ -388,9 +496,33 @@ class Trainer:
                              if p.grad is not None])
 
     def _dp_group(self):
-        if self.mesh.device_mesh is None or dp_size(self.mesh) == 1:
+        """The group of every rank holding a share of the batch (the data
+        axes and the sequence axis), or None when this rank holds it all."""
+        axes = self._batch_axes()
+        if self.mesh.device_mesh is None or self._size(axes) == 1:
             return None
-        return self.mesh.submesh(data_axes(self.mesh)).get_group()
+        return self.mesh.submesh(axes).get_group()
+
+    def _batch_axes(self) -> Tuple[str, ...]:
+        return data_axes(self.mesh) + (MeshAxis.SEQUENCE,)
+
+    def _stage_lanes(self) -> None:
+        """On a gloo group a CUDA tensor crosses through host memory: give
+        the groups of the step's collectives (the loss's, the exact and
+        the quantized gradient means', the sequence axis's attention)
+        their lanes, so that a staged buffer crosses in parts side by
+        side (``parallel/collectives.py``). Every rank builds its trainer
+        at once, so the lanes' groups are created in one order."""
+        mesh = self.mesh
+        if (mesh.device_mesh is None or self.device.type != "cuda"
+                or dist.get_backend() != dist.Backend.GLOO):
+            return
+        axes = [self._batch_axes(), self._exact_axes(),
+                (MeshAxis.SEQUENCE,), (MeshAxis.DATA,)]
+        for names in dict.fromkeys(axes):
+            if self._size(names) > 1:
+                set_lanes(mesh.submesh(names).get_group(),
+                          mesh.lanes(names, STAGE_LANES))
 
     # -- optimizer-state offload -------------------------------------------
     def _moments(self, opt: torch.optim.Optimizer):
@@ -432,22 +564,30 @@ class Trainer:
     def shard_batch(self, tokens: np.ndarray, targets: np.ndarray
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Host numpy (global_batch, seq) → this rank's device tensors
-        shaped (accum, micro / dp, seq): its block of each micro-batch's
-        rows over the joint data axes (dcn, data, fsdp), as the JAX
-        package's batch sharding P(None, (dcn, data, fsdp)). A batch
-        already on the device (``data/prefetch.py``) is cut there."""
+        shaped (accum, micro / dp, seq / sequence): its block of each
+        micro-batch's rows over the joint data axes (dcn, data, fsdp) and
+        its block of their columns over the sequence axis, as the JAX
+        package's batch sharding P(None, (dcn, data, fsdp), sequence). A
+        batch already on the device (``data/prefetch.py``) is cut
+        there."""
         t0 = time.monotonic()
         accum, micro = self.accum_steps, self.micro_batch
         local = micro // dp_size(self.mesh)
         start = dp_index(self.mesh) * local
+        seq_ways = self.mesh.shape[MeshAxis.SEQUENCE]
+        seq_index = self.mesh.coordinate()[MeshAxis.SEQUENCE]
+
+        def columns(x):
+            width = x.shape[-1] // seq_ways
+            return x[..., seq_index * width:(seq_index + 1) * width]
 
         def put(x):
             if torch.is_tensor(x):
                 x = x.reshape(accum, micro, *x.shape[1:])
-                return x[:, start:start + local].to(
+                return columns(x[:, start:start + local]).to(
                     self.device, torch.int64).contiguous()
             x = np.asarray(x).reshape(accum, micro, *x.shape[1:])
-            x = np.ascontiguousarray(x[:, start:start + local])
+            x = np.ascontiguousarray(columns(x[:, start:start + local]))
             return torch.from_numpy(x.astype(np.int64)).to(self.device)
 
         result = put(tokens), put(targets)
@@ -511,6 +651,8 @@ def build_trainer(
     seq), for the shape only.
     ``offload_opt_state``: keep the optimizer's moments in host memory
     (pinned) between steps; they cross to the card around each update.
+    ``grad_reduce_bits``: 8 or 4 quantizes the gradients' mean over the
+    data axis (``parallel/quant_collectives.py``); 0 is exact.
     """
     if mesh is None:
         mesh = create_mesh(device=device)
@@ -518,19 +660,19 @@ def build_trainer(
         raise ValueError(f"device {device} is not the mesh's "
                          f"{mesh.device}")
     shape = mesh.shape
-    if shape[MeshAxis.SEQUENCE] > 1:
-        raise NotImplementedError(
-            f"a {MeshAxis.SEQUENCE} axis is not ported yet (ROADMAP Queue A "
-            f"item 8, parallel/ring_attention.py)")
     if shape[MeshAxis.PIPE] > 1:
         raise NotImplementedError(
             f"the dense trainer has no {MeshAxis.PIPE} axis: build a "
             f"pipelined one with build_pipeline_trainer "
             f"(trainer/pipeline_trainer.py)")
-    if grad_reduce_bits:
+    if grad_reduce_bits not in (8, 4, 0):
+        raise ValueError(f"grad-reduce bits must be 8, 4 or 0, got "
+                         f"{grad_reduce_bits}")
+    if grad_reduce_bits and shape[MeshAxis.DCN] > 1:
+        # the reference reduces over dcn when the mesh spans slices
         raise NotImplementedError(
-            "grad_reduce_bits is not ported yet (ROADMAP Queue A item 9, "
-            "parallel/quant_collectives.py)")
+            "grad_reduce_bits over a dcn axis is not ported yet (ROADMAP "
+            "Queue A item 6.4, parallel/dcn_sync.py)")
     if isinstance(model, nn.Module):
         module = model
 
@@ -549,13 +691,39 @@ def build_trainer(
     if micro_batch % dp_size(mesh):
         raise ValueError(f"micro batch {micro_batch} does not divide over "
                          f"{dp_size(mesh)} data-parallel ranks")
+    _check_sequence_axis(probe, mesh, sample_batch.shape[-1])
     libraries = getattr(probe, "kernel_libraries", lambda: ())()
-    return Trainer(mesh=mesh, model_factory=model_factory,
-                   optimizer_factory=optimizer_factory, loss_fn=loss_fn,
-                   accum_steps=accum_steps, micro_batch=micro_batch,
-                   rules=rules, offload_opt_state=offload_opt_state,
-                   split_grad_apply=split_grad_apply,
-                   libraries=tuple(libraries))
+    trainer = Trainer(mesh=mesh, model_factory=model_factory,
+                      optimizer_factory=optimizer_factory, loss_fn=loss_fn,
+                      accum_steps=accum_steps, micro_batch=micro_batch,
+                      rules=rules, offload_opt_state=offload_opt_state,
+                      split_grad_apply=split_grad_apply,
+                      grad_reduce_bits=grad_reduce_bits,
+                      libraries=tuple(libraries))
+    trainer._stage_lanes()
+    return trainer
+
+
+def _check_sequence_axis(model: nn.Module, mesh: Mesh, seq: int) -> None:
+    """A sequence axis above 1 needs the model's ``"ring"`` or
+    ``"ulysses"`` attention (any other would see only its own shard's
+    keys; the JAX package's SPMD would gather them), a length the axis
+    divides, and for Ulysses query heads the sequence and tensor axes
+    divide (``ValueError``)."""
+    ways = mesh.shape[MeshAxis.SEQUENCE]
+    if ways == 1:
+        return
+    cfg = getattr(model, "config", None)
+    impl = getattr(cfg, "attn_impl", None)
+    if impl not in ("ring", "ulysses"):
+        raise ValueError(f"a {MeshAxis.SEQUENCE} axis of {ways} needs "
+                         f"attn_impl 'ring' or 'ulysses', got {impl!r}")
+    if seq % ways:
+        raise ValueError(f"sequence length {seq} does not divide over "
+                         f"sequence={ways}")
+    heads = getattr(cfg, "num_heads", None) or getattr(cfg, "n_head", None)
+    if impl == "ulysses" and heads is not None:
+        check_ulysses_heads(heads, ways, mesh.shape[MeshAxis.TENSOR])
 
 
 def _check_model_axes(model: nn.Module, mesh: Mesh, rules) -> None:

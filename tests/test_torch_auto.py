@@ -330,8 +330,6 @@ def test_save_and_load_strategy_file_lowers_the_same(tmp_path):
 
 
 @pytest.mark.parametrize("strategy,model,item", [
-    ([("sequence_parallel", {"size": 1})], "llama", "item 8"),
-    ([("quant_allreduce", {"bits": 8})], "llama", "item 9"),
     ([("tensor_parallel", {"size": 2})], "gpt", "item 10b"),
 ])
 def test_unported_passes_raise_naming_their_item(strategy, model, item):
@@ -343,6 +341,60 @@ def test_unported_passes_raise_naming_their_item(strategy, model, item):
         auto_accelerate(factory, loss_fn=tl.cross_entropy_loss,
                         sample_batch=np.zeros((2, SEQ), np.int64),
                         strategy=strategy, devices=["cpu"] * n)
+
+
+@pytest.mark.parametrize("size,impl,want", [
+    (2, "ulysses", "ulysses"), (2, "ring", "ring"),
+    # at sequence 1 the flash request stands (the plain attention on CPU)
+    (1, "ring", "reference")])
+def test_sequence_parallel_sets_the_attention_over_a_flash_request(
+        size, impl, want):
+    """The JAX lowering's rule (accelerate.py:113-117): at a sequence axis
+    above 1 the plan's sequence_impl replaces the attention, a
+    module_replace (flash) request included; planned for two devices, the
+    lowering's edit alone (a world of 2 lowers on gloo ranks,
+    tests/test_torch_sequence_parallel.py)."""
+    from dlrover_tpu_torch.auto.accelerate import _edit_model, plan_mesh_spec
+
+    strategy = [("module_replace", {}),
+                ("sequence_parallel", {"size": size, "impl": impl})]
+    context = ModelContext(functools.partial(tl.Llama,
+                                             tl.LlamaConfig.tiny()),
+                           loss_fn=tl.cross_entropy_loss,
+                           sample_batch=np.zeros((2, SEQ), np.int64),
+                           devices=["cpu"] * size)
+    apply_strategy(context, strategy)
+    spec = plan_mesh_spec(context)
+    assert spec.sequence == size
+    _edit_model(context, spec)
+    assert context.model_config().attn_impl == want
+
+
+def test_quant_allreduce_lowers_as_grad_reduce_bits():
+    """quant_allreduce reaches build_trainer as grad_reduce_bits; on one
+    device there is no data axis to reduce over, so the steps are the
+    exact ones bit for bit (the JAX trainer's rule: no explicit reduce at
+    an axis of 1)."""
+    def run(strategy):
+        result = auto_accelerate(
+            functools.partial(tl.Llama, tl.LlamaConfig.tiny(
+                attn_impl="reference", dtype=torch.float32)),
+            loss_fn=tl.cross_entropy_loss,
+            sample_batch=np.zeros((2, SEQ), np.int64), strategy=strategy,
+            micro_batch=2, devices=["cpu"])
+        state = result.init(0)
+        tokens = np.random.default_rng(4).integers(0, 256, (2, SEQ))
+        losses = []
+        for _ in range(2):
+            state, metrics = result.step(
+                state, *result.trainer.shard_batch(tokens, tokens))
+            losses.append(metrics["loss"].item())
+        return result.trainer, losses
+
+    quantized, q_losses = run([("quant_allreduce", {"bits": 8})])
+    exact, e_losses = run([])
+    assert (quantized.grad_reduce_bits, exact.grad_reduce_bits) == (8, 0)
+    assert q_losses == e_losses
 
 
 def test_entry_point_raises_without_a_gpu_unless_given_devices():

@@ -172,14 +172,35 @@ def test_three_adamw_steps_match_jax():
 
 
 @pytest.mark.parametrize("option", [
-    (dict(attn_impl="ring"), NotImplementedError),
-    (dict(attn_impl="ulysses"), NotImplementedError),
+    # an attention no family knows
+    (dict(attn_impl="sparse"), ValueError),
     # remat is ported: only a policy name the JAX package does not know
     (dict(remat=True, remat_policy="offload"), ValueError)])
 def test_unported_options_raise(option):
     option, error = option
     with pytest.raises(error):
         tbert.Bert(tbert.BertConfig.tiny(**option), device="cpu")
+
+
+@pytest.mark.parametrize("attn_impl", ["ring", "ulysses"])
+def test_sequence_impls_off_mesh_take_the_flash_path(monkeypatch,
+                                                     attn_impl):
+    """Off-mesh ``"ring"`` and ``"ulysses"`` run the flash attention
+    without the mask, where the JAX model falls back to the plain
+    attention: logits within the f32 tolerance of JAX's."""
+    from dlrover_tpu_torch.models import llama as tllama
+    from test_torch_llama import count_flash_calls
+
+    jcfg, tcfg = _configs("tiny", attn_impl, (jnp.float32, torch.float32))
+    tokens = tokens_of(jcfg.vocab_size)
+    params = jax_params(jbert.Bert(jcfg), tokens)
+    model = ported(tbert.Bert, tcfg, params)
+    calls = count_flash_calls(monkeypatch, tllama)
+    jlogits = jbert.Bert(jcfg).apply({"params": params}, jnp.asarray(tokens))
+    with torch.no_grad():
+        logits = model(torch.from_numpy(tokens).long())
+    assert len(calls) == tcfg.num_layers
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
 
 
 def test_entry_point_raises_without_a_gpu():

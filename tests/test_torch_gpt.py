@@ -316,14 +316,35 @@ def test_kernel_libraries_follow_the_attention():
 
 
 @pytest.mark.parametrize("option", [
-    (dict(attn_impl="ring"), NotImplementedError),
-    (dict(attn_impl="ulysses"), NotImplementedError),
+    # an attention no family knows
+    (dict(attn_impl="sparse"), ValueError),
     # remat is ported: only a policy name the JAX package does not know
     (dict(remat=True, remat_policy="offload"), ValueError)])
 def test_unported_options_raise(option):
     option, error = option
     with pytest.raises(error):
         tgpt.GPT(tgpt.GPTConfig.tiny(**option), device="cpu")
+
+
+@pytest.mark.parametrize("attn_impl", ["ring", "ulysses"])
+def test_sequence_impls_off_mesh_take_the_flash_path(monkeypatch,
+                                                     attn_impl):
+    """Off-mesh ``"ring"`` and ``"ulysses"`` run the flash attention, where
+    the JAX model falls back to the plain attention: logits within the
+    f32 tolerance of JAX's."""
+    from test_torch_llama import count_flash_calls
+
+    jcfg, tcfg = _configs("tiny", attn_impl, (jnp.float32, torch.float32))
+    tokens = tokens_of(jcfg.vocab_size)
+    params = jax_params(jgpt.GPT(jcfg), tokens)
+    model = ported(tgpt.GPT, tcfg, params)
+    assert model.kernel_libraries() == ("flash_attention",)
+    calls = count_flash_calls(monkeypatch, tllama)
+    jlogits = jgpt.GPT(jcfg).apply({"params": params}, jnp.asarray(tokens))
+    with torch.no_grad():
+        logits = model(torch.from_numpy(tokens).long())
+    assert len(calls) == tcfg.n_layer
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
 
 
 def test_entry_point_raises_without_a_gpu():

@@ -8,6 +8,8 @@ logits of magnitude ~1: the two frameworks sum the same f32 products in
 another order through two decoder layers, a few ulps (1e-7) each.
 """
 
+import contextlib
+
 import flax.linen as nn
 import jax
 import jax.numpy as jnp
@@ -122,11 +124,56 @@ def test_embed_lookup_matches_jax(impl):
 
 
 @pytest.mark.parametrize("option", [
-    (dict(attn_impl="ring"), NotImplementedError),
-    (dict(attn_impl="ulysses"), NotImplementedError),
+    # an attention no family knows
+    (dict(attn_impl="sparse"), ValueError),
     # remat is ported: only a policy name the JAX package does not know
     (dict(remat=True, remat_policy="offload"), ValueError)])
 def test_unported_options_raise(option):
     option, error = option
     with pytest.raises(error):
         tllama.Llama(tllama.LlamaConfig.tiny(**option), device="cpu")
+
+
+def count_flash_calls(monkeypatch, module):
+    """The calls ``module``'s dispatch makes to the flash attention."""
+    calls = []
+    real = module.flash_attention
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(module, "flash_attention", counted)
+    return calls
+
+
+@pytest.mark.parametrize("attn_impl", ["ring", "ulysses"])
+@pytest.mark.parametrize("on_mesh", [False, True])
+def test_sequence_impls_off_mesh_take_the_flash_path(monkeypatch,
+                                                     attn_impl, on_mesh):
+    """Off-mesh, or on a mesh whose sequence axis is 1, ``"ring"`` and
+    ``"ulysses"`` run the flash attention (its plain version on the CPU,
+    the kernels on the card), where the JAX model falls back to the plain
+    attention: logits and loss within the f32 tolerance of JAX's."""
+    from dlrover_tpu_torch.parallel.mesh import create_mesh, use_mesh
+
+    jcfg = jllama.LlamaConfig.tiny(attn_impl=attn_impl, dtype=jnp.float32)
+    tcfg = tllama.LlamaConfig.tiny(attn_impl=attn_impl, dtype=torch.float32)
+    tokens = _tokens(jcfg.vocab_size)
+    targets = _tokens(jcfg.vocab_size, seed=1)
+    params = _jax_params(jcfg, tokens)
+    model = tllama.Llama(tcfg, device="cpu")
+    model.load_state_dict(convert.params_from_jax(params), strict=True)
+    assert model.kernel_libraries() == ("flash_attention", "norms")
+    calls = count_flash_calls(monkeypatch, tllama)
+    jlogits = jllama.Llama(jcfg).apply({"params": params},
+                                       jnp.asarray(tokens))
+    jloss = jllama.cross_entropy_loss(jlogits, jnp.asarray(targets))
+    mesh = create_mesh(device="cpu")
+    with torch.no_grad(), (use_mesh(mesh) if on_mesh
+                           else contextlib.nullcontext()):
+        logits = model(torch.from_numpy(tokens).long())
+        loss = tllama.cross_entropy_loss(logits, torch.from_numpy(targets))
+    assert len(calls) == tcfg.num_layers
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
+    np.testing.assert_allclose(loss.item(), float(jloss), **TOL)

@@ -97,13 +97,18 @@ SLICE_AUTO_MODULES = (
     "auto/engine/acceleration_engine.py", "diagnostics/network_check.py",
     "ops/host_ops.py", "data/shm_ring.py", "data/coworker.py",
     "examples/streaming_train.py")
+# the sequence-parallelism and quantized-reduce slice's modules
+SLICE_SP_MODULES = ("parallel/ring_attention.py",
+                    "parallel/quant_collectives.py",
+                    "parallel/collectives.py")
 
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     sources = _port_sources()
     assert len(sources) > 10
     for name in (FAULT_MODULES + REPLAN_MODULES + SLICE_7B_MODULES
-                 + SLICE_MOE_MODULES + SLICE_AUTO_MODULES):
+                 + SLICE_MOE_MODULES + SLICE_AUTO_MODULES
+                 + SLICE_SP_MODULES):
         assert PACKAGE / name in sources, name
     for path in sources:
         bad = _imported_roots(path) & FORBIDDEN
@@ -125,7 +130,8 @@ def test_importing_the_port_loads_no_jax():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
     assert "dlrover_tpu_torch.trainer.elastic_loop" in modules
     for name in (FAULT_MODULES + REPLAN_MODULES + SLICE_7B_MODULES
-                 + SLICE_MOE_MODULES + SLICE_AUTO_MODULES):
+                 + SLICE_MOE_MODULES + SLICE_AUTO_MODULES
+                 + SLICE_SP_MODULES):
         if name.endswith("__init__.py"):
             continue
         module = "dlrover_tpu_torch." + name[:-3].replace("/", ".")
@@ -262,12 +268,10 @@ def test_kernel_library_name_follows_its_headers(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
+    # an attention no family knows
     (dict(model=functools.partial(Llama,
-                                  LlamaConfig.tiny(attn_impl="ulysses"))),
-     NotImplementedError),
-    (dict(model=functools.partial(Llama,
-                                  LlamaConfig.tiny(attn_impl="ring"))),
-     NotImplementedError),
+                                  LlamaConfig.tiny(attn_impl="sparse"))),
+     ValueError),
     # remat is ported: only a policy name the JAX package does not know
     (dict(model=functools.partial(Llama, LlamaConfig.tiny(
         remat=True, remat_policy="offload"))), ValueError),
@@ -280,3 +284,21 @@ def test_elastic_loop_unported_options_raise(option):
     with pytest.raises(error):
         ElasticTrainLoop(optimizer_factory=_adamw, loss_fn=cross_entropy_loss,
                          device="cpu", **kw)
+
+
+@pytest.mark.parametrize("attn_impl", ["ring", "ulysses"])
+def test_elastic_loop_trains_the_sequence_impls_in_one_process(attn_impl):
+    """A process alone has no sequence axis: ``"ring"`` and ``"ulysses"``
+    train through the flash path (its plain version on the CPU)."""
+    cfg = LlamaConfig.tiny(attn_impl=attn_impl)
+    loop = ElasticTrainLoop(
+        functools.partial(Llama, cfg), _adamw, cross_entropy_loss,
+        TrainLoopConfig(global_batch=2, seq_len=16, max_steps=1),
+        device="cpu")
+    sampler = TSampler(dataset_size=10 ** 6, seed=0)
+    state, _ = loop.restore_or_init(0, sampler)
+    data = batches(synthetic_corpus(cfg.vocab_size), sampler, 2, 16)
+    state, metrics = loop.run(state, data, sampler=sampler)
+    loop.close()
+    assert metrics["step"] == 1
+    assert math.isfinite(metrics["history"][0]["loss"])

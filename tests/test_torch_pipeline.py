@@ -500,6 +500,13 @@ def test_pipe_with_tensor_or_expert_names_item_10(spec):
         _port_trainer("llama", mesh=_mesh(**spec))
 
 
+def test_pipe_with_a_sequence_axis_is_refused_as_jax_splits_no_sequence():
+    """The JAX PipelinedTrainer shards its batch over the data axes alone
+    (P(None, data axes)): the port refuses a sequence axis and says so."""
+    with pytest.raises(NotImplementedError, match="does not split"):
+        _port_trainer("llama", mesh=_mesh(pipe=2, sequence=2))
+
+
 def test_build_trainer_with_a_pipe_axis_names_the_pipelined_trainer():
     with pytest.raises(NotImplementedError,
                        match="build_pipeline_trainer"):
