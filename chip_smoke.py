@@ -16,7 +16,8 @@ Phases (each one's failure ends the run with a nonzero exit):
            PyTorch version on the card at the Llama-1B slice shape, at
            edge shapes, at head dims 16, 32 and 96 (zero-padded by the
            wrappers to the kernels' 64 and 128) and at the GPT-2 small
-           (b 12, h 12, s 1024, d 64, causal) and BERT-base (b 32, h 12,
+           (b 12, h 12, s 1024, d 64, causal; and at tensor 2, the sp
+           phase's (d): h 6) and BERT-base (b 32, h 12,
            s 512, d 64, bidirectional) and Llama-7B (b 2, h 32, s 2048, d
            128, causal; the norms at 4096 rows of 4096), Mixtral-width
            MoE (b 4, h 32 over 8 KV heads, s 2048, d 128, causal; the
@@ -27,7 +28,7 @@ Phases (each one's failure ends the run with a nonzero exit):
            stated tolerances, and o, dQ, dK and dV the same bits in a
            second call; time kernel, plain version and the library
            yardstick (SDPA, F.rms_norm) at the slice shape and at the
-           six model shapes
+           seven model shapes
   quant    the quantization API (quantize, dequantize, swizzled,
            quant_reduce) on a Llama-1B gate_proj gradient, int8 and int4,
            bf16 input, group 8, zero and tie groups: every output equals
@@ -69,7 +70,7 @@ Phases (each one's failure ends the run with a nonzero exit):
            as predicted from its lowered configs (22 a step a flash
            kernel, 45 a norm kernel; twice the forward ones under
            remat; none for a candidate with the plain attention)
-  resume   Llama-1B at full width cut to 8 of its 22 layers
+  resume   Llama-1B at full width cut to 4 of its 22 layers
            (CKPT_LAYERS; also standalone's, faults', failover's,
            replan's and pipeline (d)'s) through
            ElasticTrainLoop with a flash checkpoint in a temporary
@@ -86,7 +87,7 @@ Phases (each one's failure ends the run with a nonzero exit):
            source "peer", the same bits as A, the same peak bound, its
            restore by part beside B's read; C the same as B with int8
            parameters, losses within 0.1% of A's, a quantize launch a
-           parameter saving and a dequantize restoring (75 at 8 layers),
+           parameter saving and a dequantize restoring (39 at 4 layers),
            codes bit for bit with the plain versions;
            D a worker process at 2 layers gets SIGTERM after its second
            step, saves where it stops and a second one resumes there (both
@@ -99,7 +100,7 @@ Phases (each one's failure ends the run with a nonzero exit):
            the control plane: the port's JobMaster in this process, and
            `python -m dlrover_tpu_torch.run --master-addr ...` running
            the worker script dlrover_tpu_torch/examples/llama_train.py
-           (Llama-1B at 8 layers, 7 steps saving at 3 and 6, a step report
+           (Llama-1B at 4 layers, 7 steps saving at 3 and 6, a step report
            each step)
            under the port's agent, whose work directory (peer cache) is on
            /dev/shm when that holds two stages; once step 3 is committed
@@ -115,7 +116,7 @@ Phases (each one's failure ends the run with a nonzero exit):
            holds step 7, its tokens/s read just after the kill (the first
            incarnation's step reports) is within 5% of the worker's own
            over the same steps, and the worker launched each flash kernel
-           8 times and each RMSNorm kernel 17 times a resumed step. Prints
+           4 times and each RMSNorm kernel 9 times a resumed step. Prints
            host memory, the recovery time by part (the restore split into
            plan, transfer and assemble) up to the first resumed step and
            on to the second, the blocking saves by piece (each process's
@@ -123,7 +124,7 @@ Phases (each one's failure ends the run with a nonzero exit):
            step times beside the writers that ran under them
   faults   planned and silent failures under the port's JobMaster (in
            this process) and `python -m dlrover_tpu_torch.run`, the same
-           Llama-1B worker at 8 layers (7 steps saving at 3 and 6, a step
+           Llama-1B worker at 4 layers (7 steps saving at 3 and 6, a step
            report each step). Launch 1: a chaos `preempt` notice at step 4 with
            a 90 s grace (and a `slow` hold of 3 s so the drain request
            lands at step 4's boundary): the agent exits 0, the worker
@@ -132,7 +133,7 @@ Phases (each one's failure ends the run with a nonzero exit):
            prints notice → drain request → consumed step → exit, the
            emergency save's blocking part, commit and page-locking, and
            whether the 30 s default grace would have held. Launch 2,
-           under DLROVER_TPU_HANG_WATCHDOG_S=12 with a chaos `hang` at
+           under DLROVER_TPU_HANG_WATCHDOG_S=7 with a chaos `hang` at
            step 7 (after the step-6 save): it resumes at the drained
            step, the watchdog aborts it once (its flight dump holds the
            main thread in the chaos sleep), the agent classifies the
@@ -143,9 +144,9 @@ Phases (each one's failure ends the run with a nonzero exit):
            abort → relaunch → first resumed step. Then the master's
            goodput ledger through `MasterClient.get_goodput`: its
            buckets cover the elapsed rank-seconds (within 5%), drain >
-           0, 0 < hang ≤ the watchdog's 12 s. Each of the three worker
-           processes launched every flash kernel 8 times and every
-           RMSNorm kernel 17 times a step it finished
+           0, 0 < hang ≤ the watchdog's 7 s. Each of the three worker
+           processes launched every flash kernel 4 times and every
+           RMSNorm kernel 9 times a step it finished
 
   observe  the master observes the card: the port's JobMaster in this
            process (diagnosis rounds and tsdb samples every 2 s, every
@@ -324,7 +325,7 @@ Phases (each one's failure ends the run with a nonzero exit):
            the pipeline's microbatching); (c) bound_activations (every schedule step
            checkpointed): 1 + 3 steps, flash_fwd and rms_fwd launched
            again in the recompute, its peak and step beside (a)'s; (d) at
-           CKPT_LAYERS (two rounds of 4) through the loop with its
+           CKPT_LAYERS (two rounds of 2) through the loop with its
            checkpointer: 5 steps saving at 3, a new loop restoring 3
            trains 4-5 with the same losses and grad norms bit for bit
   embedding
@@ -430,8 +431,9 @@ Phases (each one's failure ends the run with a nonzero exit):
            inputs, which rounds at other points (f32 P and dS);
            the causal ring's rank r launches r + 1 forward, dQ and dK/dV
            kernels, the full ring 2 of each, Ulysses 1. (b) Llama-1B at
-           full width and depth (22 layers, hidden 2048; flash blocks,
-           fused norm, gather embedding, AdamW(3e-4, wd 0.1)) at seq 4096
+           full width cut to 4 of its 22 layers (SP_LAYERS; hidden 2048;
+           flash blocks, fused norm, gather embedding, AdamW(3e-4, wd
+           0.1)) at seq 4096
            and micro 1 over sequence 2, 3 steps with the ring and 3 with
            Ulysses through build_trainer from the seed-0 init, against
            the same rows trained at seq 4096 by this process alone with
@@ -439,16 +441,39 @@ Phases (each one's failure ends the run with a nonzero exit):
            2e-2 and its grad norm within 1e-2 relative; prints each step's
            time, each rank's allocator peak and the host staging's seconds
            a step; each rank's launches as predicted (the ring's rank r
-           22·(r + 1) of each flash kernel a step, Ulysses 22, the norms
-           45). (c) quantized_pmean over one Llama-1B block's gradient
+           4·(r + 1) of each flash kernel a step, Ulysses 4, the norms
+           9). (c) quantized_pmean over one Llama-1B block's gradient
            leaves (q, k, v, o, gate, up, down, both norms: 50.6M values,
            each rank's from its own seed) in gather and scatter mode at 8
            and 4 bits: the kernels' result equals the plain versions' (the
            same collective on CPU copies) bit for bit and is within the
            reference's bound of the exact mean; a quantize and a dequantize
-           launch a leaf in gather mode, two of each in scatter
+           launch a leaf in gather mode, two of each in scatter. (d)
+           tensor parallelism over the two ranks (a tensor axis of 2, the
+           head-major fused qkv giving each rank 6 of the 12 heads) for
+           GPT-2 small (12 × 768, vocab 50304, seq 1024, micro 12,
+           causal) and BERT-base (12 × 768, seq 512, micro 32,
+           bidirectional, dense MLM targets) at full width and depth,
+           flash attention, AdamW(3e-4, wd 0.1), 3 steps each through
+           build_trainer from the seed-0 init, against the same rows
+           trained at tensor 1 by this process beside (a) and (c): each
+           step's loss and grad norm within (b)'s limits; each rank
+           launches each flash kernel 12 times a step, every launch at
+           the family's shape with 6 heads (b 12, h 6, s 1024, d 64
+           causal; b 32, h 6, s 512, d 64 not); a block's q, k and v of a
+           replicated activation come out sharded over heads with no
+           collective counted (CommDebugMode); prints each step's time,
+           each rank's allocator peak, the host staging's seconds a step
+           (the row-parallel sums and the column-parallel inputs'
+           gradient sums, parallel/sharding.py) and the collectives
+           DTensor ran itself in the first step. The phase prints each
+           part's seconds (the slower rank's) and probes which gloo
+           collectives take CUDA tensors
 
-Each phase's seconds are printed before the elapsed time. The line
+Each phase's seconds are printed before the elapsed time, and after it
+the elapsed time against the script's 950 s budget and part (d)'s
+against its 45 s (printed, not gates: the contract's limit is 1200 s).
+The line
 before the last is the kernels' JSON record (the quantization
 pair's launches are the resume phase's checkpoint path; each kernel's
 "standalone_launches" are those the worker under the agent printed for
@@ -464,8 +489,9 @@ its "pipeline_launches" the pipeline phase's run (a), its
 "embedding_launches" the embedding phase's steps, reconcile and replay
 (none of the kernels is on that path: 0), its "brain_launches" the
 brain phase's two replicas' steps, its "sp_launches" the sp phase's
-two ranks' (b) runs and (c) means;
-each flash kernel's "at_gpt2", "at_bert", "at_llama7b",
+two ranks' (b) and (d) runs and (c) means;
+each flash kernel's "at_gpt2", "at_gpt2_tp2" (GPT-2 small at tensor 2:
+b 12, h 6, s 1024, d 64, causal), "at_bert", "at_llama7b",
 "at_mixtral", "at_pipeline" and "at_ring_block" (the sp phase's ring
 block without the mask: b 1, h 16, s 2048, d 128), and each norm
 kernel's "at_llama7b"
@@ -549,6 +575,10 @@ PADDED_SHAPES = [
 MODEL_SHAPES = {
     "gpt2": dict(b=12, h=12, h_kv=12, s_q=1024, s_k=1024, d=64,
                  causal=True),
+    # GPT-2 small over a tensor axis of 2 (the sp phase's (d)): each rank
+    # 6 of the 12 heads
+    "gpt2_tp2": dict(b=12, h=6, h_kv=6, s_q=1024, s_k=1024, d=64,
+                     causal=True),
     "bert": dict(b=32, h=12, h_kv=12, s_q=512, s_k=512, d=64,
                  causal=False),
     "llama7b": dict(b=2, h=32, h_kv=32, s_q=2048, s_k=2048, d=128,
@@ -602,12 +632,29 @@ NORM_EDGES = [
 # versions' bit for bit.
 QUANT_SHAPE = (2048, 5504)
 # the checkpoint paths (resume, standalone, faults, failover, replan and
-# the pipeline's resume) run Llama-1B at its full width cut to 8 of its 22
+# the pipeline's resume) run Llama-1B at its full width cut to 4 of its 22
 # layers: what they check (bits across a save and a restore, peer and int8
 # restores, a kill, a drain, a hang, a master's death, a resize) does not
 # depend on the depth, and their 15 GB checkpoints at 22 layers took most
-# of the script's time (6.7 GB at 8)
-CKPT_LAYERS = 8
+# of the script's time (6.43 GB at 8 layers, 4.00 GB at 4)
+CKPT_LAYERS = 4
+# each wait on a phase's processes is about twice the phase's seconds on
+# the card (measured runs of this script), so that a hang fails its phase
+# with a message inside the script's 1200 s instead of running it out of
+# time: the standalone agent, each faults launch, the failover drill, the
+# replan agents, an example's run under its agent (models, moe) and the
+# sp phase's ranks
+STANDALONE_WAIT_S = 150.0
+FAULTS_LAUNCH_WAIT_S = 240.0
+FAILOVER_WAIT_S = 180.0
+REPLAN_WAIT_S = 180.0
+EXAMPLE_WAIT_S = 200.0
+SP_WAIT_S = 240.0
+# the whole script's budget on the card, about 20% under the contract's
+# 1200 s, and the sp phase's part (d)'s share of it (printed beside the
+# elapsed time)
+SCRIPT_BUDGET_S = 950.0
+SP_TENSOR_BUDGET_S = 45.0
 
 
 def log(msg: str) -> None:
@@ -2710,7 +2757,7 @@ def phase_standalone(smi: str, resume: dict) -> dict:
                                     stderr=fe)
         # SIGKILL the worker (the agent's child) once step 3 is committed
         # and staged
-        deadline = time.time() + 400
+        deadline = time.time() + STANDALONE_WAIT_S
         victim = None
         while time.time() < deadline and proc.poll() is None:
             if _kill_ready(ckpt, agent_tmp, SAVE_EVERY):
@@ -2741,7 +2788,7 @@ def phase_standalone(smi: str, resume: dict) -> dict:
         killed_at = (master.speed_monitor.completed_global_step,
                      master.speed_monitor.tokens_per_second(),
                      master.speed_monitor.running_mfu())
-        code = proc.wait(timeout=600)
+        code = proc.wait(timeout=STANDALONE_WAIT_S)
         with open(agent_err) as f:
             agent_tail = f.read()[-3000:]
         if code != 0:
@@ -2889,16 +2936,19 @@ def phase_standalone(smi: str, resume: dict) -> dict:
 # a `slow` fault holding step DRAIN_AT for DRAIN_HOLD_S so the agent's
 # drain request (notice poll 1 s, its loop 0.2 s) lands before the next
 # step boundary; launch 2 hangs at step HANG_AT, after the step-6 save,
-# for HANG_SLEEP_S under a watchdog of HANG_WATCHDOG_S (it fires 12-15 s
-# after step 6: past the peer stage of 6, 4-7.5 s; the sleep outlasts
-# that with 5 s to spare), and its relaunch replays the hang inside the
-# watchdog's first-step budget of 300 s
+# for HANG_SLEEP_S under a watchdog of HANG_WATCHDOG_S (it fires 7-8.75 s
+# after step 6, its poll being a quarter of it: past the peer stage of 6,
+# 4-7.5 s at 8 layers and about 0.6 of that at CKPT_LAYERS = 4; the sleep
+# outlasts it with 3 s to spare), and its relaunch replays the hang
+# inside the watchdog's first-step budget of 300 s. Both were 12 s and
+# 20 s at 8 layers: the hang runs twice by design, so they are cut with
+# the depth
 FAULT_GRACE_S = 90.0
 DRAIN_AT = 4
 DRAIN_HOLD_S = 3.0
 HANG_AT = 7
-HANG_WATCHDOG_S = 12.0
-HANG_SLEEP_S = 20.0
+HANG_WATCHDOG_S = 7.0
+HANG_SLEEP_S = 12.0
 DEFAULT_GRACE_S = 30.0     # Context.preempt_default_grace_s
 
 
@@ -2997,7 +3047,7 @@ def _launch_agent(master, cmd_args: list, env_extra: dict, out: str,
     proc, files = _spawn_agent(master, cmd_args, env_extra, out, err,
                                agent_tmp, repo, run_args)
     try:
-        return proc.wait(timeout=900)
+        return proc.wait(timeout=FAULTS_LAUNCH_WAIT_S)
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -3721,7 +3771,8 @@ def _wait_for_file(path: str, proc, timeout_s: float, what: str) -> None:
 
 def failover_drill(tmp: str, repo: str, worker_args: list, steps: int,
                    kill_at: int, monitor_s: float, env_extra: dict,
-                   timeout_s: float = 600.0, worker_chaos: str = "") -> dict:
+                   timeout_s: float = FAILOVER_WAIT_S,
+                   worker_chaos: str = "") -> dict:
     """A primary master (``python -m dlrover_tpu_torch.master.job_master
     --state-dir S --bootstrap-file B`` with ``kill:master:0@kill_at``),
     a hot standby (the same with ``--standby``) and ``python -m
@@ -4222,10 +4273,11 @@ def phase_replan(smi: str) -> dict:
         # staged cut, linked aside as soon as its second incarnation
         # starts (the agent removes its cache when it exits)
         plans, ref_cache, rounds_at_resize = [], "", None
-        deadline = time.monotonic() + 900
+        deadline = time.monotonic() + REPLAN_WAIT_S
         while any(p.poll() is None for p in procs):
             if time.monotonic() > deadline:
-                raise AssertionError("replan: the agents outlived 900 s")
+                raise AssertionError(f"replan: the agents outlived "
+                                     f"{REPLAN_WAIT_S:.0f} s")
             plan = mgr.last_shard_plan
             if plan and (not plans or plan != plans[-1]):
                 plans.append(plan)
@@ -4686,7 +4738,7 @@ def _example_run(repo: str, tmp: str, steps: int, tag: str,
         proc = subprocess.Popen(cmd, cwd=repo, env=env, stdout=fo,
                                 stderr=fe)
         try:
-            rc = proc.wait(timeout=600)
+            rc = proc.wait(timeout=EXAMPLE_WAIT_S)
         finally:
             if proc.poll() is None:
                 proc.kill()
@@ -5711,7 +5763,7 @@ def _pipeline_loop(cfg, ckpt_dir: str, steps: int):
 
 
 def _pipeline_resume(smi: str) -> dict:
-    """(d): the pipelined trainer at CKPT_LAYERS (two rounds of 4) through
+    """(d): the pipelined trainer at CKPT_LAYERS (two rounds of 2) through
     the loop with its checkpointer: A 5 steps saving at 3, B a new loop
     restoring 3 trains 4-5, the same bits as A."""
     import shutil
@@ -6923,6 +6975,17 @@ def phase_brain(smi: str, device: str = "cuda") -> dict:
 SP_SEQ = 4096                 # Llama-1B's tokens a row, 2 × 2048
 SP_RANKS = 2
 SP_STEPS = 3
+# (b) Llama-1B at full width cut to 4 of its 22 layers: its step is host
+# staging (the gradient's all-reduce scales with the parameters, the
+# shifts and all-to-alls with the layers), and what (b) checks (each
+# step against one process, the launches) does not depend on the depth
+SP_LAYERS = 4
+# (d) tensor parallelism over the ranks (tensor 2: 6 of the 12 heads
+# each) for the fused-qkv families at full width and depth, the models
+# phase's shapes: GPT-2 small (seq 1024, micro 12, causal) and BERT-base
+# (seq 512, micro 32, bidirectional, dense MLM targets)
+SP_TENSOR = ({"family": "gpt2", "seq": 1024, "micro": 12},
+             {"family": "bert", "seq": 512, "micro": 32})
 SP_IMPLS = ("ring", "ulysses")
 SP_ATTN = dict(b=1, h=16, s=SP_SEQ, d=128)
 # (b) each step's loss and grad norm against the one-process run: the
@@ -6936,12 +6999,14 @@ SP_BLOCK_LEAVES = ((2048, 2048),) * 4 + ((2048, 5504), (2048, 5504),
 SP_QUANT = (("gather", 8), ("gather", 4), ("scatter", 8), ("scatter", 4))
 
 SP_WORKER = r'''
-import functools, json, os, sys, time
+import contextlib, faulthandler, functools, json, os, sys, time
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+# a crash in native code leaves its Python stack in the rank's stderr
+faulthandler.enable()
 rank, port, gate = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 spec = json.loads(sys.argv[4])
 dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
@@ -6982,7 +7047,7 @@ def counts():
 
 
 def emit(**record):
-    print(json.dumps(dict(record, rank=rank)), flush=True)
+    print(json.dumps(dict(record, rank=rank, t=time.time())), flush=True)
 
 
 def sync():
@@ -6991,9 +7056,13 @@ def sync():
 
 
 def config(impl):
-    return getattr(LlamaConfig, spec["model"])(
+    cfg = getattr(LlamaConfig, spec["model"])(
         max_seq_len=spec["seq"], attn_impl=impl, norm_impl="fused",
         embed_impl="gather")
+    if spec["layers"]:
+        import dataclasses
+        cfg = dataclasses.replace(cfg, num_layers=spec["layers"])
+    return cfg
 
 
 def attention_part():
@@ -7077,6 +7146,95 @@ def training_part(impl, batches):
         torch.cuda.empty_cache()
 
 
+def tensor_part(fam):
+    """(d) GPT-2 small or BERT-base over a tensor axis of the world
+    (head-major fused qkv: each rank whole q, k and v heads), a step a
+    batch; the flash launches' shapes recorded as they launch."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    import chip_smoke
+
+    cfg, model_cls, loss_fn = chip_smoke.sp_tensor_family(fam)
+    mesh = create_mesh(MeshSpec(tensor=size), device=dev)
+
+    def adamw(params):
+        return torch.optim.AdamW(params, lr=3e-4, betas=(0.9, 0.999),
+                                 eps=1e-8, weight_decay=0.1)
+
+    trainer = build_trainer(functools.partial(model_cls, cfg), adamw, mesh,
+                            np.zeros((fam["micro"], fam["seq"])), loss_fn,
+                            micro_batch=fam["micro"])
+    state = trainer.init(0)
+    seen = []
+    launchers = {name: getattr(fa, name) for name in
+                 ("_launch_fwd", "_launch_bwd_dq", "_launch_bwd_dkv")}
+
+    def recording(name, launch):
+        def run(q, *args):
+            # (kernel, b, h, s, d, causal): causal is the next-to-last
+            seen.append([name] + list(q.shape) + [bool(args[-2])])
+            return launch(q, *args)
+        return run
+
+    for name, launch in launchers.items():
+        setattr(fa, name, recording(name, launch))
+    sync()
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    steps, comms = [], {}
+    reset()
+    try:
+        for i, (tokens, targets) in enumerate(
+                chip_smoke.sp_tensor_batches(fam, spec["steps"])):
+            collectives.reset_staging_seconds()
+            comm = CommDebugMode() if i == 0 else None
+            t0 = time.perf_counter()
+            with comm or contextlib.nullcontext():
+                state, m = trainer.step(
+                    state, *trainer.shard_batch(tokens, targets))
+                loss, norm = m["loss"].item(), m["grad_norm"].item()
+            steps.append({"loss": loss, "grad_norm": norm,
+                          "ms": (time.perf_counter() - t0) * 1e3,
+                          "staging_s": dict(collectives.staging_seconds)})
+            if comm is not None:
+                comms = {str(k): v for k, v in
+                         comm.get_comm_counts().items()}
+    finally:
+        for name, launch in launchers.items():
+            setattr(fa, name, launch)
+    launched = counts()
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if dev == "cuda" else 0.0)
+    # no collective between the fused projection and the attention: a
+    # block's q, k and v of a replicated activation, with none counted,
+    # each sharded over heads as the attention's local_map takes them
+    block = next(m for m in state.model.modules() if hasattr(m, "qkv_heads"))
+    kernel = block.qkv.kernel
+    x = torch.randn(1, fam["seq"], kernel.shape[0], device=dev,
+                    dtype=cfg.dtype)
+    with torch.no_grad(), implicit_replication():
+        x = DTensor.from_local(x, kernel.device_mesh, [Replicate()],
+                               run_check=False)
+        probe = CommDebugMode()
+        with probe:
+            qkv = block.qkv_heads(x)
+    split = {"collectives": probe.get_total_counts(),
+             "placements": sorted({str(t.placements) for t in qkv}),
+             "local_heads": sorted({t.to_local().shape[2] for t in qkv}),
+             "sharded_over_heads": all(
+                 t.placements == (Shard(2),) for t in qkv)}
+    emit(part="d", family=fam["family"], steps=steps, launches=launched,
+         shapes=sorted({tuple(s) for s in seen}), launched_shapes=len(seen),
+         peak_gib=peak, comms_first_step=comms, qkv=split)
+    del state, trainer, x, qkv
+    import gc
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+
 def leaves_of(member):
     g = torch.Generator(device=dev).manual_seed(1000 + member)
     return [torch.randn(*shape, generator=g, device=dev)
@@ -7112,49 +7270,103 @@ def quant_part():
              values=sum(t.numel() for t in mine))
 
 
-# (a) and (c) beside the parent's one-process run; (b) once it has freed
-# the card's memory and opened the second gate
+# (a) and (c) beside the parent's one-process runs; (b) and (d) once it
+# has freed the card's memory and opened the second gate
 if "a" in spec["parts"]:
+    emit(part="begin", what="a")
     attention_part()
 if "c" in spec["parts"]:
+    emit(part="begin", what="c")
     quant_part()
-if "b" in spec["parts"]:
+if "b" in spec["parts"] or "d" in spec["parts"]:
+    emit(part="begin", what="wait")
     while not os.path.exists(gate + ".b"):
         time.sleep(0.05)
+if "b" in spec["parts"]:
+    emit(part="begin", what="b")
     rng = np.random.default_rng(11)
     vocab = config("ring").vocab_size
     batches = [tuple(rng.integers(0, vocab, (1, spec["seq"]))
                      for _ in range(2)) for _ in range(spec["steps"])]
     for impl in spec["impls"]:
         training_part(impl, batches)
+if "d" in spec["parts"]:
+    emit(part="begin", what="d")
+    for fam in spec["tensor"]:
+        tensor_part(fam)
 emit(part="done")
 '''
 
 
 def sp_spec(device: str = "cuda", small: bool = False,
-            parts: str = "abc") -> dict:
-    """What the ranks run: parts (a), (b) and (c) at the card's full
-    sizes, or ``small`` (the CPU rehearsal, ``device="cpu"``, and the
-    card tests) with the tiny Llama and small shapes."""
+            parts: str = "abcd") -> dict:
+    """What the ranks run: parts (a) to (d) at the card's full sizes
+    ((b) at SP_LAYERS), or ``small`` (the CPU rehearsal,
+    ``device="cpu"``, and the card tests) with the tiny Llama, GPT and
+    BERT and small shapes."""
     if device == "cuda" and not small:
         return {"device": device, "ranks": SP_RANKS, "attn": SP_ATTN,
-                "seq": SP_SEQ, "model": "llama_1b", "steps": SP_STEPS,
-                "impls": list(SP_IMPLS), "parts": parts,
+                "seq": SP_SEQ, "model": "llama_1b", "layers": SP_LAYERS,
+                "steps": SP_STEPS, "impls": list(SP_IMPLS), "parts": parts,
                 "leaves": [list(s) for s in SP_BLOCK_LEAVES],
-                "quant": [list(q) for q in SP_QUANT]}
+                "quant": [list(q) for q in SP_QUANT],
+                "tensor": [dict(f) for f in SP_TENSOR]}
     return {"device": device, "ranks": SP_RANKS,
             "attn": dict(b=1, h=4, s=384, d=64), "seq": 64, "model": "tiny",
-            "steps": SP_STEPS, "impls": list(SP_IMPLS), "parts": parts,
-            "leaves": [[64, 64], [64, 96], [2048]],
-            "quant": [list(q) for q in SP_QUANT]}
+            "layers": 0, "steps": SP_STEPS, "impls": list(SP_IMPLS),
+            "parts": parts, "leaves": [[64, 64], [64, 96], [2048]],
+            "quant": [list(q) for q in SP_QUANT],
+            "tensor": [{"family": "gpt_tiny", "seq": 64, "micro": 4},
+                       {"family": "bert_tiny", "seq": 64, "micro": 4}]}
 
 
 def _sp_config(spec: dict, attn_impl: str):
+    import dataclasses
+
     from dlrover_tpu_torch.models.llama import LlamaConfig
 
-    return getattr(LlamaConfig, spec["model"])(
+    cfg = getattr(LlamaConfig, spec["model"])(
         max_seq_len=spec["seq"], attn_impl=attn_impl, norm_impl="fused",
         embed_impl="gather")
+    return (dataclasses.replace(cfg, num_layers=spec["layers"])
+            if spec["layers"] else cfg)
+
+
+def sp_tensor_family(fam: dict) -> tuple:
+    """(config, model class, loss) of (d)'s ``fam``: GPT-2 small or
+    BERT-base at full width and depth with the flash attention, or their
+    tiny presets (the CPU rehearsal)."""
+    from dlrover_tpu_torch.models.bert import Bert, BertConfig, mlm_loss
+    from dlrover_tpu_torch.models.gpt import GPT, GPTConfig
+    from dlrover_tpu_torch.models.llama import cross_entropy_loss
+
+    name = fam["family"]
+    if name.startswith("gpt"):
+        cfg = (GPTConfig.tiny(attn_impl="flash") if name.endswith("tiny")
+               else GPTConfig(attn_impl="flash"))
+        return cfg, GPT, cross_entropy_loss
+    cfg = (BertConfig.tiny(attn_impl="flash") if name.endswith("tiny")
+           else BertConfig.base(attn_impl="flash"))
+    return cfg, Bert, mlm_loss
+
+
+def sp_tensor_batches(fam: dict, steps: int) -> list:
+    """(tokens, targets) of each of (d)'s steps for ``fam``, the same in
+    the ranks and in this process: GPT's targets drawn apart, BERT's the
+    tokens themselves (dense MLM targets, as the models phase scores
+    them)."""
+    import numpy as np
+
+    cfg = sp_tensor_family(fam)[0]
+    rng = np.random.default_rng(13 if fam["family"].startswith("gpt")
+                                else 17)
+    shape = (fam["micro"], fam["seq"])
+    out = []
+    for _ in range(steps):
+        tokens = rng.integers(0, cfg.vocab_size, shape)
+        out.append((tokens, tokens if fam["family"].startswith("bert")
+                    else rng.integers(0, cfg.vocab_size, shape)))
+    return out
 
 
 def _sp_batches(spec: dict):
@@ -7193,6 +7405,14 @@ elif name == "all_to_all_single":
     dist.all_to_all_single(got, x)
     want = torch.cat([torch.full((512,), v, device="cuda")
                       for v in (1.0, 2.0)])
+elif name == "all_gather_into_tensor":
+    got = torch.empty(2048, device="cuda")
+    dist.all_gather_into_tensor(got, x)
+    want = torch.cat([torch.full_like(x, v) for v in (1.0, 2.0)])
+elif name == "reduce_scatter_tensor":
+    got = torch.empty(512, device="cuda")
+    dist.reduce_scatter_tensor(got, x)
+    want = torch.full_like(got, 3.0)
 else:
     got = torch.empty_like(x)
     for work in dist.batch_isend_irecv([
@@ -7203,8 +7423,12 @@ else:
 torch.cuda.synchronize()
 print(json.dumps({"right": bool(torch.equal(got, want))}), flush=True)
 '''
-# the gloo collectives probed with CUDA tensors
-SP_PROBES = ("all_reduce", "all_gather", "all_to_all_single", "isend_irecv")
+# the gloo collectives probed with CUDA tensors: those the port stages,
+# and the tensor forms DTensor's own redistributions call (a pending sum
+# to a shard would be a reduce-scatter; the tensor axis's path reduces to
+# a replica instead, parallel/sharding.reduce_partial)
+SP_PROBES = ("all_reduce", "all_gather", "all_to_all_single", "isend_irecv",
+             "all_gather_into_tensor", "reduce_scatter_tensor")
 
 
 def _sp_probes(tmp: str, gate: str) -> dict:
@@ -7316,7 +7540,42 @@ def _sp_reference(smi: str, spec: dict) -> list:
     return steps
 
 
-def _sp_records(procs: list, gate: str, timeout_s: float = 900.0
+def _sp_tensor_reference(smi: str, spec: dict) -> dict:
+    """(d)'s references: each family's steps trained by this process
+    alone (tensor 1) on the ranks' rows from the same seed-0 init, the
+    flash kernels on all 12 heads; freed before the ranks' second gate."""
+    from dlrover_tpu_torch.trainer.train_step import build_trainer
+
+    cuda = spec["device"] == "cuda"
+    out = {}
+    for fam in spec["tensor"]:
+        cfg, model_cls, loss_fn = sp_tensor_family(fam)
+        trainer = build_trainer(
+            functools.partial(model_cls, cfg), _adamw, None,
+            torch.zeros((fam["micro"], fam["seq"])), loss_fn,
+            micro_batch=fam["micro"], device=spec["device"])
+        state = trainer.init(0)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        steps = []
+        for tokens, targets in sp_tensor_batches(fam, spec["steps"]):
+            t0 = time.perf_counter()
+            state, m = trainer.step(state,
+                                    *trainer.shard_batch(tokens, targets))
+            steps.append({"loss": m["loss"].item(),
+                          "grad_norm": m["grad_norm"].item(),
+                          "ms": (time.perf_counter() - t0) * 1e3})
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
+        log(f"sp reference (d) {fam['family']} (one process, tensor 1): "
+            f"{json.dumps(steps)}, peak {peak:.2f} GiB ({smi})")
+        out[fam["family"]] = steps
+        del state, trainer
+        if cuda:
+            _free_memory()
+    return out
+
+
+def _sp_records(procs: list, gate: str, timeout_s: float = SP_WAIT_S
                 ) -> list:
     """Every JSON line of each rank, [rank][i]; a rank that fails fails
     the phase with its stderr."""
@@ -7334,10 +7593,24 @@ def _sp_records(procs: list, gate: str, timeout_s: float = 900.0
             with open(os.path.join(os.path.dirname(gate),
                                    f"sp_rank{rank}.err")) as f:
                 stderr = f.read()
-            raise AssertionError(f"sp rank {rank} exited {proc.returncode}:"
-                                 f"\n{stderr[-6000:]}")
+            reached = [line[:300] for line in stdout.splitlines()
+                       if line.startswith("{")][-3:]
+            raise AssertionError(f"sp rank {rank} exited {proc.returncode} "
+                                 f"after {reached}:\n{stderr[-6000:]}")
         out.append([json.loads(line) for line in stdout.splitlines()
                     if line.startswith("{")])
+    return out
+
+
+def _sp_part_seconds(records: list) -> dict:
+    """Each part's seconds on the slower rank, from its ``begin`` mark to
+    the next (``wait``: the ranks' wait for the one-process runs)."""
+    out = {}
+    for rank_records in records:
+        marks = [(r["what"] if r["part"] == "begin" else "end", r["t"])
+                 for r in rank_records if r["part"] in ("begin", "done")]
+        for (what, t), (_, nxt) in zip(marks, marks[1:]):
+            out[what] = max(out.get(what, 0.0), round(nxt - t, 1))
     return out
 
 
@@ -7426,6 +7699,78 @@ def _sp_training(records: list, reference: list, smi: str,
     return total
 
 
+def _sp_tensor(records: list, reference: dict, smi: str, spec: dict,
+               bad: list) -> dict:
+    """(d): each rank's steps against the one-process run, the flash
+    launches (12 a kernel a step, every one at the family's shape with
+    half the heads, on the card) and no collective between the fused
+    projection and the attention (what fails is added to ``bad``);
+    returns the runs' launches summed over ranks and families."""
+    cuda = spec["device"] == "cuda"
+    steps_n = spec["steps"]
+    total = {}
+    for fam in spec["tensor"]:
+        cfg = sp_tensor_family(fam)[0]
+        layers = getattr(cfg, "n_layer", 0) or cfg.num_layers
+        heads = getattr(cfg, "n_head", 0) or cfg.num_heads
+        causal = fam["family"].startswith("gpt")
+        want_shapes = [[kernel, fam["micro"], heads // spec["ranks"],
+                        fam["seq"], 64, causal]
+                       for kernel in ("_launch_bwd_dkv", "_launch_bwd_dq",
+                                      "_launch_fwd")]
+        runs = [rec for rank_records in records for rec in rank_records
+                if rec["part"] == "d" and rec["family"] == fam["family"]]
+        if len(runs) != spec["ranks"]:
+            bad.append(f"sp (d) {fam['family']}: {len(runs)} ranks "
+                       f"reported")
+        want_ref = reference[fam["family"]]
+        for rec in runs:
+            r = rec["rank"]
+            steps = rec["steps"]
+            dl = [abs(s["loss"] - w["loss"]) for s, w in zip(steps,
+                                                             want_ref)]
+            dn = [abs(s["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+                  for s, w in zip(steps, want_ref)]
+            staging = [round(sum(s["staging_s"].values()), 3)
+                       for s in steps]
+            log(f"sp (d) {fam['family']} tensor {spec['ranks']} rank {r}: "
+                f"losses {[s['loss'] for s in steps]} grad norms "
+                f"{[s['grad_norm'] for s in steps]}; against one process: "
+                f"max |loss diff| {max(dl):.3g} (limit {SP_LOSS_TOL}), max "
+                f"grad-norm relative diff {max(dn):.3g} (limit "
+                f"{SP_GRAD_NORM_TOL}); step ms "
+                f"{[round(s['ms'], 1) for s in steps]}, host staging s a "
+                f"step {staging} ({json.dumps(steps[-1]['staging_s'])}), "
+                f"allocator peak {rec['peak_gib']:.2f} GiB; DTensor's own "
+                f"collectives in step 1 {json.dumps(rec['comms_first_step'])}"
+                f"; flash launches at {rec['shapes']} "
+                f"({rec['launched_shapes']} launches); qkv split "
+                f"{json.dumps(rec['qkv'])} ({smi})")
+            want = {"flash_fwd": layers * steps_n,
+                    "flash_bwd_dq": layers * steps_n,
+                    "flash_bwd_dkv": layers * steps_n,
+                    "rms_fwd": 0, "rms_bwd": 0, "quantize": 0,
+                    "dequantize": 0}
+            if cuda and (rec["launches"] != want
+                         or [list(s) for s in rec["shapes"]] != want_shapes):
+                bad.append(f"sp (d) {fam['family']} rank {r}: launches "
+                           f"{rec['launches']} at {rec['shapes']}, "
+                           f"predicted {want} at {want_shapes}")
+            split = rec["qkv"]
+            if (split["collectives"] != 0 or not split["sharded_over_heads"]
+                    or split["local_heads"] != [heads // spec["ranks"]]):
+                bad.append(f"sp (d) {fam['family']} rank {r}: the qkv "
+                           f"split {split}")
+            if len(steps) != steps_n or not (
+                    max(dl) <= SP_LOSS_TOL and max(dn) <= SP_GRAD_NORM_TOL
+                    and all(math.isfinite(s["loss"]) for s in steps)):
+                bad.append(f"sp (d) {fam['family']} rank {r} disagrees "
+                           f"with the one-process run")
+            for k, v in rec["launches"].items():
+                total[k] = total.get(k, 0) + v
+    return total
+
+
 def _sp_quant(records: list, smi: str, spec: dict, bad: list) -> dict:
     """(c): bit for bit, within the bound, the predicted launches (on the
     card; what fails is added to ``bad``); returns the quantization
@@ -7471,11 +7816,15 @@ def phase_sp(smi: str, workers: tuple, spec: dict) -> dict:
         open(gate, "w").close()
         reference = (_sp_reference(smi, spec) if "b" in spec["parts"]
                      else [])
+        tensor_reference = (_sp_tensor_reference(smi, spec)
+                            if "d" in spec["parts"] else {})
         open(gate + ".b", "w").close()
         t1 = time.monotonic()
         records = _sp_records(procs, gate)
         log(f"sp: the ranks ran {time.monotonic() - t0:.1f} s after the "
             f"first gate, {time.monotonic() - t1:.1f} s after the second")
+        parts_s = _sp_part_seconds(records)
+        log(f"sp: part seconds, the slower rank's {json.dumps(parts_s)}")
         if probes:
             log(f"sp: gloo collectives with CUDA tensors on torch "
                 f"{torch.__version__}: "
@@ -7492,10 +7841,14 @@ def phase_sp(smi: str, workers: tuple, spec: dict) -> dict:
     bad = _sp_attention(records, smi, spec["device"] == "cuda")
     launches = (_sp_training(records, reference, smi, spec, bad)
                 if "b" in spec["parts"] else {})
+    if "d" in spec["parts"]:
+        for k, v in _sp_tensor(records, tensor_reference, smi, spec,
+                               bad).items():
+            launches[k] = launches.get(k, 0) + v
     launches.update(_sp_quant(records, smi, spec, bad))
     if bad:
         raise AssertionError(f"sp: {bad}")
-    return {"launches": launches}
+    return {"launches": launches, "part_s": parts_s}
 
 
 def main(argv=None) -> int:
@@ -7667,16 +8020,23 @@ def _run_phases(args, phases: list, smi: str, sp_workers, t0: float) -> int:
         for rec in train_records + quant_records:
             rec["brain_launches"] = brain["launches"][rec["name"]]
         lap("brain")
+    sp_part_s = {}
     if "sp" in phases:
-        # both ranks' (b) training runs (ring, Ulysses) and their (c)
-        # quantized means, summed
+        # both ranks' (b) training runs (ring, Ulysses), their (d) runs
+        # (GPT-2, BERT over tensor 2) and their (c) quantized means, summed
         sp = phase_sp(smi, sp_workers, sp_spec())
+        sp_part_s = sp["part_s"]
         for rec in train_records + quant_records:
             rec["sp_launches"] = sp["launches"].get(rec["name"], 0)
         lap("sp")
     records = train_records + quant_records
+    elapsed = time.monotonic() - t0
     log(f"phase seconds: {json.dumps(seconds)}")
-    log(f"elapsed {time.monotonic() - t0:.1f} s")
+    log(f"elapsed {elapsed:.1f} s")
+    log(f"budget: {elapsed:.1f} s of {SCRIPT_BUDGET_S:.0f} s (the "
+        f"contract's limit is 1200 s); sp part (d) "
+        f"{sp_part_s.get('d', 0.0):.1f} s of {SP_TENSOR_BUDGET_S:.0f} s "
+        f"({smi})")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,9 +19,10 @@ when this rank's device is a CUDA card and ``"reference"`` on the CPU;
 ``sequence_impl`` (``"ring"`` or ``"ulysses"``), over a flash request,
 and ``quant_allreduce`` lowers as ``build_trainer``'s
 ``grad_reduce_bits`` (the pipeline warns and drops it, as the JAX
-lowering does). ``tensor_parallel`` on a model with a fused qkv
-projection is not ported yet and raises ``NotImplementedError`` naming
-its ROADMAP Queue A item (10b), never a plain path.
+lowering does). ``tensor_parallel`` lowers as ``build_trainer``'s
+tensor axis on every family (GPT's and BERT's head-major fused qkv
+included); what ``build_trainer`` does not port yet raises there, naming
+its ROADMAP Queue A item.
 The streaming branch keeps the per-leaf contract: its optimizer must be
 a ``LeafTransform`` (``build_streaming_trainer`` refuses anything else).
 """
@@ -203,11 +204,6 @@ def lower(context: ModelContext) -> AccelerateResult:
                                 model=context.model, strategy=[],
                                 context=context)
 
-    if (spec.tensor > 1 and plan.pipeline_stages == 1
-            and getattr(context.abstract_model(), "fused_qkv", False)):
-        raise NotImplementedError(
-            "tensor_parallel on a model with a fused qkv projection is "
-            "not ported yet (ROADMAP Queue A item 10b)")
     mesh = create_mesh(spec, context.device)
     if plan.pipeline_stages > 1:
         from dlrover_tpu_torch.models.bert import BertConfig

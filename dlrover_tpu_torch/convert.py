@@ -7,8 +7,15 @@ flax tree does, so one mapping serves them all: the flax path
 ``layer_0/moe/ExpertMLP_0/wi`` or ``layer_0/moe/router`` (LlamaMoE) is the
 port's ``state_dict`` key with dots, and tables such as ``wte`` or
 ``word_embed`` keep their names. Dense kernels keep the ``(in, out)``
-layout in both, so values cross unchanged. The tree is given as nested
-dicts of numpy arrays (unbox flax's partitioning metadata first).
+layout in both, so values cross unchanged, but for one pair of leaves:
+GPT's and BERT's fused ``qkv`` kernel and bias, which the port stores
+head-major (each head's q, k and v columns side by side, so that a
+column shard over a tensor axis is whole heads: ``models/gpt.py``) and
+flax as ``[q | k | v]``. Every converter permutes their last dim, and
+the optimizer state's that follows it, and takes the model's head count
+as ``heads`` for it (a tree holding a ``qkv`` leaf without it raises).
+The tree is given as nested dicts of numpy arrays (unbox flax's
+partitioning metadata first).
 
 ``factored_state_from_jax`` carries an optax chain's factored-RMS state
 (``optax.adafactor``'s, or ``scale_by_factored_rms`` chained with
@@ -44,34 +51,59 @@ import torch
 
 # the per-leaf state of the factored-RMS optimizer (optim/factored.py)
 FACTORED_KEYS = ("v_row", "v_col", "v")
+# the fused projections the port stores head-major (GPT's, BERT's)
+QKV_LEAVES = (".qkv.kernel", ".qkv.bias")
 
 
-def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax param tree (nested dicts of arrays) → flat ``state_dict``."""
-    out: Dict[str, torch.Tensor] = {}
-
-    def walk(node, prefix):
-        for name, child in node.items():
-            key = f"{prefix}.{name}" if prefix else name
-            if isinstance(child, Mapping):
-                walk(child, key)
-            else:
-                out[key] = torch.from_numpy(np.array(child, copy=True))
-
-    walk(tree, "")
-    return out
+def qkv_to_port(value: np.ndarray, heads: int) -> np.ndarray:
+    """flax's ``[q | k | v]`` columns (the last dim, 3·heads·head_dim) →
+    the port's head-major ``[head 0: q, k, v | head 1: q, k, v | …]``."""
+    *lead, width = value.shape
+    return np.ascontiguousarray(np.swapaxes(value.reshape(
+        *lead, 3, heads, width // (3 * heads)), -3, -2).reshape(value.shape))
 
 
-def params_to_jax(state_dict: Mapping[str, torch.Tensor]
-                  ) -> Dict[str, Any]:
-    """Flat ``state_dict`` → flax param tree of numpy arrays."""
+def qkv_to_jax(value: np.ndarray, heads: int) -> np.ndarray:
+    """The inverse of ``qkv_to_port``."""
+    *lead, width = value.shape
+    return np.ascontiguousarray(np.swapaxes(value.reshape(
+        *lead, heads, 3, width // (3 * heads)), -3, -2).reshape(value.shape))
+
+
+def _relayout(name: str, value: np.ndarray, heads: Optional[int],
+              permute) -> np.ndarray:
+    """``value`` of leaf ``name`` through ``permute`` when the leaf is a
+    fused qkv (its columns, or a state tensor that follows them)."""
+    if not name.endswith(QKV_LEAVES):
+        return value
+    if heads is None:
+        raise ValueError(f"{name} is a fused qkv leaf, stored head-major "
+                         f"in the port: pass the model's head count "
+                         f"(heads=)")
+    return permute(value, heads)
+
+
+def params_from_jax(tree: Mapping[str, Any], heads: Optional[int] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """Flax param tree (nested dicts of arrays) → flat ``state_dict``;
+    ``heads``: the model's head count, for a fused qkv."""
+    return {key: _tensor(_relayout(key, np.asarray(value), heads,
+                                   qkv_to_port))
+            for key, value in _flat(tree).items()}
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor],
+                  heads: Optional[int] = None) -> Dict[str, Any]:
+    """Flat ``state_dict`` → flax param tree of numpy arrays; ``heads``
+    as ``params_from_jax``'s."""
     tree: Dict[str, Any] = {}
     for key, tensor in state_dict.items():
         *path, leaf = key.split(".")
         node = tree
         for name in path:
             node = node.setdefault(name, {})
-        node[leaf] = tensor.detach().cpu().numpy()
+        node[leaf] = _relayout(key, tensor.detach().cpu().numpy(), heads,
+                               qkv_to_jax)
     return tree
 
 
@@ -100,16 +132,25 @@ def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, copy=True))
 
 
-def factored_state_from_jax(opt_state: Any
+def factored_state_from_jax(opt_state: Any, heads: Optional[int] = None
                             ) -> Dict[str, Dict[str, torch.Tensor]]:
     """An optax chain's state holding a ``scale_by_factored_rms`` (its
     leaves numpy arrays) → each parameter's ``{"count", "v_row", "v_col",
-    "v"}`` by the port's names (``layer_0.moe.ExpertMLP_0.wi``)."""
+    "v"}`` by the port's names (``layer_0.moe.ExpertMLP_0.wi``). A fused
+    qkv's column statistics (``v_col``, and an unfactored ``v``) permute
+    with its columns; its row statistics (``v_row``) stay."""
     factored = _factored(opt_state)
     trees = {key: _flat(getattr(factored, key)) for key in FACTORED_KEYS}
+
+    def leaf(key, path):
+        value = np.asarray(trees[key][path])
+        if key == "v_row" or value.shape[-1] == 1:
+            # row statistics, or the placeholder of a factored part
+            return _tensor(value)
+        return _tensor(_relayout(path, value, heads, qkv_to_port))
+
     return {path: {"count": _tensor(factored.count),
-                   **{key: _tensor(trees[key][path])
-                      for key in FACTORED_KEYS}}
+                   **{key: leaf(key, path) for key in FACTORED_KEYS}}
             for path in trees["v"]}
 
 
@@ -173,40 +214,47 @@ def _chunk_layers(leaf_shape, stage: Optional[int]):
 
 
 def _pipeline_items(tree: Mapping[str, Any], family: str,
-                    stage: Optional[int]):
-    """(the port's name, numpy value) of a {"shared", "chunks"} tree."""
+                    stage: Optional[int], heads: Optional[int]):
+    """(the port's name, numpy value) of a {"shared", "chunks"} tree, a
+    fused qkv in the port's layout."""
     prefix, renames = PIPELINE_LAYOUTS[family]
     for path, leaf in _flat(tree["shared"]).items():
         yield renames.get(path, path), np.asarray(leaf)
     for path, leaf in _flat(tree["chunks"]).items():
         leaf = np.asarray(leaf)
         for index, layer in _chunk_layers(leaf.shape, stage):
-            yield f"{prefix}_{layer}.{path}", leaf[index]
+            name = f"{prefix}_{layer}.{path}"
+            yield name, _relayout(name, leaf[index], heads, qkv_to_port)
 
 
 def pipeline_params_from_jax(params: Mapping[str, Any], family: str,
-                             stage: Optional[int] = None
+                             stage: Optional[int] = None,
+                             heads: Optional[int] = None
                              ) -> Dict[str, torch.Tensor]:
     """A JAX pipelined trainer's parameters (numpy leaves) → the port's
     by name: stage ``stage``'s (a ``PipelineStage``'s ``state_dict``),
     or every layer's when None (the dense model's names). ``family``: a
-    key of ``PIPELINE_LAYOUTS``."""
-    return {name: _tensor(value)
-            for name, value in _pipeline_items(params, family, stage)}
+    key of ``PIPELINE_LAYOUTS``; ``heads``: GPT's or BERT's head count,
+    for the fused qkv."""
+    return {name: _tensor(value) for name, value in
+            _pipeline_items(params, family, stage, heads)}
 
 
 def pipeline_params_to_jax(state_dict: Mapping[str, torch.Tensor],
                            family: str, num_stages: int,
-                           num_rounds: int = 1) -> Dict[str, Any]:
+                           num_rounds: int = 1,
+                           heads: Optional[int] = None) -> Dict[str, Any]:
     """Every layer's parameters by the port's names (the stages'
     ``state_dict``s merged) → the JAX ``{"shared", "chunks"}`` tree of
-    numpy arrays, chunk leaves (C, S, layers_per_chunk, ...)."""
+    numpy arrays, chunk leaves (C, S, layers_per_chunk, ...); ``heads``
+    as ``pipeline_params_from_jax``'s."""
     prefix, renames = PIPELINE_LAYOUTS[family]
     back = {port: path for path, port in renames.items()}
     shared: Dict[str, Any] = {}
     layers: Dict[int, Dict[str, np.ndarray]] = {}
     for name, tensor in state_dict.items():
-        value = tensor.detach().cpu().numpy()
+        value = _relayout(name, tensor.detach().cpu().numpy(), heads,
+                          qkv_to_jax)
         head, _, rest = name.partition(".")
         if head.startswith(prefix + "_") and head[len(prefix) + 1:].isdigit():
             layers.setdefault(int(head[len(prefix) + 1:]), {})[rest] = value
@@ -224,16 +272,18 @@ def pipeline_params_to_jax(state_dict: Mapping[str, torch.Tensor],
                                      for k, v in stacked.items()})}
 
 
-def pipeline_adamw_from_jax(opt_state: Any, family: str
+def pipeline_adamw_from_jax(opt_state: Any, family: str,
+                            heads: Optional[int] = None
                             ) -> Dict[str, Dict[str, torch.Tensor]]:
     """An ``optax.adamw`` state of a JAX pipelined trainer's parameters
     (numpy leaves) → each parameter's ``torch.optim.AdamW`` state
     ``{"step", "exp_avg", "exp_avg_sq"}`` by the port's names, every
-    layer's (a stage takes its own by name)."""
+    layer's (a stage takes its own by name); a fused qkv's moments
+    permute with its columns (``heads``: GPT's or BERT's head count)."""
     adam = next(part for part in opt_state if hasattr(part, "mu"))
     step = torch.tensor(float(np.asarray(adam.count)))
-    mu = dict(_pipeline_items(adam.mu, family, None))
-    nu = dict(_pipeline_items(adam.nu, family, None))
+    mu = dict(_pipeline_items(adam.mu, family, None, heads))
+    nu = dict(_pipeline_items(adam.nu, family, None, heads))
     return {name: {"step": step.clone(), "exp_avg": _tensor(mu[name]),
                    "exp_avg_sq": _tensor(nu[name])} for name in mu}
 

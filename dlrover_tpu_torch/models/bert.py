@@ -3,9 +3,11 @@
 Counterpart of ``dlrover_tpu/models/bert.py``, with the same config,
 presets, parameter names and numerics: word, position and (when given)
 token-type embeddings, an ``embed_norm``, post-LN encoder blocks (flax's
-LayerNorm at ``layer_norm_eps``) with a fused ``qkv`` split into
-contiguous thirds and non-causal attention through
-``dispatch_attention`` (the port's flash kernels with ``causal=False``,
+LayerNorm at ``layer_norm_eps``) with a fused ``qkv``, stored
+head-major as GPT's is (``models/gpt.py``: each head's q, k and v
+columns side by side, where flax lays out ``[q | k | v]``;
+``convert.py`` permutes between the two), and non-causal attention
+through ``dispatch_attention`` (the port's flash kernels with ``causal=False``,
 or the plain path), a tanh-GELU MLP, and the MLM head: a dense
 transform, GELU, ``mlm_norm`` and a decoder tied to the word table, with
 f32 logits. Padding is the loss's business (``mlm_loss``'s weights); the
@@ -25,7 +27,6 @@ import dataclasses
 from typing import Optional, Tuple, Union
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from dlrover_tpu_torch.common.device import resolve_device
@@ -36,10 +37,19 @@ from dlrover_tpu_torch.models.layers import (
     check_options,
     gelu,
     normal_param,
+    split_heads,
 )
-from dlrover_tpu_torch.models.llama import dispatch_attention, embed_lookup
+from dlrover_tpu_torch.models.llama import (
+    dispatch_attention,
+    embed_lookup,
+    token_nll,
+)
 from dlrover_tpu_torch.parallel.collectives import all_reduce_
 from dlrover_tpu_torch.parallel.mesh import sequence_offset, sequence_parallel
+from dlrover_tpu_torch.parallel.tensor_parallel import (
+    column_parallel_input,
+    gather_shards,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,17 +106,22 @@ class EncoderBlock(nn.Module):
         self.proj = Dense(i, h, ("mlp", "embed"), cfg, device, generator)
         self.mlp_norm = LayerNorm(h, eps, cfg, device)
 
+    def qkv_heads(self, x):
+        """q, k and v, each (batch, seq, num_heads, head_dim), from the
+        head-major fused projection (see ``GPT``'s ``Block``)."""
+        return split_heads(self.qkv(column_parallel_input(x)),
+                           self.cfg.num_heads)
+
     def forward(self, x):
         cfg = self.cfg
         batch, seq, _ = x.shape
-        head_dim = cfg.hidden_size // cfg.num_heads
-        q, k, v = (t.reshape(batch, seq, cfg.num_heads, head_dim)
-                   for t in self.qkv(x).chunk(3, dim=-1))
+        q, k, v = self.qkv_heads(x)
         attn = dispatch_attention(cfg.attn_impl, q, k, v, causal=False)
         attn = self.attn_out(attn.reshape(batch, seq, cfg.hidden_size))
         # post-LN residuals (original BERT)
         x = self.attn_norm(x + attn)
-        return self.mlp_norm(x + self.proj(gelu(self.fc(x))))
+        h = self.fc(column_parallel_input(x))
+        return self.mlp_norm(x + self.proj(gelu(h)))
 
 
 class Bert(nn.Module):
@@ -115,9 +130,6 @@ class Bert(nn.Module):
 
     Built on ``device`` from ``seed`` as ``GPT`` is (the current CUDA
     device when None; raises without a GPU unless ``device="cpu"``)."""
-
-    # the fused qkv projection (see GPT.fused_qkv)
-    fused_qkv = True
 
     def __init__(self, config: BertConfig,
                  device: Optional[Union[str, torch.device]] = None,
@@ -167,8 +179,12 @@ class Bert(nn.Module):
         x = self.embed_norm(x)
         for layer in range(cfg.num_layers):
             x = call_block(getattr(self, f"layer_{layer}"), cfg, x)
-        x = self.mlm_norm(gelu(self.mlm_transform(x)))
-        return torch.matmul(x, self.word_embed.to(cfg.dtype).t()).float()
+        # the transform's columns are sharded over a tensor axis: made
+        # whole for the norm
+        x = gather_shards(gelu(self.mlm_transform(column_parallel_input(x))))
+        x = self.mlm_norm(x)
+        return torch.matmul(column_parallel_input(x),
+                            self.word_embed.to(cfg.dtype).t()).float()
 
 
 def mlm_loss(logits: torch.Tensor, targets: torch.Tensor,
@@ -182,9 +198,7 @@ def mlm_loss(logits: torch.Tensor, targets: torch.Tensor,
     of weighted positions is the whole rows' (shards hold different
     counts), scaled by the axis size: the trainer's mean over the axis is
     then Σ nll·w / Σ w over the whole rows, not a mean of shard means."""
-    nll = F.cross_entropy(logits.float().flatten(0, -2),
-                          targets.flatten().long(),
-                          reduction="none").view(targets.shape)
+    nll = token_nll(logits, targets)
     if weights is None:
         return nll.mean()
     weights = weights.to(nll.dtype)

@@ -2,12 +2,22 @@
 
 Counterpart of ``dlrover_tpu/models/gpt.py``, with the same config,
 presets, parameter names and numerics: pre-LN blocks with flax's
-LayerNorm (eps 1e-6), a fused ``qkv`` projection split into contiguous
-thirds, causal attention through ``dispatch_attention`` (the port's
-flash kernels or the plain path), a tanh-GELU MLP, learned positions,
-and a head tied to the token table with f32 logits. The layers are
-``models/layers.py``'s; dense kernels keep the JAX ``(in, out)`` layout,
-so parameters convert unchanged (``convert.py``).
+LayerNorm (eps 1e-6), a fused ``qkv`` projection, causal attention
+through ``dispatch_attention`` (the port's flash kernels or the plain
+path), a tanh-GELU MLP, learned positions, and a head tied to the token
+table with f32 logits. The layers are ``models/layers.py``'s; dense
+kernels keep the JAX ``(in, out)`` layout.
+
+The fused ``qkv`` kernel and bias are stored head-major: column
+``(h·3 + j)·head_dim + i`` is head ``h``'s element ``i`` of q, k or v
+(``j`` = 0, 1, 2), where flax lays the 3·n columns out as ``[q | k |
+v]``. The forward cuts ``(…, n_head, 3·head_dim)`` into its three
+``head_dim`` slices (``layers.split_heads``). A contiguous
+column shard over a tensor axis that divides ``n_head`` then holds whole
+q, k and v heads, whatever the axis's size, so a checkpoint restores at
+any tensor size. ``convert.py`` permutes the two leaves (and their
+optimizer state) to and from flax's layout; every other parameter
+converts unchanged.
 
 Parameter names follow the flax tree: ``wte``, ``wpe``,
 ``block_{i}.{ln1,ln2}.{scale,bias}``,
@@ -32,9 +42,11 @@ from dlrover_tpu_torch.models.layers import (
     check_options,
     gelu,
     normal_param,
+    split_heads,
 )
 from dlrover_tpu_torch.models.llama import dispatch_attention, embed_lookup
 from dlrover_tpu_torch.parallel.mesh import sequence_offset
+from dlrover_tpu_torch.parallel.tensor_parallel import column_parallel_input
 
 # flax nn.LayerNorm's default epsilon, which every GPT norm keeps
 LN_EPS = 1e-6
@@ -82,15 +94,22 @@ class Block(nn.Module):
         self.proj = Dense(4 * n, n, ("mlp", "embed"), cfg, device,
                           generator)
 
+    def qkv_heads(self, x):
+        """q, k and v, each (batch, seq, n_head, head_dim), from the
+        head-major fused projection of ``ln1(x)``: under a tensor axis
+        each is sharded over heads as the kernel's columns are, with no
+        collective."""
+        return split_heads(self.qkv(column_parallel_input(self.ln1(x))),
+                           self.cfg.n_head)
+
     def forward(self, x):
         cfg = self.cfg
         batch, seq, _ = x.shape
-        head_dim = cfg.n_embd // cfg.n_head
-        q, k, v = (t.reshape(batch, seq, cfg.n_head, head_dim)
-                   for t in self.qkv(self.ln1(x)).chunk(3, dim=-1))
+        q, k, v = self.qkv_heads(x)
         attn = dispatch_attention(cfg.attn_impl, q, k, v, causal=True)
         x = x + self.attn_out(attn.reshape(batch, seq, cfg.n_embd))
-        return x + self.proj(gelu(self.fc(self.ln2(x))))
+        h = column_parallel_input(self.ln2(x))
+        return x + self.proj(gelu(self.fc(h)))
 
 
 class GPT(nn.Module):
@@ -101,10 +120,6 @@ class GPT(nn.Module):
     ``torch.Generator`` seeded with ``seed``: normal(0.02) for the dense
     kernels and tables, zeros for the biases, ones and zeros for the
     norms, as the flax initializers (the random streams differ)."""
-
-    # the fused qkv projection: a column split over a tensor axis would
-    # not give each rank whole q, k and v heads (train_step refuses it)
-    fused_qkv = True
 
     def __init__(self, config: GPTConfig,
                  device: Optional[Union[str, torch.device]] = None,
@@ -139,6 +154,6 @@ class GPT(nn.Module):
              + self.wpe[start:start + seq].to(cfg.dtype))
         for layer in range(cfg.n_layer):
             x = call_block(getattr(self, f"block_{layer}"), cfg, x)
-        x = self.ln_f(x)
+        x = column_parallel_input(self.ln_f(x))
         # weight-tied LM head (as nanoGPT)
         return torch.matmul(x, self.wte.to(cfg.dtype).t()).float()

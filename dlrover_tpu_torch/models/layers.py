@@ -6,7 +6,9 @@ Counterparts of flax's ``nn.Dense`` with a bias, ``nn.LayerNorm`` and
 - ``Dense``: ``kernel`` ``(in, out)`` and ``bias``, both in
   ``cfg.param_dtype``, cast to ``cfg.dtype`` at the product; the bias is
   added in ``cfg.dtype`` after it, as flax promotes all three to
-  ``dtype`` and adds the bias to the product's result.
+  ``dtype`` and adds the bias to the product's result. Over a tensor
+  axis that shards the input dim (a row-parallel kernel) the product's
+  pending sum is reduced before the bias, which is added once.
 - ``LayerNorm``: ``scale`` and ``bias`` in f32 (flax's ``param_dtype``
   default, whatever the model's), the statistics and the normalisation
   in f32 and one cast to ``cfg.dtype`` at the end. flax's default eps is
@@ -18,7 +20,8 @@ Counterparts of flax's ``nn.Dense`` with a bias, ``nn.LayerNorm`` and
 Parameters carry logical axes (``param_axes``) as the flax modules box
 them; LayerNorm's carry none, so they are replicated on every mesh, as
 flax leaves them unboxed. ``call_block`` runs a block under the
-config's rematerialization policy.
+config's rematerialization policy. ``split_heads`` takes q, k and v
+from a fused projection stored head-major (GPT's and BERT's ``qkv``).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dlrover_tpu_torch.ops.remat import remat_call, resolve_remat_policy
+from dlrover_tpu_torch.parallel.tensor_parallel import reduce_partial
 
 
 # the attentions every family takes (``dispatch_attention``)
@@ -77,8 +81,21 @@ class Dense(nn.Module):
                                              device=device))
 
     def forward(self, x):
-        return (torch.matmul(x, self.kernel.to(self.dtype))
+        return (reduce_partial(torch.matmul(x, self.kernel.to(self.dtype)))
                 + self.bias.to(self.dtype))
+
+
+def split_heads(qkv: torch.Tensor, heads: int):
+    """q, k and v, each (…, seq, heads, head_dim), from a fused
+    projection's (…, seq, 3·heads·head_dim) output laid out head-major
+    (each head's q, k and v columns side by side). A DTensor sharded over
+    the last dim stays sharded over heads: no collective runs."""
+    *lead, width = qkv.shape
+    # (…, heads, 3·head_dim) cut along its last dim: the heads stay the
+    # sharded dim forward and backward (the gradients are joined by a
+    # concatenation along an unsharded dim)
+    return qkv.unflatten(-1, (heads, width // heads)).split(
+        width // (3 * heads), dim=-1)
 
 
 class LayerNorm(nn.Module):

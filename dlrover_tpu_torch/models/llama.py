@@ -51,6 +51,14 @@ from dlrover_tpu_torch.ops.flash_attention import (
 from dlrover_tpu_torch.ops.norms import fused_rms_norm, reference_rms_norm
 from dlrover_tpu_torch.parallel.mesh import sequence_offset, sequence_parallel
 from dlrover_tpu_torch.parallel.ring_attention import sequence_attention
+from dlrover_tpu_torch.parallel.tensor_parallel import (
+    column_parallel_input,
+    embed_shards,
+    logits_vocab_sharded,
+    reduce_partial,
+    vocab_parallel_nll,
+    vocab_sharded,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,12 +153,11 @@ def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,
     both gather here; the f32 rows are gathered before the cast, which
     rounds each value exactly as casting the table first would. A table
     sharded over the vocabulary (tensor parallelism) is looked up
-    locally, as DTensor's embedding rule does, and each row summed in
-    from the one rank that holds it, never by gathering the table."""
-    x = F.embedding(tokens, embed)
-    if isinstance(x, DTensor):
-        x = x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
-    return x.to(cfg.dtype)
+    locally, and each row summed in from the one rank that holds it,
+    never by gathering the table (``parallel/tensor_parallel.py``)."""
+    if vocab_sharded(embed):
+        return embed_shards(embed, tokens).to(cfg.dtype)
+    return F.embedding(tokens, embed).to(cfg.dtype)
 
 
 def dispatch_attention(impl: str, q, k, v, causal: bool = True
@@ -211,7 +218,9 @@ def token_positions(tokens: torch.Tensor) -> torch.Tensor:
 
 class Dense(nn.Module):
     """Kernel-only linear, ``(in, out)`` layout, cast to cfg.dtype;
-    ``axes`` are the kernel's logical axes."""
+    ``axes`` are the kernel's logical axes. Over a tensor axis that
+    shards the input dim (a row-parallel kernel) the product's pending
+    sum is reduced at the output (``reduce_partial``)."""
 
     def __init__(self, d_in, d_out, axes, cfg, device, generator):
         super().__init__()
@@ -221,7 +230,7 @@ class Dense(nn.Module):
                                    generator)
 
     def forward(self, x):
-        return torch.matmul(x, self.kernel.to(self.dtype))
+        return reduce_partial(torch.matmul(x, self.kernel.to(self.dtype)))
 
 
 class RMSNorm(nn.Module):
@@ -271,6 +280,7 @@ class Attention(nn.Module):
     def forward(self, x, positions):
         cfg = self.cfg
         batch, seq, _ = x.shape
+        x = column_parallel_input(x)
         q = self.q_proj(x).view(batch, seq, cfg.num_heads, cfg.head_dim)
         k = self.k_proj(x).view(batch, seq, cfg.num_kv_heads, cfg.head_dim)
         v = self.v_proj(x).view(batch, seq, cfg.num_kv_heads, cfg.head_dim)
@@ -291,6 +301,7 @@ class MLP(nn.Module):
                                generator)
 
     def forward(self, x):
+        x = column_parallel_input(x)
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
@@ -352,14 +363,28 @@ class Llama(nn.Module):
         for layer in range(cfg.num_layers):
             x = call_block(getattr(self, f"layer_{layer}"), cfg, x,
                            positions)
-        x = self.final_norm(x)
+        x = column_parallel_input(self.final_norm(x))
         head = (self.embed.t() if cfg.tie_embeddings else self.lm_head)
         logits = torch.matmul(x, head.to(cfg.dtype))
         return logits.float()
 
 
+def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Each token's negative log-likelihood in f32, targets' shape; logits
+    sharded over the vocabulary (a tensor axis's head) are reduced from
+    their shards' statistics (``parallel/tensor_parallel.py``), never
+    gathered."""
+    if logits_vocab_sharded(logits):
+        return vocab_parallel_nll(logits, targets)
+    return F.cross_entropy(logits.float().flatten(0, -2),
+                           targets.flatten().long(),
+                           reduction="none").view(targets.shape)
+
+
 def cross_entropy_loss(logits: torch.Tensor,
                        targets: torch.Tensor) -> torch.Tensor:
     """Mean next-token cross entropy; logits (b, s, v), targets (b, s)."""
+    if logits_vocab_sharded(logits):
+        return token_nll(logits, targets).mean()
     return F.cross_entropy(logits.float().flatten(0, -2),
                            targets.flatten().long())

@@ -444,7 +444,7 @@ def build_pipeline_trainer(cfg, optimizer_factory: Callable[..., Any],
         if shape[axis] > 1:
             raise NotImplementedError(
                 f"pipe × {axis} is not ported yet (ROADMAP Queue A item "
-                f"10): a pipeline's mesh holds pipe, data and fsdp axes")
+                f"10d): a pipeline's mesh holds pipe, data and fsdp axes")
     if shape[MeshAxis.SEQUENCE] > 1:
         raise NotImplementedError(
             "the pipelined trainer does not split the sequence: its batch "

@@ -60,8 +60,14 @@ added to the loss, as the JAX step adds the ``losses`` collection.
   The reduce over ``dcn`` (the JAX package's axis when it spans slices)
   waits for slice mode (ROADMAP Queue A item 6.4).
 
+Under the ``tensor`` axis each row-parallel product's pending sum is
+reduced at the projection's output (``parallel/sharding.reduce_partial``),
+so the residual stream is replicated, whatever the norm; GPT's and BERT's
+fused qkv is stored head-major, so its column shard is whole q, k and v
+heads (``models/gpt.py``).
+
 Not ported yet, and raising: a ``tensor`` axis under an MoE model (item
-10) and ``grad_reduce_bits`` over a ``dcn`` axis (item 6.4). A ``pipe``
+10c) and ``grad_reduce_bits`` over a ``dcn`` axis (item 6.4). A ``pipe``
 axis is the pipelined trainer's (``trainer/pipeline_trainer.py``, which
 shares ``TrainState`` and this trainer's state, offload and batch
 handling); this one refuses it.
@@ -511,14 +517,16 @@ class Trainer:
         the groups of the step's collectives (the loss's, the exact and
         the quantized gradient means', the sequence axis's attention)
         their lanes, so that a staged buffer crosses in parts side by
-        side (``parallel/collectives.py``). Every rank builds its trainer
-        at once, so the lanes' groups are created in one order."""
+        side (``parallel/collectives.py``); so do the tensor axis's
+        pending sums (``parallel/sharding.reduce_partial``). Every rank
+        builds its trainer at once, so the lanes' groups are created in
+        one order."""
         mesh = self.mesh
         if (mesh.device_mesh is None or self.device.type != "cuda"
                 or dist.get_backend() != dist.Backend.GLOO):
             return
         axes = [self._batch_axes(), self._exact_axes(),
-                (MeshAxis.SEQUENCE,), (MeshAxis.DATA,)]
+                (MeshAxis.SEQUENCE,), (MeshAxis.DATA,), (MeshAxis.TENSOR,)]
         for names in dict.fromkeys(axes):
             if self._size(names) > 1:
                 set_lanes(mesh.submesh(names).get_group(),
@@ -730,9 +738,9 @@ def _check_model_axes(model: nn.Module, mesh: Mesh, rules) -> None:
     """Every dim the tensor or the expert axis shards must divide by it
     (``ValueError``): an MoE model's expert count by the expert way, and
     under a tensor axis a GQA model's kv heads too, since each rank's
-    query heads must find their kv heads among its own. A model with a
-    fused qkv projection (GPT, BERT) or with experts is refused a tensor
-    axis."""
+    query heads must find their kv heads among its own (GPT's and BERT's
+    head-major fused qkv shards into whole heads alike). A model with
+    experts is refused a tensor axis."""
     expert = mesh.shape[MeshAxis.EXPERT]
     tensor = mesh.shape[MeshAxis.TENSOR]
     if expert == 1 and tensor == 1:
@@ -753,18 +761,12 @@ def _check_model_axes(model: nn.Module, mesh: Mesh, rules) -> None:
         # the expert layer computes on its local experts, not on DTensors
         raise NotImplementedError(
             f"an MoE model ({type(model).__name__}) over a tensor axis is "
-            f"not ported yet (ROADMAP Queue A item 10)")
+            f"not ported yet (ROADMAP Queue A item 10c)")
     cfg = getattr(model, "config", None)
     for attr in ("num_heads", "n_head", "num_kv_heads"):
         if cfg is not None and getattr(cfg, attr, tensor) % tensor:
             raise ValueError(f"{attr}={getattr(cfg, attr)} does not divide "
                              f"over tensor={tensor}")
-    if getattr(model, "fused_qkv", False):
-        # DTensor splits the fused kernel's columns into contiguous blocks,
-        # which are not whole q, k and v heads on each rank
-        raise NotImplementedError(
-            f"a fused qkv projection ({type(model).__name__}) over a tensor "
-            f"axis is not ported yet (ROADMAP Queue A item 10)")
     column = mesh.axis_names.index(MeshAxis.TENSOR)
     for name, p in placements.items():
         p = p[column]

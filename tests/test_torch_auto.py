@@ -329,18 +329,67 @@ def test_save_and_load_strategy_file_lowers_the_same(tmp_path):
 # ---------------------------------------------------------------------------
 
 
+@pytest.fixture
+def world_of_two():
+    """A process group of 2 ranks in this one process (torch's ``fake``
+    backend: its collectives move nothing), for what the lowering builds
+    before a step: the mesh, the checks and the placements."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=2)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("strategy,model,item", [
-    ([("tensor_parallel", {"size": 2})], "gpt", "item 10b"),
+    ([("tensor_parallel", {"size": 2})], "moe", "item 10c"),
 ])
-def test_unported_passes_raise_naming_their_item(strategy, model, item):
-    factory = (functools.partial(tl.Llama, tl.LlamaConfig.tiny())
-               if model == "llama"
-               else functools.partial(tgpt.GPT, tgpt.GPTConfig.tiny()))
-    n = 2 if model == "gpt" else 1
+def test_unported_passes_raise_naming_their_item(world_of_two, strategy,
+                                                 model, item):
+    """What the port does not lower yet raises naming its ROADMAP item:
+    tensor_parallel on an MoE model (10c), from build_trainer."""
+    from dlrover_tpu_torch.models import llama_moe as tlm
+
+    factory = functools.partial(tlm.LlamaMoE,
+                                tlm.LlamaMoEConfig.mixtral_tiny())
     with pytest.raises(NotImplementedError, match=item):
         auto_accelerate(factory, loss_fn=tl.cross_entropy_loss,
                         sample_batch=np.zeros((2, SEQ), np.int64),
-                        strategy=strategy, devices=["cpu"] * n)
+                        strategy=strategy, devices=["cpu"] * 2)
+
+
+@pytest.mark.parametrize("family", ["gpt", "bert"])
+def test_tensor_parallel_lowers_the_fused_qkv_families(world_of_two,
+                                                       family):
+    """tensor_parallel on GPT and BERT lowers as on Llama (ROADMAP 10b):
+    a tensor-2 trainer whose fused qkv kernel and bias hold half the
+    columns on each rank, which the head-major layout makes whole heads
+    (their training on two gloo ranks: tests/test_torch_tensor_parallel.py)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from dlrover_tpu_torch.models import bert as tbert
+
+    if family == "gpt":
+        cfg = tgpt.GPTConfig.tiny()
+        factory, loss = functools.partial(tgpt.GPT, cfg), tl.cross_entropy_loss
+        block, width = "block_0", cfg.n_embd
+    else:
+        cfg = tbert.BertConfig.tiny()
+        factory, loss = functools.partial(tbert.Bert, cfg), tbert.mlm_loss
+        block, width = "layer_0", cfg.hidden_size
+    result = auto_accelerate(factory, loss_fn=loss,
+                             sample_batch=np.zeros((2, SEQ), np.int64),
+                             strategy=[("tensor_parallel", {"size": 2})],
+                             devices=["cpu"] * 2)
+    assert result.mesh.shape["tensor"] == 2
+    qkv = getattr(result.init(0).model, block).qkv
+    for leaf, dim in ((qkv.kernel, 1), (qkv.bias, 0)):
+        assert isinstance(leaf, DTensor) and leaf.placements == (Shard(dim),)
+        assert leaf.to_local().shape[dim] == 3 * width // 2
 
 
 @pytest.mark.parametrize("size,impl,want", [

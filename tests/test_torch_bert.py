@@ -20,6 +20,7 @@ from dlrover_tpu_torch.models import bert as tbert
 from test_torch_gpt import (
     TOL,
     assert_bf16_close,
+    assert_head_major,
     jax_params,
     ported,
     three_steps_match_jax,
@@ -147,7 +148,7 @@ def test_conversion_round_trip_and_names():
     jcfg = jbert.BertConfig.tiny(dtype=jnp.float32)
     params = jax_params(jbert.Bert(jcfg), tokens_of(jcfg.vocab_size),
                         3, jnp.asarray(_types(48)))
-    state = convert.params_from_jax(params)
+    state = convert.params_from_jax(params, jcfg.num_heads)
     model = tbert.Bert(tbert.BertConfig.tiny(), device="cpu")
     assert set(state) == set(model.state_dict())
     for key in ("word_embed", "pos_embed", "type_embed", "embed_norm.scale",
@@ -155,10 +156,11 @@ def test_conversion_round_trip_and_names():
                 "mlm_transform.kernel", "mlm_norm.bias"):
         assert key in state
     model.load_state_dict(state, strict=True)
-    back = convert.params_to_jax(model.state_dict())
+    back = convert.params_to_jax(model.state_dict(), jcfg.num_heads)
     assert jax.tree.structure(back) == jax.tree.structure(params)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(params)):
         np.testing.assert_array_equal(a, b)
+    assert_head_major(state, params, "layer_1", jcfg.num_heads)
 
 
 def test_three_adamw_steps_match_jax():
@@ -211,13 +213,21 @@ def test_entry_point_raises_without_a_gpu():
 
 
 def test_tensor_axis_is_refused():
+    """A tensor axis is refused only where it does not divide the heads:
+    tensor 2 builds (the head-major fused qkv, ROADMAP 10b; the training
+    itself: tests/test_torch_tensor_parallel.py), tensor 4 over BERT
+    tiny's 2 heads raises."""
     from dlrover_tpu_torch.parallel import mesh as tmesh
     from dlrover_tpu_torch.trainer import train_step as tts
 
-    spec = tmesh.MeshSpec(tensor=2).with_total_devices(2)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tts.build_trainer(
+    def build(ways):
+        spec = tmesh.MeshSpec(tensor=ways).with_total_devices(ways)
+        return tts.build_trainer(
             functools.partial(tbert.Bert, tbert.BertConfig.tiny()),
             functools.partial(torch.optim.AdamW, lr=1e-3),
             tmesh.Mesh(spec, torch.device("cpu")), np.zeros((2, 16)),
             tbert.mlm_loss, micro_batch=2)
+
+    assert build(2).mesh.shape["tensor"] == 2
+    with pytest.raises(ValueError, match="num_heads"):
+        build(4)

@@ -150,10 +150,13 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda, bad):
 
 
 # the flash kernels as GPT-2 small (micro 12, seq 1024, causal) and
-# BERT-base (micro 32, seq 512, bidirectional) call them, head dim 64
+# BERT-base (micro 32, seq 512, bidirectional) call them, head dim 64,
+# and as each rank calls them over a tensor axis of 2 (6 of 12 heads)
 MODEL_SHAPES = [
     (12, 12, 12, 1024, 1024, 64, True),
     (32, 12, 12, 512, 512, 64, False),
+    (12, 6, 6, 1024, 1024, 64, True),
+    (32, 6, 6, 512, 512, 64, False),
 ]
 # head dims the kernels reach by zero-padding to 64 or 128
 PADDED_SHAPES = [
@@ -163,7 +166,8 @@ PADDED_SHAPES = [
 ]
 
 
-@pytest.mark.parametrize("shape", MODEL_SHAPES, ids=["gpt2", "bert"])
+@pytest.mark.parametrize("shape", MODEL_SHAPES,
+                         ids=["gpt2", "bert", "gpt2_tp2", "bert_tp2"])
 def test_kernels_match_plain_at_the_model_shapes(cuda, shape):
     test_kernels_match_plain(cuda, shape)
 
@@ -1143,3 +1147,13 @@ def test_quantized_mean_kernels_match_the_plain_versions(cuda, tmp_path):
     launches = _sp_phase(tmp_path, "c")["launches"]
     # 3 leaves: gather 1 call each, scatter 2, at two widths, two ranks
     assert launches == {"quantize": 36, "dequantize": 36}
+
+
+def test_tensor_parallel_fused_qkv_families_launch_on_two_ranks(cuda,
+                                                                tmp_path):
+    """The tiny GPT and BERT over a tensor axis of 2 (the head-major
+    fused qkv: a whole head a rank) train the one-process run's losses
+    within the phase's limits, their q, k and v split with no collective,
+    and launch the flash kernels (part (d), checked by it)."""
+    launches = _sp_phase(tmp_path, "d")["launches"]
+    assert launches["flash_fwd"] > 0 and launches["rms_fwd"] == 0

@@ -54,9 +54,16 @@ def tokens_of(vocab, batch=2, seq=48, seed=0):
     return rng.integers(0, vocab, (batch, seq), dtype=np.int32)
 
 
+def heads_of(cfg):
+    """A GPT or BERT config's head count: what ``convert`` permutes the
+    fused qkv by."""
+    return getattr(cfg, "n_head", None) or cfg.num_heads
+
+
 def ported(model_cls, cfg, params):
     model = model_cls(cfg, device="cpu")
-    model.load_state_dict(convert.params_from_jax(params), strict=True)
+    model.load_state_dict(convert.params_from_jax(params, heads_of(cfg)),
+                          strict=True)
     return model
 
 
@@ -143,17 +150,33 @@ def test_param_count_is_the_jax_leaf_count(preset):
 def test_conversion_round_trip_and_names():
     jcfg = jgpt.GPTConfig.tiny(dtype=jnp.float32)
     params = jax_params(jgpt.GPT(jcfg), tokens_of(jcfg.vocab_size), seed=3)
-    state = convert.params_from_jax(params)
+    state = convert.params_from_jax(params, jcfg.n_head)
     model = tgpt.GPT(tgpt.GPTConfig.tiny(), device="cpu")
     assert set(state) == set(model.state_dict())
     for key in ("wte", "wpe", "block_1.qkv.kernel", "block_0.ln1.scale",
                 "block_0.proj.bias", "ln_f.bias"):
         assert key in state
     model.load_state_dict(state, strict=True)
-    back = convert.params_to_jax(model.state_dict())
+    back = convert.params_to_jax(model.state_dict(), jcfg.n_head)
     assert jax.tree.structure(back) == jax.tree.structure(params)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(params)):
         np.testing.assert_array_equal(a, b)
+    assert_head_major(state, params, "block_1", jcfg.n_head)
+
+
+def assert_head_major(state, params, block, heads):
+    """The port's fused qkv kernel and bias hold head h's q, k and v
+    columns side by side, where flax's hold [q | k | v]."""
+    for leaf in ("kernel", "bias"):
+        flax = np.asarray(params[block]["qkv"][leaf])
+        width = flax.shape[-1] // 3
+        dim = width // heads
+        port = state[f"{block}.qkv.{leaf}"].numpy()
+        for h in range(heads):
+            for j in range(3):
+                np.testing.assert_array_equal(
+                    port[..., (h * 3 + j) * dim:(h * 3 + j + 1) * dim],
+                    flax[..., j * width + h * dim:j * width + (h + 1) * dim])
 
 
 def test_param_axes_match_the_flax_boxes():
@@ -268,7 +291,8 @@ def three_steps_match_jax(jmodel, tmodel_cls, tcfg, jloss_fn, tloss_fn,
         jnp.zeros((MICRO, SEQ), jnp.int32), jloss_fn, accum_steps=accum,
         micro_batch=MICRO)
     jstate = jtrainer.init(jax.random.PRNGKey(0))
-    flat = lambda p: convert.params_from_jax(jax.tree.map(np.asarray, p))
+    flat = lambda p: convert.params_from_jax(jax.tree.map(np.asarray, p),
+                                             heads_of(tcfg))
     model = tmodel_cls(tcfg, device="cpu")
     model.load_state_dict(flat(jstate.params), strict=True)
     ttrainer = tts.build_trainer(
@@ -293,6 +317,9 @@ def three_steps_match_jax(jmodel, tmodel_cls, tcfg, jloss_fn, tloss_fn,
             diff = (got[key] - w).abs()
             assert diff.max().item() <= 2 * LR * step + 1e-6, key
             if key.endswith("qkv.bias"):
+                # flax's [q | k | v] order, the key third in the middle
+                diff = torch.from_numpy(convert.qkv_to_jax(
+                    diff.numpy(), heads_of(tcfg)))
                 third = diff.numel() // 3
                 diff = torch.cat([diff[:third], diff[2 * third:]])
             far += int((diff > 1e-6).sum())
@@ -360,21 +387,35 @@ def test_entry_point_raises_without_a_gpu():
 
 
 @pytest.mark.parametrize("spec,exc", [
-    (dict(tensor=2), NotImplementedError),   # the fused qkv
+    (dict(tensor=2), None),                  # whole heads on each rank
     (dict(tensor=4), ValueError),            # n_head 2 over 4 ranks
 ])
 def test_tensor_axis_is_refused(spec, exc):
+    """A tensor axis is refused only where it does not divide the heads:
+    at tensor 2 the trainer builds (the head-major fused qkv, ROADMAP
+    10b), the qkv kernel and bias sharded over their columns as every
+    column-parallel leaf is (the ranks' whole heads and the training
+    itself: tests/test_torch_tensor_parallel.py)."""
     from dlrover_tpu_torch.parallel import mesh as tmesh
+    from dlrover_tpu_torch.parallel.sharding import mesh_placements
 
     resolved = tmesh.MeshSpec(**spec).with_total_devices(
         tmesh.MeshSpec(**spec).total)
     mesh = tmesh.Mesh(resolved, torch.device("cpu"))
-    with pytest.raises(exc, match="item 10" if exc is NotImplementedError
-                       else "n_head"):
-        tts.build_trainer(
-            functools.partial(tgpt.GPT, tgpt.GPTConfig.tiny()), adamw, mesh,
-            np.zeros((MICRO, SEQ)), tllama.cross_entropy_loss,
-            micro_batch=MICRO)
+    build = functools.partial(
+        tts.build_trainer, functools.partial(tgpt.GPT, tgpt.GPTConfig.tiny()),
+        adamw, mesh, np.zeros((MICRO, SEQ)), tllama.cross_entropy_loss,
+        micro_batch=MICRO)
+    if exc is not None:
+        with pytest.raises(exc, match="n_head"):
+            build()
+        return
+    assert build().mesh.shape["tensor"] == 2
+    column = mesh.axis_names.index("tensor")
+    placements = mesh_placements(
+        tgpt.GPT(tgpt.GPTConfig.tiny(), device="meta"), mesh)
+    assert str(placements["block_0.qkv.kernel"][column]) == "S(1)"
+    assert str(placements["block_0.qkv.bias"][column]) == "S(0)"
 
 
 FSDP_WORKER = """

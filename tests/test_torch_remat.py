@@ -54,6 +54,12 @@ def _family(name):
             dict(attn_impl="reference"))
 
 
+def _heads(cfg):
+    """The head count ``convert`` permutes GPT's and BERT's head-major
+    fused qkv by (the Llama holds none)."""
+    return getattr(cfg, "n_head", None) or cfg.num_heads
+
+
 def _batch(vocab):
     rng = np.random.default_rng(4)
     return (rng.integers(0, vocab, (BATCH, SEQ), dtype=np.int32),
@@ -78,14 +84,16 @@ def _jax_reference(name):
 
     loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params)
     return (params, float(loss),
-            convert.params_from_jax(jax.tree.map(np.asarray, grads)))
+            convert.params_from_jax(jax.tree.map(np.asarray, grads),
+                                    _heads(jcfg)))
 
 
 def _port_grads(name, params, **cfg_kw):
     *_, tcfg_of, tmodel_cls, tloss_fn, kw = _family(name)
     cfg = tcfg_of(dtype=torch.float32, **kw, **cfg_kw)
     model = tmodel_cls(cfg, device="cpu")
-    model.load_state_dict(convert.params_from_jax(params), strict=True)
+    model.load_state_dict(convert.params_from_jax(params, _heads(cfg)),
+                          strict=True)
     tokens, targets = _batch(cfg.vocab_size)
     loss = tloss_fn(model(torch.from_numpy(tokens).long()),
                     torch.from_numpy(targets).long())

@@ -9,15 +9,16 @@ batch (4 rows of 32 tokens) on gloo CPU ranks, with ``attn_impl="ring"``
 or ``"ulysses"``; the losses and grad norms must track the JAX trainer's
 on one device with plain attention at rtol 2e-3, the tolerance of the
 JAX tests. The compositions: sequence 2 alone, data 2 × sequence 2, fsdp
-2 × sequence 2, tensor 2 × sequence 2 (Llama; GPT and BERT fuse their qkv
-projection, which a tensor axis does not split yet, ROADMAP 10b), and
+2 × sequence 2, tensor 2 × sequence 2 (every family but the MoE's; GPT
+and BERT, whose tiny presets hold 2 heads, with the ring only: Ulysses
+needs the heads to divide over both axes; the Llama also with the
+reference norm, the configuration ROADMAP C17 refused), and
 auto_accelerate's sequence_parallel pass over data 2 (as JAX's
 test_sp_through_auto_accelerate_matches_oracle). The same launches hold
-``mlm_loss``'s weighted count over shards, the host-staged collectives
-over ``Mesh.lanes`` (staging forced for CPU tensors) and the reference
-norm's refusal under a tensor axis (ROADMAP C17). One gloo launch of 2
-ranks and one of 4 run every case; chip_smoke's sp phase is rehearsed
-on two CPU ranks of its own.
+``mlm_loss``'s weighted count over shards and the host-staged
+collectives over ``Mesh.lanes`` (staging forced for CPU tensors). One
+gloo launch of 2 ranks and one of 4 run every case; chip_smoke's sp
+phase is rehearsed on two CPU ranks of its own.
 """
 
 import json
@@ -84,8 +85,11 @@ def _oracle_init(family, out_dir):
         model, optax.adamw(LR), mesh, jnp.zeros((BATCH, SEQ), jnp.int32),
         loss_fn, accum_steps=1, micro_batch=BATCH)
     state = trainer.init(jax.random.PRNGKey(0))
+    # GPT's and BERT's fused qkv goes over in the port's head-major layout
+    heads = (getattr(model.config, "n_head", None)
+             or getattr(model.config, "num_heads", None))
     torch.save(convert.params_from_jax(
-        jax.tree.map(np.asarray, nn.unbox(state.params))),
+        jax.tree.map(np.asarray, nn.unbox(state.params)), heads),
         os.path.join(out_dir, f"{family}.pt"))
     tokens, targets = _batch(family)
     np.savez(os.path.join(out_dir, f"{family}.npz"), tokens=tokens,
@@ -120,11 +124,12 @@ data_dir, cases = sys.argv[1], json.loads(sys.argv[2])
 LR, STEPS = 1e-3, 2
 
 
-def family(name, impl):
+def family(name, impl, norm="fused"):
     if name == "llama":
-        # the fused norm (its plain version on the CPU): DTensor keeps the
-        # reference norm's output a pending sum under a tensor axis
-        cfg = llama.LlamaConfig.tiny(attn_impl=impl, dtype=torch.float32)
+        # the fused norm (its plain version on the CPU), or the reference
+        # norm, which the JAX oracle runs
+        cfg = llama.LlamaConfig.tiny(attn_impl=impl, norm_impl=norm,
+                                     dtype=torch.float32)
         return functools.partial(llama.Llama, cfg), llama.cross_entropy_loss
     if name == "moe":
         cfg = llama_moe.LlamaMoEConfig.mixtral_tiny(attn_impl=impl,
@@ -146,7 +151,8 @@ def adamw(params):
 
 
 def trainer_of(case):
-    factory, loss_fn = family(case["family"], case["impl"])
+    factory, loss_fn = family(case["family"], case["impl"],
+                              case.get("norm", "fused"))
     batch = np.load(os.path.join(data_dir, case["family"] + ".npz"))
     init = torch.load(os.path.join(data_dir, case["family"] + ".pt"))
     model = factory(device="cpu")
@@ -181,21 +187,6 @@ for case in cases:
         state, m = trainer.step(state, tok, tgt)
         history.append([m["loss"].item(), m["grad_norm"].item()])
     out.append({"shard": list(tok.shape), "history": history})
-refusal = None
-if torch.distributed.get_world_size() == 4:
-    # ROADMAP Queue C17: under a tensor axis the reference norm's output
-    # is a pending sum, which the attention's local_map refuses
-    cfg = llama.LlamaConfig.tiny(attn_impl="ring", norm_impl="reference",
-                                 dtype=torch.float32)
-    trainer = build_trainer(
-        functools.partial(llama.Llama, cfg), adamw,
-        create_mesh(MeshSpec(tensor=2, sequence=2), device="cpu"),
-        np.zeros((4, 32)), llama.cross_entropy_loss, micro_batch=4)
-    rows = np.zeros((4, 32), np.int64)
-    try:
-        trainer.step(trainer.init(0), *trainer.shard_batch(rows, rows))
-    except ValueError as err:
-        refusal = str(err)
 # the host-staged all-reduce spread over Mesh.lanes (staging forced for
 # CPU tensors: on the card it is gloo's path for CUDA tensors)
 from dlrover_tpu_torch.parallel import collectives
@@ -228,7 +219,7 @@ with use_mesh(mesh):
 total = shard.detach().clone()
 torch.distributed.all_reduce(total, group=group)
 mlm = [total.item() / 2, bert.mlm_loss(logits, targets, weights).item()]
-print(json.dumps({"cases": out, "refusal": refusal, "mlm": mlm, "lanes": [
+print(json.dumps({"cases": out, "mlm": mlm, "lanes": [
     len(lanes), x.tolist(), [t.tolist() for t in shifted],
     [t.tolist() for t in back],
     collectives.all_to_all(z, group).tolist(),
@@ -244,10 +235,15 @@ def _cases(world):
     cases = []
     for spec in ({"data": 2, "sequence": 2}, {"fsdp": 2, "sequence": 2},
                  {"tensor": 2, "sequence": 2}):
-        families = (("llama",) if "tensor" in spec
-                    else ("llama", "gpt", "bert"))
-        cases += [dict(family=f, impl=impl, spec=spec) for f in families
-                  for impl in ("ring", "ulysses")]
+        cases += [dict(family=f, impl=impl, spec=spec)
+                  for f in ("llama", "gpt", "bert")
+                  for impl in ("ring", "ulysses")
+                  # 2 heads do not divide over sequence × tensor = 4
+                  if not ("tensor" in spec and f != "llama"
+                          and impl == "ulysses")]
+    # ROADMAP C17: the reference norm under a tensor axis
+    cases += [dict(family="llama", impl="ring", norm="reference",
+                   spec={"tensor": 2, "sequence": 2})]
     cases += [dict(family="moe", impl="ring", spec={"data": 2,
                                                     "sequence": 2})]
     cases += [dict(family="llama", impl=impl, auto=True, spec={})
@@ -257,11 +253,14 @@ def _cases(world):
 
 def _case_id(case):
     spec = "x".join(f"{k}{v}" for k, v in case["spec"].items())
+    norm = f"-{case['norm']}-norm" if "norm" in case else ""
     return (f"{case['family']}-{case['impl']}-"
-            f"{'auto' if case.get('auto') else spec}")
+            f"{'auto' if case.get('auto') else spec}{norm}")
 
 
-ALL_CASES = [(2, c) for c in _cases(2)] + [(4, c) for c in _cases(4)]
+# the C17 case is its own test's (below)
+ALL_CASES = [(2, c) for c in _cases(2)] + [(4, c) for c in _cases(4)
+                                           if "norm" not in c]
 
 
 @pytest.fixture(scope="module")
@@ -286,7 +285,6 @@ def runs(tmp_path_factory):
             for i, case in enumerate(_cases(world)):
                 results[(world, _case_id(case))] = [
                     r["cases"][i] for r in ranks]
-            results[(world, "refusal")] = [r["refusal"] for r in ranks]
             results[(world, "lanes")] = [r["lanes"] for r in ranks]
             results[(world, "mlm")] = [r["mlm"] for r in ranks]
     return oracles, results
@@ -332,14 +330,23 @@ def test_staged_all_reduce_over_lanes_sums_the_sequence_group(runs, world):
 
 
 def test_reference_norm_under_a_tensor_axis_is_refused_as_c17(runs):
-    """ROADMAP Queue C17, open in the port: under a tensor axis DTensor
-    keeps the reference norm's output a pending sum, and the attention's
-    ``local_map`` refuses it (the JAX package trains it); the fused norm,
-    the default, trains (the tensor cases above)."""
-    _, results = runs
-    for message in results[(4, "refusal")]:
-        assert "shards over batch or heads only" in message
-        assert "Partial" in message
+    """ROADMAP Queue C17, repaired: the Llama with the reference norm
+    (the JAX oracle's) at tensor 2 × sequence 2 with the ring trains and
+    tracks the JAX oracle as every case does. It was refused while
+    DTensor left the row-parallel products' pending sum in the residual
+    stream, which the attention's ``local_map`` took from the norm; the
+    sum is now reduced at each projection's output and the column-
+    parallel inputs' gradients where they fan in
+    (``parallel/sharding.py``), as JAX's SPMD places them."""
+    oracles, results = runs
+    case = next(c for c in _cases(4) if c.get("norm") == "reference")
+    want = np.asarray(oracles["llama"])
+    ranks = results[(4, _case_id(case))]
+    for rank in ranks:
+        got = np.asarray(rank["history"])
+        np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=RTOL)
+        np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=RTOL)
+        np.testing.assert_array_equal(got, np.asarray(ranks[0]["history"]))
 
 
 def test_chip_smoke_sp_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
@@ -348,8 +355,11 @@ def test_chip_smoke_sp_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
     here) within the flash tolerance of one process's and of the plain
     ring's, (b) three steps of each at sequence 2 within the parity
     limits of one process's, (c) the quantized mean bit for bit with
-    itself on CPU copies and within the bound; the phase checks each
-    (the launches only on the card)."""
+    itself on CPU copies and within the bound, (d) the tiny GPT and BERT
+    at tensor 2 (bf16, the head-major qkv: one whole head a rank), three
+    steps each within (b)'s limits of one process's, their q, k and v
+    sharded over heads with no collective; the phase checks each (the
+    launches and their shapes only on the card)."""
     import sys
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(
@@ -360,9 +370,9 @@ def test_chip_smoke_sp_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
     # the ranks' torch threads, one each, as run_workers gives them
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
     workers = chip_smoke._sp_workers(str(tmp_path), spec)
-    launches = chip_smoke.phase_sp("cpu rehearsal", workers,
-                                   spec)["launches"]
-    assert set(launches.values()) == {0}
+    out = chip_smoke.phase_sp("cpu rehearsal", workers, spec)
+    assert set(out["launches"].values()) == {0}
+    assert set(out["part_s"]) == {"a", "c", "wait", "b", "d"}
 
 
 @pytest.mark.parametrize("world,case", ALL_CASES,
