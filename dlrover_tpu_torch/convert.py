@@ -27,6 +27,9 @@ package's streaming state
 optimizer's state stacked alike) to the port's per-layer parameters and
 each one's factored-RMS state.
 
+A state dict's DTensors (a tensor- or expert-sharded stage or model)
+cross as whole arrays: each rank of their mesh gathers them alike.
+
 ``pipeline_params_from_jax`` and ``pipeline_params_to_jax`` carry the JAX
 ``PipelinedTrainer``'s parameters (``{"shared": ..., "chunks": ...}``,
 every block leaf stacked as (C, S, layers_per_chunk, ...)) to the port's
@@ -48,6 +51,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 # the per-leaf state of the factored-RMS optimizer (optim/factored.py)
 FACTORED_KEYS = ("v_row", "v_col", "v")
@@ -92,6 +96,15 @@ def params_from_jax(tree: Mapping[str, Any], heads: Optional[int] = None
             for key, value in _flat(tree).items()}
 
 
+def _host(tensor: torch.Tensor) -> np.ndarray:
+    """A tensor's whole value in host memory: a DTensor's (a tensor- or
+    expert-sharded leaf) gathered first, which every rank of its mesh
+    calls alike."""
+    if isinstance(tensor, DTensor):
+        tensor = tensor.full_tensor()
+    return tensor.detach().cpu().numpy()
+
+
 def params_to_jax(state_dict: Mapping[str, torch.Tensor],
                   heads: Optional[int] = None) -> Dict[str, Any]:
     """Flat ``state_dict`` → flax param tree of numpy arrays; ``heads``
@@ -102,8 +115,7 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor],
         node = tree
         for name in path:
             node = node.setdefault(name, {})
-        node[leaf] = _relayout(key, tensor.detach().cpu().numpy(), heads,
-                               qkv_to_jax)
+        node[leaf] = _relayout(key, _host(tensor), heads, qkv_to_jax)
     return tree
 
 
@@ -253,8 +265,7 @@ def pipeline_params_to_jax(state_dict: Mapping[str, torch.Tensor],
     shared: Dict[str, Any] = {}
     layers: Dict[int, Dict[str, np.ndarray]] = {}
     for name, tensor in state_dict.items():
-        value = _relayout(name, tensor.detach().cpu().numpy(), heads,
-                          qkv_to_jax)
+        value = _relayout(name, _host(tensor), heads, qkv_to_jax)
         head, _, rest = name.partition(".")
         if head.startswith(prefix + "_") and head[len(prefix) + 1:].isdigit():
             layers.setdefault(int(head[len(prefix) + 1:]), {})[rest] = value

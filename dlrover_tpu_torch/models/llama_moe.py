@@ -20,6 +20,14 @@ keeps its own shard of the expert output, so routing, capacity and the
 aux loss are those of the whole rows, as in the JAX model. A block
 rematerialized in the backward returns the same aux again, but only the
 forward's value reaches the loss, so it is counted once.
+
+Under a ``tensor`` axis the dense parts take the Llama's placement of the
+sums (``parallel/tensor_parallel.py``): each attention and the head read
+their replicated input through ``column_parallel_input``, the
+row-parallel ``o_proj`` reduces its pending sum at its output, and a
+vocabulary-sharded embedding and head go through ``embed_shards`` and
+the loss's ``vocab_parallel_nll``; the expert layer sums its own
+(``parallel/moe.py``).
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from dlrover_tpu_torch.models.llama import (
 from dlrover_tpu_torch.parallel.mesh import sequence_parallel
 from dlrover_tpu_torch.parallel.moe import MoEConfig, MoELayer, fold_seed
 from dlrover_tpu_torch.parallel.ring_attention import gather_sequence
+from dlrover_tpu_torch.parallel.tensor_parallel import column_parallel_input
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,7 +191,7 @@ class LlamaMoE(nn.Module):
             x, layer_aux = call_block(getattr(self, f"layer_{layer}"), cfg,
                                       x, positions, seed)
             aux = aux + layer_aux
-        x = self.final_norm(x)
+        x = column_parallel_input(self.final_norm(x))
         head = (self.embed.t() if cfg.tie_embeddings else self.lm_head)
         logits = torch.matmul(x, head.to(cfg.dtype)).float()
         return (logits, aux) if with_losses else logits

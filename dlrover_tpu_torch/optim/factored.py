@@ -9,10 +9,12 @@ other leaf the full second moment ``v``; the unused entries hold a
 zero of shape (1,), as optax's state does, so a JAX state converts leaf
 for leaf (``convert.py``).
 
-A DTensor parameter (sharded over an expert or a data axis) keeps its
-statistics as DTensors laid out alike; a mean over a dim the parameter is
-sharded on is made whole on every rank (``settled``), as XLA reduces a
-sharded leaf.
+A DTensor parameter (sharded over an expert, a tensor or a data axis)
+keeps its statistics as DTensors laid out alike; a mean over a dim the
+parameter is sharded on is made whole on every rank (``settled``), as
+XLA reduces a sharded leaf: its shards' means summed over the axis by the
+port's own collective (``parallel/collectives.py``, host staged for CUDA
+tensors on gloo) and divided by the axis's size, the shards being equal.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate
 
 from dlrover_tpu_torch.optim.base import LeafState, LeafTransform, count_like
+from dlrover_tpu_torch.parallel.collectives import all_reduce_
 
 
 def factored_dims(shape, min_dim_size_to_factor: int
@@ -40,11 +43,25 @@ def factored_dims(shape, min_dim_size_to_factor: int
 
 def settled(t: torch.Tensor) -> torch.Tensor:
     """A DTensor's partial values (a reduction over a dim it is sharded
-    on) made whole on every rank; any other tensor as it is."""
-    if isinstance(t, DTensor) and any(p.is_partial() for p in t.placements):
-        return t.redistribute(t.device_mesh, [
-            Replicate() if p.is_partial() else p for p in t.placements])
-    return t
+    on: a sum, or a mean of equal shards) made whole on every rank; any
+    other tensor as it is."""
+    if not (isinstance(t, DTensor)
+            and any(p.is_partial() for p in t.placements)):
+        return t
+    local = t.to_local().clone()
+    mesh = t.device_mesh
+    for dim, p in enumerate(t.placements):
+        if not p.is_partial():
+            continue
+        if p.reduce_op not in ("sum", "avg"):
+            raise ValueError(f"cannot settle a {p.reduce_op} partial")
+        all_reduce_([local], mesh.get_group(dim))
+        if p.reduce_op == "avg":
+            local /= mesh.size(dim)
+    return DTensor.from_local(
+        local, mesh, [Replicate() if p.is_partial() else p
+                      for p in t.placements],
+        run_check=False, shape=t.shape, stride=t.stride())
 
 
 def _zeros_without(p: torch.Tensor, dim: int) -> torch.Tensor:

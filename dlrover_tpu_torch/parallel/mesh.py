@@ -116,12 +116,15 @@ class Mesh:
             return {name: 0 for name in self.axis_names}
         return dict(zip(self.axis_names, self.device_mesh.get_coordinate()))
 
-    def submesh(self, names: Sequence[str]):
+    def submesh(self, names: Sequence[str], flatten: bool = True):
         """The ``DeviceMesh`` of the named axes; several axes are flattened
-        into one dimension, major axis first."""
+        into one dimension, major axis first, unless ``flatten`` is False
+        (a mesh of one dimension an axis, in the mesh's axis order)."""
         names = tuple(names)
         if len(names) == 1:
             return self.device_mesh[names[0]]
+        if not flatten:
+            return self.device_mesh[names]
         if names not in self._flattened:
             self._flattened[names] = self.device_mesh[names]._flatten(
                 "_".join(names))

@@ -15,9 +15,26 @@ group from them. Every rank of an expert group holds the same tokens
 dispatches to its own experts only; the experts' outputs are gathered
 over the group, so the combine, and everything after it, is the same on
 every rank. The input's gradient, which each rank has only through its
-own experts' slots, is summed over the group (:class:`_ExpertEnter`);
-the gathered outputs' gradient is the same on every rank, and each rank
-keeps its own experts' part (:class:`_GatherExperts`).
+own experts' slots, is summed over the group; the gathered outputs'
+gradient is the same on every rank, and each rank keeps its own experts'
+part (:class:`_Gather`). The router (``("embed", "expert")``) is sharded
+over its expert columns and gathered whole before routing.
+
+Tensor parallelism: ``wi``'s ``mlp`` dim (its columns) and ``wo``'s
+(its rows) map to the ``tensor`` axis, so each rank holds M/t columns of
+every expert it holds (``Shard(2)`` and ``Shard(1)``; under expert ×
+tensor both leaves lie on the 2-D ``(expert, tensor)`` sub-mesh). A
+rank's ``wo`` product is then a pending sum over ``tensor``. It is
+summed where XLA's SPMD partitioner sums it for the JAX layer (read from
+the compiled step's HLO at tensor 2 on the CPU): at the experts' output,
+(E/ep, G·C, H), before the gather over the expert group; and in the
+backward the experts' input gradient, (E/ep, G·C, H), is summed over
+``tensor`` before the dispatch's transpose, then over the expert group
+at the layer's input. The input comes in replicated over ``tensor`` (the
+residual stream, a DTensor the layer computes on as its local value), so
+every tensor rank routes alike and none routes on a partial sum. Every
+collective here is the port's own (``parallel/collectives.py``, host
+staged for CUDA tensors on gloo), never DTensor's.
 
 Router jitter (``jitter_noise > 0`` in training routing) draws from a
 ``torch.Generator`` seeded by the caller (the trainer folds its seed,
@@ -41,6 +58,11 @@ from torch.distributed.tensor import DTensor
 
 from dlrover_tpu_torch.common.constants import MeshAxis
 from dlrover_tpu_torch.models.layers import gelu
+from dlrover_tpu_torch.parallel.collectives import all_gather
+from dlrover_tpu_torch.parallel.tensor_parallel import (
+    local_sum,
+    local_sum_backward,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,49 +156,53 @@ def lecun_normal_param(shape, param_dtype, device, generator
         t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator))
 
 
-class _ExpertEnter(torch.autograd.Function):
-    """Identity forward; the backward sums the gradient over the expert
-    group, since each rank dispatched the tokens to its own experts
-    only."""
+class _Gather(torch.autograd.Function):
+    """Each member's ``local`` joined along ``dim`` in the group's rank
+    order (the experts' outputs along the experts, the router's columns);
+    the backward keeps this rank's part of the gradient, which every rank
+    computes whole and alike."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, grad):
-        grad = grad.contiguous()
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None
-
-
-class _GatherExperts(torch.autograd.Function):
-    """The local experts' outputs (E/ep, ...) gathered over the expert
-    group into (E, ...), in the group's rank order; the backward keeps
-    this rank's part of the gradient, which every rank computes whole
-    and alike."""
-
-    @staticmethod
-    def forward(ctx, local, group):
+    def forward(ctx, local, group, dim):
         ctx.rank, ctx.size = dist.get_rank(group), dist.get_world_size(group)
-        parts = [torch.empty_like(local) for _ in range(ctx.size)]
-        dist.all_gather(parts, local.contiguous(), group=group)
-        return torch.cat(parts)
+        ctx.dim = dim
+        return torch.cat(list(all_gather(local, group).unbind(0)), dim=dim)
 
     @staticmethod
     def backward(ctx, grad):
-        return grad.chunk(ctx.size)[ctx.rank], None
+        return grad.chunk(ctx.size, dim=ctx.dim)[ctx.rank].contiguous(), \
+            None, None
 
 
 def _local(param: torch.Tensor) -> torch.Tensor:
     return param.to_local() if isinstance(param, DTensor) else param
 
 
+def _axis_group(param: torch.Tensor, axis: str, dim: int
+                ) -> Tuple[int, Optional[object]]:
+    """(this rank's index, the process group) of ``axis`` when the DTensor
+    ``param`` is sharded over it on its tensor dim ``dim``; (0, None)
+    when the mesh has no such axis. Any other placement there raises."""
+    if not isinstance(param, DTensor):
+        return 0, None
+    mesh = param.device_mesh
+    if axis not in (mesh.mesh_dim_names or ()):
+        return 0, None
+    index = mesh.mesh_dim_names.index(axis)
+    placement = param.placements[index]
+    if placement.is_replicate():
+        return 0, None
+    if not placement.is_shard(dim):
+        raise ValueError(f"{tuple(param.shape)} is laid out {placement} "
+                         f"over {axis}, not on its dim {dim}")
+    return mesh.get_local_rank(index), mesh.get_group(index)
+
+
 class ExpertMLP(nn.Module):
     """E parallel feed-forward experts (``wi``, gelu, ``wo``); the
     parameters carry the ``expert`` logical axis, so an expert mesh
-    shards them."""
+    shards them, and the ``mlp`` one, so a tensor axis shards each
+    expert's columns."""
 
     param_axes = {"wi": ("expert", "embed", "mlp"),
                   "wo": ("expert", "mlp", "embed")}
@@ -193,24 +219,23 @@ class ExpertMLP(nn.Module):
     def expert_group(self) -> Tuple[int, int, Optional[object]]:
         """(first, end) of the experts this rank holds and the expert
         group's process group (None when the experts are not sharded)."""
-        wi = self.wi
-        if not isinstance(wi, DTensor):
-            return 0, wi.shape[0], None
-        mesh = wi.device_mesh
-        dim = mesh.mesh_dim_names.index(MeshAxis.EXPERT)
-        if not wi.placements[dim].is_shard(0):
-            raise ValueError(f"expert kernel {tuple(wi.shape)} is not "
-                             f"sharded on its experts: {wi.placements}")
-        local = wi.to_local().shape[0]
-        first = mesh.get_local_rank(dim) * local
-        return first, first + local, mesh.get_group(dim)
+        index, group = _axis_group(self.wi, MeshAxis.EXPERT, 0)
+        local = _local(self.wi).shape[0]
+        return index * local, (index + 1) * local, group
+
+    def tensor_group(self) -> Optional[object]:
+        """The tensor axis's process group when each expert's columns are
+        sharded over it, else None."""
+        return _axis_group(self.wi, MeshAxis.TENSOR, 2)[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # x: (E_local, C_total, H)
-        x = x.to(self.dtype)
+        # x: (E_local, C_total, H); under tensor each rank's M/t columns
+        tensor = self.tensor_group()
+        x = local_sum_backward(x.to(self.dtype), [tensor])
         h = torch.einsum("ech,ehm->ecm", x, _local(self.wi).to(self.dtype))
         h = gelu(h)
-        return torch.einsum("ecm,emh->ech", h, _local(self.wo).to(self.dtype))
+        out = torch.einsum("ecm,emh->ech", h, _local(self.wo).to(self.dtype))
+        return local_sum(out, [tensor])
 
 
 class MoELayer(nn.Module):
@@ -236,14 +261,23 @@ class MoELayer(nn.Module):
     def forward(self, x: torch.Tensor, gating_seed: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
+        # a DTensor input (the residual stream under tensor parallelism)
+        # is replicated: the layer computes on its local value
+        like = x if isinstance(x, DTensor) else None
+        if like is not None:
+            if not all(p.is_replicate() for p in like.placements):
+                raise ValueError(f"the MoE layer takes a replicated input, "
+                                 f"got {like.placements}")
+            x = like.to_local()
         orig_shape = x.shape
         hidden = orig_shape[-1]
         # flatten leading dims into routing groups
         x = x.reshape((-1,) + tuple(orig_shape[-2:]))     # (G, S, H)
         groups, seq, _ = x.shape
-        router = self.router
-        if isinstance(router, DTensor):
-            router = router.full_tensor()
+        router = _local(self.router)
+        _, router_group = _axis_group(self.router, MeshAxis.EXPERT, 1)
+        if router_group is not None:
+            router = _Gather.apply(router, router_group, 1)
         with torch.autocast(x.device.type, enabled=False):
             router_in = x.float()
             if cfg.jitter_noise > 0 and not self.deterministic:
@@ -260,20 +294,25 @@ class MoELayer(nn.Module):
 
         experts = self.ExpertMLP_0
         first, end, group = experts.expert_group()
-        x_in = x if group is None else _ExpertEnter.apply(x, group)
+        # the dispatch reaches this rank's experts only: its gradient is
+        # summed over the expert group
+        x_in = local_sum_backward(x, [group])
         # dispatch: (G,S,E,C) × (G,S,H) → (E, G*C, H), this rank's experts
         expert_in = torch.einsum("gsec,gsh->egch",
                                  dispatch[:, :, first:end].to(x.dtype), x_in)
         expert_out = experts(expert_in.reshape(end - first,
                                                groups * capacity, hidden))
         if group is not None:
-            expert_out = _GatherExperts.apply(expert_out, group)
+            expert_out = _Gather.apply(expert_out, group, 0)
         expert_out = expert_out.reshape(cfg.num_experts, groups, capacity,
                                         hidden)
         out = torch.einsum("gsec,egch->gsh",
                            combine.to(expert_out.dtype), expert_out)
-        return (out.reshape(orig_shape).to(x.dtype),
-                cfg.aux_loss_weight * aux_loss)
+        out = out.reshape(orig_shape).to(x.dtype)
+        if like is not None:
+            out = DTensor.from_local(out, like.device_mesh, like.placements,
+                                     run_check=False)
+        return out, cfg.aux_loss_weight * aux_loss
 
 
 def jitter(router_in: torch.Tensor, noise: float,

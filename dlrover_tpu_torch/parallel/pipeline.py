@@ -43,6 +43,16 @@ The shared parameters (embedding, final norm, head) are replicated over
 caller sums over the pipe group (JAX's ``shard_map`` transpose inserts
 that ``psum``; ``PipelinedTrainer`` does it after the backward).
 
+Under a ``tensor`` axis (pipe × tensor) each stage's parameters are
+DTensors over its tensor group, and the activations that cross the ring
+are the plain local values, replicated over ``tensor``: stage s's tensor
+rank t exchanges with tensor rank t of stages s ± 1 (the pipe group of
+its coordinate). A chunk takes its input as a replicated DTensor and
+hands the ring its output's local value; the embedding's output enters
+the same way. Under an ``expert`` axis the chunks' experts shard over the
+stage's expert group and the layer holds that axis's collectives
+(``parallel/moe.py``): the ring carries plain tensors as at pipe alone.
+
 Not copied: the XLA-CPU workarounds (the f32 boundary for half-precision
 shared parameters). ``activation_groups`` checkpoints every step, each
 one's input kept (the received activation): a recomputed window never
@@ -56,6 +66,7 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils import _pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
@@ -120,6 +131,17 @@ def receives(t: int, stage: int, num_micro: int, num_stages: int,
 # ---------------------------------------------------------------------------
 # the ring and its autograd functions
 # ---------------------------------------------------------------------------
+
+
+def _plain(t: torch.Tensor) -> torch.Tensor:
+    """A replicated DTensor activation's local value (what the ring
+    carries); a tensor as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    if not all(p.is_replicate() for p in t.placements):
+        raise ValueError(f"a pipeline activation must be replicated, got "
+                         f"{t.placements}")
+    return t.to_local()
 
 
 class _Ring:
@@ -293,10 +315,21 @@ def pipeline_train(
     if remat:
         def fn(params, x):
             return checkpoint(chunk_fn, params, x, use_reentrant=False)
+    tensor_mesh = (mesh.submesh([MeshAxis.TENSOR])
+                   if mesh.device_mesh is not None
+                   and mesh.shape[MeshAxis.TENSOR] > 1 else None)
+
+    def replicated(t):
+        """A ring activation as a chunk's replicated input."""
+        if tensor_mesh is None:
+            return t
+        return DTensor.from_local(t, tensor_mesh, [Replicate()],
+                                  run_check=False)
+
     # the activation's shape and dtype: one enter without a graph (JAX's
     # eval_shape)
     with torch.no_grad():
-        like = enter_fn(shared_params, tokens[0])
+        like = _plain(enter_fn(shared_params, tokens[0]))
     loss_rows = torch.zeros(tokens.shape[1], dtype=torch.float32,
                             device=like.device)
     aux_acc = torch.zeros((), dtype=torch.float32, device=like.device)
@@ -305,15 +338,16 @@ def pipeline_train(
     def compute(act, r, m):
         """One step's (y, loss rows or None, aux or None)."""
         if stage == 0 and r == 0:
-            x = _Enter.apply(act, enter_fn(shared_params, tokens[m]))
+            x = _Enter.apply(act, _plain(enter_fn(shared_params,
+                                                  tokens[m])))
         else:
             x = act
-        y, aux = fn(chunk_params[r], x), None
+        y, aux = fn(chunk_params[r], replicated(x)), None
         if chunk_has_aux:
             y, aux = y
         rows = (exit_fn(shared_params, y, targets[m]).float()
                 if stage == size - 1 and r == final else None)
-        return y, rows, aux
+        return _plain(y), rows, aux
 
     bound = bool(activation_groups) and schedule_steps(
         num_micro, size, num_rounds) > activation_groups

@@ -24,6 +24,9 @@ puts them, and the models call them:
   logits sharded over the vocabulary, from the maxima, the sums of
   exponentials and the target logits of the shards (small per-token
   collectives), never the whole logits.
+- ``local_sum`` and ``local_sum_backward``: a plain (local) tensor's sum
+  over process groups in the forward, or its gradient's in the backward
+  (the expert layer's: ``parallel/moe.py``).
 
 Every one moves tensors through ``parallel/collectives.py``: under gloo a
 CUDA tensor crosses through page-locked host memory there, over the
@@ -34,7 +37,7 @@ parameters out on; anything else passes through.
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Sequence
 
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -212,3 +215,50 @@ def logits_vocab_sharded(logits: torch.Tensor) -> bool:
     """Logits sharded over their last (vocabulary) dim on a 1-D mesh
     (``vocab_parallel_nll``)."""
     return _last_dim_shard(logits)
+
+
+class _LocalSum(torch.autograd.Function):
+    """A plain tensor summed over each group; the gradient of the sum
+    passes back unchanged (every rank holds the same sum)."""
+
+    @staticmethod
+    def forward(ctx, t, groups):
+        t = t.contiguous().clone()
+        for group in groups:
+            all_reduce_([t], group)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _LocalSumBackward(torch.autograd.Function):
+    """Identity forward; the gradient summed over each group."""
+
+    @staticmethod
+    def forward(ctx, t, groups):
+        ctx.groups = groups
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        for group in ctx.groups:
+            all_reduce_([grad], group)
+        return grad, None
+
+
+def local_sum(t: torch.Tensor, groups: Sequence) -> torch.Tensor:
+    """A plain tensor's pending sum (each rank's part of a product over a
+    sharded contraction) summed over ``groups`` (None entries skipped)."""
+    groups = tuple(g for g in groups if g is not None)
+    return _LocalSum.apply(t, groups) if groups else t
+
+
+def local_sum_backward(t: torch.Tensor, groups: Sequence) -> torch.Tensor:
+    """``t`` as the input of products each rank computes only its part of:
+    the same value, and in the backward its gradient summed over
+    ``groups`` (None entries skipped)."""
+    groups = tuple(g for g in groups if g is not None)
+    return _LocalSumBackward.apply(t, groups) if groups else t

@@ -28,10 +28,21 @@ each stage's (data, fsdp) sub-mesh, as the dense trainer lays a model
 out by the logical-axis rules; the replicated leaves by all-reduce). The
 grad norm sums each stage's chunks and the shared leaves once.
 
-Refused: a ``tensor`` or ``expert`` axis above 1 (ROADMAP Queue A item
-10), and a ``sequence`` axis, which the JAX pipelined trainer does not
-split either (its batch is sharded over the data axes alone). Not copied: the XLA-CPU f32 forcing
-of MoE pipelines.
+A ``tensor`` axis (pipe × tensor) lays each stage's blocks out as the
+dense trainer lays a model (DTensors over the stage's tensor group by
+the logical-axis rules, the JAX ``_param_shardings``' ``P(None, pipe,
+None, *logical)`` of the chunk leaves), and the shared parameters keep
+their tensor shardings (the vocabulary-sharded embedding and head); their
+gradients are summed over the pipe group only. An ``expert`` axis
+(pipe × expert) shards an MoE chunk's experts over the stage's expert
+group, as JAX keeps that axis automatic inside its pipe-manual region.
+The exits take the dense models' placement of the tensor axis's sums
+(``parallel/tensor_parallel.py``). The ring carries plain activations
+replicated over ``tensor`` (``parallel/pipeline.py``).
+
+Refused: a ``sequence`` axis, which the JAX pipelined trainer does not
+split either (its batch is sharded over the data axes alone). Not
+copied: the XLA-CPU f32 forcing of MoE pipelines.
 """
 
 from __future__ import annotations
@@ -42,6 +53,7 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor.experimental import implicit_replication
 
 from dlrover_tpu_torch.common.constants import MeshAxis
 from dlrover_tpu_torch.common.device import resolve_device
@@ -53,11 +65,20 @@ from dlrover_tpu_torch.models.llama import (
     RMSNorm,
     embed_lookup,
 )
+from dlrover_tpu_torch.parallel.collectives import all_reduce_
 from dlrover_tpu_torch.parallel.mesh import Mesh, create_mesh, dp_size
 from dlrover_tpu_torch.parallel.moe import fold_seed
 from dlrover_tpu_torch.parallel.pipeline import pipeline_train
 from dlrover_tpu_torch.parallel.sharding import DEFAULT_RULES, to_local
-from dlrover_tpu_torch.trainer.train_step import Trainer, _global_norm
+from dlrover_tpu_torch.parallel.tensor_parallel import (
+    column_parallel_input,
+    gather_shards,
+)
+from dlrover_tpu_torch.trainer.train_step import (
+    Trainer,
+    _check_model_axes,
+    _global_norm,
+)
 
 
 def per_row(loss_fn):
@@ -190,7 +211,7 @@ def llama_pipeline_spec(cfg: LlamaConfig, loss_fn) -> PipelineModelSpec:
         return embed_lookup(stage.embed, tokens, cfg)
 
     def exit_fn(stage, h, targets):
-        h = stage.final_norm(h)
+        h = column_parallel_input(stage.final_norm(h))
         logits = torch.matmul(h, stage.lm_head.to(cfg.dtype)).float()
         return row_losses(logits, targets)
 
@@ -245,7 +266,8 @@ def gpt_pipeline_spec(cfg, loss_fn) -> PipelineModelSpec:
                 + stage.wpe[:tokens.shape[-1]].to(cfg.dtype))
 
     def exit_fn(stage, h, targets):
-        logits = torch.matmul(stage.ln_f(h), stage.wte.to(cfg.dtype).t())
+        logits = torch.matmul(column_parallel_input(stage.ln_f(h)),
+                              stage.wte.to(cfg.dtype).t())
         return row_losses(logits.float(), targets)
 
     return PipelineModelSpec(
@@ -283,8 +305,11 @@ def bert_pipeline_spec(cfg, loss_fn) -> PipelineModelSpec:
         return stage.embed_norm(h)
 
     def exit_fn(stage, h, targets):
-        h = stage.mlm_norm(gelu(stage.mlm_transform(h)))
-        logits = torch.matmul(h, stage.word_embed.to(cfg.dtype).t())
+        # the transform's columns are sharded over a tensor axis: made
+        # whole for the norm (the dense model's placement)
+        h = gather_shards(gelu(stage.mlm_transform(column_parallel_input(h))))
+        logits = torch.matmul(column_parallel_input(stage.mlm_norm(h)),
+                              stage.word_embed.to(cfg.dtype).t())
         return row_losses(logits.float(), targets)
 
     return PipelineModelSpec(
@@ -362,10 +387,13 @@ class PipelinedTrainer(Trainer):
         returns the loss."""
         model = state.model
         model.zero_grad(set_to_none=True)
-        loss = model(tokens, targets, self.mesh, self.num_rounds,
-                     self.remat,
-                     self.num_stages if self.bound_activations else 0)
-        loss.backward()
+        # plain tensors (positions, the batch) meet DTensor parameters as
+        # replicated values
+        with implicit_replication():
+            loss = model(tokens, targets, self.mesh, self.num_rounds,
+                         self.remat,
+                         self.num_stages if self.bound_activations else 0)
+            loss.backward()
         loss = loss.detach().float()
         for p in model.parameters():
             if p.grad is None:
@@ -374,9 +402,10 @@ class PipelinedTrainer(Trainer):
                 p.grad = torch.zeros_like(p)
         params = dict(model.named_parameters())
         if self.num_stages > 1:
-            group = self._pipe_group()
-            for name in model.shared_names:
-                dist.all_reduce(to_local(params[name].grad), group=group)
+            # over the pipe group only: a stage's tensor or expert shard
+            # of a shared leaf meets the same shard of the other stages
+            all_reduce_([to_local(params[name].grad)
+                         for name in model.shared_names], self._pipe_group())
         group = self._dp_group()
         if group is not None:
             dp = dp_size(self.mesh)
@@ -440,11 +469,6 @@ def build_pipeline_trainer(cfg, optimizer_factory: Callable[..., Any],
     elif device is not None and torch.device(device) != mesh.device:
         raise ValueError(f"device {device} is not the mesh's {mesh.device}")
     shape = mesh.shape
-    for axis in (MeshAxis.TENSOR, MeshAxis.EXPERT):
-        if shape[axis] > 1:
-            raise NotImplementedError(
-                f"pipe × {axis} is not ported yet (ROADMAP Queue A item "
-                f"10d): a pipeline's mesh holds pipe, data and fsdp axes")
     if shape[MeshAxis.SEQUENCE] > 1:
         raise NotImplementedError(
             "the pipelined trainer does not split the sequence: its batch "
@@ -481,4 +505,9 @@ def build_pipeline_trainer(cfg, optimizer_factory: Callable[..., Any],
         spec=spec, num_rounds=num_rounds, remat=remat,
         bound_activations=bound_activations)
     _ = trainer.layers_per_chunk   # layers that do not divide: ValueError
+    # every dim the tensor or expert axis shards must divide by it
+    whole = PipelineStage(spec, range(spec.num_layers), "meta")
+    whole.config = cfg
+    _check_model_axes(whole, mesh, trainer.rules)
+    trainer._stage_lanes()
     return trainer

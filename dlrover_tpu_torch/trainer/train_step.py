@@ -34,7 +34,11 @@ trainer is the single-device one.
   axis; the batch is not sharded over it, so the ranks of an expert
   group see the same tokens and their other gradients agree, and the
   expert leaves' gradients are averaged over the data axes only
-  (``parallel/moe.py`` holds the layer's collectives).
+  (``parallel/moe.py`` holds the layer's collectives). Under expert ×
+  tensor those leaves lie on the 2-D ``(expert, tensor)`` sub-mesh (``wi``
+  ``Shard(0)``, ``Shard(2)``; ``wo`` ``Shard(0)``, ``Shard(1)``; the router
+  ``Shard(1)``, replicated over tensor), never on the seven-axis mesh,
+  and FSDP2 leaves them to the exact mean here.
 
 A model that sows auxiliary losses (``sows_losses``: the MoE family's
 router balancing) is called with ``with_losses=True`` and a gating seed
@@ -61,16 +65,18 @@ added to the loss, as the JAX step adds the ``losses`` collection.
   waits for slice mode (ROADMAP Queue A item 6.4).
 
 Under the ``tensor`` axis each row-parallel product's pending sum is
-reduced at the projection's output (``parallel/sharding.reduce_partial``),
+reduced at the projection's output (``parallel/tensor_parallel.py``),
 so the residual stream is replicated, whatever the norm; GPT's and BERT's
 fused qkv is stored head-major, so its column shard is whole q, k and v
-heads (``models/gpt.py``).
+heads (``models/gpt.py``); an MoE model's experts hold M/t columns each
+and the expert layer sums their products (``parallel/moe.py``). Every
+collective of the step is the port's own (``parallel/collectives.py``)
+but the grad norm's scalar all-reduces.
 
-Not ported yet, and raising: a ``tensor`` axis under an MoE model (item
-10c) and ``grad_reduce_bits`` over a ``dcn`` axis (item 6.4). A ``pipe``
-axis is the pipelined trainer's (``trainer/pipeline_trainer.py``, which
-shares ``TrainState`` and this trainer's state, offload and batch
-handling); this one refuses it.
+Not ported yet, and raising: ``grad_reduce_bits`` over a ``dcn`` axis
+(item 6.4). A ``pipe`` axis is the pipelined trainer's
+(``trainer/pipeline_trainer.py``, which shares ``TrainState`` and this
+trainer's state, offload and batch handling); this one refuses it.
 """
 
 from __future__ import annotations
@@ -85,7 +91,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
-from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+from torch.distributed.tensor import (
+    DTensor,
+    Partial,
+    Replicate,
+    Shard,
+    distribute_tensor,
+)
 from torch.distributed.tensor.experimental import implicit_replication
 
 from dlrover_tpu_torch.common.constants import MeshAxis
@@ -109,10 +121,10 @@ from dlrover_tpu_torch.parallel.quant_collectives import (
 from dlrover_tpu_torch.parallel.ring_attention import check_ulysses_heads
 from dlrover_tpu_torch.parallel.sharding import (
     DEFAULT_RULES,
-    logical_axes,
     mesh_placements,
     to_local,
 )
+from dlrover_tpu_torch.parallel.tensor_parallel import reduce_partial
 
 
 # the seed the stochastic model paths (MoE router jitter) fold the step
@@ -131,19 +143,32 @@ class TrainState:
 
 
 def _global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt(Σ‖g‖²) over every gradient, whatever its placement: one
-    ``get_total_norm`` per (mesh, placements) group, each made whole
-    across the ranks that hold its shards."""
+    """sqrt(Σ‖g‖²) over every gradient, whatever its placement: the plain
+    ones' ``get_total_norm``, and the DTensors' grouped by their mesh and
+    the mesh dims they are sharded over, each group's local Σg² summed
+    over those dims (one scalar all-reduce a group that is sharded)."""
+    plain: List[torch.Tensor] = []
     groups: Dict[Any, List[torch.Tensor]] = {}
     for g in grads:
-        key = ((g.device_mesh, tuple(g.placements))
-               if isinstance(g, DTensor) else None)
-        groups.setdefault(key, []).append(g)
+        if not isinstance(g, DTensor):
+            plain.append(g)
+            continue
+        g = reduce_partial(g)
+        dims = tuple(dim for dim, p in enumerate(g.placements)
+                     if not p.is_replicate())
+        groups.setdefault((g.device_mesh, dims), []).append(g.to_local())
     norms = []
-    for group in groups.values():
-        norm = torch.nn.utils.get_total_norm(group, foreach=True)
-        norms.append(norm.full_tensor() if isinstance(norm, DTensor)
-                     else norm)
+    if plain:
+        norms.append(torch.nn.utils.get_total_norm(plain, foreach=True))
+    for (mesh, dims), local in groups.items():
+        norm = torch.nn.utils.get_total_norm(local, foreach=True)
+        if dims:
+            norm = DTensor.from_local(
+                norm.square(), mesh,
+                [Partial() if dim in dims else Replicate()
+                 for dim in range(mesh.ndim)],
+                run_check=False).full_tensor().sqrt()
+        norms.append(norm)
     if len(norms) == 1:
         return norms[0]
     return torch.linalg.vector_norm(torch.stack(norms))
@@ -233,10 +258,7 @@ class Trainer:
         if mesh.device_mesh is None:
             return model
         placements = mesh_placements(model, mesh, self.rules)
-        if mesh.shape[MeshAxis.TENSOR] > 1:
-            self._distribute(model, placements, MeshAxis.TENSOR, every=True)
-        if mesh.shape[MeshAxis.EXPERT] > 1:
-            self._distribute(model, placements, MeshAxis.EXPERT, every=False)
+        self._distribute(model, placements)
         from torch.distributed.fsdp import FSDPModule
 
         if self._fsdp_size() > 1 and not isinstance(model, FSDPModule):
@@ -284,25 +306,39 @@ class Trainer:
         return (self._size(self._exact_axes())
                 if dp_size(self.mesh) > 1 else 1)
 
-    def _distribute(self, model: nn.Module, placements: Dict[str, list],
-                    axis: str, every: bool) -> None:
-        """Each parameter as a DTensor over the mesh's ``axis`` in its
-        placement there: every parameter (``every``) or only those the
-        axis shards."""
-        sub = self.mesh.submesh([axis])
-        column = self.mesh.axis_names.index(axis)
+    def _distribute(self, model: nn.Module,
+                    placements: Dict[str, list]) -> None:
+        """Each parameter as a DTensor in its placements over the mesh's
+        ``tensor`` axis (every parameter) and ``expert`` axis (those it
+        shards): over the one axis above 1 the parameter has, or the 2-D
+        ``(expert, tensor)`` sub-mesh when it has both, never the
+        seven-axis mesh (sharding propagation there took minutes a step
+        on gloo ranks)."""
+        mesh = self.mesh
+        tensor = mesh.shape[MeshAxis.TENSOR] > 1
+        expert = mesh.shape[MeshAxis.EXPERT] > 1
+        if not (tensor or expert):
+            return
+        column = {axis: mesh.axis_names.index(axis)
+                  for axis in (MeshAxis.EXPERT, MeshAxis.TENSOR)}
         for prefix, module in model.named_modules():
             for name, param in list(module.named_parameters(recurse=False)):
-                full = f"{prefix}.{name}" if prefix else name
-                placement = placements[full][column]
-                if isinstance(param, DTensor) or not (
-                        every or isinstance(placement, Shard)):
+                if isinstance(param, DTensor):
+                    continue
+                full = placements[f"{prefix}.{name}" if prefix else name]
+                axes = [MeshAxis.EXPERT] if expert and isinstance(
+                    full[column[MeshAxis.EXPERT]], Shard) else []
+                if tensor:
+                    axes.append(MeshAxis.TENSOR)
+                if not axes:
                     continue
                 # every rank holds the same full value: each keeps its own
                 # shard, with no communication
                 module.register_parameter(name, nn.Parameter(
-                    distribute_tensor(param.detach(), sub, [placement],
-                                      src_data_rank=None),
+                    distribute_tensor(
+                        param.detach(), mesh.submesh(axes, flatten=False),
+                        [full[column[axis]] for axis in axes],
+                        src_data_rank=None),
                     requires_grad=param.requires_grad))
 
     def _fully_shard(self, model: nn.Module,
@@ -317,8 +353,12 @@ class Trainer:
         ignored: Dict[str, nn.Parameter] = {}
         for name, param in model.named_parameters():
             placement = placements[name][column]
+            # a leaf on the 2-D (expert, tensor) sub-mesh stays out of
+            # FSDP2, whose parameters compose with one other mesh dim
             if (isinstance(placement, Shard)
-                    and param.shape[placement.dim] % fsdp == 0):
+                    and param.shape[placement.dim] % fsdp == 0
+                    and not (isinstance(param, DTensor)
+                             and param.device_mesh.ndim > 1)):
                 shard_dims[param] = placement
             else:
                 # sanitize_shardings' rule: a leaf the fsdp rule does not
@@ -518,7 +558,8 @@ class Trainer:
         the quantized gradient means', the sequence axis's attention)
         their lanes, so that a staged buffer crosses in parts side by
         side (``parallel/collectives.py``); so do the tensor axis's
-        pending sums (``parallel/sharding.reduce_partial``). Every rank
+        pending sums (``parallel/tensor_parallel.py``) and the expert
+        layer's (``parallel/moe.py``). Every rank
         builds its trainer at once, so the lanes' groups are created in
         one order."""
         mesh = self.mesh
@@ -526,7 +567,8 @@ class Trainer:
                 or dist.get_backend() != dist.Backend.GLOO):
             return
         axes = [self._batch_axes(), self._exact_axes(),
-                (MeshAxis.SEQUENCE,), (MeshAxis.DATA,), (MeshAxis.TENSOR,)]
+                (MeshAxis.SEQUENCE,), (MeshAxis.DATA,), (MeshAxis.TENSOR,),
+                (MeshAxis.EXPERT,)]
         for names in dict.fromkeys(axes):
             if self._size(names) > 1:
                 set_lanes(mesh.submesh(names).get_group(),
@@ -737,10 +779,10 @@ def _check_sequence_axis(model: nn.Module, mesh: Mesh, seq: int) -> None:
 def _check_model_axes(model: nn.Module, mesh: Mesh, rules) -> None:
     """Every dim the tensor or the expert axis shards must divide by it
     (``ValueError``): an MoE model's expert count by the expert way, and
-    under a tensor axis a GQA model's kv heads too, since each rank's
+    under a tensor axis the heads, the MLP's (or each expert's)
+    intermediate width, and a GQA model's kv heads too, since each rank's
     query heads must find their kv heads among its own (GPT's and BERT's
-    head-major fused qkv shards into whole heads alike). A model with
-    experts is refused a tensor axis."""
+    head-major fused qkv shards into whole heads alike)."""
     expert = mesh.shape[MeshAxis.EXPERT]
     tensor = mesh.shape[MeshAxis.TENSOR]
     if expert == 1 and tensor == 1:
@@ -757,13 +799,9 @@ def _check_model_axes(model: nn.Module, mesh: Mesh, rules) -> None:
                              f"expert={expert}")
     if tensor == 1:
         return
-    if any("expert" in axes for axes in logical_axes(model).values()):
-        # the expert layer computes on its local experts, not on DTensors
-        raise NotImplementedError(
-            f"an MoE model ({type(model).__name__}) over a tensor axis is "
-            f"not ported yet (ROADMAP Queue A item 10c)")
     cfg = getattr(model, "config", None)
-    for attr in ("num_heads", "n_head", "num_kv_heads"):
+    for attr in ("num_heads", "n_head", "num_kv_heads",
+                 "intermediate_size"):
         if cfg is not None and getattr(cfg, attr, tensor) % tensor:
             raise ValueError(f"{attr}={getattr(cfg, attr)} does not divide "
                              f"over tensor={tensor}")

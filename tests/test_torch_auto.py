@@ -350,16 +350,27 @@ def world_of_two():
 ])
 def test_unported_passes_raise_naming_their_item(world_of_two, strategy,
                                                  model, item):
-    """What the port does not lower yet raises naming its ROADMAP item:
-    tensor_parallel on an MoE model (10c), from build_trainer."""
+    """What the port did not lower raised naming its ROADMAP item; the
+    last such pass, tensor_parallel on an MoE model (10c), now lowers: a
+    tensor-2 trainer whose expert kernels hold half of each expert's
+    columns and whose router stays replicated (its training on gloo ranks:
+    tests/test_torch_moe_tensor_parallel.py). Only slice mode's passes
+    (6.4) are left to raise."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
     from dlrover_tpu_torch.models import llama_moe as tlm
 
-    factory = functools.partial(tlm.LlamaMoE,
-                                tlm.LlamaMoEConfig.mixtral_tiny())
-    with pytest.raises(NotImplementedError, match=item):
-        auto_accelerate(factory, loss_fn=tl.cross_entropy_loss,
-                        sample_batch=np.zeros((2, SEQ), np.int64),
-                        strategy=strategy, devices=["cpu"] * 2)
+    cfg = tlm.LlamaMoEConfig.mixtral_tiny()
+    factory = functools.partial(tlm.LlamaMoE, cfg)
+    result = auto_accelerate(factory, loss_fn=tl.cross_entropy_loss,
+                             sample_batch=np.zeros((2, SEQ), np.int64),
+                             strategy=strategy, devices=["cpu"] * 2)
+    assert result.mesh.shape["tensor"] == 2
+    moe = result.init(0).model.layer_0.moe
+    for leaf, dim in ((moe.ExpertMLP_0.wi, 2), (moe.ExpertMLP_0.wo, 1)):
+        assert isinstance(leaf, DTensor) and leaf.placements == (Shard(dim),)
+        assert leaf.to_local().shape[dim] == cfg.intermediate_size // 2
+    assert moe.router.placements == (Replicate(),)
 
 
 @pytest.mark.parametrize("family", ["gpt", "bert"])

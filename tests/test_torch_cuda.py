@@ -1111,9 +1111,10 @@ def test_ring_batches_pass_the_checksum_op_on_the_card(cuda):
         reader.close()
 
 
-def _sp_phase(tmp_path, parts):
+def _sp_phase(tmp_path, parts, cases=()):
     """chip_smoke's sp phase at small shapes on the card: two rank
-    processes sharing it in one gloo group."""
+    processes sharing it in one gloo group (part (d)'s ``cases`` only,
+    when given)."""
     import os
     import sys
 
@@ -1123,7 +1124,7 @@ def _sp_phase(tmp_path, parts):
         import chip_smoke
     finally:
         sys.path.pop(0)
-    spec = chip_smoke.sp_spec("cuda", small=True, parts=parts)
+    spec = chip_smoke.sp_spec("cuda", small=True, parts=parts, cases=cases)
     workers = chip_smoke._sp_workers(str(tmp_path), spec)
     return chip_smoke.phase_sp("card test", workers, spec)
 
@@ -1155,5 +1156,18 @@ def test_tensor_parallel_fused_qkv_families_launch_on_two_ranks(cuda,
     fused qkv: a whole head a rank) train the one-process run's losses
     within the phase's limits, their q, k and v split with no collective,
     and launch the flash kernels (part (d), checked by it)."""
-    launches = _sp_phase(tmp_path, "d")["launches"]
+    launches = _sp_phase(tmp_path, "d", ("gpt", "bert"))["launches"]
     assert launches["flash_fwd"] > 0 and launches["rms_fwd"] == 0
+
+
+def test_moe_and_pipelined_cases_over_tensor_and_expert_on_two_ranks(
+        cuda, tmp_path):
+    """The tiny Mixtral over tensor 2, the pipelined tiny Llama over pipe
+    1 × tensor 2 and the pipelined tiny Mixtral over pipe 1 × expert 2
+    train the one-process runs' losses within the phase's limits, the
+    MoE over tensor's gradients with routing pinned within the parity
+    limit, DTensor running no collective but the grad norm's scalar
+    all-reduces, and launch the flash and norm kernels as predicted
+    (part (d)'s new cases, checked by it)."""
+    launches = _sp_phase(tmp_path, "d", ("moe", "pipe"))["launches"]
+    assert launches["flash_fwd"] > 0 and launches["rms_fwd"] > 0

@@ -461,19 +461,28 @@ def test_trainer_adds_the_aux_loss_and_seeds_the_jitter():
 
 
 def test_expert_axis_needs_a_divisor_and_no_tensor_axis():
+    """An MoE model builds under a tensor axis, alone or with the expert
+    axis (ROADMAP Queue A item 10c, done: its training on gloo ranks is
+    tests/test_torch_moe_tensor_parallel.py); an expert count or an
+    expert width that does not divide over its axis still raises."""
     from dlrover_tpu_torch.parallel import mesh as tmesh
 
     cfg = tlm.LlamaMoEConfig.mixtral_tiny()
-    for spec, exc in ((dict(expert=3), ValueError),
-                      (dict(tensor=2), NotImplementedError)):
+
+    def build(**spec):
         mesh = tmesh.Mesh(tmesh.MeshSpec(**spec).with_total_devices(
             tmesh.MeshSpec(**spec).total), torch.device("cpu"))
-        # an MoE model under a tensor axis: ROADMAP Queue A item 10c
-        with pytest.raises(exc, match="item 10c" if exc is
-                           NotImplementedError else None):
-            tts.build_trainer(functools.partial(tlm.LlamaMoE, cfg),
-                              _adafactor, mesh, np.zeros((MICRO, SEQ)),
-                              tllama.cross_entropy_loss, micro_batch=MICRO)
+        return tts.build_trainer(functools.partial(tlm.LlamaMoE, cfg),
+                                 _adafactor, mesh, np.zeros((MICRO, SEQ)),
+                                 tllama.cross_entropy_loss,
+                                 micro_batch=MICRO)
+
+    for spec in (dict(tensor=2), dict(expert=2, tensor=2)):
+        assert build(**spec).mesh.shape["tensor"] == 2
+    with pytest.raises(ValueError, match="expert=3"):
+        build(expert=3)
+    with pytest.raises(ValueError, match="tensor=3"):
+        build(tensor=3)
 
 
 class _InfoClient:

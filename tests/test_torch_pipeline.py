@@ -505,9 +505,17 @@ def test_layers_that_do_not_divide_raise():
 @pytest.mark.parametrize("spec", [dict(pipe=2, tensor=2),
                                   dict(pipe=2, expert=2)])
 def test_pipe_with_tensor_or_expert_names_item_10(spec):
-    # pipe × tensor and pipe × expert: ROADMAP Queue A item 10d
-    with pytest.raises(NotImplementedError, match="item 10d"):
-        _port_trainer("llama", mesh=_mesh(**spec))
+    """pipe × tensor and pipe × expert build (ROADMAP Queue A item 10d,
+    done: their training on gloo ranks is
+    tests/test_torch_pipeline_tensor_parallel.py), and a width the axis
+    does not divide still raises."""
+    case = "llama" if "tensor" in spec else "moe"
+    trainer = _port_trainer(case, mesh=_mesh(**spec))
+    assert trainer.num_stages == 2
+    assert trainer.mesh.shape == dict(_mesh(**spec).shape)
+    wide = {axis: 3 if axis != "pipe" else 2 for axis in spec}
+    with pytest.raises(ValueError, match="does not divide"):
+        _port_trainer(case, mesh=_mesh(**wide))
 
 
 def test_pipe_with_a_sequence_axis_is_refused_as_jax_splits_no_sequence():
