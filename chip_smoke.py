@@ -479,13 +479,45 @@ Phases (each one's failure ends the run with a nonzero exit):
            within the parity phase's limit; the share of the routing's
            kept assignments that moved printed for both MoE cases;
            prints each step's time, each rank's allocator peak and the
-           host staging's seconds a step. The phase prints each part's
-           seconds (the slower rank's) and probes which gloo collectives
-           take CUDA tensors
+           host staging's seconds a step. (e) two slices in one
+           program: Llama-1B at full width cut to SP_LAYERS over dcn 2
+           (one rank a slice), seq 2048, micro 2 a rank, AdamW(3e-4, wd
+           0.1), grad_reduce_bits 8: the in-slice mean exact and the mean
+           over dcn through quantized_pmean (the quantize and dequantize
+           kernels), 3 steps from the seed-0 init against the same 4 rows
+           trained exactly by this process: each step's loss and grad norm
+           within (b)'s limits; each rank's launches as predicted (the
+           flash and norm kernels of its 2 rows a step, one quantize and
+           one dequantize a gradient leaf a step: gather mode at two
+           members); prints each step's time, the host staging and each
+           rank's allocator peak. The phase prints each part's seconds
+           (the slower rank's) and probes which gloo collectives take
+           CUDA tensors
+  slice    slice mode's host-level path under the port's own control
+           plane, beside the sp phase (it starts before it and is checked
+           after): a JobMaster in this process and two agents, ``python
+           -m dlrover_tpu_torch.run --slice-id 0`` and ``--slice-id 1``,
+           one rank each, training the nanoGPT example at --config nano
+           on the card for SLICE_STEPS steps (a save every
+           SLICE_SAVE_EVERY, a step report every step), the cross-slice
+           gradient mean exact through the master's KV store
+           (parallel/dcn_sync.py) with a SLICE_DCN_TIMEOUT_S collect
+           window; kill:slice:0@SLICE_KILL_AT kills the whole of slice
+           0. Checks: the survivor's worker never restarts and slice 1's
+           generation stays 1; a degraded step is counted by the master's
+           ledger and by dlrover_tpu_slice_degraded_steps_total{slice="1"};
+           slice 0 re-forms alone with its generation bumped, restores
+           from its agent's peer cache and catches up to the fleet step
+           through the state handoff; both slices end at the last step
+           with the same parameters bit for bit (their SHA-256) after at
+           least SLICE_LOCKSTEP steps in lockstep. Prints the exact
+           payload's bytes beside C10's 64 MB gRPC value limit and the
+           phase's seconds against its SLICE_BUDGET_S
 
 Each phase's seconds are printed before the elapsed time, and after it
-the elapsed time against the script's 950 s budget and part (d)'s
-against its 30 s (printed, not gates: the contract's limit is 1200 s).
+the elapsed time against the script's 950 s budget, part (d)'s
+against its 30 s, part (e)'s against its 15 s and the slice phase's
+against its 45 s (printed, not gates: the contract's limit is 1200 s).
 The line
 before the last is the kernels' JSON record (the quantization
 pair's launches are the resume phase's checkpoint path; each kernel's
@@ -502,7 +534,7 @@ its "pipeline_launches" the pipeline phase's run (a), its
 "embedding_launches" the embedding phase's steps, reconcile and replay
 (none of the kernels is on that path: 0), its "brain_launches" the
 brain phase's two replicas' steps, its "sp_launches" the sp phase's
-two ranks' (b) and (d) runs and (c) means;
+two ranks' (b), (d) and (e) runs and (c) means;
 each flash kernel's "at_gpt2", "at_gpt2_tp2" (GPT-2 small at tensor 2:
 b 12, h 6, s 1024, d 64, causal), "at_bert", "at_llama7b",
 "at_mixtral", "at_mixtral_tp2" (the Mixtral width at tensor 2: b 4, h 16
@@ -6730,8 +6762,11 @@ def phase_brain(smi: str, device: str = "cuda") -> dict:
              "DLROVER_TPU_REPORT_RESOURCE_INTERVAL_S": "1",
              "DLROVER_TPU_FLIGHT_DIR": f"{tmp}/flight"},
             f"{tmp}/agent1.out", f"{tmp}/agent1.err", agent_tmp, repo,
+            # the agent joins sliceless (``--slice-id -1``), so the two
+            # replicas share one world; its worker inherits
+            # DLROVER_TPU_SLICE_ID=1, which arms the market's revoke
             run_args=("--node-rank", "1", "--devices-per-node", "1",
-                      "--monitor-interval", "0.5"))
+                      "--monitor-interval", "0.5", "--slice-id", "-1"))
         client0.join_rendezvous(local_world_size=1)
         return [1]
 
@@ -7058,6 +7093,13 @@ SP_GRAD_NORM_TOL = PARITY_GRAD_NORM_TOL
 SP_BLOCK_LEAVES = ((2048, 2048),) * 4 + ((2048, 5504), (2048, 5504),
                                          (5504, 2048), (2048,), (2048,))
 SP_QUANT = (("gather", 8), ("gather", 4), ("scatter", 8), ("scatter", 4))
+# (e) Llama-1B at full width cut to SP_LAYERS over a dcn axis of the two
+# ranks (two slices in one program), seq 2048, micro 2 a rank, the mean
+# over dcn quantized to int8 (gather mode at 2 members: one quantize and
+# one dequantize a leaf a step), SP_STEPS steps from the seed-0 init
+SP_DCN = dict(model="llama_1b", layers=SP_LAYERS, seq=2048,
+              micro=2 * SP_RANKS, steps=SP_STEPS, bits=8)
+SP_DCN_BUDGET_S = 15.0
 
 SP_WORKER = r'''
 import contextlib, faulthandler, functools, json, os, sys, time
@@ -7169,16 +7211,16 @@ def attention_part():
                  expected=ra.expected_launches(size, rank, causal, kind))
 
 
+def adamw(params):
+    return torch.optim.AdamW(params, lr=3e-4, betas=(0.9, 0.999),
+                             eps=1e-8, weight_decay=0.1)
+
+
 def training_part(impl, batches):
     """(b) Llama-1B at the sequence axis's full length, ``impl``
     attention, a step a batch."""
     cfg = config(impl)
     mesh = create_mesh(MeshSpec(sequence=size), device=dev)
-
-    def adamw(params):
-        return torch.optim.AdamW(params, lr=3e-4, betas=(0.9, 0.999),
-                                 eps=1e-8, weight_decay=0.1)
-
     trainer = build_trainer(functools.partial(Llama, cfg), adamw, mesh,
                             np.zeros((1, spec["seq"])), cross_entropy_loss,
                             micro_batch=1)
@@ -7316,6 +7358,53 @@ def tensor_part(fam):
         torch.cuda.empty_cache()
 
 
+def dcn_part():
+    """(e) Llama-1B over a dcn axis of the ranks: the in-slice mean exact,
+    the mean over dcn quantized (the quantize and dequantize kernels)."""
+    import dataclasses
+    e = spec["dcn"]
+    cfg = getattr(LlamaConfig, e["model"])(
+        max_seq_len=e["seq"], attn_impl="flash", norm_impl="fused",
+        embed_impl="gather")
+    if e["layers"]:
+        cfg = dataclasses.replace(cfg, num_layers=e["layers"])
+    mesh = create_mesh(MeshSpec(dcn=size), device=dev)
+    trainer = build_trainer(functools.partial(Llama, cfg), adamw, mesh,
+                            np.zeros((e["micro"], e["seq"])),
+                            cross_entropy_loss, micro_batch=e["micro"],
+                            grad_reduce_bits=e["bits"])
+    state = trainer.init(0)
+    rng = np.random.default_rng(13)
+    batches = [tuple(rng.integers(0, cfg.vocab_size, (e["micro"], e["seq"]))
+                     for _ in range(2)) for _ in range(e["steps"])]
+    sync()
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    steps = []
+    reset()
+    for tokens, targets in batches:
+        collectives.reset_staging_seconds()
+        t0 = time.perf_counter()
+        state, m = trainer.step(state, *trainer.shard_batch(tokens, targets))
+        loss, norm = m["loss"].item(), m["grad_norm"].item()
+        steps.append({"loss": loss, "grad_norm": norm,
+                      "ms": (time.perf_counter() - t0) * 1e3,
+                      "staging_s": dict(collectives.staging_seconds)})
+    from dlrover_tpu_torch.parallel.quant_collectives import MIN_QUANT_SIZE
+    emit(part="e", steps=steps, launches=counts(),
+         leaves=sum(1 for _ in state.model.parameters()),
+         quantized=sum(1 for p in state.model.parameters()
+                       if p.numel() >= MIN_QUANT_SIZE),
+         params=sum(p.numel() for p in state.model.parameters()),
+         peak_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                   if dev == "cuda" else 0.0))
+    del state, trainer
+    import gc
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+
 def leaves_of(member):
     g = torch.Generator(device=dev).manual_seed(1000 + member)
     return [torch.randn(*shape, generator=g, device=dev)
@@ -7359,7 +7448,7 @@ if "a" in spec["parts"]:
 if "c" in spec["parts"]:
     emit(part="begin", what="c")
     quant_part()
-if "b" in spec["parts"] or "d" in spec["parts"]:
+if any(part in spec["parts"] for part in "bde"):
     emit(part="begin", what="wait")
     while not os.path.exists(gate + ".b"):
         time.sleep(0.05)
@@ -7375,13 +7464,16 @@ if "d" in spec["parts"]:
     emit(part="begin", what="d")
     for fam in spec["tensor"]:
         tensor_part(fam)
+if "e" in spec["parts"]:
+    emit(part="begin", what="e")
+    dcn_part()
 emit(part="done")
 '''
 
 
 def sp_spec(device: str = "cuda", small: bool = False,
-            parts: str = "abcd", cases: tuple = ()) -> dict:
-    """What the ranks run: parts (a) to (d) at the card's full sizes
+            parts: str = "abcde", cases: tuple = ()) -> dict:
+    """What the ranks run: parts (a) to (e) at the card's full sizes
     ((b) at SP_LAYERS), or ``small`` (the CPU rehearsal,
     ``device="cpu"``, and the card tests) with the tiny Llama, GPT,
     BERT and Mixtral and small shapes; ``cases``, when given, keeps the
@@ -7400,7 +7492,8 @@ def _sp_spec(device: str, small: bool, parts: str) -> dict:
                 "steps": SP_STEPS, "impls": list(SP_IMPLS), "parts": parts,
                 "leaves": [list(s) for s in SP_BLOCK_LEAVES],
                 "quant": [list(q) for q in SP_QUANT],
-                "tensor": [dict(f) for f in SP_TENSOR]}
+                "tensor": [dict(f) for f in SP_TENSOR],
+                "dcn": dict(SP_DCN)}
     return {"device": device, "ranks": SP_RANKS,
             "attn": dict(b=1, h=4, s=384, d=64), "seq": 64, "model": "tiny",
             "layers": 0, "steps": SP_STEPS, "impls": list(SP_IMPLS),
@@ -7413,7 +7506,9 @@ def _sp_spec(device: str, small: bool, parts: str) -> dict:
                        {"family": "pipe_llama_tiny", "seq": 64, "micro": 2,
                         "microbatches": 2, "mesh": {"tensor": 2}},
                        {"family": "pipe_moe_tiny", "seq": 64, "micro": 2,
-                        "microbatches": 2, "mesh": {"expert": 2}}]}
+                        "microbatches": 2, "mesh": {"expert": 2}}],
+            "dcn": dict(model="tiny", layers=0, seq=64, micro=4,
+                        steps=SP_STEPS, bits=8)}
 
 
 def _sp_config(spec: dict, attn_impl: str):
@@ -7803,6 +7898,105 @@ def _sp_reference(smi: str, spec: dict) -> list:
     return steps
 
 
+def _sp_dcn_config(spec: dict):
+    import dataclasses
+
+    from dlrover_tpu_torch.models.llama import LlamaConfig
+
+    e = spec["dcn"]
+    cfg = getattr(LlamaConfig, e["model"])(
+        max_seq_len=e["seq"], attn_impl="flash", norm_impl="fused",
+        embed_impl="gather")
+    return (dataclasses.replace(cfg, num_layers=e["layers"])
+            if e["layers"] else cfg)
+
+
+def _sp_dcn_reference(smi: str, spec: dict) -> list:
+    """(e)'s reference: the ranks' rows (both micro batches, the global
+    batch) trained exactly by this process alone, from the same seed-0
+    init; (loss, grad_norm) a step."""
+    from dlrover_tpu_torch.models.llama import Llama, cross_entropy_loss
+    from dlrover_tpu_torch.trainer.train_step import build_trainer
+
+    import numpy as np
+
+    e = spec["dcn"]
+    cfg = _sp_dcn_config(spec)
+    trainer = build_trainer(functools.partial(Llama, cfg), _adamw, None,
+                            torch.zeros((e["micro"], e["seq"])),
+                            cross_entropy_loss, micro_batch=e["micro"],
+                            device=spec["device"])
+    state = trainer.init(0)
+    rng = np.random.default_rng(13)
+    steps = []
+    for _ in range(e["steps"]):
+        tokens, targets = (rng.integers(0, cfg.vocab_size,
+                                        (e["micro"], e["seq"]))
+                           for _ in range(2))
+        state, m = trainer.step(state, *trainer.shard_batch(tokens, targets))
+        steps.append({"loss": m["loss"].item(),
+                      "grad_norm": m["grad_norm"].item()})
+    log(f"sp (e) reference (one process, {e['micro']} rows of "
+        f"{e['seq']}, exact): {json.dumps(steps)} ({smi})")
+    del state, trainer
+    if spec["device"] == "cuda":
+        _free_memory()
+    return steps
+
+
+def _sp_dcn(records: list, reference: list, smi: str, spec: dict,
+            bad: list) -> dict:
+    """(e): each rank's steps against the one-process exact run, and its
+    launches as predicted: the flash and norm kernels of its micro batch
+    a step, and one quantize and one dequantize a leaf a step (gather
+    mode at two members; two of each in scatter mode), a leaf under
+    MIN_QUANT_SIZE values taking the exact mean. Returns the runs'
+    launches summed over the ranks."""
+    e = spec["dcn"]
+    cfg = _sp_dcn_config(spec)
+    total = {}
+    for rank_records in records:
+        for rec in rank_records:
+            if rec["part"] != "e":
+                continue
+            steps = rec["steps"]
+            dl = [abs(s["loss"] - w["loss"]) for s, w in zip(steps,
+                                                             reference)]
+            dn = [abs(s["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+                  for s, w in zip(steps, reference)]
+            passes = 2 if spec["ranks"] > 4 else 1
+            want = dict(_expected_launches(cfg, e["steps"]),
+                        quantize=passes * rec["quantized"] * e["steps"],
+                        dequantize=passes * rec["quantized"] * e["steps"])
+            staging = [round(sum(s["staging_s"].values()), 3)
+                       for s in steps]
+            log(f"sp (e) dcn {spec['ranks']} int{e['bits']} rank "
+                f"{rec['rank']}: {rec['params']} parameters in "
+                f"{rec['leaves']} leaves ({rec['quantized']} quantized); "
+                f"losses "
+                f"{[s['loss'] for s in steps]} grad norms "
+                f"{[s['grad_norm'] for s in steps]}; against one process: "
+                f"max |loss diff| {max(dl):.3g} (limit {SP_LOSS_TOL}), max "
+                f"grad-norm relative diff {max(dn):.3g} (limit "
+                f"{SP_GRAD_NORM_TOL}); step ms "
+                f"{[round(s['ms'], 1) for s in steps]}, host staging s a "
+                f"step {staging}; launches {rec['launches']} (predicted "
+                f"{want}); allocator peak {rec['peak_gib']:.2f} GiB ({smi})")
+            if spec["device"] == "cuda" and rec["launches"] != want:
+                bad.append(f"sp (e) rank {rec['rank']}: launches "
+                           f"{rec['launches']}, predicted {want}")
+            if len(steps) != e["steps"] or not (
+                    max(dl) <= SP_LOSS_TOL and max(dn) <= SP_GRAD_NORM_TOL
+                    and all(math.isfinite(s["loss"]) for s in steps)):
+                bad.append(f"sp (e) rank {rec['rank']} disagrees with the "
+                           f"one-process run")
+            for k, v in rec["launches"].items():
+                total[k] = total.get(k, 0) + v
+    if not total:
+        bad.append("sp (e) ran on no rank")
+    return total
+
+
 # the one-process runs earlier phases made that (d) takes as its
 # references (the moe phase's flash parity run: "moe"), by family
 _SP_REFERENCES: dict = {}
@@ -8171,6 +8365,8 @@ def phase_sp(smi: str, workers: tuple, spec: dict) -> dict:
         tensor_reference = (_sp_tensor_reference(smi, spec,
                                                  os.path.dirname(gate))
                             if "d" in spec["parts"] else {})
+        dcn_reference = (_sp_dcn_reference(smi, spec)
+                         if "e" in spec["parts"] else [])
         open(gate + ".b", "w").close()
         t1 = time.monotonic()
         records = _sp_records(procs, gate)
@@ -8198,10 +8394,211 @@ def phase_sp(smi: str, workers: tuple, spec: dict) -> dict:
         for k, v in _sp_tensor(records, tensor_reference, smi, spec,
                                bad).items():
             launches[k] = launches.get(k, 0) + v
-    launches.update(_sp_quant(records, smi, spec, bad))
+    if "e" in spec["parts"]:
+        for k, v in _sp_dcn(records, dcn_reference, smi, spec,
+                            bad).items():
+            launches[k] = launches.get(k, 0) + v
+    for k, v in _sp_quant(records, smi, spec, bad).items():
+        launches[k] = launches.get(k, 0) + v
     if bad:
         raise AssertionError(f"sp: {bad}")
     return {"launches": launches, "part_s": parts_s}
+
+
+# ---------------------------------------------------------------------------
+# slice: slice mode's host-level path under the port's control plane
+# ---------------------------------------------------------------------------
+
+# two slices of one agent each (``run --slice-id``), each training the
+# nanoGPT example at --config nano on the card; the cross-slice mean is
+# exact (dcn_sync_quant_bits 0), so two slices that each add the same two
+# f32 values agree bit for bit. kill:slice:0 at SLICE_KILL_AT takes the
+# whole of slice 0; it restores its last stage (a save every
+# SLICE_SAVE_EVERY) from its agent's peer cache and catches up through
+# the state handoff, and the survivor trains degraded meanwhile, each
+# degraded step waiting SLICE_DCN_TIMEOUT_S for the silent slice
+SLICE_STEPS = 40
+SLICE_KILL_AT = 12
+SLICE_SAVE_EVERY = 5
+SLICE_DCN_TIMEOUT_S = 5.0
+# the steps both slices must take in lockstep after the catch-up
+SLICE_LOCKSTEP = 3
+SLICE_BUDGET_S = 45.0
+# beside the sp phase's ranks the phase took 86.4 s (PR 23's first call)
+SLICE_WAIT_S = 180.0
+SLICE_WORKER = ["dlrover_tpu_torch/examples/nanogpt_train.py", "--config",
+                "nano"]
+
+
+def slice_start(smi: str, device: str = "cuda") -> dict:
+    """The slice phase's master (in this process) and its two agents,
+    started; ``slice_finish`` waits for them and checks the run. The
+    workers train on the card unless ``device`` is "cpu" (a rehearsal)."""
+    import os
+    import tempfile
+
+    from dlrover_tpu_torch.master.job_master import JobMaster
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_slice_")
+    master = JobMaster(min_nodes=1, max_nodes=2, host="127.0.0.1")
+    master.prepare()
+    run = {"master": master, "tmp": tmp, "procs": [], "files": [],
+           "t0": time.monotonic(), "smi": smi}
+    for sid in (0, 1):
+        d = os.path.join(tmp, f"slice{sid}")
+        os.makedirs(d)
+        cmd = ([sys.executable, "-m", "dlrover_tpu_torch.run",
+                "--master-addr", master.addr, "--node-rank", str(sid),
+                "--slice-id", str(sid), "--monitor-interval", "1"]
+               + SLICE_WORKER + (["--device", "cpu"] if device == "cpu"
+                                 else [])
+               + ["--steps", str(SLICE_STEPS), "--save-interval",
+                  str(SLICE_SAVE_EVERY), "--report-interval", "1",
+                  "--ckpt-dir", os.path.join(d, "ckpt"), "--log-file",
+                  os.path.join(d, "log")])
+        env = dict(os.environ, PYTHONPATH=repo, TMPDIR=d,
+                   DLROVER_TPU_CHAOS=f"kill:slice:0@{SLICE_KILL_AT}",
+                   DLROVER_TPU_CHAOS_STATE=os.path.join(tmp, "chaos"),
+                   DLROVER_TPU_DCN_SYNC_TIMEOUT_S=str(SLICE_DCN_TIMEOUT_S),
+                   DLROVER_TPU_DCN_SYNC_QUANT_BITS="0")
+        fo = open(os.path.join(d, "agent.out"), "w")
+        fe = open(os.path.join(d, "agent.err"), "w")
+        run["files"] += [fo, fe]
+        run["procs"].append(subprocess.Popen(cmd, cwd=repo, env=env,
+                                             stdout=fo, stderr=fe))
+    return run
+
+
+def _slice_lines(path: str) -> list:
+    """The worker's ``nanogpt:`` lines as dicts of their key=value
+    fields."""
+    import os
+
+    out = []
+    if os.path.exists(path):
+        with open(path) as f:
+            for line in f:
+                if line.startswith("nanogpt: "):
+                    out.append(dict(field.split("=", 1) for field in
+                                    line.split()[1:] if "=" in field))
+    return out
+
+
+def slice_finish(run: dict) -> dict:
+    """Wait (bounded) for both agents and check the run: the survivor's
+    worker never restarted and its slice's generation did not move; it
+    took degraded steps, counted by the master's ledger and by
+    ``dlrover_tpu_slice_degraded_steps_total{slice="1"}``; slice 0
+    re-formed alone with its generation bumped, restored from its peer
+    cache and caught up through the state handoff; both slices ended at
+    the last step with the same parameters bit for bit, after at least
+    SLICE_LOCKSTEP steps in lockstep."""
+    import os
+    import re
+    import shutil
+
+    from dlrover_tpu_torch import obs
+    from dlrover_tpu_torch.common.constants import (
+        DefaultValues,
+        RendezvousName,
+    )
+
+    master, tmp, smi = run["master"], run["tmp"], run["smi"]
+    bad = []
+    try:
+        deadline = run["t0"] + SLICE_WAIT_S
+        codes = []
+        for proc in run["procs"]:
+            try:
+                codes.append(proc.wait(
+                    timeout=max(1.0, deadline - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                codes.append(None)
+        seconds = time.monotonic() - run["t0"]
+        mgr = master.rdzv_managers[RendezvousName.TRAINING]
+        status = mgr.slice_status()
+        ledger = master.goodput_ledger.snapshot()
+        counter = re.findall(
+            r'^dlrover_tpu_slice_degraded_steps_total\{slice="1"\} '
+            r'([0-9.]+)$', obs.get_registry().render(), re.M)
+        lines = [_slice_lines(os.path.join(tmp, f"slice{sid}", "log"))
+                 for sid in (0, 1)]
+        starts = [[ln for ln in ls if "start_step" in ln] for ls in lines]
+        log(f"slice on {smi}: agents exited {codes} after {seconds:.1f} s "
+            f"(budget {SLICE_BUDGET_S:.0f} s); slice status "
+            f"{json.dumps(status)}; the ledger's degraded steps "
+            f"{ledger.get('degraded_steps_total')}, the master's counter "
+            f"for slice 1 {counter}; slice 0's worker {lines[0]}; slice "
+            f"1's worker {lines[1]}")
+        if codes != [0, 0]:
+            for sid in (0, 1):
+                with open(os.path.join(tmp, f"slice{sid}",
+                                       "agent.err")) as f:
+                    log(f"slice {sid} agent's log tail:\n"
+                        f"{f.read()[-4000:]}")
+            bad.append(f"agents exited {codes}")
+        survivor_starts, victim_starts = starts[1], starts[0]
+        if len(survivor_starts) != 1:
+            bad.append(f"the survivor's worker started "
+                       f"{len(survivor_starts)} times")
+        slices = status.get("slices", {})
+        if slices.get("1", {}).get("generation") != 1:
+            bad.append(f"slice 1's generation moved: {slices.get('1')}")
+        if slices.get("0", {}).get("generation", 0) < 2:
+            bad.append(f"slice 0 did not re-form: {slices.get('0')}")
+        degraded = int(ledger.get("degraded_steps_total", 0) or 0)
+        if degraded < 1 or not counter or float(counter[0]) < 1:
+            bad.append(f"no degraded step counted: ledger {degraded}, "
+                       f"counter {counter}")
+        if len(victim_starts) < 2:
+            bad.append(f"slice 0's worker started {len(victim_starts)} "
+                       f"times")
+        else:
+            again = victim_starts[-1]
+            restored = int(again["start_step"])
+            caught = int(again["catch_up"])
+            log(f"slice: slice 0 restored step {restored} from "
+                f"{again['source']}, caught up {caught} steps to "
+                f"{restored + caught}; {SLICE_STEPS - restored - caught} "
+                f"steps in lockstep after")
+            if again["source"] != "peer" or caught < 1:
+                bad.append(f"slice 0 did not peer-restore and catch up: "
+                           f"{again}")
+            if SLICE_STEPS - restored - caught < SLICE_LOCKSTEP:
+                bad.append(f"fewer than {SLICE_LOCKSTEP} lockstep steps")
+        ends = [[ln for ln in ls if "digest" in ln] for ls in lines]
+        digests = [e[-1].get("digest") if e else None for e in ends]
+        steps = [e[-1].get("step") if e else None for e in ends]
+        if steps != [str(SLICE_STEPS)] * 2 or digests[0] != digests[1] \
+                or digests[0] is None:
+            bad.append(f"the slices ended at steps {steps} with "
+                       f"parameters {digests}")
+        else:
+            log(f"slice: both slices at step {SLICE_STEPS} with the same "
+                f"parameters bit for bit (sha256 {digests[0]})")
+        from dlrover_tpu_torch.models.gpt import GPT, GPTConfig
+
+        params = sum(p.numel() for p in GPT(GPTConfig.nano(),
+                                            device="meta").parameters())
+        log(f"slice: the exact cross-slice payload is {4 * params} bytes "
+            f"({params} f32 parameters) a slice a step, against C10's "
+            f"{DefaultValues.GRPC_MAX_MESSAGE_MB} MB gRPC value limit "
+            f"(about {DefaultValues.GRPC_MAX_MESSAGE_MB * 2 ** 20 // 4} "
+            f"f32 parameters exact); {seconds:.1f} s of its "
+            f"{SLICE_BUDGET_S:.0f} s budget ({smi})")
+    finally:
+        for proc in run["procs"]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in run["files"]:
+            f.close()
+        master.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if bad:
+        raise AssertionError(f"slice: {bad}")
+    return {"phase_s": seconds, "degraded": degraded}
 
 
 def main(argv=None) -> int:
@@ -8210,12 +8607,12 @@ def main(argv=None) -> int:
                         default="kernels,quant,parity,llama1b,auto,"
                                 "resume,standalone,faults,observe,failover,"
                                 "replan,models,llama7b,moe,pipeline,"
-                                "embedding,brain,sp",
+                                "embedding,brain,sp,slice",
                         help="comma-separated subset of kernels, quant, "
                              "parity, llama1b, auto, resume, standalone, "
                              "faults, observe, failover, replan, models, "
-                             "llama7b, moe, pipeline, embedding, brain, sp "
-                             "(device and build always run)")
+                             "llama7b, moe, pipeline, embedding, brain, sp, "
+                             "slice (device and build always run)")
     parser.add_argument("--profile", default="",
                         help="after the Llama-1B run, profile one more "
                              "step and write the kernel table here (and "
@@ -8374,22 +8771,35 @@ def _run_phases(args, phases: list, smi: str, sp_workers, t0: float) -> int:
             rec["brain_launches"] = brain["launches"][rec["name"]]
         lap("brain")
     sp_part_s = {}
-    if "sp" in phases:
-        # both ranks' (b) training runs (ring, Ulysses), their (d) runs
-        # (GPT-2, BERT over tensor 2) and their (c) quantized means, summed
-        sp = phase_sp(smi, sp_workers, sp_spec())
-        sp_part_s = sp["part_s"]
-        for rec in train_records + quant_records:
-            rec["sp_launches"] = sp["launches"].get(rec["name"], 0)
-        lap("sp")
+    # the slice phase's agents run beside the sp phase's ranks: their
+    # processes are the nano model's and the master's host-level sync,
+    # and neither phase gates on the other's times
+    slice_run = slice_start(smi) if "slice" in phases else None
+    try:
+        if "sp" in phases:
+            # both ranks' (b) training runs (ring, Ulysses), their (d)
+            # runs, their (e) runs over dcn 2 and their (c) quantized
+            # means, summed
+            sp = phase_sp(smi, sp_workers, sp_spec())
+            sp_part_s = sp["part_s"]
+            for rec in train_records + quant_records:
+                rec["sp_launches"] = sp["launches"].get(rec["name"], 0)
+            lap("sp")
+    finally:
+        slice_out = slice_finish(slice_run) if slice_run else {}
+    if slice_run:
+        lap("slice")
     records = train_records + quant_records
     elapsed = time.monotonic() - t0
     log(f"phase seconds: {json.dumps(seconds)}")
     log(f"elapsed {elapsed:.1f} s")
     log(f"budget: {elapsed:.1f} s of {SCRIPT_BUDGET_S:.0f} s (the "
         f"contract's limit is 1200 s); sp part (d) "
-        f"{sp_part_s.get('d', 0.0):.1f} s of {SP_TENSOR_BUDGET_S:.0f} s "
-        f"({smi})")
+        f"{sp_part_s.get('d', 0.0):.1f} s of {SP_TENSOR_BUDGET_S:.0f} s, "
+        f"part (e) {sp_part_s.get('e', 0.0):.1f} s of "
+        f"{SP_DCN_BUDGET_S:.0f} s; the slice phase "
+        f"{slice_out.get('phase_s', 0.0):.1f} s of {SLICE_BUDGET_S:.0f} s, "
+        f"beside sp ({smi})")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

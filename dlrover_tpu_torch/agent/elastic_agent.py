@@ -355,9 +355,15 @@ class ElasticAgent:
         process group's rendezvous address via the master KV store."""
         ranks = sorted(world)
         process_id = ranks.index(self._client.node_rank)
+        slice_id = self._client.slice_id
+        # in slice mode each slice is its own process group with its own
+        # round counter: the coordinator key is scoped by slice, or two
+        # slices cutting round N would collide
+        coord_key = (f"coord/{self._rdzv_name}/slice{slice_id}/"
+                     f"{rdzv_round}" if slice_id >= 0
+                     else f"coord/{self._rdzv_name}/{rdzv_round}")
         coord = publish_or_wait_coordinator(
-            self._client, f"coord/{self._rdzv_name}/{rdzv_round}",
-            process_id, self._spec.rdzv_timeout_s,
+            self._client, coord_key, process_id, self._spec.rdzv_timeout_s,
         )
         env = dict(os.environ)
         env.update(self._spec.env)
@@ -385,6 +391,11 @@ class ElasticAgent:
             # delivers a notice to THIS agent
             NodeEnv.PREEMPTION_NOTICE_FILE: self.preempt_notice_file,
         })
+        if slice_id >= 0:
+            # the worker's slice: it arms the cross-slice gradient sync
+            # and the slice-targeted chaos faults. A sliceless agent
+            # leaves the worker's environment as it is
+            env[NodeEnv.SLICE_ID] = str(slice_id)
         return env
 
     # -- worker lifecycle --------------------------------------------------

@@ -14,10 +14,7 @@ falls back to the main tier for 5 s after a transport failure;
 restarted or promoted master rewrites, ``reconnect`` re-dials, and
 ``reconnect_report`` re-registers through the generation handshake.
 ``reresolve_if_moved`` is there for a worker's failure paths; like the
-JAX package, only slice mode calls it.
-
-Not ported yet: the wrappers of the slice RPCs (ROADMAP Queue A item
-6.4).
+JAX package, only slice mode (``parallel/dcn_sync.py``) calls it.
 """
 
 from __future__ import annotations
@@ -90,13 +87,17 @@ class MasterClient:
                  node_rank: Optional[int] = None,
                  timeout_s: Optional[float] = None,
                  node_type: str = "",
+                 slice_id: Optional[int] = None,
                  coord_addr: Optional[str] = None):
         self.master_addr = master_addr
         self.node_id = node_id
         self.node_type = node_type
         self.node_rank = node_rank if node_rank is not None else node_id
-        # slice mode is not ported (ROADMAP Queue A item 6.4)
-        self.slice_id = -1
+        # the slice this node belongs to (slice mode); -1 = a sliceless
+        # job. The parameter wins over the env, so in-process tests can
+        # run several slices in one process
+        self.slice_id = (slice_id if slice_id is not None
+                         else int(os.getenv(NodeEnv.SLICE_ID, "-1")))
         # per-call deadline; wait_for_ready means an unreachable master
         # surfaces as DEADLINE_EXCEEDED after exactly this long
         self._timeout_s = (timeout_s if timeout_s is not None
@@ -432,6 +433,20 @@ class MasterClient:
         )).success
 
     @retry_rpc(retries=3)
+    def get_slice_status(self, rdzv_name: str = RendezvousName.TRAINING
+                         ) -> dict:
+        """The master's slice registry view and the job's step
+        high-water mark ({} = no slice registry): the cross-slice
+        gradient sync's present set (``parallel/dcn_sync.py``). Per-step
+        traffic, so the coordination tier answers when there is one."""
+        result = self._typed(
+            lambda request: self._coord_send("get", request),
+            msg.SliceStatusRequest(
+                node_id=self.node_id, node_rank=self.node_rank,
+                rdzv_name=rdzv_name), msg.SliceStatus)
+        return self._json_dict(result.status_json)
+
+    @retry_rpc(retries=3)
     def get_shard_plan(self, rdzv_name: str = RendezvousName.TRAINING
                        ) -> dict:
         """The current parallelism plan for this rank's world
@@ -527,18 +542,22 @@ class MasterClient:
     def report_global_step(self, step: int, step_time_s: float = 0.0,
                            data_wait_fraction: float = -1.0,
                            mfu: float = -1.0,
+                           degraded_steps: int = 0,
                            hbm_peak_bytes: float = 0.0,
                            plan_generation: int = -1) -> bool:
         """Step progress with the sender's windowed speed evidence: mean
         step wall time and data-wait fraction from the worker's phase
-        timeline, achieved MFU from its FLOPs model, and the report
-        window's device-truth memory peak (``obs/device.py``; 0 = none).
+        timeline, achieved MFU from its FLOPs model, the steps of the
+        window its slice took with a renormalized gradient mean (a peer
+        slice absent), and the report window's device-truth memory peak
+        (``obs/device.py``; 0 = none).
         ``timestamp`` rides for wire captures only: the master keys
         speed on its own clock."""
         return self._report(msg.GlobalStepReport(
             node_id=self.node_id, step=step, timestamp=time.time(),
             node_rank=self.node_rank, step_time_s=step_time_s,
             data_wait_fraction=data_wait_fraction, mfu=mfu,
+            degraded_steps=degraded_steps,
             hbm_peak_bytes=hbm_peak_bytes,
             plan_generation=plan_generation,
         )).success

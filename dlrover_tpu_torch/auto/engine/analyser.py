@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from dlrover_tpu_torch.auto.model_context import ModelContext
+from dlrover_tpu_torch.common.constants import NodeEnv
 
 # Fraction of device memory the train state (params + optimizer) may
 # claim; the rest is activations, workspace and fragmentation headroom.
@@ -134,9 +135,11 @@ def analyse(context: ModelContext, micro_batch: int = 1) -> Dict[str, Any]:
         "seq_len": seq_len,
         "device_hbm_bytes": hbm_bytes,
         "n_devices": len(context.devices),
-        # slices (the failure domains a data-axis reduce would cross) are
-        # not ported (ROADMAP Queue A item 6.4): one granule
-        "n_dcn_granules": 1,
+        # the slices one process group spans (the failure domains a
+        # data-axis reduce crosses): a card reports no slice of its own,
+        # so the launcher states them
+        "n_dcn_granules": max(1, int(
+            os.environ.get(NodeEnv.NUM_SLICES) or 1)),
         "fits_one_device": (
             hbm_bytes == 0
             or train_state_bytes < hbm_bytes * STATE_HBM_FRACTION),

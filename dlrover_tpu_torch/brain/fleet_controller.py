@@ -12,8 +12,9 @@ three things:
   own recent elasticity incarnations, by ``autoscale_claim_margin``;
 - **shed** the slowest slice: the step-trace summary names one rank as
   dominating the critical path AND the cross-slice wait fraction
-  exceeds ``autoscale_shed_wait_fraction``. Without slice mode (ROADMAP
-  Queue A item 6.4) the port's fleet is one slice, which is never shed;
+  exceeds ``autoscale_shed_wait_fraction``. The shed drains the rank's
+  slice as a unit (slice mode); a sliceless fleet, or a fleet of one
+  slice, is never shed;
 - **hold**: anything else, and every candidate blocked by a guardrail
   (hysteresis, cooldown, hourly rate limit, quarantine, an open watchdog
   window). A hold with a live candidate is recorded: "we saw it and

@@ -214,6 +214,17 @@ class Context:
         # worker builds its mesh and batch shape from the master's shard
         # plan; False pins the configured shape
         self.replan_enabled: bool = DefaultValues.REPLAN_ENABLED
+        # slice mode (parallel/dcn_sync.py): the degraded-step budget
+        # while a slice is absent, the per-step collect deadline and its
+        # poll, and the wire quantization of the host-level sync
+        self.slice_absent_max_steps: int = (
+            DefaultValues.SLICE_ABSENT_MAX_STEPS
+        )
+        self.dcn_sync_timeout_s: float = DefaultValues.DCN_SYNC_TIMEOUT_S
+        self.dcn_sync_poll_s: float = DefaultValues.DCN_SYNC_POLL_S
+        self.dcn_sync_quant_bits: int = (
+            DefaultValues.DCN_SYNC_QUANT_BITS
+        )
         # preemption-aware graceful drain (agent/preemption.py) and the
         # deadline-bounded emergency checkpoint (checkpoint/, trainer/)
         self.preempt_default_grace_s: float = (

@@ -306,6 +306,20 @@ class DefaultValues:
     # master's shard plan when building the worker (mesh + batch and
     # accumulation); False pins the configured shape
     REPLAN_ENABLED = True
+    # -- slice mode (parallel/dcn_sync.py) ------------------------------
+    # degraded-mode budget: surviving slices keep stepping with the
+    # gradient mean renormalized over the PRESENT slices for this many
+    # consecutive steps while a slice is absent; past it they hard-stall
+    # with a CRITICAL alert instead of training on a shrunken mean
+    SLICE_ABSENT_MAX_STEPS = 100
+    # per-step deadline for a formed peer slice's gradient contribution;
+    # a formed slice silent past it is absent for THIS step
+    DCN_SYNC_TIMEOUT_S = 60.0
+    # cadence of the collector's poll against the master KV store
+    DCN_SYNC_POLL_S = 0.05
+    # int8 groupwise quantization of the host-level cross-slice payloads;
+    # 0 = exact float32 bytes
+    DCN_SYNC_QUANT_BITS = 0
     # flight recorder rings (obs/flight_recorder.py)
     FLIGHT_RING_EVENTS = 4096
     FLIGHT_RING_SPANS = 4096

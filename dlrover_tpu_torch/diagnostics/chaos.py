@@ -36,6 +36,23 @@ grammar:
     resize:+2@3            rank 0 writes the resize-request file
                            ($DLROVER_TPU_RESIZE_REQUEST) the launcher
                            polls: spawning processes is its power
+    kill:slice:0@5         SIGKILL every rank of slice 0 when it reaches
+                           step 5 (slice mode: the rank field addresses
+                           the SLICE; each member matches on its own
+                           $DLROVER_TPU_SLICE_ID, so the fault fans
+                           across the slice): survivors keep stepping
+                           degraded, the victim slice re-forms alone
+    preempt:slice:1@4:20   every rank of slice 1 gets the advance
+                           preemption notice at step 4 (20 s grace): the
+                           slice drains as a unit
+    resize:slice:-1@10     slice-unit scale-down: every rank whose slice
+                           id is among the $DLROVER_TPU_NUM_SLICES
+                           highest leaves with the clean-drain exit at
+                           step 10 (resize:slice:+k writes the request
+                           file with unit="slice"). A worker-unit resize
+                           in a slice-mode job judges ranks against
+                           $DLROVER_TPU_NODE_NUM, the fleet's rank count
+                           (WORLD_SIZE is the slice's there)
     offer:slice:+1@10:300  preemptible-market event: the MASTER-side
                            injector hands the fleet controller's local
                            CapacityProvider (brain/fleet_controller.py)
@@ -54,17 +71,14 @@ grammar:
                            the revocation. Grace omitted:
                            Context.preempt_default_grace_s
 
-Each injector arms the faults of its own role and rank (and a worker
-every worker-unit resize) and skips the rest, as the JAX injector does:
-a worker skips a ``master`` fault; ``offer`` arms on the master only and
-``revoke`` on the master and on the revoked slice's workers. The
-grammar also parses the faults whose subsystem the port lacks, and the
-injector refuses them by name (``NotImplementedError`` with their
-ROADMAP Queue A item): the ``shard`` role (12.2, the sharded
-rendezvous), and every other ``slice``-role fault and the slice-unit
-resize (6.4, slice mode). ``offer`` and ``revoke`` carry the ``slice``
-role in their grammar but need only the fleet controller, not slice
-mode.
+Each injector arms the faults of its own role and rank (every member of
+the addressed slice a ``slice``-role fault, and a worker every resize)
+and skips the rest, as the JAX injector does: a worker skips a
+``master`` fault; ``offer`` arms on the master only and ``revoke`` on
+the master and on the revoked slice's workers. The grammar also parses
+the ``shard`` role, whose subsystem the port lacks, and the injector
+refuses it by name (``NotImplementedError`` with its ROADMAP Queue A
+item, 12.2: the sharded rendezvous).
 
 Each kill/hang/preempt/resize fault fires at most once per process;
 slow applies from its step onward. A resize fault also records a
@@ -201,12 +215,8 @@ def parse_chaos(spec: str) -> List[ChaosFault]:
 def _unported_item(fault: ChaosFault) -> str:
     """The ROADMAP Queue A item whose subsystem ``fault`` needs and the
     port lacks, "" when the port can inject it."""
-    if fault.action in ("offer", "revoke"):
-        return ""
     if fault.role == "shard":
         return "12.2 (the sharded rendezvous)"
-    if fault.role == "slice":
-        return "6.4 (slice mode)"
     return ""
 
 
@@ -240,10 +250,11 @@ class ChaosInjector:
                     f"chaos fault {fault.action}:{fault.role}:{fault.rank}"
                     f"@{fault.at_step} is not ported yet (ROADMAP Queue A "
                     f"item {item})")
-        # a worker-unit resize arms on EVERY worker: whether this rank
-        # leaves is decided at fire time against the world. An offer
-        # arms on the master only, a revoke on the master and on the
-        # revoked slice's workers
+        # a slice-role fault addresses the SLICE in its rank field: every
+        # member of that slice arms it. A resize arms on EVERY worker:
+        # whether this rank leaves is decided at fire time against the
+        # world or the slice count. An offer arms on the master only, a
+        # revoke on the master and on the revoked slice's workers
         self.faults = [
             f for f in faults
             if (f.action == "resize" and role == "worker")
@@ -253,7 +264,9 @@ class ChaosInjector:
                      or (role == "worker" and slice_id >= 0
                          and f.rank == slice_id)))
             or (f.action not in ("resize", "offer", "revoke")
-                and f.role == role and f.rank == rank)]
+                and ((f.role == role and f.rank == rank)
+                     or (f.role == "slice" and role == "worker"
+                         and slice_id >= 0 and f.rank == slice_id)))]
         for fault in self.faults:
             if self._already_fired(fault):
                 fault.fired = True
@@ -311,9 +324,10 @@ class ChaosInjector:
             json.dump({"world": int(world), "pid": os.getpid()}, f)
 
     def _resize_leaving(self, fault: ChaosFault, world: int) -> bool:
-        """Is this rank among the departing set of a scale-down fault
-        judged against ``world``?"""
-        return self._rank >= world + fault.rank
+        """Is this process among the departing set of a scale-down fault
+        judged against ``world`` (ranks, or slices for a slice unit)?"""
+        member = self._slice if fault.role == "slice" else self._rank
+        return member >= world + fault.rank
 
     def _already_fired(self, fault: ChaosFault) -> bool:
         if not self._state_dir:
@@ -423,8 +437,9 @@ class ChaosInjector:
 
     def _inject_resize(self, fault: ChaosFault, step: int) -> None:
         """A deterministic mid-run resize. Scale-DOWN (delta < 0): this
-        process leaves with the clean-drain exit when its rank is among
-        the |delta| highest of the fire-time world; the agent reports a
+        process leaves with the clean-drain exit when its rank (or
+        slice) is among the |delta| highest of the fire-time world; the
+        agent reports a
         planned departure, the master removes the rank at once and the
         survivors re-plan and re-form in one round. Scale-UP (delta >
         0): rank 0 atomically writes the resize-request file the
@@ -433,12 +448,21 @@ class ChaosInjector:
         if delta < 0:
             # the job marker's recorded world wins over the env: a
             # respawn into the shrunken world neither cascades nor
-            # under-delivers
+            # under-delivers. In slice mode WORLD_SIZE is the slice's
+            # while node ranks are the fleet's
+            if fault.role == "slice":
+                world_env = NodeEnv.NUM_SLICES
+            elif self._slice >= 0:
+                world_env = NodeEnv.NODE_NUM
+            else:
+                world_env = NodeEnv.WORLD_SIZE
             world = (self._job_fire_world(fault)
-                     or int(os.environ.get(NodeEnv.WORLD_SIZE, "0")))
+                     or int(os.environ.get(world_env, "0")))
             if world <= 0:
-                logger.warning("chaos resize:%d needs %s in the env; "
-                               "skipping", delta, NodeEnv.WORLD_SIZE)
+                logger.warning(
+                    "chaos resize:%s%d needs %s in the env; skipping",
+                    "slice:" if fault.role == "slice" else "", delta,
+                    world_env)
                 fault.fired = True
                 return
             self._record_job_fired(fault, world)

@@ -25,13 +25,21 @@ and on the CPU:
 
 A SIGKILL mid-run restarts the worker through the agent; the new
 incarnation resumes from the latest committed checkpoint with the data
-position intact, and logs ``nanogpt: start_step=N``.
+position intact, and logs ``nanogpt: start_step=N`` with its process
+id, its restore source and the steps a slice-mode catch-up skipped. The
+last line, ``nanogpt: done step=N loss=L digest=D``, carries a SHA-256
+of the parameters' bytes, so replicas compare bit for bit.
+
+In slice mode (``run --slice-id S``, ``DLROVER_TPU_SLICE_ID``) the
+trainer steps in two halves around the cross-slice gradient sync
+(``parallel/dcn_sync.py``).
 """
 
 from __future__ import annotations
 
 import argparse
 import functools
+import hashlib
 import os
 import sys
 
@@ -62,6 +70,8 @@ def parse_args(argv=None):
     parser.add_argument("--lr", type=float, default=3e-4)
     parser.add_argument("--ckpt-dir", default="")
     parser.add_argument("--save-interval", type=int, default=20)
+    parser.add_argument("--report-interval", type=int, default=10,
+                        help="steps between step reports to the master")
     parser.add_argument("--log-file", default="",
                         help="append step logs here (tests parse it)")
     return parser.parse_args(argv)
@@ -98,6 +108,9 @@ def main(argv=None) -> int:
         global_batch=args.global_batch, micro_batch=MAX_MICRO,
         devices=None if device is None else [device] * world)
 
+    if int(os.environ.get("DLROVER_TPU_SLICE_ID", "-1")) >= 0:
+        # slice mode: grad_step, the cross-slice mean, apply_grads
+        result.trainer.split_grad_apply = True
     client = None
     if os.environ.get("DLROVER_TPU_MASTER_ADDR"):
         from dlrover_tpu_torch.agent.master_client import MasterClient
@@ -115,7 +128,7 @@ def main(argv=None) -> int:
             max_micro_per_replica=MAX_MICRO,
             checkpoint_dir=args.ckpt_dir,
             save_interval_steps=args.save_interval,
-            report_interval_steps=10,
+            report_interval_steps=args.report_interval,
         ),
         master_client=client,
         device=device,
@@ -135,7 +148,9 @@ def main(argv=None) -> int:
                 f.write(message + "\n")
 
     log(f"nanogpt: start_step={start_step} "
-        f"dp={loop.dp} accum={loop.accum} device={loop.device}")
+        f"dp={loop.dp} accum={loop.accum} device={loop.device} "
+        f"pid={os.getpid()} source={loop.last_restore_source} "
+        f"catch_up={int(loop.last_restore_timings.get('catch_up_steps', 0))}")
     if args.steps <= start_step:
         log("nanogpt: nothing to do")
         loop.close()
@@ -146,8 +161,11 @@ def main(argv=None) -> int:
     state, metrics = loop.run(state, data, start_step=start_step,
                               sampler=sampler)
     final_step = int(metrics.get("step", start_step))
+    digest = hashlib.sha256()
+    for _, p in state.model.named_parameters():
+        digest.update(p.detach().float().cpu().numpy().tobytes())
     log(f"nanogpt: done step={final_step} "
-        f"loss={metrics.get('loss', -1):.4f}")
+        f"loss={metrics.get('loss', -1):.4f} digest={digest.hexdigest()}")
     loop.close()
     return 0
 

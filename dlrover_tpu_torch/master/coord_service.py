@@ -1,4 +1,4 @@
-"""The coordination tier: KV RPCs on their own port and thread pool.
+"""The coordination tier: KV and slice-status RPCs on their own port.
 
 Own copy of the JAX package's ``master/coord_service.py``. The hot kv
 traffic (the ``coord/`` rendezvous barriers, and in slice mode the
@@ -9,11 +9,9 @@ it. This module splits it out:
 
 - :class:`CoordServicer` answers exactly the coordination RPCs
   (``KVGetRequest``, ``KVWaitRequest``, ``KeyValuePair``,
-  ``KVAddRequest``) against the SAME ``KVStoreService`` the main
-  servicer uses, on its own server and port. Reads are lock-free
-  (``kv_store.get``). ``SliceStatusRequest`` belongs to slice mode,
-  which the port lacks (ROADMAP Queue A item 6.4): it is answered "not
-  ported", as the main servicer answers it.
+  ``KVAddRequest``, ``SliceStatusRequest``) against the SAME
+  ``KVStoreService`` and rendezvous registry the main servicer uses, on
+  its own server and port. Reads are lock-free (``kv_store.get``).
 - :class:`TelemetryIngestQueue` bounds the other direction: telemetry
   reports are enqueued (drop-oldest past ``telemetry_queue_size``,
   counted in ``dlrover_tpu_telemetry_dropped_total``) and replayed by
@@ -28,6 +26,7 @@ reconnect results; ``MasterClient`` routes hot-prefix KV traffic there.
 
 from __future__ import annotations
 
+import json
 import threading
 from collections import deque
 from typing import Callable, Optional
@@ -47,8 +46,13 @@ class CoordServicer:
     falls back to the main tier)."""
 
     def __init__(self, kv_store: KVStoreService,
+                 rdzv_manager=None, speed_monitor=None,
                  state_sink: Optional[Callable] = None):
         self.kv_store = kv_store
+        # the slice registry and the job's step high-water mark (the
+        # re-formed slice's catch-up target)
+        self.rdzv_manager = rdzv_manager
+        self.speed_monitor = speed_monitor
         # cold keys arriving here still get crash-consistency (an old
         # client routing everything through one addr must lose nothing);
         # hot keys deliberately bypass it — that is the tier's point
@@ -94,9 +98,13 @@ class CoordServicer:
                                     min(request.timeout_s, 5.0))
             return msg.Response(success=ok)
         if isinstance(request, msg.SliceStatusRequest):
-            return msg.Response(
-                success=False,
-                reason="not ported: ROADMAP Queue A item 6.4 (slice mode)")
+            if self.rdzv_manager is None:
+                return msg.SliceStatus(status_json="")
+            status = self.rdzv_manager.slice_status()
+            if self.speed_monitor is not None:
+                status["fleet_step"] = (
+                    self.speed_monitor.completed_global_step)
+            return msg.SliceStatus(status_json=json.dumps(status))
         return msg.Response(
             success=False,
             reason=f"{type(request).__name__} is not a coordination-"

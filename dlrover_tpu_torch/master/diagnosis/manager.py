@@ -25,9 +25,9 @@ The snapshot carries the planner calibration's current entry
 after each round the learned per-axis discounts go to ``discount_sink``
 (wired by ``JobMaster`` to the servicer's ``push_axis_discounts``).
 ``request_checkpoint`` fans an urgent save-and-continue out to the
-survivors of a drain, bypassing the cooldown; ``request_drain`` serves
-slice mode (ROADMAP Queue A item 6.4), whose master side the port does
-not have, so the servicer never calls it.
+survivors of a drain, bypassing the cooldown; ``request_drain`` orders
+save-and-exit actions: the same-slice peers of a rank with a preemption
+notice (the slice departs as a unit) and the fleet controller's shed.
 
 Threading: fed from servicer threads and read by scrapes while the
 diagnose loop runs; every shared structure is guarded by ``self._lock``.
@@ -271,19 +271,9 @@ class DiagnosisManager:
         """Slice-unit drain fan-out: save-and-EXIT actions for the
         same-slice peers of a rank that received a preemption notice
         (the whole slice departs together; its world dies with it
-        either way). Same urgency contract as request_checkpoint. With
-        no slice map (slice mode is ROADMAP Queue A item 6.4) there is no
-        slice to drain as a unit, and nothing is queued."""
-        with self._lock:
-            if not self._slice_map:
-                return []
-        return self.request_exit(ranks, deadline, reason)
-
-    def request_exit(self, ranks, deadline: float,
-                     reason: str = "") -> List[int]:
-        """Urgent save-and-EXIT actions for ``ranks`` (the fleet
-        controller's shed orders its notice rank out this way: it has no
-        notice file). Same urgency contract as request_checkpoint."""
+        either way), and the fleet controller's shed of its notice rank
+        (which has no notice file). Same urgency contract as
+        request_checkpoint."""
         return self._request_urgent("drain", ranks, deadline, reason)
 
     def _request_urgent(self, kind: str, ranks, deadline: float,

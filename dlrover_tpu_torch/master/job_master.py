@@ -286,7 +286,10 @@ class JobMaster:
         port = Context.singleton().coord_port
         if port < 0:
             return
-        self.coord_servicer = CoordServicer(self.kv_store)
+        self.coord_servicer = CoordServicer(
+            self.kv_store,
+            rdzv_manager=self.rdzv_managers[RendezvousName.TRAINING],
+            speed_monitor=self.speed_monitor)
         try:
             # a full-width pool: blocked KVWaits hold threads
             self._coord_server, self.coord_port = build_server(
@@ -420,6 +423,12 @@ class JobMaster:
             mgr = self.rdzv_managers.get(name)
             if mgr is not None:
                 mgr.restore_state(rdzv_state)
+        # the restored rank → slice registry goes to every slice-labeled
+        # consumer now: reconnecting agents whose worlds are intact never
+        # re-join, and joins are the only other push
+        training = self.rdzv_managers.get(RendezvousName.TRAINING)
+        if training is not None and training.slice_map:
+            self.servicer._push_slice_map(training)
         self.task_manager.restore_state(state.get("task_manager", {}))
         self.kv_store.restore_state(state.get("kv_store", {}))
         self.speed_monitor.restore_state(state.get("speed_monitor", {}))
@@ -565,7 +574,7 @@ class JobMaster:
         from dlrover_tpu_torch.common import messages as msg
 
         if self.diagnosis_manager is not None:
-            self.diagnosis_manager.request_exit(
+            self.diagnosis_manager.request_drain(
                 [rank], deadline, reason=reason)
         self.servicer._handle_drain(msg.DrainReport(
             node_rank=rank, phase="notice", deadline=deadline,

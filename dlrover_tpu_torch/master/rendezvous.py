@@ -31,9 +31,13 @@ profile the servicer feeds (``set_model_profile``, ``set_chip_hbm``,
 with the world epoch; it reports whether the execution shape really
 changed (a re-plan) or was re-stamped for another rank.
 
-Not ported yet: slice-scoped worlds (ROADMAP Queue A item 6.4) and the
-sharded router (12.2). Without slices every remote donor is on the
-"cross-slice" tier, and every plan has one slice.
+Slice-scoped worlds (multi-slice data parallelism): when joins carry a
+slice id, the slice is the failure domain. Each slice cuts its own world
+with its own round counter and generation token, a member's death
+invalidates only its slice's world, and ``slice_status`` is what the
+cross-slice gradient sync (``parallel/dcn_sync.py``) divides by. A
+sliceless job keeps the fleet world. Not ported yet: the sharded router
+(ROADMAP Queue A item 12.2).
 """
 
 from __future__ import annotations
@@ -127,9 +131,21 @@ def plan_restore_entries(stores: Dict[int, Dict], node_rank: int,
 
 
 class RendezvousManager:
-    """Base rendezvous: collect joiners, cut a round when complete."""
+    """Base rendezvous: collect joiners, cut a round when complete.
+
+    Slice-scoped mode: when joins carry a slice id (and the class opts in
+    with ``slice_scoped``), each slice cuts its own world with its own
+    round counter and generation token; a member's death invalidates
+    only that slice's world, and the other slices' worlds, tokens and
+    worker pids stay as they are. The fleet structures (``_latest_world``,
+    ``_rdzv_round``) stay idle in slice mode; the fleet view is the union
+    of the slice worlds."""
 
     name = "base"
+    # slice-scoped worlds apply to training rendezvous; the network
+    # check pairs across the whole fleet (cross-slice links are what it
+    # probes)
+    slice_scoped = True
 
     def __init__(self, params: Optional[RendezvousParameters] = None):
         self._params = params or RendezvousParameters()
@@ -179,6 +195,16 @@ class RendezvousManager:
         # sees the EXPECTED post-re-formation world at the first
         # survivor's join, so a resize stamps one plan, not one a joiner
         self._known_chips: Dict[int, int] = {}
+        # -- slice-scoped failure domains ------------------------------
+        # rank -> slice id, learned from joins and peer-store reports;
+        # any entry (with slice_scoped) switches to per-slice worlds
+        self._slices: Dict[int, int] = {}
+        self._slice_worlds: Dict[int, Dict[int, int]] = {}
+        # per-slice round counters and generation tokens: bumped each
+        # time THAT slice's world cuts, untouched when another slice fails
+        self._slice_rounds: Dict[int, int] = {}
+        self._slice_generation: Dict[int, int] = {}
+        self._slice_round_start: Dict[int, float] = {}
 
     # -- membership --------------------------------------------------------
     def update_rdzv_params(self, min_nodes: int, max_nodes: int,
@@ -211,6 +237,127 @@ class RendezvousManager:
             return
         with self._lock:
             self._last_seen[node_rank] = time.time()
+
+    # -- slice membership --------------------------------------------------
+    def _slice_mode_locked(self) -> bool:
+        """(lock held)"""
+        return self.slice_scoped and bool(self._slices)
+
+    def _record_slice_locked(self, node_rank: int, slice_id: int) -> None:
+        """(lock held)"""
+        if slice_id >= 0 and self.slice_scoped:
+            if self._slices.get(node_rank) != slice_id:
+                self._slices[node_rank] = slice_id
+                self._mutations += 1
+
+    def record_slice(self, node_rank: int, slice_id: int) -> None:
+        """Teach the registry a rank's slice outside the join path
+        (reconnects, peer-store reports that precede the first join)."""
+        with self._lock:
+            self._record_slice_locked(node_rank, slice_id)
+
+    def slice_of(self, node_rank: int) -> int:
+        with self._lock:
+            return self._slices.get(node_rank, -1)
+
+    @property
+    def slice_map(self) -> Dict[int, int]:
+        with self._lock:
+            return dict(self._slices)
+
+    def slice_members(self, slice_id: int) -> List[int]:
+        with self._lock:
+            return sorted(r for r, s in self._slices.items()
+                          if s == slice_id)
+
+    def slice_status(self) -> Dict:
+        """The registry view the cross-slice gradient sync divides by
+        (``parallel/dcn_sync.py``): which slices are formed now, with
+        their generation tokens, and the world epoch that namespaces the
+        ``dcn/`` keys. JSON-safe."""
+        with self._lock:
+            sids = sorted(set(self._slices.values()))
+            slices = {}
+            for sid in sids:
+                members = sorted(r for r, s in self._slices.items()
+                                 if s == sid)
+                world = self._slice_worlds.get(sid, {})
+                slices[str(sid)] = {
+                    "formed": bool(world),
+                    "ranks": sorted(world) if world else members,
+                    "generation": self._slice_generation.get(sid, 0),
+                    "draining": any(r in self._draining
+                                    for r in members),
+                }
+            return {"total": len(sids), "slices": slices,
+                    "epoch": self._world_epoch}
+
+    def _slice_ready_locked(self, sid: int) -> bool:
+        """A slice's round completes when every alive member joined, or
+        the late-node grace expired with one waiting (lock held).
+        ``node_unit`` does not apply: a slice cuts whole."""
+        waiting = {r for r in self._waiting
+                   if self._slices.get(r) == sid}
+        if not waiting:
+            return False
+        alive = {r for r in self._alive_nodes
+                 if self._slices.get(r) == sid}
+        if alive and alive.issubset(set(self._waiting)):
+            return True
+        started = self._slice_round_start.get(sid)
+        return (started is not None
+                and time.time() - started >= self._params.wait_new_node_s)
+
+    def _cut_slice_locked(self, sid: int):
+        """Cut ``sid``'s world from its waiting members (lock held).
+        Returns (sid, round, generation, world, duration) for the obs
+        emitted outside the lock."""
+        members = sorted(r for r in self._waiting
+                         if self._slices.get(r) == sid)
+        world = {r: self._waiting[r].local_world_size for r in members}
+        for rank in members:
+            del self._waiting[rank]
+        self._slice_worlds[sid] = world
+        self._slice_rounds[sid] = self._slice_rounds.get(sid, 0) + 1
+        self._slice_generation[sid] = (
+            self._slice_generation.get(sid, 0) + 1)
+        self._mutations += 1
+        started = self._slice_round_start.pop(sid, None)
+        duration = (max(0.0, time.time() - started)
+                    if started is not None else 0.0)
+        logger.info(
+            "%s rendezvous: slice %d round %d cut (generation %d): "
+            "world=%s", self.name, sid, self._slice_rounds[sid] - 1,
+            self._slice_generation[sid], sorted(world))
+        return (sid, self._slice_rounds[sid] - 1,
+                self._slice_generation[sid], dict(world), duration)
+
+    def _emit_slice_cut_obs(self, cut) -> None:
+        """Flight event and metrics of a just-cut slice world (outside
+        the manager lock)."""
+        sid, round_idx, generation, world, duration = cut
+        obs.get_flight_recorder().record_event(
+            "slice_world_cut", rdzv=self.name, slice=sid,
+            round=round_idx, generation=generation,
+            world=sorted(world))
+        obs.record_span(
+            "rendezvous_round", duration,
+            attrs={"rdzv": self.name, "round": round_idx, "slice": sid,
+                   "world_size": len(world)})
+        registry = obs.get_registry()
+        registry.counter(
+            "dlrover_tpu_rendezvous_rounds_total",
+            "Completed rendezvous rounds", labelnames=("rdzv",),
+        ).labels(rdzv=self.name).inc()
+        registry.gauge(
+            "dlrover_tpu_slice_generation",
+            "Per-slice generation token: bumped each time THAT slice's "
+            "world re-forms (a peer slice's failure must not move it)",
+            labelnames=("slice",)).labels(slice=str(sid)).set(generation)
+        registry.gauge(
+            "dlrover_tpu_slice_world_size",
+            "Node count of the slice's latest cut world",
+            labelnames=("slice",)).labels(slice=str(sid)).set(len(world))
 
     def reap_dead_nodes(self, timeout_s: float) -> None:
         """Declare ranks silent for > timeout_s dead (world invalidation
@@ -249,9 +396,14 @@ class RendezvousManager:
         survivors keep running, so the cut world stays valid for them and
         is NOT invalidated; only a death does that."""
         invalidated_round = None
+        slice_invalidated = None
         with self._lock:
+            in_slice_world = any(
+                node_rank in world
+                for world in self._slice_worlds.values())
             if (node_rank in self._alive_nodes
-                    or node_rank in self._latest_world):
+                    or node_rank in self._latest_world
+                    or in_slice_world):
                 # a real membership loss: a restore plan computed before
                 # this instant may name the departed rank as a donor,
                 # and the epoch bump invalidates it at commit time
@@ -263,7 +415,24 @@ class RendezvousManager:
             # the host's staged state goes with the host
             self._peer_stores.pop(node_rank, None)
             self._mutations += 1
-            if not graceful and node_rank in self._latest_world:
+            if self._slice_mode_locked():
+                # a slice-scoped cut: only the dead rank's slice loses its
+                # world; every other slice's world, round and generation
+                # stay. The rank keeps its slice entry and re-joins as
+                # the same slice.
+                sid = self._slices.get(node_rank, -1)
+                world = self._slice_worlds.get(sid, {})
+                if not graceful and node_rank in world:
+                    logger.info(
+                        "%s rendezvous: node %d died after slice %d "
+                        "round %d was cut; invalidating ONLY that "
+                        "slice's world", self.name, node_rank, sid,
+                        self._slice_rounds.get(sid, 1) - 1)
+                    self._pending_rejoin |= set(world) - {node_rank}
+                    self._slice_worlds[sid] = {}
+                    slice_invalidated = (
+                        sid, self._slice_rounds.get(sid, 1) - 1)
+            elif not graceful and node_rank in self._latest_world:
                 # a member of the cut round died: survivors handed this
                 # world would only find out at the process group's
                 # timeout. Empty it so polls report "still forming" and
@@ -281,6 +450,16 @@ class RendezvousManager:
                 invalidated_round = self._rdzv_round - 1
         # obs sinks run OUTSIDE the manager lock (they take their own)
         self._publish_draining_gauge()
+        if slice_invalidated is not None:
+            sid, round_idx = slice_invalidated
+            obs.get_flight_recorder().record_event(
+                "slice_world_invalidated", rdzv=self.name, slice=sid,
+                dead_rank=node_rank, round=round_idx)
+            obs.get_registry().counter(
+                "dlrover_tpu_rendezvous_world_invalidations_total",
+                "Cut worlds invalidated by a member death",
+                labelnames=("rdzv",),
+            ).labels(rdzv=self.name).inc()
         if invalidated_round is not None:
             obs.get_flight_recorder().record_event(
                 "world_invalidated", rdzv=self.name,
@@ -298,12 +477,10 @@ class RendezvousManager:
     # -- agent-facing protocol ---------------------------------------------
     def join_rendezvous(self, node_rank: int, local_world_size: int,
                         node_ip: str = "", slice_id: int = -1) -> int:
-        """Register a joiner; returns the round it will be placed in."""
-        if slice_id >= 0:
-            raise NotImplementedError(
-                "slice-scoped rendezvous is not ported yet (ROADMAP Queue "
-                "A item 6.4)")
+        """Register a joiner; returns the round it will be placed in (its
+        slice's round in slice mode)."""
         with self._lock:
+            self._record_slice_locked(node_rank, slice_id)
             self._waiting[node_rank] = _WaitingNode(node_rank,
                                                     local_world_size)
             # the planner's expected-world card map (kept across world
@@ -320,7 +497,19 @@ class RendezvousManager:
             if len(self._waiting) == 1:
                 self._latest_round_start = time.time()
             self._mutations += 1
-            joined_round = self._rdzv_round
+            if (self._slice_mode_locked()
+                    and node_rank in self._slices):
+                sid = self._slices[node_rank]
+                # the slice's grace window is timed from its first
+                # waiting member, not the fleet's
+                others_waiting = any(
+                    r != node_rank and self._slices.get(r) == sid
+                    for r in self._waiting)
+                if not others_waiting:
+                    self._slice_round_start[sid] = time.time()
+                joined_round = self._slice_rounds.get(sid, 0)
+            else:
+                joined_round = self._rdzv_round
         obs.get_registry().counter(
             "dlrover_tpu_rendezvous_joins_total",
             "join_rendezvous RPCs accepted", labelnames=("rdzv",),
@@ -343,28 +532,59 @@ class RendezvousManager:
     def get_comm_world(self, node_rank: int
                        ) -> Tuple[int, int, Dict[int, int]]:
         """Poll for the completed world. Returns (round, group, world),
-        the world empty while the round is still forming."""
+        the world empty while the round is still forming. In slice mode
+        the world is the polling rank's slice world and ``group`` is the
+        slice id."""
         cut_info = None
+        slice_cut = None
         with self._lock:
             self._last_seen[node_rank] = time.time()
-            if self._check_rdzv_completed():
-                cut_info = self._cut_round()
-            # a node still in the waiting list has re-joined for the
-            # NEXT round: the latest world is stale for it
-            if (node_rank in self._latest_world
-                    and node_rank not in self._waiting):
-                result = (self._rdzv_round - 1, 0,
-                          dict(self._latest_world))
+            if (self._slice_mode_locked()
+                    and node_rank in self._slices):
+                sid = self._slices[node_rank]
+                if self._slice_ready_locked(sid):
+                    slice_cut = self._cut_slice_locked(sid)
+                world = self._slice_worlds.get(sid, {})
+                if (node_rank in world
+                        and node_rank not in self._waiting):
+                    result = (self._slice_rounds.get(sid, 1) - 1, sid,
+                              dict(world))
+                else:
+                    result = self._slice_rounds.get(sid, 0), sid, {}
             else:
-                result = self._rdzv_round, 0, {}
+                if self._check_rdzv_completed():
+                    cut_info = self._cut_round()
+                # a node still in the waiting list has re-joined for the
+                # NEXT round: the latest world is stale for it
+                if (node_rank in self._latest_world
+                        and node_rank not in self._waiting):
+                    result = (self._rdzv_round - 1, 0,
+                              dict(self._latest_world))
+                else:
+                    result = self._rdzv_round, 0, {}
+        if slice_cut is not None:
+            self._emit_slice_cut_obs(slice_cut)
         if cut_info is not None:
             self._emit_round_obs(cut_info)
         return result
 
     def num_nodes_waiting(self, node_rank: int = -1) -> int:
         """Agents restart workers when >0 while healthy (membership
-        change)."""
+        change). In slice mode the signal is scoped to the polling rank's
+        slice: a peer slice re-forming must not restart this slice's
+        worker."""
         with self._lock:
+            if (self._slice_mode_locked() and node_rank >= 0
+                    and node_rank in self._slices):
+                sid = self._slices[node_rank]
+                members = {r for r, s in self._slices.items()
+                           if s == sid}
+                waiting = set(self._waiting) & members
+                if self._pending_rejoin & members:
+                    return max(1, len(waiting))
+                if not self._slice_worlds.get(sid):
+                    return 0
+                return len(waiting)
             if self._pending_rejoin:
                 # a world member died: every survivor must restart and
                 # re-join; keep the signal raised until each has
@@ -380,6 +600,12 @@ class RendezvousManager:
         joined, or min_nodes joined and the late-node grace window
         expired (lock held)."""
         if not self._waiting:
+            return False
+        if self._slice_mode_locked() and all(
+                rank in self._slices for rank in self._waiting):
+            # every waiting rank belongs to a slice: the per-slice cut
+            # owns them, and a sliceless poller must not sweep them into
+            # a fleet round
             return False
         num = min(len(self._waiting), self._params.max_nodes)
         if num < self._params.min_nodes:
@@ -470,7 +696,13 @@ class RendezvousManager:
             if node_rank in self._alive_nodes:
                 self._draining[node_rank] = deadline
                 self._mutations += 1
-            planned = {rank: n for rank, n in self._latest_world.items()
+            if (self._slice_mode_locked()
+                    and node_rank in self._slices):
+                base_world = self._slice_worlds.get(
+                    self._slices[node_rank], {})
+            else:
+                base_world = self._latest_world
+            planned = {rank: n for rank, n in base_world.items()
                        if rank not in self._draining}
         logger.info(
             "%s rendezvous: node %d DRAINING (deadline %.0fs away); "
@@ -509,10 +741,12 @@ class RendezvousManager:
                             keys, total_bytes: int = 0,
                             slice_id: int = -1) -> None:
         """An agent advertising (or withdrawing: step < 0 or no keys) the
-        staged state its donor server can serve. ``slice_id`` is the JAX
-        master's tiering input; slice mode is not ported (ROADMAP Queue A
-        item 6.4), so it is not recorded."""
+        staged state its donor server can serve. ``slice_id`` also
+        teaches the slice registry: store reports land before the join,
+        and a restarted master must know the donor's slice to tier the
+        plan."""
         with self._lock:
+            self._record_slice_locked(node_rank, slice_id)
             if step < 0 or not keys:
                 if self._peer_stores.pop(node_rank, None) is not None:
                     self._mutations += 1
@@ -579,7 +813,11 @@ class RendezvousManager:
         The first join after a membership change so sees the final plan:
         one re-plan a resize, not one a joiner."""
         chips: Dict[int, int] = dict(self._known_chips)
-        chips.update(self._latest_world)
+        if self._slice_mode_locked():
+            for world in self._slice_worlds.values():
+                chips.update(world)
+        else:
+            chips.update(self._latest_world)
         for rank, waiting in self._waiting.items():
             chips[rank] = waiting.local_world_size
         return {rank: int(n) for rank, n in chips.items()
@@ -595,6 +833,8 @@ class RendezvousManager:
         not a re-stamp for another joiner, nor formation)."""
         with self._lock:
             world = self._plan_world_locked()
+            slices = (len({self._slices.get(r, -1) for r in world})
+                      if self._slice_mode_locked() and world else 1)
             profile = planner.ModelProfile(
                 param_count=int(self._model_profile.get(
                     "param_count", 0)),
@@ -613,9 +853,15 @@ class RendezvousManager:
                 fsdp_divisor=int(self._model_profile.get(
                     "fsdp_divisor", 0)),
             )
-            generation = round_ = self._rdzv_round
+            if self._slice_mode_locked() and node_rank in self._slices:
+                sid = self._slices[node_rank]
+                generation = self._slice_generation.get(sid, 0)
+                round_ = self._slice_rounds.get(sid, 0)
+            else:
+                generation = round_ = self._rdzv_round
             discounts = dict(self._axis_discounts)
-            inputs = (tuple(sorted(world.items())), profile, 1,
+            inputs = (tuple(sorted(world.items())), profile,
+                      max(1, slices),
                       generation, self._world_epoch, round_,
                       tuple(sorted(discounts.items())))
             if (self._last_plan is not None
@@ -624,15 +870,19 @@ class RendezvousManager:
                 # memo instead of re-enumerating under the lock
                 return dict(self._last_plan), False
             plan = planner.plan_parallelism(
-                world, profile, slices=1, prev_plan=self._last_plan,
+                world, profile, slices=max(1, slices),
+                prev_plan=self._last_plan,
                 generation=generation, epoch=self._world_epoch,
                 round_=round_, axis_discounts=discounts or None)
             self._last_plan_inputs = inputs
             equivalent = planner.plans_equivalent(self._last_plan, plan)
             # bootstrap joins refine the first plan as members arrive:
             # formation, not a resize
-            changed = (self._last_plan is not None
-                       and self._rdzv_round > 0 and not equivalent)
+            has_cut = (any(self._slice_rounds.values())
+                       if self._slice_mode_locked()
+                       else self._rdzv_round > 0)
+            changed = (self._last_plan is not None and has_cut
+                       and not equivalent)
             prev = None
             if not equivalent:
                 prev = self._last_plan
@@ -665,13 +915,14 @@ class RendezvousManager:
         network); the rest go round-robin over the donors. Stamped with
         the world epoch, the staleness guard. ``stripe``: each entry
         lists every same-step holder, for byte-range fetches from all of
-        them. A draining rank is no donor."""
+        them. Same-slice donors come before the rest, round-robin within
+        each tier. A draining rank is no donor."""
         with self._lock:
             stores = {rank: store
                       for rank, store in self._peer_stores.items()
                       if rank in self._alive_nodes
                       and rank not in self._draining}
-            plan = plan_restore_entries(stores, node_rank, {},
+            plan = plan_restore_entries(stores, node_rank, self._slices,
                                         stripe=stripe)
             plan["epoch"] = self._world_epoch
             if stripe:
@@ -680,31 +931,31 @@ class RendezvousManager:
 
     @property
     def latest_world(self) -> Dict[int, int]:
+        """The fleet view: the union of the slice worlds in slice mode."""
         with self._lock:
+            if self._slice_mode_locked():
+                merged: Dict[int, int] = {}
+                for world in self._slice_worlds.values():
+                    merged.update(world)
+                return merged
             return dict(self._latest_world)
 
     def world_for(self, node_rank: int) -> Dict[int, int]:
         """The world ``node_rank`` belongs to (the reconnect handshake's
-        intact check): the fleet world, since the port has no slice
-        mode (ROADMAP Queue A item 6.4)."""
-        return self.latest_world
-
-    # the slice registry's read side, as the fleet controller reads it
-    # (brain/fleet_controller.py): without slice mode (ROADMAP Queue A
-    # item 6.4) no rank has a slice, so a shed never finds one
-    def slice_of(self, node_rank: int) -> int:
-        return -1
-
-    @property
-    def slice_map(self) -> Dict[int, int]:
-        return {}
-
-    def slice_members(self, slice_id: int) -> List[int]:
-        return []
+        intact check): its slice's world in slice mode, else the fleet
+        world."""
+        with self._lock:
+            if self._slice_mode_locked() and node_rank in self._slices:
+                return dict(self._slice_worlds.get(
+                    self._slices[node_rank], {}))
+            return dict(self._latest_world)
 
     def round_for(self, node_rank: int) -> int:
         """The latest completed round in ``node_rank``'s scope."""
         with self._lock:
+            if self._slice_mode_locked() and node_rank in self._slices:
+                return self._slice_rounds.get(
+                    self._slices[node_rank], 0) - 1
             return self._rdzv_round - 1
 
     @property
@@ -738,6 +989,19 @@ class RendezvousManager:
                              "bytes": s.get("bytes", 0)}
                     for r, s in self._peer_stores.items()
                 },
+                # the slices' membership, worlds and generation tokens
+                # survive a failover: a master that forgot the tokens
+                # would hand every slice a fresh generation
+                "slices": {str(r): s for r, s in self._slices.items()},
+                "slice_worlds": {
+                    str(sid): {str(r): n for r, n in world.items()}
+                    for sid, world in self._slice_worlds.items()
+                },
+                "slice_rounds": {str(sid): r for sid, r
+                                 in self._slice_rounds.items()},
+                "slice_generation": {
+                    str(sid): g for sid, g
+                    in self._slice_generation.items()},
                 # re-planning: the model profile and the last stamped
                 # plan survive a master failover (a master that forgot
                 # them would stamp a migration-blind plan and mistake it
@@ -764,7 +1028,7 @@ class RendezvousManager:
         manager's; the fields the port does not hold are ignored). A
         lineage the JAX package's sharded manager wrote (``"shards"``)
         restores its fleet partition: the per-slice partitions belong to
-        slice mode (ROADMAP Queue A items 6.4 and 12.2)."""
+        the sharded router (ROADMAP Queue A item 12.2)."""
         if "shards" in state:
             state = _fleet_partition(state)
         now = time.time()
@@ -794,6 +1058,20 @@ class RendezvousManager:
                          "bytes": int(s.get("bytes", 0)),
                          "ts": now}
                 for r, s in state.get("peer_stores", {}).items()}
+            self._slices = {int(r): int(s) for r, s in
+                            (state.get("slices") or {}).items()}
+            self._slice_worlds = {
+                int(sid): {int(r): int(n) for r, n in world.items()}
+                for sid, world in
+                (state.get("slice_worlds") or {}).items()
+            }
+            self._slice_rounds = {
+                int(sid): int(r) for sid, r in
+                (state.get("slice_rounds") or {}).items()}
+            self._slice_generation = {
+                int(sid): int(g) for sid, g in
+                (state.get("slice_generation") or {}).items()}
+            self._slice_round_start = {}
             self._model_profile = {
                 str(k): float(v) for k, v in
                 (state.get("model_profile") or {}).items()}
@@ -841,9 +1119,10 @@ class NetworkCheckRendezvousManager(RendezvousManager):
 
     Round 0 groups adjacent pairs; round 1 re-pairs fastest-with-slowest
     so a node that failed round 0 is re-tested against a known-good
-    partner."""
+    partner. Not slice-scoped: the probe pairs across the whole fleet."""
 
     name = "network-check"
+    slice_scoped = False
 
     def __init__(self, params: Optional[RendezvousParameters] = None):
         super().__init__(params)

@@ -7,10 +7,6 @@ dataclass type. Every decision lives in a component (rendezvous manager,
 task manager, KV store, speed monitor, sync services); the servicer only
 routes.
 
-A request whose subsystem is not ported yet is answered
-``Response(success=False, reason="not ported: ROADMAP Queue A item …")``
-rather than pretending to handle it (``_NOT_PORTED``).
-
 The optional components are fed as the JAX master feeds them:
 
 - the goodput ledger (``obs/goodput.py``): step reports, the spans of
@@ -98,12 +94,6 @@ from dlrover_tpu_torch.master.steptrace import StepTraceAssembler
 from dlrover_tpu_torch.master.sync_service import ElasticPsService, SyncService
 from dlrover_tpu_torch.parallel.calibration import PlanCalibration
 
-# the requests whose subsystem the port lacks, with the ROADMAP Queue A
-# item that ports it
-_NOT_PORTED = {
-    msg.SliceStatusRequest: "6.4 (slice mode)",
-}
-
 # report() payloads that mutate snapshotted control-plane state (the
 # early-return branches, join, reconnect, drain and kv add, sink inline).
 # Step reports, heartbeats and telemetry are deliberately absent, and a
@@ -120,13 +110,6 @@ _MUTATING_REPORTS = (
     msg.ModelInfo,
     msg.PeerStoreReport,     # the donor registry feeds restore plans
 )
-
-
-def _not_ported(request: msg.Message) -> msg.Response:
-    return msg.Response(
-        success=False,
-        reason=f"not ported: ROADMAP Queue A item "
-               f"{_NOT_PORTED[type(request)]}")
 
 
 class MasterServicer:
@@ -223,8 +206,6 @@ class MasterServicer:
     # typed dispatch
     # ------------------------------------------------------------------
     def get(self, request: msg.Message) -> msg.Message:
-        if type(request) in _NOT_PORTED:
-            return _not_ported(request)
         if isinstance(request, msg.TaskRequest):
             # the counter, not the task, gates the snapshot: a final-epoch
             # splitter flip mutates state yet answers WAIT/NONE
@@ -378,6 +359,16 @@ class MasterServicer:
                 epoch=int(plan.get("epoch", 0)),
                 generation=int(plan.get("generation", 0)),
                 found=bool(plan.get("mesh")))
+        if isinstance(request, msg.SliceStatusRequest):
+            mgr = self.rdzv_managers.get(
+                request.rdzv_name or RendezvousName.TRAINING)
+            if mgr is None:
+                return msg.SliceStatus(status_json="")
+            status = mgr.slice_status()
+            # the re-formed slice's catch-up target (dcn_sync.catch_up)
+            status["fleet_step"] = (
+                self.speed_monitor.completed_global_step)
+            return msg.SliceStatus(status_json=json.dumps(status))
         if isinstance(request, msg.PlanCalibrationRequest):
             if self.plan_calibration is None:
                 return msg.PlanCalibrationReport(report_json="")
@@ -392,8 +383,6 @@ class MasterServicer:
         return msg.Response(success=False, reason="unknown request")
 
     def report(self, request: msg.Message) -> msg.Message:
-        if type(request) in _NOT_PORTED:
-            return _not_ported(request)
         ok = True
         reason = ""
         if isinstance(request, msg.DatasetShardParams):
@@ -408,21 +397,23 @@ class MasterServicer:
                 request.dataset_name, request.task_id, request.success
             )
         elif isinstance(request, msg.JoinRendezvousRequest):
-            if request.slice_id >= 0:
-                return msg.Response(
-                    success=False,
-                    reason="not ported: ROADMAP Queue A item 6.4 "
-                           "(slice mode)")
             mgr = self.rdzv_managers[request.rdzv_name]
             # parent under the agent's span so agent rendezvous → master
             # join share a trace
             with obs.span("rendezvous_join",
                           {"rank": request.node_rank,
-                           "rdzv": request.rdzv_name},
+                           "rdzv": request.rdzv_name,
+                           "slice": request.slice_id},
                           parent=request.trace or None):
                 rdzv_round = mgr.join_rendezvous(
                     request.node_rank, request.local_world_size,
-                    request.node_ip)
+                    request.node_ip, request.slice_id)
+            if (request.slice_id >= 0
+                    and request.rdzv_name == RendezvousName.TRAINING):
+                # keep every slice-labeled consumer's rank → slice view
+                # current (per-worker gauges, goodput states, per-slice
+                # speed)
+                self._push_slice_map(mgr)
             self._sink_state()
             plan_json = ""
             shard_plan_json = ""
@@ -493,6 +484,8 @@ class MasterServicer:
                 step_time_s=request.step_time_s,
                 data_wait_fraction=request.data_wait_fraction,
                 mfu=request.mfu)
+            if request.degraded_steps > 0:
+                self._observe_degraded_steps(rank, request.degraded_steps)
             self._observe_step_evidence(rank, request)
             self._touch_rendezvous(request.node_rank)
             # deliberately NOT a snapshot trigger (the per-step path);
@@ -635,7 +628,12 @@ class MasterServicer:
         mgr = self.rdzv_managers.get(name)
         if mgr is None:
             return msg.ReconnectResult(generation=self.generation)
+        if request.slice_id >= 0:
+            mgr.record_slice(request.node_rank, request.slice_id)
         mgr.add_alive_node(request.node_rank)
+        # in slice mode, intact means the rank's slice world still holds
+        # it at the round it reported; a peer slice having moved on does
+        # not matter to this agent
         world = mgr.world_for(request.node_rank)
         latest_round = mgr.round_for(request.node_rank)
         intact = (bool(world) and request.node_rank in world
@@ -671,8 +669,9 @@ class MasterServicer:
         timeout. With a diagnosis manager, the notice fans an urgent
         ``checkpoint`` action out to the SURVIVORS (the draining agent
         checkpoints its own worker locally), returned as
-        ``checkpoint_ranks``. Slice-scoped drains wait for slice mode
-        (ROADMAP Queue A item 6.4)."""
+        ``checkpoint_ranks``. In slice mode a notice for any rank of a
+        slice drains the slice as a unit: its peers get save-and-exit
+        ``drain`` actions, the ranks outside it the checkpoint."""
         rank = (request.node_rank if request.node_rank >= 0
                 else request.node_id)
         checkpoint_ranks = []
@@ -687,16 +686,41 @@ class MasterServicer:
             logger.info("node %d drain COMPLETE (announced=%s): "
                         "survivors re-form now", rank, announced)
         else:
-            self.goodput_ledger.mark_draining(rank, request.deadline)
+            training = self.rdzv_managers.get(RendezvousName.TRAINING)
+            sid = training.slice_of(rank) if training is not None else -1
+            slice_peers = []
+            if sid >= 0:
+                slice_peers = [r for r in training.slice_members(sid)
+                               if r != rank]
+            draining_unit = [rank] + slice_peers
+            for member in draining_unit:
+                self.goodput_ledger.mark_draining(member, request.deadline)
             planned = {}
             for name, mgr in self.rdzv_managers.items():
-                world = mgr.mark_draining(rank, request.deadline)
+                unit = (draining_unit
+                        if name == RendezvousName.TRAINING else [rank])
+                for member in unit:
+                    world = mgr.mark_draining(member, request.deadline)
                 if name == RendezvousName.TRAINING:
                     planned = world
-            survivors = sorted(r for r in planned if r != rank)
+            # the checkpoint goes to the fleet's survivors: in slice mode
+            # the planned world above is the victim slice's (now empty),
+            # so the survivors are every alive rank outside the unit
+            if sid >= 0:
+                survivors = sorted(training.alive_nodes
+                                   - set(draining_unit))
+            else:
+                survivors = sorted(r for r in planned
+                                   if r not in draining_unit)
+            drain_ranks: list = []
             if self.diagnosis_manager is not None:
                 self.diagnosis_manager.observe_drain_notice(
-                    rank, request.deadline, request.reason, slice_id=-1)
+                    rank, request.deadline, request.reason, slice_id=sid)
+                if slice_peers:
+                    drain_ranks = self.diagnosis_manager.request_drain(
+                        slice_peers, request.deadline,
+                        reason=f"slice {sid} draining (notice on rank "
+                               f"{rank}): {request.reason}")
                 checkpoint_ranks = (
                     self.diagnosis_manager.request_checkpoint(
                         survivors, request.deadline,
@@ -704,8 +728,8 @@ class MasterServicer:
                                f"{request.reason}"))
             obs.get_flight_recorder().record_event(
                 "node_draining", rank=rank, deadline=request.deadline,
-                reason=request.reason[:256], slice=-1,
-                planned_world=sorted(planned), drain_ranks=[],
+                reason=request.reason[:256], slice=sid,
+                planned_world=sorted(planned), drain_ranks=drain_ranks,
                 checkpoint_ranks=checkpoint_ranks)
         obs.get_registry().counter(
             "dlrover_tpu_drains_total",
@@ -841,6 +865,29 @@ class MasterServicer:
                 return
             if isinstance(records, list):
                 self.steptrace.ingest(records, node_rank=report.node_rank)
+
+    def _push_slice_map(self, mgr) -> None:
+        """Fan the rank → slice view out to every slice-labeled consumer."""
+        slice_map = mgr.slice_map
+        if not slice_map:
+            return
+        self.speed_monitor.set_slice_map(slice_map)
+        if self.diagnosis_manager is not None:
+            self.diagnosis_manager.set_slice_map(slice_map)
+        self.goodput_ledger.set_slice_map(slice_map)
+
+    def _observe_degraded_steps(self, rank: int, count: int) -> None:
+        """A slice's degraded steps (its gradient mean renormalized while
+        a peer slice was absent): the master's counter, labeled by the
+        reporting slice, and the goodput ledger's tally a rank."""
+        mgr = self.rdzv_managers.get(RendezvousName.TRAINING)
+        sid = mgr.slice_of(rank) if mgr is not None else -1
+        obs.get_registry().counter(
+            "dlrover_tpu_slice_degraded_steps_total",
+            "Steps a slice took with the gradient mean renormalized "
+            "over present slices (a peer slice was absent)",
+            labelnames=("slice",)).labels(slice=str(sid)).inc(count)
+        self.goodput_ledger.observe_degraded_steps(rank, count)
 
     def _evict_departed(self, mgr) -> None:
         """After a membership mutation: the departed ranks' speed

@@ -86,6 +86,11 @@ class SpeedMonitor:
         # set at membership change: the NEXT step-report delta spans the
         # failover gap (rendezvous + recompile + restore), not step time
         self._skip_next_step_time = False
+        # rank → slice (from the rendezvous slice registry) and the slice
+        # labels currently published, so a departing slice's series go
+        # as a unit
+        self._slice_map: Dict[int, int] = {}
+        self._published_slices: Set[str] = set()
         self._publish_metrics()
 
     def _publish_metrics(self) -> None:
@@ -122,6 +127,21 @@ class SpeedMonitor:
             "dlrover_tpu_train_step_time_seconds",
             "Wall-clock per training step, from step-report deltas",
         )
+        # per-slice aggregates: published on step reports (the label
+        # sets are dynamic)
+        self._slice_steps_gauge = registry.gauge(
+            "dlrover_tpu_slice_steps_per_second",
+            "Windowed steps/s of one slice's workers (1 / mean step "
+            "time over the slice's report windows)",
+            labelnames=("slice",))
+        self._slice_mfu_gauge = registry.gauge(
+            "dlrover_tpu_slice_mfu",
+            "Windowed mean achieved MFU of one slice's workers",
+            labelnames=("slice",))
+        self._slice_workers_gauge = registry.gauge(
+            "dlrover_tpu_slice_workers",
+            "Workers of one slice currently reporting speed evidence",
+            labelnames=("slice",))
 
     # -- sample collection -------------------------------------------------
     def collect_global_step(self, step: int,
@@ -164,7 +184,60 @@ class SpeedMonitor:
                     self._worker_times[worker_id] = window
                 window.append((step_time_s, data_wait_fraction, mfu,
                                timestamp))
+            slice_view = (self._slice_rollup_locked()
+                          if self._slice_map else None)
+        if slice_view is not None:
+            self._publish_slice_gauges(slice_view)
         self.collect_global_step(step, timestamp)
+
+    # -- per-slice aggregates -----------------------------------------------
+    def set_slice_map(self, slice_map: Dict[int, int]) -> None:
+        with self._lock:
+            self._slice_map = dict(slice_map)
+
+    def _slice_rollup_locked(self) -> Dict[str, Tuple[float, float, int]]:
+        """(lock held) slice label → (steps/s, mean mfu, workers) from
+        the per-worker timing windows."""
+        per_slice: Dict[str, list] = {}
+        for worker_id, window in self._worker_times.items():
+            if not window:
+                continue
+            label = str(self._slice_map.get(worker_id, -1))
+            per_slice.setdefault(label, []).append(window)
+        rollup: Dict[str, Tuple[float, float, int]] = {}
+        for label, windows in per_slice.items():
+            times = [t for w in windows for t, _, _, _ in w]
+            mfus = [m for w in windows for _, _, m, _ in w if m >= 0.0]
+            mean_t = sum(times) / len(times) if times else 0.0
+            rollup[label] = (
+                1.0 / mean_t if mean_t > 0 else 0.0,
+                sum(mfus) / len(mfus) if mfus else -1.0,
+                len(windows),
+            )
+        return rollup
+
+    def _publish_slice_gauges(
+            self, rollup: Dict[str, Tuple[float, float, int]]) -> None:
+        """Registry ops OUTSIDE the monitor lock. A slice with no
+        reporting workers left (whole-slice departure) has its series
+        removed as a unit."""
+        for label, (steps_s, mfu, workers) in rollup.items():
+            self._slice_steps_gauge.labels(slice=label).set(steps_s)
+            self._slice_workers_gauge.labels(slice=label).set(workers)
+            if mfu >= 0.0:
+                self._slice_mfu_gauge.labels(slice=label).set(mfu)
+            else:
+                # the slice no longer reports an MFU (workers restarted
+                # without a FLOPs model): a stale last value must not
+                # keep scraping as current
+                self._slice_mfu_gauge.remove(slice=label)
+        with self._lock:
+            stale = self._published_slices - set(rollup)
+            self._published_slices = set(rollup)
+        for label in stale:
+            self._slice_steps_gauge.remove(slice=label)
+            self._slice_workers_gauge.remove(slice=label)
+            self._slice_mfu_gauge.remove(slice=label)
 
     def collect_task_latency(self, worker_id: int, latency_s: float,
                              records: int,
@@ -367,6 +440,12 @@ class SpeedMonitor:
                 self._worker_steps.pop(worker_id, None)
                 self._worker_times.pop(worker_id, None)
                 self._task_latency.pop(worker_id, None)
+            slice_view = (self._slice_rollup_locked()
+                          if self._slice_map else None)
+        if slice_view is not None and departed:
+            # a slice whose last member departed drops out of the
+            # rollup, so its labeled series go as a unit
+            self._publish_slice_gauges(slice_view)
         return departed
 
     def tokens_per_second(self) -> float:

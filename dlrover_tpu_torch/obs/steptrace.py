@@ -3,8 +3,8 @@
 Own copy of the JAX package's ``obs/steptrace.py`` (stdlib only, held
 equal to it by ``tests/test_torch_steptrace.py``). Each finished step
 emits one compact record: phase offsets from the step's start
-(data_wait, h2d, compute, checkpoint; the cross-slice phases of slice
-mode when it lands, ROADMAP Queue A item 6.4), stamped with the worker's
+(data_wait, h2d, compute, checkpoint; slice mode's local_post,
+cross_slice_wait and apply), stamped with the worker's
 clock offset against the master (:class:`ClockSync`: offset = server_ts
 - (t0 + t1) / 2, uncertainty = RTT / 2, aged by a drift allowance).
 :class:`StepTraceRecorder` buffers records in a bounded drop-oldest ring

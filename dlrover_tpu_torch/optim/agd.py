@@ -13,7 +13,12 @@ from __future__ import annotations
 
 import torch
 
-from dlrover_tpu_torch.optim.base import LeafState, LeafTransform, count_like
+from dlrover_tpu_torch.optim.base import (
+    LeafState,
+    LeafTransform,
+    count_like,
+    sqrt_rn,
+)
 
 
 def agd(learning_rate: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
@@ -38,7 +43,7 @@ def agd(learning_rate: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
         nu = b2 * state["nu"] + (1 - b2) * diff.square()
         mu_hat = mu / (1 - b1 ** t).to(mu.dtype)
         nu_hat = nu / (1 - b2 ** t).to(nu.dtype)
-        u = mu_hat / torch.maximum(nu_hat.sqrt() + eps,
+        u = mu_hat / torch.maximum(sqrt_rn(nu_hat) + eps,
                                    torch.tensor(delta, dtype=nu.dtype,
                                                 device=nu.device))
         if weight_decay:

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from dlrover_tpu_torch.optim.base import LeafState, LeafTransform
+from dlrover_tpu_torch.optim.base import LeafState, LeafTransform, sqrt_rn
 
 
 def _row_active(g: torch.Tensor) -> torch.Tensor:
@@ -33,7 +33,7 @@ def row_sparse_adagrad(learning_rate: float = 0.1,
         active = _row_active(g)
         acc = torch.where(active, state["accumulator"] + g.square(),
                           state["accumulator"])
-        step = torch.where(active, -lr * g / (acc.sqrt() + eps),
+        step = torch.where(active, -lr * g / (sqrt_rn(acc) + eps),
                            torch.zeros_like(g))
         return step, {"accumulator": acc}
 
@@ -62,7 +62,7 @@ def row_sparse_adam(learning_rate: float = 1e-3, b1: float = 0.9,
         t = counts.clamp_min(1).float()
         mu_hat = mu / (1 - b1 ** t)
         nu_hat = nu / (1 - b2 ** t)
-        step = torch.where(active, -lr * mu_hat / (nu_hat.sqrt() + eps),
+        step = torch.where(active, -lr * mu_hat / (sqrt_rn(nu_hat) + eps),
                            torch.zeros_like(g))
         return step, {"mu": mu, "nu": nu, "counts": counts}
 

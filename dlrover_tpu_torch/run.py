@@ -25,7 +25,10 @@ unless ``--device cpu`` asks for the CPU; a node the master finds faulty
 (or, with ``--exclude-straggler``, a straggler) does not train, and the
 agent exits 3.
 
-Not ported yet: ``--slice-id`` (ROADMAP Queue A item 6.4).
+``--slice-id S`` (or ``DLROVER_TPU_SLICE_ID``) puts the host in slice S
+of a slice-mode job: the slice is the failure domain, with its own
+rendezvous world, and the worker syncs gradients across slices through
+``parallel/dcn_sync.py``.
 """
 
 from __future__ import annotations
@@ -59,6 +62,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         help="node count, fixed `N` or elastic `MIN:MAX`")
     parser.add_argument("--node-rank", type=int,
                         default=int(os.getenv(NodeEnv.NODE_RANK, "0")))
+    parser.add_argument("--slice-id", type=int,
+                        default=int(os.getenv(NodeEnv.SLICE_ID, "-1")),
+                        help="the slice this host belongs to (slice mode; "
+                             "the slice is the failure domain). -1 = a "
+                             "sliceless job")
     parser.add_argument("--master-addr",
                         default=os.getenv(NodeEnv.MASTER_ADDR, ""))
     parser.add_argument("--standalone", action="store_true",
@@ -137,7 +145,8 @@ def run(args: argparse.Namespace) -> int:
     # a fresh id); heartbeats/failures must carry the id the master tracks
     node_id = int(os.environ.get(NodeEnv.NODE_ID, str(args.node_rank)))
     client = MasterClient(master_addr, node_id=node_id,
-                          node_rank=args.node_rank, node_type=node_type)
+                          node_rank=args.node_rank, node_type=node_type,
+                          slice_id=args.slice_id)
     devices = args.devices_per_node or _detect_devices()
     spec = WorkerSpec(
         entrypoint=entrypoint,

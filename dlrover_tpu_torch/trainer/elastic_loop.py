@@ -107,7 +107,19 @@ the window's data-wait share at each progress report and exports its
 depth as the ``dlrover_tpu_prefetch_depth`` gauge; the input pipeline
 reads ``loop.prefetch_tuner.depth_fn``.
 
-Not ported yet: slice mode (ROADMAP Queue A item 6.4).
+Slice mode (the JAX loop's, ``parallel/dcn_sync.py``): a worker with a
+slice id (``DLROVER_TPU_SLICE_ID``) and a master runs the split step:
+``grad_step`` gives the in-slice mean, its gradients cross to host numpy
+for the cross-slice mean through the master's KV store (renormalized over
+the present slices while one is absent: a degraded step, counted on the
+step report), and ``apply_grads`` applies the fleet mean. A re-formed
+slice restored behind the fleet adopts the state a surviving slice's
+leader publishes (``catch_up``) and advances its sampler. The host-level
+sync needs a single-process slice world of a slice the master's registry
+knows: a larger one, or a slice id whose agent joined sliceless (the id
+then only arms the chaos slice faults), warns and trains without it.
+The step trace splits such a step into compute, ``local_post``,
+``cross_slice_wait`` and ``apply``.
 """
 
 from __future__ import annotations
@@ -139,11 +151,14 @@ from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.data.prefetch import PrefetchAutoTuner
 from dlrover_tpu_torch.obs import mfu
 from dlrover_tpu_torch.parallel import planner
+from dlrover_tpu_torch.parallel.dcn_sync import SliceGradSync
 from dlrover_tpu_torch.parallel.mesh import MeshSpec, create_mesh, dp_size
+from dlrover_tpu_torch.parallel.sharding import to_local
 from dlrover_tpu_torch.trainer.sampler import ElasticDistributedSampler
 from dlrover_tpu_torch.trainer.train_step import (
     Trainer,
     TrainState,
+    _init_optimizer_state,
     build_trainer,
     choose_accumulation,
 )
@@ -284,15 +299,42 @@ class ElasticTrainLoop:
         self._pending_plan_signature = ""
         self.global_batch = config.global_batch
         self._trim_batch = 0
+        # slice mode: with a slice id and a master the gradient mean is
+        # two-level, the in-slice mean the step's and the cross-slice one
+        # host-level (parallel/dcn_sync.py), tolerating an absent slice.
+        # The host-level sync moves whole values through host memory, so
+        # it needs a single-process slice world
+        self._slice_id = int(os.environ.get(NodeEnv.SLICE_ID, "-1"))
+        slice_mode = self._slice_id >= 0 and master_client is not None
+        if slice_mode and str(self._slice_id) not in (
+                master_client.get_slice_status().get("slices") or {}):
+            # the agent joined sliceless (the id only arms the chaos
+            # slice faults): no slice to sync with
+            logger.warning(
+                "the master's slice registry has no slice %d: training "
+                "without the cross-slice sync", self._slice_id)
+            slice_mode = False
+        slice_world = int(os.environ.get(NodeEnv.WORLD_SIZE, "1"))
+        if slice_mode and slice_world > 1:
+            logger.warning(
+                "slice %d spans %d processes: the host-level cross-slice "
+                "gradient sync needs a single-process slice world; "
+                "training without it (a mesh with a dcn axis reduces "
+                "across slices inside the step)", self._slice_id,
+                slice_world)
+            slice_mode = False
         if trainer is not None:
             self._take_trainer(trainer, config, device)
             if not hasattr(trainer, "param_stats"):
                 model = trainer.model_factory
+            # an injected trainer without the split step runs its own
+            slice_mode = slice_mode and getattr(trainer, "split_grad_apply",
+                                                False)
         else:
             self._resolve_shard_plan(config)
             try:
                 self._build_trainer(model, optimizer_factory, loss_fn,
-                                    config, device)
+                                    config, device, slice_mode)
             except Exception as e:  # noqa: BLE001 — a planned mesh the
                 # model cannot shard over falls back to the configured
                 # shape
@@ -302,7 +344,18 @@ class ElasticTrainLoop:
                     self._shard_plan,
                     f"planned mesh rejected by the model/trainer: {e}")
                 self._build_trainer(model, optimizer_factory, loss_fn,
-                                    config, device)
+                                    config, device, slice_mode)
+        self._slice_sync: Optional[SliceGradSync] = None
+        if slice_mode:
+            # the slice's process 0 posts; every rank collects
+            is_leader = int(os.environ.get(NodeEnv.PROCESS_ID, "0")) == 0
+            self._slice_sync = SliceGradSync(
+                master_client, self._slice_id, is_leader=is_leader,
+                abort_fn=lambda: self._stop_requested.is_set())
+            logger.info("slice mode armed: slice=%d leader=%s",
+                        self._slice_id, is_leader)
+        # the sync's marks of the last slice step, for its trace record
+        self._last_sync_trace: Optional[Dict[str, Any]] = None
         # peer-to-peer restore (checkpoint/peer_restore.py): the store
         # stages every save's host copy for the agent's donor; the
         # restorer turns a restore plan into a shard transfer
@@ -379,7 +432,7 @@ class ElasticTrainLoop:
             obs.StepTraceRecorder(
                 capacity=ctx.steptrace_ring,
                 rank=int(os.environ.get(NodeEnv.NODE_RANK, "-1")),
-                clock_sync=self._clock_sync)
+                slice_id=self._slice_id, clock_sync=self._clock_sync)
             if ctx.steptrace_enabled else None)
         if self._steptrace is not None and master_client is not None:
             self._clock_sync.probe()
@@ -418,7 +471,7 @@ class ElasticTrainLoop:
 
     # -- online parallelism re-planning (parallel/planner.py) --------------
     def _build_trainer(self, model, optimizer_factory, loss_fn, config,
-                       device) -> None:
+                       device, split_grad_apply: bool = False) -> None:
         """The mesh, accumulation and trainer of the current shape (the
         planned mesh when a plan applied, else the configured one). A
         world whose dp does not divide the batch trims it to the nearest
@@ -463,7 +516,7 @@ class ElasticTrainLoop:
             self.trainer = build_trainer(
                 model, optimizer_factory, self.mesh, sample, loss_fn,
                 accum_steps=self.accum, micro_batch=self.micro_global,
-                rules=config.rules)
+                rules=config.rules, split_grad_apply=split_grad_apply)
 
     def _resolve_shard_plan(self, config) -> None:
         """Fetch and apply the master's parallelism plan for this world
@@ -559,7 +612,10 @@ class ElasticTrainLoop:
         if error is not None:
             self._replan_fallback(plan, error)
             return
-        mesh_dict = dict(plan.get("mesh", {}))
+        # slice mode builds the slice's portion (dcn 1): each slice is its
+        # own process group, and the dcn axis is the host-level sync
+        mesh_dict = (planner.slice_mesh(plan) if self._slice_id >= 0
+                     else dict(plan.get("mesh", {})))
         mesh_total = math.prod(int(mesh_dict.get(k, 1)) for k in
                                ("dcn", "data", "fsdp", "tensor", "pipe"))
         grouped = (torch.distributed.is_available()
@@ -728,14 +784,20 @@ class ElasticTrainLoop:
         plan_gen = (int(self._shard_plan.get("generation", 0) or 0)
                     if self._shard_plan is not None
                     and self._replan_applied == "mesh+batch" else -2)
+        degraded = (self._slice_sync.drain_unreported()
+                     if self._slice_sync is not None else 0)
         try:
             self.client.report_global_step(
                 step, step_time_s=mean_step,
                 data_wait_fraction=stats.get("data_wait_fraction", -1.0),
-                mfu=step_mfu, hbm_peak_bytes=hbm["hbm_peak_bytes"],
+                mfu=step_mfu, degraded_steps=degraded,
+                hbm_peak_bytes=hbm["hbm_peak_bytes"],
                 plan_generation=plan_gen)
         except Exception:  # noqa: BLE001 — droppable by contract
             logger.warning("step report failed", exc_info=True)
+            # the degraded tally must not vanish with a dropped report
+            if degraded:
+                self._slice_sync.degraded_unreported += degraded
         if self._steptrace is not None:
             # one RPC, rate-limited by the probe interval
             self._clock_sync.maybe_probe(
@@ -815,6 +877,11 @@ class ElasticTrainLoop:
                 restore_span.set_attr(key, value)
         if timings:
             logger.info("restore timings: %s", timings)
+        if self._slice_sync is not None:
+            # a re-formed slice behind the fleet adopts the current state
+            # (the restore's source and step above stay what the restore
+            # produced; the catch-up is on top)
+            state, step = self._maybe_slice_catch_up(state, step, sampler)
         # the migration landed: a later plain relaunch of this shape is
         # not re-priced as a resize
         self._commit_applied_plan()
@@ -1002,7 +1069,11 @@ class ElasticTrainLoop:
                 targets = targets[:self._trim_batch]
             t0 = time.monotonic()
             tok, tgt = self.trainer.shard_batch(tokens, targets)
-            state, metrics = self.trainer.step(state, tok, tgt)
+            if self._slice_sync is not None:
+                state, metrics = self._slice_step(state, tok, tgt,
+                                                  step + 1)
+            else:
+                state, metrics = self.trainer.step(state, tok, tgt)
             loss = float(metrics["loss"])
             dt = time.monotonic() - t0
             step += 1
@@ -1092,26 +1163,106 @@ class ElasticTrainLoop:
         data_d = max(0.0, t_data - t_step)
         h2d_d = max(0.0, float(self.trainer.last_shard_batch_s))
         cursor = data_d + h2d_d
-        compute_end = max(cursor, t_compute_end - t_step)
+        phases = [("data_wait", 0.0, data_d), ("h2d", data_d, h2d_d)]
+        peers = None
+        stashed, self._last_sync_trace = self._last_sync_trace, None
+        if stashed is not None:
+            # a slice step: compute to the gradients in hand, the local
+            # post, the wait for the peer slices, the update
+            ready = max(cursor, stashed["grads_ready"] - t_step)
+            post = max(ready, stashed["local_post"] - t_step)
+            coll = max(post, stashed["collect_done"] - t_step)
+            apply_end = max(coll, stashed["apply_done"] - t_step)
+            phases += [("compute", cursor, ready - cursor),
+                       ("local_post", ready, post - ready),
+                       ("cross_slice_wait", post, coll - post),
+                       ("apply", coll, apply_end - coll)]
+            compute_end = max(apply_end, t_compute_end - t_step)
+            if stashed.get("peers"):
+                peers = {sid: max(0.0, t - t_step)
+                         for sid, t in stashed["peers"].items()}
+        else:
+            compute_end = max(cursor, t_compute_end - t_step)
+            phases.append(("compute", cursor, compute_end - cursor))
         host_end = max(compute_end, t_host_end - t_step)
-        phases = [("data_wait", 0.0, data_d), ("h2d", data_d, h2d_d),
-                  ("compute", cursor, compute_end - cursor),
-                  ("host_sync", compute_end, host_end - compute_end)]
+        phases.append(("host_sync", compute_end, host_end - compute_end))
         if ckpt_s > 0:
             phases.append(("checkpoint", host_end, ckpt_s))
-        # the membership episode: the applied plan's epoch (0 without)
+        # the membership episode: the slice sync's world epoch, else the
+        # applied plan's (0 without)
         self._steptrace.record(step, self._trace_generation(), t0_wall,
-                               phases)
+                               phases, peers=peers)
 
     def _trace_generation(self) -> int:
-        """The episode step-trace records group under: the applied
-        plan's epoch, else 0 (a static world)."""
+        """The episode step-trace records group under: the world epoch
+        the slice sync saw last, else the applied plan's epoch, else 0 (a
+        static world)."""
+        if self._slice_sync is not None and self._slice_sync.world_epoch >= 0:
+            return self._slice_sync.world_epoch
         if self._shard_plan is not None:
             try:
                 return int(self._shard_plan.get("epoch", 0) or 0)
             except (TypeError, ValueError):
                 pass
         return 0
+
+    # -- slice mode ----------------------------------------------------------
+    def _slice_step(self, state: TrainState, tok, tgt, step: int):
+        """One slice-mode step: the in-slice mean gradients from
+        ``grad_step``, their cross-slice mean through the host
+        (tolerating an absent slice: a degraded step), and the update
+        from the fleet mean. The pre-update state is the rejoin handoff
+        the fleet's leader may publish for a re-formed slice."""
+        grads, metrics = self.trainer.grad_step(state, tok, tgt)
+        names = list(grads)
+        reduced, info = self._slice_sync.reduce(
+            [_grad_to_host(grads[name]) for name in names], step,
+            state_leaves_fn=lambda: [_exact_to_host(t)
+                                     for t in _state_tensors(state)])
+        if info.get("degraded") or info.get("stalled_s"):
+            obs.get_flight_recorder().record_event(
+                "train_degraded_step", step=step,
+                present=info.get("present"), absent=info.get("absent"),
+                stalled_s=round(float(info.get("stalled_s", 0.0)), 1))
+        with torch.no_grad():
+            for name, leaf in zip(names, reduced):
+                grads[name].copy_(torch.from_numpy(np.asarray(leaf)))
+        state, apply_metrics = self.trainer.apply_grads(state, grads)
+        if self._steptrace is not None and info.get("trace"):
+            # the sync's marks share the loop's monotonic clock; the
+            # update's dispatch end completes the decomposition
+            self._last_sync_trace = dict(info["trace"],
+                                         apply_done=time.monotonic())
+        return state, dict(metrics, **apply_metrics)
+
+    def _maybe_slice_catch_up(self, state: TrainState, start_step: int,
+                              sampler) -> Tuple[TrainState, int]:
+        """A re-formed slice restored at the checkpointed step while the
+        fleet kept stepping degraded: adopt the fleet-current state a
+        surviving slice's leader publishes, so this slice resumes in
+        lockstep, and advance the sampler by the steps it skips."""
+        result = self._slice_sync.catch_up(start_step)
+        if result is None:
+            return state, start_step
+        leaves, fleet_step = result
+        _init_optimizer_state(state.optimizer)
+        tensors = _state_tensors(state)
+        if len(leaves) != len(tensors):
+            logger.error(
+                "fleet state handoff has %d leaves, the local state %d: "
+                "model mismatch; ignoring the handoff", len(leaves),
+                len(tensors))
+            return state, start_step
+        with torch.no_grad():
+            for tensor, leaf in zip(tensors, leaves):
+                _exact_from_host(tensor, np.asarray(leaf))
+        state.step = fleet_step
+        if sampler is not None:
+            for _ in range(max(0, fleet_step - start_step)):
+                sampler.record_batch(self.global_batch)
+        self.last_restore_timings["catch_up_steps"] = float(
+            fleet_step - start_step)
+        return state, fleet_step
 
     # -- preemption drain --------------------------------------------------
     def _consume_drain(self, drain: Dict[str, Any], step: int, state,
@@ -1220,3 +1371,46 @@ class ElasticTrainLoop:
             signal.signal(signal.SIGTERM, self._prev_sigterm)
             self._prev_sigterm = None
         self.trainer = None
+
+
+# -- slice mode's host leaves ------------------------------------------------
+
+
+def _state_tensors(state: TrainState) -> list:
+    """The state's tensors in a fixed order, the same on every slice:
+    each parameter by name, then each parameter's optimizer state by
+    key."""
+    params = [p for _, p in state.model.named_parameters()]
+    tensors = list(params)
+    for p in params:
+        moments = state.optimizer.state.get(p, {})
+        tensors += [moments[k] for k in sorted(moments)
+                    if torch.is_tensor(moments[k])]
+    return tensors
+
+
+def _grad_to_host(grad: torch.Tensor) -> np.ndarray:
+    """A gradient as host numpy for the cross-slice mean: f32 for a bf16
+    one (numpy has no bf16; the mean casts back to the gradient's dtype
+    when it is copied in)."""
+    local = to_local(grad).detach()
+    if local.dtype == torch.bfloat16:
+        local = local.float()
+    return local.cpu().numpy()
+
+
+def _exact_to_host(tensor: torch.Tensor) -> np.ndarray:
+    """A state tensor's bits as host numpy (a bf16 one as int16)."""
+    local = to_local(tensor).detach()
+    if local.dtype == torch.bfloat16:
+        local = local.view(torch.int16)
+    return local.cpu().numpy()
+
+
+def _exact_from_host(tensor: torch.Tensor, leaf: np.ndarray) -> None:
+    """Copy the bits ``_exact_to_host`` gave back into ``tensor``."""
+    local = to_local(tensor)
+    value = torch.from_numpy(np.ascontiguousarray(leaf))
+    if local.dtype == torch.bfloat16:
+        value = value.view(torch.bfloat16)
+    local.copy_(value.reshape(local.shape))

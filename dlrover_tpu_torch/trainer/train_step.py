@@ -56,13 +56,19 @@ added to the loss, as the JAX step adds the ``losses`` collection.
   ``dp_shard × cp``), else each gradient is all-reduced over it. The
   loss is the mean of the ranks' shard means, the token mean of the
   whole batch (``mlm_loss`` with weights counts the whole rows).
-- **grad_reduce_bits** (8 or 4): the gradients' mean over the ``data``
-  axis goes through ``parallel/quant_collectives.quantized_pmean`` (the
-  quantize and dequantize kernels on the card); every other axis
-  reduces exactly first, and FSDP2 then shards over (fsdp, sequence)
-  only, so that no replicate all-reduce runs beside the quantized one.
-  The reduce over ``dcn`` (the JAX package's axis when it spans slices)
-  waits for slice mode (ROADMAP Queue A item 6.4).
+- **dcn** (a mesh spanning slices): the gradient mean is two-level, as
+  the JAX step's: exact over the in-slice axes (data, fsdp, sequence:
+  FSDP2's reduce-scatter and the replicate all-reduce), then explicit
+  over ``dcn`` (``parallel/quant_collectives.quantized_pmean_leaf``,
+  quantized when ``grad_reduce_bits`` is set, else the exact mean).
+- **grad_reduce_bits** (8 or 4): the gradients' mean over the explicit
+  axis (``dcn`` when the mesh spans slices, else ``data``) goes through
+  ``parallel/quant_collectives.quantized_pmean`` (the quantize and
+  dequantize kernels on the card); every other axis reduces exactly
+  first, and FSDP2 then spans the axes that reduce exactly only, so
+  that no replicate all-reduce runs beside the explicit one. Under
+  FSDP2 the explicit mean groups each rank's local shard by 256, where
+  JAX groups the whole leaf; the two agree at fsdp 1.
 
 Under the ``tensor`` axis each row-parallel product's pending sum is
 reduced at the projection's output (``parallel/tensor_parallel.py``),
@@ -73,8 +79,7 @@ and the expert layer sums their products (``parallel/moe.py``). Every
 collective of the step is the port's own (``parallel/collectives.py``)
 but the grad norm's scalar all-reduces.
 
-Not ported yet, and raising: ``grad_reduce_bits`` over a ``dcn`` axis
-(item 6.4). A ``pipe`` axis is the pipelined trainer's
+A ``pipe`` axis is the pipelined trainer's
 (``trainer/pipeline_trainer.py``, which shares ``TrainState`` and this
 trainer's state, offload and batch handling); this one refuses it.
 """
@@ -267,12 +272,16 @@ class Trainer:
 
     # -- which axes reduce what --------------------------------------------
     @property
-    def _quantized(self) -> bool:
-        """The data axis's gradient mean goes through the quantized
-        collective (the reference wraps it only when the axis is
-        above 1)."""
-        return bool(self.grad_reduce_bits) and self.mesh.shape[
-            MeshAxis.DATA] > 1
+    def _explicit_axis(self) -> Optional[str]:
+        """The axis whose gradient mean runs explicitly, after the exact
+        in-slice mean: ``dcn`` whenever the mesh spans slices (quantized
+        or exact, the hierarchical mean), else ``data`` when quantized
+        (the reference wraps it only when the axis is above 1)."""
+        if self.mesh.shape[MeshAxis.DCN] > 1:
+            return MeshAxis.DCN
+        if self.grad_reduce_bits and self.mesh.shape[MeshAxis.DATA] > 1:
+            return MeshAxis.DATA
+        return None
 
     def _shard_axes(self) -> Tuple[str, ...]:
         """The axes FSDP2 shards over: fsdp, and the sequence axis folded
@@ -283,11 +292,9 @@ class Trainer:
 
     def _exact_axes(self) -> Tuple[str, ...]:
         """The axes a gradient's exact mean runs over: every axis the
-        batch is split over, less the data axis when that one is
-        quantized."""
-        axes = data_axes(self.mesh)
-        if self._quantized:
-            axes = (MeshAxis.FSDP,)
+        batch is split over, less the explicit one."""
+        axes = tuple(axis for axis in data_axes(self.mesh)
+                     if axis != self._explicit_axis)
         if self.mesh.shape[MeshAxis.SEQUENCE] > 1:
             axes = axes + (MeshAxis.SEQUENCE,)
         return axes
@@ -296,12 +303,13 @@ class Trainer:
         return int(np.prod([self.mesh.shape[axis] for axis in axes]))
 
     def _fsdp_size(self) -> int:
-        """The ranks FSDP2 spans (1: no FSDP2). With the data axis exact,
-        FSDP2 (HSDP) takes every batch axis whenever one is split over;
-        quantized, only the shard axes."""
+        """The ranks FSDP2 spans (1: no FSDP2): the axes that reduce
+        exactly (HSDP over data when that one does), whenever the batch is
+        split over one; with the data axis explicit, only the shard
+        axes."""
         if self.mesh.device_mesh is None:
             return 1
-        if self._quantized:
+        if self._explicit_axis == MeshAxis.DATA:
             return self._size(self._shard_axes())
         return (self._size(self._exact_axes())
                 if dp_size(self.mesh) > 1 else 1)
@@ -367,14 +375,10 @@ class Trainer:
         # the sequence axis folds into the sharding dimension (the
         # parameters are replicated over it, their gradients averaged)
         shard = mesh.submesh(shard_axes).mesh_dim_names[0]
-        if self._quantized:
-            # no replicate dimension: the data axis's mean is the
-            # quantized collective's
-            dp_mesh = mesh.device_mesh[shard]
-        elif mesh.shape[MeshAxis.DCN] > 1:
-            replicate = mesh.submesh([MeshAxis.DCN, MeshAxis.DATA])
-            dp_mesh = mesh.device_mesh[(replicate.mesh_dim_names[0], shard)]
-        elif mesh.shape[MeshAxis.DATA] > 1:
+        if (mesh.shape[MeshAxis.DATA] > 1
+                and self._explicit_axis != MeshAxis.DATA):
+            # HSDP: the data axis reduces exactly beside the shard axes
+            # (the dcn axis never: its mean is the explicit one)
             dp_mesh = mesh.device_mesh[(MeshAxis.DATA, shard)]
         else:
             dp_mesh = mesh.device_mesh[shard]
@@ -482,9 +486,10 @@ class Trainer:
         """Average the summed gradients over every axis the batch is
         split over (FSDP2 has reduced its own leaves): the exact mean over
         ``_exact_axes`` of the leaves FSDP2 does not manage (every leaf
-        without FSDP2), then, when quantized, the quantized mean over the
-        data axis of every leaf's local tensor, as the reference reduces
-        ``grad_sum`` before dividing by the accumulation."""
+        without FSDP2), then the explicit axis's mean (quantized when
+        ``grad_reduce_bits`` is set) of every leaf's local tensor, as the
+        reference reduces ``grad_sum`` before dividing by the
+        accumulation."""
         if self.mesh.device_mesh is None:
             return
         from torch.distributed.fsdp import FSDPModule
@@ -505,9 +510,10 @@ class Trainer:
         if local and size > 1:
             all_reduce_(local, self.mesh.submesh(exact).get_group())
             torch._foreach_div_(local, float(size))
-        if self._quantized:
-            group = self.mesh.submesh([MeshAxis.DATA]).get_group()
-            n = self.mesh.shape[MeshAxis.DATA]
+        axis = self._explicit_axis
+        if axis is not None:
+            group = self.mesh.submesh([axis]).get_group()
+            n = self.mesh.shape[axis]
             for p in model.parameters():
                 g = to_local(p.grad)
                 g.copy_(quantized_pmean_leaf(g, group, n,
@@ -567,8 +573,8 @@ class Trainer:
                 or dist.get_backend() != dist.Backend.GLOO):
             return
         axes = [self._batch_axes(), self._exact_axes(),
-                (MeshAxis.SEQUENCE,), (MeshAxis.DATA,), (MeshAxis.TENSOR,),
-                (MeshAxis.EXPERT,)]
+                (MeshAxis.SEQUENCE,), (MeshAxis.DATA,), (MeshAxis.DCN,),
+                (MeshAxis.TENSOR,), (MeshAxis.EXPERT,)]
         for names in dict.fromkeys(axes):
             if self._size(names) > 1:
                 set_lanes(mesh.submesh(names).get_group(),
@@ -702,7 +708,12 @@ def build_trainer(
     ``offload_opt_state``: keep the optimizer's moments in host memory
     (pinned) between steps; they cross to the card around each update.
     ``grad_reduce_bits``: 8 or 4 quantizes the gradients' mean over the
-    data axis (``parallel/quant_collectives.py``); 0 is exact.
+    ``dcn`` axis when the mesh spans slices, else over the data axis
+    (``parallel/quant_collectives.py``); 0 is exact.
+    ``split_grad_apply``: the step in two halves around the host-level
+    cross-slice sync of slice mode (``parallel/dcn_sync.py``):
+    ``grad_step`` leaves the in-world mean gradients and returns them,
+    ``apply_grads`` applies the fleet mean.
     """
     if mesh is None:
         mesh = create_mesh(device=device)
@@ -718,11 +729,6 @@ def build_trainer(
     if grad_reduce_bits not in (8, 4, 0):
         raise ValueError(f"grad-reduce bits must be 8, 4 or 0, got "
                          f"{grad_reduce_bits}")
-    if grad_reduce_bits and shape[MeshAxis.DCN] > 1:
-        # the reference reduces over dcn when the mesh spans slices
-        raise NotImplementedError(
-            "grad_reduce_bits over a dcn axis is not ported yet (ROADMAP "
-            "Queue A item 6.4, parallel/dcn_sync.py)")
     if isinstance(model, nn.Module):
         module = model
 

@@ -354,8 +354,8 @@ def test_unported_passes_raise_naming_their_item(world_of_two, strategy,
     last such pass, tensor_parallel on an MoE model (10c), now lowers: a
     tensor-2 trainer whose expert kernels hold half of each expert's
     columns and whose router stays replicated (its training on gloo ranks:
-    tests/test_torch_moe_tensor_parallel.py). Only slice mode's passes
-    (6.4) are left to raise."""
+    tests/test_torch_moe_tensor_parallel.py). Slice mode (6.4) has no
+    pass of its own: every pass lowers."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     from dlrover_tpu_torch.models import llama_moe as tlm

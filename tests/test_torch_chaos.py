@@ -74,11 +74,22 @@ def test_bad_specs_fail_loudly_alike(spec):
     ("kill:master:0@7;kill:shard:0@5", "12.2"),
 ])
 def test_unported_faults_parse_then_refuse_by_item(spec, item):
+    """The ``shard`` role (12.2) is refused by its item; the ``slice``
+    faults (6.4, slice mode, now ported) arm as the JAX injector arms
+    them: on the addressed slice's workers."""
     assert tchaos.parse_chaos(spec)
     for role in ("worker", "master"):
-        with pytest.raises(NotImplementedError,
-                           match=item.replace(".", r"\.")):
-            tchaos.ChaosInjector(role=role, rank=0, spec=spec)
+        if item == "12.2":
+            with pytest.raises(NotImplementedError,
+                               match=item.replace(".", r"\.")):
+                tchaos.ChaosInjector(role=role, rank=0, spec=spec)
+            continue
+        for slice_id in (-1, 0, 1):
+            port = tchaos.ChaosInjector(role=role, rank=0, spec=spec,
+                                        slice_id=slice_id)
+            jax = jchaos.ChaosInjector(role=role, rank=0, spec=spec,
+                                       slice_id=slice_id)
+            assert _fields(port.faults) == _fields(jax.faults)
 
 
 @pytest.mark.parametrize("spec", [

@@ -290,8 +290,10 @@ def test_servicers_answer_a_scripted_sequence_alike(contexts, monkeypatch):
 
 
 def test_unported_requests_are_refused_by_name(contexts):
-    """Slice mode's request is refused by its item; the autoscale status
-    (ported) is answered as the JAX master answers it."""
+    """Every request the JAX master answers, the port's answers too: the
+    autoscale status and, since slice mode (6.4) is ported, the slice
+    status and a join carrying a slice id, as the JAX master answers
+    them."""
     masters = [JMaster(port=0, host="127.0.0.1"),
                JobMaster(port=0, host="127.0.0.1")]
     try:
@@ -300,25 +302,21 @@ def test_unported_requests_are_refused_by_name(contexts):
             for m, mod in zip(masters, (J, T))]
         assert answers[1] == answers[0]
         assert T.deserialize_message(answers[1]).status_json == ""
+        statuses = []
+        for m, mod in zip(masters, (J, T)):
+            joined = mod.deserialize_message(m.servicer.report_bytes(
+                mod.serialize_message(mod.JoinRendezvousRequest(
+                    node_id=0, node_rank=0, local_world_size=1,
+                    rdzv_name="elastic-training", slice_id=0)), None))
+            assert isinstance(joined, mod.JoinRendezvousResult)
+            statuses.append(json.loads(mod.deserialize_message(
+                m.servicer.get_bytes(mod.serialize_message(
+                    mod.SliceStatusRequest()), None)).status_json))
+        assert statuses[1] == statuses[0]
+        assert statuses[1]["slices"]["0"]["ranks"] == [0]
     finally:
         for m in masters:
             m.stop(grace_s=0.1)
-    master = JobMaster(port=0, host="127.0.0.1")
-    try:
-        for request in (T.SliceStatusRequest(),):
-            send = (master.servicer.report_bytes
-                    if type(request).__name__.endswith("Report")
-                    else master.servicer.get_bytes)
-            answer = T.deserialize_message(
-                send(T.serialize_message(request), None))
-            assert answer.success is False
-            assert answer.reason.startswith("not ported: ROADMAP Queue A "
-                                            "item ")
-        answer = T.deserialize_message(master.servicer.report_bytes(
-            T.serialize_message(T.JoinRendezvousRequest(slice_id=0)), None))
-        assert not answer.success and "6.4" in answer.reason
-    finally:
-        master.stop()
 
 
 def test_replanning_requests_are_answered_as_jax(contexts):

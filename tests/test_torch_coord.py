@@ -7,6 +7,7 @@ drops the oldest report past its bound and flushes to the same replay
 order as the JAX queue.
 """
 
+import json
 import threading
 import time
 
@@ -80,8 +81,35 @@ def test_coord_servicer_answers_match_jax():
 
 
 def test_coord_servicer_refuses_slice_status_as_not_ported():
-    answer = CoordServicer(KVStoreService()).get(T.SliceStatusRequest())
-    assert not answer.success and "6.4" in answer.reason
+    """Slice mode (6.4) is ported: the tier answers ``SliceStatusRequest``
+    from the slice registry with the job's step, as JAX's tier does, and
+    with an empty status when it has no registry."""
+    from dlrover_tpu.master.rendezvous import (
+        ElasticTrainingRendezvousManager as JManager,
+    )
+    from dlrover_tpu.master.speed_monitor import SpeedMonitor as JSpeed
+    from dlrover_tpu_torch.master.rendezvous import (
+        ElasticTrainingRendezvousManager,
+    )
+    from dlrover_tpu_torch.master.speed_monitor import SpeedMonitor
+
+    answers = []
+    for mod, kv, manager, speed, servicer in (
+            (J, JKV, JManager, JSpeed, JCoordServicer),
+            (T, KVStoreService, ElasticTrainingRendezvousManager,
+             SpeedMonitor, CoordServicer)):
+        mgr, monitor = manager(), speed()
+        for rank, sid in ((0, 0), (1, 1)):
+            mgr.join_rendezvous(rank, 1, slice_id=sid)
+            mgr.get_comm_world(rank)
+        monitor.collect_global_step(4)
+        tier = servicer(kv(), rdzv_manager=mgr, speed_monitor=monitor)
+        answers.append(json.loads(
+            tier.get(mod.SliceStatusRequest()).status_json))
+        assert servicer(kv()).get(
+            mod.SliceStatusRequest()).status_json == ""
+    assert answers[1] == answers[0]
+    assert answers[1]["fleet_step"] == 4 and answers[1]["total"] == 2
 
 
 def test_hot_keys_ride_the_coordination_tier(fast_rpc):

@@ -1140,6 +1140,16 @@ def test_ring_and_ulysses_kernels_match_the_plain_ring_on_two_ranks(
     assert launches["flash_fwd"] > 0 and launches["rms_fwd"] > 0
 
 
+def test_dcn_axis_step_quantizes_through_the_kernels(cuda, tmp_path):
+    """The tiny Llama over a dcn axis of two ranks sharing the card, the
+    mean over dcn at int8: three steps within the parity limits of one
+    process's exact run, one quantize and one dequantize a leaf a step on
+    each rank (part (e), checked by the phase)."""
+    launches = _sp_phase(tmp_path, "e")["launches"]
+    assert launches["quantize"] == launches["dequantize"] > 0
+    assert launches["flash_fwd"] > 0
+
+
 def test_quantized_mean_kernels_match_the_plain_versions(cuda, tmp_path):
     """quantized_pmean on CUDA leaves (the quantize and dequantize kernels)
     equals the same collective on CPU copies (the plain versions) bit for

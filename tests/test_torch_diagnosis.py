@@ -297,6 +297,8 @@ def test_manager_queues_cooldown_eviction_and_state(contexts, monkeypatch):
     # 2's queue left with rank 2)
     assert polls == [["profile:0"], ["profile:1"], ["profile:0"],
                      ["checkpoint:0"]]
-    # the slice-unit drain has no slice map to act on
-    assert tmanager.DiagnosisManager(_Speeds(TSpeed)).request_drain(
-        [0], T0) == []
+    # the slice-unit drain (slice mode) queues a save-and-exit action a
+    # rank, as the JAX manager's does
+    port_dm = tmanager.DiagnosisManager(_Speeds(TSpeed))
+    assert port_dm.request_drain([0, 1], T0, reason="slice 0") == [0, 1]
+    assert [a["kind"] for a in port_dm.poll_actions(1)] == ["drain"]

@@ -43,11 +43,13 @@ from dlrover_tpu_torch.trainer import embedding as temb
 from test_torch_job_manager import make_job_args, wait_until
 from test_torch_mesh import run_workers
 from test_torch_embedding_model import (
+    BATCH,
     DIM,
     FIELDS,
     VOCAB,
     batches,
     dense_init,
+    one_thread,
     port_state,
 )
 
@@ -451,10 +453,13 @@ def test_fsdp2_on_gloo_ranks_matches_fsdp1(tmp_path):
     results = run_workers(tmp_path, FSDP_WORKER, 2,
                           args=[ckpt_dir, os.path.dirname(__file__)],
                           name="fsdp2")
-    trainer, state = port_state()
-    step = trainer.build_step()
-    losses = [float(step(state, ids, labels))
-              for ids, labels in batches(5, 3)]
+    # the reference at the ranks' one thread: the CPU GEMM of the tower's
+    # input gradient sums in another order at another thread count
+    with one_thread():
+        trainer, state = port_state()
+        step = trainer.build_step()
+        losses = [float(step(state, ids, labels))
+                  for ids, labels in batches(5, 3)]
     table = state.model.embedding.table
     acc = state.optimizer[0].state[table]["accumulator"]
     for rank, got in enumerate(results):
@@ -477,6 +482,35 @@ def test_fsdp2_on_gloo_ranks_matches_fsdp1(tmp_path):
     assert torch.equal(fresh.optimizer[0].state[fresh_table]["accumulator"],
                        acc)
     assert torch.equal(fresh.model.dense.w0, state.model.dense.w0)
+
+
+def test_sharded_lookup_backward_is_the_whole_tables_rows():
+    """Why the fsdp-2 ranks and an fsdp-1 run agree bit for bit: a shard's
+    masked lookup sends each row the whole table's gradient for it, summed
+    in the batch's order (a zero to the rows it does not hold), whatever
+    the thread count. What moved the bits was the reference's tower GEMM
+    at the test process's threads; the reference now runs at the ranks'
+    one (``one_thread``), which restores the caller's count."""
+    rng = np.random.default_rng(3)
+    table = torch.from_numpy(rng.standard_normal((VOCAB, DIM), np.float32))
+    ids = torch.from_numpy(rng.integers(0, VOCAB, (BATCH, FIELDS)))
+    up = torch.from_numpy(rng.standard_normal((BATCH, FIELDS, DIM),
+                                              np.float32))
+    whole = table.clone().requires_grad_()
+    torch.nn.functional.embedding(ids, whole).backward(up)
+    half = VOCAB // 2
+    for first in (0, half):
+        local = table[first:first + half].clone().requires_grad_()
+        hit = (ids >= first) & (ids < first + half)
+        out = torch.nn.functional.embedding(
+            torch.where(hit, ids - first, 0), local)
+        (out * hit.unsqueeze(-1).to(out.dtype)).backward(up)
+        np.testing.assert_array_equal(local.grad.numpy(),
+                                      whole.grad[first:first + half].numpy())
+    before = torch.get_num_threads()
+    with one_thread():
+        assert torch.get_num_threads() == 1
+    assert torch.get_num_threads() == before
 
 
 # ---------------------------------------------------------------------------

@@ -3,6 +3,8 @@
 concatenated, a two-layer tower, BCE on 0/1 labels. Torch only, so a
 gloo worker imports it without JAX; it holds no tests."""
 
+import contextlib
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -32,6 +34,18 @@ class Tower(nn.Module):
 
 def bce(logits, labels):
     return F.binary_cross_entropy_with_logits(logits, labels.float())
+
+
+@contextlib.contextmanager
+def one_thread():
+    """Run the block at one CPU thread, as the gloo ranks run: the CPU
+    GEMM's summation order, and so its bits, follow the thread count."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
 
 
 def dense_init(seed):

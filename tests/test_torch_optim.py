@@ -243,6 +243,19 @@ def test_bf16_master_image_matches_jax_bit_for_bit():
             master.numpy(), np.asarray(jstate.master[k]), **TOL)
 
 
+def test_sqrt_rn_is_xlas_correctly_rounded_root():
+    """The bf16 image's old one-ulp misses came from torch's vectorised
+    CPU sqrt, which is one f32 ulp off on about a sixth of its inputs;
+    AGD's and the row-sparse optimizers' roots go through ``sqrt_rn``,
+    which is JAX's (and numpy's) correctly rounded root bit for bit."""
+    rng = np.random.default_rng(7)
+    v = (np.abs(rng.standard_normal(40960)) *
+         10.0 ** rng.integers(-12, 3, 40960)).astype(np.float32)
+    got = optim.base.sqrt_rn(torch.from_numpy(v)).numpy()
+    np.testing.assert_array_equal(got, np.sqrt(v))
+    np.testing.assert_array_equal(got, np.asarray(jnp.sqrt(jnp.asarray(v))))
+
+
 def test_leaf_optimizer_state_round_trips_with_its_dtypes():
     """A checkpoint's restore (DCP's set_optimizer_state_dict) keeps the
     int32 counts and the f32 master of a bf16 parameter, which torch's

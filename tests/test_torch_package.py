@@ -103,6 +103,8 @@ SLICE_SP_MODULES = ("parallel/ring_attention.py",
                     "parallel/collectives.py")
 # the tensor-parallelism slice's module
 SLICE_TP_MODULES = ("parallel/tensor_parallel.py",)
+# slice mode's module: the host-level cross-slice gradient sync
+SLICE_DCN_MODULES = ("parallel/dcn_sync.py",)
 
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
@@ -110,7 +112,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert len(sources) > 10
     for name in (FAULT_MODULES + REPLAN_MODULES + SLICE_7B_MODULES
                  + SLICE_MOE_MODULES + SLICE_AUTO_MODULES
-                 + SLICE_SP_MODULES + SLICE_TP_MODULES):
+                 + SLICE_SP_MODULES + SLICE_TP_MODULES
+                 + SLICE_DCN_MODULES):
         assert PACKAGE / name in sources, name
     for path in sources:
         bad = _imported_roots(path) & FORBIDDEN
@@ -133,7 +136,8 @@ def test_importing_the_port_loads_no_jax():
     assert "dlrover_tpu_torch.trainer.elastic_loop" in modules
     for name in (FAULT_MODULES + REPLAN_MODULES + SLICE_7B_MODULES
                  + SLICE_MOE_MODULES + SLICE_AUTO_MODULES
-                 + SLICE_SP_MODULES + SLICE_TP_MODULES):
+                 + SLICE_SP_MODULES + SLICE_TP_MODULES
+                 + SLICE_DCN_MODULES):
         if name.endswith("__init__.py"):
             continue
         module = "dlrover_tpu_torch." + name[:-3].replace("/", ".")

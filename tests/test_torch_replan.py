@@ -1287,17 +1287,20 @@ class TestResizeChaos:
             os.listdir(tmp_path / "1"))
 
     def test_slice_unit_scale_down(self, monkeypatch):
-        """The slice-unit resize needs slice mode: the JAX injector
-        drains the departing slice, the port's refuses the fault by its
-        ROADMAP item."""
+        """The slice-unit resize: both injectors drain the departing
+        slice's members (the highest of $DLROVER_TPU_NUM_SLICES) with the
+        clean-drain exit and leave the other slice's alone."""
         monkeypatch.setenv(NodeEnv.WORLD_SIZE, "4")
         monkeypatch.setenv(NodeEnv.NUM_SLICES, "2")
-        victim = jchaos.ChaosInjector(rank=3, spec="resize:slice:-1@2",
-                                      slice_id=1)
-        with pytest.raises(SystemExit):
-            victim.maybe_inject(2)
-        with pytest.raises(NotImplementedError, match=r"6\.4"):
-            tchaos.ChaosInjector(rank=3, spec="resize:slice:-1@2")
+        for mod in (jchaos, tchaos):
+            victim = mod.ChaosInjector(rank=3, spec="resize:slice:-1@2",
+                                       slice_id=1)
+            with pytest.raises(SystemExit) as leave:
+                victim.maybe_inject(2)
+            assert leave.value.code == WorkerExit.DRAIN
+            survivor = mod.ChaosInjector(rank=0, spec="resize:slice:-1@2",
+                                         slice_id=0)
+            survivor.maybe_inject(2)
 
 
 # ---------------------------------------------------------------------------

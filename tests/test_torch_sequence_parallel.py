@@ -358,8 +358,10 @@ def test_chip_smoke_sp_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
     itself on CPU copies and within the bound, (d) the tiny GPT and BERT
     at tensor 2 (bf16, the head-major qkv: one whole head a rank), three
     steps each within (b)'s limits of one process's, their q, k and v
-    sharded over heads with no collective; the phase checks each (the
-    launches and their shapes only on the card)."""
+    sharded over heads with no collective, (e) the tiny Llama over a dcn
+    axis of the two ranks, its mean over dcn quantized to int8, three
+    steps within (b)'s limits of one process's exact run; the phase
+    checks each (the launches and their shapes only on the card)."""
     import sys
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(
@@ -372,7 +374,7 @@ def test_chip_smoke_sp_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
     workers = chip_smoke._sp_workers(str(tmp_path), spec)
     out = chip_smoke.phase_sp("cpu rehearsal", workers, spec)
     assert set(out["launches"].values()) == {0}
-    assert set(out["part_s"]) == {"a", "c", "wait", "b", "d"}
+    assert set(out["part_s"]) == {"a", "c", "wait", "b", "d", "e"}
 
 
 @pytest.mark.parametrize("world,case", ALL_CASES,

@@ -289,8 +289,9 @@ def test_abstract_state_and_precompile_on_cpu():
     # 4 experts (the MoE tiny model) over 3 expert ranks
     (dict(expert=3), dict(moe=True), ValueError),
     (dict(pipe=2), {}, NotImplementedError),
-    # the quantized reduce over a dcn axis waits for slice mode (6.4)
-    (dict(dcn=2), dict(grad_reduce_bits=8), NotImplementedError),
+    # the quantized reduce over a dcn axis (slice mode, 6.4) builds: its
+    # mean is the explicit one (tests/test_torch_slice_domains.py)
+    (dict(dcn=2), dict(grad_reduce_bits=8), None),
     (dict(), dict(grad_reduce_bits=3), ValueError),
     (dict(tensor=4), {}, ValueError),        # 2 kv heads over 4 ranks
     (dict(data=3), {}, ValueError),          # micro 2 over 3 ranks
@@ -308,8 +309,13 @@ def test_unported_axes_and_unsplittable_shapes_raise(spec, kw, exc):
                                tlm.LlamaMoEConfig.mixtral_tiny())
              if kw.pop("moe", False) else
              functools.partial(tllama.Llama, tllama.LlamaConfig.tiny()))
+    build = functools.partial(
+        tts.build_trainer, model, functools.partial(torch.optim.AdamW,
+                                                    lr=LR), mesh,
+        np.zeros((MICRO, SEQ)), tllama.cross_entropy_loss,
+        micro_batch=MICRO, **kw)
+    if exc is None:
+        assert build()._explicit_axis == "dcn"
+        return
     with pytest.raises(exc):
-        tts.build_trainer(
-            model, functools.partial(torch.optim.AdamW, lr=LR), mesh,
-            np.zeros((MICRO, SEQ)), tllama.cross_entropy_loss,
-            micro_batch=MICRO, **kw)
+        build()
